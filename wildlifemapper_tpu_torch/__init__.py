@@ -1,0 +1,7 @@
+"""PyTorch port of WildlifeMapper for NVIDIA Hopper: the serving forward
+pass (HFC -> ViT encoder -> box decoder -> postprocess + NMS), with
+hand-written CUDA kernels under csrc/. Imports torch and numpy only."""
+
+__version__ = "0.1.0"
+
+from .config import ModelConfig, model_config  # noqa: F401

@@ -1,0 +1,107 @@
+"""Shared layers (counterpart of wildlifemapper_tpu/models/common.py;
+reference segment_anything/modeling/common.py, box_decoder.py:154-176).
+
+Parameters stay float32; every layer computes in the dtype of its input and
+casts its parameters to it, as flax `Dense(dtype=...)` does.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.fused_mlp import fused_mlp
+
+
+class Linear(nn.Linear):
+    """nn.Linear that casts its float32 parameters to the input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), b)
+
+
+class LayerNorm(nn.LayerNorm):
+    """LayerNorm with the JAX package's eps (1e-6, flax's default), its
+    statistics in float32 and its output in the input's dtype. Also serves
+    as SAM's channel-last LayerNorm2d (`ChannelLayerNorm`)."""
+
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__(dim, eps=eps)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight,
+                            self.bias, self.eps).to(x.dtype)
+
+
+ChannelLayerNorm = LayerNorm
+
+
+def conv1x1(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """A 1x1 Conv2d applied to the channel axis of an NHWC tensor."""
+    w = conv.weight[:, :, 0, 0].to(x.dtype)
+    b = None if conv.bias is None else conv.bias.to(x.dtype)
+    return F.linear(x, w, b)
+
+
+class MLPBlock(nn.Module):
+    """lin1 -> act -> lin2 (reference common.py:13-28).
+
+    With use_fused (and the default exact-erf GELU) it runs the fused MLP
+    kernel (ops/fused_mlp.py, K3); the parameters are the same either way.
+    """
+
+    def __init__(self, dim: int, mlp_dim: int, act: str = "gelu",
+                 use_fused: bool = False):
+        super().__init__()
+        if act not in ("gelu", "relu"):
+            raise ValueError(f"unknown activation {act!r}")
+        self.lin1 = Linear(dim, mlp_dim)
+        self.lin2 = Linear(mlp_dim, dim)
+        self.act = act
+        self.use_fused = use_fused
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shape = x.shape
+        x = x.reshape(-1, shape[-1])
+        if self.use_fused and self.act == "gelu":
+            dt = x.dtype
+            x = fused_mlp(x, self.lin1.weight.to(dt), self.lin1.bias.float(),
+                          self.lin2.weight.to(dt), self.lin2.bias.float())
+        else:
+            h = self.lin1(x)
+            h = F.gelu(h) if self.act == "gelu" else F.relu(h)
+            x = self.lin2(h)
+        return x.reshape(*shape[:-1], x.shape[-1])
+
+
+class MLPHead(nn.Module):
+    """(num_layers-1) x [Linear + ReLU] + Linear (box_decoder.py:154-176)."""
+
+    def __init__(self, in_dim: int, hidden_dim: int, out_dim: int,
+                 num_layers: int, sigmoid_output: bool = False):
+        super().__init__()
+        dims = [in_dim] + [hidden_dim] * (num_layers - 1) + [out_dim]
+        self.layers = nn.ModuleList(
+            Linear(dims[i], dims[i + 1]) for i in range(num_layers))
+        self.sigmoid_output = sigmoid_output
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i, layer in enumerate(self.layers):
+            x = layer(x)
+            if i < len(self.layers) - 1:
+                x = F.relu(x)
+        return torch.sigmoid(x) if self.sigmoid_output else x
+
+
+def dropout(x: torch.Tensor, rate: float, deterministic: bool,
+            generator: torch.Generator | None) -> torch.Tensor:
+    """Inverted dropout driven by an explicit generator (flax nn.Dropout)."""
+    if deterministic or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in training mode needs a torch.Generator")
+    keep = torch.rand(x.shape, generator=generator,
+                      device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
