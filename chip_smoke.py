@@ -2,10 +2,12 @@
 
     python3 chip_smoke.py
 
-Drives the port's serving path (wildlifemapper_tpu_torch: HFC -> ViT-B ->
-box decoder -> postprocess + NMS) at the full ViT-B width, through its
-hand-written CUDA kernels, and checks it. Phases, one JSON line each; any
-failure raises and exits non-zero:
+Drives the port's two paths at the full ViT-B width, through its
+hand-written CUDA kernels, and checks them: serving (wildlifemapper_tpu_torch:
+HFC -> ViT-B -> box decoder -> postprocess + NMS) and training (train/step.py:
+forward, set criterion with the Hungarian match, backward through the
+backward kernels, clip, AdamW). Phases, one JSON line each; any failure
+raises and exits non-zero:
 
   1. device: the card's name and power limit; build the kernels from
      wildlifemapper_tpu_torch/csrc (timed); TF32 off.
@@ -23,6 +25,29 @@ failure raises and exits non-zero:
      bf16-kernel against f32-plain drift.
   5. times: each configuration with kernels and with the plain path, and
      each kernel against its plain version, with CUDA events.
+  6. kernels, backward: the forward's lse, and the gradients that autograd
+     takes through each public wrapper on the card, against the plain
+     backward at the training shapes of both configurations (K1 N = 196 and
+     144, K2 and K4 N = 4096 and 2304, K3 R = 16384 and 9216): once with
+     every input requiring a gradient (dqkv written by stride into one
+     packed tensor, drel, the MLP's weight gradients) and once with the
+     activations alone (the frozen encoder), f32 at atol 5e-4 / rtol 1e-3
+     and bf16 at 2e-2 of each output's largest element; K3's bf16 weight
+     gradients also against the f32 product of the same operands.
+  7. train step, parity: f32, one step with kernels against the same step on
+     the plain path (same weights, batch and dropout seed) in each training
+     configuration: losses, grad_norm and every trainable gradient at atol
+     5e-4 / rtol 1e-3 and within 1e-3 of its own norm; launch counts.
+  8. training: bf16, batch 4, three steps on a synthetic uint8 batch in each
+     of the two training configurations (train/synthetic.py): finite
+     losses, trainable parameters moved and frozen ones bit-identical,
+     launch counts forward and backward, peak memory, the loss falling,
+     and one wait for the device per step (the matcher's copy).
+  9. times, training: ms per step with kernels and on the plain path, the
+     matcher's share, each backward kernel against its plain version and
+     against one PyTorch library call where there is one (a yardstick here
+     only), every kernel beside its bound (the larger of its FLOPs over
+     989 TFLOP/s and its bytes over 3.35 TB/s).
 
 The last line is {"ok": true, "device": {...}}. Without CUDA, or without the
 rest of the repository beside it, the script fails before any result.
@@ -42,6 +67,9 @@ import numpy as np
 
 BATCH = 4
 N_BATCHES = 3
+TRAIN_STEPS = 3
+PEAK_FLOPS = 989e12   # H100 SXM, bf16 dense
+PEAK_BYTES = 3.35e12  # H100 SXM, HBM3
 
 
 def emit(phase: str, **fields) -> None:
@@ -61,12 +89,13 @@ def ptxas_summary(log: str) -> list:
     nvcc's -Xptxas -v compiled."""
     out, name = [], None
     for line in log.splitlines():
-        m = re.search(r"(attn_tc_kernel|attn_fwd_kernel|fused_mlp_tc_kernel"
-                      r"|fused_mlp_kernel)I\d*(\w*?)Li(\d+)E", line)
+        m = re.search(r"\d((?:attn|fused_mlp|mlp_dh)[a-z_]*kernel)I(.*?)EEv",
+                      line)
         if m and "entry function" in line:
-            dtype = {"f": "float,", "": ""}.get(m.group(2),
-                                                m.group(2).strip("_") + ",")
-            name = f"{m.group(1)}<{dtype}{m.group(3)}>"
+            args = re.findall(r"Li(\d+)", m.group(2))
+            if m.group(2).startswith("f"):
+                args.insert(0, "float")
+            name = f"{m.group(1)}<{','.join(args)}>"
         m = re.search(r"(\d+) bytes spill stores", line)
         if m and name:
             spill = m.group(1)
@@ -103,6 +132,16 @@ def paired_ms(fn_a, fn_b, iters: int = 5):
     return (a1 + a2) / 2, (b1 + b2) / 2
 
 
+def bound_ms(flops: float, nbytes: float):
+    """The least time the card could take: (ms, 'operations' | 'bytes')."""
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
 def main() -> int:
     import torch
 
@@ -119,14 +158,23 @@ def main() -> int:
                                                            postprocess)
     from wildlifemapper_tpu_torch.models import WildlifeMapper
     from wildlifemapper_tpu_torch.ops import _build
+    from wildlifemapper_tpu_torch.ops._attention import (
+        _backward_kernel_launch, attention_backward_launch,
+        attention_backward_plain, attention_delta, attention_launch,
+        attention_plain)
     from wildlifemapper_tpu_torch.ops.cross_attention import (
         cross_attention_packed, cross_attention_packed_plain)
     from wildlifemapper_tpu_torch.ops.flash_attention_v2 import (
         flash_attention_packed, flash_attention_packed_plain)
-    from wildlifemapper_tpu_torch.ops.fused_mlp import (fused_mlp,
-                                                        fused_mlp_plain)
+    from wildlifemapper_tpu_torch.ops.fused_mlp import (
+        fused_mlp, fused_mlp_backward_plain, fused_mlp_dh, fused_mlp_dh_plain,
+        fused_mlp_plain)
     from wildlifemapper_tpu_torch.ops.windowed_attention_v2 import (
         windowed_attention_packed, windowed_attention_packed_plain)
+    from wildlifemapper_tpu_torch.train.criterion import hungarian_match
+    from wildlifemapper_tpu_torch.train.step import StepBuilder
+    from wildlifemapper_tpu_torch.train.synthetic import (synthetic_batch,
+                                                          training_config)
     from wildlifemapper_tpu_torch.weights import load_reference_state_dict
 
     dev = torch.device("cuda")
@@ -234,12 +282,18 @@ def main() -> int:
             del base, args, got, ref
             torch.cuda.empty_cache()
 
-    def counts():
-        return {n: k["wrapper"].launches for n, k in kernels.items()}
+    count_names = ("launches", "backward_launches", "backward_dq_launches",
+                   "backward_dkv_launches")
+
+    def counts(attr="launches"):
+        return {n: getattr(k["wrapper"], attr) for n, k in kernels.items()
+                if hasattr(k["wrapper"], attr)}
 
     def reset_counts():
         for k in kernels.values():
-            k["wrapper"].launches = 0
+            for attr in count_names:
+                if hasattr(k["wrapper"], attr):
+                    setattr(k["wrapper"], attr, 0)
 
     per_forward = {"windowed_attention_packed": 8,
                    "flash_attention_packed": 4, "fused_mlp": 12,
@@ -251,7 +305,7 @@ def main() -> int:
     golden_sd = meta_to_state_dict(npz["meta"])
     model = WildlifeMapper(model_config("vit_b", use_flash_attention=True))
     load_reference_state_dict(model, golden_sd)
-    model = model.to(dev).eval()
+    model.eval()
     x = torch.from_numpy(padded_canvas(seed=107)).to(dev)
     reset_counts()
     with torch.inference_mode():
@@ -300,7 +354,7 @@ def main() -> int:
     def build(cfg):
         m = WildlifeMapper(cfg)
         load_reference_state_dict(m, golden_sd)
-        return m.to(dev).eval()
+        return m.eval()
 
     def serve(m, images):
         out = m(images)
@@ -383,13 +437,581 @@ def main() -> int:
             kernel_ms[name] = (ms_kern, ms_plain)
             emit("kernel_time", kernel=name, shape=shape, dtype="bfloat16",
                  gpu=gpu, ms=ms_kern, plain_ms=ms_plain)
+    serving_counts = main_counts
+    del models
+    torch.cuda.empty_cache()
 
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": k["source"],
-         "replaces": k["replaces"], "launches": main_counts[name],
-         "max_abs_err": errors[name], "ms": kernel_ms[name][0],
-         "plain_ms": kernel_ms[name][1]}
-        for name, k in kernels.items()]}), flush=True)
+    # ---- 6. backward kernels against their plain versions -------------------
+    # name -> entry of the final "kernels" line
+    report = {}
+
+    def entry(name, source, replaces, **fields):
+        report[name] = dict(name=name, route="cuda", source=source,
+                            replaces=replaces, **fields)
+
+    attn_cu = "wildlifemapper_tpu_torch/csrc/attention.cu"
+    bwd_cu = "wildlifemapper_tpu_torch/csrc/attention_bwd.cu"
+    mlp_cu = "wildlifemapper_tpu_torch/csrc/fused_mlp.cu"
+    mlp_bwd_cu = "wildlifemapper_tpu_torch/csrc/fused_mlp_bwd.cu"
+    jax_ops = "wildlifemapper_tpu/ops/"
+
+    def grads_close(what, got, ref, dt, names):
+        """f32: atol 5e-4 / rtol 1e-3; bf16: 2e-2 of the largest element."""
+        worst = 0.0
+        for nm, g, r in zip(names, got, ref):
+            g, r = g.float(), r.float()
+            err = (g - r).abs().max().item()
+            worst = max(worst, err)
+            if dt == torch.float32:
+                ok = bool(torch.isclose(g, r, atol=5e-4, rtol=1e-3).all())
+                bound = "atol 5e-4 rtol 1e-3"
+            else:
+                lim = 2e-2 * max(r.abs().max().item(), 1e-6)
+                ok, bound = err <= lim, f"{lim:.3e}"
+            emit("backward_check", kernel=what, output=nm,
+                 dtype=str(dt).replace("torch.", ""), max_abs_err=err,
+                 bound=bound)
+            if not ok or not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"{what} {nm} {dt}: backward kernel "
+                                     f"disagrees with its plain version "
+                                     f"(max abs err {err}, bound {bound})")
+        return worst
+
+    def leaves(tensors, dt, frozen, keep32=()):
+        """Fresh leaves in dtype dt; with `frozen` only the first (the
+        activations) requires a gradient, as under a frozen encoder."""
+        return [t.to(torch.float32 if i in keep32 else dt).detach()
+                .requires_grad_(i == 0 or not frozen)
+                for i, t in enumerate(tensors)]
+
+    def through_wrapper(wrapper, tensors, rest, dout, counters):
+        """Gradients of the public wrapper on the card by autograd, for the
+        inputs that require one; each of `counters` must go up by one."""
+        before = [getattr(wrapper, c) for c in counters]
+        out = wrapper(*tensors, *rest)
+        got = torch.autograd.grad(
+            out, [t for t in tensors if t.requires_grad], dout)
+        torch.cuda.synchronize()
+        after = [getattr(wrapper, c) for c in counters]
+        if after != [n + 1 for n in before]:
+            raise AssertionError(f"{wrapper.__name__}: counters {counters} "
+                                 f"went {before} -> {after} in one backward")
+        return got
+
+    bwd_err = {}
+    bwd_inputs = {}
+    attn_counters = ("launches", "backward_dq_launches",
+                     "backward_dkv_launches")
+    # (id, shape, heads, head dim, grid, inputs): K1 and K2 take the packed
+    # qkv and the rel tables, K4 separate q, k, v as the adaptor's
+    # projections give them
+    attn_cases = [
+        ("K1", "BW=4*25 N=196", 12, 64, (14, 14),
+         lambda: attn_args(4 * 25, (14, 14))[:3]),
+        ("K1", "BW=4*16 N=144", 12, 64, (12, 12),
+         lambda: attn_args(4 * 16, (12, 12))[:3]),
+        ("K2", "B=4 N=4096", 12, 64, (64, 64),
+         lambda: attn_args(4, (64, 64))[:3]),
+        ("K2", "B=4 N=2304", 12, 64, (48, 48),
+         lambda: attn_args(4, (48, 48))[:3]),
+        ("K4", "B=4 N=M=4096", 8, 128, None,
+         lambda: [randn((4, 4096, c)) for _ in range(3)]),
+        ("K4", "B=4 N=M=2304", 8, 128, None,
+         lambda: [randn((4, 2304, c)) for _ in range(3)]),
+    ]
+    wrappers = {"K1": windowed_attention_packed,
+                "K2": flash_attention_packed, "K4": cross_attention_packed}
+    for kid, shape, heads, d, hw, make in attn_cases:
+        base = make()
+        cw, scale = heads * d, d ** -0.5
+        dout32 = randn(base[0].shape[:2] + (cw,))
+        rest = (scale, heads) + ((hw,) if hw else ())
+        for dt in (torch.float32, torch.bfloat16):
+            dout = dout32.to(dt)
+            ref = None
+            for frozen in (False, True):
+                tensors = leaves(base, dt, frozen)
+                got = through_wrapper(wrappers[kid], tensors, rest, dout,
+                                      attn_counters)
+                if ref is None:
+                    with torch.no_grad():
+                        if hw:
+                            qkv, rh, rw = (t.detach() for t in tensors)
+                            q, k, v = (qkv[..., i * cw:(i + 1) * cw]
+                                       for i in range(3))
+                        else:
+                            q, k, v = (t.detach() for t in tensors)
+                            rh = rw = None
+                        # the (out, lse) the wrapper's forward saved
+                        out, lse = attention_launch(q, k, v, scale, heads,
+                                                    rh, rw, return_lse=True)
+                        _, lse_ref = attention_plain(q, k, v, scale, heads,
+                                                     rh, rw, return_lse=True)
+                        lse_tol = 2e-5 if dt == torch.float32 else 2e-2
+                        lse_err = (lse - lse_ref).abs().max().item()
+                        emit("backward_check", kernel=f"{kid} forward",
+                             output="lse", shape=shape,
+                             dtype=str(dt).replace("torch.", ""),
+                             max_abs_err=lse_err,
+                             bound=f"atol=rtol={lse_tol}")
+                        if not torch.allclose(lse, lse_ref, atol=lse_tol,
+                                              rtol=lse_tol):
+                            raise AssertionError(
+                                f"{kid} {shape} {dt}: lse disagrees (max "
+                                f"abs err {lse_err})")
+                        ref = attention_backward_plain(
+                            q, k, v, out, lse, dout, scale, heads, rh, rw)
+                        del lse_ref
+                if hw:      # packed dqkv: its three column blocks
+                    parts = [got[0][..., i * cw:(i + 1) * cw]
+                             for i in range(3)] + list(got[1:])
+                else:
+                    parts = list(got)
+                names = ("dq", "dk", "dv", "drel_h", "drel_w")[:len(parts)]
+                if len(parts) != (1 if frozen and not hw else
+                                  3 if frozen or not hw else 5):
+                    raise AssertionError(f"{kid}: {len(parts)} gradients")
+                what = (f"{kid} {shape} through the wrapper, "
+                        + ("activations only" if frozen else "every input"))
+                errs = {nm: grads_close(what, (g,), (r,), dt, (nm,))
+                        for nm, g, r in zip(names, parts, ref)}
+                dq_err = max(e for n, e in errs.items()
+                             if n not in ("dk", "dv"))
+                dkv = [errs[n] for n in ("dk", "dv") if n in errs]
+                bwd_err[f"{kid}_dq"] = max(bwd_err.get(f"{kid}_dq", 0.0),
+                                           dq_err)
+                if dkv:
+                    bwd_err[f"{kid}_dkv"] = max(
+                        bwd_err.get(f"{kid}_dkv", 0.0), *dkv)
+                del got, parts, tensors
+            if dt == torch.bfloat16 and kid not in bwd_inputs:
+                bwd_inputs[kid] = (shape, heads, d, scale,
+                                   (q, k, v, out, lse, dout, rh, rw))
+            del ref, out, lse, q, k, v, rh, rw
+        del base, dout32, dout
+        torch.cuda.empty_cache()
+
+    mlp_names = ("dx", "dw1", "db1", "dw2", "db2")
+    mlp_counters = ("launches", "backward_launches")
+    for shape, rows in (("R=4*4096", 4 * 4096), ("R=4*2304", 4 * 2304)):
+        base = mlp_args(rows)
+        g32, da32 = randn((rows, 768)), randn((rows, 3072))
+        for dt in (torch.float32, torch.bfloat16):
+            g, da = g32.to(dt), da32.to(dt)
+            with torch.no_grad():
+                xx, ww, bb = base[0].to(dt), base[1].to(dt), base[2]
+                got = fused_mlp_dh(xx, ww, bb, da)
+                torch.cuda.synchronize()
+                ref = fused_mlp_dh_plain(xx, ww, bb, da)
+                bwd_err["K3_dh"] = max(
+                    bwd_err.get("K3_dh", 0.0),
+                    grads_close(f"K3 {shape}", got, ref, dt, ("a", "dh")))
+                if dt == torch.bfloat16 and "K3" not in bwd_inputs:
+                    bwd_inputs["K3"] = (shape, (xx, ww, bb, da))
+                ref = fused_mlp_backward_plain(
+                    *leaves(base, dt, True, keep32=(2, 4)), g)
+            for frozen in (False, True):
+                tensors = leaves(base, dt, frozen, keep32=(2, 4))
+                got = through_wrapper(fused_mlp, tensors, (), g,
+                                      mlp_counters)
+                what = (f"K3 {shape} through the wrapper, "
+                        + ("activations only" if frozen else "every input"))
+                bwd_err["K3_wrapper"] = max(
+                    bwd_err.get("K3_wrapper", 0.0),
+                    grads_close(what, got, ref, dt, mlp_names[:len(got)]))
+                if len(got) != (1 if frozen else 5):
+                    raise AssertionError(f"K3: {len(got)} gradients")
+                if dt == torch.bfloat16 and not frozen:
+                    # the weight gradients against the products of the
+                    # same operands raised to f32 first
+                    with torch.no_grad():
+                        act, dh = fused_mlp_dh_plain(xx, ww, bb, torch.matmul(
+                            g, tensors[3].detach()))
+                        exact = (torch.matmul(dh.float().t(), xx.float()),
+                                 torch.matmul(g.float().t(), act.float()))
+                    grads_close(f"K3 {shape} bf16 GEMM against the f32 "
+                                "product", (got[1], got[3]), exact, dt,
+                                ("dw1", "dw2"))
+                    del act, dh, exact
+                del got, tensors
+            del ref
+        del base, g32, da32, g, da
+        torch.cuda.empty_cache()
+
+    # ---- 7. one f32 train step: kernels against the plain path --------------
+    def train_batch(batch_size, seed):
+        return {k: torch.from_numpy(v).to(dev) for k, v in
+                synthetic_batch(batch_size, seed).items()}
+
+    def build_trainer(name, dtype, use_kernels, batch_size, clip=None):
+        cfg = training_config(name, dtype=dtype, use_kernels=use_kernels,
+                              batch_size=batch_size)
+        if clip is not None:
+            cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+                cfg.train, clip_max_norm=clip))
+        sb = StepBuilder(cfg)
+        load_reference_state_dict(sb.model, golden_sd)
+        return sb, sb.init_state(steps_per_epoch=100)
+
+    # kernel launches of one train step, by counter: each attention
+    # backward launches its dq kernel and its dk/dv kernel, K3's its one
+    def per_step(with_k4):
+        fwd = dict(per_forward, cross_attention_packed=int(with_k4))
+        attn = {n: v for n, v in fwd.items() if n != "fused_mlp"}
+        return {"launches": fwd, "backward_launches": {"fused_mlp": 12},
+                "backward_dq_launches": attn, "backward_dkv_launches": attn}
+
+    def all_counts():
+        return {attr: counts(attr) for attr in count_names}
+
+    def step_parity(name, batch_size, with_k4):
+        """One f32 step with kernels against the same step on the plain
+        path: same weights, batch and dropout seed, no clipping (so that
+        the raw gradients stay in .grad)."""
+        batch = train_batch(batch_size, seed=7)
+        parity = {}
+        for path, use_kernels in (("kernels", True), ("plain", False)):
+            sb, state = build_trainer(name, "float32", use_kernels,
+                                      batch_size, clip=1e9)
+            reset_counts()
+            _, metrics = sb.train_step(
+                state, batch, torch.Generator(device=dev).manual_seed(5))
+            torch.cuda.synchronize()
+            if use_kernels:
+                got_counts = all_counts()
+                if got_counts != per_step(with_k4):
+                    raise AssertionError(f"{name}: f32 step launches "
+                                         f"{got_counts}, want "
+                                         f"{per_step(with_k4)}")
+            parity[path] = (
+                {k: v.item() for k, v in metrics.items()},
+                {n: p.grad.clone() for n, p in sb.model.named_parameters()
+                 if p.grad is not None})
+            del sb, state
+            torch.cuda.empty_cache()
+        (m_k, g_k), (m_p, g_p) = parity["kernels"], parity["plain"]
+        # Each gradient elementwise at the stated tolerance and, since many
+        # are far smaller than the atol at these random weights, also by its
+        # own norm: |g_k - g_p| <= 1e-3 |g_p| for every parameter whose
+        # gradient is more than rounding noise (a key bias's is zero but
+        # for that).
+        worst, worst_name, worst_rel, worst_rel_name = 0.0, "", 0.0, ""
+        smallest_checked = float("inf")
+        for pname, gp in g_p.items():
+            err = (g_k[pname] - gp).abs().max().item()
+            rel_p = 0.0
+            if gp.norm().item() > 1e-10 * m_p["grad_norm"]:
+                rel_p = ((g_k[pname] - gp).norm() / gp.norm()).item()
+                smallest_checked = min(smallest_checked, gp.norm().item())
+            if err > worst:
+                worst, worst_name = err, pname
+            if rel_p > worst_rel:
+                worst_rel, worst_rel_name = rel_p, pname
+            if (not torch.allclose(g_k[pname], gp, atol=5e-4, rtol=1e-3)
+                    or rel_p > 1e-3):
+                raise AssertionError(
+                    f"{name}: f32 train step: gradient of {pname} with "
+                    f"kernels differs from the plain path's (max abs err "
+                    f"{err}, relative {rel_p})")
+        num = sum(((g_k[n] - g_p[n]) ** 2).sum() for n in g_p).sqrt().item()
+        rel = num / max(m_p["grad_norm"], 1e-12)
+        emit("train_step_parity", config=f"{name} f32 batch {batch_size}",
+             metrics_kernels=m_k, metrics_plain=m_p, gradients=len(g_p),
+             max_abs_grad_err=worst, worst_gradient=worst_name,
+             max_relative_err_of_one_gradient=worst_rel,
+             worst_relative_gradient=worst_rel_name,
+             smallest_gradient_norm_checked=smallest_checked,
+             relative_grad_err=rel, atol=5e-4, rtol=1e-3)
+        for key in ("loss", "loss_ce", "loss_bbox", "loss_giou", "grad_norm"):
+            if not np.isclose(m_k[key], m_p[key], atol=5e-4, rtol=1e-3):
+                raise AssertionError(f"{name}: f32 train step: {key} "
+                                     f"{m_k[key]} with kernels, {m_p[key]} "
+                                     "on the plain path")
+        if set(g_k) != set(g_p) or rel > 1e-3:
+            raise AssertionError(f"{name}: f32 train step: relative "
+                                 f"gradient error {rel}")
+
+    # every gradient, rel tables and MLP weights included; then the frozen
+    # encoder, where the backward kernels write activation gradients only
+    step_parity("from_scratch", 2, with_k4=True)
+    step_parity("fine_tune", 1, with_k4=False)
+    torch.cuda.empty_cache()
+
+    # ---- 8. training in bf16: the second main path --------------------------
+    batch4 = train_batch(BATCH, seed=11)
+    trainers, train_metrics, train_mem = {}, {}, {}
+    snapshots = {}
+    for name in ("fine_tune", "from_scratch"):
+        trainers[name] = build_trainer(name, "bfloat16", True, BATCH)
+        snapshots[name] = {n: p.detach().clone() for n, p in
+                           trainers[name][0].model.named_parameters()}
+    gen = torch.Generator(device=dev).manual_seed(3)
+    reset_counts()                 # the training path's run starts here
+    for name, (sb, state) in trainers.items():
+        torch.cuda.reset_peak_memory_stats()
+        steps = []
+        for _ in range(TRAIN_STEPS):
+            _, metrics = sb.train_step(state, batch4, gen)
+            steps.append(metrics)
+        torch.cuda.synchronize()
+        train_metrics[name] = [{k: v.item() for k, v in m.items()}
+                               for m in steps]
+        train_mem[name] = torch.cuda.max_memory_allocated()
+    train_counts = all_counts()
+    # ... and ends here
+    want_counts = {}
+    for with_k4 in (False, True):          # fine_tune, from_scratch
+        for attr, per in per_step(with_k4).items():
+            tot = want_counts.setdefault(attr, {})
+            for n, v in per.items():
+                tot[n] = tot.get(n, 0) + v * TRAIN_STEPS
+    emit("training_path_launches", launches=train_counts, want=want_counts)
+    if (train_counts != want_counts
+            or min(v for per in want_counts.values()
+                   for v in per.values()) == 0):
+        raise AssertionError(f"training path launches {train_counts}, want "
+                             f"{want_counts}")
+    for name, (sb, state) in trainers.items():
+        ms = train_metrics[name]
+        moved = frozen_same = 0
+        for n, p in sb.model.named_parameters():
+            same = torch.equal(p.detach(), snapshots[name][n])
+            if p.requires_grad and same:
+                raise AssertionError(f"{name}: trainable {n} did not move")
+            if not p.requires_grad and not same:
+                raise AssertionError(f"{name}: frozen {n} changed")
+            moved += p.requires_grad
+            frozen_same += not p.requires_grad
+        finite = all(np.isfinite(v) for m in ms for v in m.values())
+        emit("training", config=name, dtype="bfloat16", batch=BATCH,
+             steps=TRAIN_STEPS, gpu=gpu, loss=[m["loss"] for m in ms],
+             grad_norm=[m["grad_norm"] for m in ms],
+             num_boxes=ms[0]["num_boxes"], parameters_moved=moved,
+             parameters_frozen_identical=frozen_same,
+             peak_memory_bytes=train_mem[name])
+        if not finite:
+            raise AssertionError(f"{name}: non-finite training metrics {ms}")
+        if name == "from_scratch" and not ms[-1]["loss"] < ms[0]["loss"]:
+            raise AssertionError(f"from_scratch: loss did not fall over "
+                                 f"{TRAIN_STEPS} steps on one batch: "
+                                 f"{[m['loss'] for m in ms]}")
+    del snapshots
+
+    # One more step of each configuration under PyTorch's sync debug mode,
+    # which warns at every call that waits for the device: the copy of the
+    # matching cost to the host (ops/lsap.py) must be the only one.
+    import warnings
+    for name, (sb, state) in trainers.items():
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                sb.train_step(state, batch4, gen)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        waits = [str(w.message)[:200] for w in caught
+                 if "synchroniz" in str(w.message).lower()]
+        emit("train_step_host_waits", config=name, waits=len(waits),
+             want=1, messages=waits)
+        if len(waits) != 1:
+            raise AssertionError(f"{name}: a train step waited for the "
+                                 f"device {len(waits)} times, want 1: "
+                                 f"{waits}")
+
+    # ---- 9. times: train steps, the matcher, the backward kernels -----------
+    for name, (sb, state) in trainers.items():
+        plain_sb, plain_state = build_trainer(name, "bfloat16", False, BATCH)
+        torch.cuda.reset_peak_memory_stats()
+        ms_plain, ms_kern = paired_ms(
+            lambda: plain_sb.train_step(plain_state, batch4, gen),
+            lambda: sb.train_step(state, batch4, gen), iters=2)
+        with torch.no_grad():
+            out = sb.model(sb.images(batch4))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                hungarian_match(out, batch4, sb.cfg.criterion)
+            torch.cuda.synchronize()
+            matcher_ms = (time.perf_counter() - t0) * 1000 / 5
+        emit("train_step_time", config=name, dtype="bfloat16", batch=BATCH,
+             gpu=gpu, ms_per_step_kernels=ms_kern, ms_per_step_plain=ms_plain,
+             tiles_per_s_kernels=BATCH * 1000 / ms_kern,
+             tiles_per_s_plain=BATCH * 1000 / ms_plain,
+             matcher_host_ms=matcher_ms, matcher_share=matcher_ms / ms_kern,
+             peak_memory_bytes_kernels=train_mem[name],
+             peak_memory_bytes_both_paths=torch.cuda.max_memory_allocated())
+        del plain_sb, plain_state, out
+        torch.cuda.empty_cache()
+    del trainers
+    torch.cuda.empty_cache()
+
+    import torch.nn.functional as F
+
+    def heads_view(t, heads):
+        b, n, cw = t.shape
+        return t.view(b, n, heads, cw // heads).transpose(1, 2)
+
+    def sdpa_pair(q, k, v, rh, rw, heads, scale):
+        """(forward fn, backward fn) of one scaled_dot_product_attention
+        call on the same inputs, the decomposed bias built beforehand and
+        passed as attn_mask: the library's yardstick, used nowhere in the
+        port. The backward is autograd through that call for dq, dk, dv."""
+        qh, kh, vh = (heads_view(t, heads).detach().requires_grad_()
+                      for t in (q, k, v))
+        bias = None
+        if rh is not None:
+            b, n = q.shape[:2]
+            bias = (rh.permute(0, 2, 1, 3)[..., :, None]
+                    + rw.permute(0, 2, 1, 3)[..., None, :]
+                    ).reshape(b, heads, n, -1).contiguous()
+
+        def fwd():
+            return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias,
+                                                  scale=scale)
+
+        out = fwd()
+        dout = torch.randn_like(out)
+        return fwd, lambda: torch.autograd.grad(out, (qh, kh, vh), dout,
+                                                retain_graph=True)
+
+    ids = {"K1": "windowed_attention_packed", "K2": "flash_attention_packed",
+           "K4": "cross_attention_packed"}
+    replaces_fwd = {"K1": "windowed_attention_v2.py:227",
+                    "K2": "flash_attention_v2.py:199",
+                    "K4": "cross_attention.py:160"}
+    replaces_bwd = {"K1": ("windowed_attention_v2.py:260",) * 2,
+                    "K2": ("flash_attention_v2.py:364",
+                           "flash_attention_v2.py:392"),
+                    "K4": ("cross_attention.py:208", "cross_attention.py:227")}
+    for kid in ("K1", "K2", "K4"):
+        shape, heads, d, scale, tensors = bwd_inputs.pop(kid)
+        q, k, v, out, lse, dout, rh, rw = tensors
+        b, n, m = q.shape[0], q.shape[1], k.shape[1]
+        wname = ids[kid]
+        lib_fwd, lib_bwd = sdpa_pair(q, k, v, rh, rw, heads, scale)
+        with torch.no_grad():
+            lib_fwd_ms = time_ms(lib_fwd)
+        lib_bwd_ms = time_ms(lib_bwd)
+        del lib_fwd, lib_bwd
+        torch.cuda.empty_cache()
+        mac = b * heads * n * m * d
+        stats = [lse, lse]             # lse and delta, (B, N, H) f32 each
+        fb, fby = bound_ms(4 * mac, nbytes(q, k, v, out, rh, rw))
+        entry(wname, attn_cu, jax_ops + replaces_fwd[kid],
+              launches=serving_counts[wname] + train_counts["launches"][wname],
+              launches_serving=serving_counts[wname],
+              launches_training=train_counts["launches"][wname],
+              shape=shape, max_abs_err=errors[wname],
+              ms=kernel_ms[wname][0], plain_ms=kernel_ms[wname][1],
+              bound_ms=fb, bound_by=fby, library_ms=lib_fwd_ms,
+              library="F.scaled_dot_product_attention"
+              + (" with the bias as attn_mask" if rh is not None else ""))
+
+        def both():
+            return attention_backward_launch(q, k, v, out, lse, dout, scale,
+                                             heads, rh, rw)
+
+        def one(kernel, want_drel=True):
+            """One backward kernel alone, on buffers made beforehand."""
+            delta = attention_delta(dout, out, heads).contiguous()
+            grads = [torch.empty_like(t) for t in (q, k, v)]
+            drel = ([torch.empty_like(t) for t in (rh, rw)]
+                    if rh is not None and want_drel else [None, None])
+            grid = (rh.shape[-1], rw.shape[-1]) if rh is not None else (0, 0)
+            return lambda: _backward_kernel_launch(
+                kernel, q, k, v, dout, lse, delta, rh, rw, *grads, *drel,
+                scale, heads, d, *grid)
+
+        def plain():
+            return attention_backward_plain(q, k, v, out, lse, dout, scale,
+                                            heads, rh, rw)
+
+        with torch.no_grad():
+            ms_plain, ms_both = paired_ms(plain, both)
+            ms_dq, ms_dkv = time_ms(one(0)), time_ms(one(1))
+            ms_dq_nodrel = time_ms(one(0, False)) if rh is not None else None
+        dq_b = bound_ms(6 * mac, nbytes(q, k, v, dout, q, rh, rw, rh, rw,
+                                        *stats))
+        dkv_b = bound_ms(8 * mac, nbytes(q, k, v, dout, k, v, rh, rw, *stats))
+        both_b = bound_ms(14 * mac, nbytes(q, k, v, dout, q, k, v, rh, rw, rh,
+                                           rw, *stats))
+        emit("backward_kernel_time", kernel=kid, shape=shape, dtype="bfloat16",
+             gpu=gpu, dq_ms=ms_dq, dq_without_drel_ms=ms_dq_nodrel,
+             dkv_ms=ms_dkv, both_ms=ms_both, plain_ms=ms_plain,
+             library_forward_ms=lib_fwd_ms, library_backward_ms=lib_bwd_ms)
+        tc = train_counts
+        if kid == "K1":
+            entry(wname + "_backward", bwd_cu,
+                  jax_ops + replaces_bwd[kid][0],
+                  launches=tc["backward_dq_launches"][wname]
+                  + tc["backward_dkv_launches"][wname], shape=shape,
+                  max_abs_err=max(bwd_err["K1_dq"], bwd_err["K1_dkv"]),
+                  ms=ms_both, plain_ms=ms_plain, bound_ms=both_b[0],
+                  bound_by=both_b[1], library_ms=lib_bwd_ms,
+                  library="autograd through scaled_dot_product_attention "
+                          "(dq, dk, dv; no rel-table gradient)",
+                  kernels_per_backward=2, dq_ms=ms_dq, dkv_ms=ms_dkv)
+        else:
+            entry(wname + "_backward_dq", bwd_cu,
+                  jax_ops + replaces_bwd[kid][0],
+                  launches=tc["backward_dq_launches"][wname], shape=shape,
+                  max_abs_err=bwd_err[f"{kid}_dq"], ms=ms_dq,
+                  plain_ms=ms_plain, plain_covers="dq + dk/dv",
+                  bound_ms=dq_b[0], bound_by=dq_b[1], library_ms=lib_bwd_ms,
+                  library="autograd through scaled_dot_product_attention",
+                  library_covers="dq + dk/dv (one call)")
+            entry(wname + "_backward_dkv", bwd_cu,
+                  jax_ops + replaces_bwd[kid][1],
+                  launches=tc["backward_dkv_launches"][wname], shape=shape,
+                  max_abs_err=bwd_err[f"{kid}_dkv"], ms=ms_dkv,
+                  plain_ms=ms_plain, plain_covers="dq + dk/dv",
+                  bound_ms=dkv_b[0], bound_by=dkv_b[1], library_ms=None,
+                  library_covers="see the dq entry")
+        del tensors, q, k, v, out, lse, dout, rh, rw
+        torch.cuda.empty_cache()
+
+    shape, (xx, ww, bb, dd) = bwd_inputs["K3"]
+    r, dmod = xx.shape
+    fdim = ww.shape[0]
+    w2 = randn((dmod, fdim), fdim ** -0.5).to(torch.bfloat16)
+    b2 = randn((dmod,), 0.1)
+    with torch.no_grad():
+        ms_plain, ms_dh = paired_ms(lambda: fused_mlp_dh_plain(xx, ww, bb, dd),
+                                    lambda: fused_mlp_dh(xx, ww, bb, dd))
+        seq_ms = time_ms(lambda: F.linear(
+            F.gelu(F.linear(xx, ww, bb.to(xx.dtype))), w2, b2.to(xx.dtype)))
+    fb = bound_ms(4 * r * dmod * fdim, nbytes(xx, xx, ww, w2, bb, b2))
+    entry("fused_mlp", mlp_cu, jax_ops + "fused_mlp.py:103",
+          launches=serving_counts["fused_mlp"]
+          + train_counts["launches"]["fused_mlp"],
+          launches_serving=serving_counts["fused_mlp"],
+          launches_training=train_counts["launches"]["fused_mlp"],
+          shape=shape, max_abs_err=errors["fused_mlp"],
+          ms=kernel_ms["fused_mlp"][0], plain_ms=kernel_ms["fused_mlp"][1],
+          bound_ms=fb[0], bound_by=fb[1], library_ms=None,
+          note_linear_gelu_linear_bf16_ms=seq_ms)
+    db = bound_ms(2 * r * dmod * fdim, nbytes(xx, ww, bb, dd, dd, dd))
+    entry("fused_mlp_backward_dh", mlp_bwd_cu, jax_ops + "fused_mlp.py:148",
+          launches=train_counts["backward_launches"]["fused_mlp"],
+          shape=shape, max_abs_err=bwd_err["K3_dh"], ms=ms_dh,
+          max_abs_err_of="a, dh",
+          max_abs_err_wrapper_gradients=bwd_err["K3_wrapper"],
+          plain_ms=ms_plain, bound_ms=db[0], bound_by=db[1], library_ms=None,
+          bound_operations_ms=2 * r * dmod * fdim / PEAK_FLOPS * 1e3,
+          bound_bytes_ms=nbytes(xx, ww, bb, dd, dd, dd) / PEAK_BYTES * 1e3)
+
+    order = ["windowed_attention_packed", "windowed_attention_packed_backward",
+             "flash_attention_packed", "flash_attention_packed_backward_dq",
+             "flash_attention_packed_backward_dkv", "fused_mlp",
+             "fused_mlp_backward_dh", "cross_attention_packed",
+             "cross_attention_packed_backward_dq",
+             "cross_attention_packed_backward_dkv"]
+    for e in report.values():
+        if e["launches"] <= 0:
+            raise AssertionError(f"{e['name']}: not launched on the main path")
+    print(json.dumps({"kernels": [report[n] for n in order], "gpu": gpu}),
+          flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

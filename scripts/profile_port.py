@@ -1,10 +1,12 @@
-"""Where the serving time of the PyTorch port goes, on a CUDA GPU.
+"""Where the serving or training time of the PyTorch port goes, on a CUDA GPU.
 
     python scripts/profile_port.py [--config full_canvas|compat_crop|from_scratch]
                                    [--plain] [--batch 4] [--iters 3]
+    python scripts/profile_port.py --train fine_tune|from_scratch [--plain]
 
-Runs forward + postprocess + NMS at ViT-B width in bf16 (random weights from
-a seed) under torch.profiler and prints JSON lines: the device time by
+Runs forward + postprocess + NMS, or with --train whole train steps on a
+synthetic batch (train/synthetic.py), at ViT-B width in bf16 (random weights
+from a seed) under torch.profiler and prints JSON lines: the device time by
 kernel name (top 15), the summed device time, the wall time and the device
 idle share over the profiled window, with the card's name and power limit.
 """
@@ -28,6 +30,9 @@ from wildlifemapper_tpu_torch.config import model_config  # noqa: E402
 from wildlifemapper_tpu_torch.eval.postprocess import (  # noqa: E402
     batched_nms, postprocess)
 from wildlifemapper_tpu_torch.models import WildlifeMapper  # noqa: E402
+from wildlifemapper_tpu_torch.train.step import StepBuilder  # noqa: E402
+from wildlifemapper_tpu_torch.train.synthetic import (  # noqa: E402
+    TRAINING_CONFIGS, synthetic_batch, training_config)
 
 
 def config(name: str, plain: bool):
@@ -49,6 +54,9 @@ def main() -> int:
                     choices=["full_canvas", "compat_crop", "from_scratch"])
     ap.add_argument("--plain", action="store_true",
                     help="plain PyTorch path (use_flash_attention=False)")
+    ap.add_argument("--train", choices=TRAINING_CONFIGS, default=None,
+                    help="profile train steps in this training configuration "
+                         "instead of serving")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--iters", type=int, default=3)
     args = ap.parse_args()
@@ -63,32 +71,49 @@ def main() -> int:
         timeout=60, check=True).stdout.strip().splitlines()[0]
 
     dev = torch.device("cuda")
-    model = WildlifeMapper(config(args.config, args.plain),
-                           generator=torch.Generator().manual_seed(0))
-    model = model.to(dev).eval()
-    g = torch.Generator(device=dev).manual_seed(1)
-    x = torch.zeros(args.batch, 1024, 1024, 3, device=dev)
-    x[:, :768, :768] = torch.randn(args.batch, 768, 768, 3, device=dev,
-                                   generator=g)
-    sizes = torch.full((args.batch, 2), 1024, dtype=torch.int32, device=dev)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
 
-    def step():
-        out = model(x)
-        dets = postprocess(out, sizes, 0.05)
-        return batched_nms(dets["boxes"], dets["scores"], dets["labels"],
-                           dets["keep"], 0.4)
-
-    with torch.inference_mode():
+    def profiled(step):
         step()
         torch.cuda.synchronize()
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()
             for _ in range(args.iters):
                 step()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1000 / args.iters
+        return prof, wall_ms
+
+    if args.train:
+        cfg = training_config(args.train, use_kernels=not args.plain,
+                              batch_size=args.batch)
+        builder = StepBuilder(cfg, generator=torch.Generator().manual_seed(0))
+        state = builder.init_state(steps_per_epoch=100)
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in synthetic_batch(args.batch, seed=1).items()}
+        g = torch.Generator(device=dev).manual_seed(1)
+        prof, wall_ms = profiled(
+            lambda: builder.train_step(state, batch, g))
+    else:
+        model = WildlifeMapper(config(args.config, args.plain),
+                               generator=torch.Generator().manual_seed(0))
+        model.eval()
+        g = torch.Generator(device=dev).manual_seed(1)
+        x = torch.zeros(args.batch, 1024, 1024, 3, device=dev)
+        x[:, :768, :768] = torch.randn(args.batch, 768, 768, 3, device=dev,
+                                       generator=g)
+        sizes = torch.full((args.batch, 2), 1024, dtype=torch.int32,
+                           device=dev)
+
+        def step():
+            out = model(x)
+            dets = postprocess(out, sizes, 0.05)
+            return batched_nms(dets["boxes"], dets["scores"], dets["labels"],
+                               dets["keep"], 0.4)
+
+        with torch.inference_mode():
+            prof, wall_ms = profiled(step)
 
     # device-side events only: CPU ops also carry their kernels' time
     events = [e for e in prof.key_averages()
@@ -97,7 +122,8 @@ def main() -> int:
     events.sort(key=lambda e: e.self_device_time_total, reverse=True)
     device_ms = sum(e.self_device_time_total for e in events) / 1000
     device_ms /= args.iters
-    head = {"config": args.config,
+    head = {"config": args.train or args.config,
+            "mode": "train" if args.train else "serve",
             "path": "plain" if args.plain else "kernels",
             "batch": args.batch, "gpu": gpu, "wall_ms_per_batch": wall_ms,
             "device_ms_per_batch": device_ms,

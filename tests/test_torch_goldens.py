@@ -112,7 +112,8 @@ def test_full_model_goldens():
     """Full ViT-B f32 forward of the port, kernel path (plain versions on
     the CPU), against the reference's own logits and boxes."""
     npz = np.load(GOLDENS / "full_model.npz")
-    model = WildlifeMapper(model_config("vit_b", use_flash_attention=True))
+    model = WildlifeMapper(model_config("vit_b", use_flash_attention=True),
+                           device="cpu")
     load_reference_state_dict(model, meta_to_state_dict(npz["meta"]))
     with torch.inference_mode():
         out = model(torch.from_numpy(padded_canvas(seed=107)))

@@ -36,6 +36,26 @@ def test_config_copy_matches_jax():
     for v in ("vit_b", "vit_l", "vit_h"):
         assert (dataclasses.asdict(jcfg.model_config(v))
                 == dataclasses.asdict(tcfg.model_config(v)))
+    # the training side: field for field ...
+    for name in ("MatchCriterionConfig", "TrainConfig"):
+        j, t = getattr(jcfg, name), getattr(tcfg, name)
+        assert ([f.name for f in dataclasses.fields(j)]
+                == [f.name for f in dataclasses.fields(t)]), name
+        assert dataclasses.asdict(j()) == dataclasses.asdict(t()), name
+    # ... DataConfig only the fields the steps read, with the JAX defaults,
+    # and Config without the device mesh
+    jdata = dataclasses.asdict(jcfg.DataConfig())
+    tdata = dataclasses.asdict(tcfg.DataConfig())
+    assert set(tdata) == {"mean", "std", "max_targets", "batch_size",
+                          "device_normalize"}
+    assert all(jdata[k] == v for k, v in tdata.items())
+    jfields = [f.name for f in dataclasses.fields(jcfg.Config)]
+    tfields = [f.name for f in dataclasses.fields(tcfg.Config)]
+    assert tfields == [f for f in jfields if f != "mesh"]
+    for f in tfields:
+        if f != "data":
+            assert (dataclasses.asdict(getattr(tcfg.Config(), f))
+                    == dataclasses.asdict(getattr(jcfg.Config(), f))), f
     assert tcfg.model_config(dtype="bfloat16").compute_dtype == torch.bfloat16
     with pytest.raises(ValueError):
         tcfg.model_config(content_size=96, crop_prologue=True)

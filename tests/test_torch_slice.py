@@ -55,7 +55,7 @@ def _models(mode, **extra):
     params = perturbed(jax.jit(jm.init)(jax.random.PRNGKey(0),
                                         jnp.asarray(x)),
                        np.random.default_rng(4))
-    tm = WildlifeMapper(tc)
+    tm = WildlifeMapper(tc, device="cpu")
     load_reference_state_dict(
         tm, state_dict_from_jax(flat_numpy(params), depth=jc.vit.depth))
     return jm, params, tm, x
@@ -154,13 +154,14 @@ def test_weights_roundtrip_exact():
     _, report = merge_into_params(params, back, strict=True)
     assert not report["missing"] and not report["unexpected"]
     # and the port's own parameter set is exactly these names
-    tm = WildlifeMapper(tiny_config(tcfg))
+    tm = WildlifeMapper(tiny_config(tcfg), device="cpu")
     assert sorted(tm.state_dict()) == sorted(sd)
 
 
 def test_loader_drops_iou_token_and_slices_windows():
     tm = WildlifeMapper(tiny_config(tcfg, window_size=3),
-                        generator=torch.Generator().manual_seed(0))
+                        generator=torch.Generator().manual_seed(0),
+                        device="cpu")
     sd = {k: v.clone() for k, v in tm.state_dict().items()}
     sd["mask_decoder.iou_token.weight"] = torch.zeros(1, 32)
     table = torch.arange(7 * 32, dtype=torch.float32).reshape(7, 32)
@@ -175,7 +176,7 @@ def test_loader_drops_iou_token_and_slices_windows():
 
 def test_grouped_kernels_not_ported():
     tm = WildlifeMapper(tiny_config(tcfg, use_flash_attention=True,
-                                    attn_impl="grouped"))
+                                    attn_impl="grouped"), device="cpu")
     with pytest.raises(NotImplementedError, match="K5"):
         with torch.inference_mode():
             tm(torch.zeros(1, 128, 128, 3))

@@ -1,7 +1,8 @@
 """Typed configuration for the PyTorch port of WildlifeMapper.
 
-A copy of the model-side dataclasses of `wildlifemapper_tpu/config.py`, with
-identical fields and defaults. The JAX package's config imports `jax.numpy`,
+A copy of the dataclasses of `wildlifemapper_tpu/config.py` that the port
+uses so far, with identical fields and defaults (DataConfig holds only the
+fields the steps read; the mesh config is not ported). The JAX package's config imports `jax.numpy`,
 so the port cannot import it on a machine without JAX; the two copies are
 kept field-for-field equal (tests/test_torch_ops.py checks it).
 """
@@ -99,7 +100,8 @@ class ModelConfig:
     content_size: Optional[int] = None
     # Crop the pixels before the prologue too (from-scratch configuration).
     crop_prologue: bool = False
-    # Kept for field parity with the JAX config; no effect on inference.
+    # Rematerialise each ViT block in the backward pass. No effect on
+    # inference; not ported for training yet (the model raises).
     remat_blocks: bool = False
 
     def __post_init__(self):
@@ -137,6 +139,64 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MatchCriterionConfig:
+    """Hungarian matching + DETR set-criterion weights
+    (reference: train.py:62-101, build_sam.py:326-331)."""
+
+    set_cost_class: float = 1.0
+    set_cost_bbox: float = 5.0
+    set_cost_giou: float = 2.0
+    ce_loss_coef: float = 3.0
+    bbox_loss_coef: float = 5.0
+    giou_loss_coef: float = 2.0
+    eos_coef: float = 0.1
+    # Static padded target count per image (the bundled train split peaks
+    # at 118 boxes an image).
+    max_targets: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """The fields of the JAX package's DataConfig that the train and eval
+    steps read, with its defaults; the loader's fields arrive with the
+    loader."""
+
+    mean: Tuple[float, float, float] = (0.485, 0.456, 0.406)
+    std: Tuple[float, float, float] = (0.229, 0.224, 0.225)
+    # Fixed padded target count per image (None: sized from the dataset).
+    max_targets: Optional[int] = None
+    batch_size: int = 6
+    # Ship uint8 canvases and normalise inside the step.
+    device_normalize: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Optimisation schedule (reference: train.py:62-101, 215-222)."""
+
+    lr: float = 1e-4
+    hfc_lr: float = 1e-4          # second param group
+    weight_decay: float = 1e-3
+    epochs: int = 550
+    lr_drop: int = 40             # StepLR step size, in epochs
+    lr_drop_factor: float = 0.1
+    clip_max_norm: float = 0.1
+    seed: int = 42
+    checkpoint_every: int = 40
+    eval_every: int = 1
+    best_every: int = 1
+    # Freeze policy (reference network.py:19-34): inside the encoder only
+    # hfc_embed / hfc_attn / patch_embed train; the decoder fully trains;
+    # the dense-PE gaussian matrix never trains.
+    freeze_encoder: bool = True
+    use_amp: bool = False         # bf16 compute in the train step
+    warmup_steps: int = 0         # linear LR warm-up from 0
+    ema_decay: float = 0.0        # EMA of the parameters (0 = off)
+    log_histograms_every: int = 0
+    best_metric: str = "train_loss"
+
+
+@dataclasses.dataclass(frozen=True)
 class EvalConfig:
     """Post-processing (reference: build_sam.py:212-258,
     visualize_prediction.py:36,150-157)."""
@@ -147,6 +207,18 @@ class EvalConfig:
     max_detections: int = 51
     # Reference PostProcess swaps h/w when scaling boxes (build_sam.py:252).
     hw_swap_compat: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    """The JAX package's Config without its device-mesh entry (the port runs
+    on one card so far)."""
+
+    model: ModelConfig = ModelConfig()
+    criterion: MatchCriterionConfig = MatchCriterionConfig()
+    data: DataConfig = DataConfig()
+    train: TrainConfig = TrainConfig()
+    eval: EvalConfig = EvalConfig()
 
 
 def model_config(variant: str = "vit_b", **overrides) -> ModelConfig:

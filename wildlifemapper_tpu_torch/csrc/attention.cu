@@ -1,5 +1,5 @@
 // Multi-head attention with an optional decomposed relative-position bias,
-// forward only. One kernel serves three TPU kernels of the JAX package:
+// forward (the backward kernels are in attention_bwd.cu). One kernel serves three TPU kernels of the JAX package:
 //
 //   K1 wildlifemapper_tpu/ops/windowed_attention_v2.py::windowed_attention_packed
 //      (windowed ViT blocks: N = 196 or 144 tokens per window, d = 64)
@@ -32,7 +32,10 @@
 // Rounding points follow the Pallas kernels: q*scale is rounded to the input
 // type before QK; the rel tables are in the input type; p = exp(s - m) is
 // rounded to the input type before PV while the row sum l takes it
-// unrounded; out = acc / l is rounded once.
+// unrounded; out = acc / l is rounded once. When the caller passes an lse
+// buffer (training), the kernel also writes lse[b, q, h] = m + log(l) in f32
+// from the running max and sum, as flash_attention_v2.py:147 and
+// cross_attention.py:85 do; serving passes none.
 
 #include <math.h>
 #include <stdint.h>
@@ -53,6 +56,7 @@ struct AttnArgs {
   void* o;
   const void* relh;  // (B, nq, H, gh) or null
   const void* relw;  // (B, nq, H, gw) or null
+  float* lse;        // (B, nq, H) f32 or null
   long long q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, o_bs, o_rs;  // element strides
   int heads, nq, nk, gh, gw;
   float scale;
@@ -177,6 +181,8 @@ __global__ void __launch_bounds__(THREADS) attn_fwd_kernel(AttnArgs a) {
     T* orow = og + (q0 + r) * a.o_rs;
 #pragma unroll
     for (int c = 0; c < CPT; ++c) orow[l4 + 4 * c] = from_f<T>(acc[c] / l);
+    if (a.lse != nullptr && l4 == 0)
+      a.lse[((long long)b * a.nq + q0 + r) * a.heads + h] = m + logf(l);
   }
 }
 
@@ -206,24 +212,6 @@ constexpr int TQ = 64;   // query rows per block (16 per warp)
 constexpr int TK = 64;   // keys per streamed tile
 constexpr int TW = 4;    // warps per block
 constexpr int LVT = TK + 8;  // row length of the transposed V tile
-
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4], uint32_t b0,
-                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 template <int D>
 __host__ __device__ constexpr int tc_smem_bytes_base() {
@@ -302,8 +290,10 @@ __global__ void __launch_bounds__(TW * 32) attn_tc_kernel(AttnArgs a) {
     const int k0 = kt * TK;
     __syncthreads();  // previous k/v tiles consumed
     constexpr int VPR = D / 8;  // 16-byte vectors per row (wrapper: aligned rows)
+    // Consecutive lanes take consecutive keys, so the transposed stores of a
+    // warp fall in consecutive shared-memory words.
     for (int i = t; i < TK * VPR; i += TW * 32) {
-      const int kr = i / VPR, c = (i % VPR) * 8;
+      const int kr = i % TK, c = (i / TK) * 8;
       uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
       if (k0 + kr < a.nk) {
         kv = *reinterpret_cast<const uint4*>(kg + (k0 + kr) * a.k_rs + c);
@@ -415,6 +405,10 @@ __global__ void __launch_bounds__(TW * 32) attn_tc_kernel(AttnArgs a) {
       *reinterpret_cast<uint32_t*>(og + (q0 + rB) * a.o_rs + c) =
           pack_bf16x2(o[nd][2] * iB, o[nd][3] * iB);
   }
+  if (a.lse != nullptr && t4 == 0) {
+    if (q0 + rA < a.nq) a.lse[((long long)b * a.nq + q0 + rA) * a.heads + h] = mA + logf(lA);
+    if (q0 + rB < a.nq) a.lse[((long long)b * a.nq + q0 + rB) * a.heads + h] = mB + logf(lB);
+  }
 }
 
 template <int D>
@@ -453,9 +447,11 @@ cudaError_t dispatch_d(const AttnArgs& a, int d, int batch, cudaStream_t stream)
 }  // namespace wm
 
 // Plain C entry. Pointers and strides as described in AttnArgs; relh/relw
-// may be null (no bias). Returns the cudaError_t of the launch.
+// may be null (no bias), lse may be null (not written). Returns the
+// cudaError_t of the launch.
 extern "C" int wm_attention_fwd(int dtype, const void* q, const void* k, const void* v,
-                                void* o, const void* relh, const void* relw, int batch,
+                                void* o, const void* relh, const void* relw, void* lse,
+                                int batch,
                                 int heads, int nq, int nk, int d, long long q_bs,
                                 long long q_rs, long long k_bs, long long k_rs,
                                 long long v_bs, long long v_rs, long long o_bs,
@@ -463,6 +459,7 @@ extern "C" int wm_attention_fwd(int dtype, const void* q, const void* k, const v
                                 void* stream) {
   wm::AttnArgs a;
   a.q = q; a.k = k; a.v = v; a.o = o; a.relh = relh; a.relw = relw;
+  a.lse = static_cast<float*>(lse);
   a.q_bs = q_bs; a.q_rs = q_rs; a.k_bs = k_bs; a.k_rs = k_rs;
   a.v_bs = v_bs; a.v_rs = v_rs; a.o_bs = o_bs; a.o_rs = o_rs;
   a.heads = heads; a.nq = nq; a.nk = nk;

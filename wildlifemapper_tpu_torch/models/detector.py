@@ -5,7 +5,7 @@ against the dense random-Fourier PE."""
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import torch
 import torch.nn as nn
@@ -18,17 +18,41 @@ from .pos_embed import PositionEmbeddingRandom
 from .vit import ImageEncoderViT
 
 
+def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
+    """The port's device rule: the card unless the caller asks for the CPU.
+    None means torch.device("cuda") and raises if CUDA is absent."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "the port runs on a CUDA GPU by default and "
+                "torch.cuda.is_available() is False; pass device=\"cpu\" "
+                "to run on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
 class WildlifeMapper(nn.Module):
     """images NHWC (B, img, img, 3), normalised -> {pred_logits, pred_boxes}.
 
     Parameter names are the PyTorch reference's state-dict names
     (image_encoder.*, prompt_encoder.pe_layer.*, mask_decoder.*).
+
+    The model is built on the card: `device=None` means
+    `torch.device("cuda")` and raises without CUDA; it lives on the CPU only
+    when the caller passes `device="cpu"`. Parameters are created on that
+    device directly; `generator` may live on either.
     """
 
     def __init__(self, config: ModelConfig = ModelConfig(),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 device: Union[None, str, torch.device] = None):
         super().__init__()
         cfg = self.config = config
+        with torch.device(resolve_device(device)):
+            self._build(cfg)
+        self.reset_parameters(generator)
+
+    def _build(self, cfg: ModelConfig) -> None:
         self.image_encoder = ImageEncoderViT(
             img_size=cfg.img_size, patch_size=cfg.patch_size,
             embed_dim=cfg.vit.embed_dim, depth=cfg.vit.depth,
@@ -53,12 +77,18 @@ class WildlifeMapper(nn.Module):
             num_heads=cfg.decoder.num_heads, mlp_dim=cfg.decoder.mlp_dim,
             attention_downsample_rate=cfg.decoder.attention_downsample_rate,
             aux_loss=cfg.decoder.aux_loss)
-        self.reset_parameters(generator)
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         """Seeded initialisation: weights N(0, 0.02), biases 0, LayerNorms
-        identity, query tokens and the PE gaussian matrix N(0, 1)."""
+        identity, query tokens and the PE gaussian matrix N(0, 1). The
+        numbers are drawn on the generator's device and copied to the
+        parameter's, so one seed gives one model wherever it lives."""
+        def normal_(t, std):
+            where = generator.device if generator is not None else t.device
+            t.copy_(torch.empty(t.shape, device=where).normal_(
+                0.0, std, generator=generator))
+
         for mod in self.modules():
             if isinstance(mod, LayerNorm):
                 mod.weight.fill_(1.0)
@@ -68,16 +98,20 @@ class WildlifeMapper(nn.Module):
                 if name.endswith("bias"):
                     p.zero_()
                 else:
-                    p.normal_(0.0, 0.02, generator=generator)
-        self.mask_decoder.mask_tokens.weight.normal_(generator=generator)
-        self.prompt_encoder["pe_layer"].positional_encoding_gaussian_matrix \
-            .normal_(generator=generator)
+                    normal_(p, 0.02)
+        normal_(self.mask_decoder.mask_tokens.weight, 1.0)
+        normal_(self.prompt_encoder["pe_layer"]
+                .positional_encoding_gaussian_matrix, 1.0)
 
     def forward(self, images: torch.Tensor, *, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None
                 ) -> Dict[str, torch.Tensor]:
         cfg = self.config
         dt = cfg.compute_dtype
+        if cfg.remat_blocks and not deterministic:
+            raise NotImplementedError(
+                "remat_blocks=True is not ported for training yet (ROADMAP "
+                "queue 1: remat and the large models)")
         if cfg.crop_prologue and cfg.content_size is not None:
             # From-scratch mode: the whole network, HFC included, runs on
             # the content pixels.

@@ -1,10 +1,20 @@
-"""Shared plain version and launcher of the attention kernel
-(csrc/attention.cu) behind K1, K2 and K4.
+"""Shared plain versions and launchers of the attention kernels behind K1,
+K2 and K4: the forward (csrc/attention.cu) and the two backward kernels
+(csrc/attention_bwd.cu).
 
 Layouts are the JAX package's: q (B, N, C) and k, v (B, M, C), head h in
 columns [h*d, (h+1)*d); for the packed qkv they are column slices of one
 (B, N, 3C) tensor. Rel tables, when given, are (B, N, H, gh) and
-(B, N, H, gw) with gh * gw == M.
+(B, N, H, gw) with gh * gw == M. lse and delta are (B, N, H) float32.
+
+The backward follows the JAX package's packed backward kernels
+(flash_attention_v2.py:229-319, cross_attention.py:90-146): scores are
+recomputed with the forward's rounding points, p = exp(s - lse) from the
+saved lse, delta = rowsum(do * o) per head in f32, ds and p rounded to the
+input type before the gradient products. K1 uses the same two kernels; its
+Pallas backward (windowed_attention_v2.py:125) recomputes a full softmax
+and takes delta = sum p*dp instead, which is the same function up to a
+rounding of the working type.
 """
 
 from __future__ import annotations
@@ -19,30 +29,84 @@ from . import _build
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float, num_heads: int,
                     rel_h: Optional[torch.Tensor] = None,
-                    rel_w: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    rel_w: Optional[torch.Tensor] = None,
+                    return_lse: bool = False):
     """The kernel's function in plain PyTorch, with the same rounding
     points: q*scale rounded to the input type, f32 scores and softmax,
-    unnormalised p rounded to the input type before PV, out = acc / l."""
+    unnormalised p rounded to the input type before PV, out = acc / l.
+    With return_lse also the (B, N, H) f32 log-sum-exp of the scores."""
     b, n, c = q.shape
-    m = k.shape[1]
-    d = c // num_heads
     dt = q.dtype
-    qh = (q.float() * scale).to(dt).float()
-    qh = qh.reshape(b, n, num_heads, d).transpose(1, 2)
-    kh = k.float().reshape(b, m, num_heads, d).transpose(1, 2)
-    vh = v.float().reshape(b, m, num_heads, d).transpose(1, 2)
-    s = torch.matmul(qh, kh.transpose(-1, -2))               # (B, H, N, M)
+    s, vh = _scores_plain(q, k, v, scale, num_heads, rel_h, rel_w)
+    mx = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - mx)
+    denom = p.sum(dim=-1, keepdim=True)
+    acc = torch.matmul(p.to(dt).float(), vh)
+    out = (acc / denom).to(dt).transpose(1, 2).reshape(b, n, c)
+    if return_lse:
+        return out, (mx + torch.log(denom))[..., 0].transpose(1, 2)
+    return out
+
+
+def _heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """(B, N, C) -> (B, H, N, d) in f32."""
+    b, n, c = t.shape
+    return t.float().reshape(b, n, num_heads, c // num_heads).transpose(1, 2)
+
+
+def _scores_plain(q, k, v, scale, num_heads, rel_h, rel_w):
+    """f32 scores (B, H, N, M) with the forward's rounding points, and v per
+    head."""
+    b, n, _ = q.shape
+    qh = _heads((q.float() * scale).to(q.dtype), num_heads)
+    s = torch.matmul(qh, _heads(k, num_heads).transpose(-1, -2))
     if rel_h is not None:
         gh, gw = rel_h.shape[-1], rel_w.shape[-1]
         bias = (rel_h.float().permute(0, 2, 1, 3)[..., :, None]
                 + rel_w.float().permute(0, 2, 1, 3)[..., None, :])
         s = s + bias.reshape(b, num_heads, n, gh * gw)
-    mx = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - mx)
-    denom = p.sum(dim=-1, keepdim=True)
-    acc = torch.matmul(p.to(dt).float(), vh)
-    out = (acc / denom).to(dt)
-    return out.transpose(1, 2).reshape(b, n, c)
+    return s, _heads(v, num_heads)
+
+
+def attention_delta(dout: torch.Tensor, out: torch.Tensor,
+                    num_heads: int) -> torch.Tensor:
+    """delta[b, q, h] = sum_d do * o in f32 (flash_attention_v2.py:342)."""
+    b, n, c = out.shape
+    return (dout.float() * out.float()).reshape(
+        b, n, num_heads, c // num_heads).sum(-1)
+
+
+def attention_backward_plain(q, k, v, out, lse, dout, scale: float,
+                             num_heads: int,
+                             rel_h: Optional[torch.Tensor] = None,
+                             rel_w: Optional[torch.Tensor] = None):
+    """The backward kernels' function in plain PyTorch, with their rounding
+    points. Returns (dq, dk, dv, drel_h, drel_w); the last two are None
+    without rel tables."""
+    b, n, c = q.shape
+    m = k.shape[1]
+    dt = q.dtype
+
+    def merge(t):                       # (B, H, N, d) -> (B, N, C)
+        return t.transpose(1, 2).reshape(b, t.shape[2], c)
+
+    s, vh = _scores_plain(q, k, v, scale, num_heads, rel_h, rel_w)
+    doh = _heads(dout, num_heads)
+    p = torch.exp(s - lse.transpose(1, 2)[..., None])
+    dp = torch.matmul(doh, vh.transpose(-1, -2))
+    delta = attention_delta(dout, out, num_heads)
+    ds = (p * (dp - delta.transpose(1, 2)[..., None])).to(dt).float()
+    dq = merge(torch.matmul(ds, _heads(k, num_heads)) * scale).to(dt)
+    dk = merge(torch.matmul(ds.transpose(-1, -2), _heads(q, num_heads))
+               * scale).to(dt)
+    dv = merge(torch.matmul(p.to(dt).float().transpose(-1, -2), doh)).to(dt)
+    drh = drw = None
+    if rel_h is not None:
+        gh, gw = rel_h.shape[-1], rel_w.shape[-1]
+        ds5 = ds.reshape(b, num_heads, n, gh, gw)
+        drh = ds5.sum(-1).permute(0, 2, 1, 3).to(rel_h.dtype)
+        drw = ds5.sum(-2).permute(0, 2, 1, 3).to(rel_w.dtype)
+    return dq, dk, dv, drh, drw
 
 
 def _check_operand(name: str, t: torch.Tensor, ref: torch.Tensor,
@@ -56,13 +120,10 @@ def _check_operand(name: str, t: torch.Tensor, ref: torch.Tensor,
                          f"{t.stride()}")
 
 
-def attention_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     scale: float, num_heads: int,
-                     rel_h: Optional[torch.Tensor] = None,
-                     rel_w: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch csrc/attention.cu on CUDA tensors; raises on anything the
-    kernel does not take. q/k/v may be column slices of one packed tensor:
-    they are read by stride."""
+def _check_attention(q, k, v, num_heads, rel_h, rel_w, extra=()):
+    """Raise on anything the kernels do not take; returns (d, gh, gw).
+    `extra` are further (name, tensor, rows) operands of shape
+    (B, rows, C)."""
     b, n, c = q.shape
     m = k.shape[1]
     if c % num_heads:
@@ -70,10 +131,12 @@ def attention_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     d = c // num_heads
     if d not in (32, 64, 128):
         raise ValueError(f"head dim {d} not supported (32, 64 or 128)")
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    operands = (("q", q, n), ("k", k, m), ("v", v, m), *extra)
+    for name, t, rows in operands:
         _check_operand(name, t, q, c)
-    if k.shape[:2] != (b, m) or v.shape[:2] != (b, m):
-        raise ValueError("k and v must both be (B, M, C)")
+        if t.shape[:2] != (b, rows):
+            raise ValueError(f"{name}: expected {(b, rows, c)}, got "
+                             f"{tuple(t.shape)}")
     gh = gw = 0
     if rel_h is not None:
         gh, gw = rel_h.shape[-1], rel_w.shape[-1]
@@ -86,22 +149,105 @@ def attention_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if gh * gw != m:
             raise ValueError(f"rel grid {gh}x{gw} does not cover {m} keys")
     if q.dtype == torch.bfloat16:
-        # the tensor-core body moves k and v rows as 16-byte vectors
-        for name, t in (("q", q), ("k", k), ("v", v)):
+        # the tensor-core bodies move rows as 16-byte vectors
+        for name, t, _ in operands:
             if t.data_ptr() % 16 or t.stride(0) % 8 or t.stride(1) % 8:
                 raise ValueError(f"{name}: bf16 rows must be 16-byte "
                                  f"aligned (strides {t.stride()})")
+        if rel_h is not None and (rel_h.data_ptr() % 16
+                                  or rel_w.data_ptr() % 16):
+            raise ValueError("rel tables must start on a 16-byte boundary")
+    return d, gh, gw
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return t.data_ptr() if t is not None else None
+
+
+def attention_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     scale: float, num_heads: int,
+                     rel_h: Optional[torch.Tensor] = None,
+                     rel_w: Optional[torch.Tensor] = None,
+                     return_lse: bool = False):
+    """Launch csrc/attention.cu on CUDA tensors; raises on anything the
+    kernel does not take. q/k/v may be column slices of one packed tensor:
+    they are read by stride. With return_lse the kernel also writes the
+    (B, N, H) f32 log-sum-exp the backward kernels need."""
+    b, n, c = q.shape
+    m = k.shape[1]
+    d, gh, gw = _check_attention(q, k, v, num_heads, rel_h, rel_w)
     lib = _build.load_kernels()
     out = torch.empty((b, n, c), dtype=q.dtype, device=q.device)
-    null = None
+    lse = (torch.empty((b, n, num_heads), dtype=torch.float32,
+                       device=q.device) if return_lse else None)
     err = lib.wm_attention_fwd(
         _build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(),
-        rel_h.data_ptr() if rel_h is not None else null,
-        rel_w.data_ptr() if rel_w is not None else null,
+        out.data_ptr(), _ptr(rel_h), _ptr(rel_w), _ptr(lse),
         b, num_heads, n, m, d,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1),
         v.stride(0), v.stride(1), out.stride(0), out.stride(1),
         gh, gw, float(scale), _build.stream_ptr(q))
     _build.check(err, "attention kernel")
-    return out
+    return (out, lse) if return_lse else out
+
+
+def _backward_kernel_launch(kernel: int, q, k, v, dout, lse, delta, rel_h,
+                            rel_w, dq, dk, dv, drh, drw, scale: float,
+                            num_heads: int, d: int, gh: int, gw: int) -> None:
+    """Launch one kernel of csrc/attention_bwd.cu on checked operands: 0 the
+    dq (+ drel) kernel, 1 the dk/dv kernel. Raises if the launch fails."""
+    b, n, _ = q.shape
+    err = _build.load_kernels().wm_attention_bwd(
+        kernel, _build.dtype_code(q), q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        _ptr(rel_h), _ptr(rel_w), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), _ptr(drh), _ptr(drw), b, num_heads, n, k.shape[1], d,
+        q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+        v.stride(0), v.stride(1), dout.stride(0), dout.stride(1),
+        dq.stride(0), dq.stride(1), dk.stride(0), dk.stride(1),
+        dv.stride(0), dv.stride(1), gh, gw, float(scale),
+        _build.stream_ptr(q))
+    _build.check(err, "attention backward kernel " + ("dq", "dk/dv")[kernel])
+
+
+def attention_backward_launch(q, k, v, out, lse, dout, scale: float,
+                              num_heads: int,
+                              rel_h: Optional[torch.Tensor] = None,
+                              rel_w: Optional[torch.Tensor] = None,
+                              grads=None, want_drel: bool = True,
+                              wrapper=None):
+    """Launch the two kernels of csrc/attention_bwd.cu on CUDA tensors:
+    the dq kernel (which also writes drel_h / drel_w when rel tables are
+    given and `want_drel`), then the dk/dv kernel. `grads`, when given, are
+    the (dq, dk, dv) tensors to write, for example the column blocks of one
+    packed dqkv; they are allocated otherwise. Returns (dq, dk, dv, drel_h,
+    drel_w) like the plain version. `wrapper`, when given, is the public
+    function on whose behalf the kernels run: its `backward_dq_launches`
+    and `backward_dkv_launches` go up by one as each kernel is launched."""
+    b, n, c = q.shape
+    m = k.shape[1]
+    if grads is None:
+        grads = (torch.empty_like(q), torch.empty_like(k),
+                 torch.empty_like(v))
+    dq, dk, dv = grads
+    d, gh, gw = _check_attention(
+        q, k, v, num_heads, rel_h, rel_w,
+        extra=(("dout", dout, n), ("out", out, n), ("dq", dq, n),
+               ("dk", dk, m), ("dv", dv, m)))
+    if (lse.shape != (b, n, num_heads) or lse.dtype != torch.float32
+            or not lse.is_contiguous() or lse.device != q.device):
+        raise ValueError(f"lse: expected contiguous float32 "
+                         f"{(b, n, num_heads)}, got {tuple(lse.shape)} "
+                         f"{lse.dtype}")
+    delta = attention_delta(dout, out, num_heads).contiguous()
+    drh = drw = None
+    if rel_h is not None and want_drel:
+        drh, drw = torch.empty_like(rel_h), torch.empty_like(rel_w)
+    for kernel, counter in enumerate(("backward_dq_launches",
+                                      "backward_dkv_launches")):
+        _backward_kernel_launch(kernel, q, k, v, dout, lse, delta, rel_h,
+                                rel_w, dq, dk, dv, drh, drw, scale,
+                                num_heads, d, gh, gw)
+        if wrapper is not None:
+            setattr(wrapper, counter, getattr(wrapper, counter) + 1)
+    return dq, dk, dv, drh, drw

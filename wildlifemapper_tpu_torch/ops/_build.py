@@ -2,10 +2,12 @@
 
 `load_kernels()` compiles every `csrc/*.cu` into one shared library with a
 plain C interface, the first time a kernel is launched, and loads it with
-ctypes:
+ctypes. Each source is compiled by an nvcc of its own, all started together,
+and the objects are linked into the library:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o libwm_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -c -o <name>.o csrc/<name>.cu      (one per source)
+    nvcc -shared -o libwm_kernels.so *.o
 
 The library goes to `build/wildlifemapper_tpu_torch/<hash>/` at the root of
 the checkout, keyed on a hash of the sources and the flags, so a changed
@@ -31,7 +33,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / \
     "wildlifemapper_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libwm_kernels.so"
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 
@@ -41,10 +43,13 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _SIGNATURES = {
-    "wm_attention_fwd": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+    "wm_attention_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _I, _I,
                          ctypes.c_float, _P],
+    "wm_attention_bwd": [_I, _I] + [_P] * 13 + [_I] * 5 + [_LL] * 14
+                        + [_I, _I, ctypes.c_float, _P],
     "wm_fused_mlp_fwd": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "wm_fused_mlp_dh": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 
@@ -84,22 +89,32 @@ def build() -> Path:
     if lib.is_file():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sources() if p.suffix == ".cu"]
-    with tempfile.NamedTemporaryFile(dir=out_dir, suffix=".so",
-                                     delete=False) as tmp:
-        tmp_path = Path(tmp.name)
-    try:
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o",
-               str(tmp_path), *cu]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        (out_dir / "build.log").write_text(
-            " ".join(cmd) + "\n" + res.stdout + res.stderr)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{res.stderr[-4000:]}")
-        os.replace(tmp_path, lib)
-    finally:
-        tmp_path.unlink(missing_ok=True)
+    cu = [p for p in sources() if p.suffix == ".cu"]
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs = [Path(tmp) / (p.stem + ".o") for p in cu]
+        cmds = [[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(o),
+                 str(p)] for p, o in zip(cu, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        log = []
+        for cmd, proc in zip(cmds, procs):
+            out, _ = proc.communicate()
+            log.append(" ".join(cmd) + "\n" + out)
+        link = [nvcc, "-shared", "-o", str(Path(tmp) / LIB_NAME),
+                *map(str, objs)]
+        failed = [c for c, p in zip(cmds, procs) if p.returncode != 0]
+        if not failed:
+            res = subprocess.run(link, capture_output=True, text=True)
+            log.append(" ".join(link) + "\n" + res.stdout + res.stderr)
+            if res.returncode != 0:
+                failed = [link]
+        (out_dir / "build.log").write_text("\n".join(log))
+        if failed:
+            raise RuntimeError(f"nvcc failed ({' '.join(failed[0][-3:])}):\n"
+                               + "\n".join(log)[-6000:])
+        os.replace(Path(tmp) / LIB_NAME, lib)
     return lib
 
 
@@ -119,12 +134,6 @@ def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t "
                            f"{err}")
-
-
-def no_backward(kernel: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{kernel}: the backward kernel is not ported yet (ROADMAP queue 2, "
-        "training slice); run serving under torch.inference_mode()")
 
 
 def stream_ptr(t: torch.Tensor) -> int:

@@ -32,3 +32,37 @@ def box_iou_pairwise(a: torch.Tensor, b: torch.Tensor):
     union = area_a[..., :, None] + area_b[..., None, :] - inter
     iou = inter / union.clamp(min=1e-9)
     return iou, union
+
+
+def generalized_box_iou_pairwise(a: torch.Tensor,
+                                 b: torch.Tensor) -> torch.Tensor:
+    """Pairwise GIoU (https://giou.stanford.edu/), xyxy inputs: a
+    (..., N, 4), b (..., M, 4) -> (..., N, M)."""
+    iou, union = box_iou_pairwise(a, b)
+    lt = torch.minimum(a[..., :, None, :2], b[..., None, :, :2])
+    rb = torch.maximum(a[..., :, None, 2:], b[..., None, :, 2:])
+    wh = (rb - lt).clamp(min=0.0)
+    hull = wh[..., 0] * wh[..., 1]
+    return iou - (hull - union) / hull.clamp(min=1e-9)
+
+
+def box_iou_aligned(a: torch.Tensor, b: torch.Tensor):
+    """Elementwise IoU of aligned box arrays (..., 4): (iou, union)."""
+    lt = torch.maximum(a[..., :2], b[..., :2])
+    rb = torch.minimum(a[..., 2:], b[..., 2:])
+    wh = (rb - lt).clamp(min=0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    union = box_area(a) + box_area(b) - inter
+    return inter / union.clamp(min=1e-9), union
+
+
+def generalized_box_iou_aligned(a: torch.Tensor,
+                                b: torch.Tensor) -> torch.Tensor:
+    """Elementwise GIoU of aligned box arrays: the diagonal of the pairwise
+    version, computed in O(N)."""
+    iou, union = box_iou_aligned(a, b)
+    lt = torch.minimum(a[..., :2], b[..., :2])
+    rb = torch.maximum(a[..., 2:], b[..., 2:])
+    wh = (rb - lt).clamp(min=0.0)
+    hull = wh[..., 0] * wh[..., 1]
+    return iou - (hull - union) / hull.clamp(min=1e-9)

@@ -1,22 +1,26 @@
 """Packed cross-attention of the HFC adaptor (K4).
 
 Replaces wildlifemapper_tpu/ops/cross_attention.py::cross_attention_packed
-(:150): bias-free multi-head attention with q (B, N, C) from the patch
+(:150) and its two backward kernels (dq :90, dk/dv :116): bias-free multi-head attention with q (B, N, C) from the patch
 stream and k, v (B, M, C) from the HFC stream, C = 1024 = 8 heads x 128,
 N = M = 4096 (full canvas and compat crop) or 2304 (crop_prologue). The
 kernel is csrc/attention.cu without the bias, at head dim 128 (dynamic
 shared memory above 48 KB); see its header for the H100 bound and design.
 
-On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
-launches the kernel or raises.
+The backward kernels are those of csrc/attention_bwd.cu without rel
+tables, on the lse the forward writes when a gradient is recorded.
+
+On a CPU tensor the wrapper runs the plain version and autograd
+differentiates it; on a CUDA tensor it launches the kernels or raises.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import _build
-from ._attention import attention_launch, attention_plain
+from ._attention import (attention_backward_launch,
+                         attention_backward_plain, attention_launch,
+                         attention_plain)
 
 
 def cross_attention_packed_plain(q, k, v, scale: float,
@@ -25,16 +29,34 @@ def cross_attention_packed_plain(q, k, v, scale: float,
     return attention_plain(q, k, v, scale, num_heads)
 
 
+def cross_attention_packed_backward_plain(q, k, v, out, lse, dout,
+                                          scale: float, num_heads: int):
+    """Plain PyTorch version of the backward kernels: (dq, dk, dv)."""
+    return attention_backward_plain(q, k, v, out, lse, dout, scale,
+                                    num_heads)[:3]
+
+
 class _CrossAttentionFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, scale, num_heads):
-        out = attention_launch(q, k, v, scale, num_heads)
+        need_grad = any(ctx.needs_input_grad[:3])
+        res = attention_launch(q, k, v, scale, num_heads,
+                               return_lse=need_grad)
         cross_attention_packed.launches += 1
+        if not need_grad:
+            return res
+        out, lse = res
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale, ctx.num_heads = scale, num_heads
         return out
 
     @staticmethod
     def backward(ctx, grad):
-        raise _build.no_backward("cross_attention_packed (K4)")
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = attention_backward_launch(
+            q, k, v, out, lse, grad.contiguous(), ctx.scale,
+            ctx.num_heads, wrapper=cross_attention_packed)[:3]
+        return dq, dk, dv, None, None
 
 
 def cross_attention_packed(q, k, v, scale: float,
@@ -48,3 +70,7 @@ def cross_attention_packed(q, k, v, scale: float,
 
 
 cross_attention_packed.launches = 0
+# backward kernels launched, counted where each is launched: the dq kernel
+# and the dk/dv kernel, one of each per backward
+cross_attention_packed.backward_dq_launches = 0
+cross_attention_packed.backward_dkv_launches = 0

@@ -12,11 +12,24 @@ w1 (F, D) and w2 (D, F) are in the torch Linear layout (out, in), in the
 compute dtype; b1 and b2 are f32. Both products accumulate in f32, the GELU
 runs in f32 and its output is rounded to x's dtype (fused_mlp.py:77).
 
-On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
-launches the kernel or raises.
+The backward follows `_mlp_bwd` (fused_mlp.py:139-175): da = g @ w2 rounded
+to x's dtype; the kernel csrc/fused_mlp_bwd.cu (`_bwd_dh_kernel` :120)
+recomputes h = x @ w1^T + b1 on chip and writes a = gelu(h) and
+dh = da * gelu'(h), both in x's dtype, so h never reaches device memory;
+dx = dh @ w1 and the weight and bias gradients are library products and
+reductions, as the JAX package leaves them to XLA. The weight gradients are
+the f32 products of the rounded operands, rounded once to the weight's
+dtype: a bf16 x bf16 product is exact in f32, so the GEMM takes the
+operands in their own dtype and accumulates in f32, with PyTorch's
+reduced-precision (bf16) split-K reduction switched off around it.
+
+On a CPU tensor the wrapper runs the plain version and autograd
+differentiates it; on a CUDA tensor it launches the kernels or raises.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -42,6 +55,77 @@ def _check(x, w1, b1, w2, b2):
                              f"got {tuple(t.shape)} {t.dtype} on {t.device}")
 
 
+def fused_mlp_dh_plain(x, w1, b1, da):
+    """Plain PyTorch version of the backward kernel: (a, dh) from the
+    recomputed f32 h, both rounded to x's dtype."""
+    h = F.linear(x.float(), w1.float(), b1.float())
+    cdf = 0.5 * (1.0 + torch.erf(h * 2.0 ** -0.5))
+    pdf = torch.exp(-0.5 * h * h) * (2.0 * math.pi) ** -0.5
+    return (h * cdf).to(x.dtype), (da.float() * (cdf + h * pdf)).to(x.dtype)
+
+
+def fused_mlp_dh(x, w1, b1, da, want_act: bool = True):
+    """Launch csrc/fused_mlp_bwd.cu on CUDA tensors: (a, dh), each (R, F)
+    in x's dtype; a is None unless `want_act`."""
+    x, w1, b1, da = (t.contiguous() for t in (x, w1, b1, da))
+    r, d = x.shape
+    f = w1.shape[0]
+    want = {"w1": (w1, (f, d), x.dtype), "b1": (b1, (f,), torch.float32),
+            "da": (da, (r, f), x.dtype)}
+    for name, (t, shape, dt) in want.items():
+        if tuple(t.shape) != shape or t.dtype != dt or t.device != x.device:
+            raise ValueError(f"{name}: expected {shape} {dt} on {x.device}, "
+                             f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+    if any(t.data_ptr() % 16 for t in (x, w1, da)):
+        raise ValueError("fused_mlp_dh: x, w1 and da must start on a "
+                         "16-byte boundary")
+    act = torch.empty_like(da) if want_act else None
+    dh = torch.empty_like(da)
+    err = _build.load_kernels().wm_fused_mlp_dh(
+        _build.dtype_code(x), x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+        da.data_ptr(), act.data_ptr() if want_act else None, dh.data_ptr(),
+        r, d, f, _build.stream_ptr(x))
+    _build.check(err, "fused_mlp backward kernel")
+    return act, dh
+
+
+def _weight_grad(rows, cols, like):
+    """rows^T @ cols accumulated in f32 and rounded once to like's dtype.
+    The operands go in as they are: bf16 x bf16 is exact in f32, so this is
+    the f32 product of the rounded operands (fused_mlp.py:168-174) as long
+    as no partial sum is rounded to bf16, which the flag below forbids."""
+    matmul = torch.backends.cuda.matmul
+    keep = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        return torch.matmul(rows.t(), cols).to(like.dtype)
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = keep
+
+
+def _mlp_backward(x, w1, b1, w2, g, dh_fn, needs=(True,) * 5):
+    """`_mlp_bwd` of the JAX package around `dh_fn` (the kernel or its plain
+    version). `needs` says which of (dx, dw1, db1, dw2, db2) are wanted;
+    the others are None."""
+    dt = x.dtype
+    da = torch.matmul(g, w2).to(dt)                           # (R, F)
+    act, dh = dh_fn(x, w1, b1, da, needs[3])
+    dx = torch.matmul(dh, w1).to(dt) if needs[0] else None
+    dw1 = _weight_grad(dh, x, w1) if needs[1] else None
+    db1 = dh.float().sum(0).to(b1.dtype) if needs[2] else None
+    dw2 = _weight_grad(g, act, w2) if needs[3] else None
+    db2 = g.float().sum(0) if needs[4] else None
+    return dx, dw1, db1, dw2, db2
+
+
+def fused_mlp_backward_plain(x, w1, b1, w2, b2, g):
+    """Plain PyTorch version of the whole backward: (dx, dw1, db1, dw2,
+    db2) with the JAX package's rounding points."""
+    return _mlp_backward(
+        x, w1, b1, w2, g,
+        lambda x_, w1_, b1_, da, _: fused_mlp_dh_plain(x_, w1_, b1_, da))
+
+
 class _FusedMlpFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2):
@@ -58,11 +142,21 @@ class _FusedMlpFn(torch.autograd.Function):
             _build.stream_ptr(x))
         _build.check(err, "fused_mlp kernel")
         fused_mlp.launches += 1
+        if any(ctx.needs_input_grad):
+            ctx.save_for_backward(x, w1, b1, w2)
         return out
 
     @staticmethod
     def backward(ctx, grad):
-        raise _build.no_backward("fused_mlp (K3)")
+        x, w1, b1, w2 = ctx.saved_tensors
+
+        def dh_kernel(x_, w1_, b1_, da, want_act):
+            res = fused_mlp_dh(x_, w1_, b1_, da, want_act)
+            fused_mlp.backward_launches += 1
+            return res
+
+        return _mlp_backward(x, w1, b1, w2, grad.contiguous(), dh_kernel,
+                             ctx.needs_input_grad)
 
 
 def fused_mlp(x, w1, b1, w2, b2) -> torch.Tensor:
@@ -78,3 +172,5 @@ def fused_mlp(x, w1, b1, w2, b2) -> torch.Tensor:
 
 
 fused_mlp.launches = 0
+# backward kernels launched (one per backward: a and dh from the recompute)
+fused_mlp.backward_launches = 0

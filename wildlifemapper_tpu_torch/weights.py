@@ -7,11 +7,15 @@ drops it). `state_dict_from_jax` is the exact inverse of
 `wildlifemapper_tpu/compat/torch_convert.py::map_torch_keys`: it turns the
 JAX package's flat parameters ("a/b/kernel" -> numpy array) into the port's
 state dict. Pure numpy plus torch.
+
+The map is linear (transposes and renames), so the same function carries a
+gradient tree or Adam's first and second moments across; `load_adam_state`
+puts such moments into a torch AdamW.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping
+from typing import Dict, Iterable, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -160,3 +164,21 @@ def load_reference_state_dict(model: nn.Module,
         loaded[k] = v.to(target.dtype)
     model.load_state_dict(loaded, strict=True)
     return unexpected
+
+
+def load_adam_state(optimizer: torch.optim.Optimizer,
+                    named_parameters: Iterable[Tuple[str, nn.Parameter]],
+                    mu: Mapping[str, torch.Tensor],
+                    nu: Mapping[str, torch.Tensor], count: int) -> None:
+    """Put Adam moments (state dicts in the port's names, for example
+    `state_dict_from_jax` of optax's mu and nu) and the update count into a
+    torch Adam/AdamW for every parameter the optimizer holds."""
+    held = {id(p) for g in optimizer.param_groups for p in g["params"]}
+    for name, p in named_parameters:
+        if id(p) not in held:
+            continue
+        optimizer.state[p] = {
+            "step": torch.tensor(float(count)),
+            "exp_avg": mu[name].to(p.device, p.dtype).clone(),
+            "exp_avg_sq": nu[name].to(p.device, p.dtype).clone(),
+        }
