@@ -6,48 +6,58 @@ Drives the port's two paths at the full ViT-B width, through its
 hand-written CUDA kernels, and checks them: serving (wildlifemapper_tpu_torch:
 HFC -> ViT-B -> box decoder -> postprocess + NMS) and training (train/step.py:
 forward, set criterion with the Hungarian match, backward through the
-backward kernels, clip, AdamW). Phases, one JSON line each; any failure
-raises and exits non-zero:
+backward kernels, clip, AdamW), each in both layouts of the attention
+kernels: attn_impl="packed" (K1 windowed, K2 global, K3 fused MLP, K4
+adaptor) and attn_impl="grouped" (K6 windowed, K5 global, K4; plain MLP).
+Phases, one JSON line each; any failure raises and exits non-zero:
 
   1. device: the card's name and power limit; build the kernels from
      wildlifemapper_tpu_torch/csrc (timed); TF32 off.
   2. kernels: each kernel against its plain PyTorch version on the card at
      the shapes the serving path gives it, f32 at atol 2e-5 / rtol 1e-4 and
      bf16 (against the plain version in f32 on the same bf16-rounded
-     inputs) at 2e-2.
-  3. end to end: the f32 forward with kernels against the PyTorch
-     reference's logits and boxes in tests/goldens/full_model.npz (weights
-     regenerated from their names), at atol 1e-4 / rtol 1e-3, and the launch
-     counts of one forward (K1 8, K2 4, K3 12, K4 1).
+     inputs) at 2e-2; K5 and K6 also at d = 128 and 32, where their scale
+     on the f32 scores rounds differently from a scaled q.
+  3. end to end: the f32 forward with kernels, in each layout, against the
+     PyTorch reference's logits and boxes in tests/goldens/full_model.npz
+     (weights regenerated from their names), at atol 1e-4 / rtol 1e-3, and
+     the launch counts of one forward (packed: K1 8, K2 4, K3 12, K4 1;
+     grouped: K6 8, K5 4, K4 1 and none of the others).
   4. serving: bf16, batch 4, three batches of 768-px content in a 1024
      canvas through forward + postprocess + NMS in each of the three
-     configurations; finite detections, boxes in range, launch counts; the
-     bf16-kernel against f32-plain drift.
-  5. times: each configuration with kernels and with the plain path, and
-     each kernel against its plain version, with CUDA events.
+     configurations (packed) and in full_canvas and from_scratch (grouped),
+     each layout a run of its own with the counts set to 0 before and read
+     after; finite detections, boxes in range, launch counts; the
+     bf16-kernel against f32-plain drift, and grouped against packed.
+  5. times: each configuration with kernels and with the plain path, the
+     grouped layout beside the packed one, and each kernel against its
+     plain version, with CUDA events.
   6. kernels, backward: the forward's lse, and the gradients that autograd
      takes through each public wrapper on the card, against the plain
-     backward at the training shapes of both configurations (K1 N = 196 and
-     144, K2 and K4 N = 4096 and 2304, K3 R = 16384 and 9216): once with
-     every input requiring a gradient (dqkv written by stride into one
-     packed tensor, drel, the MLP's weight gradients) and once with the
-     activations alone (the frozen encoder), f32 at atol 5e-4 / rtol 1e-3
-     and bf16 at 2e-2 of each output's largest element; K3's bf16 weight
-     gradients also against the f32 product of the same operands.
+     backward at the training shapes of both configurations (K1 and K6
+     N = 196 and 144; K2, K4 and K5 N = 4096 and 2304; K3 R = 16384 and
+     9216): once with every input requiring a gradient (dqkv written by
+     stride into one packed tensor, drel, the MLP's weight gradients; K5
+     with 4-D and with 3-D tables) and once with the activations alone
+     (the frozen encoder), f32 at atol 5e-4 / rtol 1e-3 and bf16 at 2e-2 of
+     each output's largest element; K3's bf16 weight gradients also against
+     the f32 product of the same operands.
   7. train step, parity: f32, one step with kernels against the same step on
      the plain path (same weights, batch and dropout seed) in each training
-     configuration: losses, grad_norm and every trainable gradient at atol
-     5e-4 / rtol 1e-3 and within 1e-3 of its own norm; launch counts.
+     configuration and each layout: losses, grad_norm and every trainable
+     gradient at atol 5e-4 / rtol 1e-3 and within 1e-3 of its own norm;
+     launch counts.
   8. training: bf16, batch 4, three steps on a synthetic uint8 batch in each
-     of the two training configurations (train/synthetic.py): finite
-     losses, trainable parameters moved and frozen ones bit-identical,
-     launch counts forward and backward, peak memory, the loss falling,
-     and one wait for the device per step (the matcher's copy).
-  9. times, training: ms per step with kernels and on the plain path, the
-     matcher's share, each backward kernel against its plain version and
-     against one PyTorch library call where there is one (a yardstick here
-     only), every kernel beside its bound (the larger of its FLOPs over
-     989 TFLOP/s and its bytes over 3.35 TB/s).
+     of the two training configurations (train/synthetic.py), once for each
+     layout: finite losses, trainable parameters moved and frozen ones
+     bit-identical, launch counts forward and backward, peak memory, the
+     loss falling, and one wait for the device per step (the matcher's copy).
+  9. times, training: ms per step with kernels and on the plain path
+     (packed) or beside the packed layout (grouped), the matcher's share,
+     each backward kernel against its plain version and against one PyTorch
+     library call where there is one (a yardstick here only), every kernel
+     beside its bound (the larger of its FLOPs over 989 TFLOP/s and its
+     bytes over 3.35 TB/s).
 
 The last line is {"ok": true, "device": {...}}. Without CUDA, or without the
 rest of the repository beside it, the script fails before any result.
@@ -95,6 +105,8 @@ def ptxas_summary(log: str) -> list:
             args = re.findall(r"Li(\d+)", m.group(2))
             if m.group(2).startswith("f"):
                 args.insert(0, "float")
+            if "Lb1" in m.group(2):        # the grouped family's bodies
+                args.append("scale_scores")
             name = f"{m.group(1)}<{','.join(args)}>"
         m = re.search(r"(\d+) bytes spill stores", line)
         if m and name:
@@ -164,11 +176,16 @@ def main() -> int:
         attention_plain)
     from wildlifemapper_tpu_torch.ops.cross_attention import (
         cross_attention_packed, cross_attention_packed_plain)
+    from wildlifemapper_tpu_torch.ops.flash_attention import (
+        flash_attention_rel_pos, grouped_attention_backward_plain,
+        grouped_attention_plain)
     from wildlifemapper_tpu_torch.ops.flash_attention_v2 import (
         flash_attention_packed, flash_attention_packed_plain)
     from wildlifemapper_tpu_torch.ops.fused_mlp import (
         fused_mlp, fused_mlp_backward_plain, fused_mlp_dh, fused_mlp_dh_plain,
         fused_mlp_plain)
+    from wildlifemapper_tpu_torch.ops.windowed_attention import \
+        windowed_attention_rel_pos
     from wildlifemapper_tpu_torch.ops.windowed_attention_v2 import (
         windowed_attention_packed, windowed_attention_packed_plain)
     from wildlifemapper_tpu_torch.train.criterion import hungarian_match
@@ -213,6 +230,14 @@ def main() -> int:
             plain=cross_attention_packed_plain,
             source="wildlifemapper_tpu_torch/csrc/attention.cu",
             replaces="wildlifemapper_tpu/ops/cross_attention.py:150"),
+        "flash_attention_rel_pos": dict(
+            wrapper=flash_attention_rel_pos, plain=grouped_attention_plain,
+            source="wildlifemapper_tpu_torch/csrc/grouped_attention.cu",
+            replaces="wildlifemapper_tpu/ops/flash_attention.py:207"),
+        "windowed_attention_rel_pos": dict(
+            wrapper=windowed_attention_rel_pos, plain=grouped_attention_plain,
+            source="wildlifemapper_tpu_torch/csrc/grouped_attention.cu",
+            replaces="wildlifemapper_tpu/ops/windowed_attention.py:111"),
     }
 
     # ---- 2. kernels against their plain versions ---------------------------
@@ -228,6 +253,14 @@ def main() -> int:
         return [randn((bw, n, 3 * heads * d)),
                 randn((bw, n, heads, hw[0]), 0.5),
                 randn((bw, n, heads, hw[1]), 0.5), d ** -0.5, heads, hw]
+
+    def grouped_args(bh, hw, d=64):
+        """q, k, v (BH, N, d) per head and the (BH, N, g) tables, as the
+        grouped layout hands them to K5 and K6."""
+        n = hw[0] * hw[1]
+        return [randn((bh, n, d)), randn((bh, n, d)), randn((bh, n, d)),
+                randn((bh, n, hw[0]), 0.5), randn((bh, n, hw[1]), 0.5),
+                d ** -0.5, hw]
 
     def mlp_args(r, d=768, f=3072):
         return [randn((r, d)), randn((f, d), d ** -0.5), randn((f,), 0.1),
@@ -248,6 +281,20 @@ def main() -> int:
         ("cross_attention_packed", "B=4 N=M=2304",
          lambda: [randn((4, 2304, c)), randn((4, 2304, c)),
                   randn((4, 2304, c)), hd ** -0.5, c // hd]),
+        ("windowed_attention_rel_pos", "BWH=4*25*12 N=196",
+         lambda: grouped_args(4 * 25 * 12, (14, 14))),
+        ("windowed_attention_rel_pos", "BWH=4*16*12 N=144",
+         lambda: grouped_args(4 * 16 * 12, (12, 12))),
+        ("flash_attention_rel_pos", "BH=4*12 N=4096",
+         lambda: grouped_args(4 * 12, (64, 64))),
+        ("flash_attention_rel_pos", "BH=4*12 N=2304",
+         lambda: grouped_args(4 * 12, (48, 48))),
+        # d = 128 and 32: scaling the f32 scores and scaling q before the
+        # product round differently in bf16 (they agree at d = 64)
+        ("flash_attention_rel_pos", "BH=8 N=2304 d=128",
+         lambda: grouped_args(8, (48, 48), d=128)),
+        ("windowed_attention_rel_pos", "BWH=96 N=196 d=32",
+         lambda: grouped_args(96, (14, 14), d=32)),
     ]
     # fused_mlp keeps its biases in f32 whatever the compute dtype
     f32_positions = {"fused_mlp": (2, 4)}
@@ -295,39 +342,55 @@ def main() -> int:
                 if hasattr(k["wrapper"], attr):
                     setattr(k["wrapper"], attr, 0)
 
-    per_forward = {"windowed_attention_packed": 8,
+    # launches of one forward: the packed layout (K1, K2, K3, K4) and the
+    # grouped one (K6, K5, K4; its MLP is the plain one)
+    per_forward = {
+        "packed": {"windowed_attention_packed": 8,
                    "flash_attention_packed": 4, "fused_mlp": 12,
-                   "cross_attention_packed": 1}
+                   "cross_attention_packed": 1, "flash_attention_rel_pos": 0,
+                   "windowed_attention_rel_pos": 0},
+        "grouped": {"windowed_attention_packed": 0,
+                    "flash_attention_packed": 0, "fused_mlp": 0,
+                    "cross_attention_packed": 1, "flash_attention_rel_pos": 4,
+                    "windowed_attention_rel_pos": 8}}
+
+    def check_launches(what, got, want):
+        """The counts of one run of a path: exactly `want`, and every kernel
+        of the path launched."""
+        emit("path_launches", path=what, launches=got, want=want)
+        if got != want or not any(want.values()):
+            raise AssertionError(f"{what}: launches {got}, want {want}")
 
     # ---- 3. end to end against the PyTorch reference -----------------------
     npz = np.load(Path(__file__).resolve().parent / "tests" / "goldens"
                   / "full_model.npz")
     golden_sd = meta_to_state_dict(npz["meta"])
-    model = WildlifeMapper(model_config("vit_b", use_flash_attention=True))
-    load_reference_state_dict(model, golden_sd)
-    model.eval()
     x = torch.from_numpy(padded_canvas(seed=107)).to(dev)
-    reset_counts()
-    with torch.inference_mode():
-        out = model(x)
-        torch.cuda.synchronize()
-    e2e_counts = counts()
-    d_logits = float(np.abs(out["pred_logits"].cpu().numpy()
-                            - npz["logits"]).max())
-    d_boxes = float(np.abs(out["pred_boxes"].cpu().numpy()
-                           - npz["boxes"]).max())
-    emit("end_to_end", config="vit_b f32 full canvas, kernels",
-         max_abs_diff_logits=d_logits, max_abs_diff_boxes=d_boxes,
-         atol=1e-4, rtol=1e-3, launches=e2e_counts)
-    np.testing.assert_allclose(out["pred_logits"].cpu().numpy(),
-                               npz["logits"], atol=1e-4, rtol=1e-3)
-    np.testing.assert_allclose(out["pred_boxes"].cpu().numpy(),
-                               npz["boxes"], atol=1e-4, rtol=1e-3)
-    if e2e_counts != per_forward:
-        raise AssertionError(f"launches per forward {e2e_counts}, "
-                             f"want {per_forward}")
-    del model, out
-    torch.cuda.empty_cache()
+    for layout in ("packed", "grouped"):
+        model = WildlifeMapper(model_config(
+            "vit_b", use_flash_attention=True, attn_impl=layout))
+        load_reference_state_dict(model, golden_sd)
+        model.eval()
+        reset_counts()
+        with torch.inference_mode():
+            out = model(x)
+            torch.cuda.synchronize()
+        e2e_counts = counts()
+        d_logits = float(np.abs(out["pred_logits"].cpu().numpy()
+                                - npz["logits"]).max())
+        d_boxes = float(np.abs(out["pred_boxes"].cpu().numpy()
+                               - npz["boxes"]).max())
+        emit("end_to_end", config=f"vit_b f32 full canvas, {layout} kernels",
+             max_abs_diff_logits=d_logits, max_abs_diff_boxes=d_boxes,
+             atol=1e-4, rtol=1e-3)
+        np.testing.assert_allclose(out["pred_logits"].cpu().numpy(),
+                                   npz["logits"], atol=1e-4, rtol=1e-3)
+        np.testing.assert_allclose(out["pred_boxes"].cpu().numpy(),
+                                   npz["boxes"], atol=1e-4, rtol=1e-3)
+        check_launches(f"one f32 forward, {layout}", e2e_counts,
+                       per_forward[layout])
+        del model, out
+        torch.cuda.empty_cache()
 
     # ---- 4. serving in bf16: the main path ---------------------------------
     base_cfg = model_config("vit_b", dtype="bfloat16",
@@ -364,16 +427,29 @@ def main() -> int:
                                    class_aware=False)
         return out, dets
 
+    def serve_all(ms):
+        """One run of a serving path: the counts set to 0 just before it and
+        read just after."""
+        reset_counts()
+        outs = {}
+        with torch.inference_mode():
+            for name, m in ms.items():
+                outs[name] = [serve(m, xb) for xb in batches]
+                torch.cuda.synchronize()
+        return outs, counts()
+
+    # the grouped layout serves the two configurations whose shapes differ:
+    # N = 196 / 4096 and N = 144 / 2304
+    grouped_configs = {
+        name: dataclasses.replace(configs[name], attn_impl="grouped")
+        for name in ("full_canvas", "from_scratch")}
     models = {name: build(cfg) for name, cfg in configs.items()}
-    reset_counts()                 # the main path's run starts here
-    served = {}
-    with torch.inference_mode():
-        for name, m in models.items():
-            outs = [serve(m, xb) for xb in batches]
-            torch.cuda.synchronize()
-            served[name] = outs
-    main_counts = counts()         # ... and ends here
-    for name, outs in served.items():
+    grouped_models = {name: build(cfg)
+                      for name, cfg in grouped_configs.items()}
+    served, main_counts = serve_all(models)
+    grouped_served, grouped_counts = serve_all(grouped_models)
+    for name, outs in list(served.items()) + [
+            (f"{n} grouped", o) for n, o in grouped_served.items()]:
         for out, dets in outs:
             pb, bx = out["pred_boxes"], dets["boxes"]
             ok = (torch.isfinite(out["pred_logits"]).all()
@@ -387,11 +463,28 @@ def main() -> int:
         emit("serving", config=name, batch=BATCH, batches=len(outs),
              detections_kept=keep,
              pred_shape=list(outs[0][0]["pred_logits"].shape))
-    want = {n: v * N_BATCHES * len(configs) for n, v in per_forward.items()}
-    emit("main_path_launches", launches=main_counts, want=want)
-    if main_counts != want or min(main_counts.values()) == 0:
-        raise AssertionError(f"main path launches {main_counts}, "
-                             f"want {want}")
+    check_launches("serving, packed", main_counts, {
+        n: v * N_BATCHES * len(configs)
+        for n, v in per_forward["packed"].items()})
+    check_launches("serving, grouped", grouped_counts, {
+        n: v * N_BATCHES * len(grouped_configs)
+        for n, v in per_forward["grouped"].items()})
+
+    def drift(out, ref):
+        p_a = torch.softmax(out["pred_logits"].float(), -1)[..., :-1]
+        p_b = torch.softmax(ref["pred_logits"].float(), -1)[..., :-1]
+        return dict(
+            max_class_prob_diff=(p_a - p_b).abs().max().item(),
+            max_box_diff_px=((out["pred_boxes"].float()
+                              - ref["pred_boxes"].float())
+                             .abs().max().item() * 1024),
+            label_agreement=(p_a.argmax(-1) == p_b.argmax(-1))
+            .float().mean().item())
+
+    # the two layouts are one function: same weights, same batch, bf16
+    for name, outs in grouped_served.items():
+        emit("grouped_against_packed", config=name, dtype="bfloat16",
+             **drift(outs[0][0], served[name][0][0]))
 
     # bf16 with kernels against f32 on the plain path, same weights/input
     with torch.inference_mode():
@@ -399,20 +492,16 @@ def main() -> int:
             ref_m = build(dataclasses.replace(cfg, dtype="float32",
                                               use_flash_attention=False))
             ref = ref_m(batches[0])
-            out = served[name][0][0]
-            p16 = torch.softmax(out["pred_logits"], -1)[..., :-1]
-            p32 = torch.softmax(ref["pred_logits"], -1)[..., :-1]
             emit("bf16_drift", config=name,
-                 max_class_prob_diff=(p16 - p32).abs().max().item(),
-                 max_box_diff_px=((out["pred_boxes"] - ref["pred_boxes"])
-                                  .abs().max().item() * 1024),
-                 label_agreement=(p16.argmax(-1) == p32.argmax(-1))
-                 .float().mean().item())
+                 **drift(served[name][0][0], ref))
+            if name in grouped_served:
+                emit("bf16_drift", config=f"{name} grouped",
+                     **drift(grouped_served[name][0][0], ref))
             del ref_m, ref
             torch.cuda.empty_cache()
 
     # ---- 5. times ------------------------------------------------------------
-    del served
+    del served, grouped_served
     with torch.inference_mode():
         for name, cfg in configs.items():
             plain_m = build(dataclasses.replace(cfg,
@@ -428,6 +517,16 @@ def main() -> int:
                  tiles_per_s_plain=BATCH * 1000 / ms_plain)
             del plain_m
             torch.cuda.empty_cache()
+        for name, grouped_m in grouped_models.items():
+            kern_m = models[name]
+            ms_packed, ms_grouped = paired_ms(
+                lambda: serve(kern_m, batches[0]),
+                lambda: serve(grouped_m, batches[0]), iters=3)
+            emit("serving_time", config=f"{name} grouped", dtype="bfloat16",
+                 batch=BATCH, gpu=gpu, ms_per_batch_grouped=ms_grouped,
+                 ms_per_batch_packed=ms_packed,
+                 tiles_per_s_grouped=BATCH * 1000 / ms_grouped,
+                 tiles_per_s_packed=BATCH * 1000 / ms_packed)
 
         kernel_ms = {}
         for name, (shape, args) in kernel_inputs.items():
@@ -437,8 +536,9 @@ def main() -> int:
             kernel_ms[name] = (ms_kern, ms_plain)
             emit("kernel_time", kernel=name, shape=shape, dtype="bfloat16",
                  gpu=gpu, ms=ms_kern, plain_ms=ms_plain)
-    serving_counts = main_counts
-    del models
+    serving_counts = {n: main_counts[n] + grouped_counts[n]
+                      for n in main_counts}
+    del models, grouped_models
     torch.cuda.empty_cache()
 
     # ---- 6. backward kernels against their plain versions -------------------
@@ -591,6 +691,85 @@ def main() -> int:
         del base, dout32, dout
         torch.cuda.empty_cache()
 
+    # K5 and K6: q, k, v per head and the tables; K5 once with the encoder's
+    # 4-D tables (BH, qh, qw, W), whose gradients must come back 4-D, and
+    # once with 3-D ones. "Activations only" here is q, k and v: without a
+    # table gradient the dq kernel skips the drel reduction.
+    grouped_cases = [
+        ("K6", "BWH=4*25*12 N=196", (14, 14), 4 * 25 * 12, 3),
+        ("K6", "BWH=4*16*12 N=144", (12, 12), 4 * 16 * 12, 3),
+        ("K5", "BH=4*12 N=4096", (64, 64), 4 * 12, 4),
+        ("K5", "BH=4*12 N=2304", (48, 48), 4 * 12, 3),
+    ]
+    wrappers.update(K5=flash_attention_rel_pos, K6=windowed_attention_rel_pos)
+    grad_names = ("dq", "dk", "dv", "drel_h", "drel_w")
+    for kid, shape, hw, bh, table_dims in grouped_cases:
+        base = grouped_args(bh, hw)[:5]
+        if table_dims == 4:
+            base[3] = base[3].reshape(bh, *hw, hw[0])
+            base[4] = base[4].reshape(bh, *hw, hw[1])
+        scale, n = 64 ** -0.5, hw[0] * hw[1]
+        dout32 = randn(base[0].shape)
+        for dt in (torch.float32, torch.bfloat16):
+            dout = dout32.to(dt)
+            ref = None
+            for frozen in (False, True):
+                tensors = [t.to(dt).detach().requires_grad_(
+                    i < 3 or not frozen) for i, t in enumerate(base)]
+                got = through_wrapper(wrappers[kid], tensors, (scale, hw),
+                                      dout, attn_counters)
+                if ref is None:
+                    with torch.no_grad():
+                        q, k, v, rh, rw = (t.detach() for t in tensors)
+                        # the kernels' own operands: one head, BH batches
+                        rh4 = rh.reshape(bh, n, 1, hw[0])
+                        rw4 = rw.reshape(bh, n, 1, hw[1])
+                        out, lse = attention_launch(
+                            q, k, v, scale, 1, rh4, rw4, return_lse=True,
+                            scale_scores=True)
+                        _, lse_ref = grouped_attention_plain(
+                            q, k, v, rh, rw, scale, hw, return_lse=True)
+                        lse_tol = 2e-5 if dt == torch.float32 else 2e-2
+                        lse_err = (lse[..., 0] - lse_ref).abs().max().item()
+                        emit("backward_check", kernel=f"{kid} forward",
+                             output="lse", shape=shape,
+                             dtype=str(dt).replace("torch.", ""),
+                             max_abs_err=lse_err,
+                             bound=f"atol=rtol={lse_tol}")
+                        if not torch.allclose(lse[..., 0], lse_ref,
+                                              atol=lse_tol, rtol=lse_tol):
+                            raise AssertionError(
+                                f"{kid} {shape} {dt}: lse disagrees (max "
+                                f"abs err {lse_err})")
+                        ref = grouped_attention_backward_plain(
+                            q, k, v, rh, rw, out, lse[..., 0], dout, scale,
+                            hw)
+                        del lse_ref
+                if len(got) != (3 if frozen else 5):
+                    raise AssertionError(f"{kid}: {len(got)} gradients")
+                for g, t in zip(got, tensors):
+                    if g.shape != t.shape or g.dtype != t.dtype:
+                        raise AssertionError(
+                            f"{kid} {shape}: gradient {tuple(g.shape)} "
+                            f"{g.dtype} for input {tuple(t.shape)} {t.dtype}")
+                what = (f"{kid} {shape} through the wrapper, {table_dims}-D "
+                        "tables, " + ("q, k, v only" if frozen
+                                      else "every input"))
+                errs = {nm: grads_close(what, (g,), (r,), dt, (nm,))
+                        for nm, g, r in zip(grad_names, got, ref)}
+                bwd_err[f"{kid}_dq"] = max(
+                    bwd_err.get(f"{kid}_dq", 0.0),
+                    *(e for nm, e in errs.items() if nm not in ("dk", "dv")))
+                bwd_err[f"{kid}_dkv"] = max(bwd_err.get(f"{kid}_dkv", 0.0),
+                                            errs["dk"], errs["dv"])
+                del got, tensors
+            if dt == torch.bfloat16 and kid not in bwd_inputs:
+                bwd_inputs[kid] = (shape, 1, 64, scale,
+                                   (q, k, v, out, lse, dout, rh4, rw4))
+            del ref, out, lse, q, k, v, rh, rw, rh4, rw4
+        del base, dout32, dout
+        torch.cuda.empty_cache()
+
     mlp_names = ("dx", "dw1", "db1", "dw2", "db2")
     mlp_counters = ("launches", "backward_launches")
     for shape, rows in (("R=4*4096", 4 * 4096), ("R=4*2304", 4 * 2304)):
@@ -643,9 +822,12 @@ def main() -> int:
         return {k: torch.from_numpy(v).to(dev) for k, v in
                 synthetic_batch(batch_size, seed).items()}
 
-    def build_trainer(name, dtype, use_kernels, batch_size, clip=None):
+    def build_trainer(name, dtype, use_kernels, batch_size, clip=None,
+                      layout="packed"):
         cfg = training_config(name, dtype=dtype, use_kernels=use_kernels,
                               batch_size=batch_size)
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, attn_impl=layout))
         if clip is not None:
             cfg = dataclasses.replace(cfg, train=dataclasses.replace(
                 cfg.train, clip_max_norm=clip))
@@ -655,16 +837,17 @@ def main() -> int:
 
     # kernel launches of one train step, by counter: each attention
     # backward launches its dq kernel and its dk/dv kernel, K3's its one
-    def per_step(with_k4):
-        fwd = dict(per_forward, cross_attention_packed=int(with_k4))
+    def per_step(with_k4, layout="packed"):
+        fwd = dict(per_forward[layout], cross_attention_packed=int(with_k4))
         attn = {n: v for n, v in fwd.items() if n != "fused_mlp"}
-        return {"launches": fwd, "backward_launches": {"fused_mlp": 12},
+        return {"launches": fwd,
+                "backward_launches": {"fused_mlp": fwd["fused_mlp"]},
                 "backward_dq_launches": attn, "backward_dkv_launches": attn}
 
     def all_counts():
         return {attr: counts(attr) for attr in count_names}
 
-    def step_parity(name, batch_size, with_k4):
+    def step_parity(name, batch_size, with_k4, layout="packed"):
         """One f32 step with kernels against the same step on the plain
         path: same weights, batch and dropout seed, no clipping (so that
         the raw gradients stay in .grad)."""
@@ -672,17 +855,17 @@ def main() -> int:
         parity = {}
         for path, use_kernels in (("kernels", True), ("plain", False)):
             sb, state = build_trainer(name, "float32", use_kernels,
-                                      batch_size, clip=1e9)
+                                      batch_size, clip=1e9, layout=layout)
             reset_counts()
             _, metrics = sb.train_step(
                 state, batch, torch.Generator(device=dev).manual_seed(5))
             torch.cuda.synchronize()
             if use_kernels:
                 got_counts = all_counts()
-                if got_counts != per_step(with_k4):
-                    raise AssertionError(f"{name}: f32 step launches "
-                                         f"{got_counts}, want "
-                                         f"{per_step(with_k4)}")
+                if got_counts != per_step(with_k4, layout):
+                    raise AssertionError(f"{name} {layout}: f32 step "
+                                         f"launches {got_counts}, want "
+                                         f"{per_step(with_k4, layout)}")
             parity[path] = (
                 {k: v.item() for k, v in metrics.items()},
                 {n: p.grad.clone() for n, p in sb.model.named_parameters()
@@ -715,7 +898,8 @@ def main() -> int:
                     f"{err}, relative {rel_p})")
         num = sum(((g_k[n] - g_p[n]) ** 2).sum() for n in g_p).sqrt().item()
         rel = num / max(m_p["grad_norm"], 1e-12)
-        emit("train_step_parity", config=f"{name} f32 batch {batch_size}",
+        emit("train_step_parity",
+             config=f"{name} {layout} f32 batch {batch_size}",
              metrics_kernels=m_k, metrics_plain=m_p, gradients=len(g_p),
              max_abs_grad_err=worst, worst_gradient=worst_name,
              max_relative_err_of_one_gradient=worst_rel,
@@ -733,118 +917,147 @@ def main() -> int:
 
     # every gradient, rel tables and MLP weights included; then the frozen
     # encoder, where the backward kernels write activation gradients only
-    step_parity("from_scratch", 2, with_k4=True)
-    step_parity("fine_tune", 1, with_k4=False)
+    for layout in ("packed", "grouped"):
+        step_parity("from_scratch", 2, with_k4=True, layout=layout)
+        step_parity("fine_tune", 1, with_k4=False, layout=layout)
     torch.cuda.empty_cache()
 
-    # ---- 8. training in bf16: the second main path --------------------------
-    batch4 = train_batch(BATCH, seed=11)
-    trainers, train_metrics, train_mem = {}, {}, {}
-    snapshots = {}
-    for name in ("fine_tune", "from_scratch"):
-        trainers[name] = build_trainer(name, "bfloat16", True, BATCH)
-        snapshots[name] = {n: p.detach().clone() for n, p in
-                           trainers[name][0].model.named_parameters()}
-    gen = torch.Generator(device=dev).manual_seed(3)
-    reset_counts()                 # the training path's run starts here
-    for name, (sb, state) in trainers.items():
-        torch.cuda.reset_peak_memory_stats()
-        steps = []
-        for _ in range(TRAIN_STEPS):
-            _, metrics = sb.train_step(state, batch4, gen)
-            steps.append(metrics)
-        torch.cuda.synchronize()
-        train_metrics[name] = [{k: v.item() for k, v in m.items()}
-                               for m in steps]
-        train_mem[name] = torch.cuda.max_memory_allocated()
-    train_counts = all_counts()
-    # ... and ends here
-    want_counts = {}
-    for with_k4 in (False, True):          # fine_tune, from_scratch
-        for attr, per in per_step(with_k4).items():
-            tot = want_counts.setdefault(attr, {})
-            for n, v in per.items():
-                tot[n] = tot.get(n, 0) + v * TRAIN_STEPS
-    emit("training_path_launches", launches=train_counts, want=want_counts)
-    if (train_counts != want_counts
-            or min(v for per in want_counts.values()
-                   for v in per.values()) == 0):
-        raise AssertionError(f"training path launches {train_counts}, want "
-                             f"{want_counts}")
-    for name, (sb, state) in trainers.items():
-        ms = train_metrics[name]
-        moved = frozen_same = 0
-        for n, p in sb.model.named_parameters():
-            same = torch.equal(p.detach(), snapshots[name][n])
-            if p.requires_grad and same:
-                raise AssertionError(f"{name}: trainable {n} did not move")
-            if not p.requires_grad and not same:
-                raise AssertionError(f"{name}: frozen {n} changed")
-            moved += p.requires_grad
-            frozen_same += not p.requires_grad
-        finite = all(np.isfinite(v) for m in ms for v in m.values())
-        emit("training", config=name, dtype="bfloat16", batch=BATCH,
-             steps=TRAIN_STEPS, gpu=gpu, loss=[m["loss"] for m in ms],
-             grad_norm=[m["grad_norm"] for m in ms],
-             num_boxes=ms[0]["num_boxes"], parameters_moved=moved,
-             parameters_frozen_identical=frozen_same,
-             peak_memory_bytes=train_mem[name])
-        if not finite:
-            raise AssertionError(f"{name}: non-finite training metrics {ms}")
-        if name == "from_scratch" and not ms[-1]["loss"] < ms[0]["loss"]:
-            raise AssertionError(f"from_scratch: loss did not fall over "
-                                 f"{TRAIN_STEPS} steps on one batch: "
-                                 f"{[m['loss'] for m in ms]}")
-    del snapshots
-
-    # One more step of each configuration under PyTorch's sync debug mode,
-    # which warns at every call that waits for the device: the copy of the
-    # matching cost to the host (ops/lsap.py) must be the only one.
+    # ---- 8. training in bf16: the second main path, once for each layout -----
+    # ---- 9. times: train steps and the matcher -------------------------------
     import warnings
-    for name, (sb, state) in trainers.items():
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                sb.train_step(state, batch4, gen)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        waits = [str(w.message)[:200] for w in caught
-                 if "synchroniz" in str(w.message).lower()]
-        emit("train_step_host_waits", config=name, waits=len(waits),
-             want=1, messages=waits)
-        if len(waits) != 1:
-            raise AssertionError(f"{name}: a train step waited for the "
-                                 f"device {len(waits)} times, want 1: "
-                                 f"{waits}")
 
-    # ---- 9. times: train steps, the matcher, the backward kernels -----------
-    for name, (sb, state) in trainers.items():
-        plain_sb, plain_state = build_trainer(name, "bfloat16", False, BATCH)
-        torch.cuda.reset_peak_memory_stats()
-        ms_plain, ms_kern = paired_ms(
-            lambda: plain_sb.train_step(plain_state, batch4, gen),
-            lambda: sb.train_step(state, batch4, gen), iters=2)
-        with torch.no_grad():
-            out = sb.model(sb.images(batch4))
+    batch4 = train_batch(BATCH, seed=11)
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def training_path(layout):
+        """Three bf16 steps at batch 4 in both training configurations with
+        the kernels of `layout`: the counts set to 0 just before the run and
+        read just after, the checks of what came out, one more step under
+        the sync debug mode, and the step's time beside the other path's
+        (the plain path for the packed layout, the packed layout for the
+        grouped one). Returns the run's counts."""
+        trainers, train_metrics, train_mem, snapshots = {}, {}, {}, {}
+        # what the earlier phases still hold (kernel inputs kept for the
+        # timings): part of every peak below
+        resident = torch.cuda.memory_allocated()
+        for name in ("fine_tune", "from_scratch"):
+            trainers[name] = build_trainer(name, "bfloat16", True, BATCH,
+                                           layout=layout)
+            snapshots[name] = {n: p.detach().clone() for n, p in
+                               trainers[name][0].model.named_parameters()}
+        reset_counts()             # the training path's run starts here
+        for name, (sb, state) in trainers.items():
+            torch.cuda.reset_peak_memory_stats()
+            steps = []
+            for _ in range(TRAIN_STEPS):
+                _, metrics = sb.train_step(state, batch4, gen)
+                steps.append(metrics)
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(5):
-                hungarian_match(out, batch4, sb.cfg.criterion)
+            train_metrics[name] = [{k: v.item() for k, v in m.items()}
+                                   for m in steps]
+            train_mem[name] = torch.cuda.max_memory_allocated()
+        train_counts = all_counts()
+        # ... and ends here
+        want_counts = {}
+        for with_k4 in (False, True):          # fine_tune, from_scratch
+            for attr, per in per_step(with_k4, layout).items():
+                tot = want_counts.setdefault(attr, {})
+                for n, v in per.items():
+                    tot[n] = tot.get(n, 0) + v * TRAIN_STEPS
+        emit("training_path_launches", layout=layout, launches=train_counts,
+             want=want_counts)
+        if train_counts != want_counts:
+            raise AssertionError(f"training path, {layout}: launches "
+                                 f"{train_counts}, want {want_counts}")
+        for name, (sb, state) in trainers.items():
+            ms = train_metrics[name]
+            moved = frozen_same = 0
+            for n, p in sb.model.named_parameters():
+                same = torch.equal(p.detach(), snapshots[name][n])
+                if p.requires_grad and same:
+                    raise AssertionError(f"{name}: trainable {n} did not "
+                                         "move")
+                if not p.requires_grad and not same:
+                    raise AssertionError(f"{name}: frozen {n} changed")
+                moved += p.requires_grad
+                frozen_same += not p.requires_grad
+            finite = all(np.isfinite(v) for m in ms for v in m.values())
+            emit("training", config=name, layout=layout, dtype="bfloat16",
+                 batch=BATCH, steps=TRAIN_STEPS, gpu=gpu,
+                 loss=[m["loss"] for m in ms],
+                 grad_norm=[m["grad_norm"] for m in ms],
+                 num_boxes=ms[0]["num_boxes"], parameters_moved=moved,
+                 parameters_frozen_identical=frozen_same,
+                 peak_memory_bytes=train_mem[name],
+                 allocated_before_the_trainers_bytes=resident)
+            if not finite:
+                raise AssertionError(f"{name}: non-finite training metrics "
+                                     f"{ms}")
+            if name == "from_scratch" and not ms[-1]["loss"] < ms[0]["loss"]:
+                raise AssertionError(f"from_scratch: loss did not fall over "
+                                     f"{TRAIN_STEPS} steps on one batch: "
+                                     f"{[m['loss'] for m in ms]}")
+        del snapshots
+
+        # One more step of each configuration under PyTorch's sync debug
+        # mode, which warns at every call that waits for the device: the copy
+        # of the matching cost to the host (ops/lsap.py) must be the only one.
+        for name, (sb, state) in trainers.items():
             torch.cuda.synchronize()
-            matcher_ms = (time.perf_counter() - t0) * 1000 / 5
-        emit("train_step_time", config=name, dtype="bfloat16", batch=BATCH,
-             gpu=gpu, ms_per_step_kernels=ms_kern, ms_per_step_plain=ms_plain,
-             tiles_per_s_kernels=BATCH * 1000 / ms_kern,
-             tiles_per_s_plain=BATCH * 1000 / ms_plain,
-             matcher_host_ms=matcher_ms, matcher_share=matcher_ms / ms_kern,
-             peak_memory_bytes_kernels=train_mem[name],
-             peak_memory_bytes_both_paths=torch.cuda.max_memory_allocated())
-        del plain_sb, plain_state, out
-        torch.cuda.empty_cache()
-    del trainers
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    sb.train_step(state, batch4, gen)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            waits = [str(w.message)[:200] for w in caught
+                     if "synchroniz" in str(w.message).lower()]
+            emit("train_step_host_waits", config=name, layout=layout,
+                 waits=len(waits), want=1, messages=waits)
+            if len(waits) != 1:
+                raise AssertionError(f"{name}: a train step waited for the "
+                                     f"device {len(waits)} times, want 1: "
+                                     f"{waits}")
+
+        other = "plain" if layout == "packed" else "packed"
+        for name, (sb, state) in trainers.items():
+            other_sb, other_state = build_trainer(
+                name, "bfloat16", other == "packed", BATCH)
+            torch.cuda.reset_peak_memory_stats()
+            ms_other, ms_kern = paired_ms(
+                lambda: other_sb.train_step(other_state, batch4, gen),
+                lambda: sb.train_step(state, batch4, gen), iters=2)
+            with torch.no_grad():
+                out = sb.model(sb.images(batch4))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(5):
+                    hungarian_match(out, batch4, sb.cfg.criterion)
+                torch.cuda.synchronize()
+                matcher_ms = (time.perf_counter() - t0) * 1000 / 5
+            emit("train_step_time", config=name, layout=layout,
+                 dtype="bfloat16", batch=BATCH, gpu=gpu,
+                 ms_per_step_kernels=ms_kern,
+                 tiles_per_s_kernels=BATCH * 1000 / ms_kern,
+                 matcher_host_ms=matcher_ms,
+                 matcher_share=matcher_ms / ms_kern,
+                 peak_memory_bytes_kernels=train_mem[name],
+                 peak_memory_bytes_both_paths=torch.cuda
+                 .max_memory_allocated(),
+                 **{f"ms_per_step_{other}": ms_other,
+                    f"tiles_per_s_{other}": BATCH * 1000 / ms_other})
+            del other_sb, other_state, out
+            torch.cuda.empty_cache()
+        return train_counts
+
+    path_counts = {layout: training_path(layout)
+                   for layout in ("packed", "grouped")}
     torch.cuda.empty_cache()
+    train_counts = {
+        attr: {n: path_counts["packed"][attr][n]
+               + path_counts["grouped"][attr][n] for n in per}
+        for attr, per in path_counts["packed"].items()}
 
     import torch.nn.functional as F
 
@@ -876,19 +1089,32 @@ def main() -> int:
                                                 retain_graph=True)
 
     ids = {"K1": "windowed_attention_packed", "K2": "flash_attention_packed",
-           "K4": "cross_attention_packed"}
+           "K4": "cross_attention_packed", "K5": "flash_attention_rel_pos",
+           "K6": "windowed_attention_rel_pos"}
     replaces_fwd = {"K1": "windowed_attention_v2.py:227",
                     "K2": "flash_attention_v2.py:199",
-                    "K4": "cross_attention.py:160"}
+                    "K4": "cross_attention.py:160",
+                    "K5": "flash_attention.py:230",
+                    "K6": "windowed_attention.py:144"}
+    # K5's one Pallas backward kernel became the two kernels here
     replaces_bwd = {"K1": ("windowed_attention_v2.py:260",) * 2,
                     "K2": ("flash_attention_v2.py:364",
                            "flash_attention_v2.py:392"),
-                    "K4": ("cross_attention.py:208", "cross_attention.py:227")}
-    for kid in ("K1", "K2", "K4"):
+                    "K4": ("cross_attention.py:208", "cross_attention.py:227"),
+                    "K5": ("flash_attention.py:268",) * 2,
+                    "K6": ("windowed_attention.py:173",) * 2}
+    grouped_cu = "wildlifemapper_tpu_torch/csrc/grouped_attention.cu"
+    grouped_bwd_cu = "wildlifemapper_tpu_torch/csrc/grouped_attention_bwd.cu"
+    for kid in ("K1", "K2", "K4", "K5", "K6"):
+        # K5 and K6 arrive as their kernels take them: (BH, N, d) is the
+        # family's layout with one head, tables (BH, N, 1, g), lse (BH, N, 1)
         shape, heads, d, scale, tensors = bwd_inputs.pop(kid)
         q, k, v, out, lse, dout, rh, rw = tensors
         b, n, m = q.shape[0], q.shape[1], k.shape[1]
         wname = ids[kid]
+        ss = kid in ("K5", "K6")       # the scale goes on the f32 scores
+        fwd_cu, back_cu = ((grouped_cu, grouped_bwd_cu) if ss
+                           else (attn_cu, bwd_cu))
         lib_fwd, lib_bwd = sdpa_pair(q, k, v, rh, rw, heads, scale)
         with torch.no_grad():
             lib_fwd_ms = time_ms(lib_fwd)
@@ -898,7 +1124,7 @@ def main() -> int:
         mac = b * heads * n * m * d
         stats = [lse, lse]             # lse and delta, (B, N, H) f32 each
         fb, fby = bound_ms(4 * mac, nbytes(q, k, v, out, rh, rw))
-        entry(wname, attn_cu, jax_ops + replaces_fwd[kid],
+        entry(wname, fwd_cu, jax_ops + replaces_fwd[kid],
               launches=serving_counts[wname] + train_counts["launches"][wname],
               launches_serving=serving_counts[wname],
               launches_training=train_counts["launches"][wname],
@@ -910,7 +1136,7 @@ def main() -> int:
 
         def both():
             return attention_backward_launch(q, k, v, out, lse, dout, scale,
-                                             heads, rh, rw)
+                                             heads, rh, rw, scale_scores=ss)
 
         def one(kernel, want_drel=True):
             """One backward kernel alone, on buffers made beforehand."""
@@ -921,11 +1147,11 @@ def main() -> int:
             grid = (rh.shape[-1], rw.shape[-1]) if rh is not None else (0, 0)
             return lambda: _backward_kernel_launch(
                 kernel, q, k, v, dout, lse, delta, rh, rw, *grads, *drel,
-                scale, heads, d, *grid)
+                scale, heads, d, *grid, scale_scores=ss)
 
         def plain():
             return attention_backward_plain(q, k, v, out, lse, dout, scale,
-                                            heads, rh, rw)
+                                            heads, rh, rw, scale_scores=ss)
 
         with torch.no_grad():
             ms_plain, ms_both = paired_ms(plain, both)
@@ -941,19 +1167,20 @@ def main() -> int:
              dkv_ms=ms_dkv, both_ms=ms_both, plain_ms=ms_plain,
              library_forward_ms=lib_fwd_ms, library_backward_ms=lib_bwd_ms)
         tc = train_counts
-        if kid == "K1":
-            entry(wname + "_backward", bwd_cu,
+        if kid in ("K1", "K6"):
+            entry(wname + "_backward", back_cu,
                   jax_ops + replaces_bwd[kid][0],
                   launches=tc["backward_dq_launches"][wname]
                   + tc["backward_dkv_launches"][wname], shape=shape,
-                  max_abs_err=max(bwd_err["K1_dq"], bwd_err["K1_dkv"]),
+                  max_abs_err=max(bwd_err[f"{kid}_dq"],
+                                  bwd_err[f"{kid}_dkv"]),
                   ms=ms_both, plain_ms=ms_plain, bound_ms=both_b[0],
                   bound_by=both_b[1], library_ms=lib_bwd_ms,
                   library="autograd through scaled_dot_product_attention "
                           "(dq, dk, dv; no rel-table gradient)",
                   kernels_per_backward=2, dq_ms=ms_dq, dkv_ms=ms_dkv)
         else:
-            entry(wname + "_backward_dq", bwd_cu,
+            entry(wname + "_backward_dq", back_cu,
                   jax_ops + replaces_bwd[kid][0],
                   launches=tc["backward_dq_launches"][wname], shape=shape,
                   max_abs_err=bwd_err[f"{kid}_dq"], ms=ms_dq,
@@ -961,7 +1188,7 @@ def main() -> int:
                   bound_ms=dq_b[0], bound_by=dq_b[1], library_ms=lib_bwd_ms,
                   library="autograd through scaled_dot_product_attention",
                   library_covers="dq + dk/dv (one call)")
-            entry(wname + "_backward_dkv", bwd_cu,
+            entry(wname + "_backward_dkv", back_cu,
                   jax_ops + replaces_bwd[kid][1],
                   launches=tc["backward_dkv_launches"][wname], shape=shape,
                   max_abs_err=bwd_err[f"{kid}_dkv"], ms=ms_dkv,
@@ -1006,7 +1233,11 @@ def main() -> int:
              "flash_attention_packed_backward_dkv", "fused_mlp",
              "fused_mlp_backward_dh", "cross_attention_packed",
              "cross_attention_packed_backward_dq",
-             "cross_attention_packed_backward_dkv"]
+             "cross_attention_packed_backward_dkv",
+             "flash_attention_rel_pos", "flash_attention_rel_pos_backward_dq",
+             "flash_attention_rel_pos_backward_dkv",
+             "windowed_attention_rel_pos",
+             "windowed_attention_rel_pos_backward"]
     for e in report.values():
         if e["launches"] <= 0:
             raise AssertionError(f"{e['name']}: not launched on the main path")

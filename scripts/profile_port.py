@@ -1,14 +1,18 @@
 """Where the serving or training time of the PyTorch port goes, on a CUDA GPU.
 
     python scripts/profile_port.py [--config full_canvas|compat_crop|from_scratch]
-                                   [--plain] [--batch 4] [--iters 3]
-    python scripts/profile_port.py --train fine_tune|from_scratch [--plain]
+                                   [--plain | --attn-impl grouped]
+                                   [--batch 4] [--iters 3]
+    python scripts/profile_port.py --train fine_tune|from_scratch
+                                   [--plain | --attn-impl grouped]
 
 Runs forward + postprocess + NMS, or with --train whole train steps on a
 synthetic batch (train/synthetic.py), at ViT-B width in bf16 (random weights
 from a seed) under torch.profiler and prints JSON lines: the device time by
 kernel name (top 15), the summed device time, the wall time and the device
 idle share over the profiled window, with the card's name and power limit.
+--attn-impl picks the kernels' layout: packed (K1, K2, K3, K4; the default)
+or grouped (K6, K5, K4 and the plain MLP).
 """
 
 from __future__ import annotations
@@ -35,9 +39,9 @@ from wildlifemapper_tpu_torch.train.synthetic import (  # noqa: E402
     TRAINING_CONFIGS, synthetic_batch, training_config)
 
 
-def config(name: str, plain: bool):
+def config(name: str, plain: bool, attn_impl: str = "packed"):
     cfg = model_config("vit_b", dtype="bfloat16",
-                       use_flash_attention=not plain)
+                       use_flash_attention=not plain, attn_impl=attn_impl)
     if name == "compat_crop":
         cfg = dataclasses.replace(cfg, content_size=768)
     elif name == "from_scratch":
@@ -54,6 +58,10 @@ def main() -> int:
                     choices=["full_canvas", "compat_crop", "from_scratch"])
     ap.add_argument("--plain", action="store_true",
                     help="plain PyTorch path (use_flash_attention=False)")
+    ap.add_argument("--attn-impl", default="packed",
+                    choices=["packed", "grouped"],
+                    help="layout of the attention kernels (ignored with "
+                         "--plain)")
     ap.add_argument("--train", choices=TRAINING_CONFIGS, default=None,
                     help="profile train steps in this training configuration "
                          "instead of serving")
@@ -88,6 +96,8 @@ def main() -> int:
     if args.train:
         cfg = training_config(args.train, use_kernels=not args.plain,
                               batch_size=args.batch)
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, attn_impl=args.attn_impl))
         builder = StepBuilder(cfg, generator=torch.Generator().manual_seed(0))
         state = builder.init_state(steps_per_epoch=100)
         batch = {k: torch.from_numpy(v).to(dev)
@@ -96,7 +106,8 @@ def main() -> int:
         prof, wall_ms = profiled(
             lambda: builder.train_step(state, batch, g))
     else:
-        model = WildlifeMapper(config(args.config, args.plain),
+        model = WildlifeMapper(config(args.config, args.plain,
+                                      args.attn_impl),
                                generator=torch.Generator().manual_seed(0))
         model.eval()
         g = torch.Generator(device=dev).manual_seed(1)
@@ -124,7 +135,7 @@ def main() -> int:
     device_ms /= args.iters
     head = {"config": args.train or args.config,
             "mode": "train" if args.train else "serve",
-            "path": "plain" if args.plain else "kernels",
+            "path": "plain" if args.plain else f"kernels, {args.attn_impl}",
             "batch": args.batch, "gpu": gpu, "wall_ms_per_batch": wall_ms,
             "device_ms_per_batch": device_ms,
             "device_idle_share": max(0.0, 1 - device_ms / wall_ms)}

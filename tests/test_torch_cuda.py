@@ -16,10 +16,15 @@ from wildlifemapper_tpu_torch.ops._attention import attention_plain
 from wildlifemapper_tpu_torch.ops.cross_attention import (
     cross_attention_packed, cross_attention_packed_backward_plain,
     cross_attention_packed_plain)
+from wildlifemapper_tpu_torch.ops.flash_attention import (
+    flash_attention_rel_pos, grouped_attention_backward_plain,
+    grouped_attention_plain)
 from wildlifemapper_tpu_torch.ops.flash_attention_v2 import (
     flash_attention_packed, flash_attention_packed_plain)
 from wildlifemapper_tpu_torch.ops.fused_mlp import (
     fused_mlp, fused_mlp_backward_plain, fused_mlp_plain)
+from wildlifemapper_tpu_torch.ops.windowed_attention import \
+    windowed_attention_rel_pos
 from wildlifemapper_tpu_torch.ops.windowed_attention_v2 import (
     packed_attention_backward_plain, windowed_attention_packed,
     windowed_attention_packed_plain)
@@ -300,6 +305,91 @@ def test_criterion_waits_for_the_device_once(cuda):
              if "synchroniz" in str(w.message).lower()]
     assert len(waits) == 1, waits
     assert torch.isfinite(losses["loss"])
+
+
+# The grouped kernels (K5, K6): q, k, v (BH, N, d) per head, tables
+# (BH, N, g). d = 32 and 128 are where scaling the f32 scores and scaling q
+# before the product round differently in bf16.
+GROUPED_CASES = {
+    "flash": (flash_attention_rel_pos,
+              [(5, (12, 12), 64), (2, (8, 24), 32), (3, (32, 32), 64),
+               (2, (9, 9), 128)]),
+    "windowed": (windowed_attention_rel_pos,
+                 [(19, (4, 4), 32), (7, (7, 7), 64), (5, (14, 14), 64),
+                  (5, (12, 12), 64), (3, (3, 5), 128)]),
+}
+GROUPED_IDS = [(w, *c) for w, (_, cs) in GROUPED_CASES.items() for c in cs]
+
+
+def _grouped_inputs(rng, bh, hw, d, dtype, dev):
+    n = hw[0] * hw[1]
+    return [_randn(rng, (bh, n, d), dtype, dev) for _ in range(3)] + [
+        _randn(rng, (bh, n, hw[0]), dtype, dev, 0.5),
+        _randn(rng, (bh, n, hw[1]), dtype, dev, 0.5)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("which,bh,hw,d", GROUPED_IDS)
+def test_grouped_kernels(cuda, dtype, which, bh, hw, d):
+    wrapper = GROUPED_CASES[which][0]
+    args = _grouped_inputs(np.random.default_rng(bh + d), bh, hw, d, dtype,
+                           cuda)
+    _compare(wrapper, grouped_attention_plain, (*args, d ** -0.5, hw), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rel_grad", [True, False])
+@pytest.mark.parametrize("which,bh,hw,d", GROUPED_IDS)
+def test_grouped_backward_kernels(cuda, dtype, rel_grad, which, bh, hw, d):
+    """Autograd through the wrapper on the card against the plain backward
+    on the kernel forward's own out and the plain lse; without table
+    gradients the dq kernel skips the drel reduction. K5 also takes the
+    encoder's 4-D tables and returns their gradients 4-D."""
+    wrapper = GROUPED_CASES[which][0]
+    q, k, v, rh, rw = _grouped_inputs(np.random.default_rng(bh * 7 + d), bh,
+                                      hw, d, dtype, cuda)
+    if which == "flash":
+        rh, rw = rh.reshape(bh, *hw, hw[0]), rw.reshape(bh, *hw, hw[1])
+    inputs = (q, k, v, rh, rw) if rel_grad else (q, k, v)
+    for t in inputs:
+        t.requires_grad_()
+    dout = _randn(np.random.default_rng(1), q.shape, dtype, cuda)
+    scale = d ** -0.5
+    before = (wrapper.launches, wrapper.backward_dq_launches,
+              wrapper.backward_dkv_launches)
+    out = wrapper(q, k, v, rh, rw, scale, hw)
+    got = torch.autograd.grad(out, inputs, dout)
+    torch.cuda.synchronize()
+    assert (wrapper.launches, wrapper.backward_dq_launches,
+            wrapper.backward_dkv_launches) == tuple(n + 1 for n in before)
+    with torch.no_grad():
+        _, lse = grouped_attention_plain(q, k, v, rh, rw, scale, hw,
+                                         return_lse=True)
+        ref = grouped_attention_backward_plain(q, k, v, rh, rw, out, lse,
+                                               dout, scale, hw)
+    _close_grads(got, ref, dtype,
+                 ("dq", "dk", "dv", "drel_h", "drel_w")[:len(inputs)])
+
+
+def test_grouped_forward_lse_matches_plain(cuda):
+    from wildlifemapper_tpu_torch.ops._attention import attention_launch
+
+    rng = np.random.default_rng(13)
+    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+        q, k, v, rh, rw = _grouped_inputs(rng, 3, (7, 10), 32, dtype, cuda)
+        _, lse = attention_launch(q, k, v, 0.2, 1, rh[:, :, None],
+                                  rw[:, :, None], return_lse=True,
+                                  scale_scores=True)
+        _, ref = grouped_attention_plain(q, k, v, rh, rw, 0.2, (7, 10),
+                                         return_lse=True)
+        torch.testing.assert_close(lse[..., 0], ref, atol=tol, rtol=tol)
+
+
+def test_grouped_batch_beyond_grid_limit_raises(cuda):
+    q = torch.zeros(65536, 1, 32, device=cuda)
+    rel = torch.zeros(65536, 1, 1, device=cuda)
+    with pytest.raises(ValueError, match="at most 65535"):
+        windowed_attention_rel_pos(q, q, q, rel, rel, 1.0, (1, 1))
 
 
 def test_bad_dtype_raises(cuda):

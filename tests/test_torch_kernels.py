@@ -177,6 +177,7 @@ def test_find_nvcc(monkeypatch, tmp_path):
 def test_sources_and_hash():
     """The build covers every CUDA source of the package."""
     names = {p.name for p in _build.sources()}
-    assert {"attention.cu", "attention_bwd.cu", "fused_mlp.cu",
-            "fused_mlp_bwd.cu", "common.cuh"} <= names
+    assert {"attention.cu", "attention_bwd.cu", "grouped_attention.cu",
+            "grouped_attention_bwd.cu", "fused_mlp.cu", "fused_mlp_bwd.cu",
+            "attention_fwd.cuh", "attention_bwd.cuh", "common.cuh"} <= names
     assert len(_build.source_hash()) == 16

@@ -2,8 +2,8 @@
 JAX package with the same seeded weights, in the three configurations of
 bench.py at a tiny width (img 128, 96-px content: grid 8 cropped to 6),
 float32 at atol 1e-4 / rtol 1e-3. Also the weight conversion, the loader,
-the refusal of the unported grouped kernels, and that the port never
-imports JAX."""
+and that the port never imports JAX. The grouped attention layout is in
+tests/test_torch_grouped.py."""
 
 import subprocess
 import sys
@@ -172,14 +172,6 @@ def test_loader_drops_iou_token_and_slices_windows():
     del sd["image_encoder.neck.0.weight"]
     with pytest.raises(KeyError, match="neck.0.weight"):
         load_reference_state_dict(tm, sd)
-
-
-def test_grouped_kernels_not_ported():
-    tm = WildlifeMapper(tiny_config(tcfg, use_flash_attention=True,
-                                    attn_impl="grouped"), device="cpu")
-    with pytest.raises(NotImplementedError, match="K5"):
-        with torch.inference_mode():
-            tm(torch.zeros(1, 128, 128, 3))
 
 
 def test_port_imports_no_jax():

@@ -92,8 +92,13 @@ class ModelConfig:
     # Route attention and the ViT MLP through the hand-written kernels
     # (plain PyTorch otherwise, on any device).
     use_flash_attention: bool = False
-    # Kernel layout (only with use_flash_attention): "packed" is the only
-    # one ported; "grouped" raises NotImplementedError.
+    # Attention kernel layout (only with use_flash_attention):
+    #   "packed"  - the windowed and global kernels (K1, K2) consume the
+    #               packed (.., N, 3C) qkv GEMM output and split the heads
+    #               themselves; every block's MLP is the fused kernel (K3).
+    #   "grouped" - per-(window-)head (B*heads, N, hd) operands, the
+    #               reference-shaped data flow with its 5-D transpose, through
+    #               the grouped kernels (K6 windowed, K5 global); plain MLP.
     attn_impl: str = "packed"
     # Content crop: run the prologue on the full canvas, then crop the
     # token grid to content_size / patch_size for blocks, neck and decoder.

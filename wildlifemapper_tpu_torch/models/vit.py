@@ -6,6 +6,9 @@ Token grids are NHWC (B, H, W, C). With use_flash and attn_impl "packed",
 attention runs the hand-written kernels on the packed (B, N, 3C) qkv:
 windowed attention (K1) below GLOBAL_N_THRESHOLD tokens, global attention
 (K2) at or above it, and every block's MLP runs the fused MLP kernel (K3).
+With attn_impl "grouped" the qkv is split into per-head (B*heads, N, hd)
+operands, as the reference does, and attention runs the grouped kernels:
+K6 below the threshold, K5 at or above it; the MLP is the plain one.
 """
 
 from __future__ import annotations
@@ -18,7 +21,9 @@ import torch.nn.functional as F
 
 from ..ops import rel_pos as rel_pos_ops
 from ..ops import windows as window_ops
+from ..ops.flash_attention import flash_attention_rel_pos
 from ..ops.flash_attention_v2 import flash_attention_packed
+from ..ops.windowed_attention import windowed_attention_rel_pos
 from ..ops.windowed_attention_v2 import windowed_attention_packed
 from .common import LayerNorm, Linear, MLPBlock
 
@@ -95,23 +100,18 @@ class RelPosAttention(nn.Module):
         heads = self.num_heads
         head_dim = self.dim // heads
         scale = head_dim ** -0.5
-        if self.use_flash and self.attn_impl != "packed":
-            raise NotImplementedError(
-                f"attn_impl={self.attn_impl!r} with use_flash_attention needs "
-                "the grouped kernels K5 (flash_attention_rel_pos) and K6 "
-                "(windowed_attention_rel_pos), not ported yet (ROADMAP "
-                "queue 2)")
         if self.use_flash and not self.use_rel_pos and n >= GLOBAL_N_THRESHOLD:
-            raise NotImplementedError(
-                "global attention without rel-pos under use_flash_attention "
-                "needs kernel K5 (flash_attention_rel_pos), not ported yet "
-                "(ROADMAP queue 2)")
+            raise ValueError(
+                "global attention without rel-pos is unsupported under "
+                "use_flash_attention: the global kernel takes the rel-pos "
+                "tables (set use_rel_pos=True or use_flash_attention=False)")
 
         qkv = self.qkv(x.reshape(b, n, self.dim))             # (B, N, 3C)
         if self.use_rel_pos:
             rph, rpw = self._tables(h, w, dt)
 
-        if self.use_flash and self.use_rel_pos:
+        if (self.use_flash and self.use_rel_pos
+                and self.attn_impl == "packed"):
             rh_sel = rel_pos_ops.select_rel_pos(rph, h, h)    # (h, kh, d)
             rw_sel = rel_pos_ops.select_rel_pos(rpw, w, w)    # (w, kw, d)
             q5 = qkv[:, :, :self.dim].reshape(b, h, w, heads, head_dim)
@@ -127,13 +127,27 @@ class RelPosAttention(nn.Module):
             qkv = qkv.reshape(b, n, 3, heads, head_dim).permute(2, 0, 3, 1, 4)
             qkv = qkv.reshape(3, b * heads, n, head_dim)
             q, k, v = qkv[0], qkv[1], qkv[2]
-            attn = torch.matmul((q * scale).float(), k.float().transpose(1, 2))
+            rel_h = rel_w = None
             if self.use_rel_pos:
                 rel_h, rel_w = rel_pos_ops.decomposed_rel_pos_tables(
                     q, rph, rpw, (h, w), (h, w))
-                attn = rel_pos_ops.add_decomposed_rel_pos(attn, rel_h, rel_w)
-            attn = torch.softmax(attn, dim=-1).to(dt)
-            out = torch.matmul(attn, v)
+
+            if self.use_flash and n >= GLOBAL_N_THRESHOLD:
+                out = flash_attention_rel_pos(q, k, v, rel_h, rel_w, scale,
+                                              (h, w))
+            elif self.use_flash and rel_h is not None:
+                # the grouped small-window path: one window-head per batch row
+                out = windowed_attention_rel_pos(
+                    q, k, v, rel_h.reshape(-1, n, h), rel_w.reshape(-1, n, w),
+                    scale, (h, w))
+            else:
+                attn = torch.matmul((q * scale).float(),
+                                    k.float().transpose(1, 2))
+                if rel_h is not None:
+                    attn = rel_pos_ops.add_decomposed_rel_pos(attn, rel_h,
+                                                              rel_w)
+                attn = torch.softmax(attn, dim=-1).to(dt)
+                out = torch.matmul(attn, v)
             out = out.reshape(b, heads, n, head_dim).permute(0, 2, 1, 3)
             out = out.reshape(b, n, self.dim)
         return self.proj(out).reshape(b, h, w, self.dim)

@@ -1,11 +1,20 @@
-"""Shared plain versions and launchers of the attention kernels behind K1,
-K2 and K4: the forward (csrc/attention.cu) and the two backward kernels
-(csrc/attention_bwd.cu).
+"""Shared plain versions and launchers of the attention kernels: the forward
+(csrc/attention_fwd.cuh) and the two backward kernels
+(csrc/attention_bwd.cuh), built once for the packed family K1, K2 and K4
+(csrc/attention.cu, attention_bwd.cu) and once, with `scale_scores`, for the
+grouped family K5 and K6 (csrc/grouped_attention.cu,
+grouped_attention_bwd.cu).
 
 Layouts are the JAX package's: q (B, N, C) and k, v (B, M, C), head h in
 columns [h*d, (h+1)*d); for the packed qkv they are column slices of one
 (B, N, 3C) tensor. Rel tables, when given, are (B, N, H, gh) and
-(B, N, H, gw) with gh * gw == M. lse and delta are (B, N, H) float32.
+(B, N, H, gw) with gh * gw == M. lse and delta are (B, N, H) float32. The
+grouped (BH, N, d) operands of K5 and K6 are this layout with one head.
+
+`scale_scores` is where the softmax scale enters: False rounds q*scale to
+the input type before the QK product (flash_attention_v2.py:113), True
+multiplies the f32 scores by it (flash_attention.py:108-110,
+windowed_attention.py:58).
 
 The backward follows the JAX package's packed backward kernels
 (flash_attention_v2.py:229-319, cross_attention.py:90-146): scores are
@@ -26,18 +35,24 @@ import torch
 from . import _build
 
 
+# the batch and the heads ride blockIdx.z and blockIdx.y of every launch
+MAX_GRID_YZ = 65535
+
+
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float, num_heads: int,
                     rel_h: Optional[torch.Tensor] = None,
                     rel_w: Optional[torch.Tensor] = None,
-                    return_lse: bool = False):
+                    return_lse: bool = False, scale_scores: bool = False):
     """The kernel's function in plain PyTorch, with the same rounding
-    points: q*scale rounded to the input type, f32 scores and softmax,
+    points: q*scale rounded to the input type (or, with `scale_scores`, the
+    f32 scores scaled), f32 scores and softmax,
     unnormalised p rounded to the input type before PV, out = acc / l.
     With return_lse also the (B, N, H) f32 log-sum-exp of the scores."""
     b, n, c = q.shape
     dt = q.dtype
-    s, vh = _scores_plain(q, k, v, scale, num_heads, rel_h, rel_w)
+    s, vh = _scores_plain(q, k, v, scale, num_heads, rel_h, rel_w,
+                          scale_scores)
     mx = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - mx)
     denom = p.sum(dim=-1, keepdim=True)
@@ -54,12 +69,17 @@ def _heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
     return t.float().reshape(b, n, num_heads, c // num_heads).transpose(1, 2)
 
 
-def _scores_plain(q, k, v, scale, num_heads, rel_h, rel_w):
+def _scores_plain(q, k, v, scale, num_heads, rel_h, rel_w,
+                  scale_scores=False):
     """f32 scores (B, H, N, M) with the forward's rounding points, and v per
     head."""
     b, n, _ = q.shape
-    qh = _heads((q.float() * scale).to(q.dtype), num_heads)
-    s = torch.matmul(qh, _heads(k, num_heads).transpose(-1, -2))
+    kt = _heads(k, num_heads).transpose(-1, -2)
+    if scale_scores:
+        s = torch.matmul(_heads(q, num_heads), kt) * scale
+    else:
+        s = torch.matmul(_heads((q.float() * scale).to(q.dtype), num_heads),
+                         kt)
     if rel_h is not None:
         gh, gw = rel_h.shape[-1], rel_w.shape[-1]
         bias = (rel_h.float().permute(0, 2, 1, 3)[..., :, None]
@@ -79,7 +99,8 @@ def attention_delta(dout: torch.Tensor, out: torch.Tensor,
 def attention_backward_plain(q, k, v, out, lse, dout, scale: float,
                              num_heads: int,
                              rel_h: Optional[torch.Tensor] = None,
-                             rel_w: Optional[torch.Tensor] = None):
+                             rel_w: Optional[torch.Tensor] = None,
+                             scale_scores: bool = False):
     """The backward kernels' function in plain PyTorch, with their rounding
     points. Returns (dq, dk, dv, drel_h, drel_w); the last two are None
     without rel tables."""
@@ -90,7 +111,8 @@ def attention_backward_plain(q, k, v, out, lse, dout, scale: float,
     def merge(t):                       # (B, H, N, d) -> (B, N, C)
         return t.transpose(1, 2).reshape(b, t.shape[2], c)
 
-    s, vh = _scores_plain(q, k, v, scale, num_heads, rel_h, rel_w)
+    s, vh = _scores_plain(q, k, v, scale, num_heads, rel_h, rel_w,
+                          scale_scores)
     doh = _heads(dout, num_heads)
     p = torch.exp(s - lse.transpose(1, 2)[..., None])
     dp = torch.matmul(doh, vh.transpose(-1, -2))
@@ -128,6 +150,9 @@ def _check_attention(q, k, v, num_heads, rel_h, rel_w, extra=()):
     m = k.shape[1]
     if c % num_heads:
         raise ValueError(f"C={c} not divisible by {num_heads} heads")
+    if max(b, num_heads) > MAX_GRID_YZ:
+        raise ValueError(f"batch {b} and heads {num_heads} ride the launch "
+                         f"grid's y and z, at most {MAX_GRID_YZ} each")
     d = c // num_heads
     if d not in (32, 64, 128):
         raise ValueError(f"head dim {d} not supported (32, 64 or 128)")
@@ -168,8 +193,9 @@ def attention_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      scale: float, num_heads: int,
                      rel_h: Optional[torch.Tensor] = None,
                      rel_w: Optional[torch.Tensor] = None,
-                     return_lse: bool = False):
-    """Launch csrc/attention.cu on CUDA tensors; raises on anything the
+                     return_lse: bool = False, scale_scores: bool = False):
+    """Launch the forward kernel (csrc/attention.cu or, with `scale_scores`,
+    csrc/grouped_attention.cu) on CUDA tensors; raises on anything the
     kernel does not take. q/k/v may be column slices of one packed tensor:
     they are read by stride. With return_lse the kernel also writes the
     (B, N, H) f32 log-sum-exp the backward kernels need."""
@@ -180,7 +206,9 @@ def attention_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((b, n, c), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, n, num_heads), dtype=torch.float32,
                        device=q.device) if return_lse else None)
-    err = lib.wm_attention_fwd(
+    fwd = (lib.wm_grouped_attention_fwd if scale_scores
+           else lib.wm_attention_fwd)
+    err = fwd(
         _build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), _ptr(rel_h), _ptr(rel_w), _ptr(lse),
         b, num_heads, n, m, d,
@@ -193,11 +221,16 @@ def attention_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _backward_kernel_launch(kernel: int, q, k, v, dout, lse, delta, rel_h,
                             rel_w, dq, dk, dv, drh, drw, scale: float,
-                            num_heads: int, d: int, gh: int, gw: int) -> None:
-    """Launch one kernel of csrc/attention_bwd.cu on checked operands: 0 the
-    dq (+ drel) kernel, 1 the dk/dv kernel. Raises if the launch fails."""
+                            num_heads: int, d: int, gh: int, gw: int,
+                            scale_scores: bool = False) -> None:
+    """Launch one kernel of csrc/attention_bwd.cu (with `scale_scores`, of
+    csrc/grouped_attention_bwd.cu) on checked operands: 0 the dq (+ drel)
+    kernel, 1 the dk/dv kernel. Raises if the launch fails."""
     b, n, _ = q.shape
-    err = _build.load_kernels().wm_attention_bwd(
+    lib = _build.load_kernels()
+    bwd = (lib.wm_grouped_attention_bwd if scale_scores
+           else lib.wm_attention_bwd)
+    err = bwd(
         kernel, _build.dtype_code(q), q.data_ptr(), k.data_ptr(),
         v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         _ptr(rel_h), _ptr(rel_w), dq.data_ptr(), dk.data_ptr(),
@@ -215,8 +248,9 @@ def attention_backward_launch(q, k, v, out, lse, dout, scale: float,
                               rel_h: Optional[torch.Tensor] = None,
                               rel_w: Optional[torch.Tensor] = None,
                               grads=None, want_drel: bool = True,
-                              wrapper=None):
-    """Launch the two kernels of csrc/attention_bwd.cu on CUDA tensors:
+                              wrapper=None, scale_scores: bool = False):
+    """Launch the two backward kernels (csrc/attention_bwd.cu or, with
+    `scale_scores`, csrc/grouped_attention_bwd.cu) on CUDA tensors:
     the dq kernel (which also writes drel_h / drel_w when rel tables are
     given and `want_drel`), then the dk/dv kernel. `grads`, when given, are
     the (dq, dk, dv) tensors to write, for example the column blocks of one
@@ -247,7 +281,7 @@ def attention_backward_launch(q, k, v, out, lse, dout, scale: float,
                                       "backward_dkv_launches")):
         _backward_kernel_launch(kernel, q, k, v, dout, lse, delta, rel_h,
                                 rel_w, dq, dk, dv, drh, drw, scale,
-                                num_heads, d, gh, gw)
+                                num_heads, d, gh, gw, scale_scores)
         if wrapper is not None:
             setattr(wrapper, counter, getattr(wrapper, counter) + 1)
     return dq, dk, dv, drh, drw

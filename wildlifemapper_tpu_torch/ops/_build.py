@@ -42,12 +42,18 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_ATTENTION_FWD = [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                  _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _I, _I,
+                  ctypes.c_float, _P]
+_ATTENTION_BWD = ([_I, _I] + [_P] * 13 + [_I] * 5 + [_LL] * 14
+                  + [_I, _I, ctypes.c_float, _P])
 _SIGNATURES = {
-    "wm_attention_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                         _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _I, _I,
-                         ctypes.c_float, _P],
-    "wm_attention_bwd": [_I, _I] + [_P] * 13 + [_I] * 5 + [_LL] * 14
-                        + [_I, _I, ctypes.c_float, _P],
+    # the packed family (K1, K2, K4) and the grouped family (K5, K6) take
+    # the same arguments
+    "wm_attention_fwd": _ATTENTION_FWD,
+    "wm_attention_bwd": _ATTENTION_BWD,
+    "wm_grouped_attention_fwd": _ATTENTION_FWD,
+    "wm_grouped_attention_bwd": _ATTENTION_BWD,
     "wm_fused_mlp_fwd": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "wm_fused_mlp_dh": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }

@@ -5,7 +5,8 @@ Replaces wildlifemapper_tpu/ops/cross_attention.py::cross_attention_packed
 stream and k, v (B, M, C) from the HFC stream, C = 1024 = 8 heads x 128,
 N = M = 4096 (full canvas and compat crop) or 2304 (crop_prologue). The
 kernel is csrc/attention.cu without the bias, at head dim 128 (dynamic
-shared memory above 48 KB); see its header for the H100 bound and design.
+shared memory above 48 KB); the body and what bounds it on the H100 are in
+csrc/attention_fwd.cuh.
 
 The backward kernels are those of csrc/attention_bwd.cu without rel
 tables, on the lse the forward writes when a gradient is recorded.

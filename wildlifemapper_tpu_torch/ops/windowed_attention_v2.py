@@ -5,7 +5,8 @@ windowed_attention_packed (:200) and its backward kernel (_bwd_kernel :125)
 in the 8 windowed ViT-B blocks: qkv (BW, N, 3C) as the qkv GEMM emits it, N = 196 (window 14
 on the 64-grid padded to 70, BW = B*25) or 144 (window 12 on the 48-grid,
 BW = B*16). The kernel is csrc/attention.cu (shared with K2 and K4); see
-its header for what bounds it on the H100 and how the design answers it.
+the header of its body, csrc/attention_fwd.cuh, for what bounds it on the
+H100 and how the design answers it.
 The rel tables are unpadded (BW, N, H, gh) / (BW, N, H, gw): the 16-lane
 packing of the Pallas `pack_rel_tables` was a TPU tiling artefact.
 
