@@ -12,12 +12,16 @@ adaptor) and attn_impl="grouped" (K6 windowed, K5 global, K4; plain MLP).
 Phases, one JSON line each; any failure raises and exits non-zero:
 
   1. device: the card's name and power limit; build the kernels from
-     wildlifemapper_tpu_torch/csrc (timed); TF32 off.
+     wildlifemapper_tpu_torch/csrc (timed), registers and spills of every
+     instantiation, the Hopper (wgmma + TMA) bodies included; TF32 off.
   2. kernels: each kernel against its plain PyTorch version on the card at
      the shapes the serving path gives it, f32 at atol 2e-5 / rtol 1e-4 and
      bf16 (against the plain version in f32 on the same bf16-rounded
      inputs) at 2e-2; K5 and K6 also at d = 128 and 32, where their scale
-     on the f32 scores rounds differently from a scaled q.
+     on the f32 scores rounds differently from a scaled q; K2, K4 and K5
+     also at shapes that are ragged against the Hopper bodies' 128-row
+     blocks and 64- or 128-key tiles (N = 1000 on 25x40 and 20x50 grids,
+     N != M, a last tile of 6 keys, d = 128 with tables).
   3. end to end: the f32 forward with kernels, in each layout, against the
      PyTorch reference's logits and boxes in tests/goldens/full_model.npz
      (weights regenerated from their names), at atol 1e-4 / rtol 1e-3, and
@@ -36,8 +40,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      takes through each public wrapper on the card, against the plain
      backward at the training shapes of both configurations (K1 and K6
      N = 196 and 144; K2, K4 and K5 N = 4096 and 2304; K3 R = 16384 and
-     9216): once with every input requiring a gradient (dqkv written by
-     stride into one packed tensor, drel, the MLP's weight gradients; K5
+     9216; K2, K4 and K5 also ragged as in phase 2): once with every input
+     requiring a gradient (dqkv written by stride into one packed tensor, drel, the MLP's weight gradients; K5
      with 4-D and with 3-D tables) and once with the activations alone
      (the frozen encoder), f32 at atol 5e-4 / rtol 1e-3 and bf16 at 2e-2 of
      each output's largest element; K3's bf16 weight gradients also against
@@ -55,8 +59,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
   9. times, training: ms per step with kernels and on the plain path
      (packed) or beside the packed layout (grouped), the matcher's share,
      each backward kernel against its plain version and against one PyTorch
-     library call where there is one (a yardstick here only), every kernel
-     beside its bound (the larger of its FLOPs over 989 TFLOP/s and its
+     library call where there is one (a yardstick here only), the kernels
+     that run a Hopper body (K2, K4, K5, forward and backward) beside the
+     mma.sync body on the same inputs in turns, every kernel beside its bound (the larger of its FLOPs over 989 TFLOP/s and its
      bytes over 3.35 TB/s).
 
 The last line is {"ok": true, "device": {...}}. Without CUDA, or without the
@@ -94,18 +99,29 @@ def gpu_query() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
+SM90_FLAGS = {"attn_fwd_sm90_kernel": ("scale_scores", "rel"),
+              "attn_bwd_dq_sm90_kernel": ("scale_scores", "rel", "drel"),
+              "attn_bwd_dkv_sm90_kernel": ("scale_scores", "rel")}
+
+
 def ptxas_summary(log: str) -> list:
-    """'kernel<type,width>: registers, spill bytes' for each kernel that
-    nvcc's -Xptxas -v compiled."""
+    """'kernel<type,width,...>: registers, spill bytes' for each kernel that
+    nvcc's -Xptxas -v compiled. The Hopper bodies are <d, tile, stages> with
+    the flags that are set; their register count is the one at entry, before
+    setmaxnreg moves the producer's registers to the consumers."""
     out, name = [], None
     for line in log.splitlines():
-        m = re.search(r"\d((?:attn|fused_mlp|mlp_dh)[a-z_]*kernel)I(.*?)EEv",
+        m = re.search(r"\d((?:attn|fused_mlp|mlp_dh)[a-z_0-9]*kernel)I(.*?)EEv",
                       line)
         if m and "entry function" in line:
             args = re.findall(r"Li(\d+)", m.group(2))
+            flags = re.findall(r"Lb([01])", m.group(2))
             if m.group(2).startswith("f"):
                 args.insert(0, "float")
-            if "Lb1" in m.group(2):        # the grouped family's bodies
+            if m.group(1) in SM90_FLAGS:
+                args += [n for n, f in zip(SM90_FLAGS[m.group(1)], flags)
+                         if f == "1"]
+            elif "1" in flags:             # the grouped family's bodies
                 args.append("scale_scores")
             name = f"{m.group(1)}<{','.join(args)}>"
         m = re.search(r"(\d+) bytes spill stores", line)
@@ -172,8 +188,8 @@ def main() -> int:
     from wildlifemapper_tpu_torch.ops import _build
     from wildlifemapper_tpu_torch.ops._attention import (
         _backward_kernel_launch, attention_backward_launch,
-        attention_backward_plain, attention_delta, attention_launch,
-        attention_plain)
+        attention_backward_plain, attention_body, attention_delta,
+        attention_launch, attention_plain)
     from wildlifemapper_tpu_torch.ops.cross_attention import (
         cross_attention_packed, cross_attention_packed_plain)
     from wildlifemapper_tpu_torch.ops.flash_attention import (
@@ -295,6 +311,21 @@ def main() -> int:
          lambda: grouped_args(8, (48, 48), d=128)),
         ("windowed_attention_rel_pos", "BWH=96 N=196 d=32",
          lambda: grouped_args(96, (14, 14), d=32)),
+        # ragged against the 128-row blocks and the 64- and 128-key tiles of
+        # the Hopper bodies: grids that are no multiple of 8, N != M, a last
+        # tile that is nearly empty, d = 128 with rel tables
+        ("flash_attention_packed", "B=2 H=3 N=1000 (25x40)",
+         lambda: attn_args(2, (25, 40), heads=3)),
+        ("flash_attention_rel_pos", "BH=6 N=1000 (20x50)",
+         lambda: grouped_args(6, (20, 50))),
+        ("flash_attention_rel_pos", "BH=4 N=513 (27x19) d=128",
+         lambda: grouped_args(4, (27, 19), d=128)),
+        ("cross_attention_packed", "B=2 N=200 M=1000",
+         lambda: [randn((2, 200, c)), randn((2, 1000, c)),
+                  randn((2, 1000, c)), hd ** -0.5, c // hd]),
+        ("cross_attention_packed", "B=1 N=300 M=1030",
+         lambda: [randn((1, 300, c)), randn((1, 1030, c)),
+                  randn((1, 1030, c)), hd ** -0.5, c // hd]),
     ]
     # fused_mlp keeps its biases in f32 whatever the compute dtype
     f32_positions = {"fused_mlp": (2, 4)}
@@ -618,6 +649,15 @@ def main() -> int:
          lambda: [randn((4, 4096, c)) for _ in range(3)]),
         ("K4", "B=4 N=M=2304", 8, 128, None,
          lambda: [randn((4, 2304, c)) for _ in range(3)]),
+        # ragged against the Hopper bodies' blocks and tiles
+        ("K2", "B=2 H=3 N=1000 (25x40)", 3, 64, (25, 40),
+         lambda: attn_args(2, (25, 40), heads=3)[:3]),
+        ("K4", "B=2 N=200 M=1000", 8, 128, None,
+         lambda: [randn((2, 200, c)), randn((2, 1000, c)),
+                  randn((2, 1000, c))]),
+        ("K4", "B=1 N=1030 M=577", 8, 128, None,
+         lambda: [randn((1, 1030, c)), randn((1, 577, c)),
+                  randn((1, 577, c))]),
     ]
     wrappers = {"K1": windowed_attention_packed,
                 "K2": flash_attention_packed, "K4": cross_attention_packed}
@@ -700,6 +740,7 @@ def main() -> int:
         ("K6", "BWH=4*16*12 N=144", (12, 12), 4 * 16 * 12, 3),
         ("K5", "BH=4*12 N=4096", (64, 64), 4 * 12, 4),
         ("K5", "BH=4*12 N=2304", (48, 48), 4 * 12, 3),
+        ("K5", "BH=6 N=1000 (20x50)", (20, 50), 6, 3),
     ]
     wrappers.update(K5=flash_attention_rel_pos, K6=windowed_attention_rel_pos)
     grad_names = ("dq", "dk", "dv", "drel_h", "drel_w")
@@ -1124,7 +1165,26 @@ def main() -> int:
         mac = b * heads * n * m * d
         stats = [lse, lse]             # lse and delta, (B, N, H) f32 each
         fb, fby = bound_ms(4 * mac, nbytes(q, k, v, out, rh, rw))
-        entry(wname, fwd_cu, jax_ops + replaces_fwd[kid],
+        # The body these shapes take, and, where it is a Hopper body, the
+        # time of the mma.sync body that ran them before, on the same inputs
+        # in this run, in turns (old, new, new, old), at the launcher.
+        body = attention_body(q.dtype, d, n, m, rh is not None)
+        redesigned = body == "sm90"
+        if redesigned:
+            fwd_cu, back_cu = (fwd_cu.replace(".cu", "_sm90.cu"),
+                               back_cu.replace(".cu", "_{}_sm90.cu"))
+
+        def forward(which_body):
+            return lambda: attention_launch(q, k, v, scale, heads, rh, rw,
+                                            scale_scores=ss, body=which_body)
+
+        old_fwd_ms = new_fwd_ms = None
+        if redesigned:
+            with torch.no_grad():
+                old_fwd_ms, new_fwd_ms = paired_ms(forward("mma"),
+                                                   forward("sm90"))
+        entry(wname, fwd_cu, jax_ops + replaces_fwd[kid], body=body,
+              earlier_body_ms=old_fwd_ms, launcher_ms=new_fwd_ms,
               launches=serving_counts[wname] + train_counts["launches"][wname],
               launches_serving=serving_counts[wname],
               launches_training=train_counts["launches"][wname],
@@ -1138,7 +1198,7 @@ def main() -> int:
             return attention_backward_launch(q, k, v, out, lse, dout, scale,
                                              heads, rh, rw, scale_scores=ss)
 
-        def one(kernel, want_drel=True):
+        def one(kernel, want_drel=True, which_body=None):
             """One backward kernel alone, on buffers made beforehand."""
             delta = attention_delta(dout, out, heads).contiguous()
             grads = [torch.empty_like(t) for t in (q, k, v)]
@@ -1147,7 +1207,7 @@ def main() -> int:
             grid = (rh.shape[-1], rw.shape[-1]) if rh is not None else (0, 0)
             return lambda: _backward_kernel_launch(
                 kernel, q, k, v, dout, lse, delta, rh, rw, *grads, *drel,
-                scale, heads, d, *grid, scale_scores=ss)
+                scale, heads, d, *grid, scale_scores=ss, body=which_body)
 
         def plain():
             return attention_backward_plain(q, k, v, out, lse, dout, scale,
@@ -1155,7 +1215,12 @@ def main() -> int:
 
         with torch.no_grad():
             ms_plain, ms_both = paired_ms(plain, both)
-            ms_dq, ms_dkv = time_ms(one(0)), time_ms(one(1))
+            old_dq = old_dkv = None
+            if redesigned:
+                old_dq, ms_dq = paired_ms(one(0, which_body="mma"), one(0))
+                old_dkv, ms_dkv = paired_ms(one(1, which_body="mma"), one(1))
+            else:
+                ms_dq, ms_dkv = time_ms(one(0)), time_ms(one(1))
             ms_dq_nodrel = time_ms(one(0, False)) if rh is not None else None
         dq_b = bound_ms(6 * mac, nbytes(q, k, v, dout, q, rh, rw, rh, rw,
                                         *stats))
@@ -1163,13 +1228,16 @@ def main() -> int:
         both_b = bound_ms(14 * mac, nbytes(q, k, v, dout, q, k, v, rh, rw, rh,
                                            rw, *stats))
         emit("backward_kernel_time", kernel=kid, shape=shape, dtype="bfloat16",
-             gpu=gpu, dq_ms=ms_dq, dq_without_drel_ms=ms_dq_nodrel,
-             dkv_ms=ms_dkv, both_ms=ms_both, plain_ms=ms_plain,
+             gpu=gpu, body=body, dq_ms=ms_dq,
+             dq_without_drel_ms=ms_dq_nodrel, dkv_ms=ms_dkv,
+             earlier_body_dq_ms=old_dq, earlier_body_dkv_ms=old_dkv,
+             both_ms=ms_both, plain_ms=ms_plain,
              library_forward_ms=lib_fwd_ms, library_backward_ms=lib_bwd_ms)
         tc = train_counts
         if kid in ("K1", "K6"):
             entry(wname + "_backward", back_cu,
-                  jax_ops + replaces_bwd[kid][0],
+                  jax_ops + replaces_bwd[kid][0], body=body,
+                  earlier_body_ms=None,
                   launches=tc["backward_dq_launches"][wname]
                   + tc["backward_dkv_launches"][wname], shape=shape,
                   max_abs_err=max(bwd_err[f"{kid}_dq"],
@@ -1180,16 +1248,18 @@ def main() -> int:
                           "(dq, dk, dv; no rel-table gradient)",
                   kernels_per_backward=2, dq_ms=ms_dq, dkv_ms=ms_dkv)
         else:
-            entry(wname + "_backward_dq", back_cu,
-                  jax_ops + replaces_bwd[kid][0],
+            entry(wname + "_backward_dq", back_cu.format("dq"),
+                  jax_ops + replaces_bwd[kid][0], body=body,
+                  earlier_body_ms=old_dq,
                   launches=tc["backward_dq_launches"][wname], shape=shape,
                   max_abs_err=bwd_err[f"{kid}_dq"], ms=ms_dq,
                   plain_ms=ms_plain, plain_covers="dq + dk/dv",
                   bound_ms=dq_b[0], bound_by=dq_b[1], library_ms=lib_bwd_ms,
                   library="autograd through scaled_dot_product_attention",
                   library_covers="dq + dk/dv (one call)")
-            entry(wname + "_backward_dkv", back_cu,
-                  jax_ops + replaces_bwd[kid][1],
+            entry(wname + "_backward_dkv", back_cu.format("dkv"),
+                  jax_ops + replaces_bwd[kid][1], body=body,
+                  earlier_body_ms=old_dkv,
                   launches=tc["backward_dkv_launches"][wname], shape=shape,
                   max_abs_err=bwd_err[f"{kid}_dkv"], ms=ms_dkv,
                   plain_ms=ms_plain, plain_covers="dq + dk/dv",

@@ -2,6 +2,12 @@
 small ragged shapes (tile edges, odd token counts, every head dim). They
 need CUDA and skip elsewhere with the reason "needs CUDA (H100)".
 
+From 512 keys on, bf16 at d = 64 or 128 runs the Hopper bodies (wgmma and a
+TMA-fed ring, csrc/attention_fwd_sm90.cuh and attention_bwd_sm90.cuh): the
+STREAMING cases below are ragged against their 128-row blocks and their
+64- and 128-key tiles (grids that are no multiple of 8, N != M, a last tile
+of one or six keys, d = 128 with rel tables).
+
 This file imports neither JAX nor the JAX package's tests. On a machine
 without JAX run it as
 
@@ -64,6 +70,12 @@ def _compare(wrapper, plain, args, dtype):
 
 DTYPES = [torch.float32, torch.bfloat16]
 
+# Shapes that take the Hopper bodies in bf16 (at least 512 keys).
+STREAMING_FLASH = [(2, (25, 40), 3, 64), (1, (24, 24), 2, 64),
+                   (1, (20, 50), 2, 128), (1, (48, 48), 2, 64)]
+STREAMING_CROSS = [(2, 200, 1000, 2, 128), (1, 300, 1030, 4, 64),
+                   (1, 1030, 577, 2, 128), (2, 130, 512, 2, 128)]
+
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("bw,hw,heads,d", [(5, (4, 4), 2, 32),
@@ -84,7 +96,8 @@ def test_windowed_kernel(cuda, dtype, bw, hw, heads, d):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("b,hw,heads,d", [(2, (12, 12), 2, 64),
                                           (1, (8, 24), 3, 64),
-                                          (1, (32, 32), 2, 64)])
+                                          (1, (32, 32), 2, 64),
+                                          *STREAMING_FLASH])
 def test_flash_kernel(cuda, dtype, b, hw, heads, d):
     rng = np.random.default_rng(b * 100 + hw[1])
     n = hw[0] * hw[1]
@@ -99,7 +112,8 @@ def test_flash_kernel(cuda, dtype, b, hw, heads, d):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("b,n,m,heads,d", [(2, 100, 70, 2, 128),
                                            (1, 64, 130, 4, 64),
-                                           (2, 33, 65, 2, 32)])
+                                           (2, 33, 65, 2, 32),
+                                           *STREAMING_CROSS])
 def test_cross_kernel(cuda, dtype, b, n, m, heads, d):
     rng = np.random.default_rng(n + m + d)
     args = (_randn(rng, (b, n, heads * d), dtype, cuda),
@@ -186,7 +200,8 @@ def test_windowed_backward_kernels(cuda, dtype, bw, hw, heads, d):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("b,hw,heads,d", [(2, (12, 12), 2, 64),
                                           (1, (8, 24), 3, 64),
-                                          (1, (32, 32), 2, 64)])
+                                          (1, (32, 32), 2, 64),
+                                          *STREAMING_FLASH])
 def test_flash_backward_kernels(cuda, dtype, b, hw, heads, d):
     _packed_backward(flash_attention_packed, cuda, dtype, b, hw, heads, d,
                      seed=b * 100 + hw[1])
@@ -213,7 +228,8 @@ def test_forward_lse_matches_plain(cuda):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("b,n,m,heads,d", [(2, 100, 70, 2, 128),
                                            (1, 64, 130, 4, 64),
-                                           (2, 33, 65, 2, 32)])
+                                           (2, 33, 65, 2, 32),
+                                           *STREAMING_CROSS])
 def test_cross_backward_kernels(cuda, dtype, b, n, m, heads, d):
     rng = np.random.default_rng(n + m + d)
     q = _randn(rng, (b, n, heads * d), dtype, cuda).requires_grad_()
@@ -313,7 +329,9 @@ def test_criterion_waits_for_the_device_once(cuda):
 GROUPED_CASES = {
     "flash": (flash_attention_rel_pos,
               [(5, (12, 12), 64), (2, (8, 24), 32), (3, (32, 32), 64),
-               (2, (9, 9), 128)]),
+               (2, (9, 9), 128),
+               # the Hopper bodies
+               (3, (20, 50), 64), (2, (27, 19), 128), (2, (48, 48), 64)]),
     "windowed": (windowed_attention_rel_pos,
                  [(19, (4, 4), 32), (7, (7, 7), 64), (5, (14, 14), 64),
                   (5, (12, 12), 64), (3, (3, 5), 128)]),
@@ -369,6 +387,79 @@ def test_grouped_backward_kernels(cuda, dtype, rel_grad, which, bh, hw, d):
                                                dout, scale, hw)
     _close_grads(got, ref, dtype,
                  ("dq", "dk", "dv", "drel_h", "drel_w")[:len(inputs)])
+
+
+@pytest.mark.parametrize("family", ["packed", "grouped"])
+@pytest.mark.parametrize("n,m,heads,d,hw", [(200, 1000, 2, 64, (25, 40)),
+                                            (1000, 1000, 1, 64, (20, 50)),
+                                            (300, 1030, 2, 128, None),
+                                            (640, 577, 1, 128, None)])
+def test_streaming_bodies_agree_and_repeat(cuda, family, n, m, heads, d, hw):
+    """bf16 at the launcher: the Hopper body against the mma.sync body and
+    the plain version, forward (with the lse) and both backward kernels,
+    and the backward twice: no atomics, so bit-identical."""
+    from wildlifemapper_tpu_torch.ops._attention import (
+        attention_backward_launch, attention_backward_plain, attention_body,
+        attention_launch)
+
+    ss = family == "grouped"
+    dt = torch.bfloat16
+    rng = np.random.default_rng(n + m + d)
+    c = heads * d
+    q = _randn(rng, (2, n, c), dt, cuda)
+    k, v = (_randn(rng, (2, m, c), dt, cuda) for _ in range(2))
+    dout = _randn(rng, (2, n, c), dt, cuda)
+    rh = rw = None
+    if hw is not None:
+        rh = _randn(rng, (2, n, heads, hw[0]), dt, cuda, 0.5)
+        rw = _randn(rng, (2, n, heads, hw[1]), dt, cuda, 0.5)
+    scale = d ** -0.5
+    assert attention_body(dt, d, n, m, hw is not None) == "sm90"
+    with torch.no_grad():
+        ref, lse_ref = attention_plain(q, k, v, scale, heads, rh, rw,
+                                       return_lse=True, scale_scores=ss)
+        outs = {body: attention_launch(q, k, v, scale, heads, rh, rw,
+                                       return_lse=True, scale_scores=ss,
+                                       body=body) for body in ("mma", "sm90")}
+        without_lse = attention_launch(q, k, v, scale, heads, rh, rw,
+                                       scale_scores=ss)
+        torch.cuda.synchronize()
+        assert torch.equal(without_lse, outs["sm90"][0])
+        for out, lse in outs.values():
+            torch.testing.assert_close(out.float(), ref.float(),
+                                       **TOL[dt])
+            torch.testing.assert_close(lse, lse_ref, atol=2e-2, rtol=2e-2)
+        out, lse = outs["sm90"]
+        want = attention_backward_plain(q, k, v, out, lse, dout, scale,
+                                        heads, rh, rw, scale_scores=ss)
+        runs = [attention_backward_launch(q, k, v, out, lse, dout, scale,
+                                          heads, rh, rw, scale_scores=ss,
+                                          body=body)
+                for body in ("sm90", "sm90", "mma")]
+        torch.cuda.synchronize()
+    names = ("dq", "dk", "dv", "drel_h", "drel_w")
+    for got in runs:
+        _close_grads([g for g in got if g is not None],
+                     [r for r in want if r is not None], dt, names)
+    for g1, g2 in zip(runs[0], runs[1]):
+        assert g1 is None or torch.equal(g1, g2)
+
+
+def test_unknown_body_raises(cuda):
+    from wildlifemapper_tpu_torch.ops._attention import attention_launch
+
+    q = torch.zeros(1, 64, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="expected one of"):
+        attention_launch(q, q, q, 0.125, 1, body="plain")
+
+
+def test_hopper_body_refuses_float32(cuda):
+    """A body that does not take a launch raises: nothing falls back."""
+    from wildlifemapper_tpu_torch.ops._attention import attention_launch
+
+    q = torch.zeros(1, 512, 64, device=cuda)
+    with pytest.raises(RuntimeError, match="CUDA launch failed"):
+        attention_launch(q, q, q, 0.125, 1, body="sm90")
 
 
 def test_grouped_forward_lse_matches_plain(cuda):

@@ -179,5 +179,11 @@ def test_sources_and_hash():
     names = {p.name for p in _build.sources()}
     assert {"attention.cu", "attention_bwd.cu", "grouped_attention.cu",
             "grouped_attention_bwd.cu", "fused_mlp.cu", "fused_mlp_bwd.cu",
-            "attention_fwd.cuh", "attention_bwd.cuh", "common.cuh"} <= names
+            "attention_fwd.cuh", "attention_bwd.cuh", "common.cuh",
+            "sm90.cuh", "attention_sm90_common.cuh",
+            "attention_fwd_sm90.cuh", "attention_bwd_sm90.cuh",
+            "attention_sm90.cu", "grouped_attention_sm90.cu",
+            "attention_bwd_dq_sm90.cu", "attention_bwd_dkv_sm90.cu",
+            "grouped_attention_bwd_dq_sm90.cu",
+            "grouped_attention_bwd_dkv_sm90.cu"} <= names
     assert len(_build.source_hash()) == 16

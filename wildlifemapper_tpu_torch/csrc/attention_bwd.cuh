@@ -44,8 +44,12 @@
 // mma.sync m16n8k16 with f32 accumulators (4 warps, 16 rows each, scores and
 // ds in registers), and f32 in scalar FMAs without TF32 (parity). q, k, v,
 // do and the outputs are read and written by stride, so dq, dk and dv land
-// in the column blocks of one packed (B, N, 3C) dqkv. wgmma, TMA and
-// warp-specialised pipelines are later work.
+// in the column blocks of one packed (B, N, 3C) dqkv.
+// Which launches still run here (ops/_attention.py::attention_body): every
+// f32 launch, d = 32, and bf16 with fewer than 512 keys, which on the main
+// paths is one window of K1 or K6. The streaming bf16 shapes of K2, K4 and
+// K5 take the Hopper bodies of attention_bwd_sm90.cuh (wgmma, a TMA-fed
+// ring); the bf16 bodies here stay their yardstick.
 
 #pragma once
 

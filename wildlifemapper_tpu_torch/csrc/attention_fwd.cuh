@@ -38,7 +38,12 @@
 //    accumulators), FlashAttention-2 style: 4 warps own 64 query rows, each
 //    warp keeps its scores, probabilities and running output in registers.
 //  * f32 (parity): scalar f32 FMAs, no TF32; 4 threads per query row.
-// wgmma, TMA and warp-specialised pipelines are later work.
+// Which launches still run here (ops/_attention.py::attention_body): every
+// f32 launch, d = 32, and bf16 with fewer than 512 keys, which on the main
+// paths is one window of K1 or K6 (144 or 196 keys). The streaming bf16
+// shapes of K2, K4 and K5 (d = 64 or 128, 2304 or 4096 keys) take the Hopper
+// body of attention_fwd_sm90.cuh (wgmma, a TMA-fed ring); the bf16 body here
+// stays their yardstick (chip_smoke.py times the two side by side).
 //
 // Rounding points follow the Pallas kernels: q*scale is rounded to the input
 // type before QK (packed family) or the f32 scores take the scale (grouped

@@ -3,7 +3,10 @@
 (csrc/attention_bwd.cuh), built once for the packed family K1, K2 and K4
 (csrc/attention.cu, attention_bwd.cu) and once, with `scale_scores`, for the
 grouped family K5 and K6 (csrc/grouped_attention.cu,
-grouped_attention_bwd.cu).
+grouped_attention_bwd.cu). The streaming bf16 shapes (K2, K4, K5) run the
+Hopper bodies instead (csrc/attention_fwd_sm90.cuh, attention_bwd_sm90.cuh,
+built by the six `*_sm90.cu`): `attention_body` says which launch takes
+which, from its dtype and shapes alone.
 
 Layouts are the JAX package's: q (B, N, C) and k, v (B, M, C), head h in
 columns [h*d, (h+1)*d); for the packed qkv they are column slices of one
@@ -37,6 +40,41 @@ from . import _build
 
 # the batch and the heads ride blockIdx.z and blockIdx.y of every launch
 MAX_GRID_YZ = 65535
+
+# From this many keys on, a bf16 launch at d = 64 or 128 streams its tiles
+# through the Hopper bodies (csrc/attention_fwd_sm90.cuh,
+# attention_bwd_sm90.cuh); one window of K1 or K6 (at most 196 keys on the
+# main paths) stays below it.
+STREAM_MIN_KEYS = 512
+BODIES = ("mma", "sm90")
+
+
+def attention_body(dtype: torch.dtype, d: int, nq: int, nk: int,
+                   has_rel: bool) -> str:
+    """Which kernel body a launch takes, from its dtype and shapes alone:
+    "sm90", the wgmma + TMA bodies, for bf16 at d = 64 or 128 with at least
+    STREAM_MIN_KEYS keys (K2, K4 and K5 on the main paths, with or without
+    rel tables, any number of queries), else "mma", the mma.sync (bf16) or
+    scalar (f32) tile bodies of csrc/attention_fwd.cuh / attention_bwd.cuh
+    (K1, K6, d = 32, f32). Forward and both backward kernels of one
+    attention take the same body. Raises on what no body takes."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"kernel takes float32 or bfloat16, got {dtype}")
+    if d not in (32, 64, 128):
+        raise ValueError(f"head dim {d} not supported (32, 64 or 128)")
+    if nq < 1 or nk < 1:
+        raise ValueError(f"empty attention: {nq} queries, {nk} keys")
+    if dtype == torch.bfloat16 and d in (64, 128) and nk >= STREAM_MIN_KEYS:
+        return "sm90"
+    return "mma"
+
+
+def _pick_body(body, q, d, nk, has_rel) -> str:
+    if body is None:
+        return attention_body(q.dtype, d, q.shape[1], nk, has_rel)
+    if body not in BODIES:
+        raise ValueError(f"body {body!r}: expected one of {BODIES}")
+    return body
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -193,12 +231,15 @@ def attention_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      scale: float, num_heads: int,
                      rel_h: Optional[torch.Tensor] = None,
                      rel_w: Optional[torch.Tensor] = None,
-                     return_lse: bool = False, scale_scores: bool = False):
+                     return_lse: bool = False, scale_scores: bool = False,
+                     body: Optional[str] = None):
     """Launch the forward kernel (csrc/attention.cu or, with `scale_scores`,
-    csrc/grouped_attention.cu) on CUDA tensors; raises on anything the
+    csrc/grouped_attention.cu; for the shapes `attention_body` sends there,
+    their `_sm90` counterparts) on CUDA tensors; raises on anything the
     kernel does not take. q/k/v may be column slices of one packed tensor:
     they are read by stride. With return_lse the kernel also writes the
-    (B, N, H) f32 log-sum-exp the backward kernels need."""
+    (B, N, H) f32 log-sum-exp the backward kernels need. `body` names a body
+    outright, for timing one beside the other; the wrappers never pass it."""
     b, n, c = q.shape
     m = k.shape[1]
     d, gh, gw = _check_attention(q, k, v, num_heads, rel_h, rel_w)
@@ -206,8 +247,10 @@ def attention_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((b, n, c), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, n, num_heads), dtype=torch.float32,
                        device=q.device) if return_lse else None)
-    fwd = (lib.wm_grouped_attention_fwd if scale_scores
-           else lib.wm_attention_fwd)
+    fwd = getattr(lib, ("wm_grouped_attention_fwd" if scale_scores
+                        else "wm_attention_fwd")
+                  + ("_sm90" if _pick_body(body, q, d, m, rel_h is not None)
+                     == "sm90" else ""))
     err = fwd(
         _build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), _ptr(rel_h), _ptr(rel_w), _ptr(lse),
@@ -222,16 +265,17 @@ def attention_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _backward_kernel_launch(kernel: int, q, k, v, dout, lse, delta, rel_h,
                             rel_w, dq, dk, dv, drh, drw, scale: float,
                             num_heads: int, d: int, gh: int, gw: int,
-                            scale_scores: bool = False) -> None:
+                            scale_scores: bool = False,
+                            body: Optional[str] = None) -> None:
     """Launch one kernel of csrc/attention_bwd.cu (with `scale_scores`, of
-    csrc/grouped_attention_bwd.cu) on checked operands: 0 the dq (+ drel)
-    kernel, 1 the dk/dv kernel. Raises if the launch fails."""
+    csrc/grouped_attention_bwd.cu; for the shapes `attention_body` sends
+    there, of their `_sm90` counterparts) on checked operands: 0 the dq
+    (+ drel) kernel, 1 the dk/dv kernel. Raises if the launch fails."""
     b, n, _ = q.shape
     lib = _build.load_kernels()
-    bwd = (lib.wm_grouped_attention_bwd if scale_scores
-           else lib.wm_attention_bwd)
-    err = bwd(
-        kernel, _build.dtype_code(q), q.data_ptr(), k.data_ptr(),
+    family = "wm_grouped_attention_bwd" if scale_scores else "wm_attention_bwd"
+    args = (
+        _build.dtype_code(q), q.data_ptr(), k.data_ptr(),
         v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         _ptr(rel_h), _ptr(rel_w), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), _ptr(drh), _ptr(drw), b, num_heads, n, k.shape[1], d,
@@ -240,6 +284,11 @@ def _backward_kernel_launch(kernel: int, q, k, v, dout, lse, delta, rel_h,
         dq.stride(0), dq.stride(1), dk.stride(0), dk.stride(1),
         dv.stride(0), dv.stride(1), gh, gw, float(scale),
         _build.stream_ptr(q))
+    if _pick_body(body, q, d, k.shape[1], rel_h is not None) == "sm90":
+        # one entry a kernel: each compiles in an nvcc of its own
+        err = getattr(lib, family + ("_dq_sm90", "_dkv_sm90")[kernel])(*args)
+    else:
+        err = getattr(lib, family)(kernel, *args)
     _build.check(err, "attention backward kernel " + ("dq", "dk/dv")[kernel])
 
 
@@ -248,7 +297,8 @@ def attention_backward_launch(q, k, v, out, lse, dout, scale: float,
                               rel_h: Optional[torch.Tensor] = None,
                               rel_w: Optional[torch.Tensor] = None,
                               grads=None, want_drel: bool = True,
-                              wrapper=None, scale_scores: bool = False):
+                              wrapper=None, scale_scores: bool = False,
+                              body: Optional[str] = None):
     """Launch the two backward kernels (csrc/attention_bwd.cu or, with
     `scale_scores`, csrc/grouped_attention_bwd.cu) on CUDA tensors:
     the dq kernel (which also writes drel_h / drel_w when rel tables are
@@ -281,7 +331,7 @@ def attention_backward_launch(q, k, v, out, lse, dout, scale: float,
                                       "backward_dkv_launches")):
         _backward_kernel_launch(kernel, q, k, v, dout, lse, delta, rel_h,
                                 rel_w, dq, dk, dv, drh, drw, scale,
-                                num_heads, d, gh, gw, scale_scores)
+                                num_heads, d, gh, gw, scale_scores, body)
         if wrapper is not None:
             setattr(wrapper, counter, getattr(wrapper, counter) + 1)
     return dq, dk, dv, drh, drw

@@ -54,6 +54,13 @@ _SIGNATURES = {
     "wm_attention_bwd": _ATTENTION_BWD,
     "wm_grouped_attention_fwd": _ATTENTION_FWD,
     "wm_grouped_attention_bwd": _ATTENTION_BWD,
+    # the Hopper bodies of the streaming shapes (K2, K4, K5), bf16
+    "wm_attention_fwd_sm90": _ATTENTION_FWD,
+    "wm_attention_bwd_dq_sm90": _ATTENTION_BWD[1:],
+    "wm_attention_bwd_dkv_sm90": _ATTENTION_BWD[1:],
+    "wm_grouped_attention_fwd_sm90": _ATTENTION_FWD,
+    "wm_grouped_attention_bwd_dq_sm90": _ATTENTION_BWD[1:],
+    "wm_grouped_attention_bwd_dkv_sm90": _ATTENTION_BWD[1:],
     "wm_fused_mlp_fwd": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "wm_fused_mlp_dh": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
