@@ -13,7 +13,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 
   1. device: the card's name and power limit; build the kernels from
      wildlifemapper_tpu_torch/csrc (timed), registers and spills of every
-     instantiation, the Hopper (wgmma + TMA) bodies included; TF32 off.
+     instantiation, the Hopper (wgmma + TMA) and the resident (windowed)
+     bodies included, the latter held to no spill; TF32 off.
   2. kernels: each kernel against its plain PyTorch version on the card at
      the shapes the serving path gives it, f32 at atol 2e-5 / rtol 1e-4 and
      bf16 (against the plain version in f32 on the same bf16-rounded
@@ -21,7 +22,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      on the f32 scores rounds differently from a scaled q; K2, K4 and K5
      also at shapes that are ragged against the Hopper bodies' 128-row
      blocks and 64- or 128-key tiles (N = 1000 on 25x40 and 20x50 grids,
-     N != M, a last tile of 6 keys, d = 128 with tables).
+     N != M, a last tile of 6 keys, d = 128 with tables); K1 and K6 also at
+     windows that are ragged against the resident bodies' 16-row tiles (49 =
+     7x7 with odd table widths, 100 = 10x10, one window-head, a window count
+     that is a multiple of nothing).
   3. end to end: the f32 forward with kernels, in each layout, against the
      PyTorch reference's logits and boxes in tests/goldens/full_model.npz
      (weights regenerated from their names), at atol 1e-4 / rtol 1e-3, and
@@ -40,29 +44,37 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      takes through each public wrapper on the card, against the plain
      backward at the training shapes of both configurations (K1 and K6
      N = 196 and 144; K2, K4 and K5 N = 4096 and 2304; K3 R = 16384 and
-     9216; K2, K4 and K5 also ragged as in phase 2): once with every input
-     requiring a gradient (dqkv written by stride into one packed tensor, drel, the MLP's weight gradients; K5
-     with 4-D and with 3-D tables) and once with the activations alone
+     9216; all five attention kernels also ragged as in phase 2): once with
+     every input requiring a gradient (dqkv written by stride into one
+     packed tensor, drel, the MLP's weight gradients; K5 with 4-D and with
+     3-D tables) and once with the activations alone
      (the frozen encoder), f32 at atol 5e-4 / rtol 1e-3 and bf16 at 2e-2 of
      each output's largest element; K3's bf16 weight gradients also against
-     the f32 product of the same operands.
+     the f32 product of the same operands. The one-kernel backward of the
+     resident bodies (K1, K6 in bf16) twice at the launcher, bit-identical.
   7. train step, parity: f32, one step with kernels against the same step on
      the plain path (same weights, batch and dropout seed) in each training
      configuration and each layout: losses, grad_norm and every trainable
      gradient at atol 5e-4 / rtol 1e-3 and within 1e-3 of its own norm;
-     launch counts.
+     launch counts (f32: every attention backward is a dq and a dk/dv
+     kernel).
   8. training: bf16, batch 4, three steps on a synthetic uint8 batch in each
      of the two training configurations (train/synthetic.py), once for each
      layout: finite losses, trainable parameters moved and frozen ones
-     bit-identical, launch counts forward and backward, peak memory, the
-     loss falling, and one wait for the device per step (the matcher's copy).
+     bit-identical, launch counts forward and backward (bf16: the windowed
+     backward of K1 / K6 is one kernel a launch, 8 a step, and no dq or dk/dv
+     kernel of theirs runs), peak memory, the loss falling, and one wait for
+     the device per step (the matcher's copy).
   9. times, training: ms per step with kernels and on the plain path
      (packed) or beside the packed layout (grouped), the matcher's share,
      each backward kernel against its plain version and against one PyTorch
      library call where there is one (a yardstick here only), the kernels
-     that run a Hopper body (K2, K4, K5, forward and backward) beside the
-     mma.sync body on the same inputs in turns, every kernel beside its bound (the larger of its FLOPs over 989 TFLOP/s and its
-     bytes over 3.35 TB/s).
+     that run a Hopper body (K2, K4, K5, forward and backward) or a resident
+     body (K1, K6: forward, and the whole backward with the tile bodies'
+     delta pass counted in) beside the mma.sync body on the same inputs in
+     turns, at the full-canvas shape and, for K1 / K6, at the N = 144 shape
+     too, every kernel beside its bound (the larger of its FLOPs over 989
+     TFLOP/s and its bytes over 3.35 TB/s).
 
 The last line is {"ok": true, "device": {...}}. Without CUDA, or without the
 rest of the repository beside it, the script fails before any result.
@@ -225,12 +237,17 @@ def main() -> int:
     emit("device", kind=kind, gpu=gpu, count=torch.cuda.device_count(),
          torch=torch.__version__, cuda=torch.version.cuda,
          build_seconds=round(build_s, 2), ptxas=ptxas)
+    resident_ptxas = [line for line in ptxas if "resident_kernel" in line]
+    spilling = [line for line in resident_ptxas if ", 0 B spilled" not in line]
+    if len(resident_ptxas) < 4 or spilling:
+        raise AssertionError(f"resident bodies: {len(resident_ptxas)} ptxas "
+                             f"lines, spilling: {spilling}")
 
     kernels = {
         "windowed_attention_packed": dict(
             wrapper=windowed_attention_packed,
             plain=windowed_attention_packed_plain,
-            source="wildlifemapper_tpu_torch/csrc/attention.cu",
+            source="wildlifemapper_tpu_torch/csrc/attention_resident.cu",
             replaces="wildlifemapper_tpu/ops/windowed_attention_v2.py:200"),
         "flash_attention_packed": dict(
             wrapper=flash_attention_packed,
@@ -252,7 +269,8 @@ def main() -> int:
             replaces="wildlifemapper_tpu/ops/flash_attention.py:207"),
         "windowed_attention_rel_pos": dict(
             wrapper=windowed_attention_rel_pos, plain=grouped_attention_plain,
-            source="wildlifemapper_tpu_torch/csrc/grouped_attention.cu",
+            source="wildlifemapper_tpu_torch/csrc/"
+                   "grouped_attention_resident.cu",
             replaces="wildlifemapper_tpu/ops/windowed_attention.py:111"),
     }
 
@@ -326,6 +344,20 @@ def main() -> int:
         ("cross_attention_packed", "B=1 N=300 M=1030",
          lambda: [randn((1, 300, c)), randn((1, 1030, c)),
                   randn((1, 1030, c)), hd ** -0.5, c // hd]),
+        # ragged against the 16-row tiles of the resident bodies: odd table
+        # widths, a window of 100, one window-head, 37 windows of 3 heads
+        ("windowed_attention_packed", "BW=3 H=3 N=49 (7x7)",
+         lambda: attn_args(3, (7, 7), heads=3)),
+        ("windowed_attention_packed", "BW=37 H=3 N=100 (10x10)",
+         lambda: attn_args(37, (10, 10), heads=3)),
+        ("windowed_attention_packed", "BW=1 H=1 N=196",
+         lambda: attn_args(1, (14, 14), heads=1)),
+        ("windowed_attention_rel_pos", "BWH=7 N=49 (7x7)",
+         lambda: grouped_args(7, (7, 7))),
+        ("windowed_attention_rel_pos", "BWH=111 N=100 (10x10)",
+         lambda: grouped_args(111, (10, 10))),
+        ("windowed_attention_rel_pos", "BWH=1 N=144",
+         lambda: grouped_args(1, (12, 12))),
     ]
     # fused_mlp keeps its biases in f32 whatever the compute dtype
     f32_positions = {"fused_mlp": (2, 4)}
@@ -617,22 +649,43 @@ def main() -> int:
 
     def through_wrapper(wrapper, tensors, rest, dout, counters):
         """Gradients of the public wrapper on the card by autograd, for the
-        inputs that require one; each of `counters` must go up by one."""
-        before = [getattr(wrapper, c) for c in counters]
+        inputs that require one; each of `counters` must go up by one and
+        the wrapper's other counters not at all."""
+        own = [c for c in count_names if hasattr(wrapper, c)]
+        before = [getattr(wrapper, c) for c in own]
         out = wrapper(*tensors, *rest)
         got = torch.autograd.grad(
             out, [t for t in tensors if t.requires_grad], dout)
         torch.cuda.synchronize()
-        after = [getattr(wrapper, c) for c in counters]
-        if after != [n + 1 for n in before]:
-            raise AssertionError(f"{wrapper.__name__}: counters {counters} "
-                                 f"went {before} -> {after} in one backward")
+        after = [getattr(wrapper, c) for c in own]
+        if after != [n + (c in counters) for c, n in zip(own, before)]:
+            raise AssertionError(f"{wrapper.__name__}: counters {own} went "
+                                 f"{before} -> {after} in one backward, "
+                                 f"want one more of each of {counters}")
         return got
 
     bwd_err = {}
     bwd_inputs = {}
     attn_counters = ("launches", "backward_dq_launches",
                      "backward_dkv_launches")
+
+    def backward_counters(dt, d, n, m, hw):
+        """The counters one forward and backward of an attention wrapper
+        move: the resident body's backward is one kernel."""
+        if attention_body(dt, d, n, m, hw is not None, hw) == "resident":
+            return ("launches", "backward_launches")
+        return attn_counters
+
+    def repeat_check(kid, shape, launch):
+        """The one-kernel backward twice on the same operands: every element
+        has one owner and a fixed order of sums, so bit-identical."""
+        with torch.no_grad():
+            first, second = launch(), launch()
+            torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(first, second))
+        emit("backward_repeat", kernel=kid, shape=shape, bit_identical=same)
+        if not same:
+            raise AssertionError(f"{kid} {shape}: two backward runs differ")
     # (id, shape, heads, head dim, grid, inputs): K1 and K2 take the packed
     # qkv and the rel tables, K4 separate q, k, v as the adaptor's
     # projections give them
@@ -658,6 +711,13 @@ def main() -> int:
         ("K4", "B=1 N=1030 M=577", 8, 128, None,
          lambda: [randn((1, 1030, c)), randn((1, 577, c)),
                   randn((1, 577, c))]),
+        # ragged against the resident bodies' 16-row tiles
+        ("K1", "BW=3 H=3 N=49 (7x7)", 3, 64, (7, 7),
+         lambda: attn_args(3, (7, 7), heads=3)[:3]),
+        ("K1", "BW=37 H=3 N=100 (10x10)", 3, 64, (10, 10),
+         lambda: attn_args(37, (10, 10), heads=3)[:3]),
+        ("K1", "BW=1 H=1 N=196", 1, 64, (14, 14),
+         lambda: attn_args(1, (14, 14), heads=1)[:3]),
     ]
     wrappers = {"K1": windowed_attention_packed,
                 "K2": flash_attention_packed, "K4": cross_attention_packed}
@@ -671,8 +731,10 @@ def main() -> int:
             ref = None
             for frozen in (False, True):
                 tensors = leaves(base, dt, frozen)
-                got = through_wrapper(wrappers[kid], tensors, rest, dout,
-                                      attn_counters)
+                got = through_wrapper(
+                    wrappers[kid], tensors, rest, dout,
+                    backward_counters(dt, d, base[0].shape[1],
+                                      base[1].shape[1], hw))
                 if ref is None:
                     with torch.no_grad():
                         if hw:
@@ -724,9 +786,19 @@ def main() -> int:
                     bwd_err[f"{kid}_dkv"] = max(
                         bwd_err.get(f"{kid}_dkv", 0.0), *dkv)
                 del got, parts, tensors
-            if dt == torch.bfloat16 and kid not in bwd_inputs:
-                bwd_inputs[kid] = (shape, heads, d, scale,
-                                   (q, k, v, out, lse, dout, rh, rw))
+            if dt == torch.bfloat16:
+                if attention_body(dt, d, q.shape[1], k.shape[1],
+                                  rh is not None, hw) == "resident":
+                    repeat_check(kid, shape, lambda: attention_backward_launch(
+                        q, k, v, out, lse, dout, scale, heads, rh, rw))
+                # the timings' inputs: the first shape of each kernel and,
+                # for the windowed one, the from-scratch shape as well
+                key = (kid if kid not in bwd_inputs else
+                       f"{kid} N=144" if kid == "K1" and "N=144" in shape
+                       else None)
+                if key:
+                    bwd_inputs[key] = (shape, heads, d, scale,
+                                       (q, k, v, out, lse, dout, rh, rw))
             del ref, out, lse, q, k, v, rh, rw
         del base, dout32, dout
         torch.cuda.empty_cache()
@@ -741,6 +813,9 @@ def main() -> int:
         ("K5", "BH=4*12 N=4096", (64, 64), 4 * 12, 4),
         ("K5", "BH=4*12 N=2304", (48, 48), 4 * 12, 3),
         ("K5", "BH=6 N=1000 (20x50)", (20, 50), 6, 3),
+        ("K6", "BWH=7 N=49 (7x7)", (7, 7), 7, 3),
+        ("K6", "BWH=111 N=100 (10x10)", (10, 10), 111, 3),
+        ("K6", "BWH=1 N=144", (12, 12), 1, 3),
     ]
     wrappers.update(K5=flash_attention_rel_pos, K6=windowed_attention_rel_pos)
     grad_names = ("dq", "dk", "dv", "drel_h", "drel_w")
@@ -758,7 +833,8 @@ def main() -> int:
                 tensors = [t.to(dt).detach().requires_grad_(
                     i < 3 or not frozen) for i, t in enumerate(base)]
                 got = through_wrapper(wrappers[kid], tensors, (scale, hw),
-                                      dout, attn_counters)
+                                      dout,
+                                      backward_counters(dt, 64, n, n, hw))
                 if ref is None:
                     with torch.no_grad():
                         q, k, v, rh, rw = (t.detach() for t in tensors)
@@ -804,9 +880,17 @@ def main() -> int:
                 bwd_err[f"{kid}_dkv"] = max(bwd_err.get(f"{kid}_dkv", 0.0),
                                             errs["dk"], errs["dv"])
                 del got, tensors
-            if dt == torch.bfloat16 and kid not in bwd_inputs:
-                bwd_inputs[kid] = (shape, 1, 64, scale,
-                                   (q, k, v, out, lse, dout, rh4, rw4))
+            if dt == torch.bfloat16:
+                if attention_body(dt, 64, n, n, True, hw) == "resident":
+                    repeat_check(kid, shape, lambda: attention_backward_launch(
+                        q, k, v, out, lse, dout, scale, 1, rh4, rw4,
+                        scale_scores=True))
+                key = (kid if kid not in bwd_inputs else
+                       f"{kid} N=144" if kid == "K6" and "N=144" in shape
+                       and bh > 1 else None)
+                if key:
+                    bwd_inputs[key] = (shape, 1, 64, scale,
+                                       (q, k, v, out, lse, dout, rh4, rw4))
             del ref, out, lse, q, k, v, rh, rw, rh4, rw4
         del base, dout32, dout
         torch.cuda.empty_cache()
@@ -877,13 +961,24 @@ def main() -> int:
         return sb, sb.init_state(steps_per_epoch=100)
 
     # kernel launches of one train step, by counter: each attention
-    # backward launches its dq kernel and its dk/dv kernel, K3's its one
-    def per_step(with_k4, layout="packed"):
+    # backward launches its dq kernel and its dk/dv kernel, K3's its one;
+    # in bf16 (`resident`) the windowed backward of K1 / K6 is one kernel
+    # and none of their dq or dk/dv kernels runs
+    windowed = ("windowed_attention_packed", "windowed_attention_rel_pos")
+
+    def per_step(with_k4, layout="packed", resident=False):
         fwd = dict(per_forward[layout], cross_attention_packed=int(with_k4))
         attn = {n: v for n, v in fwd.items() if n != "fused_mlp"}
+        one_kernel = {n: (v if resident and n in windowed else 0)
+                      for n, v in attn.items()
+                      if n != "cross_attention_packed"}
+        two_kernels = {n: (0 if resident and n in windowed else v)
+                       for n, v in attn.items()}
         return {"launches": fwd,
-                "backward_launches": {"fused_mlp": fwd["fused_mlp"]},
-                "backward_dq_launches": attn, "backward_dkv_launches": attn}
+                "backward_launches": {"fused_mlp": fwd["fused_mlp"],
+                                      **one_kernel},
+                "backward_dq_launches": two_kernels,
+                "backward_dkv_launches": two_kernels}
 
     def all_counts():
         return {attr: counts(attr) for attr in count_names}
@@ -1001,7 +1096,8 @@ def main() -> int:
         # ... and ends here
         want_counts = {}
         for with_k4 in (False, True):          # fine_tune, from_scratch
-            for attr, per in per_step(with_k4, layout).items():
+            for attr, per in per_step(with_k4, layout,
+                                      resident=True).items():
                 tot = want_counts.setdefault(attr, {})
                 for n, v in per.items():
                     tot[n] = tot.get(n, 0) + v * TRAIN_STEPS
@@ -1137,7 +1233,8 @@ def main() -> int:
                     "K4": "cross_attention.py:160",
                     "K5": "flash_attention.py:230",
                     "K6": "windowed_attention.py:144"}
-    # K5's one Pallas backward kernel became the two kernels here
+    # K5's one Pallas backward kernel became the two kernels here; K1's and
+    # K6's are one kernel again (the resident bodies)
     replaces_bwd = {"K1": ("windowed_attention_v2.py:260",) * 2,
                     "K2": ("flash_attention_v2.py:364",
                            "flash_attention_v2.py:392"),
@@ -1146,10 +1243,15 @@ def main() -> int:
                     "K6": ("windowed_attention.py:173",) * 2}
     grouped_cu = "wildlifemapper_tpu_torch/csrc/grouped_attention.cu"
     grouped_bwd_cu = "wildlifemapper_tpu_torch/csrc/grouped_attention_bwd.cu"
-    for kid in ("K1", "K2", "K4", "K5", "K6"):
+    timed = [(kid, kid) for kid in ("K1", "K2", "K4", "K5", "K6")] + [
+        ("K1", "K1 N=144"), ("K6", "K6 N=144")]
+    for kid, key in timed:
         # K5 and K6 arrive as their kernels take them: (BH, N, d) is the
-        # family's layout with one head, tables (BH, N, 1, g), lse (BH, N, 1)
-        shape, heads, d, scale, tensors = bwd_inputs.pop(kid)
+        # family's layout with one head, tables (BH, N, 1, g), lse (BH, N, 1).
+        # The first shape of a kernel makes its entries of the "kernels"
+        # line; the windowed kernels' second shape a line of its own.
+        primary = key == kid
+        shape, heads, d, scale, tensors = bwd_inputs.pop(key)
         q, k, v, out, lse, dout, rh, rw = tensors
         b, n, m = q.shape[0], q.shape[1], k.shape[1]
         wname = ids[kid]
@@ -1165,94 +1267,142 @@ def main() -> int:
         mac = b * heads * n * m * d
         stats = [lse, lse]             # lse and delta, (B, N, H) f32 each
         fb, fby = bound_ms(4 * mac, nbytes(q, k, v, out, rh, rw))
-        # The body these shapes take, and, where it is a Hopper body, the
-        # time of the mma.sync body that ran them before, on the same inputs
-        # in this run, in turns (old, new, new, old), at the launcher.
-        body = attention_body(q.dtype, d, n, m, rh is not None)
-        redesigned = body == "sm90"
-        if redesigned:
+        # The body these shapes take, and, where it is a Hopper or a
+        # resident body, the time of the mma.sync body that ran them before,
+        # on the same inputs in this run, in turns (old, new, new, old), at
+        # the launcher.
+        hw = (rh.shape[-1], rw.shape[-1]) if rh is not None else None
+        body = attention_body(q.dtype, d, n, m, rh is not None, hw)
+        redesigned = body != "mma"
+        if body == "sm90":
             fwd_cu, back_cu = (fwd_cu.replace(".cu", "_sm90.cu"),
                                back_cu.replace(".cu", "_{}_sm90.cu"))
+        elif body == "resident":
+            fwd_cu, back_cu = (fwd_cu.replace(".cu", "_resident.cu"),
+                               back_cu.replace(".cu", "_resident.cu"))
 
         def forward(which_body):
             return lambda: attention_launch(q, k, v, scale, heads, rh, rw,
                                             scale_scores=ss, body=which_body)
 
         old_fwd_ms = new_fwd_ms = None
-        if redesigned:
-            with torch.no_grad():
+        with torch.no_grad():
+            if redesigned:
                 old_fwd_ms, new_fwd_ms = paired_ms(forward("mma"),
-                                                   forward("sm90"))
-        entry(wname, fwd_cu, jax_ops + replaces_fwd[kid], body=body,
-              earlier_body_ms=old_fwd_ms, launcher_ms=new_fwd_ms,
-              launches=serving_counts[wname] + train_counts["launches"][wname],
-              launches_serving=serving_counts[wname],
-              launches_training=train_counts["launches"][wname],
-              shape=shape, max_abs_err=errors[wname],
-              ms=kernel_ms[wname][0], plain_ms=kernel_ms[wname][1],
-              bound_ms=fb, bound_by=fby, library_ms=lib_fwd_ms,
-              library="F.scaled_dot_product_attention"
-              + (" with the bias as attn_mask" if rh is not None else ""))
+                                                   forward(body))
+            if not primary:
+                plain_fwd_ms = time_ms(lambda: attention_plain(
+                    q, k, v, scale, heads, rh, rw, scale_scores=ss))
+        if primary:
+            entry(wname, fwd_cu, jax_ops + replaces_fwd[kid], body=body,
+                  earlier_body_ms=old_fwd_ms, launcher_ms=new_fwd_ms,
+                  launches=serving_counts[wname]
+                  + train_counts["launches"][wname],
+                  launches_serving=serving_counts[wname],
+                  launches_training=train_counts["launches"][wname],
+                  shape=shape, max_abs_err=errors[wname],
+                  ms=kernel_ms[wname][0], plain_ms=kernel_ms[wname][1],
+                  bound_ms=fb, bound_by=fby, library_ms=lib_fwd_ms,
+                  library="F.scaled_dot_product_attention"
+                  + (" with the bias as attn_mask" if rh is not None
+                     else ""))
+        else:
+            emit("kernel_time", kernel=wname, shape=shape, dtype="bfloat16",
+                 gpu=gpu, body=body, ms=new_fwd_ms,
+                 earlier_body_ms=old_fwd_ms, plain_ms=plain_fwd_ms,
+                 bound_ms=fb, bound_by=fby, library_ms=lib_fwd_ms)
 
-        def both():
-            return attention_backward_launch(q, k, v, out, lse, dout, scale,
-                                             heads, rh, rw, scale_scores=ss)
+        def whole(which_body=None, want_drel=True):
+            """The whole backward at the launcher: one kernel for the
+            resident body, the delta pass and two kernels for the others."""
+            return lambda: attention_backward_launch(
+                q, k, v, out, lse, dout, scale, heads, rh, rw,
+                want_drel=want_drel, scale_scores=ss, body=which_body)
 
         def one(kernel, want_drel=True, which_body=None):
-            """One backward kernel alone, on buffers made beforehand."""
+            """One kernel of a two-kernel backward alone, on buffers made
+            beforehand."""
             delta = attention_delta(dout, out, heads).contiguous()
             grads = [torch.empty_like(t) for t in (q, k, v)]
             drel = ([torch.empty_like(t) for t in (rh, rw)]
                     if rh is not None and want_drel else [None, None])
-            grid = (rh.shape[-1], rw.shape[-1]) if rh is not None else (0, 0)
+            grid = hw if hw else (0, 0)
+            two_kernel_body = body if body != "resident" else "mma"
             return lambda: _backward_kernel_launch(
                 kernel, q, k, v, dout, lse, delta, rh, rw, *grads, *drel,
-                scale, heads, d, *grid, scale_scores=ss, body=which_body)
+                scale, heads, d, *grid, scale_scores=ss,
+                body=which_body or two_kernel_body)
 
         def plain():
             return attention_backward_plain(q, k, v, out, lse, dout, scale,
                                             heads, rh, rw, scale_scores=ss)
 
         with torch.no_grad():
-            ms_plain, ms_both = paired_ms(plain, both)
-            old_dq = old_dkv = None
-            if redesigned:
-                old_dq, ms_dq = paired_ms(one(0, which_body="mma"), one(0))
-                old_dkv, ms_dkv = paired_ms(one(1, which_body="mma"), one(1))
+            ms_plain, ms_both = paired_ms(plain, whole())
+            delta_ms = time_ms(lambda: attention_delta(dout, out, heads)
+                               .contiguous())
+            old_dq = old_dkv = old_both = ms_nodrel = None
+            if body == "resident":
+                # the earlier bodies' whole backward, delta pass included,
+                # and its pieces
+                old_both, ms_both = paired_ms(whole("mma"), whole())
+                ms_nodrel = time_ms(whole(want_drel=False))
+                old_dq, old_dkv = time_ms(one(0)), time_ms(one(1))
+                ms_dq = ms_dkv = ms_dq_nodrel = None
             else:
-                ms_dq, ms_dkv = time_ms(one(0)), time_ms(one(1))
-            ms_dq_nodrel = time_ms(one(0, False)) if rh is not None else None
+                if redesigned:
+                    old_dq, ms_dq = paired_ms(one(0, which_body="mma"),
+                                              one(0))
+                    old_dkv, ms_dkv = paired_ms(one(1, which_body="mma"),
+                                                one(1))
+                else:
+                    ms_dq, ms_dkv = time_ms(one(0)), time_ms(one(1))
+                ms_dq_nodrel = (time_ms(one(0, False)) if rh is not None
+                                else None)
         dq_b = bound_ms(6 * mac, nbytes(q, k, v, dout, q, rh, rw, rh, rw,
                                         *stats))
         dkv_b = bound_ms(8 * mac, nbytes(q, k, v, dout, k, v, rh, rw, *stats))
-        both_b = bound_ms(14 * mac, nbytes(q, k, v, dout, q, k, v, rh, rw, rh,
-                                           rw, *stats))
+        # the one-kernel backward reads q, k, v, do, o, lse and the tables
+        # and writes dq, dk, dv and the tables' gradients; 5 products
+        # (S, dP, dq, dk, dv), the rest is recomputation
+        both_b = bound_ms(10 * mac, nbytes(q, k, v, dout, out, lse, q, k, v,
+                                           rh, rw, rh, rw))
         emit("backward_kernel_time", kernel=kid, shape=shape, dtype="bfloat16",
              gpu=gpu, body=body, dq_ms=ms_dq,
              dq_without_drel_ms=ms_dq_nodrel, dkv_ms=ms_dkv,
              earlier_body_dq_ms=old_dq, earlier_body_dkv_ms=old_dkv,
-             both_ms=ms_both, plain_ms=ms_plain,
+             earlier_body_whole_ms=old_both, delta_pass_ms=delta_ms,
+             both_ms=ms_both, without_drel_ms=ms_nodrel, plain_ms=ms_plain,
+             bound_ms=both_b[0], bound_by=both_b[1],
              library_forward_ms=lib_fwd_ms, library_backward_ms=lib_bwd_ms)
         tc = train_counts
-        if kid in ("K1", "K6"):
+        if not primary:
+            pass
+        elif kid in ("K1", "K6"):
+            if body != "resident":
+                raise AssertionError(f"{kid} {shape}: body {body}, want "
+                                     "the resident one")
             entry(wname + "_backward", back_cu,
                   jax_ops + replaces_bwd[kid][0], body=body,
-                  earlier_body_ms=None,
-                  launches=tc["backward_dq_launches"][wname]
-                  + tc["backward_dkv_launches"][wname], shape=shape,
+                  earlier_body_ms=old_both,
+                  earlier_body_delta_ms=delta_ms,
+                  earlier_body_dq_ms=old_dq, earlier_body_dkv_ms=old_dkv,
+                  launches=tc["backward_launches"][wname], shape=shape,
                   max_abs_err=max(bwd_err[f"{kid}_dq"],
                                   bwd_err[f"{kid}_dkv"]),
-                  ms=ms_both, plain_ms=ms_plain, bound_ms=both_b[0],
-                  bound_by=both_b[1], library_ms=lib_bwd_ms,
+                  ms=ms_both, without_drel_ms=ms_nodrel, plain_ms=ms_plain,
+                  bound_ms=both_b[0], bound_by=both_b[1],
+                  library_ms=lib_bwd_ms,
                   library="autograd through scaled_dot_product_attention "
                           "(dq, dk, dv; no rel-table gradient)",
-                  kernels_per_backward=2, dq_ms=ms_dq, dkv_ms=ms_dkv)
+                  kernels_per_backward=1)
         else:
             entry(wname + "_backward_dq", back_cu.format("dq"),
                   jax_ops + replaces_bwd[kid][0], body=body,
                   earlier_body_ms=old_dq,
                   launches=tc["backward_dq_launches"][wname], shape=shape,
                   max_abs_err=bwd_err[f"{kid}_dq"], ms=ms_dq,
+                  delta_pass_ms=delta_ms,
                   plain_ms=ms_plain, plain_covers="dq + dk/dv",
                   bound_ms=dq_b[0], bound_by=dq_b[1], library_ms=lib_bwd_ms,
                   library="autograd through scaled_dot_product_attention",

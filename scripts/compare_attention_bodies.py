@@ -1,21 +1,26 @@
-"""The two bf16 bodies of the port's attention kernels side by side on one
-NVIDIA GPU (written for the H100): "mma" (mma.sync tiles, csrc/attention_fwd.cuh
-and attention_bwd.cuh) and "sm90" (wgmma and a TMA-fed ring,
-csrc/attention_fwd_sm90.cuh and attention_bwd_sm90.cuh).
+"""The bf16 bodies of the port's attention kernels side by side on one NVIDIA
+GPU (written for the H100): "mma" (mma.sync tiles, csrc/attention_fwd.cuh and
+attention_bwd.cuh) beside the body that `attention_body` gives the shape:
+"sm90" (wgmma and a TMA-fed ring, csrc/attention_fwd_sm90.cuh and
+attention_bwd_sm90.cuh) for the streaming shapes, "resident" (one block a
+window-head, csrc/attention_fwd_resident.cuh and attention_bwd_resident.cuh)
+for the windowed ones.
 
-    python3 scripts/compare_attention_bodies.py            # every case
-    python3 scripts/compare_attention_bodies.py --main     # main-path shapes only
+    python3 scripts/compare_attention_bodies.py             # every case
+    python3 scripts/compare_attention_bodies.py --main      # main paths only
+    python3 scripts/compare_attention_bodies.py --windowed  # windowed only
 
-For each case (batch, heads, d, queries, keys, rel grid, scale placement) it
-builds the kernels (registers and spills of the Hopper instantiations are
-printed from nvcc's -Xptxas -v), runs forward and both backward kernels of
-each body at the launcher (ops/_attention.py, `body=`), and prints one JSON
-line: the largest forward error and the backward errors relative to each
-gradient's largest element against the plain version, whether a second
-backward is bit-identical, and CUDA-event times in ms (forward, dq with and
-without the rel-table gradients, dk/dv), each body warmed up and timed over
-five launches. The card's name and power limit come first. Fails without
-CUDA.
+For each case (batch, heads, d, queries, keys, rel grid, scale placement,
+scale) it builds the kernels (registers and spills of the Hopper and resident
+instantiations are printed from nvcc's -Xptxas -v), runs forward and backward
+of each body at the launcher (ops/_attention.py, `body=`), and prints one JSON
+line: the largest forward and lse errors and the backward errors relative to
+each gradient's largest element against the plain version, whether a second
+backward is bit-identical, and CUDA-event times in ms, each body warmed up
+and timed over five launches: forward, the whole backward (for the two-kernel
+bodies the delta pass included) with and without the rel-table gradients
+and, for the two-kernel bodies, the delta pass, dq and dk/dv alone. The
+card's name and power limit come first. Fails without CUDA.
 """
 
 from __future__ import annotations
@@ -36,23 +41,45 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 from wildlifemapper_tpu_torch.ops import _attention as A  # noqa: E402
 from wildlifemapper_tpu_torch.ops import _build  # noqa: E402
 
-# batch, heads, d, queries, keys, rel grid, scale on the f32 scores
+# batch, heads, d, queries, keys, rel grid, scale on the f32 scores, scale
+# (None: d ** -0.5)
 RAGGED = [
-    (2, 2, 64, 128, 512, None, False),
-    (2, 2, 128, 128, 512, None, True),
-    (2, 2, 64, 128, 512, (8, 64), False),
-    (2, 3, 64, 1000, 1000, (25, 40), False),
-    (2, 3, 64, 1000, 1000, (20, 50), True),
-    (1, 2, 128, 300, 1030, None, False),
-    (2, 1, 128, 513, 513, (27, 19), True),
+    (2, 2, 64, 128, 512, None, False, None),
+    (2, 2, 128, 128, 512, None, True, None),
+    (2, 2, 64, 128, 512, (8, 64), False, None),
+    (2, 3, 64, 1000, 1000, (25, 40), False, None),
+    (2, 3, 64, 1000, 1000, (20, 50), True, None),
+    (1, 2, 128, 300, 1030, None, False, None),
+    (2, 1, 128, 513, 513, (27, 19), True, None),
 ]
 MAIN = [
-    (4, 12, 64, 4096, 4096, (64, 64), False),    # K2, full canvas
-    (48, 1, 64, 4096, 4096, (64, 64), True),     # K5
-    (4, 12, 64, 2304, 2304, (48, 48), False),    # K2, 48-grid
-    (48, 1, 64, 2304, 2304, (48, 48), True),     # K5
-    (4, 8, 128, 4096, 4096, None, False),        # K4
-    (4, 8, 128, 2304, 2304, None, False),
+    (4, 12, 64, 4096, 4096, (64, 64), False, None),    # K2, full canvas
+    (48, 1, 64, 4096, 4096, (64, 64), True, None),     # K5
+    (4, 12, 64, 2304, 2304, (48, 48), False, None),    # K2, 48-grid
+    (48, 1, 64, 2304, 2304, (48, 48), True, None),     # K5
+    (4, 8, 128, 4096, 4096, None, False, None),        # K4
+    (4, 8, 128, 2304, 2304, None, False, None),
+]
+# ragged against the resident bodies' 16-row tiles and 144- / 208-row
+# instantiations: odd table widths, one window-head, more window-heads than
+# SMs by a few, a scale that is no power of two in either family
+WINDOWED_RAGGED = [
+    (3, 3, 64, 49, 49, (7, 7), False, None),
+    (7, 1, 64, 49, 49, (7, 7), True, None),
+    (5, 2, 64, 100, 100, (10, 10), False, None),
+    (1, 1, 64, 196, 196, (14, 14), True, None),
+    (1, 1, 64, 144, 144, (12, 12), False, None),
+    (23, 6, 64, 196, 196, (14, 14), False, 0.3),
+    (141, 1, 64, 144, 144, (12, 12), True, 0.3),
+    (2, 2, 64, 208, 208, (13, 16), False, None),
+    (2, 2, 64, 150, 150, (10, 15), True, None),
+    (3, 1, 64, 6, 6, (2, 3), True, None),
+]
+WINDOWED_MAIN = [
+    (100, 12, 64, 196, 196, (14, 14), False, None),    # K1, full canvas
+    (1200, 1, 64, 196, 196, (14, 14), True, None),     # K6
+    (64, 12, 64, 144, 144, (12, 12), False, None),     # K1, 48-grid
+    (768, 1, 64, 144, 144, (12, 12), True, None),      # K6
 ]
 
 
@@ -72,7 +99,7 @@ def time_ms(fn, iters: int = 5) -> float:
 def hopper_ptxas(log: str) -> list:
     out, name, spill = [], None, "?"
     for line in log.splitlines():
-        m = re.search(r"(attn_\w*sm90_kernel)I(.*?)EEv", line)
+        m = re.search(r"(attn_\w*(?:sm90|resident)_kernel)I(.*?)EEv", line)
         if m and "entry function" in line:
             name = f"{m.group(1)}<{m.group(2)}>"
         m = re.search(r"(\d+) bytes spill stores", line)
@@ -87,7 +114,7 @@ def hopper_ptxas(log: str) -> list:
 
 
 def run_case(case, rng, dev) -> dict:
-    b, h, d, nq, nk, hw, ss = case
+    b, h, d, nq, nk, hw, ss, scale = case
     c = h * d
 
     def randn(shape, s=1.0):
@@ -104,24 +131,32 @@ def run_case(case, rng, dev) -> dict:
     if hw:
         rh, rw = randn((b, nq, h, hw[0]), 0.5), randn((b, nq, h, hw[1]), 0.5)
     gh, gw = hw if hw else (0, 0)
-    scale = d ** -0.5
-    ref_out, _ = A.attention_plain(q, k, v, scale, h, rh, rw,
-                                   return_lse=True, scale_scores=ss)
+    scale = d ** -0.5 if scale is None else scale
+    ref_out, ref_lse = A.attention_plain(q, k, v, scale, h, rh, rw,
+                                         return_lse=True, scale_scores=ss)
     out, lse = A.attention_launch(q, k, v, scale, h, rh, rw, return_lse=True,
                                   scale_scores=ss, body="mma")
     ref = A.attention_backward_plain(q, k, v, out, lse, dout, scale, h, rh,
                                      rw, scale_scores=ss)
     delta = A.attention_delta(dout, out, h).contiguous()
+    chosen = A.attention_body(q.dtype, d, nq, nk, hw is not None, hw)
     res = {}
-    for body in A.BODIES:
-        got_out = A.attention_launch(q, k, v, scale, h, rh, rw,
-                                     scale_scores=ss, body=body)
+    for body in dict.fromkeys(("mma", chosen)):
+        got_out, got_lse = A.attention_launch(
+            q, k, v, scale, h, rh, rw, return_lse=True, scale_scores=ss,
+            body=body)
+        without_lse = A.attention_launch(q, k, v, scale, h, rh, rw,
+                                         scale_scores=ss, body=body)
         dpk = torch.zeros_like(packed)
         grads = tuple(dpk[:, :n, i * c:(i + 1) * c]
                       for i, n in enumerate((nq, nk, nk)))
-        runs = [A.attention_backward_launch(
-            q, k, v, out, lse, dout, scale, h, rh, rw, grads=g,
-            scale_scores=ss, body=body) for g in (grads, None)]
+
+        def backward(g=None, drel=True):
+            return A.attention_backward_launch(
+                q, k, v, out, lse, dout, scale, h, rh, rw, grads=g,
+                want_drel=drel, scale_scores=ss, body=body)
+
+        runs = [backward(g) for g in (grads, None)]
         torch.cuda.synchronize()
 
         def one(kernel, drel=True):
@@ -133,6 +168,8 @@ def run_case(case, rng, dev) -> dict:
 
         res[body] = dict(
             fwd_err=(got_out.float() - ref_out.float()).abs().max().item(),
+            lse_err=(got_lse - ref_lse).abs().max().item(),
+            same_without_lse=torch.equal(without_lse, got_out),
             bwd_rel_err=[(g.float() - r.float()).abs().max().item()
                          / max(r.float().abs().max().item(), 1e-6)
                          for g, r in zip(runs[0], ref) if r is not None],
@@ -140,17 +177,29 @@ def run_case(case, rng, dev) -> dict:
                            for g1, g2 in zip(*runs) if g1 is not None),
             fwd_ms=time_ms(lambda: A.attention_launch(
                 q, k, v, scale, h, rh, rw, scale_scores=ss, body=body)),
-            dq_ms=time_ms(one(0)),
-            dq_without_drel_ms=time_ms(one(0, False)) if hw else None,
-            dkv_ms=time_ms(one(1)))
+            fwd_with_lse_ms=time_ms(lambda: A.attention_launch(
+                q, k, v, scale, h, rh, rw, return_lse=True, scale_scores=ss,
+                body=body)),
+            bwd_ms=time_ms(lambda: backward(grads)),
+            bwd_without_drel_ms=(time_ms(lambda: backward(grads, False))
+                                 if hw else None))
+        if body != "resident":          # the two-kernel bodies, piece by piece
+            res[body].update(
+                delta_ms=time_ms(lambda: A.attention_delta(
+                    dout, out, h).contiguous()),
+                dq_ms=time_ms(one(0)),
+                dq_without_drel_ms=time_ms(one(0, False)) if hw else None,
+                dkv_ms=time_ms(one(1)))
     return dict(batch=b, heads=h, d=d, nq=nq, nk=nk, grid=hw,
-                scale_scores=ss, **res)
+                scale_scores=ss, scale=scale, **res)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--main", action="store_true",
                     help="the main-path shapes only")
+    ap.add_argument("--windowed", action="store_true",
+                    help="the windowed cases only (the resident bodies)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA GPU", file=sys.stderr)
@@ -169,7 +218,10 @@ def main() -> int:
     rng = np.random.default_rng(0)
     dev = torch.device("cuda")
     with torch.no_grad():
-        for case in (MAIN if args.main else RAGGED + MAIN):
+        cases = ([] if args.main else WINDOWED_RAGGED) + WINDOWED_MAIN
+        if not args.windowed:
+            cases += ([] if args.main else RAGGED) + MAIN
+        for case in cases:
             print(json.dumps(run_case(case, rng, dev)), flush=True)
     return 0
 

@@ -8,6 +8,14 @@ STREAMING cases below are ragged against their 128-row blocks and their
 64- and 128-key tiles (grids that are no multiple of 8, N != M, a last tile
 of one or six keys, d = 128 with rel tables).
 
+Below 512 keys, bf16 at d = 64 with rel tables and N == M <= 208 runs the
+resident bodies (one block a window-head, csrc/attention_fwd_resident.cuh and
+attention_bwd_resident.cuh, whose backward is one kernel): the RESIDENT cases
+are the main paths' windows (196 = 14x14, 144 = 12x12) and ragged ones (49 =
+7x7 with odd table widths, 100 = 10x10, 208 = 13x16, a window of six tokens,
+one window-head, more window-heads than the card has SMs; a window of one
+token has gradients that are zero but for rounding, so nothing to compare).
+
 This file imports neither JAX nor the JAX package's tests. On a machine
 without JAX run it as
 
@@ -157,6 +165,24 @@ def _close_grads(got, ref, dtype, names):
             assert err <= bound, f"{name}: max abs err {err} > {bound}"
 
 
+COUNTERS = ("launches", "backward_launches", "backward_dq_launches",
+            "backward_dkv_launches")
+
+
+def _counts(wrapper):
+    return tuple(getattr(wrapper, c) for c in COUNTERS)
+
+
+def _one_backward(dtype, d, n, hw):
+    """What one forward and backward add to COUNTERS: the resident body's
+    backward is one kernel, the others' a dq and a dk/dv kernel."""
+    from wildlifemapper_tpu_torch.ops._attention import attention_body
+
+    if attention_body(dtype, d, n, n, True, hw) == "resident":
+        return (1, 1, 0, 0)
+    return (1, 0, 1, 1)
+
+
 def _packed_backward(wrapper, cuda, dtype, bw, hw, heads, d, seed,
                      rel_grad=True):
     """Autograd through the wrapper on the card against the plain backward
@@ -169,14 +195,13 @@ def _packed_backward(wrapper, cuda, dtype, bw, hw, heads, d, seed,
     if rel_grad:
         rh.requires_grad_(), rw.requires_grad_()
     dout = _randn(rng, (bw, n, heads * d), dtype, cuda)
-    before = (wrapper.launches, wrapper.backward_dq_launches,
-              wrapper.backward_dkv_launches)
+    before = _counts(wrapper)
     out = wrapper(qkv, rh, rw, d ** -0.5, heads, hw)
     inputs = (qkv, rh, rw) if rel_grad else (qkv,)
     got = torch.autograd.grad(out, inputs, dout)
     torch.cuda.synchronize()
-    assert (wrapper.launches, wrapper.backward_dq_launches,
-            wrapper.backward_dkv_launches) == tuple(n + 1 for n in before)
+    assert _counts(wrapper) == tuple(
+        a + b for a, b in zip(before, _one_backward(dtype, d, n, hw)))
     c = heads * d
     q, k, v = (qkv.detach()[..., i * c:(i + 1) * c] for i in range(3))
     _, lse = attention_plain(q, k, v, d ** -0.5, heads, rh.detach(),
@@ -373,13 +398,13 @@ def test_grouped_backward_kernels(cuda, dtype, rel_grad, which, bh, hw, d):
         t.requires_grad_()
     dout = _randn(np.random.default_rng(1), q.shape, dtype, cuda)
     scale = d ** -0.5
-    before = (wrapper.launches, wrapper.backward_dq_launches,
-              wrapper.backward_dkv_launches)
+    before = _counts(wrapper)
     out = wrapper(q, k, v, rh, rw, scale, hw)
     got = torch.autograd.grad(out, inputs, dout)
     torch.cuda.synchronize()
-    assert (wrapper.launches, wrapper.backward_dq_launches,
-            wrapper.backward_dkv_launches) == tuple(n + 1 for n in before)
+    assert _counts(wrapper) == tuple(
+        a + b for a, b in zip(before, _one_backward(
+            dtype, d, hw[0] * hw[1], hw)))
     with torch.no_grad():
         _, lse = grouped_attention_plain(q, k, v, rh, rw, scale, hw,
                                          return_lse=True)
@@ -443,6 +468,137 @@ def test_streaming_bodies_agree_and_repeat(cuda, family, n, m, heads, d, hw):
                      [r for r in want if r is not None], dt, names)
     for g1, g2 in zip(runs[0], runs[1]):
         assert g1 is None or torch.equal(g1, g2)
+
+
+# batch (windows), heads, grid, scale (None: d ** -0.5) at d = 64: the
+# resident bodies' 16-row tiles and 144- / 208-row instantiations, odd table
+# widths (2-byte table loads), one window-head, more window-heads than SMs,
+# a scale that is no power of two (it enters where each family rounds it)
+RESIDENT = [(100, 2, (14, 14), None), (37, 3, (12, 12), None),
+            (3, 3, (7, 7), None), (5, 2, (10, 10), None),
+            (1, 1, (14, 14), None), (1, 1, (12, 12), None),
+            (2, 2, (13, 16), None), (2, 1, (10, 15), None),
+            (3, 1, (2, 3), None),
+            (141, 1, (12, 12), 0.3), (23, 6, (14, 14), 0.3)]
+
+
+@pytest.mark.parametrize("family", ["packed", "grouped"])
+@pytest.mark.parametrize("bw,heads,hw,scale", RESIDENT)
+def test_resident_bodies_agree_and_repeat(cuda, family, bw, heads, hw, scale):
+    """bf16 at the launcher: the resident body against the plain version
+    and the mma.sync body, forward with and without the lse, the one-kernel
+    backward with every gradient (dq, dk, dv written by stride into one
+    packed tensor) and with the activations' alone, and the backward twice:
+    no atomics, so bit-identical."""
+    from wildlifemapper_tpu_torch.ops._attention import (
+        attention_backward_launch, attention_backward_plain, attention_body,
+        attention_launch)
+
+    ss = family == "grouped"
+    dt, d = torch.bfloat16, 64
+    n, c = hw[0] * hw[1], heads * d
+    scale = d ** -0.5 if scale is None else scale
+    rng = np.random.default_rng(bw + n + heads)
+    qkv = _randn(rng, (bw, n, 3 * c), dt, cuda)
+    q, k, v = (qkv[..., i * c:(i + 1) * c] for i in range(3))
+    dout = _randn(rng, (bw, n, c), dt, cuda)
+    rh = _randn(rng, (bw, n, heads, hw[0]), dt, cuda, 0.5)
+    rw = _randn(rng, (bw, n, heads, hw[1]), dt, cuda, 0.5)
+    assert attention_body(dt, d, n, n, True, hw) == "resident"
+    with torch.no_grad():
+        ref, lse_ref = attention_plain(q, k, v, scale, heads, rh, rw,
+                                       return_lse=True, scale_scores=ss)
+        outs = {body: attention_launch(q, k, v, scale, heads, rh, rw,
+                                       return_lse=True, scale_scores=ss,
+                                       body=body)
+                for body in ("mma", "resident")}
+        without_lse = attention_launch(q, k, v, scale, heads, rh, rw,
+                                       scale_scores=ss)
+        torch.cuda.synchronize()
+        assert torch.equal(without_lse, outs["resident"][0])
+        for out, lse in outs.values():
+            torch.testing.assert_close(out.float(), ref.float(), **TOL[dt])
+            torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=1e-3)
+        out, lse = outs["resident"]
+        want = attention_backward_plain(q, k, v, out, lse, dout, scale,
+                                        heads, rh, rw, scale_scores=ss)
+        dqkv = torch.full_like(qkv, float("nan"))
+        packed = tuple(dqkv[..., i * c:(i + 1) * c] for i in range(3))
+        runs = [attention_backward_launch(q, k, v, out, lse, dout, scale,
+                                          heads, rh, rw, scale_scores=ss,
+                                          grads=g, body=body)
+                for g, body in ((packed, None), (None, "resident"),
+                                (None, "mma"))]
+        frozen = attention_backward_launch(q, k, v, out, lse, dout, scale,
+                                           heads, rh, rw, scale_scores=ss,
+                                           want_drel=False)
+        torch.cuda.synchronize()
+    names = ("dq", "dk", "dv", "drel_h", "drel_w")
+    for got in runs:
+        _close_grads(got, want, dt, names)
+    assert torch.isfinite(dqkv).all()          # every element was written
+    for g1, g2 in zip(runs[0], runs[1]):
+        assert torch.equal(g1, g2)
+    assert frozen[3] is None and frozen[4] is None
+    for g1, g2 in zip(frozen[:3], runs[0]):
+        assert torch.equal(g1, g2)
+
+
+def test_resident_backward_counts_one_launch(cuda):
+    """The windowed wrappers' bf16 backward is one kernel and runs no delta
+    pass; their f32 backward is still the delta pass and the two tile
+    kernels."""
+    from wildlifemapper_tpu_torch.ops import _attention
+
+    calls = []
+    real = _attention.attention_delta
+
+    def counted(*args):
+        calls.append(1)
+        return real(*args)
+
+    rng = np.random.default_rng(9)
+    _attention.attention_delta = counted
+    try:
+        for dtype, delta_passes, moved in (
+                (torch.bfloat16, 0, (1, 1, 0, 0)),
+                (torch.float32, 1, (1, 0, 1, 1))):
+            qkv = _randn(rng, (3, 196, 3 * 2 * 64), dtype,
+                         cuda).requires_grad_()
+            rh = _randn(rng, (3, 196, 2, 14), dtype, cuda, 0.5)
+            rw = _randn(rng, (3, 196, 2, 14), dtype, cuda, 0.5)
+            before = _counts(windowed_attention_packed)
+            out = windowed_attention_packed(qkv, rh, rw, 0.125, 2, (14, 14))
+            out.float().sum().backward()
+            torch.cuda.synchronize()
+            assert len(calls) == delta_passes
+            assert _counts(windowed_attention_packed) == tuple(
+                a + b for a, b in zip(before, moved))
+            del calls[:]
+    finally:
+        _attention.attention_delta = real
+
+
+def test_resident_body_refuses_what_it_does_not_hold(cuda):
+    """A body that does not take a launch raises: nothing falls back."""
+    from wildlifemapper_tpu_torch.ops._attention import attention_launch
+
+    def launch(dtype, n, d, hw):
+        q = torch.zeros(1, n, d, device=cuda, dtype=dtype)
+        rh = torch.zeros(1, n, 1, hw[0], device=cuda, dtype=dtype)
+        rw = torch.zeros(1, n, 1, hw[1], device=cuda, dtype=dtype)
+        return attention_launch(q, q, q, 0.125, 1, rh, rw, body="resident")
+
+    launch(torch.bfloat16, 196, 64, (14, 14))
+    for args in ((torch.float32, 196, 64, (14, 14)),
+                 (torch.bfloat16, 196, 128, (14, 14)),
+                 (torch.bfloat16, 256, 64, (16, 16)),
+                 (torch.bfloat16, 102, 64, (6, 17))):
+        with pytest.raises(RuntimeError, match="CUDA launch failed"):
+            launch(*args)
+    q = torch.zeros(1, 196, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="CUDA launch failed"):
+        attention_launch(q, q, q, 0.125, 1, body="resident")   # no tables
 
 
 def test_unknown_body_raises(cuda):

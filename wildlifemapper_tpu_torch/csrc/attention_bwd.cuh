@@ -46,10 +46,14 @@
 // do and the outputs are read and written by stride, so dq, dk and dv land
 // in the column blocks of one packed (B, N, 3C) dqkv.
 // Which launches still run here (ops/_attention.py::attention_body): every
-// f32 launch, d = 32, and bf16 with fewer than 512 keys, which on the main
-// paths is one window of K1 or K6. The streaming bf16 shapes of K2, K4 and
-// K5 take the Hopper bodies of attention_bwd_sm90.cuh (wgmma, a TMA-fed
-// ring); the bf16 bodies here stay their yardstick.
+// f32 launch (the parity steps of all five kernels), d = 32, and the bf16
+// launches below 512 keys that are no window the resident body holds: d = 128
+// or N != M, no rel tables, and a global block of 209 to 511 tokens that
+// lands in K1 or K6. The streaming bf16 shapes of K2, K4 and K5 take the
+// Hopper bodies of attention_bwd_sm90.cuh (wgmma, a TMA-fed ring), and the
+// bf16 windows of K1 and K6 (d = 64, N = M <= 208) the one-kernel body of
+// attention_bwd_resident.cuh, which also takes delta; the bf16 bodies here
+// stay the yardstick of both.
 
 #pragma once
 

@@ -5,7 +5,7 @@
 //   attention.cu (SCALE_SCORES = false), for three TPU kernels of the JAX
 //   package that take the packed, head-interleaved layout:
 //   K1 wildlifemapper_tpu/ops/windowed_attention_v2.py::windowed_attention_packed
-//      (windowed ViT blocks: N = 196 or 144 tokens per window, d = 64)
+//      (windowed ViT blocks: N = 196 or 144 tokens per window, d = 64; f32 here)
 //   K2 wildlifemapper_tpu/ops/flash_attention_v2.py::flash_attention_packed
 //      (global ViT blocks: N = 4096 or 2304, d = 64)
 //   K4 wildlifemapper_tpu/ops/cross_attention.py::cross_attention_packed
@@ -39,11 +39,16 @@
 //    warp keeps its scores, probabilities and running output in registers.
 //  * f32 (parity): scalar f32 FMAs, no TF32; 4 threads per query row.
 // Which launches still run here (ops/_attention.py::attention_body): every
-// f32 launch, d = 32, and bf16 with fewer than 512 keys, which on the main
-// paths is one window of K1 or K6 (144 or 196 keys). The streaming bf16
-// shapes of K2, K4 and K5 (d = 64 or 128, 2304 or 4096 keys) take the Hopper
-// body of attention_fwd_sm90.cuh (wgmma, a TMA-fed ring); the bf16 body here
-// stays their yardstick (chip_smoke.py times the two side by side).
+// f32 launch (the parity runs of all five kernels), d = 32, and the bf16
+// launches below 512 keys that are no window the resident body holds: d = 128
+// or N != M (K4 at small sizes), no rel tables, and a global block of 209 to
+// 511 tokens that lands in K1 or K6. The streaming bf16 shapes of K2, K4 and
+// K5 (d = 64 or 128, 2304 or 4096 keys) take the Hopper body of
+// attention_fwd_sm90.cuh (wgmma, a TMA-fed ring), and the bf16 windows of K1
+// and K6 (d = 64, N = M <= 208: 196 and 144 on the main paths) the resident
+// body of attention_fwd_resident.cuh (one block a window-head, a one-pass
+// softmax); the bf16 body here stays the yardstick of both (chip_smoke.py
+// times them side by side).
 //
 // Rounding points follow the Pallas kernels: q*scale is rounded to the input
 // type before QK (packed family) or the f32 scores take the scale (grouped

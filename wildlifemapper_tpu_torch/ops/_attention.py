@@ -5,8 +5,12 @@
 grouped family K5 and K6 (csrc/grouped_attention.cu,
 grouped_attention_bwd.cu). The streaming bf16 shapes (K2, K4, K5) run the
 Hopper bodies instead (csrc/attention_fwd_sm90.cuh, attention_bwd_sm90.cuh,
-built by the six `*_sm90.cu`): `attention_body` says which launch takes
-which, from its dtype and shapes alone.
+built by the six `*_sm90.cu`), and the windowed bf16 shapes (K1, K6: one
+window of at most 208 tokens) the resident bodies
+(csrc/attention_fwd_resident.cuh, attention_bwd_resident.cuh, built by the
+four `*_resident.cu`), whose backward is one kernel that also takes delta:
+`attention_body` says which launch takes which, from its dtype and shapes
+alone.
 
 Layouts are the JAX package's: q (B, N, C) and k, v (B, M, C), head h in
 columns [h*d, (h+1)*d); for the packed qkv they are column slices of one
@@ -23,15 +27,17 @@ The backward follows the JAX package's packed backward kernels
 (flash_attention_v2.py:229-319, cross_attention.py:90-146): scores are
 recomputed with the forward's rounding points, p = exp(s - lse) from the
 saved lse, delta = rowsum(do * o) per head in f32, ds and p rounded to the
-input type before the gradient products. K1 uses the same two kernels; its
-Pallas backward (windowed_attention_v2.py:125) recomputes a full softmax
-and takes delta = sum p*dp instead, which is the same function up to a
-rounding of the working type.
+input type before the gradient products. K1 and K6 compute the same
+function (in bf16 in one kernel that takes delta itself, the resident body;
+in f32 with the same two kernels); their Pallas backwards
+(windowed_attention_v2.py:125, windowed_attention.py:64) recompute a full
+softmax and take delta = sum p*dp instead, which is the same function up to
+a rounding of the working type.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -43,21 +49,34 @@ MAX_GRID_YZ = 65535
 
 # From this many keys on, a bf16 launch at d = 64 or 128 streams its tiles
 # through the Hopper bodies (csrc/attention_fwd_sm90.cuh,
-# attention_bwd_sm90.cuh); one window of K1 or K6 (at most 196 keys on the
-# main paths) stays below it.
+# attention_bwd_sm90.cuh).
 STREAM_MIN_KEYS = 512
-BODIES = ("mma", "sm90")
+# Up to this many tokens a bf16 window at d = 64 is held whole in shared
+# memory by the resident bodies (csrc/attention_fwd_resident.cuh,
+# attention_bwd_resident.cuh): 13 tiles of 16 rows; the main paths' windows
+# are 196 (14 x 14) and 144 (12 x 12) tokens. Their rel tables are at most
+# RESIDENT_MAX_GRID wide.
+RESIDENT_MAX_TOKENS = 208
+RESIDENT_MAX_GRID = 16
+BODIES = ("mma", "sm90", "resident")
 
 
 def attention_body(dtype: torch.dtype, d: int, nq: int, nk: int,
-                   has_rel: bool) -> str:
+                   has_rel: bool,
+                   grid_hw: Optional[Tuple[int, int]] = None) -> str:
     """Which kernel body a launch takes, from its dtype and shapes alone:
     "sm90", the wgmma + TMA bodies, for bf16 at d = 64 or 128 with at least
     STREAM_MIN_KEYS keys (K2, K4 and K5 on the main paths, with or without
-    rel tables, any number of queries), else "mma", the mma.sync (bf16) or
-    scalar (f32) tile bodies of csrc/attention_fwd.cuh / attention_bwd.cuh
-    (K1, K6, d = 32, f32). Forward and both backward kernels of one
-    attention take the same body. Raises on what no body takes."""
+    rel tables, any number of queries); "resident", the one-block-a-
+    window-head bodies, for bf16 at d = 64 with rel tables of a grid
+    `grid_hw` at most RESIDENT_MAX_GRID a side and nq == nk <=
+    RESIDENT_MAX_TOKENS (every window of K1 and K6 on the main paths; when
+    `grid_hw` is not given the tables are taken to fit); else "mma", the
+    mma.sync (bf16) or scalar (f32) tile bodies of csrc/attention_fwd.cuh /
+    attention_bwd.cuh (f32, d = 32, d = 128 or N != M below
+    STREAM_MIN_KEYS keys, and a global block of 209 to 511 tokens that lands
+    in K1 or K6). Forward and backward of one attention take the same body.
+    Raises on what no body takes."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"kernel takes float32 or bfloat16, got {dtype}")
     if d not in (32, 64, 128):
@@ -66,12 +85,19 @@ def attention_body(dtype: torch.dtype, d: int, nq: int, nk: int,
         raise ValueError(f"empty attention: {nq} queries, {nk} keys")
     if dtype == torch.bfloat16 and d in (64, 128) and nk >= STREAM_MIN_KEYS:
         return "sm90"
+    if (dtype == torch.bfloat16 and d == 64 and has_rel
+            and nq == nk <= RESIDENT_MAX_TOKENS
+            and (grid_hw is None or max(grid_hw) <= RESIDENT_MAX_GRID)):
+        return "resident"
     return "mma"
 
 
-def _pick_body(body, q, d, nk, has_rel) -> str:
+def _pick_body(body, q, d, nk, rel_h, rel_w) -> str:
     if body is None:
-        return attention_body(q.dtype, d, q.shape[1], nk, has_rel)
+        has_rel = rel_h is not None
+        return attention_body(
+            q.dtype, d, q.shape[1], nk, has_rel,
+            (rel_h.shape[-1], rel_w.shape[-1]) if has_rel else None)
     if body not in BODIES:
         raise ValueError(f"body {body!r}: expected one of {BODIES}")
     return body
@@ -223,6 +249,9 @@ def _check_attention(q, k, v, num_heads, rel_h, rel_w, extra=()):
     return d, gh, gw
 
 
+_ENTRY_SUFFIX = {"mma": "", "sm90": "_sm90", "resident": "_resident"}
+
+
 def _ptr(t: Optional[torch.Tensor]):
     return t.data_ptr() if t is not None else None
 
@@ -235,11 +264,12 @@ def attention_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      body: Optional[str] = None):
     """Launch the forward kernel (csrc/attention.cu or, with `scale_scores`,
     csrc/grouped_attention.cu; for the shapes `attention_body` sends there,
-    their `_sm90` counterparts) on CUDA tensors; raises on anything the
-    kernel does not take. q/k/v may be column slices of one packed tensor:
-    they are read by stride. With return_lse the kernel also writes the
-    (B, N, H) f32 log-sum-exp the backward kernels need. `body` names a body
-    outright, for timing one beside the other; the wrappers never pass it."""
+    their `_sm90` or `_resident` counterparts) on CUDA tensors; raises on
+    anything the kernel does not take. q/k/v may be column slices of one
+    packed tensor: they are read by stride. With return_lse the kernel also
+    writes the (B, N, H) f32 log-sum-exp the backward kernels need. `body`
+    names a body outright, for timing one beside the other; the wrappers
+    never pass it."""
     b, n, c = q.shape
     m = k.shape[1]
     d, gh, gw = _check_attention(q, k, v, num_heads, rel_h, rel_w)
@@ -249,8 +279,7 @@ def attention_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        device=q.device) if return_lse else None)
     fwd = getattr(lib, ("wm_grouped_attention_fwd" if scale_scores
                         else "wm_attention_fwd")
-                  + ("_sm90" if _pick_body(body, q, d, m, rel_h is not None)
-                     == "sm90" else ""))
+                  + _ENTRY_SUFFIX[_pick_body(body, q, d, m, rel_h, rel_w)])
     err = fwd(
         _build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), _ptr(rel_h), _ptr(rel_w), _ptr(lse),
@@ -266,11 +295,11 @@ def _backward_kernel_launch(kernel: int, q, k, v, dout, lse, delta, rel_h,
                             rel_w, dq, dk, dv, drh, drw, scale: float,
                             num_heads: int, d: int, gh: int, gw: int,
                             scale_scores: bool = False,
-                            body: Optional[str] = None) -> None:
+                            body: str = "mma") -> None:
     """Launch one kernel of csrc/attention_bwd.cu (with `scale_scores`, of
-    csrc/grouped_attention_bwd.cu; for the shapes `attention_body` sends
-    there, of their `_sm90` counterparts) on checked operands: 0 the dq
-    (+ drel) kernel, 1 the dk/dv kernel. Raises if the launch fails."""
+    csrc/grouped_attention_bwd.cu; with body "sm90", of their `_sm90`
+    counterparts) on checked operands: 0 the dq (+ drel) kernel, 1 the
+    dk/dv kernel. Raises if the launch fails."""
     b, n, _ = q.shape
     lib = _build.load_kernels()
     family = "wm_grouped_attention_bwd" if scale_scores else "wm_attention_bwd"
@@ -284,12 +313,43 @@ def _backward_kernel_launch(kernel: int, q, k, v, dout, lse, delta, rel_h,
         dq.stride(0), dq.stride(1), dk.stride(0), dk.stride(1),
         dv.stride(0), dv.stride(1), gh, gw, float(scale),
         _build.stream_ptr(q))
-    if _pick_body(body, q, d, k.shape[1], rel_h is not None) == "sm90":
+    if body == "sm90":
         # one entry a kernel: each compiles in an nvcc of its own
         err = getattr(lib, family + ("_dq_sm90", "_dkv_sm90")[kernel])(*args)
     else:
         err = getattr(lib, family)(kernel, *args)
     _build.check(err, "attention backward kernel " + ("dq", "dk/dv")[kernel])
+
+
+def _resident_backward_launch(q, k, v, dout, out, lse, rel_h, rel_w, dq, dk,
+                              dv, drh, drw, scale: float, num_heads: int,
+                              d: int, gh: int, gw: int,
+                              scale_scores: bool) -> None:
+    """Launch the one backward kernel of csrc/attention_bwd_resident.cu
+    (with `scale_scores`, of csrc/grouped_attention_bwd_resident.cu) on
+    checked operands: delta, dq, dk, dv and, when drh / drw are given, the
+    rel-table gradients of every window-head. Raises if the launch fails."""
+    b, n, _ = q.shape
+    lib = _build.load_kernels()
+    entry = getattr(lib, ("wm_grouped_attention_bwd" if scale_scores
+                          else "wm_attention_bwd") + "_resident")
+    err = entry(
+        _build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        dout.data_ptr(), out.data_ptr(), lse.data_ptr(), _ptr(rel_h),
+        _ptr(rel_w), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(drh),
+        _ptr(drw), b, num_heads, n, k.shape[1], d,
+        q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+        v.stride(0), v.stride(1), dout.stride(0), dout.stride(1),
+        out.stride(0), out.stride(1),
+        dq.stride(0), dq.stride(1), dk.stride(0), dk.stride(1),
+        dv.stride(0), dv.stride(1), gh, gw, float(scale),
+        _build.stream_ptr(q))
+    _build.check(err, "windowed attention backward kernel")
+
+
+def _count(wrapper, counter: str) -> None:
+    if wrapper is not None:
+        setattr(wrapper, counter, getattr(wrapper, counter) + 1)
 
 
 def attention_backward_launch(q, k, v, out, lse, dout, scale: float,
@@ -299,15 +359,21 @@ def attention_backward_launch(q, k, v, out, lse, dout, scale: float,
                               grads=None, want_drel: bool = True,
                               wrapper=None, scale_scores: bool = False,
                               body: Optional[str] = None):
-    """Launch the two backward kernels (csrc/attention_bwd.cu or, with
-    `scale_scores`, csrc/grouped_attention_bwd.cu) on CUDA tensors:
-    the dq kernel (which also writes drel_h / drel_w when rel tables are
-    given and `want_drel`), then the dk/dv kernel. `grads`, when given, are
-    the (dq, dk, dv) tensors to write, for example the column blocks of one
+    """Launch the backward on CUDA tensors. For the "resident" body that is
+    one kernel (csrc/attention_bwd_resident.cu or, with `scale_scores`,
+    csrc/grouped_attention_bwd_resident.cu) that takes delta itself; for the
+    others the plain delta pass and the two kernels of csrc/attention_bwd.cu
+    (csrc/grouped_attention_bwd.cu) or their `_sm90` counterparts: the dq
+    kernel (which also writes drel_h / drel_w when rel tables are given and
+    `want_drel`), then the dk/dv kernel. `grads`, when given, are the
+    (dq, dk, dv) tensors to write, for example the column blocks of one
     packed dqkv; they are allocated otherwise. Returns (dq, dk, dv, drel_h,
     drel_w) like the plain version. `wrapper`, when given, is the public
-    function on whose behalf the kernels run: its `backward_dq_launches`
-    and `backward_dkv_launches` go up by one as each kernel is launched."""
+    function on whose behalf the kernels run: its `backward_launches` goes
+    up by one where the one-kernel backward is launched, its
+    `backward_dq_launches` and `backward_dkv_launches` where each of the two
+    kernels is. `body` names a body outright, for timing one beside the
+    other; the wrappers never pass it."""
     b, n, c = q.shape
     m = k.shape[1]
     if grads is None:
@@ -323,15 +389,21 @@ def attention_backward_launch(q, k, v, out, lse, dout, scale: float,
         raise ValueError(f"lse: expected contiguous float32 "
                          f"{(b, n, num_heads)}, got {tuple(lse.shape)} "
                          f"{lse.dtype}")
-    delta = attention_delta(dout, out, num_heads).contiguous()
+    body = _pick_body(body, q, d, m, rel_h, rel_w)
     drh = drw = None
     if rel_h is not None and want_drel:
         drh, drw = torch.empty_like(rel_h), torch.empty_like(rel_w)
+    if body == "resident":
+        _resident_backward_launch(q, k, v, dout, out, lse, rel_h, rel_w, dq,
+                                  dk, dv, drh, drw, scale, num_heads, d, gh,
+                                  gw, scale_scores)
+        _count(wrapper, "backward_launches")
+        return dq, dk, dv, drh, drw
+    delta = attention_delta(dout, out, num_heads).contiguous()
     for kernel, counter in enumerate(("backward_dq_launches",
                                       "backward_dkv_launches")):
         _backward_kernel_launch(kernel, q, k, v, dout, lse, delta, rel_h,
                                 rel_w, dq, dk, dv, drh, drw, scale,
                                 num_heads, d, gh, gw, scale_scores, body)
-        if wrapper is not None:
-            setattr(wrapper, counter, getattr(wrapper, counter) + 1)
+        _count(wrapper, counter)
     return dq, dk, dv, drh, drw

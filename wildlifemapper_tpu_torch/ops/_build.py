@@ -47,6 +47,9 @@ _ATTENTION_FWD = [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                   ctypes.c_float, _P]
 _ATTENTION_BWD = ([_I, _I] + [_P] * 13 + [_I] * 5 + [_LL] * 14
                   + [_I, _I, ctypes.c_float, _P])
+# the one-kernel windowed backward: `out` (with its strides) in place of delta
+_ATTENTION_BWD_RESIDENT = ([_I] + [_P] * 13 + [_I] * 5 + [_LL] * 16
+                           + [_I, _I, ctypes.c_float, _P])
 _SIGNATURES = {
     # the packed family (K1, K2, K4) and the grouped family (K5, K6) take
     # the same arguments
@@ -61,6 +64,11 @@ _SIGNATURES = {
     "wm_grouped_attention_fwd_sm90": _ATTENTION_FWD,
     "wm_grouped_attention_bwd_dq_sm90": _ATTENTION_BWD[1:],
     "wm_grouped_attention_bwd_dkv_sm90": _ATTENTION_BWD[1:],
+    # the resident bodies of the windowed shapes (K1, K6), bf16
+    "wm_attention_fwd_resident": _ATTENTION_FWD,
+    "wm_attention_bwd_resident": _ATTENTION_BWD_RESIDENT,
+    "wm_grouped_attention_fwd_resident": _ATTENTION_FWD,
+    "wm_grouped_attention_bwd_resident": _ATTENTION_BWD_RESIDENT,
     "wm_fused_mlp_fwd": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "wm_fused_mlp_dh": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }

@@ -144,6 +144,8 @@ def flash_attention_rel_pos(q, k, v, rel_h, rel_w, scale: float,
 flash_attention_rel_pos.launches = 0
 # backward kernels launched, counted where each is launched: the dq/drh/drw
 # kernel and the dk/dv kernel, one of each per backward
+# a grid of at most 208 tokens in bf16 takes the one-kernel resident backward
+flash_attention_rel_pos.backward_launches = 0
 flash_attention_rel_pos.backward_dq_launches = 0
 flash_attention_rel_pos.backward_dkv_launches = 0
 

@@ -9,15 +9,20 @@ with N = 196 (window 14 on the 64-grid padded to 70) or B*16*12 with N = 144
 (window 12 on the 48-grid); tables (BWH, N, h) and (BWH, N, w). A global
 block on a grid of fewer than GLOBAL_N_THRESHOLD tokens lands here too.
 
-The kernels are those of K5 (csrc/grouped_attention.cu and
-grouped_attention_bwd.cu; ops/flash_attention.py): the Pallas kernel held a
-group of 16 whole windows on chip with a one-pass softmax and, in the
-backward, a second softmax and delta = sum p*dp; here the forward streams
-64-key tiles with an online softmax and writes lse when a gradient is
-recorded, and the two backward kernels take p = exp(s - lse) and
-delta = rowsum(do * o). See the sources' headers for what bounds the kernel
-on the H100 and what the choice costs. The group padding and the E/T
-expansion operands of the Pallas call are not carried over.
+The Pallas kernel held a group of 16 whole windows on chip with a one-pass
+softmax and, in the backward, a second softmax and delta = sum p*dp. In bf16
+at d = 64 a window of up to 208 tokens runs the resident bodies
+(csrc/grouped_attention_resident.cu, grouped_attention_bwd_resident.cu): one
+block a window-head with Q, K and V whole in shared memory, a one-pass
+softmax that writes lse when a gradient is recorded, and one backward kernel
+that takes p = exp(s - lse), delta = rowsum(do * o), dq, dk, dv and the table
+gradients; the bias enters as a product with a one-hot expansion, as the
+Pallas call's E/T operands did. f32, d = 32, d = 128 and a global block of
+more tokens still run the tile bodies of K5 (csrc/grouped_attention.cu and
+grouped_attention_bwd.cu; ops/flash_attention.py): 64-key tiles, an online
+softmax, a plain delta pass and two backward kernels. See the sources'
+headers for what bounds each on the H100. The group padding of the Pallas
+call is not carried over.
 
 On a CPU tensor the wrapper runs the plain version and autograd
 differentiates it; on a CUDA tensor it launches the kernels or raises.
@@ -73,7 +78,9 @@ def windowed_attention_rel_pos(q, k, v, rel_h, rel_w, scale: float,
 
 
 windowed_attention_rel_pos.launches = 0
-# backward kernels launched, counted where each is launched: the dq (+ drel)
-# kernel and the dk/dv kernel, one of each per backward
+# backward kernels launched, counted where each is launched: the one-kernel
+# backward of the resident body, or the dq (+ drel) kernel and the dk/dv
+# kernel of the tile bodies, one of each per backward
+windowed_attention_rel_pos.backward_launches = 0
 windowed_attention_rel_pos.backward_dq_launches = 0
 windowed_attention_rel_pos.backward_dkv_launches = 0

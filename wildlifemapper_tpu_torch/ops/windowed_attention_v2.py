@@ -4,16 +4,21 @@ Replaces wildlifemapper_tpu/ops/windowed_attention_v2.py::
 windowed_attention_packed (:200) and its backward kernel (_bwd_kernel :125)
 in the 8 windowed ViT-B blocks: qkv (BW, N, 3C) as the qkv GEMM emits it, N = 196 (window 14
 on the 64-grid padded to 70, BW = B*25) or 144 (window 12 on the 48-grid,
-BW = B*16). The kernel is csrc/attention.cu (shared with K2 and K4); see
-the header of its body, csrc/attention_fwd.cuh, for what bounds it on the
-H100 and how the design answers it.
+BW = B*16). In bf16 at d = 64 a window of up to 208 tokens runs the resident
+body (csrc/attention_resident.cu: one block a window-head, Q, K and V whole in
+shared memory; see csrc/attention_fwd_resident.cuh for what bounds it on the
+H100 and how the design answers it). f32, d = 32 and a global block of more
+tokens that lands here still run the tile body of csrc/attention.cu (shared
+with K2 and K4; csrc/attention_fwd.cuh).
 The rel tables are unpadded (BW, N, H, gh) / (BW, N, H, gw): the 16-lane
 packing of the Pallas `pack_rel_tables` was a TPU tiling artefact.
 
-The backward runs the two kernels of csrc/attention_bwd.cu (dq + drel, then
-dk/dv) on the lse the forward writes when a gradient is recorded; see
-ops/_attention.py for how that relates to the Pallas backward, which
-recomputes a full softmax. Gradients come back in the forward's layouts:
+The backward runs on the lse the forward writes when a gradient is recorded:
+for the resident body one kernel a launch (csrc/attention_bwd_resident.cu:
+delta, dq, dk, dv and drel of a window-head from one block), else a plain
+delta pass and the two kernels of csrc/attention_bwd.cu (dq + drel, then
+dk/dv); see ops/_attention.py for how that relates to the Pallas backward,
+which recomputes a full softmax. Gradients come back in the forward's layouts:
 dqkv packed (BW, N, 3C), drel (BW, N, H, gh/gw).
 
 On a CPU tensor the wrapper runs the plain version and autograd
@@ -112,7 +117,9 @@ def windowed_attention_packed(qkv, rel_h, rel_w, scale: float,
 
 
 windowed_attention_packed.launches = 0
-# backward kernels launched, counted where each is launched: the dq (+ drel)
-# kernel and the dk/dv kernel, one of each per backward
+# backward kernels launched, counted where each is launched: the one-kernel
+# backward of the resident body, or the dq (+ drel) kernel and the dk/dv
+# kernel of the tile bodies, one of each per backward
+windowed_attention_packed.backward_launches = 0
 windowed_attention_packed.backward_dq_launches = 0
 windowed_attention_packed.backward_dkv_launches = 0
