@@ -7,14 +7,16 @@ hand-written CUDA kernels, and checks them: serving (wildlifemapper_tpu_torch:
 HFC -> ViT-B -> box decoder -> postprocess + NMS) and training (train/step.py:
 forward, set criterion with the Hungarian match, backward through the
 backward kernels, clip, AdamW), each in both layouts of the attention
-kernels: attn_impl="packed" (K1 windowed, K2 global, K3 fused MLP, K4
-adaptor) and attn_impl="grouped" (K6 windowed, K5 global, K4; plain MLP).
+kernels: attn_impl="packed" (K1 windowed, K2 global, K3 MLP, K4 adaptor) and
+attn_impl="grouped" (K6 windowed, K5 global, K4; plain MLP). Also serves
+ViT-L and ViT-H through the packed kernels.
 Phases, one JSON line each; any failure raises and exits non-zero:
 
   1. device: the card's name and power limit; build the kernels from
      wildlifemapper_tpu_torch/csrc (timed), registers and spills of every
      instantiation, the Hopper (wgmma + TMA) and the resident (windowed)
-     bodies included, the latter held to no spill; TF32 off.
+     bodies included, the latter, the K3 GEMM body and the head-dim-80 tile
+     bodies held to no spill; TF32 off.
   2. kernels: each kernel against its plain PyTorch version on the card at
      the shapes the serving path gives it, f32 at atol 2e-5 / rtol 1e-4 and
      bf16 (against the plain version in f32 on the same bf16-rounded
@@ -25,7 +27,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      N != M, a last tile of 6 keys, d = 128 with tables); K1 and K6 also at
      windows that are ragged against the resident bodies' 16-row tiles (49 =
      7x7 with odd table widths, 100 = 10x10, one window-head, a window count
-     that is a multiple of nothing).
+     that is a multiple of nothing); K3 at R = 16384 and 9216 and at rows
+     ragged against the GEMM body's 128-row tiles (1, 129, 1000), ViT-L and
+     ViT-H widths (bf16 only at D = 1280, which the f32 body refuses); K1,
+     K2, K5 and K6 at head dim 80 at ViT-H's shapes (25 windows of 196 and
+     4096 tokens, 16 heads, batch 1), through the tile bodies.
   3. end to end: the f32 forward with kernels, in each layout, against the
      PyTorch reference's logits and boxes in tests/goldens/full_model.npz
      (weights regenerated from their names), at atol 1e-4 / rtol 1e-3, and
@@ -40,11 +46,20 @@ Phases, one JSON line each; any failure raises and exits non-zero:
   5. times: each configuration with kernels and with the plain path, the
      grouped layout beside the packed one, and each kernel against its
      plain version, with CUDA events.
+ 4b. large models: ViT-B, ViT-L and ViT-H (head dim 80, D 1280) in bf16 at
+     batch 1 through the packed kernels (seeded random weights) against the
+     plain path with the same weights: finite detections, the image
+     embedding's relative error, class-probability and box drift and label
+     agreement, ViT-L's and ViT-H's held to limits scaled from ViT-B's; the
+     launch counts of each run (the d = 80 attention runs the mma.sync tile
+     bodies, K3 the GEMM body), the forward's time.
   6. kernels, backward: the forward's lse, and the gradients that autograd
      takes through each public wrapper on the card, against the plain
      backward at the training shapes of both configurations (K1 and K6
      N = 196 and 144; K2, K4 and K5 N = 4096 and 2304; K3 R = 16384 and
-     9216; all five attention kernels also ragged as in phase 2): once with
+     9216, ragged at R = 1000 and at ViT-H's widths; all five attention
+     kernels also ragged as in phase 2, K1, K2, K5 and K6 also at head dim
+     80 at ViT-H's shapes): once with
      every input requiring a gradient (dqkv written by stride into one
      packed tensor, drel, the MLP's weight gradients; K5 with 4-D and with
      3-D tables) and once with the activations alone
@@ -74,7 +89,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      delta pass counted in) beside the mma.sync body on the same inputs in
      turns, at the full-canvas shape and, for K1 / K6, at the N = 144 shape
      too, every kernel beside its bound (the larger of its FLOPs over 989
-     TFLOP/s and its bytes over 3.35 TB/s).
+     TFLOP/s and its bytes over 3.35 TB/s); K3 forward and dh at R = 16384
+     and 9216 (ViT-B) and at ViT-L's and ViT-H's widths over 20 launches in
+     turns with their library yardsticks (bf16 F.linear -> F.gelu ->
+     F.linear; F.linear and the GELU-gradient product), the forward's two
+     passes alone, and the host time of one wrapper call of each.
 
 The last line is {"ok": true, "device": {...}}. Without CUDA, or without the
 rest of the repository beside it, the script fails before any result.
@@ -84,6 +103,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import re
 import subprocess
 import sys
@@ -172,6 +192,22 @@ def paired_ms(fn_a, fn_b, iters: int = 5):
     return (a1 + a2) / 2, (b1 + b2) / 2
 
 
+def host_us(fn, calls: int = 50) -> float:
+    """Host time of one call of fn() in microseconds: the wall clock around
+    `calls` calls that only queue work for an idle card (no wait between
+    them; the queue does not fill), after a warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
 def bound_ms(flops: float, nbytes: float):
     """The least time the card could take: (ms, 'operations' | 'bytes')."""
     t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
@@ -210,8 +246,8 @@ def main() -> int:
     from wildlifemapper_tpu_torch.ops.flash_attention_v2 import (
         flash_attention_packed, flash_attention_packed_plain)
     from wildlifemapper_tpu_torch.ops.fused_mlp import (
-        fused_mlp, fused_mlp_backward_plain, fused_mlp_dh, fused_mlp_dh_plain,
-        fused_mlp_plain)
+        _BIAS, _BIAS_GELU, _gemm, fused_mlp, fused_mlp_backward_plain,
+        fused_mlp_dh, fused_mlp_dh_plain, fused_mlp_plain)
     from wildlifemapper_tpu_torch.ops.windowed_attention import \
         windowed_attention_rel_pos
     from wildlifemapper_tpu_torch.ops.windowed_attention_v2 import (
@@ -242,6 +278,17 @@ def main() -> int:
     if len(resident_ptxas) < 4 or spilling:
         raise AssertionError(f"resident bodies: {len(resident_ptxas)} ptxas "
                              f"lines, spilling: {spilling}")
+    # the K3 GEMM body's instantiations and the tile bodies at head dim 80
+    gemm_ptxas = [line for line in ptxas if "fused_mlp_gemm_sm90" in line]
+    d80_ptxas = [line for line in ptxas
+                 if re.search(r"kernel<(float,)?80[,>]", line)]
+    spilling = [line for line in gemm_ptxas + d80_ptxas
+                if ", 0 B spilled" not in line]
+    emit("ptxas_held_to_no_spill", gemm=gemm_ptxas, head_dim_80=d80_ptxas)
+    if len(gemm_ptxas) < 3 or len(d80_ptxas) < 12 or spilling:
+        raise AssertionError(f"K3 GEMM body: {len(gemm_ptxas)} ptxas lines, "
+                             f"d = 80 bodies: {len(d80_ptxas)}, spilling: "
+                             f"{spilling}")
 
     kernels = {
         "windowed_attention_packed": dict(
@@ -256,7 +303,7 @@ def main() -> int:
             replaces="wildlifemapper_tpu/ops/flash_attention_v2.py:183"),
         "fused_mlp": dict(
             wrapper=fused_mlp, plain=fused_mlp_plain,
-            source="wildlifemapper_tpu_torch/csrc/fused_mlp.cu",
+            source="wildlifemapper_tpu_torch/csrc/mlp_gemm_sm90.cu",
             replaces="wildlifemapper_tpu/ops/fused_mlp.py:97"),
         "cross_attention_packed": dict(
             wrapper=cross_attention_packed,
@@ -309,6 +356,7 @@ def main() -> int:
         ("flash_attention_packed", "B=4 N=4096", lambda: attn_args(4, (64, 64))),
         ("flash_attention_packed", "B=4 N=2304", lambda: attn_args(4, (48, 48))),
         ("fused_mlp", "R=4*4096", lambda: mlp_args(4 * 4096)),
+        ("fused_mlp", "R=4*2304", lambda: mlp_args(4 * 2304)),
         ("cross_attention_packed", "B=4 N=M=4096",
          lambda: [randn((4, 4096, c)), randn((4, 4096, c)),
                   randn((4, 4096, c)), hd ** -0.5, c // hd]),
@@ -358,7 +406,26 @@ def main() -> int:
          lambda: grouped_args(111, (10, 10))),
         ("windowed_attention_rel_pos", "BWH=1 N=144",
          lambda: grouped_args(1, (12, 12))),
+        # ragged against the K3 GEMM body's 128-row tiles and 256-column
+        # tiles; ViT-L and ViT-H widths (the f32 body stops at D = 1024)
+        ("fused_mlp", "R=1000", lambda: mlp_args(1000)),
+        ("fused_mlp", "R=129 D=1024 F=4096", lambda: mlp_args(129, 1024, 4096)),
+        ("fused_mlp", "R=1 D=1280 F=5120", lambda: mlp_args(1, 1280, 5120)),
+        ("fused_mlp", "R=1000 D=1280 F=5120",
+         lambda: mlp_args(1000, 1280, 5120)),
+        # head dim 80 (ViT-H: D 1280, 16 heads) through the mma.sync and
+        # f32 tile bodies, at ViT-H's serving shapes at batch 1
+        ("windowed_attention_packed", "BW=25 H=16 N=196 d=80 (ViT-H)",
+         lambda: attn_args(25, (14, 14), heads=16, d=80)),
+        ("flash_attention_packed", "B=1 H=16 N=4096 d=80 (ViT-H)",
+         lambda: attn_args(1, (64, 64), heads=16, d=80)),
+        ("windowed_attention_rel_pos", "BWH=25*16 N=196 d=80",
+         lambda: grouped_args(25 * 16, (14, 14), d=80)),
+        ("flash_attention_rel_pos", "BH=16 N=4096 d=80",
+         lambda: grouped_args(16, (64, 64), d=80)),
     ]
+    # shapes no f32 body takes: the wrapper must refuse them with the reason
+    bf16_only = {"R=1 D=1280 F=5120", "R=1000 D=1280 F=5120"}
     # fused_mlp keeps its biases in f32 whatever the compute dtype
     f32_positions = {"fused_mlp": (2, 4)}
     tol = {torch.float32: dict(atol=2e-5, rtol=1e-4),
@@ -372,6 +439,14 @@ def main() -> int:
                 keep32 = f32_positions.get(name, ())
                 args = [a.to(dt) if torch.is_tensor(a) and i not in keep32
                         else a for i, a in enumerate(base)]
+                if dt == torch.float32 and shape in bf16_only:
+                    try:
+                        kernels[name]["wrapper"](*args)
+                    except ValueError as exc:
+                        emit("kernel_refuses", kernel=name, shape=shape,
+                             dtype="float32", reason=str(exc))
+                        continue
+                    raise AssertionError(f"{name} {shape}: f32 not refused")
                 got = kernels[name]["wrapper"](*args)
                 torch.cuda.synchronize()
                 ref = kernels[name]["plain"](*[
@@ -404,6 +479,17 @@ def main() -> int:
             for attr in count_names:
                 if hasattr(k["wrapper"], attr):
                     setattr(k["wrapper"], attr, 0)
+        fused_mlp.kernel_launches = 0
+
+    def check_mlp_kernels(what, per_call):
+        """K3's kernel launches of a run: per_call for each wrapper call
+        (bf16: the GEMM body's two passes; f32: the fused scalar body)."""
+        got, calls = fused_mlp.kernel_launches, fused_mlp.launches
+        emit("mlp_kernel_launches", path=what, wrapper_calls=calls,
+             kernel_launches=got, want=per_call * calls)
+        if got != per_call * calls:
+            raise AssertionError(f"{what}: {got} K3 kernel launches for "
+                                 f"{calls} calls, want {per_call} a call")
 
     # launches of one forward: the packed layout (K1, K2, K3, K4) and the
     # grouped one (K6, K5, K4; its MLP is the plain one)
@@ -452,6 +538,7 @@ def main() -> int:
                                    npz["boxes"], atol=1e-4, rtol=1e-3)
         check_launches(f"one f32 forward, {layout}", e2e_counts,
                        per_forward[layout])
+        check_mlp_kernels(f"one f32 forward, {layout}", 1)
         del model, out
         torch.cuda.empty_cache()
 
@@ -510,6 +597,8 @@ def main() -> int:
     grouped_models = {name: build(cfg)
                       for name, cfg in grouped_configs.items()}
     served, main_counts = serve_all(models)
+    check_mlp_kernels("serving, packed", 2)
+    serving_mlp_kernel_launches = fused_mlp.kernel_launches
     grouped_served, grouped_counts = serve_all(grouped_models)
     for name, outs in list(served.items()) + [
             (f"{n} grouped", o) for n, o in grouped_served.items()]:
@@ -563,6 +652,153 @@ def main() -> int:
             del ref_m, ref
             torch.cuda.empty_cache()
 
+    import torch.nn.functional as F
+
+    def heads_view(t, heads):
+        b, n, cw = t.shape
+        return t.view(b, n, heads, cw // heads).transpose(1, 2)
+
+    def sdpa_pair(q, k, v, rh, rw, heads, scale):
+        """(forward fn, backward fn) of one scaled_dot_product_attention
+        call on the same inputs, the decomposed bias built beforehand and
+        passed as attn_mask: the library's yardstick, used nowhere in the
+        port. The backward is autograd through that call for dq, dk, dv."""
+        qh, kh, vh = (heads_view(t, heads).detach().requires_grad_()
+                      for t in (q, k, v))
+        bias = None
+        if rh is not None:
+            b, n = q.shape[:2]
+            bias = (rh.permute(0, 2, 1, 3)[..., :, None]
+                    + rw.permute(0, 2, 1, 3)[..., None, :]
+                    ).reshape(b, heads, n, -1).contiguous()
+
+        def fwd():
+            return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias,
+                                                  scale=scale)
+
+        out = fwd()
+        dout = torch.randn_like(out)
+        return fwd, lambda: torch.autograd.grad(out, (qh, kh, vh), dout,
+                                                retain_graph=True)
+
+    # ---- 4b. large models: ViT-L and ViT-H through the packed kernels ------
+    # Seeded random weights (no checkpoint is at hand); the plain path gets
+    # the same weights. ViT-H's head dim 80 runs the mma.sync tile bodies,
+    # its D 1280 the K3 GEMM body.
+    sizes1 = sizes[:1]
+
+    def serve1(m, images):
+        out = m(images)
+        dets = postprocess(out, sizes1, confidence_threshold=0.05)
+        dets["keep"] = batched_nms(dets["boxes"], dets["scores"],
+                                   dets["labels"], dets["keep"], 0.4,
+                                   class_aware=False)
+        return out, dets
+
+    x1 = batches[0][:1]
+    drift_b = None          # ViT-B's, in the same setting: the limits' scale
+    for variant in ("vit_b", "vit_l", "vit_h"):
+        cfg = model_config(variant, dtype="bfloat16", use_flash_attention=True)
+        kern_m = WildlifeMapper(
+            cfg, generator=torch.Generator(device=dev).manual_seed(0)).eval()
+        plain_m = WildlifeMapper(dataclasses.replace(
+            cfg, use_flash_attention=False)).eval()
+        plain_m.load_state_dict(kern_m.state_dict())
+        v = cfg.vit
+        d = v.embed_dim // v.num_heads
+        glob = len(v.global_attn_indexes)
+        # the encoder's output (the image embedding) of each path
+        emb = {}
+        hooks = [m.image_encoder.register_forward_hook(
+            lambda mod, args, out, key=key: emb.__setitem__(key, out.float()))
+            for key, m in (("kernels", kern_m), ("plain", plain_m))]
+        reset_counts()                 # the large model's run starts here
+        with torch.inference_mode():
+            out, dets = serve1(kern_m, x1)
+            torch.cuda.synchronize()
+        check_launches(f"{variant} bf16 serving, batch 1", counts(),
+                       {"windowed_attention_packed": v.depth - glob,
+                        "flash_attention_packed": glob,
+                        "fused_mlp": v.depth, "cross_attention_packed": 1,
+                        "flash_attention_rel_pos": 0,
+                        "windowed_attention_rel_pos": 0})
+        check_mlp_kernels(f"{variant} bf16 serving, batch 1", 2)
+        n_win, n_glob = v.window_size ** 2, cfg.grid_size ** 2
+        bodies = {
+            "windowed": attention_body(torch.bfloat16, d, n_win, n_win, True,
+                                       (v.window_size, v.window_size)),
+            "global": attention_body(torch.bfloat16, d, n_glob, n_glob, True,
+                                     (cfg.grid_size, cfg.grid_size))}
+        if d == 80 and set(bodies.values()) != {"mma"}:
+            raise AssertionError(f"{variant}: d = 80 bodies {bodies}")
+        with torch.inference_mode():
+            ref, _ = serve1(plain_m, x1)
+            for h in hooks:
+                h.remove()
+            ms_plain, ms_kern = paired_ms(lambda: serve1(plain_m, x1),
+                                          lambda: serve1(kern_m, x1), iters=3)
+        pb, bx = out["pred_boxes"], dets["boxes"]
+        if not (torch.isfinite(out["pred_logits"]).all()
+                and torch.isfinite(bx).all() and pb.min() >= 0
+                and pb.max() <= 1):
+            raise AssertionError(f"{variant}: non-finite or out-of-range "
+                                 "detections")
+        got = dict(drift(out, ref), embedding_rel_err=(
+            (emb["kernels"] - emb["plain"]).norm()
+            / emb["plain"].norm()).item())
+        # ViT-B sets the scale: the same bf16 rounding through 24 / 32
+        # blocks in place of 12 grows the embedding's error by sqrt(depth)
+        # to depth times (1.4-2.7x), so 4x; a box may move by two bf16
+        # steps of a coordinate (4 px each at 1024 px); the labels may flip
+        # on 5 % more of the queries (near ties of random weights)
+        limits = None if drift_b is None else dict(
+            embedding_rel_err=4 * drift_b["embedding_rel_err"],
+            max_class_prob_diff=4 * drift_b["max_class_prob_diff"],
+            max_box_diff_px=max(2 * drift_b["max_box_diff_px"], 8.0),
+            min_label_agreement=drift_b["label_agreement"] - 0.05)
+        emit("large_model", config=f"{variant} bf16 full canvas", batch=1,
+             head_dim=d, embed_dim=v.embed_dim, depth=v.depth,
+             attention_bodies=bodies, detections_kept=int(dets["keep"].sum()),
+             kernels_against_plain=got, limits_from_vit_b=limits, gpu=gpu,
+             ms_per_tile_kernels=ms_kern, ms_per_tile_plain=ms_plain)
+        if limits is None:
+            drift_b = got
+        elif not (got["embedding_rel_err"] <= limits["embedding_rel_err"]
+                  and got["max_class_prob_diff"]
+                  <= limits["max_class_prob_diff"]
+                  and got["max_box_diff_px"] <= limits["max_box_diff_px"]
+                  and got["label_agreement"]
+                  >= limits["min_label_agreement"]):
+            raise AssertionError(f"{variant}: kernels drift from the plain "
+                                 f"path {got} beyond {limits}")
+        del kern_m, plain_m, out, ref, dets, emb
+        torch.cuda.empty_cache()
+
+    # the d = 80 attention kernels at ViT-H's shapes, batch 1, beside their
+    # plain versions, one library call and their bounds (at the launcher)
+    with torch.no_grad():
+        for what, bw, hw in (("windowed", 25, (14, 14)),
+                             ("global", 1, (64, 64))):
+            qkv, rh, rw = (t.to(torch.bfloat16) for t in
+                           attn_args(bw, hw, heads=16, d=80)[:3])
+            q, k, v_ = qkv.split(1280, dim=-1)
+            n = hw[0] * hw[1]
+            lib_fwd, _ = sdpa_pair(q, k, v_, rh, rw, 16, 80 ** -0.5)
+            ms_plain, ms_kern = paired_ms(
+                lambda: attention_plain(q, k, v_, 80 ** -0.5, 16, rh, rw),
+                lambda: attention_launch(q, k, v_, 80 ** -0.5, 16, rh, rw),
+                iters=20)
+            lib_ms = time_ms(lib_fwd, iters=20)
+            mac = bw * 16 * n * n * 80
+            b80 = bound_ms(4 * mac, nbytes(q, k, v_, q, rh, rw))
+            emit("kernel_time", kernel=f"attention d=80 {what} (ViT-H)",
+                 shape=f"B={bw} H=16 N={n} d=80", dtype="bfloat16", gpu=gpu,
+                 body=attention_body(torch.bfloat16, 80, n, n, True, hw),
+                 ms=ms_kern, plain_ms=ms_plain, library_ms=lib_ms,
+                 bound_ms=b80[0], bound_by=b80[1])
+            del qkv, q, k, v_, rh, rw, lib_fwd
+            torch.cuda.empty_cache()
+
     # ---- 5. times ------------------------------------------------------------
     del served, grouped_served
     with torch.inference_mode():
@@ -614,8 +850,7 @@ def main() -> int:
 
     attn_cu = "wildlifemapper_tpu_torch/csrc/attention.cu"
     bwd_cu = "wildlifemapper_tpu_torch/csrc/attention_bwd.cu"
-    mlp_cu = "wildlifemapper_tpu_torch/csrc/fused_mlp.cu"
-    mlp_bwd_cu = "wildlifemapper_tpu_torch/csrc/fused_mlp_bwd.cu"
+    mlp_cu = "wildlifemapper_tpu_torch/csrc/mlp_gemm_sm90.cu"
     jax_ops = "wildlifemapper_tpu/ops/"
 
     def grads_close(what, got, ref, dt, names):
@@ -718,6 +953,11 @@ def main() -> int:
          lambda: attn_args(37, (10, 10), heads=3)[:3]),
         ("K1", "BW=1 H=1 N=196", 1, 64, (14, 14),
          lambda: attn_args(1, (14, 14), heads=1)[:3]),
+        # head dim 80 at ViT-H's shapes, batch 1: the tile bodies
+        ("K1", "BW=25 H=16 N=196 d=80 (ViT-H)", 16, 80, (14, 14),
+         lambda: attn_args(25, (14, 14), heads=16, d=80)[:3]),
+        ("K2", "B=1 H=16 N=4096 d=80 (ViT-H)", 16, 80, (64, 64),
+         lambda: attn_args(1, (64, 64), heads=16, d=80)[:3]),
     ]
     wrappers = {"K1": windowed_attention_packed,
                 "K2": flash_attention_packed, "K4": cross_attention_packed}
@@ -808,23 +1048,26 @@ def main() -> int:
     # once with 3-D ones. "Activations only" here is q, k and v: without a
     # table gradient the dq kernel skips the drel reduction.
     grouped_cases = [
-        ("K6", "BWH=4*25*12 N=196", (14, 14), 4 * 25 * 12, 3),
-        ("K6", "BWH=4*16*12 N=144", (12, 12), 4 * 16 * 12, 3),
-        ("K5", "BH=4*12 N=4096", (64, 64), 4 * 12, 4),
-        ("K5", "BH=4*12 N=2304", (48, 48), 4 * 12, 3),
-        ("K5", "BH=6 N=1000 (20x50)", (20, 50), 6, 3),
-        ("K6", "BWH=7 N=49 (7x7)", (7, 7), 7, 3),
-        ("K6", "BWH=111 N=100 (10x10)", (10, 10), 111, 3),
-        ("K6", "BWH=1 N=144", (12, 12), 1, 3),
+        ("K6", "BWH=4*25*12 N=196", (14, 14), 4 * 25 * 12, 3, 64),
+        ("K6", "BWH=4*16*12 N=144", (12, 12), 4 * 16 * 12, 3, 64),
+        ("K5", "BH=4*12 N=4096", (64, 64), 4 * 12, 4, 64),
+        ("K5", "BH=4*12 N=2304", (48, 48), 4 * 12, 3, 64),
+        ("K5", "BH=6 N=1000 (20x50)", (20, 50), 6, 3, 64),
+        ("K6", "BWH=7 N=49 (7x7)", (7, 7), 7, 3, 64),
+        ("K6", "BWH=111 N=100 (10x10)", (10, 10), 111, 3, 64),
+        ("K6", "BWH=1 N=144", (12, 12), 1, 3, 64),
+        # head dim 80 at ViT-H's shapes, batch 1: the tile bodies
+        ("K6", "BWH=25*16 N=196 d=80", (14, 14), 25 * 16, 3, 80),
+        ("K5", "BH=16 N=4096 d=80", (64, 64), 16, 4, 80),
     ]
     wrappers.update(K5=flash_attention_rel_pos, K6=windowed_attention_rel_pos)
     grad_names = ("dq", "dk", "dv", "drel_h", "drel_w")
-    for kid, shape, hw, bh, table_dims in grouped_cases:
-        base = grouped_args(bh, hw)[:5]
+    for kid, shape, hw, bh, table_dims, d in grouped_cases:
+        base = grouped_args(bh, hw, d)[:5]
         if table_dims == 4:
             base[3] = base[3].reshape(bh, *hw, hw[0])
             base[4] = base[4].reshape(bh, *hw, hw[1])
-        scale, n = 64 ** -0.5, hw[0] * hw[1]
+        scale, n = d ** -0.5, hw[0] * hw[1]
         dout32 = randn(base[0].shape)
         for dt in (torch.float32, torch.bfloat16):
             dout = dout32.to(dt)
@@ -834,7 +1077,7 @@ def main() -> int:
                     i < 3 or not frozen) for i, t in enumerate(base)]
                 got = through_wrapper(wrappers[kid], tensors, (scale, hw),
                                       dout,
-                                      backward_counters(dt, 64, n, n, hw))
+                                      backward_counters(dt, d, n, n, hw))
                 if ref is None:
                     with torch.no_grad():
                         q, k, v, rh, rw = (t.detach() for t in tensors)
@@ -881,7 +1124,7 @@ def main() -> int:
                                             errs["dk"], errs["dv"])
                 del got, tensors
             if dt == torch.bfloat16:
-                if attention_body(dt, 64, n, n, True, hw) == "resident":
+                if attention_body(dt, d, n, n, True, hw) == "resident":
                     repeat_check(kid, shape, lambda: attention_backward_launch(
                         q, k, v, out, lse, dout, scale, 1, rh4, rw4,
                         scale_scores=True))
@@ -889,7 +1132,7 @@ def main() -> int:
                        f"{kid} N=144" if kid == "K6" and "N=144" in shape
                        and bh > 1 else None)
                 if key:
-                    bwd_inputs[key] = (shape, 1, 64, scale,
+                    bwd_inputs[key] = (shape, 1, d, scale,
                                        (q, k, v, out, lse, dout, rh4, rw4))
             del ref, out, lse, q, k, v, rh, rw, rh4, rw4
         del base, dout32, dout
@@ -897,10 +1140,16 @@ def main() -> int:
 
     mlp_names = ("dx", "dw1", "db1", "dw2", "db2")
     mlp_counters = ("launches", "backward_launches")
-    for shape, rows in (("R=4*4096", 4 * 4096), ("R=4*2304", 4 * 2304)):
-        base = mlp_args(rows)
-        g32, da32 = randn((rows, 768)), randn((rows, 3072))
-        for dt in (torch.float32, torch.bfloat16):
+    # the training shapes, rows ragged against the GEMM body's tiles, and
+    # ViT-H's widths (bf16 only: the f32 body stops at D = 1024)
+    for shape, rows, dmod, dts in (
+            ("R=4*4096", 4 * 4096, 768, (torch.float32, torch.bfloat16)),
+            ("R=4*2304", 4 * 2304, 768, (torch.float32, torch.bfloat16)),
+            ("R=1000", 1000, 768, (torch.float32, torch.bfloat16)),
+            ("R=130 D=1280 F=5120", 130, 1280, (torch.bfloat16,))):
+        base = mlp_args(rows, dmod, 4 * dmod)
+        g32, da32 = randn((rows, dmod)), randn((rows, 4 * dmod))
+        for dt in dts:
             g, da = g32.to(dt), da32.to(dt)
             with torch.no_grad():
                 xx, ww, bb = base[0].to(dt), base[1].to(dt), base[2]
@@ -910,6 +1159,23 @@ def main() -> int:
                 bwd_err["K3_dh"] = max(
                     bwd_err.get("K3_dh", 0.0),
                     grads_close(f"K3 {shape}", got, ref, dt, ("a", "dh")))
+                # without a: the same dh; the forward twice: bit-identical
+                # in bf16, where every element of the GEMM body has one
+                # owner and a fixed order of sums (the f32 bodies' are
+                # printed)
+                no_act, dh_again = fused_mlp_dh(xx, ww, bb, da, False)
+                out1 = fused_mlp(xx, ww, bb, base[3].to(dt), base[4])
+                out2 = fused_mlp(xx, ww, bb, base[3].to(dt), base[4])
+                same = {"dh_without_a": (dh_again - got[1]).abs().max().item(),
+                        "second_forward": (out1 - out2).abs().max().item()}
+                emit("mlp_repeat", shape=shape,
+                     dtype=str(dt).replace("torch.", ""), a_left_out=no_act
+                     is None, max_abs_diff=same)
+                if no_act is not None or (dt == torch.bfloat16
+                                          and any(same.values())):
+                    raise AssertionError(f"K3 {shape} {dt}: dh without a or "
+                                         f"a second forward differs {same}")
+                del no_act, dh_again, out1, out2
                 if dt == torch.bfloat16 and "K3" not in bwd_inputs:
                     bwd_inputs["K3"] = (shape, (xx, ww, bb, da))
                 ref = fused_mlp_backward_plain(
@@ -1196,35 +1462,6 @@ def main() -> int:
                + path_counts["grouped"][attr][n] for n in per}
         for attr, per in path_counts["packed"].items()}
 
-    import torch.nn.functional as F
-
-    def heads_view(t, heads):
-        b, n, cw = t.shape
-        return t.view(b, n, heads, cw // heads).transpose(1, 2)
-
-    def sdpa_pair(q, k, v, rh, rw, heads, scale):
-        """(forward fn, backward fn) of one scaled_dot_product_attention
-        call on the same inputs, the decomposed bias built beforehand and
-        passed as attn_mask: the library's yardstick, used nowhere in the
-        port. The backward is autograd through that call for dq, dk, dv."""
-        qh, kh, vh = (heads_view(t, heads).detach().requires_grad_()
-                      for t in (q, k, v))
-        bias = None
-        if rh is not None:
-            b, n = q.shape[:2]
-            bias = (rh.permute(0, 2, 1, 3)[..., :, None]
-                    + rw.permute(0, 2, 1, 3)[..., None, :]
-                    ).reshape(b, heads, n, -1).contiguous()
-
-        def fwd():
-            return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias,
-                                                  scale=scale)
-
-        out = fwd()
-        dout = torch.randn_like(out)
-        return fwd, lambda: torch.autograd.grad(out, (qh, kh, vh), dout,
-                                                retain_graph=True)
-
     ids = {"K1": "windowed_attention_packed", "K2": "flash_attention_packed",
            "K4": "cross_attention_packed", "K5": "flash_attention_rel_pos",
            "K6": "windowed_attention_rel_pos"}
@@ -1418,35 +1655,97 @@ def main() -> int:
         del tensors, q, k, v, out, lse, dout, rh, rw
         torch.cuda.empty_cache()
 
-    shape, (xx, ww, bb, dd) = bwd_inputs["K3"]
-    r, dmod = xx.shape
-    fdim = ww.shape[0]
-    w2 = randn((dmod, fdim), fdim ** -0.5).to(torch.bfloat16)
-    b2 = randn((dmod,), 0.1)
-    with torch.no_grad():
-        ms_plain, ms_dh = paired_ms(lambda: fused_mlp_dh_plain(xx, ww, bb, dd),
-                                    lambda: fused_mlp_dh(xx, ww, bb, dd))
-        seq_ms = time_ms(lambda: F.linear(
-            F.gelu(F.linear(xx, ww, bb.to(xx.dtype))), w2, b2.to(xx.dtype)))
-    fb = bound_ms(4 * r * dmod * fdim, nbytes(xx, xx, ww, w2, bb, b2))
+    # K3 in bf16 at the main paths' two row counts and at ViT-L's and
+    # ViT-H's widths: the forward in turns with the library chain, dh in
+    # turns with F.linear and the GELU-gradient product (yardsticks only),
+    # 20 launches a turn since the kernels take 0.1-0.3 ms; the forward's
+    # two passes alone; the host time of a wrapper call (its tensor maps and
+    # launches); at R = 16384 the plain versions as for the other kernels.
+    shape, (xx, ww, bb, dd) = bwd_inputs.pop("K3")
+
+    def dh_library(x_, w1_, b1_, da_):
+        h = F.linear(x_, w1_, b1_)
+        cdf = 0.5 * (1.0 + torch.erf(h * 2.0 ** -0.5))
+        return da_ * (cdf + h * torch.exp(-0.5 * h * h)
+                      * (2.0 * math.pi) ** -0.5)
+
+    k3 = {}
+    for rows, dmod, fdim in ((4 * 4096, 768, 3072), (4 * 2304, 768, 3072),
+                             (4 * 4096, 1024, 4096), (4096, 1280, 5120)):
+        if (rows, dmod) == tuple(xx.shape):
+            x_, w1, b1, da_ = xx, ww, bb, dd
+        else:
+            x_ = randn((rows, dmod)).to(torch.bfloat16)
+            w1 = randn((fdim, dmod), dmod ** -0.5).to(torch.bfloat16)
+            b1 = randn((fdim,), 0.1)
+            da_ = randn((rows, fdim)).to(torch.bfloat16)
+        w2 = randn((dmod, fdim), fdim ** -0.5).to(torch.bfloat16)
+        b2 = randn((dmod,), 0.1)
+        b1h, b2h = b1.to(torch.bfloat16), b2.to(torch.bfloat16)
+        hidden = torch.empty_like(da_)
+        out2 = torch.empty_like(x_)
+        with torch.no_grad():
+            chain_ms, fwd_ms = paired_ms(
+                lambda: F.linear(F.gelu(F.linear(x_, w1, b1h)), w2, b2h),
+                lambda: fused_mlp(x_, w1, b1, w2, b2), iters=20)
+            lib_dh_ms, dh_ms = paired_ms(
+                lambda: dh_library(x_, w1, b1h, da_),
+                lambda: fused_mlp_dh(x_, w1, b1, da_), iters=20)
+            fc1_ms = time_ms(lambda: _gemm(_BIAS_GELU, x_, w1, b1, hidden),
+                             iters=20)
+            fc2_ms = time_ms(lambda: _gemm(_BIAS, hidden, w2, b2, out2),
+                             iters=20)
+            fwd_host = host_us(lambda: fused_mlp(x_, w1, b1, w2, b2))
+            dh_host = host_us(lambda: fused_mlp_dh(x_, w1, b1, da_))
+            dh_plain_ms = (paired_ms(
+                lambda: fused_mlp_dh_plain(x_, w1, b1, da_),
+                lambda: fused_mlp_dh(x_, w1, b1, da_))[0]
+                if x_ is xx else None)
+        fb = bound_ms(4 * rows * dmod * fdim, nbytes(x_, x_, w1, w2, b1, b2))
+        db = bound_ms(2 * rows * dmod * fdim,
+                      nbytes(x_, w1, b1, da_, da_, da_))
+        k3[rows, dmod] = dict(
+            fwd=fwd_ms, chain=chain_ms, dh=dh_ms, lib_dh=lib_dh_ms,
+            dh_plain=dh_plain_ms, fb=fb, db=db,
+            dh_bytes_ms=nbytes(x_, w1, b1, da_, da_, da_) / PEAK_BYTES * 1e3)
+        emit("kernel_time", kernel="fused_mlp and its dh",
+             shape=f"R={rows} D={dmod} F={fdim}", dtype="bfloat16", gpu=gpu,
+             forward_ms=fwd_ms, fc1_gelu_ms=fc1_ms, fc2_ms=fc2_ms,
+             library_chain_ms=chain_ms, forward_bound_ms=fb[0],
+             forward_host_us=fwd_host, dh_ms=dh_ms, dh_library_ms=lib_dh_ms,
+             dh_bound_ms=db[0], dh_bound_by=db[1], dh_host_us=dh_host)
+        del x_, w1, b1, da_, w2, b2, hidden, out2
+        torch.cuda.empty_cache()
+    dmod, fdim = xx.shape[1], ww.shape[0]
+    big, small = k3[4 * 4096, 768], k3[4 * 2304, 768]
     entry("fused_mlp", mlp_cu, jax_ops + "fused_mlp.py:103",
           launches=serving_counts["fused_mlp"]
           + train_counts["launches"]["fused_mlp"],
           launches_serving=serving_counts["fused_mlp"],
           launches_training=train_counts["launches"]["fused_mlp"],
+          kernel_launches_serving_packed=serving_mlp_kernel_launches,
           shape=shape, max_abs_err=errors["fused_mlp"],
-          ms=kernel_ms["fused_mlp"][0], plain_ms=kernel_ms["fused_mlp"][1],
-          bound_ms=fb[0], bound_by=fb[1], library_ms=None,
-          note_linear_gelu_linear_bf16_ms=seq_ms)
-    db = bound_ms(2 * r * dmod * fdim, nbytes(xx, ww, bb, dd, dd, dd))
-    entry("fused_mlp_backward_dh", mlp_bwd_cu, jax_ops + "fused_mlp.py:148",
+          ms=big["fwd"], plain_ms=kernel_ms["fused_mlp"][1],
+          bound_ms=big["fb"][0], bound_by=big["fb"][1],
+          library_ms=big["chain"],
+          library="bf16 F.linear -> F.gelu -> F.linear (three calls)",
+          ms_r9216=small["fwd"], library_ms_r9216=small["chain"],
+          bound_ms_r9216=small["fb"][0],
+          r9216_over_r16384=small["fwd"] / big["fwd"],
+          ms_phase5=kernel_ms["fused_mlp"][0])
+    entry("fused_mlp_backward_dh", mlp_cu, jax_ops + "fused_mlp.py:148",
           launches=train_counts["backward_launches"]["fused_mlp"],
-          shape=shape, max_abs_err=bwd_err["K3_dh"], ms=ms_dh,
+          shape=shape, max_abs_err=bwd_err["K3_dh"], ms=big["dh"],
           max_abs_err_of="a, dh",
           max_abs_err_wrapper_gradients=bwd_err["K3_wrapper"],
-          plain_ms=ms_plain, bound_ms=db[0], bound_by=db[1], library_ms=None,
-          bound_operations_ms=2 * r * dmod * fdim / PEAK_FLOPS * 1e3,
-          bound_bytes_ms=nbytes(xx, ww, bb, dd, dd, dd) / PEAK_BYTES * 1e3)
+          plain_ms=big["dh_plain"], bound_ms=big["db"][0],
+          bound_by=big["db"][1], library_ms=None,
+          note_linear_gelu_grad_bf16_ms=big["lib_dh"],
+          bound_operations_ms=2 * 4 * 4096 * dmod * fdim / PEAK_FLOPS * 1e3,
+          bound_bytes_ms=big["dh_bytes_ms"],
+          ms_r9216=small["dh"], note_linear_gelu_grad_bf16_ms_r9216=small[
+              "lib_dh"], bound_ms_r9216=small["db"][0],
+          r9216_over_r16384=small["dh"] / big["dh"])
 
     order = ["windowed_attention_packed", "windowed_attention_packed_backward",
              "flash_attention_packed", "flash_attention_packed_backward_dq",

@@ -5,21 +5,38 @@
                                    [--batch 4] [--iters 3]
     python scripts/profile_port.py --train fine_tune|from_scratch
                                    [--plain | --attn-impl grouped]
+    python scripts/profile_port.py ... --no-trace [--iters 20]
+    python scripts/profile_port.py --k3
 
 Runs forward + postprocess + NMS, or with --train whole train steps on a
 synthetic batch (train/synthetic.py), at ViT-B width in bf16 (random weights
 from a seed) under torch.profiler and prints JSON lines: the device time by
 kernel name (top 15), the summed device time, the wall time and the device
 idle share over the profiled window, with the card's name and power limit.
---attn-impl picks the kernels' layout: packed (K1, K2, K3, K4; the default)
-or grouped (K6, K5, K4 and the plain MLP).
+Each kernel of the port is named beside its device name ("port_kernel":
+K3's GEMM body is "K3 forward" for its two passes and "K3 dh"; the attention
+kernels by body and direction), and one more line sums the device time of
+each. --attn-impl picks the kernels' layout: packed (K1, K2, K3, K4; the
+default) or grouped (K6, K5, K4 and the plain MLP). --no-trace times the
+same steps without the profiler, which slows the host: one JSON line with
+the wall-clock ms per batch or step over --iters.
+
+--k3 times K3 alone in bf16 at ViT-B's width (D 768, F 3072) through its
+public wrappers, `fused_mlp` (the forward) and `fused_mlp_dh` (the
+backward's dh kernel), at R = 16384 and 9216 (the main paths) and 256 (where
+the host sets the pace): device ms by CUDA events over 20 calls, and host us
+of one call (the wall clock around 50 calls that only queue work for an idle
+card). It uses nothing else of the package, so the same script can be run
+in a checkout of an earlier tree to compare launchers.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -37,6 +54,84 @@ from wildlifemapper_tpu_torch.models import WildlifeMapper  # noqa: E402
 from wildlifemapper_tpu_torch.train.step import StepBuilder  # noqa: E402
 from wildlifemapper_tpu_torch.train.synthetic import (  # noqa: E402
     TRAINING_CONFIGS, synthetic_batch, training_config)
+
+
+# (pattern of the device kernel's name, the port's kernel)
+PORT_KERNELS = [
+    (r"fused_mlp_gemm_sm90_kernel<[01]>", "K3 forward"),
+    (r"fused_mlp_gemm_sm90_kernel<2>", "K3 dh"),
+    (r"fused_mlp_kernel<", "K3 forward (f32)"),
+    (r"mlp_dh_kernel<", "K3 dh (f32)"),
+    (r"attn_fwd_resident", "attention forward, resident (K1 / K6)"),
+    (r"attn_bwd_resident", "attention backward, resident (K1 / K6)"),
+    (r"attn_fwd_sm90", "attention forward, sm90 (K2 / K4 / K5)"),
+    (r"attn_bwd_dq_sm90", "attention backward dq, sm90 (K2 / K4 / K5)"),
+    (r"attn_bwd_dkv_sm90", "attention backward dk/dv, sm90 (K2 / K4 / K5)"),
+    (r"attn_(tc|fwd)_kernel", "attention forward, mma.sync / f32 tiles"),
+    (r"attn_bwd_dq_(tc_)?kernel", "attention backward dq, tiles"),
+    (r"attn_bwd_dkv_(tc_)?kernel", "attention backward dk/dv, tiles"),
+]
+
+
+def port_kernel(name: str):
+    """Which of the port's kernels a device kernel is, or None."""
+    for pattern, label in PORT_KERNELS:
+        if re.search(pattern, name):
+            return label
+    return None
+
+
+def k3_times(gpu: str) -> None:
+    """--k3: one JSON line a row count, forward and dh."""
+    from wildlifemapper_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_dh
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, device=dev, generator=g)
+                * scale).to(dtype)
+
+    def device_ms(fn, iters=20):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters
+
+    def host_us(fn, calls=50):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return (t1 - t0) / calls * 1e6
+
+    d, f = 768, 3072
+    w1, w2 = randn(f, d, scale=d ** -0.5), randn(d, f, scale=f ** -0.5)
+    b1 = randn(f, scale=0.1, dtype=torch.float32)
+    b2 = randn(d, scale=0.1, dtype=torch.float32)
+    with torch.no_grad():
+        for rows in (16384, 9216, 256):
+            x, da = randn(rows, d), randn(rows, f)
+            fwd = lambda: fused_mlp(x, w1, b1, w2, b2)  # noqa: E731
+            dh = lambda: fused_mlp_dh(x, w1, b1, da)  # noqa: E731
+            print(json.dumps({
+                "k3": f"R={rows} D={d} F={f}", "dtype": "bfloat16",
+                "gpu": gpu, "forward_ms": device_ms(fwd),
+                "forward_host_us": host_us(fwd), "dh_ms": device_ms(dh),
+                "dh_host_us": host_us(dh),
+                "forward_bound_ms": 4 * rows * d * f / 989e12 * 1e3,
+                "dh_bytes_bound_ms": 2 * rows * (d + 3 * f) / 3.35e12 * 1e3}),
+                flush=True)
 
 
 def config(name: str, plain: bool, attn_impl: str = "packed"):
@@ -65,6 +160,11 @@ def main() -> int:
     ap.add_argument("--train", choices=TRAINING_CONFIGS, default=None,
                     help="profile train steps in this training configuration "
                          "instead of serving")
+    ap.add_argument("--no-trace", action="store_true",
+                    help="time the steps by the wall clock, without "
+                         "torch.profiler")
+    ap.add_argument("--k3", action="store_true",
+                    help="time K3's forward and dh wrappers alone")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--iters", type=int, default=3)
     args = ap.parse_args()
@@ -82,10 +182,15 @@ def main() -> int:
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
 
+    if args.k3:
+        k3_times(gpu)
+        return 0
+
     def profiled(step):
         step()
         torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as prof:
+        with (contextlib.nullcontext() if args.no_trace else
+              torch.profiler.profile(activities=acts)) as prof:
             t0 = time.perf_counter()
             for _ in range(args.iters):
                 step()
@@ -126,6 +231,13 @@ def main() -> int:
         with torch.inference_mode():
             prof, wall_ms = profiled(step)
 
+    head = {"config": args.train or args.config,
+            "mode": "train" if args.train else "serve",
+            "path": "plain" if args.plain else f"kernels, {args.attn_impl}",
+            "batch": args.batch, "gpu": gpu, "wall_ms_per_batch": wall_ms}
+    if args.no_trace:
+        print(json.dumps(dict(head, iters=args.iters)), flush=True)
+        return 0
     # device-side events only: CPU ops also carry their kernels' time
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA
@@ -133,19 +245,26 @@ def main() -> int:
     events.sort(key=lambda e: e.self_device_time_total, reverse=True)
     device_ms = sum(e.self_device_time_total for e in events) / 1000
     device_ms /= args.iters
-    head = {"config": args.train or args.config,
-            "mode": "train" if args.train else "serve",
-            "path": "plain" if args.plain else f"kernels, {args.attn_impl}",
-            "batch": args.batch, "gpu": gpu, "wall_ms_per_batch": wall_ms,
-            "device_ms_per_batch": device_ms,
-            "device_idle_share": max(0.0, 1 - device_ms / wall_ms)}
-    print(json.dumps(head), flush=True)
+    print(json.dumps(dict(head, device_ms_per_batch=device_ms,
+                          device_idle_share=max(0.0, 1 - device_ms / wall_ms))),
+          flush=True)
     for e in events[:15]:
         ms = e.self_device_time_total / 1000 / args.iters
-        print(json.dumps({"kernel": e.key[:90], "ms_per_batch": ms,
-                          "share": ms / device_ms,
+        print(json.dumps({"kernel": e.key[:90],
+                          "port_kernel": port_kernel(e.key),
+                          "ms_per_batch": ms, "share": ms / device_ms,
                           "calls_per_batch": e.count / args.iters}),
               flush=True)
+    by_port = {}
+    for e in events:
+        label = port_kernel(e.key)
+        if label is not None:
+            ms, calls = by_port.get(label, (0.0, 0.0))
+            by_port[label] = (ms + e.self_device_time_total / 1000
+                              / args.iters, calls + e.count / args.iters)
+    print(json.dumps({"port_kernels_ms_per_batch": {
+        k: v[0] for k, v in by_port.items()}, "port_kernels_calls_per_batch": {
+        k: v[1] for k, v in by_port.items()}}), flush=True)
     return 0
 
 

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain versions on the card, at
-small ragged shapes (tile edges, odd token counts, every head dim). They
+small ragged shapes (tile edges, odd token counts, every head dim: 32, 64,
+80 for ViT-H, 128). They
 need CUDA and skip elsewhere with the reason "needs CUDA (H100)".
 
 From 512 keys on, bf16 at d = 64 or 128 runs the Hopper bodies (wgmma and a
@@ -36,7 +37,8 @@ from wildlifemapper_tpu_torch.ops.flash_attention import (
 from wildlifemapper_tpu_torch.ops.flash_attention_v2 import (
     flash_attention_packed, flash_attention_packed_plain)
 from wildlifemapper_tpu_torch.ops.fused_mlp import (
-    fused_mlp, fused_mlp_backward_plain, fused_mlp_plain)
+    fused_mlp, fused_mlp_backward_plain, fused_mlp_dh, fused_mlp_dh_plain,
+    fused_mlp_plain)
 from wildlifemapper_tpu_torch.ops.windowed_attention import \
     windowed_attention_rel_pos
 from wildlifemapper_tpu_torch.ops.windowed_attention_v2 import (
@@ -89,7 +91,8 @@ STREAMING_CROSS = [(2, 200, 1000, 2, 128), (1, 300, 1030, 4, 64),
 @pytest.mark.parametrize("bw,hw,heads,d", [(5, (4, 4), 2, 32),
                                            (3, (7, 7), 3, 64),
                                            (2, (14, 14), 2, 64),
-                                           (2, (12, 12), 2, 64)])
+                                           (2, (12, 12), 2, 64),
+                                           (3, (14, 14), 2, 80)])
 def test_windowed_kernel(cuda, dtype, bw, hw, heads, d):
     rng = np.random.default_rng(bw * 10 + d)
     n = hw[0] * hw[1]
@@ -105,6 +108,7 @@ def test_windowed_kernel(cuda, dtype, bw, hw, heads, d):
 @pytest.mark.parametrize("b,hw,heads,d", [(2, (12, 12), 2, 64),
                                           (1, (8, 24), 3, 64),
                                           (1, (32, 32), 2, 64),
+                                          (1, (24, 24), 2, 80),
                                           *STREAMING_FLASH])
 def test_flash_kernel(cuda, dtype, b, hw, heads, d):
     rng = np.random.default_rng(b * 100 + hw[1])
@@ -121,6 +125,7 @@ def test_flash_kernel(cuda, dtype, b, hw, heads, d):
 @pytest.mark.parametrize("b,n,m,heads,d", [(2, 100, 70, 2, 128),
                                            (1, 64, 130, 4, 64),
                                            (2, 33, 65, 2, 32),
+                                           (1, 70, 600, 2, 80),
                                            *STREAMING_CROSS])
 def test_cross_kernel(cuda, dtype, b, n, m, heads, d):
     rng = np.random.default_rng(n + m + d)
@@ -131,23 +136,83 @@ def test_cross_kernel(cuda, dtype, b, n, m, heads, d):
              dtype)
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("r,dim,hidden", [(50, 64, 128), (33, 768, 3072),
-                                          (70, 1024, 256)])
+# K3 shapes (rows, D, F). bf16 runs the Hopper GEMM body (128-row tiles, 128
+# or 256 columns; csrc/mlp_gemm_sm90.cuh): rows ragged against the tile (1,
+# 127, 129, 1000), F that is no multiple of the column tile (320), and
+# ViT-B / L / H widths with F = 4D; f32 the fused scalar bodies, which take
+# D up to 1024.
+MLP_SHAPES = [(50, 64, 128), (33, 768, 3072), (70, 1024, 256),
+              (1, 768, 3072), (127, 64, 256), (129, 128, 512),
+              (1000, 256, 320)]
+MLP_CASES = ([(dt, *shape) for dt in DTYPES for shape in MLP_SHAPES]
+             + [(torch.bfloat16, *shape) for shape in
+                [(300, 768, 3072), (200, 1024, 4096), (130, 1280, 5120),
+                 (257, 1280, 320)]])
+
+
+def _mlp_inputs(rng, r, dim, hidden, dtype, dev):
+    return (_randn(rng, (r, dim), dtype, dev),
+            _randn(rng, (hidden, dim), dtype, dev, dim ** -0.5),
+            _randn(rng, (hidden,), torch.float32, dev, 0.1),
+            _randn(rng, (dim, hidden), dtype, dev, hidden ** -0.5),
+            _randn(rng, (dim,), torch.float32, dev, 0.1))
+
+
+@pytest.mark.parametrize("dtype,r,dim,hidden", MLP_CASES)
 def test_fused_mlp_kernel(cuda, dtype, r, dim, hidden):
     rng = np.random.default_rng(r + dim)
-    x = _randn(rng, (r, dim), dtype, cuda)
-    w1 = _randn(rng, (hidden, dim), dtype, cuda, dim ** -0.5)
-    b1 = _randn(rng, (hidden,), torch.float32, cuda, 0.1)
-    w2 = _randn(rng, (dim, hidden), dtype, cuda, hidden ** -0.5)
-    b2 = _randn(rng, (dim,), torch.float32, cuda, 0.1)
-    before = fused_mlp.launches
+    x, w1, b1, w2, b2 = _mlp_inputs(rng, r, dim, hidden, dtype, cuda)
+    before = (fused_mlp.launches, fused_mlp.kernel_launches)
     with torch.inference_mode():
         got = fused_mlp(x, w1, b1, w2, b2)
         torch.cuda.synchronize()
         ref = fused_mlp_plain(x, w1, b1, w2, b2)   # same rounding points
-    assert fused_mlp.launches == before + 1
+    # one wrapper call; bf16 runs the GEMM body twice (fc1 + GELU, fc2)
+    assert (fused_mlp.launches, fused_mlp.kernel_launches) == (
+        before[0] + 1, before[1] + (2 if dtype == torch.bfloat16 else 1))
     torch.testing.assert_close(got.float(), ref.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("want_act", [True, False])
+@pytest.mark.parametrize("dtype,r,dim,hidden", MLP_CASES)
+def test_fused_mlp_dh_kernel(cuda, want_act, dtype, r, dim, hidden):
+    """K3's dh kernel alone: a (or None without `want_act`) and dh against
+    the plain version on the same inputs."""
+    rng = np.random.default_rng(r * 3 + dim)
+    x, w1, b1, _, _ = _mlp_inputs(rng, r, dim, hidden, dtype, cuda)
+    da = _randn(rng, (r, hidden), dtype, cuda)
+    act, dh = fused_mlp_dh(x, w1, b1, da, want_act)
+    torch.cuda.synchronize()
+    ref_act, ref_dh = fused_mlp_dh_plain(x, w1, b1, da)
+    assert (act is None) == (not want_act)
+    _close_grads([dh] + ([act] if want_act else []),
+                 [ref_dh] + ([ref_act] if want_act else []), dtype,
+                 ("dh", "a"))
+
+
+@pytest.mark.parametrize("r,dim,hidden", [(1000, 768, 3072),
+                                          (130, 1280, 5120)])
+def test_fused_mlp_gemm_repeats(cuda, r, dim, hidden):
+    """Every output element of the GEMM body has one owner and a fixed order
+    of sums: two runs of the forward and of dh are bit-identical."""
+    rng = np.random.default_rng(r)
+    x, w1, b1, w2, b2 = _mlp_inputs(rng, r, dim, hidden, torch.bfloat16,
+                                    cuda)
+    da = _randn(rng, (r, hidden), torch.bfloat16, cuda)
+    with torch.inference_mode():
+        first = [fused_mlp(x, w1, b1, w2, b2), *fused_mlp_dh(x, w1, b1, da)]
+        second = [fused_mlp(x, w1, b1, w2, b2), *fused_mlp_dh(x, w1, b1, da)]
+        torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_fused_mlp_f32_refuses_what_it_does_not_hold(cuda):
+    """The f32 scalar bodies take D up to 1024: ViT-H's 1280 is refused by
+    the wrapper with the reason, never sent elsewhere."""
+    rng = np.random.default_rng(0)
+    args = _mlp_inputs(rng, 4, 1280, 5120, torch.float32, cuda)
+    with pytest.raises(ValueError, match="the f32 kernels take D"):
+        fused_mlp(*args)
 
 
 # Backward kernels against their plain versions: f32 at the JAX gradient
@@ -216,7 +281,8 @@ def _packed_backward(wrapper, cuda, dtype, bw, hw, heads, d, seed,
 @pytest.mark.parametrize("bw,hw,heads,d", [(5, (4, 4), 2, 32),
                                            (3, (7, 7), 3, 64),
                                            (2, (14, 14), 2, 64),
-                                           (2, (12, 12), 2, 64)])
+                                           (2, (12, 12), 2, 64),
+                                           (3, (14, 14), 2, 80)])
 def test_windowed_backward_kernels(cuda, dtype, bw, hw, heads, d):
     _packed_backward(windowed_attention_packed, cuda, dtype, bw, hw, heads,
                      d, seed=bw * 10 + d)
@@ -226,6 +292,7 @@ def test_windowed_backward_kernels(cuda, dtype, bw, hw, heads, d):
 @pytest.mark.parametrize("b,hw,heads,d", [(2, (12, 12), 2, 64),
                                           (1, (8, 24), 3, 64),
                                           (1, (32, 32), 2, 64),
+                                          (1, (24, 24), 2, 80),
                                           *STREAMING_FLASH])
 def test_flash_backward_kernels(cuda, dtype, b, hw, heads, d):
     _packed_backward(flash_attention_packed, cuda, dtype, b, hw, heads, d,
@@ -254,6 +321,7 @@ def test_forward_lse_matches_plain(cuda):
 @pytest.mark.parametrize("b,n,m,heads,d", [(2, 100, 70, 2, 128),
                                            (1, 64, 130, 4, 64),
                                            (2, 33, 65, 2, 32),
+                                           (1, 70, 600, 2, 80),
                                            *STREAMING_CROSS])
 def test_cross_backward_kernels(cuda, dtype, b, n, m, heads, d):
     rng = np.random.default_rng(n + m + d)
@@ -277,17 +345,11 @@ def test_cross_backward_kernels(cuda, dtype, b, n, m, heads, d):
     _close_grads(got, ref, dtype, ("dq", "dk", "dv"))
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("r,dim,hidden", [(50, 64, 128), (33, 768, 3072),
-                                          (70, 1024, 256)])
+@pytest.mark.parametrize("dtype,r,dim,hidden", MLP_CASES)
 def test_fused_mlp_backward_kernel(cuda, dtype, r, dim, hidden):
     rng = np.random.default_rng(r + dim)
-    x = _randn(rng, (r, dim), dtype, cuda).requires_grad_()
-    w1 = _randn(rng, (hidden, dim), dtype, cuda, dim ** -0.5).requires_grad_()
-    b1 = _randn(rng, (hidden,), torch.float32, cuda, 0.1).requires_grad_()
-    w2 = _randn(rng, (dim, hidden), dtype, cuda,
-                hidden ** -0.5).requires_grad_()
-    b2 = _randn(rng, (dim,), torch.float32, cuda, 0.1).requires_grad_()
+    x, w1, b1, w2, b2 = (t.requires_grad_() for t in _mlp_inputs(
+        rng, r, dim, hidden, dtype, cuda))
     g = _randn(rng, (r, dim), dtype, cuda)
     before = fused_mlp.backward_launches
     got = torch.autograd.grad(fused_mlp(x, w1, b1, w2, b2),
@@ -356,10 +418,12 @@ GROUPED_CASES = {
               [(5, (12, 12), 64), (2, (8, 24), 32), (3, (32, 32), 64),
                (2, (9, 9), 128),
                # the Hopper bodies
-               (3, (20, 50), 64), (2, (27, 19), 128), (2, (48, 48), 64)]),
+               (3, (20, 50), 64), (2, (27, 19), 128), (2, (48, 48), 64),
+               # ViT-H's head dim: the tile bodies at any length
+               (2, (24, 24), 80)]),
     "windowed": (windowed_attention_rel_pos,
                  [(19, (4, 4), 32), (7, (7, 7), 64), (5, (14, 14), 64),
-                  (5, (12, 12), 64), (3, (3, 5), 128)]),
+                  (5, (12, 12), 64), (3, (3, 5), 128), (4, (14, 14), 80)]),
 }
 GROUPED_IDS = [(w, *c) for w, (_, cs) in GROUPED_CASES.items() for c in cs]
 

@@ -18,6 +18,7 @@ from wildlifemapper_tpu.ops.fused_mlp import fused_mlp as j_mlp
 from wildlifemapper_tpu.ops.windowed_attention_v2 import (
     pack_rel_tables, windowed_attention_packed as j_windowed)
 from wildlifemapper_tpu_torch.ops import _build
+from wildlifemapper_tpu_torch.ops._attention import attention_body
 from wildlifemapper_tpu_torch.ops.cross_attention import (
     cross_attention_packed, cross_attention_packed_plain)
 from wildlifemapper_tpu_torch.ops.flash_attention_v2 import (
@@ -54,6 +55,7 @@ def _port_rel(rel, dt):
     (6, (3, 3), 2, 32),      # window 3
     (3, (2, 4), 2, 32),      # rectangular
     (2, (8, 8), 2, 32),      # a global block below GLOBAL_N_THRESHOLD
+    (3, (4, 4), 2, 80),      # ViT-H's head dim
 ])
 def test_windowed_plain_matches_pallas(dtype, bw, hw, heads, d):
     jdt, tdt = DTYPES[dtype]
@@ -90,7 +92,8 @@ def test_flash_plain_matches_pallas(dtype, b, hw, heads, d):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,n,m,heads,d", [(2, 48, 80, 2, 32),
                                            (1, 64, 64, 4, 16),
-                                           (2, 36, 20, 2, 64)])
+                                           (2, 36, 20, 2, 64),
+                                           (1, 40, 24, 2, 80)])
 def test_cross_plain_matches_pallas(dtype, b, n, m, heads, d):
     jdt, tdt = DTYPES[dtype]
     rng = np.random.default_rng(n + m)
@@ -107,7 +110,8 @@ def test_cross_plain_matches_pallas(dtype, b, n, m, heads, d):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("r,dim,hidden", [(64, 64, 256), (96, 32, 128)])
+@pytest.mark.parametrize("r,dim,hidden", [(64, 64, 256), (96, 32, 128),
+                                          (8, 1280, 5120)])     # ViT-H
 def test_fused_mlp_plain_matches_pallas(dtype, r, dim, hidden):
     jdt, tdt = DTYPES[dtype]
     rng = np.random.default_rng(r + dim)
@@ -174,11 +178,25 @@ def test_find_nvcc(monkeypatch, tmp_path):
     assert _build.find_nvcc() == str(tmp_path / "bin" / "nvcc")
 
 
+def test_attention_body_head_dims():
+    """ViT-H's head dim 80 runs the mma.sync / f32 tile bodies, whatever the
+    shape; a head dim no body takes is refused with the reason."""
+    for dt in (torch.bfloat16, torch.float32):
+        for nq, nk, rel, hw in ((196, 196, True, (14, 14)),
+                                (4096, 4096, True, (64, 64)),
+                                (100, 4096, False, None)):
+            assert attention_body(dt, 80, nq, nk, rel, hw) == "mma"
+    for d in (16, 96, 256):
+        with pytest.raises(ValueError, match=f"head dim {d} not supported"):
+            attention_body(torch.bfloat16, d, 196, 196, True, (14, 14))
+
+
 def test_sources_and_hash():
     """The build covers every CUDA source of the package."""
     names = {p.name for p in _build.sources()}
     assert {"attention.cu", "attention_bwd.cu", "grouped_attention.cu",
             "grouped_attention_bwd.cu", "fused_mlp.cu", "fused_mlp_bwd.cu",
+            "mlp_gemm_sm90.cu", "mlp_gemm_sm90.cuh",
             "attention_fwd.cuh", "attention_bwd.cuh", "common.cuh",
             "sm90.cuh", "attention_sm90_common.cuh",
             "attention_fwd_sm90.cuh", "attention_bwd_sm90.cuh",

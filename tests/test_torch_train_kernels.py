@@ -84,6 +84,7 @@ def _packed_port_grads(wrapper, backward_plain, qkv, rel_h, rel_w, dout,
     (3, (7, 7), 2, 16),      # 49 tokens: ragged against 64-wide tiles
     (2, (3, 5), 2, 32),      # rectangular
     (1, (14, 14), 2, 16),    # the 196-token window of the full canvas
+    (2, (4, 4), 2, 80),      # ViT-H's head dim
 ])
 def test_windowed_backward_matches_pallas(bw, hw, heads, d):
     qkv, rel_h, rel_w, dout = _attn_inputs(bw + d, bw, hw, heads, d)
@@ -186,7 +187,8 @@ def _mlp_inputs(r, dim, hidden):
     return x, w1, b1, w2, b2, g
 
 
-@pytest.mark.parametrize("r,dim,hidden", [(64, 64, 256), (96, 32, 128)])
+@pytest.mark.parametrize("r,dim,hidden", [(64, 64, 256), (96, 32, 128),
+                                          (8, 1280, 5120)])     # ViT-H
 def test_fused_mlp_backward_matches_pallas(r, dim, hidden):
     x, w1, b1, w2, b2, g = _mlp_inputs(r, dim, hidden)
     _, vjp = jax.vjp(j_mlp, *(jnp.asarray(t) for t in (x, w1, b1, w2, b2)))

@@ -46,7 +46,8 @@
 // do and the outputs are read and written by stride, so dq, dk and dv land
 // in the column blocks of one packed (B, N, 3C) dqkv.
 // Which launches still run here (ops/_attention.py::attention_body): every
-// f32 launch (the parity steps of all five kernels), d = 32, and the bf16
+// f32 launch (the parity steps of all five kernels), d = 32 and 80 (ViT-H),
+// and the bf16
 // launches below 512 keys that are no window the resident body holds: d = 128
 // or N != M, no rel tables, and a global block of 209 to 511 tokens that
 // lands in K1 or K6. The streaming bf16 shapes of K2, K4 and K5 take the
@@ -962,6 +963,7 @@ int attention_bwd_entry(int which, int dtype, const void* q, const void* k, cons
     switch (d) {
       case 32: return (int)launch_dq<32, SCALE_SCORES>(a, bf16, batch, s);
       case 64: return (int)launch_dq<64, SCALE_SCORES>(a, bf16, batch, s);
+      case 80: return (int)launch_dq<80, SCALE_SCORES>(a, bf16, batch, s);
       case 128: return (int)launch_dq<128, SCALE_SCORES>(a, bf16, batch, s);
       default: return (int)cudaErrorInvalidValue;
     }
@@ -970,6 +972,7 @@ int attention_bwd_entry(int which, int dtype, const void* q, const void* k, cons
     switch (d) {
       case 32: return (int)launch_dkv<32, SCALE_SCORES>(a, bf16, batch, s);
       case 64: return (int)launch_dkv<64, SCALE_SCORES>(a, bf16, batch, s);
+      case 80: return (int)launch_dkv<80, SCALE_SCORES>(a, bf16, batch, s);
       case 128: return (int)launch_dkv<128, SCALE_SCORES>(a, bf16, batch, s);
       default: return (int)cudaErrorInvalidValue;
     }

@@ -39,7 +39,9 @@
 //    warp keeps its scores, probabilities and running output in registers.
 //  * f32 (parity): scalar f32 FMAs, no TF32; 4 threads per query row.
 // Which launches still run here (ops/_attention.py::attention_body): every
-// f32 launch (the parity runs of all five kernels), d = 32, and the bf16
+// f32 launch (the parity runs of all five kernels), d = 32 and 80 (ViT-H's
+// head dim: the bodies are written in D / 16 k-steps and D / 8 column
+// groups, and 80 is a multiple of 16), and the bf16
 // launches below 512 keys that are no window the resident body holds: d = 128
 // or N != M (K4 at small sizes), no rel tables, and a global block of 209 to
 // 511 tokens that lands in K1 or K6. The streaming bf16 shapes of K2, K4 and
@@ -466,6 +468,7 @@ cudaError_t dispatch_tc(const AttnArgs& a, int d, int batch, cudaStream_t stream
   switch (d) {
     case 32: return launch_tc<32, SCALE_SCORES>(a, batch, stream);
     case 64: return launch_tc<64, SCALE_SCORES>(a, batch, stream);
+    case 80: return launch_tc<80, SCALE_SCORES>(a, batch, stream);
     case 128: return launch_tc<128, SCALE_SCORES>(a, batch, stream);
     default: return cudaErrorInvalidValue;
   }
@@ -476,6 +479,7 @@ cudaError_t dispatch_d(const AttnArgs& a, int d, int batch, cudaStream_t stream)
   switch (d) {
     case 32: return launch<T, 32, SCALE_SCORES>(a, batch, stream);
     case 64: return launch<T, 64, SCALE_SCORES>(a, batch, stream);
+    case 80: return launch<T, 80, SCALE_SCORES>(a, batch, stream);
     case 128: return launch<T, 128, SCALE_SCORES>(a, batch, stream);
     default: return cudaErrorInvalidValue;
   }

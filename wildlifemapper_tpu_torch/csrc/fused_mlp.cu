@@ -1,27 +1,20 @@
-// Fused transformer MLP, forward only:
+// Fused transformer MLP, forward only, f32 (the parity path):
 //
 //   out = gelu_erf(x @ w1^T + b1) @ w2^T + b2
 //
 // Replaces K3, wildlifemapper_tpu/ops/fused_mlp.py::fused_mlp (the MLP of
-// all 12 ViT blocks). x is (R, D), w1 (F, D) and w2 (D, F) in the torch
-// Linear layout (out, in), read by stride with no transpose copy; b1 and b2
-// are f32. D = 768 and F = 3072 at ViT-B.
+// all 12 ViT blocks) for f32 inputs. x is (R, D), w1 (F, D) and w2 (D, F) in
+// the torch Linear layout (out, in), read by stride with no transpose copy;
+// b1 and b2 are f32. D = 768 and F = 3072 at ViT-B.
 //
-// What bounds it on the H100: the unfused pair writes and re-reads the
-// (R, F) hidden activations, 4x the size of x (R = 16384 rows at batch 4 on
-// the full canvas: 100 MB each way in bf16). This kernel gives each block a
-// tile of rows and streams F in 64-wide chunks: h = x_tile @ w1[chunk]^T + b1
-// in f32, exact GELU with erff, rounded to x's type (fused_mlp.py:77), then
-// y += a @ w2[:, chunk]^T in f32 registers. The hidden activations live only
-// in shared memory.
-//
-// Two bodies, one per input type:
-//  * bf16 (serving): tensor cores through mma.sync m16n8k16 (bf16 in, f32
-//    accumulators). 16 warps own 64 rows (32 at D = 1024); the fc2 outputs
-//    of the tile stay in registers for the whole F loop; weight pieces
-//    stream through a 3-slot shared-memory ring with cp.async.
-//  * f32 (parity): scalar f32 FMAs, no TF32.
-// wgmma with TMA-fed, shared-memory weight tiles is later work.
+// This body keeps the hidden activations on chip as the Pallas kernel does:
+// each block takes a tile of 32 rows and streams F in 64-wide chunks, h =
+// x_tile @ w1[chunk]^T + b1 in scalar f32 FMAs (no TF32), exact GELU with
+// erff, then y += a @ w2[:, chunk]^T, with y in registers for the whole F
+// loop. D is one of 64, 128, 256, 768 and 1024: at 1280 (ViT-H) the x tile
+// and a w2 piece no longer fit a block's shared memory, and the launch is
+// refused. bf16 inputs take the Hopper GEMM body of mlp_gemm_sm90.cuh in two
+// launches (ops/fused_mlp.py), and this entry refuses them.
 
 #include <math.h>
 #include <stdint.h>
@@ -141,195 +134,6 @@ fused_mlp_kernel(const T* __restrict__ x, const T* __restrict__ w1,
   }
 }
 
-// ---- bf16 tensor-core body ----------------------------------------------
-//
-// 16 warps own RG*16 rows (RG row groups x CG = 16/RG column groups). Per
-// 64-wide hidden chunk: fc1 accumulates each warp's 16 x (64/CG) slice of h
-// over D in KD1-deep pieces of w1; GELU turns it into bf16 activations in
-// shared memory; fc2 adds them times 16-deep pieces of w2 into each warp's
-// 16 x (D/CG) output slice, which stays in mma.sync m16n8k16 accumulators for
-// the whole F loop. Weight pieces stream through a ring of NSLOT shared-memory
-// slots with cp.async, two pieces ahead of the one being multiplied.
-
-constexpr int MW = 16;        // warps per block
-constexpr int KC = 64;        // hidden units per chunk
-constexpr int KF = 16;        // depth of a w2 piece
-constexpr int LW2 = KF + 8;   // w2 piece row: 16 hidden + pad
-constexpr int LACT = KC + 8;  // activation row
-constexpr int NSLOT = 3;
-
-// Depth of a w1 piece: as deep as the slot allows, dividing D.
-template <int D>
-__host__ __device__ constexpr int kd1() {
-  return D % 192 == 0 ? 192 : D % 256 == 0 ? 256 : D % 128 == 0 ? 128 : 64;
-}
-
-template <int D>
-__host__ __device__ constexpr int slot_elems() {
-  return KC * (kd1<D>() + 8) > D * LW2 ? KC * (kd1<D>() + 8) : D * LW2;
-}
-
-template <int D, int RG>
-__host__ __device__ constexpr int tc_smem_bytes() {
-  return 2 * (RG * 16 * (D + 8) + NSLOT * slot_elems<D>() + RG * 16 * LACT);
-}
-
-template <int D, int RG>
-__global__ void __launch_bounds__(MW * 32, 1)
-fused_mlp_tc_kernel(const __nv_bfloat16* __restrict__ x,
-                    const __nv_bfloat16* __restrict__ w1,
-                    const float* __restrict__ b1,
-                    const __nv_bfloat16* __restrict__ w2,
-                    const float* __restrict__ b2,
-                    __nv_bfloat16* __restrict__ out, int R, int F) {
-  using bf16 = __nv_bfloat16;
-  constexpr int CG = MW / RG;           // column groups
-  constexpr int BM = RG * 16;           // rows per block
-  constexpr int LDX = D + 8;
-  constexpr int KD1 = kd1<D>();
-  constexpr int LW1 = KD1 + 8;          // w1 piece row: KD1 dims + pad
-  constexpr int NG1 = KC / CG / 8;      // fc1 8-wide groups per warp
-  constexpr int NG2 = D / CG / 8;       // fc2 8-wide groups per warp
-  constexpr int P1 = D / KD1;           // w1 pieces per chunk
-  constexpr int NS = P1 + KC / KF;      // pieces per chunk
-  constexpr int SLOT = slot_elems<D>();
-  constexpr int NT = MW * 32;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* xs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* ring = xs + BM * LDX;           // NSLOT x SLOT
-  bf16* acts = ring + NSLOT * SLOT;     // [BM][LACT]
-
-  const int row0 = blockIdx.x * BM;
-  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int rg = warp / CG, cg = warp % CG;
-  const int ra = rg * 16 + g;           // this thread's rows ra and ra + 8
-  const int n_pieces = (F / KC) * NS;
-
-  // Piece i: chunk i / NS; within it, w1 pieces then w2 pieces.
-  auto issue = [&](int i) {
-    if (i < n_pieces) {
-      const int f0 = (i / NS) * KC, st = i % NS;
-      bf16* slot = ring + (i % NSLOT) * SLOT;
-      if (st < P1) {
-        for (int v = t; v < KC * KD1 / 8; v += NT) {
-          const int f = v / (KD1 / 8), dv = (v % (KD1 / 8)) * 8;
-          cp_async16(slot + f * LW1 + dv, w1 + (long long)(f0 + f) * D + st * KD1 + dv);
-        }
-      } else {
-        for (int v = t; v < D * KF / 8; v += NT) {
-          const int o = v / (KF / 8), kv = (v % (KF / 8)) * 8;
-          cp_async16(slot + o * LW2 + kv, w2 + (long long)o * F + f0 + (st - P1) * KF + kv);
-        }
-      }
-    }
-    cp_async_commit();  // an empty group keeps the counting uniform
-  };
-
-  for (int i = t; i < BM * D / 8; i += NT) {
-    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-    if (row0 + r < R)
-      cp_async16(xs + r * LDX + c, x + (long long)(row0 + r) * D + c);
-    else
-      *reinterpret_cast<uint4*>(xs + r * LDX + c) = make_uint4(0u, 0u, 0u, 0u);
-  }
-  issue(0);   // the x tile rides in the first group
-  issue(1);
-
-  float y[NG2][4];
-#pragma unroll
-  for (int j = 0; j < NG2; ++j) y[j][0] = y[j][1] = y[j][2] = y[j][3] = 0.f;
-  float hacc[NG1][4];
-
-  for (int i = 0; i < n_pieces; ++i) {
-    cp_async_wait1();   // this thread's copies of piece i have landed
-    __syncthreads();    // everyone's have; piece i - 1 is consumed
-    issue(i + 2);       // into the slot piece i - 1 used
-    const int f0 = (i / NS) * KC, st = i % NS;
-    const bf16* slot = ring + (i % NSLOT) * SLOT;
-    if (st < P1) {
-      if (st == 0) {
-#pragma unroll
-        for (int j = 0; j < NG1; ++j) hacc[j][0] = hacc[j][1] = hacc[j][2] = hacc[j][3] = 0.f;
-      }
-#pragma unroll 4
-      for (int kk = 0; kk < KD1 / 16; ++kk) {
-        const int c = st * KD1 + kk * 16 + 2 * t4;
-        const uint32_t a0 = ld32(xs + ra * LDX + c), a1 = ld32(xs + (ra + 8) * LDX + c);
-        const uint32_t a2 = ld32(xs + ra * LDX + c + 8), a3 = ld32(xs + (ra + 8) * LDX + c + 8);
-#pragma unroll
-        for (int j = 0; j < NG1; ++j) {
-          const bf16* bp = slot + (cg * (KC / CG) + j * 8 + g) * LW1 + kk * 16 + 2 * t4;
-          mma_16816(hacc[j], a0, a1, a2, a3, ld32(bp), ld32(bp + 8));
-        }
-      }
-      if (st == P1 - 1) {  // exact GELU, rounded to bf16, into the activations
-#pragma unroll
-        for (int j = 0; j < NG1; ++j) {
-          const int c = cg * (KC / CG) + j * 8 + 2 * t4;
-          const float bb0 = b1[f0 + c], bb1 = b1[f0 + c + 1];
-          float v[4] = {hacc[j][0] + bb0, hacc[j][1] + bb1, hacc[j][2] + bb0, hacc[j][3] + bb1};
-#pragma unroll
-          for (int e = 0; e < 4; ++e) v[e] = 0.5f * v[e] * (1.f + erff(v[e] * 0.70710678118654752f));
-          *reinterpret_cast<uint32_t*>(acts + ra * LACT + c) = pack_bf16x2(v[0], v[1]);
-          *reinterpret_cast<uint32_t*>(acts + (ra + 8) * LACT + c) = pack_bf16x2(v[2], v[3]);
-        }
-      }
-    } else {
-      // the loop-top barrier orders every warp's activations before this read
-      const int c = (st - P1) * KF + 2 * t4;
-      const uint32_t a0 = ld32(acts + ra * LACT + c), a1 = ld32(acts + (ra + 8) * LACT + c);
-      const uint32_t a2 = ld32(acts + ra * LACT + c + 8), a3 = ld32(acts + (ra + 8) * LACT + c + 8);
-#pragma unroll
-      for (int j = 0; j < NG2; ++j) {
-        const bf16* bp = slot + (cg * (D / CG) + j * 8 + g) * LW2 + 2 * t4;
-        mma_16816(y[j], a0, a1, a2, a3, ld32(bp), ld32(bp + 8));
-      }
-    }
-  }
-
-#pragma unroll
-  for (int j = 0; j < NG2; ++j) {
-    const int c = cg * (D / CG) + j * 8 + 2 * t4;
-    const float bb0 = b2[c], bb1 = b2[c + 1];
-    if (row0 + ra < R)
-      *reinterpret_cast<uint32_t*>(out + (long long)(row0 + ra) * D + c) =
-          pack_bf16x2(y[j][0] + bb0, y[j][1] + bb1);
-    if (row0 + ra + 8 < R)
-      *reinterpret_cast<uint32_t*>(out + (long long)(row0 + ra + 8) * D + c) =
-          pack_bf16x2(y[j][2] + bb0, y[j][3] + bb1);
-  }
-}
-
-template <int D, int RG>
-cudaError_t launch_mlp_tc(const void* x, const void* w1, const float* b1, const void* w2,
-                          const float* b2, void* out, int R, int F, cudaStream_t stream) {
-  constexpr int smem = tc_smem_bytes<D, RG>();
-  static_assert(smem <= kMaxSmemBytes, "fused_mlp_tc_kernel: shared memory");
-  cudaError_t err = cudaFuncSetAttribute(fused_mlp_tc_kernel<D, RG>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((R + RG * 16 - 1) / (RG * 16));
-  fused_mlp_tc_kernel<D, RG><<<grid, MW * 32, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w1), b1,
-      static_cast<const __nv_bfloat16*>(w2), b2, static_cast<__nv_bfloat16*>(out), R, F);
-  return cudaGetLastError();
-}
-
-cudaError_t dispatch_mlp_tc(const void* x, const void* w1, const float* b1, const void* w2,
-                            const float* b2, void* out, int R, int D, int F,
-                            cudaStream_t stream) {
-  if (F % KC != 0) return cudaErrorInvalidValue;
-  switch (D) {
-    case 64: return launch_mlp_tc<64, 4>(x, w1, b1, w2, b2, out, R, F, stream);
-    case 128: return launch_mlp_tc<128, 4>(x, w1, b1, w2, b2, out, R, F, stream);
-    case 256: return launch_mlp_tc<256, 4>(x, w1, b1, w2, b2, out, R, F, stream);
-    case 768: return launch_mlp_tc<768, 4>(x, w1, b1, w2, b2, out, R, F, stream);
-    case 1024: return launch_mlp_tc<1024, 2>(x, w1, b1, w2, b2, out, R, F, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 // ---- f32 scalar body -------------------------------------------------------
 
 template <typename T, int COLS>
@@ -367,7 +171,7 @@ cudaError_t dispatch_mlp(const void* x, const void* w1, const float* b1, const v
 }  // namespace wm
 
 // Plain C entry: x (R, D), w1 (F, D), b1 (F,) f32, w2 (D, F), b2 (D,) f32,
-// out (R, D), all contiguous. Returns the cudaError_t of the launch.
+// out (R, D), all contiguous, f32 only. Returns the cudaError_t of the launch.
 extern "C" int wm_fused_mlp_fwd(int dtype, const void* x, const void* w1, const void* b1,
                                 const void* w2, const void* b2, void* out, int R, int D,
                                 int F, void* stream) {
@@ -376,7 +180,5 @@ extern "C" int wm_fused_mlp_fwd(int dtype, const void* x, const void* w1, const 
   const float* b2f = static_cast<const float*>(b2);
   if (dtype == wm::kFloat32)
     return (int)wm::dispatch_mlp<float>(x, w1, b1f, w2, b2f, out, R, D, F, s);
-  if (dtype == wm::kBFloat16)
-    return (int)wm::dispatch_mlp_tc(x, w1, b1f, w2, b2f, out, R, D, F, s);
   return (int)cudaErrorInvalidValue;
 }

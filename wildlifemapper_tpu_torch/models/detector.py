@@ -18,6 +18,15 @@ from .pos_embed import PositionEmbeddingRandom
 from .vit import ImageEncoderViT
 
 
+# flax.linen.initializers.lecun_normal draws a unit normal truncated to
+# [-2, 2] and divides by its standard deviation, this constant (flax's own),
+# so that the variance is 1 / fan_in.
+LECUN_TRUNCATED_STD = 0.87962566103423978
+# Parameters the JAX package initialises to zeros (models/vit.py:136-138,
+# 358; models/adaptor.py:105).
+ZERO_INIT = ("rel_pos_h", "rel_pos_w", "pos_embed")
+
+
 def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
     """The port's device rule: the card unless the caller asks for the CPU.
     None means torch.device("cuda") and raises if CUDA is absent."""
@@ -80,14 +89,26 @@ class WildlifeMapper(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        """Seeded initialisation: weights N(0, 0.02), biases 0, LayerNorms
-        identity, query tokens and the PE gaussian matrix N(0, 1). The
-        numbers are drawn on the generator's device and copied to the
-        parameter's, so one seed gives one model wherever it lives."""
-        def normal_(t, std):
+        """Seeded initialisation from the distributions that
+        wildlifemapper_tpu.models.WildlifeMapper.init draws each parameter
+        from: every Linear and Conv weight from flax's `lecun_normal` (a
+        normal truncated at two standard deviations, variance 1 / fan_in,
+        fan_in the input width times the kernel's area), biases, the rel-pos
+        tables and both absolute position embeddings zero, LayerNorms
+        identity, the query tokens and the PE gaussian matrix N(0, 1). The
+        numbers come from a torch.Generator, so they differ from JAX's by
+        construction; the distributions do not. They are drawn on the
+        generator's device and copied to the parameter's, so one seed gives
+        one model wherever it lives."""
+        def draw(t, sample):
             where = generator.device if generator is not None else t.device
-            t.copy_(torch.empty(t.shape, device=where).normal_(
-                0.0, std, generator=generator))
+            t.copy_(sample(torch.empty(t.shape, device=where)))
+
+        def lecun_normal(t):
+            # (out, in) or (out, in, kh, kw): fan_in is all but the first dim
+            std = t[0].numel() ** -0.5 / LECUN_TRUNCATED_STD
+            draw(t, lambda e: nn.init.trunc_normal_(
+                e, 0.0, std, -2.0 * std, 2.0 * std, generator=generator))
 
         for mod in self.modules():
             if isinstance(mod, LayerNorm):
@@ -95,13 +116,14 @@ class WildlifeMapper(nn.Module):
                 mod.bias.zero_()
                 continue
             for name, p in mod.named_parameters(recurse=False):
-                if name.endswith("bias"):
+                if name.endswith("bias") or name in ZERO_INIT:
                     p.zero_()
                 else:
-                    normal_(p, 0.02)
-        normal_(self.mask_decoder.mask_tokens.weight, 1.0)
-        normal_(self.prompt_encoder["pe_layer"]
-                .positional_encoding_gaussian_matrix, 1.0)
+                    lecun_normal(p)
+        for p in (self.mask_decoder.mask_tokens.weight,
+                  self.prompt_encoder["pe_layer"]
+                  .positional_encoding_gaussian_matrix):
+            draw(p, lambda e: e.normal_(0.0, 1.0, generator=generator))
 
     def forward(self, images: torch.Tensor, *, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None

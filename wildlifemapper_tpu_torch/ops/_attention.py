@@ -59,6 +59,10 @@ STREAM_MIN_KEYS = 512
 RESIDENT_MAX_TOKENS = 208
 RESIDENT_MAX_GRID = 16
 BODIES = ("mma", "sm90", "resident")
+# Head dims the kernels take: ViT-B / L / H run 64, 64, 80, the adaptor 128;
+# 80 runs the mma.sync / f32 tile bodies only (a fast body for it is later
+# work).
+HEAD_DIMS = (32, 64, 80, 128)
 
 
 def attention_body(dtype: torch.dtype, d: int, nq: int, nk: int,
@@ -73,14 +77,14 @@ def attention_body(dtype: torch.dtype, d: int, nq: int, nk: int,
     RESIDENT_MAX_TOKENS (every window of K1 and K6 on the main paths; when
     `grid_hw` is not given the tables are taken to fit); else "mma", the
     mma.sync (bf16) or scalar (f32) tile bodies of csrc/attention_fwd.cuh /
-    attention_bwd.cuh (f32, d = 32, d = 128 or N != M below
+    attention_bwd.cuh (f32, d = 32 or 80, d = 128 or N != M below
     STREAM_MIN_KEYS keys, and a global block of 209 to 511 tokens that lands
     in K1 or K6). Forward and backward of one attention take the same body.
     Raises on what no body takes."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"kernel takes float32 or bfloat16, got {dtype}")
-    if d not in (32, 64, 128):
-        raise ValueError(f"head dim {d} not supported (32, 64 or 128)")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not supported {HEAD_DIMS}")
     if nq < 1 or nk < 1:
         raise ValueError(f"empty attention: {nq} queries, {nk} keys")
     if dtype == torch.bfloat16 and d in (64, 128) and nk >= STREAM_MIN_KEYS:
@@ -218,8 +222,8 @@ def _check_attention(q, k, v, num_heads, rel_h, rel_w, extra=()):
         raise ValueError(f"batch {b} and heads {num_heads} ride the launch "
                          f"grid's y and z, at most {MAX_GRID_YZ} each")
     d = c // num_heads
-    if d not in (32, 64, 128):
-        raise ValueError(f"head dim {d} not supported (32, 64 or 128)")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not supported {HEAD_DIMS}")
     operands = (("q", q, n), ("k", k, m), ("v", v, m), *extra)
     for name, t, rows in operands:
         _check_operand(name, t, q, c)
