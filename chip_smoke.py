@@ -15,8 +15,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
   1. device: the card's name and power limit; build the kernels from
      wildlifemapper_tpu_torch/csrc (timed), registers and spills of every
      instantiation, the Hopper (wgmma + TMA) and the resident (windowed)
-     bodies included, the latter, the K3 GEMM body and the head-dim-80 tile
-     bodies held to no spill; TF32 off.
+     bodies included, the latter, the Hopper backward, the K3 GEMM body and
+     the head-dim-80 tile bodies held to no spill; TF32 off.
   2. kernels: each kernel against its plain PyTorch version on the card at
      the shapes the serving path gives it, f32 at atol 2e-5 / rtol 1e-4 and
      bf16 (against the plain version in f32 on the same bf16-rounded
@@ -65,8 +65,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      3-D tables) and once with the activations alone
      (the frozen encoder), f32 at atol 5e-4 / rtol 1e-3 and bf16 at 2e-2 of
      each output's largest element; K3's bf16 weight gradients also against
-     the f32 product of the same operands. The one-kernel backward of the
-     resident bodies (K1, K6 in bf16) twice at the launcher, bit-identical.
+     the f32 product of the same operands. The bf16 backward of the
+     resident bodies (K1, K6: one kernel) and of the Hopper body (K2, K4,
+     K5: the dq kernel with delta inside, then dk/dv) twice at the launcher
+     at every shape they take, every gradient bit-identical.
   7. train step, parity: f32, one step with kernels against the same step on
      the plain path (same weights, batch and dropout seed) in each training
      configuration and each layout: losses, grad_norm and every trainable
@@ -88,7 +90,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      body (K1, K6: forward, and the whole backward with the tile bodies'
      delta pass counted in) beside the mma.sync body on the same inputs in
      turns, at the full-canvas shape and, for K1 / K6, at the N = 144 shape
-     too, every kernel beside its bound (the larger of its FLOPs over 989
+     too, for K2 / K4 / K5 at the N = 2304 shape (the whole backward, dq
+     with and without the table gradients, dk/dv), every kernel beside its
+     bound (the larger of its FLOPs over 989
      TFLOP/s and its bytes over 3.35 TB/s); K3 forward and dh at R = 16384
      and 9216 (ViT-B) and at ViT-L's and ViT-H's widths over 20 launches in
      turns with their library yardsticks (bf16 F.linear -> F.gelu ->
@@ -235,9 +239,9 @@ def main() -> int:
     from wildlifemapper_tpu_torch.models import WildlifeMapper
     from wildlifemapper_tpu_torch.ops import _build
     from wildlifemapper_tpu_torch.ops._attention import (
-        _backward_kernel_launch, attention_backward_launch,
-        attention_backward_plain, attention_body, attention_delta,
-        attention_launch, attention_plain)
+        _backward_kernel_launch, _sm90_backward_launch,
+        attention_backward_launch, attention_backward_plain, attention_body,
+        attention_delta, attention_launch, attention_plain, sm90_scratch)
     from wildlifemapper_tpu_torch.ops.cross_attention import (
         cross_attention_packed, cross_attention_packed_plain)
     from wildlifemapper_tpu_torch.ops.flash_attention import (
@@ -278,16 +282,22 @@ def main() -> int:
     if len(resident_ptxas) < 4 or spilling:
         raise AssertionError(f"resident bodies: {len(resident_ptxas)} ptxas "
                              f"lines, spilling: {spilling}")
-    # the K3 GEMM body's instantiations and the tile bodies at head dim 80
+    # the K3 GEMM body's instantiations, the tile bodies at head dim 80 and
+    # the Hopper backward's ten a family
     gemm_ptxas = [line for line in ptxas if "fused_mlp_gemm_sm90" in line]
     d80_ptxas = [line for line in ptxas
                  if re.search(r"kernel<(float,)?80[,>]", line)]
-    spilling = [line for line in gemm_ptxas + d80_ptxas
+    bwd_ptxas = [line for line in ptxas
+                 if line.startswith(("attn_bwd_dq_sm90", "attn_bwd_dkv_sm90"))]
+    spilling = [line for line in gemm_ptxas + d80_ptxas + bwd_ptxas
                 if ", 0 B spilled" not in line]
-    emit("ptxas_held_to_no_spill", gemm=gemm_ptxas, head_dim_80=d80_ptxas)
-    if len(gemm_ptxas) < 3 or len(d80_ptxas) < 12 or spilling:
+    emit("ptxas_held_to_no_spill", gemm=gemm_ptxas, head_dim_80=d80_ptxas,
+         hopper_backward=bwd_ptxas)
+    if (len(gemm_ptxas) < 3 or len(d80_ptxas) < 12 or len(bwd_ptxas) < 20
+            or spilling):
         raise AssertionError(f"K3 GEMM body: {len(gemm_ptxas)} ptxas lines, "
-                             f"d = 80 bodies: {len(d80_ptxas)}, spilling: "
+                             f"d = 80 bodies: {len(d80_ptxas)}, Hopper "
+                             f"backward: {len(bwd_ptxas)}, spilling: "
                              f"{spilling}")
 
     kernels = {
@@ -911,16 +921,34 @@ def main() -> int:
             return ("launches", "backward_launches")
         return attn_counters
 
-    def repeat_check(kid, shape, launch):
-        """The one-kernel backward twice on the same operands: every element
-        has one owner and a fixed order of sums, so bit-identical."""
+    def repeat_check(kid, shape, launch, body):
+        """The backward of the resident or the Hopper body twice on the same
+        operands: every element of dq, dk, dv and the table gradients has
+        one owner and a fixed order of sums, so bit-identical."""
         with torch.no_grad():
             first, second = launch(), launch()
             torch.cuda.synchronize()
-        same = all(torch.equal(a, b) for a, b in zip(first, second))
-        emit("backward_repeat", kernel=kid, shape=shape, bit_identical=same)
+        same = all(torch.equal(a, b) for a, b in zip(first, second)
+                   if a is not None)
+        emit("backward_repeat", kernel=kid, shape=shape, body=body,
+             bit_identical=same,
+             outputs=sum(a is not None for a in first))
         if not same:
             raise AssertionError(f"{kid} {shape}: two backward runs differ")
+
+    def timing_key(kid, shape):
+        """Which of phase 9's timings a shape feeds: the first shape of each
+        kernel, and the second main-path shape of the windowed (N = 144)
+        and the streaming kernels (N = 2304)."""
+        if kid not in bwd_inputs:
+            return kid
+        for n in ("144", "2304"):
+            key = f"{kid} N={n}"
+            if (re.search(rf"\bN=(M=)?{n}\b", shape)
+                    and not shape.startswith("BWH=1 ")
+                    and key not in bwd_inputs):
+                return key
+        return None
     # (id, shape, heads, head dim, grid, inputs): K1 and K2 take the packed
     # qkv and the rel tables, K4 separate q, k, v as the adaptor's
     # projections give them
@@ -1027,15 +1055,12 @@ def main() -> int:
                         bwd_err.get(f"{kid}_dkv", 0.0), *dkv)
                 del got, parts, tensors
             if dt == torch.bfloat16:
-                if attention_body(dt, d, q.shape[1], k.shape[1],
-                                  rh is not None, hw) == "resident":
+                body = attention_body(dt, d, q.shape[1], k.shape[1],
+                                      rh is not None, hw)
+                if body in ("resident", "sm90"):
                     repeat_check(kid, shape, lambda: attention_backward_launch(
-                        q, k, v, out, lse, dout, scale, heads, rh, rw))
-                # the timings' inputs: the first shape of each kernel and,
-                # for the windowed one, the from-scratch shape as well
-                key = (kid if kid not in bwd_inputs else
-                       f"{kid} N=144" if kid == "K1" and "N=144" in shape
-                       else None)
+                        q, k, v, out, lse, dout, scale, heads, rh, rw), body)
+                key = timing_key(kid, shape)
                 if key:
                     bwd_inputs[key] = (shape, heads, d, scale,
                                        (q, k, v, out, lse, dout, rh, rw))
@@ -1124,13 +1149,12 @@ def main() -> int:
                                             errs["dk"], errs["dv"])
                 del got, tensors
             if dt == torch.bfloat16:
-                if attention_body(dt, d, n, n, True, hw) == "resident":
+                body = attention_body(dt, d, n, n, True, hw)
+                if body in ("resident", "sm90"):
                     repeat_check(kid, shape, lambda: attention_backward_launch(
                         q, k, v, out, lse, dout, scale, 1, rh4, rw4,
-                        scale_scores=True))
-                key = (kid if kid not in bwd_inputs else
-                       f"{kid} N=144" if kid == "K6" and "N=144" in shape
-                       and bh > 1 else None)
+                        scale_scores=True), body)
+                key = timing_key(kid, shape)
                 if key:
                     bwd_inputs[key] = (shape, 1, d, scale,
                                        (q, k, v, out, lse, dout, rh4, rw4))
@@ -1481,7 +1505,8 @@ def main() -> int:
     grouped_cu = "wildlifemapper_tpu_torch/csrc/grouped_attention.cu"
     grouped_bwd_cu = "wildlifemapper_tpu_torch/csrc/grouped_attention_bwd.cu"
     timed = [(kid, kid) for kid in ("K1", "K2", "K4", "K5", "K6")] + [
-        ("K1", "K1 N=144"), ("K6", "K6 N=144")]
+        ("K1", "K1 N=144"), ("K6", "K6 N=144"), ("K2", "K2 N=2304"),
+        ("K4", "K4 N=2304"), ("K5", "K5 N=2304")]
     for kid, key in timed:
         # K5 and K6 arrive as their kernels take them: (BH, N, d) is the
         # family's layout with one head, tables (BH, N, 1, g), lse (BH, N, 1).
@@ -1551,24 +1576,37 @@ def main() -> int:
 
         def whole(which_body=None, want_drel=True):
             """The whole backward at the launcher: one kernel for the
-            resident body, the delta pass and two kernels for the others."""
+            resident body, two for the Hopper body (delta inside the dq
+            kernel), the delta pass and two kernels for the tile bodies."""
             return lambda: attention_backward_launch(
                 q, k, v, out, lse, dout, scale, heads, rh, rw,
                 want_drel=want_drel, scale_scores=ss, body=which_body)
 
         def one(kernel, want_drel=True, which_body=None):
             """One kernel of a two-kernel backward alone, on buffers made
-            beforehand."""
-            delta = attention_delta(dout, out, heads).contiguous()
+            beforehand: the tile bodies' kernels with the plain delta pass's
+            delta, the Hopper dk/dv kernel with what its dq kernel left
+            (run once here, untimed)."""
             grads = [torch.empty_like(t) for t in (q, k, v)]
             drel = ([torch.empty_like(t) for t in (rh, rw)]
                     if rh is not None and want_drel else [None, None])
             grid = hw if hw else (0, 0)
-            two_kernel_body = body if body != "resident" else "mma"
+            which = which_body or (body if body != "resident" else "mma")
+            if which == "sm90":
+                scratch = sm90_scratch(q, heads, scale, ss, rh is not None)
+
+                def launch(kern):
+                    _sm90_backward_launch(kern, q, k, v, dout, out, lse,
+                                          scratch, rh, rw, *grads, *drel,
+                                          scale, heads, d, *grid,
+                                          scale_scores=ss)
+                if kernel == 1:
+                    launch(0)
+                return lambda: launch(kernel)
+            delta = attention_delta(dout, out, heads).contiguous()
             return lambda: _backward_kernel_launch(
                 kernel, q, k, v, dout, lse, delta, rh, rw, *grads, *drel,
-                scale, heads, d, *grid, scale_scores=ss,
-                body=which_body or two_kernel_body)
+                scale, heads, d, *grid, scale_scores=ss)
 
         def plain():
             return attention_backward_plain(q, k, v, out, lse, dout, scale,
@@ -1596,14 +1634,22 @@ def main() -> int:
                     ms_dq, ms_dkv = time_ms(one(0)), time_ms(one(1))
                 ms_dq_nodrel = (time_ms(one(0, False)) if rh is not None
                                 else None)
+        # the dq kernel: 3 products (S, dP, dQ); reads q, k, v, do, lse,
+        # the tables and (the Hopper body, delta inside) o, writes dq, delta
+        # and the tables' gradients. The dk/dv kernel: 4 products (S, dP,
+        # dK, dV); reads q, k, v, do, the tables, lse and delta, writes dk
+        # and dv.
         dq_b = bound_ms(6 * mac, nbytes(q, k, v, dout, q, rh, rw, rh, rw,
-                                        *stats))
+                                        *stats) + (nbytes(out) if body ==
+                                                   "sm90" else 0))
         dkv_b = bound_ms(8 * mac, nbytes(q, k, v, dout, k, v, rh, rw, *stats))
-        # the one-kernel backward reads q, k, v, do, o, lse and the tables
-        # and writes dq, dk, dv and the tables' gradients; 5 products
-        # (S, dP, dq, dk, dv), the rest is recomputation
-        both_b = bound_ms(10 * mac, nbytes(q, k, v, dout, out, lse, q, k, v,
-                                           rh, rw, rh, rw))
+        # the whole backward reads q, k, v, do, o, lse and the tables and
+        # writes dq, dk, dv and the tables' gradients: 5 products (S, dP,
+        # dq, dk, dv) for the one-kernel body, 7 for a two-kernel one, which
+        # computes S and dP in each kernel
+        both_b = bound_ms((10 if body == "resident" else 14) * mac,
+                          nbytes(q, k, v, dout, out, lse, q, k, v, rh, rw,
+                                 rh, rw))
         emit("backward_kernel_time", kernel=kid, shape=shape, dtype="bfloat16",
              gpu=gpu, body=body, dq_ms=ms_dq,
              dq_without_drel_ms=ms_dq_nodrel, dkv_ms=ms_dkv,

@@ -17,10 +17,11 @@ of each body at the launcher (ops/_attention.py, `body=`), and prints one JSON
 line: the largest forward and lse errors and the backward errors relative to
 each gradient's largest element against the plain version, whether a second
 backward is bit-identical, and CUDA-event times in ms, each body warmed up
-and timed over five launches: forward, the whole backward (for the two-kernel
-bodies the delta pass included) with and without the rel-table gradients
-and, for the two-kernel bodies, the delta pass, dq and dk/dv alone. The
-card's name and power limit come first. Fails without CUDA.
+and timed over five launches: forward, the whole backward (for the tile
+bodies the delta pass included; the Hopper body's dq kernel takes delta
+itself) with and without the rel-table gradients and, for the two-kernel
+bodies, the delta pass, dq and dk/dv alone. The card's name and power limit
+come first. Fails without CUDA.
 """
 
 from __future__ import annotations
@@ -160,11 +161,24 @@ def run_case(case, rng, dev) -> dict:
         torch.cuda.synchronize()
 
         def one(kernel, drel=True):
+            """One kernel alone: a tile body's with the delta pass's delta,
+            the Hopper dk/dv kernel with what its dq kernel left."""
             tables = [torch.empty_like(t) if (hw and drel) else None
                       for t in (rh, rw)]
+            if body == "sm90":
+                scratch = A.sm90_scratch(q, h, scale, ss, hw is not None)
+
+                def launch(kern):
+                    A._sm90_backward_launch(
+                        kern, q, k, v, dout, out, lse, scratch, rh, rw,
+                        *grads, *tables, scale, h, d, gh, gw,
+                        scale_scores=ss)
+                if kernel == 1:
+                    launch(0)
+                return lambda: launch(kernel)
             return lambda: A._backward_kernel_launch(
                 kernel, q, k, v, dout, lse, delta, rh, rw, *grads, *tables,
-                scale, h, d, gh, gw, scale_scores=ss, body=body)
+                scale, h, d, gh, gw, scale_scores=ss)
 
         res[body] = dict(
             fwd_err=(got_out.float() - ref_out.float()).abs().max().item(),

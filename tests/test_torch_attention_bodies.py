@@ -320,11 +320,14 @@ def test_every_entry_has_a_signature():
         _build._ATTENTION_BWD) - 1 + 2
     sm90 = {n for n in defined if n.endswith("_sm90")}
     assert len(sm90) == 6
-    for n in sm90:                      # the families' own argument lists
-        base = _build._SIGNATURES["wm_attention_fwd" if "_fwd_" in n
-                                  else "wm_attention_bwd"]
-        want = base if "_fwd_" in n else base[1:]   # no `which`
+    for n in sm90:      # the forward's list; the backward's own, with out
+        want = (_build._SIGNATURES["wm_attention_fwd"] if "_fwd_" in n
+                else _build._ATTENTION_BWD_SM90)
         assert _build._SIGNATURES[n] == want
+    # no `which`; out and its two strides beside delta, and the scratch the
+    # dq kernel leaves for the dk/dv kernel (round(q*scale), the tables)
+    assert len(_build._ATTENTION_BWD_SM90) == len(
+        _build._ATTENTION_BWD) - 1 + 3 + 2
 
 
 def test_port_sources_import_no_jax():
@@ -334,3 +337,135 @@ def test_port_sources_import_no_jax():
         assert not re.search(r"^\s*(import|from) (jax|flax|optax|"
                              r"wildlifemapper_tpu)\b(?!_torch)", text,
                              re.M), path
+
+
+def test_hopper_backward_note_and_design():
+    """The Hopper backward's note says what held it back and what the design
+    does about it; the design is in the code."""
+    text = (_build.CSRC / "attention_bwd_sm90.cuh").read_text()
+    note = text[:text.index("#pragma once")]
+    for word in ("delta inside", "one-hot", "on the tensor cores", "in turns",
+                 "serialize", "bit-identical", "48-query"):
+        assert word in note, word
+    code = text[text.index("#pragma once"):]
+    # delta written by the dq kernel, E set by the producer, the table
+    # product from the dS registers, the warpgroups' turns
+    for word in ("a.delta[statA] =", "put_ones(", "one_hot_chunk(",
+                 "wgmma_rs_k<kRelCols, TK>(dr, pa", "my_turn(wg)",
+                 "your_turn(wg)", "exp2_approx("):
+        assert word in code, word
+    # no accumulator set outside the products: the first tile overwrites
+    assert "kt > 0);" in code and "qt > 0);" in code
+    for gone in ("__syncwarp();\n              }", "add_rel_bias",
+                 "stage_rel_tables", "tma_load_4d"):
+        assert gone not in code, gone
+
+
+class _StandInLibrary:
+    """A kernel library whose every entry records its name and arguments and
+    returns 0 (cudaSuccess): the launcher's calls without a card."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls.append((name, args))
+            return 0
+        return entry
+
+
+def _launch_with_stand_ins(monkeypatch, dtype, d, n, heads, scale, rel,
+                           scale_scores=False, want_drel=True):
+    lib = _StandInLibrary()
+    passes = []
+    real_delta = _attention.attention_delta
+
+    def counted_delta(*args):
+        passes.append(args)
+        return real_delta(*args)
+
+    monkeypatch.setattr(_build, "load_kernels", lambda: lib)
+    monkeypatch.setattr(_build, "stream_ptr", lambda t: 0)
+    monkeypatch.setattr(_attention, "attention_delta", counted_delta)
+    gen = torch.Generator().manual_seed(0)
+    c = heads * d
+    q, k, v, out, dout = (torch.randn(1, n, c, generator=gen).to(dtype)
+                          for _ in range(5))
+    lse = torch.zeros(1, n, heads)
+    rh = rw = None
+    if rel:
+        side = int(n ** 0.5)
+        rh, rw = (torch.randn(1, n, heads, side, generator=gen).to(dtype)
+                  for _ in range(2))
+
+    def wrapper():
+        pass
+    wrapper.backward_launches = 0
+    wrapper.backward_dq_launches = wrapper.backward_dkv_launches = 0
+    grads = _attention.attention_backward_launch(
+        q, k, v, out, lse, dout, scale, heads, rh, rw, wrapper=wrapper,
+        scale_scores=scale_scores, want_drel=want_drel)
+    counts = (wrapper.backward_launches, wrapper.backward_dq_launches,
+              wrapper.backward_dkv_launches)
+    return lib.calls, passes, counts, grads
+
+
+@pytest.mark.parametrize("family,d,n,rel,want_drel", [
+    ("packed", 64, 1024, True, True),       # K2: a power-of-two scale
+    ("packed", 64, 1024, True, False),      # K2 under a frozen encoder
+    ("packed", 128, 576, False, True),      # K4: the scale is no power of 2
+    ("grouped", 64, 1024, True, True),      # K5
+])
+def test_sm90_backward_runs_no_delta_pass(monkeypatch, family, d, n, rel,
+                                          want_drel):
+    """The Hopper backward launches its dq kernel, which takes delta itself,
+    and then its dk/dv kernel, and no plain delta pass; the dk/dv kernel gets
+    the scratch the dq kernel writes: delta, round(q*scale) where the packed
+    family's scale is no power of two, the tables side by side with rel
+    tables."""
+    grouped = family == "grouped"
+    heads = 1 if grouped else 2
+    calls, passes, counts, grads = _launch_with_stand_ins(
+        monkeypatch, BF16, d, n, heads, d ** -0.5, rel, scale_scores=grouped,
+        want_drel=want_drel)
+    prefix = "wm_grouped_attention_bwd" if grouped else "wm_attention_bwd"
+    assert [name for name, _ in calls] == [prefix + "_dq_sm90",
+                                           prefix + "_dkv_sm90"]
+    assert passes == [] and counts == (0, 1, 1)
+    (_, dq_args), (_, dkv_args) = calls
+    sig = _build._ATTENTION_BWD_SM90
+    assert len(dq_args) == len(sig) == len(dkv_args)
+    # dtype, q, k, v, dout, out, lse, delta, qs, tab, ...: the same scratch
+    # for both kernels; out for the dq kernel's delta
+    assert dq_args[1:10] == dkv_args[1:10]
+    assert dq_args[5] is not None and dq_args[7] is not None
+    assert (dq_args[8] is not None) == (not grouped and d == 128)
+    assert (dq_args[9] is not None) == rel
+    assert (grads[3] is not None) == (rel and want_drel)
+
+
+def test_tile_backward_keeps_its_delta_pass(monkeypatch):
+    """The f32 tile bodies still run the plain delta pass before their two
+    kernels."""
+    calls, passes, counts, _ = _launch_with_stand_ins(
+        monkeypatch, F32, 64, 1024, 2, 0.125, True)
+    assert [name for name, _ in calls] == ["wm_attention_bwd"] * 2
+    assert len(passes) == 1 and counts == (0, 1, 1)
+    assert [args[0] for _, args in calls] == [0, 1]
+
+
+def test_sm90_backward_refuses_wide_grids():
+    """The one-hot products take gh + gw up to SM90_REL_COLS columns; a
+    wider grid is refused before any launch."""
+    heads, d, gh, gw = 1, 64, 4, 130
+    n = gh * gw
+    q, k, v, out, dout = (torch.zeros(1, n, heads * d, dtype=BF16)
+                          for _ in range(5))
+    rh = torch.zeros(1, n, heads, gh, dtype=BF16)
+    rw = torch.zeros(1, n, heads, gw, dtype=BF16)
+    assert attention_body(BF16, d, n, n, True, (gh, gw)) == "sm90"
+    with pytest.raises(ValueError, match="gh \\+ gw"):
+        _attention.attention_backward_launch(
+            q, k, v, out, torch.zeros(1, n, heads), dout, 0.125, heads, rh,
+            rw)

@@ -7,7 +7,9 @@ From 512 keys on, bf16 at d = 64 or 128 runs the Hopper bodies (wgmma and a
 TMA-fed ring, csrc/attention_fwd_sm90.cuh and attention_bwd_sm90.cuh): the
 STREAMING cases below are ragged against their 128-row blocks and their
 64- and 128-key tiles (grids that are no multiple of 8, N != M, a last tile
-of one or six keys, d = 128 with rel tables).
+of one or six keys, d = 128 with rel tables); their backward also with
+and without the table gradients, twice, and the delta its dq kernel
+writes.
 
 Below 512 keys, bf16 at d = 64 with rel tables and N == M <= 208 runs the
 resident bodies (one block a window-head, csrc/attention_fwd_resident.cuh and
@@ -532,6 +534,101 @@ def test_streaming_bodies_agree_and_repeat(cuda, family, n, m, heads, d, hw):
                      [r for r in want if r is not None], dt, names)
     for g1, g2 in zip(runs[0], runs[1]):
         assert g1 is None or torch.equal(g1, g2)
+
+
+# queries, keys, heads, head dim, rel grid, scale (None: d ** -0.5) of the
+# Hopper backward with tables: grids that are no multiple of 8 or 16,
+# N != M, a last tile of a few keys, d = 128 with tables (32-key dq tiles,
+# 48-query dk/dv tiles), and scales that are no power of two (the packed
+# family's round(q*scale) written by the dq kernel for the dk/dv kernel, the
+# grouped family's scale on the scores before the bias)
+STREAMING_REL = [(1000, 1000, 2, 64, (25, 40), None),
+                 (1000, 1000, 1, 64, (20, 50), None),
+                 (200, 1000, 2, 64, (25, 40), None),
+                 (513, 513, 1, 128, (27, 19), None),
+                 (1000, 1000, 1, 128, (20, 50), None),
+                 (600, 520, 2, 64, (8, 65), None),
+                 (700, 1024, 2, 64, (32, 32), 0.3)]
+
+
+@pytest.mark.parametrize("family", ["packed", "grouped"])
+@pytest.mark.parametrize("n,m,heads,d,hw,scale", STREAMING_REL)
+def test_streaming_backward_with_and_without_table_gradients(
+        cuda, family, n, m, heads, d, hw, scale):
+    """bf16 at the launcher, the Hopper backward (delta inside the dq
+    kernel, the table sums as one-hot products) against the plain version
+    with every gradient and with the activations' alone, each twice and
+    bit-identical; the table gradients change none of dq, dk, dv."""
+    from wildlifemapper_tpu_torch.ops._attention import (
+        attention_backward_launch, attention_backward_plain, attention_body,
+        attention_launch)
+
+    ss = family == "grouped"
+    dt = torch.bfloat16
+    rng = np.random.default_rng(n + 3 * m + d)
+    c = heads * d
+    q = _randn(rng, (2, n, c), dt, cuda)
+    k, v = (_randn(rng, (2, m, c), dt, cuda) for _ in range(2))
+    dout = _randn(rng, (2, n, c), dt, cuda)
+    rh = _randn(rng, (2, n, heads, hw[0]), dt, cuda, 0.5)
+    rw = _randn(rng, (2, n, heads, hw[1]), dt, cuda, 0.5)
+    scale = d ** -0.5 if scale is None else scale
+    assert attention_body(dt, d, n, m, True, hw) == "sm90"
+    with torch.no_grad():
+        out, lse = attention_launch(q, k, v, scale, heads, rh, rw,
+                                    return_lse=True, scale_scores=ss)
+        want = attention_backward_plain(q, k, v, out, lse, dout, scale,
+                                        heads, rh, rw, scale_scores=ss)
+        runs = {drel: [attention_backward_launch(
+            q, k, v, out, lse, dout, scale, heads, rh, rw,
+            want_drel=drel, scale_scores=ss) for _ in range(2)]
+            for drel in (True, False)}
+        torch.cuda.synchronize()
+    names = ("dq", "dk", "dv", "drel_h", "drel_w")
+    _close_grads(runs[True][0], want, dt, names)
+    _close_grads(runs[False][0][:3], want[:3], dt, names)
+    assert runs[False][0][3] is None and runs[False][0][4] is None
+    for first, second in runs.values():
+        for g1, g2 in zip(first, second):
+            assert g1 is None or torch.equal(g1, g2)
+    for g1, g2 in zip(runs[True][0][:3], runs[False][0][:3]):
+        assert torch.equal(g1, g2)
+
+
+@pytest.mark.parametrize("family", ["packed", "grouped"])
+@pytest.mark.parametrize("n,m,heads,d", [(300, 1030, 2, 128),
+                                         (1000, 1000, 3, 64)])
+def test_sm90_dq_kernel_writes_delta(cuda, family, n, m, heads, d):
+    """delta = rowsum(do * o) in f32 from the dq kernel, against the plain
+    pass (f32 sums in another order), and the dk/dv kernel alone on it."""
+    from wildlifemapper_tpu_torch.ops._attention import (
+        _sm90_backward_launch, attention_backward_launch, attention_delta,
+        attention_launch, sm90_scratch)
+
+    ss = family == "grouped"
+    dt = torch.bfloat16
+    rng = np.random.default_rng(n + m)
+    c = heads * d
+    q = _randn(rng, (2, n, c), dt, cuda)
+    k, v = (_randn(rng, (2, m, c), dt, cuda) for _ in range(2))
+    dout = _randn(rng, (2, n, c), dt, cuda)
+    scale = d ** -0.5
+    with torch.no_grad():
+        out, lse = attention_launch(q, k, v, scale, heads, return_lse=True,
+                                    scale_scores=ss)
+        scratch = sm90_scratch(q, heads, scale, ss, False)
+        grads = [torch.empty_like(t) for t in (q, k, v)]
+        for kernel in (0, 1):
+            _sm90_backward_launch(kernel, q, k, v, dout, out, lse, scratch,
+                                  None, None, *grads, None, None, scale,
+                                  heads, d, 0, 0, scale_scores=ss)
+        whole = attention_backward_launch(q, k, v, out, lse, dout, scale,
+                                          heads, scale_scores=ss)
+        torch.cuda.synchronize()
+    ref = attention_delta(dout, out, heads)
+    torch.testing.assert_close(scratch[0], ref, atol=1e-4, rtol=1e-4)
+    for g1, g2 in zip(grads, whole[:3]):
+        assert torch.equal(g1, g2)
 
 
 # batch (windows), heads, grid, scale (None: d ** -0.5) at d = 64: the

@@ -1,5 +1,6 @@
 // Backward of the packed attention family at its streaming shapes, bf16,
-// the dq kernel (with the rel-table gradients): K2 and K4 of the JAX package
+// the dq kernel (with delta, which it leaves for the dk/dv kernel, and the
+// rel-table gradients): K2 and K4 of the JAX package
 // (flash_attention_v2.py::_bwd_dq_kernel, cross_attention.py::_bwd_dq_kernel).
 // The Hopper body of attention_bwd_sm90.cuh (wgmma, a TMA-fed shared-memory
 // ring) with q*scale rounded to the input type before the QK product; see

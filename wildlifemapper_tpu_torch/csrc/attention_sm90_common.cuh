@@ -1,6 +1,7 @@
 // What the Hopper attention bodies share (attention_fwd_sm90.cuh,
-// attention_bwd_sm90.cuh): the block's shape, the A-operand loads of a
-// resident q or do row, and the decomposed rel-pos bias on a score fragment.
+// attention_bwd_sm90.cuh): the block's shape, the ring's barriers and the
+// grid-row division; for the forward also the A-operand loads of a resident
+// q row and the decomposed rel-pos bias on a score fragment.
 //
 // A block is two consumer warpgroups, each owning 64 of the block's 128 rows
 // (warp w of 8 owns rows 16w..16w+15; thread (g = lane / 4, t4 = lane % 4)
@@ -48,10 +49,10 @@ __device__ __forceinline__ uint32_t load_a_pair(const __nv_bfloat16* row, int c,
   return pack_bf16x2(bf16_lo(w) * scale, bf16_hi(w) * scale);
 }
 
-// The ring of the forward and the dq kernel: stage s holds a K tile and a V
-// tile of TK keys, each D / 64 swizzled regions, with its full barrier
-// (one arrival: the producer's, with the bytes) and its empty barrier (one
-// arrival a consumer warp). One thread initialises; the block then syncs.
+// The barriers of a ring of STAGES stages: each stage's full barrier
+// (`full_arrivals`: the producer's with the bytes, and any it adds after
+// writing beside the tiles) and its empty barrier (one arrival a consumer
+// warp). One thread initialises; the block then syncs.
 template <int STAGES>
 __device__ __forceinline__ void init_ring_barriers(uint32_t full0, uint32_t empty0,
                                                    int full_arrivals) {
@@ -63,8 +64,9 @@ __device__ __forceinline__ void init_ring_barriers(uint32_t full0, uint32_t empt
   sm90::mbar_init_fence();
 }
 
-// The producer thread's whole life in those two kernels: every K and V tile
-// of head h of batch b into the ring, as far ahead as the ring allows.
+// The producer thread's whole life in the forward kernel: every K and V
+// tile (stage s: a K tile and a V tile of TK keys, each D / 64 swizzled
+// regions) of head h of batch b into the ring, as far ahead as it allows.
 template <int D, int TK, int STAGES>
 __device__ __forceinline__ void produce_kv_tiles(uint32_t ring, uint32_t full0, uint32_t empty0,
                                                  const CUtensorMap* map_k,

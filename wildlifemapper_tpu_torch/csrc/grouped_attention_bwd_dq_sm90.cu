@@ -1,5 +1,6 @@
 // Backward of the grouped attention family at its streaming shapes, bf16,
-// the dq kernel (with the rel-table gradients): K5 of the JAX package
+// the dq kernel (with delta, which it leaves for the dk/dv kernel, and the
+// rel-table gradients): K5 of the JAX package
 // (flash_attention.py::_bwd_kernel, one Pallas kernel, two here).
 // The Hopper body of attention_bwd_sm90.cuh (wgmma, a TMA-fed shared-memory
 // ring) with the scale on the f32 scores; see that header for the H100 bound

@@ -77,16 +77,6 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
-// The same for a 4-D map (column, head, row, batch): the rows of a rel table.
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
-                                            int c2, int c3, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
 // One box of shared memory out to a 3-D tensor map (column, row, batch), as a
 // bulk group of this thread; parts of the box past the tensor's end are not
 // written.
@@ -260,6 +250,24 @@ __device__ __forceinline__ void wgmma_ss_n32(float (&d)[4][4], uint64_t a_desc, 
 }
 
 template <int TRANS_B>
+__device__ __forceinline__ void wgmma_ss_n48(float (&d)[6][4], uint64_t a_desc, uint64_t b_desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23}, "
+      "%24, %25, p, 1, 1, 0, %27;\n"
+      "}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3])
+      : "l"(a_desc), "l"(b_desc), "r"(accumulate), "n"(TRANS_B));
+}
+
+template <int TRANS_B>
 __device__ __forceinline__ void wgmma_ss_n256(float (&d)[32][4], uint64_t a_desc, uint64_t b_desc, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
@@ -303,8 +311,9 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 8][4], const uint32_t (&
 template <int TRANS_B, int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 8][4], uint64_t a_desc, uint64_t b_desc,
                                          int accumulate) {
-  static_assert(N == 32 || N == 64 || N == 256, "tile width");
+  static_assert(N == 32 || N == 48 || N == 64 || N == 256, "tile width");
   if constexpr (N == 32) wgmma_ss_n32<TRANS_B>(d, a_desc, b_desc, accumulate);
+  else if constexpr (N == 48) wgmma_ss_n48<TRANS_B>(d, a_desc, b_desc, accumulate);
   else if constexpr (N == 64) wgmma_ss_n64<TRANS_B>(d, a_desc, b_desc, accumulate);
   else wgmma_ss_n256<TRANS_B>(d, a_desc, b_desc, accumulate);
 }
@@ -351,26 +360,6 @@ inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int cols, int row
   CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
-// A 4-D map over a contiguous (B, rows, H, g) bf16 rel table with a box of
-// whole table rows, g x 1 x box_rows x 1, unswizzled. g must be a multiple
-// of 8 (16-byte rows) and at most 256.
-inline cudaError_t make_rel_map(CUtensorMap* map, const void* ptr, int g, int heads, int rows,
-                                int batch, int box_rows) {
-  EncodeTiledFn encode = encode_tiled_fn();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {(cuuint64_t)g, (cuuint64_t)heads, (cuuint64_t)rows,
-                              (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {(cuuint64_t)g * 2, (cuuint64_t)g * heads * 2,
-                                 (cuuint64_t)g * heads * rows * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)g, 1u, (cuuint32_t)box_rows, 1u};
-  const cuuint32_t elem[4] = {1u, 1u, 1u, 1u};
-  CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

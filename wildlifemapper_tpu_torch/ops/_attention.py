@@ -5,10 +5,11 @@
 grouped family K5 and K6 (csrc/grouped_attention.cu,
 grouped_attention_bwd.cu). The streaming bf16 shapes (K2, K4, K5) run the
 Hopper bodies instead (csrc/attention_fwd_sm90.cuh, attention_bwd_sm90.cuh,
-built by the six `*_sm90.cu`), and the windowed bf16 shapes (K1, K6: one
-window of at most 208 tokens) the resident bodies
-(csrc/attention_fwd_resident.cuh, attention_bwd_resident.cuh, built by the
-four `*_resident.cu`), whose backward is one kernel that also takes delta:
+built by the six `*_sm90.cu`; their dq kernel takes delta itself), and the
+windowed bf16 shapes (K1, K6: one window of at most 208 tokens) the
+resident bodies (csrc/attention_fwd_resident.cuh,
+attention_bwd_resident.cuh, built by the four `*_resident.cu`), whose
+backward is one kernel that also takes delta:
 `attention_body` says which launch takes which, from its dtype and shapes
 alone.
 
@@ -37,6 +38,8 @@ a rounding of the working type.
 
 from __future__ import annotations
 
+import ctypes
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -58,6 +61,9 @@ STREAM_MIN_KEYS = 512
 # RESIDENT_MAX_GRID wide.
 RESIDENT_MAX_TOKENS = 208
 RESIDENT_MAX_GRID = 16
+# The Hopper backward takes rel grids with gh + gw up to this many columns:
+# its one-hot products run over (rel_h | rel_w | 0) of this width.
+SM90_REL_COLS = 128
 BODIES = ("mma", "sm90", "resident")
 # Head dims the kernels take: ViT-B / L / H run 64, 64, 80, the adaptor 128;
 # 80 runs the mma.sync / f32 tile bodies only (a fast body for it is later
@@ -298,17 +304,17 @@ def attention_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _backward_kernel_launch(kernel: int, q, k, v, dout, lse, delta, rel_h,
                             rel_w, dq, dk, dv, drh, drw, scale: float,
                             num_heads: int, d: int, gh: int, gw: int,
-                            scale_scores: bool = False,
-                            body: str = "mma") -> None:
-    """Launch one kernel of csrc/attention_bwd.cu (with `scale_scores`, of
-    csrc/grouped_attention_bwd.cu; with body "sm90", of their `_sm90`
-    counterparts) on checked operands: 0 the dq (+ drel) kernel, 1 the
-    dk/dv kernel. Raises if the launch fails."""
+                            scale_scores: bool = False) -> None:
+    """Launch one kernel of the tile bodies, csrc/attention_bwd.cu (with
+    `scale_scores`, csrc/grouped_attention_bwd.cu), on checked operands: 0
+    the dq (+ drel) kernel, 1 the dk/dv kernel; `delta` comes from the plain
+    pass. Raises if the launch fails."""
     b, n, _ = q.shape
     lib = _build.load_kernels()
-    family = "wm_grouped_attention_bwd" if scale_scores else "wm_attention_bwd"
-    args = (
-        _build.dtype_code(q), q.data_ptr(), k.data_ptr(),
+    entry = getattr(lib, "wm_grouped_attention_bwd" if scale_scores
+                    else "wm_attention_bwd")
+    err = entry(
+        kernel, _build.dtype_code(q), q.data_ptr(), k.data_ptr(),
         v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         _ptr(rel_h), _ptr(rel_w), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), _ptr(drh), _ptr(drw), b, num_heads, n, k.shape[1], d,
@@ -317,12 +323,58 @@ def _backward_kernel_launch(kernel: int, q, k, v, dout, lse, delta, rel_h,
         dq.stride(0), dq.stride(1), dk.stride(0), dk.stride(1),
         dv.stride(0), dv.stride(1), gh, gw, float(scale),
         _build.stream_ptr(q))
-    if body == "sm90":
-        # one entry a kernel: each compiles in an nvcc of its own
-        err = getattr(lib, family + ("_dq_sm90", "_dkv_sm90")[kernel])(*args)
-    else:
-        err = getattr(lib, family)(kernel, *args)
     _build.check(err, "attention backward kernel " + ("dq", "dk/dv")[kernel])
+
+
+def sm90_scratch(q: torch.Tensor, num_heads: int, scale: float,
+                 scale_scores: bool, has_rel: bool):
+    """What the Hopper dq kernel leaves for the dk/dv kernel: delta
+    (B, N, H) f32; round(q*scale) (B, N, C) in the packed family where the
+    scale (in f32, as the kernels take it) is no power of two, so that
+    round(q*scale).k is not (q.k)*scale; and with rel tables their rows side
+    by side, (rel_h | rel_w | 0) in (B, N, H, SM90_REL_COLS)."""
+    b, n, c = q.shape
+    delta = torch.empty((b, n, num_heads), dtype=torch.float32,
+                        device=q.device)
+    pow2 = math.frexp(ctypes.c_float(scale).value)[0] == 0.5
+    qs = (torch.empty((b, n, c), dtype=q.dtype, device=q.device)
+          if not scale_scores and not pow2 else None)
+    tab = (torch.empty((b, n, num_heads, SM90_REL_COLS), dtype=q.dtype,
+                       device=q.device) if has_rel else None)
+    return delta, qs, tab
+
+
+def _sm90_backward_launch(kernel: int, q, k, v, dout, out, lse, scratch,
+                          rel_h, rel_w, dq, dk, dv, drh, drw, scale: float,
+                          num_heads: int, d: int, gh: int, gw: int,
+                          scale_scores: bool = False) -> None:
+    """Launch one kernel of the Hopper backward,
+    csrc/attention_bwd_{dq,dkv}_sm90.cu (with `scale_scores`, their
+    grouped_ counterparts), on checked operands; `scratch` is
+    `sm90_scratch(...)`. 0, the dq kernel: dq, drel_h / drel_w when they are
+    given, and the scratch: delta = rowsum(dout * out), round(q*scale), the
+    tables side by side. 1, the dk/dv kernel: dk and dv, reading the
+    scratch; it runs after the dq kernel on the same stream. Raises if the
+    launch fails."""
+    delta, qs, tab = scratch
+    b, n, _ = q.shape
+    lib = _build.load_kernels()
+    family = "wm_grouped_attention_bwd" if scale_scores else "wm_attention_bwd"
+    entry = getattr(lib, family + ("_dq_sm90", "_dkv_sm90")[kernel])
+    err = entry(
+        _build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        dout.data_ptr(), out.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        _ptr(qs), _ptr(tab), _ptr(rel_h), _ptr(rel_w), dq.data_ptr(),
+        dk.data_ptr(),
+        dv.data_ptr(), _ptr(drh), _ptr(drw), b, num_heads, n, k.shape[1], d,
+        q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+        v.stride(0), v.stride(1), dout.stride(0), dout.stride(1),
+        out.stride(0), out.stride(1),
+        dq.stride(0), dq.stride(1), dk.stride(0), dk.stride(1),
+        dv.stride(0), dv.stride(1), gh, gw, float(scale),
+        _build.stream_ptr(q))
+    _build.check(err, "attention backward kernel "
+                 + ("dq + delta", "dk/dv")[kernel])
 
 
 def _resident_backward_launch(q, k, v, dout, out, lse, rel_h, rel_w, dq, dk,
@@ -365,11 +417,14 @@ def attention_backward_launch(q, k, v, out, lse, dout, scale: float,
                               body: Optional[str] = None):
     """Launch the backward on CUDA tensors. For the "resident" body that is
     one kernel (csrc/attention_bwd_resident.cu or, with `scale_scores`,
-    csrc/grouped_attention_bwd_resident.cu) that takes delta itself; for the
-    others the plain delta pass and the two kernels of csrc/attention_bwd.cu
-    (csrc/grouped_attention_bwd.cu) or their `_sm90` counterparts: the dq
-    kernel (which also writes drel_h / drel_w when rel tables are given and
-    `want_drel`), then the dk/dv kernel. `grads`, when given, are the
+    csrc/grouped_attention_bwd_resident.cu) that takes delta itself; for
+    "sm90" the two kernels of csrc/attention_bwd_{dq,dkv}_sm90.cu (their
+    grouped_ counterparts), the dq kernel taking delta itself and leaving
+    it, with what else `sm90_scratch` names, for the dk/dv kernel; for
+    "mma" the plain delta pass and the two kernels of
+    csrc/attention_bwd.cu (csrc/grouped_attention_bwd.cu). The dq kernel
+    also writes drel_h / drel_w when rel tables are given and `want_drel`;
+    the dk/dv kernel runs after it. `grads`, when given, are the
     (dq, dk, dv) tensors to write, for example the column blocks of one
     packed dqkv; they are allocated otherwise. Returns (dq, dk, dv, drel_h,
     drel_w) like the plain version. `wrapper`, when given, is the public
@@ -394,6 +449,9 @@ def attention_backward_launch(q, k, v, out, lse, dout, scale: float,
                          f"{(b, n, num_heads)}, got {tuple(lse.shape)} "
                          f"{lse.dtype}")
     body = _pick_body(body, q, d, m, rel_h, rel_w)
+    if body == "sm90" and gh + gw > SM90_REL_COLS:
+        raise ValueError(f"rel grid {gh}x{gw}: the Hopper backward takes "
+                         f"gh + gw <= {SM90_REL_COLS}")
     drh = drw = None
     if rel_h is not None and want_drel:
         drh, drw = torch.empty_like(rel_h), torch.empty_like(rel_w)
@@ -403,11 +461,21 @@ def attention_backward_launch(q, k, v, out, lse, dout, scale: float,
                                   gw, scale_scores)
         _count(wrapper, "backward_launches")
         return dq, dk, dv, drh, drw
+    counters = ("backward_dq_launches", "backward_dkv_launches")
+    if body == "sm90":
+        # the dq kernel takes delta itself and leaves it for the dk/dv kernel
+        scratch = sm90_scratch(q, num_heads, scale, scale_scores,
+                               rel_h is not None)
+        for kernel, counter in enumerate(counters):
+            _sm90_backward_launch(kernel, q, k, v, dout, out, lse, scratch,
+                                  rel_h, rel_w, dq, dk, dv, drh, drw, scale,
+                                  num_heads, d, gh, gw, scale_scores)
+            _count(wrapper, counter)
+        return dq, dk, dv, drh, drw
     delta = attention_delta(dout, out, num_heads).contiguous()
-    for kernel, counter in enumerate(("backward_dq_launches",
-                                      "backward_dkv_launches")):
+    for kernel, counter in enumerate(counters):
         _backward_kernel_launch(kernel, q, k, v, dout, lse, delta, rel_h,
                                 rel_w, dq, dk, dv, drh, drw, scale,
-                                num_heads, d, gh, gw, scale_scores, body)
+                                num_heads, d, gh, gw, scale_scores)
         _count(wrapper, counter)
     return dq, dk, dv, drh, drw

@@ -47,6 +47,11 @@ _ATTENTION_FWD = [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                   ctypes.c_float, _P]
 _ATTENTION_BWD = ([_I, _I] + [_P] * 13 + [_I] * 5 + [_LL] * 14
                   + [_I, _I, ctypes.c_float, _P])
+# the Hopper backward: `out` (with its strides) beside delta, which the dq
+# kernel writes with round(q*scale) and the tables side by side for the
+# dk/dv kernel
+_ATTENTION_BWD_SM90 = ([_I] + [_P] * 16 + [_I] * 5 + [_LL] * 16
+                       + [_I, _I, ctypes.c_float, _P])
 # the one-kernel windowed backward: `out` (with its strides) in place of delta
 _ATTENTION_BWD_RESIDENT = ([_I] + [_P] * 13 + [_I] * 5 + [_LL] * 16
                            + [_I, _I, ctypes.c_float, _P])
@@ -59,11 +64,11 @@ _SIGNATURES = {
     "wm_grouped_attention_bwd": _ATTENTION_BWD,
     # the Hopper bodies of the streaming shapes (K2, K4, K5), bf16
     "wm_attention_fwd_sm90": _ATTENTION_FWD,
-    "wm_attention_bwd_dq_sm90": _ATTENTION_BWD[1:],
-    "wm_attention_bwd_dkv_sm90": _ATTENTION_BWD[1:],
+    "wm_attention_bwd_dq_sm90": _ATTENTION_BWD_SM90,
+    "wm_attention_bwd_dkv_sm90": _ATTENTION_BWD_SM90,
     "wm_grouped_attention_fwd_sm90": _ATTENTION_FWD,
-    "wm_grouped_attention_bwd_dq_sm90": _ATTENTION_BWD[1:],
-    "wm_grouped_attention_bwd_dkv_sm90": _ATTENTION_BWD[1:],
+    "wm_grouped_attention_bwd_dq_sm90": _ATTENTION_BWD_SM90,
+    "wm_grouped_attention_bwd_dkv_sm90": _ATTENTION_BWD_SM90,
     # the resident bodies of the windowed shapes (K1, K6), bf16
     "wm_attention_fwd_resident": _ATTENTION_FWD,
     "wm_attention_bwd_resident": _ATTENTION_BWD_RESIDENT,
