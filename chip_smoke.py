@@ -15,12 +15,16 @@ Phases, one JSON line each; any failure raises and exits non-zero:
   1. device: the card's name and power limit; build the kernels from
      wildlifemapper_tpu_torch/csrc (timed), registers and spills of every
      instantiation, the Hopper (wgmma + TMA) and the resident (windowed)
-     bodies included, the latter, the Hopper backward, the K3 GEMM body and
-     the head-dim-80 tile bodies held to no spill; TF32 off.
+     bodies included, the latter, the Hopper forward and backward, the K3
+     GEMM body and the head-dim-80 tile bodies held to no spill, and no line
+     of ptxas saying it serialized the wgmma products of a kernel (C7515);
+     TF32 off.
   2. kernels: each kernel against its plain PyTorch version on the card at
      the shapes the serving path gives it, f32 at atol 2e-5 / rtol 1e-4 and
      bf16 (against the plain version in f32 on the same bf16-rounded
-     inputs) at 2e-2; K5 and K6 also at d = 128 and 32, where their scale
+     inputs) at 2e-2, and the bf16 forward of the Hopper body (K2, K4, K5)
+     twice at the launcher at every shape it takes, O and the lse
+     bit-identical; K5 and K6 also at d = 128 and 32, where their scale
      on the f32 scores rounds differently from a scaled q; K2, K4 and K5
      also at shapes that are ragged against the Hopper bodies' 128-row
      blocks and 64- or 128-key tiles (N = 1000 on 25x40 and 20x50 grids,
@@ -91,7 +95,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      delta pass counted in) beside the mma.sync body on the same inputs in
      turns, at the full-canvas shape and, for K1 / K6, at the N = 144 shape
      too, for K2 / K4 / K5 at the N = 2304 shape (the whole backward, dq
-     with and without the table gradients, dk/dv), every kernel beside its
+     with and without the table gradients, dk/dv), the Hopper forward of
+     K2 / K4 / K5 at both shapes over 20 launches a turn with one library
+     call over 20 launches and the card's name and power limit beside it
+     (`forward_time`), every kernel beside its
      bound (the larger of its FLOPs over 989
      TFLOP/s and its bytes over 3.35 TB/s); K3 forward and dh at R = 16384
      and 9216 (ViT-B) and at ViT-L's and ViT-H's widths over 20 launches in
@@ -168,6 +175,14 @@ def ptxas_summary(log: str) -> list:
             out.append(f"{name}: {m.group(1)} registers, {spill} B spilled")
             name = None
     return out
+
+
+def serialized_wgmma(log: str) -> list:
+    """The lines of nvcc's -Xptxas -v output that say wgmma products were
+    serialized (C7515, or any 'wgmma ... serialized' line), each with the
+    kernel it names."""
+    return [line.strip() for line in log.splitlines()
+            if "C7515" in line or re.search(r"wgmma.*serializ", line)]
 
 
 def time_ms(fn, iters: int = 5, warmup: int = 1) -> float:
@@ -273,7 +288,8 @@ def main() -> int:
     lib_path = _build.build()
     _build.load_kernels()
     build_s = time.perf_counter() - t0
-    ptxas = ptxas_summary((lib_path.parent / "build.log").read_text())
+    build_log = (lib_path.parent / "build.log").read_text()
+    ptxas = ptxas_summary(build_log)
     emit("device", kind=kind, gpu=gpu, count=torch.cuda.device_count(),
          torch=torch.__version__, cuda=torch.version.cuda,
          build_seconds=round(build_s, 2), ptxas=ptxas)
@@ -282,23 +298,32 @@ def main() -> int:
     if len(resident_ptxas) < 4 or spilling:
         raise AssertionError(f"resident bodies: {len(resident_ptxas)} ptxas "
                              f"lines, spilling: {spilling}")
-    # the K3 GEMM body's instantiations, the tile bodies at head dim 80 and
-    # the Hopper backward's ten a family
+    # the K3 GEMM body's instantiations, the tile bodies at head dim 80, the
+    # Hopper forward's five a family and the Hopper backward's ten
     gemm_ptxas = [line for line in ptxas if "fused_mlp_gemm_sm90" in line]
     d80_ptxas = [line for line in ptxas
                  if re.search(r"kernel<(float,)?80[,>]", line)]
+    fwd_ptxas = [line for line in ptxas
+                 if line.startswith("attn_fwd_sm90")]
     bwd_ptxas = [line for line in ptxas
                  if line.startswith(("attn_bwd_dq_sm90", "attn_bwd_dkv_sm90"))]
-    spilling = [line for line in gemm_ptxas + d80_ptxas + bwd_ptxas
-                if ", 0 B spilled" not in line]
+    spilling = [line for line in gemm_ptxas + d80_ptxas + fwd_ptxas
+                + bwd_ptxas if ", 0 B spilled" not in line]
     emit("ptxas_held_to_no_spill", gemm=gemm_ptxas, head_dim_80=d80_ptxas,
-         hopper_backward=bwd_ptxas)
-    if (len(gemm_ptxas) < 3 or len(d80_ptxas) < 12 or len(bwd_ptxas) < 20
-            or spilling):
+         hopper_forward=fwd_ptxas, hopper_backward=bwd_ptxas)
+    if (len(gemm_ptxas) < 3 or len(d80_ptxas) < 12 or len(fwd_ptxas) < 10
+            or len(bwd_ptxas) < 20 or spilling):
         raise AssertionError(f"K3 GEMM body: {len(gemm_ptxas)} ptxas lines, "
                              f"d = 80 bodies: {len(d80_ptxas)}, Hopper "
-                             f"backward: {len(bwd_ptxas)}, spilling: "
-                             f"{spilling}")
+                             f"forward: {len(fwd_ptxas)}, backward: "
+                             f"{len(bwd_ptxas)}, spilling: {spilling}")
+    # ptxas says only in an info line (C7515) that it serialized every wgmma
+    # of a kernel, which undoes what the Hopper bodies stand on
+    serialized = serialized_wgmma(build_log)
+    emit("ptxas_serialized_wgmma", lines=serialized)
+    if serialized:
+        raise AssertionError("ptxas serialized the wgmma products: "
+                             + " | ".join(serialized))
 
     kernels = {
         "windowed_attention_packed": dict(
@@ -356,6 +381,46 @@ def main() -> int:
     def mlp_args(r, d=768, f=3072):
         return [randn((r, d)), randn((f, d), d ** -0.5), randn((f,), 0.1),
                 randn((d, f), f ** -0.5), randn((d,), 0.1)]
+
+    def launcher_args(name, args):
+        """A streaming wrapper's arguments as the launcher takes them: q, k,
+        v, scale, heads, the tables (the grouped family's as (BH, N, 1, g))
+        and where the scale enters; None for the other kernels."""
+        if name == "flash_attention_packed":
+            qkv, rh, rw, scale, heads, _ = args
+            q, k, v = qkv.chunk(3, dim=-1)
+            return (q, k, v, scale, heads, rh, rw), {}
+        if name == "cross_attention_packed":
+            q, k, v, scale, heads = args
+            return (q, k, v, scale, heads, None, None), {}
+        if name == "flash_attention_rel_pos":
+            q, k, v, rh, rw, scale, _ = args
+            return ((q, k, v, scale, 1, rh[:, :, None], rw[:, :, None]),
+                    dict(scale_scores=True))
+        return None
+
+    def forward_repeat(name, shape, args):
+        """The Hopper forward twice on the same operands, with the lse: every
+        output element has one owner and a fixed order of sums, so O and
+        the lse are bit-identical."""
+        la = launcher_args(name, args)
+        if la is None:
+            return
+        (q, k, v, scale, heads, rh, rw), kw = la
+        body = attention_body(q.dtype, q.shape[-1] // heads, q.shape[1],
+                              k.shape[1], rh is not None,
+                              None if rh is None else (rh.shape[-1],
+                                                       rw.shape[-1]))
+        if body != "sm90":
+            return
+        first = attention_launch(*la[0], return_lse=True, **kw)
+        second = attention_launch(*la[0], return_lse=True, **kw)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(first, second))
+        emit("forward_repeat", kernel=name, shape=shape, body=body,
+             bit_identical=same, outputs=["out", "lse"])
+        if not same:
+            raise AssertionError(f"{name} {shape}: two forward runs differ")
 
     c, hd = 1024, 128
     cases = [
@@ -472,6 +537,8 @@ def main() -> int:
                                          f"disagrees with its plain version "
                                          f"(max abs err {err})")
                 errors[name] = max(errors[name], err)
+                if dt == torch.bfloat16:
+                    forward_repeat(name, shape, args)
                 if dt == torch.bfloat16 and name not in kernel_inputs:
                     kernel_inputs[name] = (shape, args)
             del base, args, got, ref
@@ -1522,7 +1589,7 @@ def main() -> int:
                            else (attn_cu, bwd_cu))
         lib_fwd, lib_bwd = sdpa_pair(q, k, v, rh, rw, heads, scale)
         with torch.no_grad():
-            lib_fwd_ms = time_ms(lib_fwd)
+            lib_fwd_ms = time_ms(lib_fwd, iters=20)
         lib_bwd_ms = time_ms(lib_bwd)
         del lib_fwd, lib_bwd
         torch.cuda.empty_cache()
@@ -1550,11 +1617,20 @@ def main() -> int:
         old_fwd_ms = new_fwd_ms = None
         with torch.no_grad():
             if redesigned:
-                old_fwd_ms, new_fwd_ms = paired_ms(forward("mma"),
-                                                   forward(body))
+                # the Hopper forward takes 0.2-0.6 ms: 20 launches a turn
+                old_fwd_ms, new_fwd_ms = paired_ms(
+                    forward("mma"), forward(body),
+                    iters=20 if body == "sm90" else 5)
             if not primary:
                 plain_fwd_ms = time_ms(lambda: attention_plain(
                     q, k, v, scale, heads, rh, rw, scale_scores=ss))
+        if body == "sm90":
+            emit("forward_time", kernel=kid, shape=shape, dtype="bfloat16",
+                 gpu=gpu, body=body, launches_timed=20, ms=new_fwd_ms,
+                 earlier_body="mma", earlier_body_ms=old_fwd_ms,
+                 bound_ms=fb, bound_by=fby, library_ms=lib_fwd_ms,
+                 over_bound=new_fwd_ms / fb, over_library=new_fwd_ms
+                 / lib_fwd_ms)
         if primary:
             entry(wname, fwd_cu, jax_ops + replaces_fwd[kid], body=body,
                   earlier_body_ms=old_fwd_ms, launcher_ms=new_fwd_ms,

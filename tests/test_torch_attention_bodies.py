@@ -181,6 +181,26 @@ def test_hopper_header_note(name):
         assert word in text, word
     assert "atomic" not in text.replace("no\n// atomics", "").replace(
         "no atomics", "")
+    if name == "attention_fwd_sm90.cuh":
+        # what bounds the forward at d = 64, its schedule, where the bias
+        # and the prologue went
+        flat = " ".join(note.replace("//", " ").split())
+        for words in ("the exponentials weigh as much as the products",
+                      "MUFU", "in turns", "wgmma_wait<1>",
+                      "the scores' initial value", "the prologue is the "
+                      "producer's", "read once", "exp2", "serialize"):
+            assert words in flat, words
+        code = text[text.index("#pragma once"):]
+        for word in ("my_turn(wg)", "your_turn(wg)", "wgmma_wait<1>()",
+                     "exp2_approx(fmaf(", "init_scores(kt * TK)",
+                     "tma_load_3d(base + P::TAB", "periodic",
+                     "wgmma_ss<0, TK>", "wgmma_rs<0, TK>"):
+            assert word in code, word
+        # gone: the per-score adds after the product, the consumers' staging
+        # of Q, the scale on every K5 score, __expf
+        for gone in ("add_rel_bias", "stage_rel_tables", "load_a_pair",
+                     "__expf", "*= a.scale;"):
+            assert gone not in code, gone
 
 
 @pytest.mark.parametrize("name,stays", [
@@ -453,6 +473,19 @@ def test_tile_backward_keeps_its_delta_pass(monkeypatch):
     assert [name for name, _ in calls] == ["wm_attention_bwd"] * 2
     assert len(passes) == 1 and counts == (0, 1, 1)
     assert [args[0] for _, args in calls] == [0, 1]
+
+
+def test_sm90_forward_refuses_wide_grids():
+    """The Hopper forward stages the two tables side by side in rows of
+    SM90_REL_COLS columns; a wider grid is refused before any launch."""
+    heads, d, gh, gw = 1, 64, 4, 130
+    n = gh * gw
+    q = torch.zeros(1, n, heads * d, dtype=BF16)
+    rh = torch.zeros(1, n, heads, gh, dtype=BF16)
+    rw = torch.zeros(1, n, heads, gw, dtype=BF16)
+    assert attention_body(BF16, d, n, n, True, (gh, gw)) == "sm90"
+    with pytest.raises(ValueError, match="gh \\+ gw"):
+        _attention.attention_launch(q, q, q, 0.125, heads, rh, rw)
 
 
 def test_sm90_backward_refuses_wide_grids():

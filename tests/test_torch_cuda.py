@@ -308,15 +308,25 @@ def test_packed_backward_without_rel_gradients(cuda):
 
 
 def test_forward_lse_matches_plain(cuda):
-    """The lse the forward writes for the backward, against the plain one."""
-    from wildlifemapper_tpu_torch.ops._attention import attention_launch
+    """The lse the forward writes for the backward, against the plain one:
+    the tile bodies (70 keys) and, in bf16, the Hopper body (600 keys: a
+    last tile of 88; d = 128, whose scale is no power of two)."""
+    from wildlifemapper_tpu_torch.ops._attention import (attention_body,
+                                                         attention_launch)
 
     rng = np.random.default_rng(11)
     for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
-        q, k, v = (_randn(rng, (2, 70, 128), dtype, cuda) for _ in range(3))
-        _, lse = attention_launch(q, k, v, 0.125, 2, return_lse=True)
-        _, ref = attention_plain(q, k, v, 0.125, 2, return_lse=True)
-        torch.testing.assert_close(lse, ref, atol=tol, rtol=tol)
+        for n, heads, d in ((70, 2, 64), (600, 2, 64), (600, 1, 128)):
+            q, k, v = (_randn(rng, (2, n, heads * d), dtype, cuda)
+                       for _ in range(3))
+            scale = d ** -0.5
+            _, lse = attention_launch(q, k, v, scale, heads, return_lse=True)
+            _, ref = attention_plain(q, k, v, scale, heads, return_lse=True)
+            torch.testing.assert_close(lse, ref, atol=tol, rtol=tol)
+            if attention_body(dtype, d, n, n, False) == "sm90":
+                _, again = attention_launch(q, k, v, scale, heads,
+                                            return_lse=True)
+                assert torch.equal(lse, again)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -484,11 +494,15 @@ def test_grouped_backward_kernels(cuda, dtype, rel_grad, which, bh, hw, d):
 @pytest.mark.parametrize("n,m,heads,d,hw", [(200, 1000, 2, 64, (25, 40)),
                                             (1000, 1000, 1, 64, (20, 50)),
                                             (300, 1030, 2, 128, None),
-                                            (640, 577, 1, 128, None)])
+                                            (640, 577, 1, 128, None),
+                                            # tiles of two grid rows (96 and
+                                            # 128 keys), rel_w read once
+                                            (768, 768, 2, 64, (16, 48)),
+                                            (768, 768, 1, 64, (12, 64))])
 def test_streaming_bodies_agree_and_repeat(cuda, family, n, m, heads, d, hw):
     """bf16 at the launcher: the Hopper body against the mma.sync body and
     the plain version, forward (with the lse) and both backward kernels,
-    and the backward twice: no atomics, so bit-identical."""
+    and the forward and the backward twice: no atomics, so bit-identical."""
     from wildlifemapper_tpu_torch.ops._attention import (
         attention_backward_launch, attention_backward_plain, attention_body,
         attention_launch)
@@ -514,8 +528,12 @@ def test_streaming_bodies_agree_and_repeat(cuda, family, n, m, heads, d, hw):
                                        body=body) for body in ("mma", "sm90")}
         without_lse = attention_launch(q, k, v, scale, heads, rh, rw,
                                        scale_scores=ss)
+        again = attention_launch(q, k, v, scale, heads, rh, rw,
+                                 return_lse=True, scale_scores=ss)
         torch.cuda.synchronize()
         assert torch.equal(without_lse, outs["sm90"][0])
+        # the forward twice: one owner for every element, bit-identical
+        assert all(torch.equal(a, b) for a, b in zip(again, outs["sm90"]))
         for out, lse in outs.values():
             torch.testing.assert_close(out.float(), ref.float(),
                                        **TOL[dt])
@@ -780,17 +798,29 @@ def test_hopper_body_refuses_float32(cuda):
 
 
 def test_grouped_forward_lse_matches_plain(cuda):
-    from wildlifemapper_tpu_torch.ops._attention import attention_launch
+    """The grouped family's lse, with its scale on the f32 scores: the tile
+    bodies (70 keys, d = 32) and, in bf16, the Hopper body (a 16x48 grid:
+    96-key tiles of two grid rows, whose rel_w is read once; a 25x40 grid,
+    tables written by the consumers)."""
+    from wildlifemapper_tpu_torch.ops._attention import (attention_body,
+                                                         attention_launch)
 
     rng = np.random.default_rng(13)
     for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
-        q, k, v, rh, rw = _grouped_inputs(rng, 3, (7, 10), 32, dtype, cuda)
-        _, lse = attention_launch(q, k, v, 0.2, 1, rh[:, :, None],
-                                  rw[:, :, None], return_lse=True,
-                                  scale_scores=True)
-        _, ref = grouped_attention_plain(q, k, v, rh, rw, 0.2, (7, 10),
-                                         return_lse=True)
-        torch.testing.assert_close(lse[..., 0], ref, atol=tol, rtol=tol)
+        for hw, d in (((7, 10), 32), ((16, 48), 64), ((25, 40), 64)):
+            q, k, v, rh, rw = _grouped_inputs(rng, 3, hw, d, dtype, cuda)
+            _, lse = attention_launch(q, k, v, 0.2, 1, rh[:, :, None],
+                                      rw[:, :, None], return_lse=True,
+                                      scale_scores=True)
+            _, ref = grouped_attention_plain(q, k, v, rh, rw, 0.2, hw,
+                                             return_lse=True)
+            torch.testing.assert_close(lse[..., 0], ref, atol=tol, rtol=tol)
+            n = hw[0] * hw[1]
+            if attention_body(dtype, d, n, n, True, hw) == "sm90":
+                _, again = attention_launch(q, k, v, 0.2, 1, rh[:, :, None],
+                                            rw[:, :, None], return_lse=True,
+                                            scale_scores=True)
+                assert torch.equal(lse, again)
 
 
 def test_grouped_batch_beyond_grid_limit_raises(cuda):

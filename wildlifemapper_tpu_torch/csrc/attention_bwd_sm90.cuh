@@ -89,7 +89,6 @@ namespace {
 // Columns of the one-hot rel products: rel_h in [0, gh), rel_w in
 // [gh, gh + gw), zeros up to kRelCols (two swizzled regions).
 constexpr int kRelCols = 128;
-constexpr float kLog2e = 1.4426950408889634f;
 
 struct BwdSm90Args {
   const void* dout;    // dq kernel: the block's rows for delta, read by stride
@@ -111,19 +110,6 @@ struct BwdSm90Args {
   float scale;
   int pow2;      // the scale is a power of two
 };
-
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Byte offset of element (row, col) in a tile of 64-column swizzled regions
-// of `region` bytes each (see sm90.cuh).
-__device__ __forceinline__ int swz(int row, int col, int region) {
-  return (col >> 6) * region + row * sm90::kRegionRowBytes +
-         ((((col & 63) >> 3) ^ (row & 7)) << 4) + (col & 7) * 2;
-}
 
 // 16 bytes of a one-hot row: columns c8*8 .. c8*8 + 7 of the row of key
 // `key` (ones at key / gw and gh + key % gw; a key past nk is a zero row).
@@ -215,29 +201,6 @@ __device__ __forceinline__ unsigned rel_w_steps(int gh, int gw) {
 __device__ __forceinline__ unsigned rel_h_steps(int k0, int k1, int gw, unsigned gw_magic) {
   if (k1 - k0 >= 15 * gw) return ~0u;
   return (1u << (div_gw(k0, gw, gw_magic) >> 4)) | (1u << (div_gw(k1, gw, gw_magic) >> 4));
-}
-
-// D (+)= A . B over TK / 16 steps, A (TK columns) in registers, B
-// MN-major: TK rows of a tile of 64-column regions `region` bytes apart.
-template <int N, int TK>
-__device__ __forceinline__ void wgmma_rs_k(float (&d)[N / 8][4], const uint32_t (&a)[TK / 16][4],
-                                           uint32_t b, int region, bool acc) {
-  using namespace sm90;
-#pragma unroll
-  for (int kk = 0; kk < TK / 16; ++kk)
-    wgmma_rs<1, N>(d, a[kk], desc_mnmajor(b + kk * 16 * kRegionRowBytes, region), acc || kk > 0);
-}
-
-// The two consumer warpgroups issue their products in turns: warpgroup w
-// waits at barrier 4 + w, which completes when the other one has arrived
-// there after issuing its own, so one's exponentials run under the other's
-// products. Each warpgroup passes my_turn / your_turn once per issue point,
-// warpgroup 1 arrives once first and warpgroup 0 waits once last.
-__device__ __forceinline__ void my_turn(int wg) {
-  sm90::named_barrier(4 + wg, kConsumerThreads);
-}
-__device__ __forceinline__ void your_turn(int wg) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(4 + (wg ^ 1)), "r"(kConsumerThreads) : "memory");
 }
 
 // ---- dq (+ delta, + drel) kernel ------------------------------------------------

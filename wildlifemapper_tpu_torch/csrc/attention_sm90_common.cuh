@@ -1,7 +1,7 @@
 // What the Hopper attention bodies share (attention_fwd_sm90.cuh,
-// attention_bwd_sm90.cuh): the block's shape, the ring's barriers and the
-// grid-row division; for the forward also the A-operand loads of a resident
-// q row and the decomposed rel-pos bias on a score fragment.
+// attention_bwd_sm90.cuh): the block's shape, the ring's barriers, the
+// grid-row division, the swizzled offsets, the exponential, the products
+// from registers and the warpgroups' turns.
 //
 // A block is two consumer warpgroups, each owning 64 of the block's 128 rows
 // (warp w of 8 owns rows 16w..16w+15; thread (g = lane / 4, t4 = lane % 4)
@@ -26,27 +26,46 @@ constexpr int kConsumerThreads = 256;
 constexpr int kConsumerRegs = 240;
 constexpr int kProducerRegs = 24;
 
-// Row length, in bf16 elements, of a rel table staged in shared memory: an
-// odd number of 32-bit words, so the 8 rows a warp reads fall in 8 banks.
-__host__ __device__ inline int rel_row_len(int g) {
-  int e = (g + 1) & ~1;
-  if (((e / 2) & 1) == 0) e += 2;
-  return e;
-}
-
 __device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
 __device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
-__device__ __forceinline__ float bf16_at(const __nv_bfloat16* p) { return __bfloat162float(*p); }
 
-// Two adjacent bf16 of q as one 32-bit A-fragment register; with PRESCALE
-// each is round(q * scale).
-template <bool PRESCALE>
-__device__ __forceinline__ uint32_t load_a_pair(const __nv_bfloat16* row, int c, bool ok,
-                                                float scale) {
-  if (!ok) return 0u;
-  const uint32_t w = *reinterpret_cast<const uint32_t*>(row + c);
-  if (!PRESCALE) return w;
-  return pack_bf16x2(bf16_lo(w) * scale, bf16_hi(w) * scale);
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x on the MUFU; exp(s - m) is exp2(s*log2e - m*log2e), one FFMA and this.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Byte offset of element (row, col) in a tile of 64-column swizzled regions
+// of `region` bytes each (see sm90.cuh).
+__device__ __forceinline__ int swz(int row, int col, int region) {
+  return (col >> 6) * region + row * sm90::kRegionRowBytes +
+         ((((col & 63) >> 3) ^ (row & 7)) << 4) + (col & 7) * 2;
+}
+
+// D (+)= A . B over TK / 16 steps, A (TK columns) in registers, B
+// MN-major: TK rows of a tile of 64-column regions `region` bytes apart.
+template <int N, int TK>
+__device__ __forceinline__ void wgmma_rs_k(float (&d)[N / 8][4], const uint32_t (&a)[TK / 16][4],
+                                           uint32_t b, int region, bool acc) {
+  using namespace sm90;
+#pragma unroll
+  for (int kk = 0; kk < TK / 16; ++kk)
+    wgmma_rs<1, N>(d, a[kk], desc_mnmajor(b + kk * 16 * kRegionRowBytes, region), acc || kk > 0);
+}
+
+// The two consumer warpgroups issue their products in turns: warpgroup w
+// waits at barrier 4 + w, which completes when the other one has arrived
+// there after issuing its own, so one's exponentials run under the other's
+// products. Each warpgroup passes my_turn / your_turn once per issue point,
+// warpgroup 1 arrives once first and warpgroup 0 waits once last.
+__device__ __forceinline__ void my_turn(int wg) {
+  sm90::named_barrier(4 + wg, kConsumerThreads);
+}
+__device__ __forceinline__ void your_turn(int wg) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(4 + (wg ^ 1)), "r"(kConsumerThreads) : "memory");
 }
 
 // The barriers of a ring of STAGES stages: each stage's full barrier
@@ -64,9 +83,9 @@ __device__ __forceinline__ void init_ring_barriers(uint32_t full0, uint32_t empt
   sm90::mbar_init_fence();
 }
 
-// The producer thread's whole life in the forward kernel: every K and V
-// tile (stage s: a K tile and a V tile of TK keys, each D / 64 swizzled
-// regions) of head h of batch b into the ring, as far ahead as it allows.
+// The producer thread's K and V in the forward kernel: every K and V tile
+// (stage s: a K tile and a V tile of TK keys, each D / 64 swizzled regions)
+// of head h of batch b into the ring, as far ahead as it allows.
 template <int D, int TK, int STAGES>
 __device__ __forceinline__ void produce_kv_tiles(uint32_t ring, uint32_t full0, uint32_t empty0,
                                                  const CUtensorMap* map_k,
@@ -100,78 +119,6 @@ __device__ __forceinline__ int div_gw(int key, int gw, unsigned gw_magic) {
 }
 inline unsigned gw_magic_of(int gw) {
   return gw > 0 ? (unsigned)(0x100000000ull / (unsigned)gw + 1ull) : 0u;
-}
-
-// The rel tables of the block's 128 rows into shared memory, in bf16 as they
-// are, rows of rel_row_len elements; rows past nq hold zeros. All consumer
-// threads (t < kConsumerThreads) call it and meet at a barrier afterwards.
-__device__ __forceinline__ void stage_rel_tables(__nv_bfloat16* rhs, __nv_bfloat16* rws, int sh,
-                                                 int sw, const void* relh, const void* relw,
-                                                 int b, int h, int q0, int nq, int heads,
-                                                 int gh, int gw, int t) {
-  using bf16 = __nv_bfloat16;
-  const bf16* rh = static_cast<const bf16*>(relh);
-  const bf16* rw = static_cast<const bf16*>(relw);
-  const bf16 zero = __float2bfloat16_rn(0.f);
-  for (int i = t; i < kSm90Rows * gh; i += kConsumerThreads) {
-    const int r = i / gh, j = i - r * gh;
-    const long long row = (long long)b * nq + q0 + r;
-    rhs[r * sh + j] = (q0 + r < nq) ? rh[(row * heads + h) * gh + j] : zero;
-  }
-  for (int i = t; i < kSm90Rows * gw; i += kConsumerThreads) {
-    const int r = i / gw, j = i - r * gw;
-    const long long row = (long long)b * nq + q0 + r;
-    rws[r * sw + j] = (q0 + r < nq) ? rw[(row * heads + h) * gw + j] : zero;
-  }
-}
-
-// s[n][0..1] += bias(row rA, key), s[n][2..3] += bias(row rB, key) for the
-// keys k0 + 8n + 2*t4 + {0, 1} of a tile, bias = rel_h[row][key / gw] +
-// rel_w[row][key % gw] from the staged tables. Keys past nk read the last
-// key's entries (the caller masks them). With `fast` (gw % 8 == 0) an 8-key
-// group lies in one grid row at 8 adjacent columns: one 32-bit read of rel_w
-// a row and group, and rel_h is read again only where the grid row changes.
-template <int NS>
-__device__ __forceinline__ void add_rel_bias(float (&s)[NS][4], const __nv_bfloat16* rhs,
-                                             const __nv_bfloat16* rws, int sh, int sw, int rA,
-                                             int rB, int t4, int k0, int nk, int gh, int gw,
-                                             unsigned gw_magic, bool fast) {
-  if (fast) {
-    int kh = div_gw(k0, gw, gw_magic);
-    int kw0 = k0 - kh * gw;
-    float hA = 0.f, hB = 0.f;
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-      if (n == 0 || kw0 == 0) {
-        const int khc = min(kh, gh - 1);
-        hA = bf16_at(rhs + rA * sh + khc);
-        hB = bf16_at(rhs + rB * sh + khc);
-      }
-      const uint32_t wA = *reinterpret_cast<const uint32_t*>(rws + rA * sw + kw0 + 2 * t4);
-      const uint32_t wB = *reinterpret_cast<const uint32_t*>(rws + rB * sw + kw0 + 2 * t4);
-      s[n][0] += hA + bf16_lo(wA);
-      s[n][1] += hA + bf16_hi(wA);
-      s[n][2] += hB + bf16_lo(wB);
-      s[n][3] += hB + bf16_hi(wB);
-      kw0 += 8;
-      if (kw0 == gw) {
-        kw0 = 0;
-        ++kh;
-      }
-    }
-  } else {
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int key = min(k0 + n * 8 + 2 * t4 + j, nk - 1);
-        const int kh = div_gw(key, gw, gw_magic);
-        const int kw = key - kh * gw;
-        s[n][j] += bf16_at(rhs + rA * sh + kh) + bf16_at(rws + rA * sw + kw);
-        s[n][j + 2] += bf16_at(rhs + rB * sh + kh) + bf16_at(rws + rB * sw + kw);
-      }
-    }
-  }
 }
 
 }  // namespace

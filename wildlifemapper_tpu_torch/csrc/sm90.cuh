@@ -140,6 +140,15 @@ template <int N> __device__ __forceinline__ void fence_acc(float (&d)[N][4]) {
     for (int j = 0; j < 4; ++j) asm volatile("" : "+f"(d[i][j])::"memory");
   }
 }
+// The same for A fragments in registers: written before the wgmma_fence
+// that precedes the products reading them.
+template <int N> __device__ __forceinline__ void fence_acc(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+  }
+}
 
 // Descriptor of a swizzled region (see the header note). `addr` is a shared
 // address; offsets in bytes.
@@ -181,6 +190,29 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[8][4], const uint32_t (&
         "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
         "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
         "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "r"(accumulate), "n"(TRANS_B));
+}
+
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs_n96(float (&d)[12][4], const uint32_t (&a)[4], uint64_t b_desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, %54;\n"
+      "}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "r"(accumulate), "n"(TRANS_B));
 }
 
@@ -268,6 +300,33 @@ __device__ __forceinline__ void wgmma_ss_n48(float (&d)[6][4], uint64_t a_desc, 
 }
 
 template <int TRANS_B>
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[16][4], uint64_t a_desc, uint64_t b_desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, %67;\n"
+      "}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "l"(a_desc), "l"(b_desc), "r"(accumulate), "n"(TRANS_B));
+}
+
+template <int TRANS_B>
 __device__ __forceinline__ void wgmma_ss_n256(float (&d)[32][4], uint64_t a_desc, uint64_t b_desc, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
@@ -304,17 +363,19 @@ __device__ __forceinline__ void wgmma_ss_n256(float (&d)[32][4], uint64_t a_desc
 template <int TRANS_B, int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 8][4], const uint32_t (&a)[4],
                                          uint64_t b_desc, int accumulate) {
-  static_assert(N == 64 || N == 128, "tile width");
+  static_assert(N == 64 || N == 96 || N == 128, "tile width");
   if constexpr (N == 64) wgmma_rs_n64<TRANS_B>(d, a, b_desc, accumulate);
+  else if constexpr (N == 96) wgmma_rs_n96<TRANS_B>(d, a, b_desc, accumulate);
   else wgmma_rs_n128<TRANS_B>(d, a, b_desc, accumulate);
 }
 template <int TRANS_B, int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 8][4], uint64_t a_desc, uint64_t b_desc,
                                          int accumulate) {
-  static_assert(N == 32 || N == 48 || N == 64 || N == 256, "tile width");
+  static_assert(N == 32 || N == 48 || N == 64 || N == 128 || N == 256, "tile width");
   if constexpr (N == 32) wgmma_ss_n32<TRANS_B>(d, a_desc, b_desc, accumulate);
   else if constexpr (N == 48) wgmma_ss_n48<TRANS_B>(d, a_desc, b_desc, accumulate);
   else if constexpr (N == 64) wgmma_ss_n64<TRANS_B>(d, a_desc, b_desc, accumulate);
+  else if constexpr (N == 128) wgmma_ss_n128<TRANS_B>(d, a_desc, b_desc, accumulate);
   else wgmma_ss_n256<TRANS_B>(d, a_desc, b_desc, accumulate);
 }
 
@@ -345,21 +406,25 @@ inline EncodeTiledFn encode_tiled_fn() {
 }
 
 // A 3-D map (column, row, batch) over a bf16 operand read by stride, with a
-// box of 64 columns x box_rows rows. Built on the host for each launch (no
-// device work, no copy: the map travels as a kernel argument).
+// box of box_cols columns x box_rows rows, 128-byte swizzled (one region of
+// 64 columns a box) or, without `swizzle`, rows of box_cols elements one
+// after the other. Built on the host for each launch (no device work, no
+// copy: the map travels as a kernel argument).
 inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int cols, int rows, int batch,
-                            long long row_stride, long long batch_stride, int box_rows) {
+                            long long row_stride, long long batch_stride, int box_rows,
+                            int box_cols = kRegionCols, bool swizzle = true) {
   EncodeTiledFn encode = encode_tiled_fn();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)batch};
   // a batch of one may come with any stride: give it a valid one
   if (batch == 1) batch_stride = row_stride * rows;
   const cuuint64_t strides[2] = {(cuuint64_t)row_stride * 2, (cuuint64_t)batch_stride * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)kRegionCols, (cuuint32_t)box_rows, 1u};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1u};
   const cuuint32_t elem[3] = {1u, 1u, 1u};
   CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

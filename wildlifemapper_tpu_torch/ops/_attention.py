@@ -61,8 +61,9 @@ STREAM_MIN_KEYS = 512
 # RESIDENT_MAX_GRID wide.
 RESIDENT_MAX_TOKENS = 208
 RESIDENT_MAX_GRID = 16
-# The Hopper backward takes rel grids with gh + gw up to this many columns:
-# its one-hot products run over (rel_h | rel_w | 0) of this width.
+# The Hopper bodies take rel grids with gh + gw up to this many columns: the
+# backward's one-hot products run over (rel_h | rel_w | 0) of this width,
+# the forward stages the two tables side by side in rows of this width.
 SM90_REL_COLS = 128
 BODIES = ("mma", "sm90", "resident")
 # Head dims the kernels take: ViT-B / L / H run 64, 64, 80, the adaptor 128;
@@ -283,13 +284,16 @@ def attention_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, n, c = q.shape
     m = k.shape[1]
     d, gh, gw = _check_attention(q, k, v, num_heads, rel_h, rel_w)
+    body = _pick_body(body, q, d, m, rel_h, rel_w)
+    if body == "sm90" and gh + gw > SM90_REL_COLS:
+        raise ValueError(f"rel grid {gh}x{gw}: the Hopper forward takes "
+                         f"gh + gw <= {SM90_REL_COLS}")
     lib = _build.load_kernels()
     out = torch.empty((b, n, c), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, n, num_heads), dtype=torch.float32,
                        device=q.device) if return_lse else None)
     fwd = getattr(lib, ("wm_grouped_attention_fwd" if scale_scores
-                        else "wm_attention_fwd")
-                  + _ENTRY_SUFFIX[_pick_body(body, q, d, m, rel_h, rel_w)])
+                        else "wm_attention_fwd") + _ENTRY_SUFFIX[body])
     err = fwd(
         _build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), _ptr(rel_h), _ptr(rel_w), _ptr(lse),
