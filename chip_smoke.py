@@ -16,15 +16,16 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      wildlifemapper_tpu_torch/csrc (timed), registers and spills of every
      instantiation, the Hopper (wgmma + TMA) and the resident (windowed)
      bodies included, the latter, the Hopper forward and backward, the K3
-     GEMM body and the head-dim-80 tile bodies held to no spill, and no line
-     of ptxas saying it serialized the wgmma products of a kernel (C7515);
+     GEMM body and every head-dim-80 instantiation (the tile bodies, the
+     Hopper and the resident forward) held to no spill, and no line of
+     ptxas saying it serialized the wgmma products of a kernel (C7515);
      TF32 off.
   2. kernels: each kernel against its plain PyTorch version on the card at
      the shapes the serving path gives it, f32 at atol 2e-5 / rtol 1e-4 and
      bf16 (against the plain version in f32 on the same bf16-rounded
      inputs) at 2e-2, and the bf16 forward of the Hopper body (K2, K4, K5)
-     twice at the launcher at every shape it takes, O and the lse
-     bit-identical; K5 and K6 also at d = 128 and 32, where their scale
+     and of the resident body (K1, K6) twice at the launcher at every shape
+     it takes, O and the lse bit-identical; K5 and K6 also at d = 128 and 32, where their scale
      on the f32 scores rounds differently from a scaled q; K2, K4 and K5
      also at shapes that are ragged against the Hopper bodies' 128-row
      blocks and 64- or 128-key tiles (N = 1000 on 25x40 and 20x50 grids,
@@ -35,7 +36,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      ragged against the GEMM body's 128-row tiles (1, 129, 1000), ViT-L and
      ViT-H widths (bf16 only at D = 1280, which the f32 body refuses); K1,
      K2, K5 and K6 at head dim 80 at ViT-H's shapes (25 windows of 196 and
-     4096 tokens, 16 heads, batch 1), through the tile bodies.
+     4096 tokens, 16 heads, batch 1; bf16 through the Hopper and the
+     resident bodies) and ragged against them (K2 on a 25x40 grid, K5 on
+     20x50, K1 on windows of 7x7, K6 on 10x10).
   3. end to end: the f32 forward with kernels, in each layout, against the
      PyTorch reference's logits and boxes in tests/goldens/full_model.npz
      (weights regenerated from their names), at atol 1e-4 / rtol 1e-3, and
@@ -55,15 +58,17 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      plain path with the same weights: finite detections, the image
      embedding's relative error, class-probability and box drift and label
      agreement, ViT-L's and ViT-H's held to limits scaled from ViT-B's; the
-     launch counts of each run (the d = 80 attention runs the mma.sync tile
-     bodies, K3 the GEMM body), the forward's time.
+     launch counts of each run (ViT-H's d = 80 attention runs the Hopper
+     body in its global blocks and the resident body in its windows, K3 the
+     GEMM body), the forward's time beside the card's name and power limit.
   6. kernels, backward: the forward's lse, and the gradients that autograd
      takes through each public wrapper on the card, against the plain
      backward at the training shapes of both configurations (K1 and K6
      N = 196 and 144; K2, K4 and K5 N = 4096 and 2304; K3 R = 16384 and
      9216, ragged at R = 1000 and at ViT-H's widths; all five attention
      kernels also ragged as in phase 2, K1, K2, K5 and K6 also at head dim
-     80 at ViT-H's shapes): once with
+     80 at ViT-H's shapes, the new forward beside the tile backward): once
+     with
      every input requiring a gradient (dqkv written by stride into one
      packed tensor, drel, the MLP's weight gradients; K5 with 4-D and with
      3-D tables) and once with the activations alone
@@ -98,7 +103,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      with and without the table gradients, dk/dv), the Hopper forward of
      K2 / K4 / K5 at both shapes over 20 launches a turn with one library
      call over 20 launches and the card's name and power limit beside it
-     (`forward_time`), every kernel beside its
+     (`forward_time`), ViT-H's K1, K2, K5 and K6 (head dim 80) at batch 1
+     and 4 the same way in turns with the tile body, and their tile
+     backward at batch 1 beside its plain version and library call; every
+     kernel beside its
      bound (the larger of its FLOPs over 989
      TFLOP/s and its bytes over 3.35 TB/s); K3 forward and dh at R = 16384
      and 9216 (ViT-B) and at ViT-L's and ViT-H's widths over 20 launches in
@@ -293,29 +301,39 @@ def main() -> int:
     emit("device", kind=kind, gpu=gpu, count=torch.cuda.device_count(),
          torch=torch.__version__, cuda=torch.version.cuda,
          build_seconds=round(build_s, 2), ptxas=ptxas)
+    # the resident forward at d = 64 and 80 and its backward at d = 64, two
+    # instantiations (key tiles) each in each family
     resident_ptxas = [line for line in ptxas if "resident_kernel" in line]
     spilling = [line for line in resident_ptxas if ", 0 B spilled" not in line]
-    if len(resident_ptxas) < 4 or spilling:
+    if len(resident_ptxas) < 12 or spilling:
         raise AssertionError(f"resident bodies: {len(resident_ptxas)} ptxas "
                              f"lines, spilling: {spilling}")
-    # the K3 GEMM body's instantiations, the tile bodies at head dim 80, the
-    # Hopper forward's five a family and the Hopper backward's ten
+    # the K3 GEMM body's instantiations; head dim 80: the tile bodies (the
+    # f32 forward, the bf16 and f32 backward), the Hopper forward (with and
+    # without tables) and the resident forward (two key-tile counts), each
+    # in both families; the Hopper forward's seven a family and the Hopper
+    # backward's ten
     gemm_ptxas = [line for line in ptxas if "fused_mlp_gemm_sm90" in line]
-    d80_ptxas = [line for line in ptxas
-                 if re.search(r"kernel<(float,)?80[,>]", line)]
+    d80 = {"tile": [], "hopper": [], "resident": []}
+    for line in ptxas:
+        if re.search(r"kernel<(float,)?80[,>]", line):
+            d80["hopper" if "_sm90_" in line else
+                "resident" if "resident" in line else "tile"].append(line)
     fwd_ptxas = [line for line in ptxas
                  if line.startswith("attn_fwd_sm90")]
     bwd_ptxas = [line for line in ptxas
                  if line.startswith(("attn_bwd_dq_sm90", "attn_bwd_dkv_sm90"))]
-    spilling = [line for line in gemm_ptxas + d80_ptxas + fwd_ptxas
-                + bwd_ptxas if ", 0 B spilled" not in line]
-    emit("ptxas_held_to_no_spill", gemm=gemm_ptxas, head_dim_80=d80_ptxas,
+    spilling = [line for line in gemm_ptxas + sum(d80.values(), [])
+                + fwd_ptxas + bwd_ptxas if ", 0 B spilled" not in line]
+    emit("ptxas_held_to_no_spill", gemm=gemm_ptxas, head_dim_80=d80,
          hopper_forward=fwd_ptxas, hopper_backward=bwd_ptxas)
-    if (len(gemm_ptxas) < 3 or len(d80_ptxas) < 12 or len(fwd_ptxas) < 10
-            or len(bwd_ptxas) < 20 or spilling):
+    if (len(gemm_ptxas) < 3 or len(d80["tile"]) < 12
+            or len(d80["hopper"]) < 4 or len(d80["resident"]) < 4
+            or len(fwd_ptxas) < 14 or len(bwd_ptxas) < 20 or spilling):
         raise AssertionError(f"K3 GEMM body: {len(gemm_ptxas)} ptxas lines, "
-                             f"d = 80 bodies: {len(d80_ptxas)}, Hopper "
-                             f"forward: {len(fwd_ptxas)}, backward: "
+                             f"d = 80 bodies: "
+                             f"{ {k: len(v) for k, v in d80.items()} }, "
+                             f"Hopper forward: {len(fwd_ptxas)}, backward: "
                              f"{len(bwd_ptxas)}, spilling: {spilling}")
     # ptxas says only in an info line (C7515) that it serialized every wgmma
     # of a kernel, which undoes what the Hopper bodies stand on
@@ -383,26 +401,26 @@ def main() -> int:
                 randn((d, f), f ** -0.5), randn((d,), 0.1)]
 
     def launcher_args(name, args):
-        """A streaming wrapper's arguments as the launcher takes them: q, k,
+        """An attention wrapper's arguments as the launcher takes them: q, k,
         v, scale, heads, the tables (the grouped family's as (BH, N, 1, g))
-        and where the scale enters; None for the other kernels."""
-        if name == "flash_attention_packed":
+        and where the scale enters; None for K3."""
+        if name in ("flash_attention_packed", "windowed_attention_packed"):
             qkv, rh, rw, scale, heads, _ = args
             q, k, v = qkv.chunk(3, dim=-1)
             return (q, k, v, scale, heads, rh, rw), {}
         if name == "cross_attention_packed":
             q, k, v, scale, heads = args
             return (q, k, v, scale, heads, None, None), {}
-        if name == "flash_attention_rel_pos":
+        if name in ("flash_attention_rel_pos", "windowed_attention_rel_pos"):
             q, k, v, rh, rw, scale, _ = args
             return ((q, k, v, scale, 1, rh[:, :, None], rw[:, :, None]),
                     dict(scale_scores=True))
         return None
 
     def forward_repeat(name, shape, args):
-        """The Hopper forward twice on the same operands, with the lse: every
-        output element has one owner and a fixed order of sums, so O and
-        the lse are bit-identical."""
+        """The Hopper or the resident forward twice on the same operands,
+        with the lse: every output element has one owner and a fixed order
+        of sums, so O and the lse are bit-identical."""
         la = launcher_args(name, args)
         if la is None:
             return
@@ -411,7 +429,7 @@ def main() -> int:
                               k.shape[1], rh is not None,
                               None if rh is None else (rh.shape[-1],
                                                        rw.shape[-1]))
-        if body != "sm90":
+        if body == "mma":
             return
         first = attention_launch(*la[0], return_lse=True, **kw)
         second = attention_launch(*la[0], return_lse=True, **kw)
@@ -488,8 +506,11 @@ def main() -> int:
         ("fused_mlp", "R=1 D=1280 F=5120", lambda: mlp_args(1, 1280, 5120)),
         ("fused_mlp", "R=1000 D=1280 F=5120",
          lambda: mlp_args(1000, 1280, 5120)),
-        # head dim 80 (ViT-H: D 1280, 16 heads) through the mma.sync and
-        # f32 tile bodies, at ViT-H's serving shapes at batch 1
+        # head dim 80 (ViT-H: D 1280, 16 heads) at ViT-H's serving shapes
+        # at batch 1: bf16 through the Hopper and the resident bodies, f32
+        # through the tile bodies; then ragged against the Hopper body's
+        # blocks and tiles (grids no multiple of 8) and the resident body's
+        # 16-row tiles (odd table widths, a window of 100)
         ("windowed_attention_packed", "BW=25 H=16 N=196 d=80 (ViT-H)",
          lambda: attn_args(25, (14, 14), heads=16, d=80)),
         ("flash_attention_packed", "B=1 H=16 N=4096 d=80 (ViT-H)",
@@ -498,6 +519,14 @@ def main() -> int:
          lambda: grouped_args(25 * 16, (14, 14), d=80)),
         ("flash_attention_rel_pos", "BH=16 N=4096 d=80",
          lambda: grouped_args(16, (64, 64), d=80)),
+        ("flash_attention_packed", "B=2 H=3 N=1000 (25x40) d=80",
+         lambda: attn_args(2, (25, 40), heads=3, d=80)),
+        ("flash_attention_rel_pos", "BH=6 N=1000 (20x50) d=80",
+         lambda: grouped_args(6, (20, 50), d=80)),
+        ("windowed_attention_packed", "BW=3 H=3 N=49 (7x7) d=80",
+         lambda: attn_args(3, (7, 7), heads=3, d=80)),
+        ("windowed_attention_rel_pos", "BWH=10 N=100 (10x10) d=80",
+         lambda: grouped_args(10, (10, 10), d=80)),
     ]
     # shapes no f32 body takes: the wrapper must refuse them with the reason
     bf16_only = {"R=1 D=1280 F=5120", "R=1000 D=1280 F=5120"}
@@ -760,8 +789,9 @@ def main() -> int:
 
     # ---- 4b. large models: ViT-L and ViT-H through the packed kernels ------
     # Seeded random weights (no checkpoint is at hand); the plain path gets
-    # the same weights. ViT-H's head dim 80 runs the mma.sync tile bodies,
-    # its D 1280 the K3 GEMM body.
+    # the same weights. ViT-H's head dim 80 runs the Hopper body in its
+    # global blocks and the resident body in its windows, its D 1280 the K3
+    # GEMM body.
     sizes1 = sizes[:1]
 
     def serve1(m, images):
@@ -806,8 +836,8 @@ def main() -> int:
                                        (v.window_size, v.window_size)),
             "global": attention_body(torch.bfloat16, d, n_glob, n_glob, True,
                                      (cfg.grid_size, cfg.grid_size))}
-        if d == 80 and set(bodies.values()) != {"mma"}:
-            raise AssertionError(f"{variant}: d = 80 bodies {bodies}")
+        if bodies != {"windowed": "resident", "global": "sm90"}:
+            raise AssertionError(f"{variant}: bf16 forward bodies {bodies}")
         with torch.inference_mode():
             ref, _ = serve1(plain_m, x1)
             for h in hooks:
@@ -850,31 +880,6 @@ def main() -> int:
                                  f"path {got} beyond {limits}")
         del kern_m, plain_m, out, ref, dets, emb
         torch.cuda.empty_cache()
-
-    # the d = 80 attention kernels at ViT-H's shapes, batch 1, beside their
-    # plain versions, one library call and their bounds (at the launcher)
-    with torch.no_grad():
-        for what, bw, hw in (("windowed", 25, (14, 14)),
-                             ("global", 1, (64, 64))):
-            qkv, rh, rw = (t.to(torch.bfloat16) for t in
-                           attn_args(bw, hw, heads=16, d=80)[:3])
-            q, k, v_ = qkv.split(1280, dim=-1)
-            n = hw[0] * hw[1]
-            lib_fwd, _ = sdpa_pair(q, k, v_, rh, rw, 16, 80 ** -0.5)
-            ms_plain, ms_kern = paired_ms(
-                lambda: attention_plain(q, k, v_, 80 ** -0.5, 16, rh, rw),
-                lambda: attention_launch(q, k, v_, 80 ** -0.5, 16, rh, rw),
-                iters=20)
-            lib_ms = time_ms(lib_fwd, iters=20)
-            mac = bw * 16 * n * n * 80
-            b80 = bound_ms(4 * mac, nbytes(q, k, v_, q, rh, rw))
-            emit("kernel_time", kernel=f"attention d=80 {what} (ViT-H)",
-                 shape=f"B={bw} H=16 N={n} d=80", dtype="bfloat16", gpu=gpu,
-                 body=attention_body(torch.bfloat16, 80, n, n, True, hw),
-                 ms=ms_kern, plain_ms=ms_plain, library_ms=lib_ms,
-                 bound_ms=b80[0], bound_by=b80[1])
-            del qkv, q, k, v_, rh, rw, lib_fwd
-            torch.cuda.empty_cache()
 
     # ---- 5. times ------------------------------------------------------------
     del served, grouped_served
@@ -983,8 +988,10 @@ def main() -> int:
 
     def backward_counters(dt, d, n, m, hw):
         """The counters one forward and backward of an attention wrapper
-        move: the resident body's backward is one kernel."""
-        if attention_body(dt, d, n, m, hw is not None, hw) == "resident":
+        move: the resident body's backward is one kernel (at d = 80 the
+        backward is the tile bodies' two kernels whatever the forward ran)."""
+        if attention_body(dt, d, n, m, hw is not None, hw,
+                          "backward") == "resident":
             return ("launches", "backward_launches")
         return attn_counters
 
@@ -1048,7 +1055,8 @@ def main() -> int:
          lambda: attn_args(37, (10, 10), heads=3)[:3]),
         ("K1", "BW=1 H=1 N=196", 1, 64, (14, 14),
          lambda: attn_args(1, (14, 14), heads=1)[:3]),
-        # head dim 80 at ViT-H's shapes, batch 1: the tile bodies
+        # head dim 80 at ViT-H's shapes, batch 1: the Hopper and the
+        # resident forward, the tile backward
         ("K1", "BW=25 H=16 N=196 d=80 (ViT-H)", 16, 80, (14, 14),
          lambda: attn_args(25, (14, 14), heads=16, d=80)[:3]),
         ("K2", "B=1 H=16 N=4096 d=80 (ViT-H)", 16, 80, (64, 64),
@@ -1123,7 +1131,7 @@ def main() -> int:
                 del got, parts, tensors
             if dt == torch.bfloat16:
                 body = attention_body(dt, d, q.shape[1], k.shape[1],
-                                      rh is not None, hw)
+                                      rh is not None, hw, "backward")
                 if body in ("resident", "sm90"):
                     repeat_check(kid, shape, lambda: attention_backward_launch(
                         q, k, v, out, lse, dout, scale, heads, rh, rw), body)
@@ -1148,7 +1156,8 @@ def main() -> int:
         ("K6", "BWH=7 N=49 (7x7)", (7, 7), 7, 3, 64),
         ("K6", "BWH=111 N=100 (10x10)", (10, 10), 111, 3, 64),
         ("K6", "BWH=1 N=144", (12, 12), 1, 3, 64),
-        # head dim 80 at ViT-H's shapes, batch 1: the tile bodies
+        # head dim 80 at ViT-H's shapes, batch 1: the Hopper and the
+        # resident forward, the tile backward
         ("K6", "BWH=25*16 N=196 d=80", (14, 14), 25 * 16, 3, 80),
         ("K5", "BH=16 N=4096 d=80", (64, 64), 16, 4, 80),
     ]
@@ -1216,7 +1225,7 @@ def main() -> int:
                                             errs["dk"], errs["dv"])
                 del got, tensors
             if dt == torch.bfloat16:
-                body = attention_body(dt, d, n, n, True, hw)
+                body = attention_body(dt, d, n, n, True, hw, "backward")
                 if body in ("resident", "sm90"):
                     repeat_check(kid, shape, lambda: attention_backward_launch(
                         q, k, v, out, lse, dout, scale, 1, rh4, rw4,
@@ -1776,6 +1785,93 @@ def main() -> int:
                   library_covers="see the dq entry")
         del tensors, q, k, v, out, lse, dout, rh, rw
         torch.cuda.empty_cache()
+
+    # ViT-H's attention (head dim 80, 16 heads) at batch 1 and 4: the bf16
+    # forward of the Hopper body (K2, K5 on the 64-grid) and of the resident
+    # body (K1, K6 on 25 windows of 14 an image) in turns with the tile body
+    # over 20 launches a turn, beside one library call and the bound; at
+    # batch 1 also the backward (the tile bodies: the delta pass and two
+    # kernels) beside autograd through the library call.
+    vit_h = {}
+    for batch in (1, 4):
+        for kid in ("K2", "K5", "K1", "K6"):
+            hw = (14, 14) if kid in ("K1", "K6") else (64, 64)
+            n, ss = hw[0] * hw[1], kid in ("K5", "K6")
+            nb = batch * (25 if kid in ("K1", "K6") else 1)
+            heads, scale = (1 if ss else 16), 80 ** -0.5
+            if ss:      # the grouped operands: one head, BH batches
+                q, k, v = (randn((nb * 16, n, 80)).to(torch.bfloat16)
+                           for _ in range(3))
+                rh, rw = (randn((nb * 16, n, 1, g), 0.5).to(torch.bfloat16)
+                          for g in hw)
+            else:
+                qkv = randn((nb, n, 3 * 1280)).to(torch.bfloat16)
+                q, k, v = qkv.split(1280, dim=-1)
+                rh, rw = (randn((nb, n, 16, g), 0.5).to(torch.bfloat16)
+                          for g in hw)
+            shape = {"K1": f"BW={nb} H=16", "K6": f"BWH={nb * 16}",
+                     "K2": f"B={nb} H=16", "K5": f"BH={nb * 16}"}[kid]
+            shape += f" N={n} d=80"
+            body = attention_body(torch.bfloat16, 80, n, n, True, hw)
+
+            def forward(which_body, lse=False):
+                return lambda: attention_launch(
+                    q, k, v, scale, heads, rh, rw, return_lse=lse,
+                    scale_scores=ss, body=which_body)
+
+            mac = nb * 16 * n * n * 80
+            fb, fby = bound_ms(4 * mac, nbytes(q, k, v, q, rh, rw))
+            lib_fwd, lib_bwd = sdpa_pair(q, k, v, rh, rw, heads, scale)
+            with torch.no_grad():
+                old_ms, new_ms = paired_ms(forward("mma"), forward(body),
+                                           iters=20)
+                lib_ms = time_ms(lib_fwd, iters=20)
+                plain_ms = (time_ms(lambda: attention_plain(
+                    q, k, v, scale, heads, rh, rw, scale_scores=ss))
+                    if batch == 1 else None)
+            emit("forward_time", kernel=kid, shape=shape, dtype="bfloat16",
+                 gpu=gpu, body=body, launches_timed=20, ms=new_ms,
+                 earlier_body="mma", earlier_body_ms=old_ms, bound_ms=fb,
+                 bound_by=fby, library_ms=lib_ms, plain_ms=plain_ms,
+                 over_bound=new_ms / fb, over_library=new_ms / lib_ms)
+            row = dict(shape=shape, body=body, ms=new_ms,
+                       earlier_body_ms=old_ms, library_ms=lib_ms,
+                       plain_ms=plain_ms, bound_ms=fb, bound_by=fby)
+            if batch == 1:
+                with torch.no_grad():
+                    out, lse = forward(body, lse=True)()
+                    dout = torch.randn_like(out)
+                    bwd_ms = time_ms(lambda: attention_backward_launch(
+                        q, k, v, out, lse, dout, scale, heads, rh, rw,
+                        scale_scores=ss))
+                    bwd_plain_ms = time_ms(lambda: attention_backward_plain(
+                        q, k, v, out, lse, dout, scale, heads, rh, rw,
+                        scale_scores=ss))
+                lib_bwd_ms = time_ms(lib_bwd)
+                bb = bound_ms(14 * mac, nbytes(q, k, v, dout, out, lse, q, k,
+                                               v, rh, rw, rh, rw))
+                bwd_body = attention_body(torch.bfloat16, 80, n, n, True, hw,
+                                          "backward")
+                emit("backward_kernel_time", kernel=kid, shape=shape,
+                     dtype="bfloat16", gpu=gpu, body=bwd_body,
+                     both_ms=bwd_ms, plain_ms=bwd_plain_ms, bound_ms=bb[0],
+                     bound_by=bb[1], library_backward_ms=lib_bwd_ms)
+                vit_h[kid] = dict(forward=row, backward=dict(
+                    shape=shape, body=bwd_body, ms=bwd_ms,
+                    plain_ms=bwd_plain_ms, library_ms=lib_bwd_ms,
+                    bound_ms=bb[0], bound_by=bb[1]))
+                del out, lse, dout
+            else:
+                vit_h[kid]["forward_batch_4"] = row
+            del q, k, v, rh, rw, lib_fwd, lib_bwd
+            torch.cuda.empty_cache()
+    for kid, rows in vit_h.items():
+        report[ids[kid]]["vit_h_d80"] = {
+            "batch_1": rows["forward"], "batch_4": rows["forward_batch_4"]}
+        back = ids[kid] + ("_backward" if kid in ("K1", "K6")
+                           else "_backward_dq")
+        report[back]["vit_h_d80"] = dict(
+            rows["backward"], covers="the whole tile backward")
 
     # K3 in bf16 at the main paths' two row counts and at ViT-L's and
     # ViT-H's widths: the forward in turns with the library chain, dh in

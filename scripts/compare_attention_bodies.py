@@ -9,12 +9,14 @@ for the windowed ones.
     python3 scripts/compare_attention_bodies.py             # every case
     python3 scripts/compare_attention_bodies.py --main      # main paths only
     python3 scripts/compare_attention_bodies.py --windowed  # windowed only
+    python3 scripts/compare_attention_bodies.py --d80       # head dim 80 only
 
 For each case (batch, heads, d, queries, keys, rel grid, scale placement,
 scale) it builds the kernels (registers and spills of the Hopper and resident
 instantiations are printed from nvcc's -Xptxas -v), runs forward and backward
-of each body at the launcher (ops/_attention.py, `body=`), and prints one JSON
-line: the largest forward and lse errors and the backward errors relative to
+of each body at the launcher (ops/_attention.py, `body=`; at head dim 80 the
+Hopper and resident bodies run forward only, the backward is the tile
+bodies'), and prints one JSON line: the largest forward and lse errors and the backward errors relative to
 each gradient's largest element against the plain version, whether a second
 backward is bit-identical, and CUDA-event times in ms, each body warmed up
 and timed over five launches: forward, the whole backward (for the tile
@@ -75,6 +77,22 @@ WINDOWED_RAGGED = [
     (2, 2, 64, 208, 208, (13, 16), False, None),
     (2, 2, 64, 150, 150, (10, 15), True, None),
     (3, 1, 64, 6, 6, (2, 3), True, None),
+]
+# head dim 80 (ViT-H: 16 heads, the 64-grid and windows of 14) at batch 1 and
+# ragged against the bodies' tiles
+D80 = [
+    (1, 16, 80, 4096, 4096, (64, 64), False, None),    # K2
+    (16, 1, 80, 4096, 4096, (64, 64), True, None),     # K5
+    (25, 16, 80, 196, 196, (14, 14), False, None),     # K1
+    (400, 1, 80, 196, 196, (14, 14), True, None),      # K6
+    (2, 3, 80, 1000, 1000, (25, 40), False, None),
+    (6, 1, 80, 1000, 1000, (20, 50), True, None),
+    (1, 2, 80, 2304, 2304, (48, 48), False, None),
+    (1, 2, 80, 300, 1030, None, False, None),
+    (3, 3, 80, 49, 49, (7, 7), False, None),
+    (10, 1, 80, 100, 100, (10, 10), True, None),
+    (2, 2, 80, 208, 208, (13, 16), False, None),
+    (141, 1, 80, 144, 144, (12, 12), True, 0.3),
 ]
 WINDOWED_MAIN = [
     (100, 12, 64, 196, 196, (14, 14), False, None),    # K1, full canvas
@@ -141,6 +159,8 @@ def run_case(case, rng, dev) -> dict:
                                      rw, scale_scores=ss)
     delta = A.attention_delta(dout, out, h).contiguous()
     chosen = A.attention_body(q.dtype, d, nq, nk, hw is not None, hw)
+    backward_body = A.attention_body(q.dtype, d, nq, nk, hw is not None, hw,
+                                     "backward")
     res = {}
     for body in dict.fromkeys(("mma", chosen)):
         got_out, got_lse = A.attention_launch(
@@ -157,6 +177,17 @@ def run_case(case, rng, dev) -> dict:
                 q, k, v, out, lse, dout, scale, h, rh, rw, grads=g,
                 want_drel=drel, scale_scores=ss, body=body)
 
+        res[body] = dict(
+            fwd_err=(got_out.float() - ref_out.float()).abs().max().item(),
+            lse_err=(got_lse - ref_lse).abs().max().item(),
+            same_without_lse=torch.equal(without_lse, got_out),
+            fwd_ms=time_ms(lambda: A.attention_launch(
+                q, k, v, scale, h, rh, rw, scale_scores=ss, body=body)),
+            fwd_with_lse_ms=time_ms(lambda: A.attention_launch(
+                q, k, v, scale, h, rh, rw, return_lse=True, scale_scores=ss,
+                body=body)))
+        if body not in ("mma", backward_body):
+            continue                    # a forward-only body (d = 80)
         runs = [backward(g) for g in (grads, None)]
         torch.cuda.synchronize()
 
@@ -180,20 +211,12 @@ def run_case(case, rng, dev) -> dict:
                 kernel, q, k, v, dout, lse, delta, rh, rw, *grads, *tables,
                 scale, h, d, gh, gw, scale_scores=ss)
 
-        res[body] = dict(
-            fwd_err=(got_out.float() - ref_out.float()).abs().max().item(),
-            lse_err=(got_lse - ref_lse).abs().max().item(),
-            same_without_lse=torch.equal(without_lse, got_out),
+        res[body].update(
             bwd_rel_err=[(g.float() - r.float()).abs().max().item()
                          / max(r.float().abs().max().item(), 1e-6)
                          for g, r in zip(runs[0], ref) if r is not None],
             repeatable=all(torch.equal(g1, g2)
                            for g1, g2 in zip(*runs) if g1 is not None),
-            fwd_ms=time_ms(lambda: A.attention_launch(
-                q, k, v, scale, h, rh, rw, scale_scores=ss, body=body)),
-            fwd_with_lse_ms=time_ms(lambda: A.attention_launch(
-                q, k, v, scale, h, rh, rw, return_lse=True, scale_scores=ss,
-                body=body)),
             bwd_ms=time_ms(lambda: backward(grads)),
             bwd_without_drel_ms=(time_ms(lambda: backward(grads, False))
                                  if hw else None))
@@ -214,6 +237,8 @@ def main() -> int:
                     help="the main-path shapes only")
     ap.add_argument("--windowed", action="store_true",
                     help="the windowed cases only (the resident bodies)")
+    ap.add_argument("--d80", action="store_true",
+                    help="the head-dim-80 cases only")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA GPU", file=sys.stderr)
@@ -235,6 +260,8 @@ def main() -> int:
         cases = ([] if args.main else WINDOWED_RAGGED) + WINDOWED_MAIN
         if not args.windowed:
             cases += ([] if args.main else RAGGED) + MAIN
+        if args.d80:
+            cases = D80
         for case in cases:
             print(json.dumps(run_case(case, rng, dev)), flush=True)
     return 0

@@ -2,7 +2,8 @@
 
     python scripts/profile_port.py [--config full_canvas|compat_crop|from_scratch]
                                    [--plain | --attn-impl grouped]
-                                   [--batch 4] [--iters 3]
+                                   [--variant vit_b|vit_l|vit_h]
+                                   [--batch 4] [--iters 3] [--root CHECKOUT]
     python scripts/profile_port.py --train fine_tune|from_scratch
                                    [--plain | --attn-impl grouped]
     python scripts/profile_port.py ... --no-trace [--iters 20]
@@ -10,7 +11,8 @@
 
 Runs forward + postprocess + NMS, or with --train whole train steps on a
 synthetic batch (train/synthetic.py), at ViT-B width in bf16 (random weights
-from a seed) under torch.profiler and prints JSON lines: the device time by
+from a seed; serving also at ViT-L's or ViT-H's with --variant) under
+torch.profiler and prints JSON lines: the device time by
 kernel name (top 15), the summed device time, the wall time and the device
 idle share over the profiled window, with the card's name and power limit.
 Each kernel of the port is named beside its device name ("port_kernel":
@@ -19,7 +21,9 @@ kernels by body and direction), and one more line sums the device time of
 each. --attn-impl picks the kernels' layout: packed (K1, K2, K3, K4; the
 default) or grouped (K6, K5, K4 and the plain MLP). --no-trace times the
 same steps without the profiler, which slows the host: one JSON line with
-the wall-clock ms per batch or step over --iters.
+the wall-clock ms per batch or step over --iters. --root imports the
+package of another checkout (this script's own by default), so that one
+call can profile an older tree beside this one.
 
 --k3 times K3 alone in bf16 at ViT-B's width (D 768, F 3072) through its
 public wrappers, `fused_mlp` (the forward) and `fused_mlp_dh` (the
@@ -45,7 +49,10 @@ from pathlib import Path
 import torch
 from torch.autograd import DeviceType
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+_root = argparse.ArgumentParser(add_help=False)
+_root.add_argument("--root", default=str(Path(__file__).resolve().parents[1]),
+                   help="checkout whose package is profiled")
+sys.path.insert(0, str(Path(_root.parse_known_args()[0].root).resolve()))
 
 from wildlifemapper_tpu_torch.config import model_config  # noqa: E402
 from wildlifemapper_tpu_torch.eval.postprocess import (  # noqa: E402
@@ -134,8 +141,9 @@ def k3_times(gpu: str) -> None:
                 flush=True)
 
 
-def config(name: str, plain: bool, attn_impl: str = "packed"):
-    cfg = model_config("vit_b", dtype="bfloat16",
+def config(name: str, plain: bool, attn_impl: str = "packed",
+           variant: str = "vit_b"):
+    cfg = model_config(variant, dtype="bfloat16",
                        use_flash_attention=not plain, attn_impl=attn_impl)
     if name == "compat_crop":
         cfg = dataclasses.replace(cfg, content_size=768)
@@ -148,7 +156,8 @@ def config(name: str, plain: bool, attn_impl: str = "packed"):
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0],
+                                 parents=[_root])
     ap.add_argument("--config", default="full_canvas",
                     choices=["full_canvas", "compat_crop", "from_scratch"])
     ap.add_argument("--plain", action="store_true",
@@ -165,6 +174,9 @@ def main() -> int:
                          "torch.profiler")
     ap.add_argument("--k3", action="store_true",
                     help="time K3's forward and dh wrappers alone")
+    ap.add_argument("--variant", default="vit_b",
+                    choices=["vit_b", "vit_l", "vit_h"],
+                    help="the encoder served (training runs ViT-B)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--iters", type=int, default=3)
     args = ap.parse_args()
@@ -198,6 +210,8 @@ def main() -> int:
             wall_ms = (time.perf_counter() - t0) * 1000 / args.iters
         return prof, wall_ms
 
+    if args.train and args.variant != "vit_b":
+        ap.error("--train runs ViT-B only")
     if args.train:
         cfg = training_config(args.train, use_kernels=not args.plain,
                               batch_size=args.batch)
@@ -212,7 +226,7 @@ def main() -> int:
             lambda: builder.train_step(state, batch, g))
     else:
         model = WildlifeMapper(config(args.config, args.plain,
-                                      args.attn_impl),
+                                      args.attn_impl, args.variant),
                                generator=torch.Generator().manual_seed(0))
         model.eval()
         g = torch.Generator(device=dev).manual_seed(1)
@@ -232,6 +246,7 @@ def main() -> int:
             prof, wall_ms = profiled(step)
 
     head = {"config": args.train or args.config,
+            "variant": args.variant, "root": args.root,
             "mode": "train" if args.train else "serve",
             "path": "plain" if args.plain else f"kernels, {args.attn_impl}",
             "batch": args.batch, "gpu": gpu, "wall_ms_per_batch": wall_ms}

@@ -1,9 +1,12 @@
-"""The bf16 forward of the streaming attention kernels (K2, K4, K5) at the
-shapes `chip_smoke.py` phase 2 runs them, timed at the launcher on one
-NVIDIA GPU (written for the H100), for comparing two checkouts in turns.
+"""The bf16 forward of the attention kernels at the shapes `chip_smoke.py`
+phase 2 runs them, timed at the launcher on one NVIDIA GPU (written for the
+H100), for comparing two checkouts in turns: the streaming kernels (K2, K4,
+K5) and, with --windowed, the windowed ones (K1, K6), at ViT-B's head dim;
+with --d80 the four kernels of ViT-H (head dim 80) at batch 1 and 4 and
+ragged.
 
     python3 scripts/time_streaming_forward.py [--root CHECKOUT] [--label L]
-        [--main] [--no-tables]
+        [--main] [--no-tables] [--windowed] [--d80]
 
 `--root` is the checkout whose `wildlifemapper_tpu_torch` is imported (this
 script's own by default), so that one call can time an older tree with the
@@ -22,8 +25,11 @@ larger of the flops (4*B*H*N*M*d) over 989 TFLOP/s and the bytes (q, k, v,
 the tables, out) over 3.35 TB/s. `--main` keeps the main paths' six shapes
 (N 4096 and 2304) and drops the ragged ones; `--no-tables` runs K2 and K5
 without their rel tables, the same attention without the bias, so that
-the difference is what the bias costs. One JSON line a shape, the card's
-name and power limit first. Fails without CUDA.
+the difference is what the bias costs. --windowed adds K1 and K6 at
+ViT-B's windows, --d80 runs ViT-H's shapes instead of ViT-B's (with
+--windowed, only the d-80 windows; with --main, the d-80 rows at batch 1
+and 4). One JSON line a shape, the card's name and power limit first.
+Fails without CUDA.
 """
 
 from __future__ import annotations
@@ -41,7 +47,8 @@ PEAK_FLOPS = 989e12   # H100 SXM, bf16 dense
 PEAK_BYTES = 3.35e12  # H100 SXM, HBM3
 ITERS = 20            # launches a timing: the kernels take 0.02-0.6 ms
 
-# kernel, shape, batch (B or BH), heads, head dim, queries, keys, rel grid
+# kernel, shape, batch (B, BW, BH or BWH), heads, head dim, queries, keys,
+# rel grid
 SHAPES = [
     ("K2", "B=4 N=4096", 4, 12, 64, 4096, 4096, (64, 64)),
     ("K5", "BH=4*12 N=4096", 48, 1, 64, 4096, 4096, (64, 64)),
@@ -55,6 +62,30 @@ SHAPES = [
     ("K5", "BH=4 N=513 (27x19) d=128", 4, 1, 128, 513, 513, (27, 19)),
     ("K4", "B=2 N=200 M=1000", 2, 8, 128, 200, 1000, None),
     ("K4", "B=1 N=300 M=1030", 1, 8, 128, 300, 1030, None),
+]
+WINDOWED = [
+    ("K1", "BW=4*25 N=196", 100, 12, 64, 196, 196, (14, 14)),
+    ("K6", "BWH=4*25*12 N=196", 1200, 1, 64, 196, 196, (14, 14)),
+    ("K1", "BW=4*16 N=144", 64, 12, 64, 144, 144, (12, 12)),
+    ("K6", "BWH=4*16*12 N=144", 768, 1, 64, 144, 144, (12, 12)),
+]
+# ViT-H: 16 heads of 80, the 64-grid and windows of 14, batch 1 and 4; then
+# ragged against the Hopper and the resident bodies
+D80 = [
+    ("K2", "B=1 H=16 N=4096 d=80", 1, 16, 80, 4096, 4096, (64, 64)),
+    ("K5", "BH=16 N=4096 d=80", 16, 1, 80, 4096, 4096, (64, 64)),
+    ("K2", "B=4 H=16 N=4096 d=80", 4, 16, 80, 4096, 4096, (64, 64)),
+    ("K5", "BH=64 N=4096 d=80", 64, 1, 80, 4096, 4096, (64, 64)),
+    ("K2", "B=2 H=3 N=1000 (25x40) d=80", 2, 3, 80, 1000, 1000, (25, 40)),
+    ("K5", "BH=6 N=1000 (20x50) d=80", 6, 1, 80, 1000, 1000, (20, 50)),
+]
+D80_WINDOWED = [
+    ("K1", "BW=25 H=16 N=196 d=80", 25, 16, 80, 196, 196, (14, 14)),
+    ("K6", "BWH=25*16 N=196 d=80", 400, 1, 80, 196, 196, (14, 14)),
+    ("K1", "BW=100 H=16 N=196 d=80", 100, 16, 80, 196, 196, (14, 14)),
+    ("K6", "BWH=100*16 N=196 d=80", 1600, 1, 80, 196, 196, (14, 14)),
+    ("K1", "BW=3 H=3 N=49 (7x7) d=80", 3, 3, 80, 49, 49, (7, 7)),
+    ("K6", "BWH=10 N=100 (10x10) d=80", 10, 1, 80, 100, 100, (10, 10)),
 ]
 
 
@@ -96,6 +127,10 @@ def main() -> int:
                     help="only the main paths' shapes")
     ap.add_argument("--no-tables", action="store_true",
                     help="K2 and K5 without their rel tables")
+    ap.add_argument("--windowed", action="store_true",
+                    help="also K1 and K6 (with --d80: only them)")
+    ap.add_argument("--d80", action="store_true",
+                    help="ViT-H's shapes (head dim 80) in place of ViT-B's")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA GPU", file=sys.stderr)
@@ -118,9 +153,16 @@ def main() -> int:
                                                     dtype=np.float32) * s
                                 ).to(dev).to(dt)
 
+    if args.d80:
+        shapes = (D80_WINDOWED if args.windowed else D80 + D80_WINDOWED)
+        if args.main:
+            shapes = [c for c in shapes if "x" not in c[1].split("d=")[0]]
+    else:
+        shapes = (SHAPES[:6] if args.main else SHAPES) + (
+            WINDOWED if args.windowed else [])
     with torch.no_grad():
-        for kid, shape, b, h, d, nq, nk, hw in SHAPES[:6] if args.main else SHAPES:
-            ss = kid == "K5"
+        for kid, shape, b, h, d, nq, nk, hw in shapes:
+            ss = kid in ("K5", "K6")
             c = h * d
             q = randn((b, nq, c))
             k, v = randn((b, nk, c)), randn((b, nk, c))

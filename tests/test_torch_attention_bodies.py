@@ -45,6 +45,57 @@ def test_main_path_shapes(what, dtype, d, nq, nk, rel, body):
     assert attention_body(dtype, d, nq, nk, rel) == body
 
 
+# ViT-H (head dim 80, 16 heads) at its serving shapes: the bf16 forward on
+# the Hopper body (global blocks, the 64-grid) and the resident body
+# (windows of 14); every backward and f32 on the tile bodies.
+VIT_H = [
+    ("K2", "forward", BF16, 4096, (64, 64), "sm90"),
+    ("K5", "forward", BF16, 4096, (64, 64), "sm90"),
+    ("K1", "forward", BF16, 196, (14, 14), "resident"),
+    ("K6", "forward", BF16, 196, (14, 14), "resident"),
+    ("K2", "backward", BF16, 4096, (64, 64), "mma"),
+    ("K5", "backward", BF16, 4096, (64, 64), "mma"),
+    ("K1", "backward", BF16, 196, (14, 14), "mma"),
+    ("K6", "backward", BF16, 196, (14, 14), "mma"),
+    ("K2", "forward", F32, 4096, (64, 64), "mma"),
+    ("K1", "forward", F32, 196, (14, 14), "mma"),
+    ("K5", "backward", F32, 4096, (64, 64), "mma"),
+    ("K6", "backward", F32, 196, (14, 14), "mma"),
+]
+
+
+@pytest.mark.parametrize("kernel,direction,dtype,n,grid,body", VIT_H,
+                         ids=[f"{c[0]}-{c[1]}-{c[2]}".replace("torch.", "")
+                              for c in VIT_H])
+def test_vit_h_shapes(kernel, direction, dtype, n, grid, body):
+    assert attention_body(dtype, 80, n, n, True, grid, direction) == body
+
+
+@pytest.mark.parametrize("d,nq,nk,grid", [
+    (80, 1000, 1000, (25, 40)),          # ragged against the Hopper tiles
+    (80, 300, 1030, None),               # N != M, no tables
+    (80, 49, 49, (7, 7)),                # ragged against the resident rows
+    (80, 100, 100, (10, 10)),
+    (64, 4096, 4096, (64, 64)),
+    (64, 196, 196, (14, 14)),
+    (128, 4096, 4096, None),
+])
+def test_backward_body_is_the_forward_body_but_at_d80(d, nq, nk, grid):
+    """Forward and backward take one body at d = 64 and 128; at d = 80 the
+    bf16 forward runs a Hopper or resident body and the backward the tile
+    bodies."""
+    fwd = attention_body(BF16, d, nq, nk, grid is not None, grid)
+    bwd = attention_body(BF16, d, nq, nk, grid is not None, grid,
+                         direction="backward")
+    assert bwd == (fwd if d != 80 else "mma")
+    assert fwd != "mma"
+
+
+def test_direction_is_checked():
+    with pytest.raises(ValueError, match="direction"):
+        attention_body(BF16, 64, 196, 196, True, (14, 14), "both")
+
+
 @pytest.mark.parametrize("d,nq,nk,rel,body", [
     (64, 200, 1000, True, "sm90"),       # ragged rows and tiles
     (128, 1, STREAM_MIN_KEYS, False, "sm90"),
@@ -142,10 +193,11 @@ def test_named_body_is_checked():
 
 
 def test_dispatch_reads_no_environment(monkeypatch):
-    """The choice follows from dtype and shapes alone."""
+    """The choice follows from direction, dtype and shapes alone."""
     for name in ("WM_ATTENTION_BODY", "WM_BODY", "ATTENTION_BODY"):
         monkeypatch.setenv(name, "mma")
     assert attention_body(BF16, 128, 4096, 4096, False) == "sm90"
+    assert attention_body(BF16, 80, 196, 196, True, (14, 14)) == "resident"
     assert "environ" not in (_build.CSRC.parent / "ops"
                              / "_attention.py").read_text()
 
@@ -201,18 +253,30 @@ def test_hopper_header_note(name):
         for gone in ("add_rel_bias", "stage_rel_tables", "load_a_pair",
                      "__expf", "*= a.scale;"):
             assert gone not in code, gone
+        # head dim 80 runs here forward only, 64 + 16 columns: a narrow
+        # region by a second TMA box, a B32 k-step, P.V as n64 + n16
+        for words in ("at d = 64, 80 or 128", "Head dim 80", "forward only",
+                      "narrow region", "32-byte swizzle", "5 k-steps",
+                      "an n64 and an n16 product", "four stages"):
+            assert words in flat, words
+        for word in ("desc_kmajor32(", "desc_mnmajor32(", "wgmma_rs<1, 16>",
+                     "&map_qn", "launch_fwd_sm90<80, 128"):
+            assert word in code, word
 
 
-@pytest.mark.parametrize("name,stays", [
-    ("attention_fwd.cuh", "attention_fwd_sm90.cuh"),
-    ("attention_bwd.cuh", "attention_bwd_sm90.cuh"),
+@pytest.mark.parametrize("name,stays,d80", [
+    ("attention_fwd.cuh", "attention_fwd_sm90.cuh",
+     "the backward of a bf16 d-80 attention still runs the tile bodies"),
+    ("attention_bwd.cuh", "attention_bwd_sm90.cuh",
+     "every bf16 backward at d = 80"),
 ])
-def test_tile_headers_say_what_still_runs_there(name, stays):
+def test_tile_headers_say_what_still_runs_there(name, stays, d80):
     note = (_build.CSRC / name).read_text()
     note = note[:note.index("#pragma once")]
     assert stays in note
     assert stays.replace("_sm90", "_resident") in note
     assert "K1" in note and "K6" in note and "f32" in note
+    assert d80 in " ".join(note.replace("//", " ").split())
 
 
 RESIDENT_HEADERS = {
@@ -243,6 +307,20 @@ def test_resident_header_note(name):
                  "res_cp16(", "res_wait<"):
         assert word in text, word
     assert "atomic" not in text.replace("no atomics", "")
+    flat = " ".join(note.replace("//", " ").split())
+    if name == "attention_fwd_resident.cuh":
+        # head dim 80 runs here forward only: ten chunks a row, one Q tile
+        # refilled by each warp
+        for words in ("d = 64 or 80", "Head dim 80", "forward only",
+                      "ten 16-byte chunks", "206,336 bytes", "res_tile_off"):
+            assert words in flat, words
+        code = text[text.index("#pragma once"):]
+        for word in ("launch_fwd_resident<80, 13, 7>",
+                     "launch_fwd_resident<80, 9, 5>", "res_q_stages",
+                     "res_copy_tile<D, ROWS>(qs"):
+            assert word in code, word
+    else:
+        assert "d = 64 only" in flat or "d = 80" not in flat
 
 
 def test_resident_backward_is_one_kernel_with_delta_inside():
@@ -463,6 +541,46 @@ def test_sm90_backward_runs_no_delta_pass(monkeypatch, family, d, n, rel,
     assert (dq_args[8] is not None) == (not grouped and d == 128)
     assert (dq_args[9] is not None) == rel
     assert (grads[3] is not None) == (rel and want_drel)
+
+
+def _forward_with_stand_ins(monkeypatch, d, n, heads, scale_scores):
+    lib = _StandInLibrary()
+    monkeypatch.setattr(_build, "load_kernels", lambda: lib)
+    monkeypatch.setattr(_build, "stream_ptr", lambda t: 0)
+    gen = torch.Generator().manual_seed(0)
+    side = int(n ** 0.5)
+    q = torch.randn(1, n, heads * d, generator=gen).to(BF16)
+    rh, rw = (torch.randn(1, n, heads, side, generator=gen).to(BF16)
+              for _ in range(2))
+    _attention.attention_launch(q, q, q, d ** -0.5, heads, rh, rw,
+                                return_lse=True, scale_scores=scale_scores)
+    return lib.calls
+
+
+@pytest.mark.parametrize("kernel,n,entry", [
+    ("K2", 4096, "wm_attention_fwd_sm90"),
+    ("K5", 4096, "wm_grouped_attention_fwd_sm90"),
+    ("K1", 196, "wm_attention_fwd_resident"),
+    ("K6", 196, "wm_grouped_attention_fwd_resident"),
+])
+def test_d80_forward_and_backward_entries(monkeypatch, kernel, n, entry):
+    """At ViT-H's head dim the bf16 forward reaches the Hopper or the
+    resident C entry, with d = 80; its backward reaches the tile bodies'
+    two kernels after the plain delta pass."""
+    grouped = kernel in ("K5", "K6")
+    heads = 1 if grouped else 2
+    calls = _forward_with_stand_ins(monkeypatch, 80, n, heads, grouped)
+    assert [name for name, _ in calls] == [entry]
+    args = calls[0][1]
+    assert len(args) == len(_build._SIGNATURES[entry])
+    assert args[12] == 80 and args[7] is not None     # d, the lse buffer
+    calls, passes, counts, _ = _launch_with_stand_ins(
+        monkeypatch, BF16, 80, n, heads, 80 ** -0.5, True,
+        scale_scores=grouped)
+    prefix = "wm_grouped_attention_bwd" if grouped else "wm_attention_bwd"
+    assert [name for name, _ in calls] == [prefix] * 2
+    assert [args[0] for _, args in calls] == [0, 1]
+    assert len(passes) == 1 and counts == (0, 1, 1)
 
 
 def test_tile_backward_keeps_its_delta_pass(monkeypatch):

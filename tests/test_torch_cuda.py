@@ -3,21 +3,26 @@ small ragged shapes (tile edges, odd token counts, every head dim: 32, 64,
 80 for ViT-H, 128). They
 need CUDA and skip elsewhere with the reason "needs CUDA (H100)".
 
-From 512 keys on, bf16 at d = 64 or 128 runs the Hopper bodies (wgmma and a
-TMA-fed ring, csrc/attention_fwd_sm90.cuh and attention_bwd_sm90.cuh): the
+From 512 keys on, bf16 at d = 64 or 128 (and the forward at d = 80) runs
+the Hopper bodies (wgmma and a TMA-fed ring, csrc/attention_fwd_sm90.cuh
+and attention_bwd_sm90.cuh): the
 STREAMING cases below are ragged against their 128-row blocks and their
 64- and 128-key tiles (grids that are no multiple of 8, N != M, a last tile
 of one or six keys, d = 128 with rel tables); their backward also with
 and without the table gradients, twice, and the delta its dq kernel
 writes.
 
-Below 512 keys, bf16 at d = 64 with rel tables and N == M <= 208 runs the
-resident bodies (one block a window-head, csrc/attention_fwd_resident.cuh and
+Below 512 keys, bf16 at d = 64 (and the forward at d = 80) with rel tables
+and N == M <= 208 runs the resident bodies (one block a window-head, csrc/attention_fwd_resident.cuh and
 attention_bwd_resident.cuh, whose backward is one kernel): the RESIDENT cases
 are the main paths' windows (196 = 14x14, 144 = 12x12) and ragged ones (49 =
 7x7 with odd table widths, 100 = 10x10, 208 = 13x16, a window of six tokens,
 one window-head, more window-heads than the card has SMs; a window of one
 token has gradients that are zero but for rounding, so nothing to compare).
+
+At d = 80 (ViT-H) the D80 cases hold the Hopper and the resident forward
+against the tile body and the plain version, twice, with the tile backward
+after them.
 
 This file imports neither JAX nor the JAX package's tests. On a machine
 without JAX run it as
@@ -245,7 +250,7 @@ def _one_backward(dtype, d, n, hw):
     backward is one kernel, the others' a dq and a dk/dv kernel."""
     from wildlifemapper_tpu_torch.ops._attention import attention_body
 
-    if attention_body(dtype, d, n, n, True, hw) == "resident":
+    if attention_body(dtype, d, n, n, True, hw, "backward") == "resident":
         return (1, 1, 0, 0)
     return (1, 0, 1, 1)
 
@@ -431,7 +436,7 @@ GROUPED_CASES = {
                (2, (9, 9), 128),
                # the Hopper bodies
                (3, (20, 50), 64), (2, (27, 19), 128), (2, (48, 48), 64),
-               # ViT-H's head dim: the tile bodies at any length
+               # ViT-H's head dim: the Hopper forward, the tile backward
                (2, (24, 24), 80)]),
     "windowed": (windowed_attention_rel_pos,
                  [(19, (4, 4), 32), (7, (7, 7), 64), (5, (14, 14), 64),
@@ -721,6 +726,126 @@ def test_resident_bodies_agree_and_repeat(cuda, family, bw, heads, hw, scale):
     assert frozen[3] is None and frozen[4] is None
     for g1, g2 in zip(frozen[:3], runs[0]):
         assert torch.equal(g1, g2)
+
+
+# batch (B, BW or BH), heads, grid, scale (None: d ** -0.5) at d = 80: the
+# Hopper forward (at least 512 keys: grids no multiple of 8, the 64-grid's
+# two-grid-row tiles, no tables with N != M) and the resident forward
+# (windows of 49 with odd table widths, 100, 196, 208, a scale that is no
+# power of two), each in both families
+D80 = [(2, 2, (25, 40), None), (1, 1, (20, 50), None), (1, 2, (24, 24), None),
+       (1, 1, (64, 64), None), (3, 3, (7, 7), None), (5, 2, (10, 10), None),
+       (2, 2, (14, 14), None), (2, 1, (13, 16), None), (141, 1, (12, 12), 0.3)]
+
+
+@pytest.mark.parametrize("family", ["packed", "grouped"])
+@pytest.mark.parametrize("b,heads,hw,scale", D80)
+def test_d80_forward_bodies_agree_and_repeat(cuda, family, b, heads, hw,
+                                             scale):
+    """bf16 at d = 80 at the launcher: the Hopper or the resident forward
+    against the tile body and the plain version, with and without the lse,
+    twice (bit-identical); the backward (the tile bodies) on its lse
+    against the plain backward."""
+    from wildlifemapper_tpu_torch.ops._attention import (
+        attention_backward_launch, attention_backward_plain, attention_body,
+        attention_launch)
+
+    ss = family == "grouped"
+    dt, d = torch.bfloat16, 80
+    n, c = hw[0] * hw[1], heads * d
+    scale = d ** -0.5 if scale is None else scale
+    rng = np.random.default_rng(b + n + heads)
+    qkv = _randn(rng, (b, n, 3 * c), dt, cuda)
+    q, k, v = (qkv[..., i * c:(i + 1) * c] for i in range(3))
+    dout = _randn(rng, (b, n, c), dt, cuda)
+    rh = _randn(rng, (b, n, heads, hw[0]), dt, cuda, 0.5)
+    rw = _randn(rng, (b, n, heads, hw[1]), dt, cuda, 0.5)
+    body = attention_body(dt, d, n, n, True, hw)
+    assert body == ("sm90" if n >= 512 else "resident")
+    assert attention_body(dt, d, n, n, True, hw, "backward") == "mma"
+    with torch.no_grad():
+        ref, lse_ref = attention_plain(q, k, v, scale, heads, rh, rw,
+                                       return_lse=True, scale_scores=ss)
+        outs = {which: attention_launch(q, k, v, scale, heads, rh, rw,
+                                        return_lse=True, scale_scores=ss,
+                                        body=which)
+                for which in ("mma", body)}
+        again = attention_launch(q, k, v, scale, heads, rh, rw,
+                                 return_lse=True, scale_scores=ss)
+        without_lse = attention_launch(q, k, v, scale, heads, rh, rw,
+                                       scale_scores=ss)
+        torch.cuda.synchronize()
+        assert torch.equal(without_lse, outs[body][0])
+        assert all(torch.equal(a, b_) for a, b_ in zip(again, outs[body]))
+        for out, lse in outs.values():
+            torch.testing.assert_close(out.float(), ref.float(), **TOL[dt])
+            torch.testing.assert_close(lse, lse_ref, atol=2e-2, rtol=2e-2)
+        out, lse = outs[body]
+        want = attention_backward_plain(q, k, v, out, lse, dout, scale,
+                                        heads, rh, rw, scale_scores=ss)
+        got = attention_backward_launch(q, k, v, out, lse, dout, scale,
+                                        heads, rh, rw, scale_scores=ss)
+        torch.cuda.synchronize()
+    _close_grads(got, want, dt, ("dq", "dk", "dv", "drel_h", "drel_w"))
+
+
+def test_d80_no_tables_and_ragged_rows(cuda):
+    """The Hopper forward at d = 80 without tables (N != M, a last tile of
+    six keys) against the plain version, twice."""
+    from wildlifemapper_tpu_torch.ops._attention import (attention_body,
+                                                         attention_launch)
+
+    rng = np.random.default_rng(80)
+    dt = torch.bfloat16
+    q = _randn(rng, (2, 300, 160), dt, cuda)
+    k, v = (_randn(rng, (2, 1030, 160), dt, cuda) for _ in range(2))
+    assert attention_body(dt, 80, 300, 1030, False) == "sm90"
+    with torch.no_grad():
+        first = attention_launch(q, k, v, 80 ** -0.5, 2, return_lse=True)
+        second = attention_launch(q, k, v, 80 ** -0.5, 2, return_lse=True)
+        ref, lse_ref = attention_plain(q, k, v, 80 ** -0.5, 2,
+                                       return_lse=True)
+        torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    torch.testing.assert_close(first[0].float(), ref.float(), **TOL[dt])
+    torch.testing.assert_close(first[1], lse_ref, atol=2e-2, rtol=2e-2)
+
+
+def test_d80_backward_is_the_tile_bodies(cuda):
+    """At d = 80 the windowed wrapper's bf16 forward is the resident body
+    and its backward the delta pass and the two tile kernels; the resident
+    backward refuses d = 80: nothing falls back."""
+    from wildlifemapper_tpu_torch.ops import _attention
+
+    calls = []
+    real = _attention.attention_delta
+
+    def counted(*args):
+        calls.append(1)
+        return real(*args)
+
+    rng = np.random.default_rng(8)
+    dt = torch.bfloat16
+    qkv = _randn(rng, (3, 196, 3 * 2 * 80), dt, cuda).requires_grad_()
+    rh = _randn(rng, (3, 196, 2, 14), dt, cuda, 0.5)
+    rw = _randn(rng, (3, 196, 2, 14), dt, cuda, 0.5)
+    _attention.attention_delta = counted
+    try:
+        before = _counts(windowed_attention_packed)
+        out = windowed_attention_packed(qkv, rh, rw, 80 ** -0.5, 2, (14, 14))
+        out.float().sum().backward()
+        torch.cuda.synchronize()
+    finally:
+        _attention.attention_delta = real
+    assert len(calls) == 1
+    assert _counts(windowed_attention_packed) == tuple(
+        a + b for a, b in zip(before, (1, 0, 1, 1)))
+    q, k, v = (qkv.detach()[..., i * 160:(i + 1) * 160] for i in range(3))
+    o, lse = _attention.attention_launch(q, k, v, 80 ** -0.5, 2, rh, rw,
+                                         return_lse=True)
+    with pytest.raises(RuntimeError, match="CUDA launch failed"):
+        _attention.attention_backward_launch(q, k, v, o, lse, o, 80 ** -0.5,
+                                             2, rh, rw, body="resident")
 
 
 def test_resident_backward_counts_one_launch(cuda):

@@ -46,8 +46,10 @@
 // do and the outputs are read and written by stride, so dq, dk and dv land
 // in the column blocks of one packed (B, N, 3C) dqkv.
 // Which launches still run here (ops/_attention.py::attention_body): every
-// f32 launch (the parity steps of all five kernels), d = 32 and 80 (ViT-H),
-// and the bf16
+// f32 launch (the parity steps of all five kernels), d = 32, every bf16
+// backward at d = 80 (ViT-H's K1, K2, K5, K6, whose bf16 forward runs the
+// Hopper and the resident bodies and leaves the same lse; no Hopper body for
+// the d-80 backward yet), and the bf16
 // launches below 512 keys that are no window the resident body holds: d = 128
 // or N != M, no rel tables, and a global block of 209 to 511 tokens that
 // lands in K1 or K6. The streaming bf16 shapes of K2, K4 and K5 take the

@@ -512,7 +512,8 @@ int attention_bwd_resident_entry(int dtype, const void* q, const void* k, const 
                                  long long dk_bs, long long dk_rs, long long dv_bs,
                                  long long dv_rs, int gh, int gw, float scale, void* stream) {
   using bf16 = __nv_bfloat16;
-  if (!res_shapes_ok(dtype, batch, heads, nq, nk, d, relh, relw, gh, gw) || lse == nullptr)
+  if (!res_shapes_ok(dtype, batch, heads, nq, nk, relh, relw, gh, gw) || d != kResD ||
+      lse == nullptr)
     return (int)cudaErrorInvalidValue;
   ResBwdArgs a;
   a.q = static_cast<const bf16*>(q); a.k = static_cast<const bf16*>(k);

@@ -39,18 +39,19 @@
 //    warp keeps its scores, probabilities and running output in registers.
 //  * f32 (parity): scalar f32 FMAs, no TF32; 4 threads per query row.
 // Which launches still run here (ops/_attention.py::attention_body): every
-// f32 launch (the parity runs of all five kernels), d = 32 and 80 (ViT-H's
-// head dim: the bodies are written in D / 16 k-steps and D / 8 column
-// groups, and 80 is a multiple of 16), and the bf16
-// launches below 512 keys that are no window the resident body holds: d = 128
-// or N != M (K4 at small sizes), no rel tables, and a global block of 209 to
-// 511 tokens that lands in K1 or K6. The streaming bf16 shapes of K2, K4 and
-// K5 (d = 64 or 128, 2304 or 4096 keys) take the Hopper body of
-// attention_fwd_sm90.cuh (wgmma, a TMA-fed ring), and the bf16 windows of K1
-// and K6 (d = 64, N = M <= 208: 196 and 144 on the main paths) the resident
-// body of attention_fwd_resident.cuh (one block a window-head, a one-pass
-// softmax); the bf16 body here stays the yardstick of both (chip_smoke.py
-// times them side by side).
+// f32 launch (the parity runs of all five kernels, d = 80 included: the
+// bodies are written in D / 16 k-steps and D / 8 column groups, and 80 is a
+// multiple of 16), d = 32, and the bf16 launches below 512 keys that are no
+// window the resident body holds: d = 128 or N != M (K4 at small sizes), no
+// rel tables, and a global block of 209 to 511 tokens that lands in K1 or
+// K6. The streaming bf16 shapes of K2, K4 and K5 (d = 64, 80 or 128, 2304 or
+// 4096 keys) take the Hopper body of attention_fwd_sm90.cuh (wgmma, a
+// TMA-fed ring), and the bf16 windows of K1 and K6 (d = 64 or 80, N = M <=
+// 208: 196 and 144 on the main paths) the resident body of
+// attention_fwd_resident.cuh (one block a window-head, a one-pass softmax);
+// the bf16 body here stays the yardstick of both (chip_smoke.py times them
+// side by side), and the backward of a bf16 d-80 attention still runs the
+// tile bodies of attention_bwd.cuh.
 //
 // Rounding points follow the Pallas kernels: q*scale is rounded to the input
 // type before QK (packed family) or the f32 scores take the scale (grouped

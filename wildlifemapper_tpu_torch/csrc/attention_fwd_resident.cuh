@@ -1,5 +1,5 @@
 // Windowed multi-head attention with the decomposed relative-position bias,
-// forward, bf16, d = 64: the resident body. One block owns one (window, head)
+// forward, bf16, d = 64 or 80: the resident body. One block owns one (window, head)
 // at a time and holds all of its Q, K and V in shared memory. It computes the
 // function of attention_fwd.cuh (see that header for the layouts and the
 // rounding points) and takes over its windowed launches, for the TPU kernels
@@ -14,7 +14,9 @@
 // with N = M <= 208 tokens a window (196 = 14 x 14 and 144 = 12 x 12 on the
 // main paths), rel tables at most 16 wide (ops/_attention.py::attention_body
 // says which launch comes here). Global blocks that land in K1 / K6 with more
-// keys, d = 32, d = 128 and f32 stay with attention_fwd.cuh.
+// keys, d = 32, d = 128 and f32 stay with attention_fwd.cuh. Head dim 80
+// (ViT-H's windows) runs here forward only: its backward stays with the tile
+// bodies of attention_bwd.cuh (attention_bwd_resident.cuh is d = 64 only).
 //
 // What bounds it on the H100: bytes. A window-head reads 3 x N x 128 B of
 // q, k, v and N x 2 x g x 2 B of tables and writes N x 128 B: 111 KB at
@@ -65,7 +67,19 @@
 //    today is the shared-memory traffic of the B operands (a 16-row tile
 //    reads all of K, V and E by ldmatrix) and the softmax's ALU work between
 //    the two products, not device memory;
-//  * out goes back through the warp's own (spent) Q rows as 16-byte stores.
+//  * out goes back through the warp's own (spent) Q rows as 16-byte stores;
+//  * d = 80 (ViT-H: 16 heads, windows of 196) is ten 16-byte chunks a row:
+//    chunks 0-7 in 128-byte rows as at d = 64 and chunks 8-9 in a second
+//    part of 32-byte rows with the chunk index XORed with (row / 4) % 2
+//    (res_tile_off), so ldmatrix stays free of bank conflicts in both. A tile
+//    of 208 rows is then 33,280 bytes and the two-stage ring of Q, K and V
+//    would need 239,616 bytes with the tables and E. So Q has one tile and
+//    K, V two stages (206,336 bytes): a warp reads only its own Q rows (the
+//    A operand of its row tiles, then the staging of its out), so as soon
+//    as it has written its out it starts the next window-head's Q into those
+//    rows by cp.async, and the next round's wait covers them: the Q copies
+//    still run under the products. The QK product takes 5 k-steps, P.V 10
+//    column groups (40 O registers a thread, 8 more than at d = 64).
 //
 // Rounding points as in attention_fwd.cuh: the packed family rounds q*scale
 // to bf16 (in the A fragment registers), the grouped family scales the f32
@@ -83,8 +97,8 @@
 namespace wm {
 namespace {
 
-constexpr int kResD = 64;          // head dim of the resident bodies
-constexpr int kResTileRow = 128;   // bytes of a q, k, v row
+constexpr int kResD = 64;          // head dim of the resident bodies (the forward also 80)
+constexpr int kResTileRow = 128;   // bytes of a q, k, v row at d = 64
 constexpr int kResTabRow = 64;     // bytes of a table row: rel_h in [0, 16), rel_w in [16, 32)
 constexpr int kResMaxGrid = 16;    // widest rel table
 constexpr float kLog2e = 1.4426950408889634f;
@@ -123,6 +137,21 @@ template <bool TAB> __device__ __forceinline__ uint32_t res_off(int row, int chu
   return (uint32_t)(row * kResTileRow + ((chunk ^ (row & 7)) << 4));
 }
 
+// The same in a q, k, v tile of ROWS rows at head dim D. At d = 80 a row is
+// ten chunks: chunks 0-7 in 128-byte rows as above, then chunks 8 and 9 in a
+// part of 32-byte rows after the ROWS rows of the first, the chunk index
+// XORed with (row / 4) % 2, so that 8 rows at one chunk fall in 8 16-byte
+// bank groups there too. `hi`: the chunk lies in that part (chunk >= 8).
+template <int D, int ROWS>
+__device__ __forceinline__ uint32_t res_tile_off(int row, int chunk, bool hi) {
+  if (D == 64 || !hi) return res_off<false>(row, chunk);
+  return (uint32_t)(ROWS * kResTileRow + row * 32 + (((chunk & 1) ^ ((row >> 2) & 1)) << 4));
+}
+template <bool TAB, int D, int ROWS>
+__device__ __forceinline__ uint32_t res_any_off(int row, int chunk, bool hi) {
+  return TAB ? res_off<true>(row, chunk) : res_tile_off<D, ROWS>(row, chunk, hi);
+}
+
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -134,29 +163,31 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
                : "r"(addr));
 }
 
-// A operand: rows r0 .. r0 + 15, 16 columns from chunk `chunk`, of a tile
-// stored [row][column].
-template <bool TAB>
+// A operand: rows r0 .. r0 + 15, 16 columns from chunk `chunk` (even), of a
+// tile stored [row][column] (a q, k, v tile at head dim D of ROWS rows, or a
+// table tile).
+template <bool TAB, int D = kResD, int ROWS = 0>
 __device__ __forceinline__ void res_lda(uint32_t (&a)[4], uint32_t tile, int r0, int chunk,
                                         int lane) {
-  ldsm_x4(a, tile + res_off<TAB>(r0 + (lane & 15), chunk + (lane >> 4)));
+  ldsm_x4(a, tile + res_any_off<TAB, D, ROWS>(r0 + (lane & 15), chunk + (lane >> 4), chunk >= 8));
 }
 // B operands of two adjacent 8-wide column groups n0 .. n0 + 15 over a
 // k-step of 16 from chunk `chunk`, of a tile stored [n][k] (K, Q, dO, V as
 // the right-hand side of X.Y^T): b[0], b[1] for n0, b[2], b[3] for n0 + 8.
-template <bool TAB>
+template <bool TAB, int D = kResD, int ROWS = 0>
 __device__ __forceinline__ void res_ldb(uint32_t (&b)[4], uint32_t tile, int n0, int chunk,
                                         int lane) {
-  ldsm_x4(b, tile + res_off<TAB>(n0 + ((lane >> 4) << 3) + (lane & 7), chunk + ((lane >> 3) & 1)));
+  ldsm_x4(b, tile + res_any_off<TAB, D, ROWS>(n0 + ((lane >> 4) << 3) + (lane & 7),
+                                             chunk + ((lane >> 3) & 1), chunk >= 8));
 }
 // The same for a tile stored [k][n] (V, K, Q, dO as the right-hand side of
 // X.Y): the k-step is rows k0 .. k0 + 15, the column groups are chunks
 // `chunk` and `chunk` + 1, read transposed in place.
-template <bool TAB>
+template <bool TAB, int D = kResD, int ROWS = 0>
 __device__ __forceinline__ void res_ldbt(uint32_t (&b)[4], uint32_t tile, int k0, int chunk,
                                          int lane) {
-  ldsm_x4_trans(
-      b, tile + res_off<TAB>(k0 + (((lane >> 3) & 1) << 3) + (lane & 7), chunk + (lane >> 4)));
+  ldsm_x4_trans(b, tile + res_any_off<TAB, D, ROWS>(k0 + (((lane >> 3) & 1) << 3) + (lane & 7),
+                                                   chunk + (lane >> 4), chunk >= 8));
 }
 
 __device__ __forceinline__ void res_cp16(uint32_t dst, const void* src) {
@@ -185,13 +216,16 @@ template <int N> __device__ __forceinline__ void res_scale_regs(uint32_t (&r)[N]
   for (int i = 0; i < N; ++i) r[i] = pack_bf16x2(res_lo(r[i]) * scale, res_hi(r[i]) * scale);
 }
 
-// One [n][64] bf16 tensor of a window-head into a tile, 16 bytes a copy:
-// eight adjacent lanes take one 128-byte row.
+// Rows [r0, r1) of one [n][D] bf16 tensor of a window-head into a tile of
+// ROWS rows, 16 bytes a copy: D / 8 adjacent lanes take one row.
+template <int D = kResD, int ROWS = 0>
 __device__ __forceinline__ void res_copy_tile(uint32_t tile, const __nv_bfloat16* src,
-                                               long long row_stride, int n, int t, int nthr) {
-  for (int i = t; i < n * 8; i += nthr) {
-    const int row = i >> 3, c = i & 7;
-    res_cp16(tile + res_off<false>(row, c), src + row * row_stride + c * 8);
+                                               long long row_stride, int n, int t, int nthr,
+                                               int r0 = 0) {
+  constexpr int CH = D / 8;
+  for (int i = r0 * CH + t; i < n * CH; i += nthr) {
+    const int row = (unsigned)i / CH, c = (unsigned)i % CH;
+    res_cp16(tile + res_tile_off<D, ROWS>(row, c, c >= 8), src + row * row_stride + c * 8);
   }
 }
 
@@ -231,16 +265,17 @@ __device__ __forceinline__ void res_copy_tables(unsigned char* smem, uint32_t ta
 // Once a block: zeros in the rows past n of every tile (so padded keys and
 // rows are finite and count for nothing), zeros in both table buffers (the
 // copies then fill the live columns), and the one-hot tile E.
-template <int KT>
+template <int KT, int D = kResD>
 __device__ __forceinline__ void res_init(unsigned char* smem, int ntiles, uint32_t tabs_off,
                                          uint32_t eye_off, int n, int gw, int t, int nthr) {
-  constexpr int ROWS = KT * 16;
-  constexpr int TILE = ROWS * kResTileRow, TAB = ROWS * kResTabRow;
+  constexpr int ROWS = KT * 16, CH = D / 8;
+  constexpr int TILE = ROWS * D * 2, TAB = ROWS * kResTabRow;
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  const int pad = (ROWS - n) * 8;
+  const int pad = (ROWS - n) * CH;
   for (int i = t; i < ntiles * pad; i += nthr) {
     const int tile = i / pad, j = i - tile * pad;
-    *reinterpret_cast<uint4*>(smem + tile * TILE + n * kResTileRow + j * 16) = zero;
+    const int row = n + j / CH, c = j % CH;
+    *reinterpret_cast<uint4*>(smem + tile * TILE + res_tile_off<D, ROWS>(row, c, c >= 8)) = zero;
   }
   for (int i = t; i < 2 * TAB / 16; i += nthr)
     *reinterpret_cast<uint4*>(smem + tabs_off + i * 16) = zero;
@@ -273,51 +308,67 @@ struct ResFwdArgs {
   int mode;  // ResScaleMode
 };
 
-template <int KT> __host__ __device__ constexpr int res_fwd_smem_bytes() {
-  return 6 * KT * 16 * kResTileRow + 3 * KT * 16 * kResTabRow;
+// Q tiles of the ring: two at d = 64; one at d = 80, where each warp refills
+// its own rows for the next window-head as soon as it has written them out
+// (a two-stage Q does not fit beside K, V, the tables and E: 239,616 bytes).
+template <int D> __host__ __device__ constexpr int res_q_stages() { return D == 64 ? 2 : 1; }
+
+template <int KT, int D> __host__ __device__ constexpr int res_fwd_smem_bytes() {
+  return (res_q_stages<D>() + 4) * KT * 16 * D * 2 + 3 * KT * 16 * kResTabRow;
 }
 
-template <int KT, int NW>
+template <int D, int KT, int NW>
 __global__ void __launch_bounds__(NW * 32, 1) attn_fwd_resident_kernel(ResFwdArgs a) {
   using bf16 = __nv_bfloat16;
-  constexpr int ROWS = KT * 16;
-  constexpr int TILE = ROWS * kResTileRow, TAB = ROWS * kResTabRow;
-  constexpr uint32_t TABS = 6 * TILE, EYE = TABS + 2 * TAB;
+  constexpr int ROWS = KT * 16, CH = D / 8;
+  constexpr int TILE = ROWS * D * 2, TAB = ROWS * kResTabRow;
+  constexpr int QST = res_q_stages<D>();
+  // Q, K and V of stage 0, then of stage 1 (d = 64); or Q, then K and V of
+  // each stage (d = 80); then the two table buffers and E
+  constexpr uint32_t TABS = (QST + 4) * TILE, EYE = TABS + 2 * TAB;
+  auto q_tile = [](int stage) { return (uint32_t)(QST == 2 ? stage * 3 * TILE : 0); };
+  auto k_tile = [](int stage) {
+    return (uint32_t)(QST == 2 ? stage * 3 * TILE + TILE : TILE + stage * 2 * TILE);
+  };
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const uint32_t base = res_smem_u32(smem_raw);
   const int t = threadIdx.x, nthr = blockDim.x, warp = t >> 5, lane = t & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int total = a.batch * a.heads;
 
-  res_init<KT>(smem_raw, 6, TABS, EYE, a.n, a.gw, t, nthr);
+  res_init<KT, D>(smem_raw, QST + 4, TABS, EYE, a.n, a.gw, t, nthr);
   __syncthreads();
 
-  auto copy_in = [&](int wh, int stage) {
+  auto copy_in = [&](int wh, int stage, bool with_q) {
     const long long b = wh / a.heads;
     const int h = wh - (int)b * a.heads;
-    const uint32_t tiles = base + stage * 3 * TILE;
-    res_copy_tile(tiles, a.q + b * a.q_bs + h * kResD, a.q_rs, a.n, t, nthr);
-    res_copy_tile(tiles + TILE, a.k + b * a.k_bs + h * kResD, a.k_rs, a.n, t, nthr);
-    res_copy_tile(tiles + 2 * TILE, a.v + b * a.v_bs + h * kResD, a.v_rs, a.n, t, nthr);
+    const uint32_t kt = base + k_tile(stage);
+    if (with_q)
+      res_copy_tile<D, ROWS>(base + q_tile(stage), a.q + b * a.q_bs + h * D, a.q_rs, a.n, t,
+                             nthr);
+    res_copy_tile<D, ROWS>(kt, a.k + b * a.k_bs + h * D, a.k_rs, a.n, t, nthr);
+    res_copy_tile<D, ROWS>(kt + TILE, a.v + b * a.v_bs + h * D, a.v_rs, a.n, t, nthr);
     res_copy_tables(smem_raw, TABS + stage * TAB, a.relh, a.relw, b, h, a.heads, a.n, a.gh,
                      a.gw, t, nthr);
   };
 
   int wh = blockIdx.x;
-  if (wh < total) copy_in(wh, 0);
+  if (wh < total) copy_in(wh, 0, true);
   res_commit();
   for (int it = 0; wh < total; wh += gridDim.x, ++it) {
     const int stage = it & 1;
+    const int next = wh + (int)gridDim.x;
     // the other stage was read last in the previous round, which ended on a
-    // block barrier: fill it while this round computes
-    if (wh + (int)gridDim.x < total) copy_in(wh + gridDim.x, stage ^ 1);
+    // block barrier: fill it while this round computes. With one Q tile the
+    // warps' own refills of the previous round complete in the same wait.
+    if (next < total) copy_in(next, stage ^ 1, QST == 2);
     res_commit();
     res_wait<1>();
     __syncthreads();
 
     const long long b = wh / a.heads;
     const int h = wh - (int)b * a.heads;
-    const uint32_t qs = base + stage * 3 * TILE, ks = qs + TILE, vs = ks + TILE;
+    const uint32_t qs = base + q_tile(stage), ks = base + k_tile(stage), vs = ks + TILE;
     const uint32_t tb = base + TABS + stage * TAB, eye = base + EYE;
 
     // A warp takes the 16-row tiles warp, warp + NW, ... of the window.
@@ -328,14 +379,14 @@ __global__ void __launch_bounds__(NW * 32, 1) attn_fwd_resident_kernel(ResFwdArg
 #pragma unroll
       for (int n = 0; n < 2 * KT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
-      for (int kd = 0; kd < kResD / 16; ++kd) {
+      for (int kd = 0; kd < D / 16; ++kd) {
         uint32_t qa[4];
-        res_lda<false>(qa, qs, r0, 2 * kd, lane);
+        res_lda<false, D, ROWS>(qa, qs, r0, 2 * kd, lane);
         if (a.mode != kResScaleScores) res_scale_regs(qa, a.scale);
 #pragma unroll
         for (int np = 0; np < KT; ++np) {
           uint32_t kb[4];
-          res_ldb<false>(kb, ks, 16 * np, 2 * kd, lane);
+          res_ldb<false, D, ROWS>(kb, ks, 16 * np, 2 * kd, lane);
           mma_16816(s[2 * np], qa, kb[0], kb[1]);
           mma_16816(s[2 * np + 1], qa, kb[2], kb[3]);
         }
@@ -404,15 +455,15 @@ __global__ void __launch_bounds__(NW * 32, 1) attn_fwd_resident_kernel(ResFwdArg
       }
 
       // O = P V, V read transposed in place.
-      float o[kResD / 8][4];
+      float o[CH][4];
 #pragma unroll
-      for (int nd = 0; nd < kResD / 8; ++nd) o[nd][0] = o[nd][1] = o[nd][2] = o[nd][3] = 0.f;
+      for (int nd = 0; nd < CH; ++nd) o[nd][0] = o[nd][1] = o[nd][2] = o[nd][3] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < KT; ++kk) {
 #pragma unroll
-        for (int ndp = 0; ndp < kResD / 16; ++ndp) {
+        for (int ndp = 0; ndp < D / 16; ++ndp) {
           uint32_t vb[4];
-          res_ldbt<false>(vb, vs, 16 * kk, 2 * ndp, lane);
+          res_ldbt<false, D, ROWS>(vb, vs, 16 * kk, 2 * ndp, lane);
           mma_16816(o[2 * ndp], pa[kk], vb[0], vb[1]);
           mma_16816(o[2 * ndp + 1], pa[kk], vb[2], vb[3]);
         }
@@ -425,26 +476,39 @@ __global__ void __launch_bounds__(NW * 32, 1) attn_fwd_resident_kernel(ResFwdArg
       unsigned char* qrows = smem_raw + (qs - base);
       __syncwarp();
 #pragma unroll
-      for (int nd = 0; nd < kResD / 8; ++nd) {
+      for (int nd = 0; nd < CH; ++nd) {
         if (rA < a.n)
-          *reinterpret_cast<uint32_t*>(qrows + res_off<false>(rA, nd) + t4 * 4) =
+          *reinterpret_cast<uint32_t*>(qrows + res_tile_off<D, ROWS>(rA, nd, nd >= 8) + t4 * 4) =
               pack_bf16x2(o[nd][0] * iA, o[nd][1] * iA);
         if (rB < a.n)
-          *reinterpret_cast<uint32_t*>(qrows + res_off<false>(rB, nd) + t4 * 4) =
+          *reinterpret_cast<uint32_t*>(qrows + res_tile_off<D, ROWS>(rB, nd, nd >= 8) + t4 * 4) =
               pack_bf16x2(o[nd][2] * iB, o[nd][3] * iB);
       }
       __syncwarp();
-      bf16* og = a.o + b * a.o_bs + h * kResD;
+      bf16* og = a.o + b * a.o_bs + h * D;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = r0 + ((lane + 32 * i) >> 3), c = lane & 7;
+      for (int i = 0; i < CH / 2; ++i) {  // 16 rows of CH chunks, 32 lanes
+        const unsigned j = lane + 32 * i;
+        const int row = r0 + j / CH, c = j % CH;
         if (row < a.n)
           *reinterpret_cast<uint4*>(og + row * a.o_rs + c * 8) =
-              *reinterpret_cast<const uint4*>(qrows + res_off<false>(row, c));
+              *reinterpret_cast<const uint4*>(qrows + res_tile_off<D, ROWS>(row, c, c >= 8));
       }
       if (a.lse != nullptr && t4 == 0) {
         if (rA < a.n) a.lse[(b * a.n + rA) * a.heads + h] = mA + logf(lA);
         if (rB < a.n) a.lse[(b * a.n + rB) * a.heads + h] = mB + logf(lB);
+      }
+      if constexpr (QST == 1) {
+        // these rows are read out: the next window-head's Q into them (only
+        // this warp reads them), waited for at the next round's res_wait
+        __syncwarp();
+        if (next < total) {
+          const long long nb = next / a.heads;
+          const int nh = next - (int)nb * a.heads;
+          res_copy_tile<D, ROWS>(qs, a.q + nb * a.q_bs + nh * D, a.q_rs, min(r0 + 16, a.n), lane,
+                                 32, r0);
+        }
+        res_commit();
       }
     }
     __syncthreads();  // this stage is free for the round after next's copies
@@ -457,11 +521,11 @@ __global__ void __launch_bounds__(NW * 32, 1) attn_fwd_resident_kernel(ResFwdArg
 constexpr int kResMaxTokens = 208;
 inline int res_key_tiles(int n) { return n <= 144 ? 9 : 13; }
 
-template <int KT, int NW>
+template <int D, int KT, int NW>
 cudaError_t launch_fwd_resident(const ResFwdArgs& a, cudaStream_t stream) {
-  constexpr int smem = res_fwd_smem_bytes<KT>();
+  constexpr int smem = res_fwd_smem_bytes<KT, D>();
   static_assert(smem <= kMaxSmemBytes, "shared memory of the forward");
-  auto kernel = attn_fwd_resident_kernel<KT, NW>;
+  auto kernel = attn_fwd_resident_kernel<D, KT, NW>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -475,11 +539,12 @@ cudaError_t launch_fwd_resident(const ResFwdArgs& a, cudaStream_t stream) {
 }
 
 // What both resident entries refuse (cudaErrorInvalidValue): anything but
-// bf16 at d = 64 with nq == nk <= 208, both rel tables at most 16 wide
-// covering the window, 16-byte aligned rows.
-inline bool res_shapes_ok(int dtype, int batch, int heads, int nq, int nk, int d,
+// bf16 with nq == nk <= 208, both rel tables at most 16 wide covering the
+// window, 16-byte aligned rows. Each entry checks its head dims (the
+// forward d = 64 and 80, the backward d = 64).
+inline bool res_shapes_ok(int dtype, int batch, int heads, int nq, int nk,
                           const void* relh, const void* relw, int gh, int gw) {
-  return dtype == kBFloat16 && d == kResD && nq == nk && nq >= 1 && nq <= kResMaxTokens &&
+  return dtype == kBFloat16 && nq == nk && nq >= 1 && nq <= kResMaxTokens &&
          batch >= 1 && heads >= 1 && (long long)batch * heads < (1ll << 31) &&
          relh != nullptr && relw != nullptr && gh >= 1 && gw >= 1 && gh <= kResMaxGrid &&
          gw <= kResMaxGrid && gh * gw == nk;
@@ -494,7 +559,7 @@ int attention_fwd_resident_entry(int dtype, const void* q, const void* k, const 
                                  long long v_rs, long long o_bs, long long o_rs, int gh, int gw,
                                  float scale, void* stream) {
   using bf16 = __nv_bfloat16;
-  if (!res_shapes_ok(dtype, batch, heads, nq, nk, d, relh, relw, gh, gw))
+  if (!res_shapes_ok(dtype, batch, heads, nq, nk, relh, relw, gh, gw) || (d != 64 && d != 80))
     return (int)cudaErrorInvalidValue;
   ResFwdArgs a;
   a.q = static_cast<const bf16*>(q); a.k = static_cast<const bf16*>(k);
@@ -507,8 +572,11 @@ int attention_fwd_resident_entry(int dtype, const void* q, const void* k, const 
   a.scale = scale;
   a.mode = res_scale_mode(scale, SCALE_SCORES);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(res_key_tiles(nq) == 9 ? launch_fwd_resident<9, 5>(a, s)
-                                      : launch_fwd_resident<13, 7>(a, s));
+  if (d == 80)
+    return (int)(res_key_tiles(nq) == 9 ? launch_fwd_resident<80, 9, 5>(a, s)
+                                        : launch_fwd_resident<80, 13, 7>(a, s));
+  return (int)(res_key_tiles(nq) == 9 ? launch_fwd_resident<64, 9, 5>(a, s)
+                                      : launch_fwd_resident<64, 13, 7>(a, s));
 }
 
 }  // namespace

@@ -10,9 +10,11 @@
 //   K5 wildlifemapper_tpu/ops/flash_attention.py::flash_attention_rel_pos
 //      (instantiated by grouped_attention_sm90.cu, SCALE_SCORES = true)
 //
-// at d = 64 or 128 in bf16 with many keys (ops/_attention.py::attention_body
+// at d = 64, 80 or 128 in bf16 with many keys (ops/_attention.py::attention_body
 // says which launch comes here). The windowed shapes (K1, K6), d = 32 and
-// f32 stay with attention_fwd.cuh.
+// f32 stay with attention_fwd.cuh. Head dim 80 (ViT-H's global blocks, K2
+// and K5) runs here forward only: its backward stays with the tile bodies of
+// attention_bwd.cuh, which read this forward's lse (the same function).
 //
 // What bounds it on the H100: operations, 4*N*M*d flops a head against
 // O((N + M)*d) bytes (K2 at B 4, H 12, N 4096, d 64: 206 GFLOP, 0.208 ms at
@@ -72,7 +74,19 @@
 //    power of two (exact on q.k) or is the grouped family's f32 scale, and
 //    the bias enters divided by it; the packed family's other scales keep
 //    round(q*scale) (in registers at d = 64, in shared memory at d = 128).
-//    l is summed per thread and reduced once; lse stays in natural units.
+//    l is summed per thread and reduced once; lse stays in natural units;
+//  * d = 80 is 64 + 16 columns: Q, K and V of a head sit in a 128-byte
+//    swizzled region of 64 columns and a narrow region of 16 (32-byte rows,
+//    32-byte swizzle, a second TMA box from column h*80 + 64; sm90.cuh), so
+//    no byte is brought in that is not read. Q.K^T takes 5 k-steps, the last
+//    on the narrow region's B32 descriptor, P.V an n64 and an n16 product;
+//    Q stays in registers (20 fragments). K and V tiles of 128 keys (two
+//    grid rows of the 64-grid) are 40 KB a stage: four stages, 222,288 bytes
+//    of shared memory with Q and the tables. Two full regions (the second
+//    loaded from column 64, a quarter of it read, one n80 product) need
+//    1.6x the bytes a tile and leave room for two stages only: K2 at B 1,
+//    H 16, N 4096 took 0.259 ms that way against 0.206 (H100 at 700 W, in
+//    turns; PERF.md).
 #pragma once
 
 #include <math.h>
@@ -110,15 +124,18 @@ struct FwdSm90Args {
 };
 
 // Shared-memory plan, in bytes from the 1024-aligned base: Q of the block
-// (D / 64 swizzled regions of 128 rows), the tables, the ring of K and V
-// tiles, the barriers (Q, tables, then full and empty a stage).
+// (the regions of HeadRegions<D>, 128 rows each: D / 64 swizzled regions of
+// 64 columns and at d = 80 a narrow one of 16), the tables, the ring of K and
+// V tiles (the same regions, TK rows each), the barriers (Q, tables, then
+// full and empty a stage).
 template <int D, int TK, int STAGES, bool HAS_REL>
 struct FwdPlan {
-  static constexpr int NR = D / 64;
+  static constexpr int NR = HeadRegions<D>::NR;
+  static constexpr int NARROW = HeadRegions<D>::NARROW;  // 0 or 16 columns
   static constexpr int QREGION = kSm90Rows * sm90::kRegionRowBytes;
   static constexpr int REGION = TK * sm90::kRegionRowBytes;
-  static constexpr int TILE = NR * REGION;  // K or V of one stage
-  static constexpr int TAB = NR * QREGION;
+  static constexpr int TILE = NR * REGION + TK * NARROW * 2;  // K or V of one stage
+  static constexpr int TAB = NR * QREGION + kSm90Rows * NARROW * 2;  // after Q
   static constexpr int RING = TAB + (HAS_REL ? kTabBytes : 0);
   static constexpr int BARS = RING + STAGES * 2 * TILE;
   static constexpr int TOTAL = BARS + 16 + 16 * STAGES;
@@ -205,11 +222,14 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
                          const __grid_constant__ CUtensorMap map_k,
                          const __grid_constant__ CUtensorMap map_v,
                          const __grid_constant__ CUtensorMap map_rh,
-                         const __grid_constant__ CUtensorMap map_rw, FwdSm90Args a) {
+                         const __grid_constant__ CUtensorMap map_rw,
+                         const __grid_constant__ CUtensorMap map_qn,
+                         const __grid_constant__ CUtensorMap map_kn,
+                         const __grid_constant__ CUtensorMap map_vn, FwdSm90Args a) {
   using namespace sm90;
   using P = FwdPlan<D, TK, STAGES, HAS_REL>;
-  constexpr int KD = D / 16;  // k-steps of Q.K^T
-  constexpr bool QREG = D == 64;  // Q from registers; at d = 128 from shared memory
+  constexpr int KD = D / 16;  // k-steps of Q.K^T; at d = 80 the last reads the narrow region
+  constexpr bool QREG = D != 128;  // Q from registers; at d = 128 from shared memory
   constexpr int NS = TK / 8;  // 8-key groups of a tile
   constexpr int ND = D / 8;   // 8-column groups of the output
   extern __shared__ unsigned char smem_raw[];
@@ -235,16 +255,19 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
     // ---- producer: Q and the tables once, then K and V through the ring ----
     reg_dealloc<kProducerRegs>();
     if (t == kConsumerThreads) {
-      mbar_expect_tx(q_full, P::NR * P::QREGION);
+      mbar_expect_tx(q_full, P::TAB);
 #pragma unroll
       for (int r = 0; r < P::NR; ++r)
         tma_load_3d(base + r * P::QREGION, &map_q, h * D + r * 64, q0, b, q_full);
+      if constexpr (P::NARROW != 0)
+        tma_load_3d(base + P::NR * P::QREGION, &map_qn, h * D + P::NR * 64, q0, b, q_full);
       if (HAS_REL && a.tab_tma) {
         mbar_expect_tx(tab_full, kTabBytes);
         tma_load_3d(base + P::TAB, &map_rh, h * a.gh, q0, b, tab_full);
         tma_load_3d(base + P::TAB + kTabBytes / 2, &map_rw, h * a.gw, q0, b, tab_full);
       }
-      produce_kv_tiles<D, TK, STAGES>(base + P::RING, full0, empty0, &map_k, &map_v, h, b, nkt);
+      produce_kv_tiles<D, TK, STAGES>(base + P::RING, full0, empty0, &map_k, &map_v, &map_kn,
+                                      &map_vn, h, b, nkt);
     }
     return;
   }
@@ -285,7 +308,7 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
   if ((!QREG && a.scale_q) || (HAS_REL && !a.tab_tma)) named_barrier(2 + wg, 128);
   if (HAS_REL && a.tab_tma) mbar_wait(tab_full, 0);
   const uint32_t qs = base + wg * 64 * kRegionRowBytes;  // this warpgroup's Q rows
-  // at d = 64, rows rA, rB of Q as the A fragments of S from registers
+  // at d = 64 and 80, rows rA, rB of Q as the A fragments of S from registers
   uint32_t qa[QREG ? KD : 1][4];
   if constexpr (QREG) {
 #pragma unroll
@@ -293,7 +316,10 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int row = i & 1 ? rB : rA, col = kd * 16 + 2 * t4 + (i >> 1) * 8;
-        uint32_t w = *reinterpret_cast<const uint32_t*>(gen + swz(row, col, P::QREGION));
+        const int off = col < P::NR * 64 || P::NARROW == 0
+                            ? swz(row, col, P::QREGION)
+                            : P::NR * P::QREGION + swz32(row, col - P::NR * 64);
+        uint32_t w = *reinterpret_cast<const uint32_t*>(gen + off);
         if (a.scale_q) w = pack_bf16x2(bf16_lo(w) * a.scale, bf16_hi(w) * a.scale);
         qa[kd][i] = w;
       }
@@ -363,13 +389,16 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
     fence_acc(s);
     return true;
   };
-  // S (+)= Q.K^T of one stage: K K-major straight from the ring, Q from
-  // registers (d = 64) or K-major from its TMA box (d = 128)
+  // S (+)= Q.K^T of one stage: K K-major straight from the ring (the last
+  // k-step at d = 80 from the narrow region), Q from registers (d = 64, 80)
+  // or K-major from its TMA box (d = 128)
   auto issue_s = [&](int st, bool acc) {
     const uint32_t ks = base + P::RING + st * 2 * P::TILE;
 #pragma unroll
     for (int kd = 0; kd < KD; ++kd) {
-      const uint64_t kdesc = desc_kmajor(ks + (kd / 4) * P::REGION + (kd % 4) * 32);
+      const uint64_t kdesc = kd < 4 * P::NR
+                                 ? desc_kmajor(ks + (kd / 4) * P::REGION + (kd % 4) * 32)
+                                 : desc_kmajor32(ks + P::NR * P::REGION);
       if constexpr (QREG)
         wgmma_rs<0, TK>(s, qa[kd], kdesc, acc || kd > 0);
       else
@@ -377,9 +406,24 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
                         acc || kd > 0);
     }
   };
-  // O (+)= P.V of one stage: V MN-major straight from the ring
+  // O (+)= P.V of one stage: V MN-major straight from the ring; at d = 80
+  // an n64 product over the first region and an n16 one over the narrow one
   auto issue_pv = [&](int st, bool acc) {
-    wgmma_rs_k<D, TK>(o, pa, base + P::RING + st * 2 * P::TILE + P::TILE, P::REGION, acc);
+    const uint32_t vs = base + P::RING + st * 2 * P::TILE + P::TILE;
+    if constexpr (P::NARROW == 0) {
+      wgmma_rs_k<D, TK>(o, pa, vs, P::REGION, acc);
+    } else {
+      static_assert(P::NR == 1 && P::NARROW == 16, "d = 80: 64 + 16 columns");
+      float(&o64)[8][4] = *reinterpret_cast<float(*)[8][4]>(&o[0][0]);
+      float(&o16)[2][4] = *reinterpret_cast<float(*)[2][4]>(&o[8][0]);
+#pragma unroll
+      for (int kk = 0; kk < TK / 16; ++kk) {
+        wgmma_rs<1, 64>(o64, pa[kk], desc_mnmajor(vs + kk * 16 * kRegionRowBytes, P::REGION),
+                        acc || kk > 0);
+        wgmma_rs<1, 16>(o16, pa[kk], desc_mnmajor32(vs + P::REGION + kk * 16 * 32),
+                        acc || kk > 0);
+      }
+    }
   };
   // The online softmax of rows rA, rB over the tile's scores (finite
   // maxima: every tile holds a key below nk), p in place of the scores;
@@ -527,36 +571,51 @@ cudaError_t launch_fwd_sm90(const FwdSm90Args& a, const FwdSm90Operands& p,
   const size_t smem = 1024 + P::TOTAL;
   if (smem > (size_t)kMaxSmemBytes || p.batch > 65535 || a.heads > 65535 || a.nk > 65535)
     return cudaErrorInvalidValue;
-  CUtensorMap map_q, map_k, map_v, map_rh, map_rw;
+  CUtensorMap map_q, map_k, map_v, map_rh, map_rw, map_qn, map_kn, map_vn;
   memset(&map_rh, 0, sizeof(map_rh));
   memset(&map_rw, 0, sizeof(map_rw));
+  memset(&map_qn, 0, sizeof(map_qn));
+  memset(&map_kn, 0, sizeof(map_kn));
+  memset(&map_vn, 0, sizeof(map_vn));
   cudaError_t err =
       sm90::make_map(&map_q, p.q, a.heads * D, a.nq, p.batch, p.q_rs, p.q_bs, kSm90Rows);
   if (err == cudaSuccess)
     err = sm90::make_map(&map_k, p.k, a.heads * D, a.nk, p.batch, p.k_rs, p.k_bs, TK);
   if (err == cudaSuccess)
     err = sm90::make_map(&map_v, p.v, a.heads * D, a.nk, p.batch, p.v_rs, p.v_bs, TK);
+  if (P::NARROW != 0) {  // boxes of the 16 columns past the first region, 32-byte swizzled
+    if (err == cudaSuccess)
+      err = sm90::make_map(&map_qn, p.q, a.heads * D, a.nq, p.batch, p.q_rs, p.q_bs, kSm90Rows,
+                           P::NARROW, 32);
+    if (err == cudaSuccess)
+      err = sm90::make_map(&map_kn, p.k, a.heads * D, a.nk, p.batch, p.k_rs, p.k_bs, TK,
+                           P::NARROW, 32);
+    if (err == cudaSuccess)
+      err = sm90::make_map(&map_vn, p.v, a.heads * D, a.nk, p.batch, p.v_rs, p.v_bs, TK,
+                           P::NARROW, 32);
+  }
   if (HAS_REL && a.tab_tma) {
     const long long rh = (long long)a.heads * a.gh, rw = (long long)a.heads * a.gw;
     if (err == cudaSuccess)
       err = sm90::make_map(&map_rh, a.relh, (int)rh, a.nq, p.batch, rh, rh * a.nq, kSm90Rows,
-                           kTabCols, false);
+                           kTabCols, 0);
     if (err == cudaSuccess)
       err = sm90::make_map(&map_rw, a.relw, (int)rw, a.nq, p.batch, rw, rw * a.nq, kSm90Rows,
-                           kTabCols, false);
+                           kTabCols, 0);
   }
   if (err != cudaSuccess) return err;
   auto kernel = attn_fwd_sm90_kernel<D, TK, STAGES, SCALE_SCORES, HAS_REL>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((a.nq + kSm90Rows - 1) / kSm90Rows, a.heads, p.batch);
-  kernel<<<grid, kSm90Threads, smem, stream>>>(map_q, map_k, map_v, map_rh, map_rw, a);
+  kernel<<<grid, kSm90Threads, smem, stream>>>(map_q, map_k, map_v, map_rh, map_rw, map_qn,
+                                               map_kn, map_vn, a);
   return cudaGetLastError();
 }
 
 // The body of a plain C entry, with the arguments of attention_fwd.cuh's.
-// bf16 only, d = 64 or 128, rel grids with gh + gw <= 128; anything else is
-// refused (cudaErrorInvalidValue).
+// bf16 only, d = 64, 80 or 128, rel grids with gh + gw <= 128; anything else
+// is refused (cudaErrorInvalidValue).
 template <bool SCALE_SCORES>
 int attention_fwd_sm90_entry(int dtype, const void* q, const void* k, const void* v, void* o,
                              const void* relh, const void* relw, void* lse, int batch,
@@ -595,6 +654,9 @@ int attention_fwd_sm90_entry(int dtype, const void* q, const void* k, const void
   if (d == 64)
     return (int)(rel ? launch_fwd_sm90<64, 128, 4, SCALE_SCORES, true>(a, p, s)
                      : launch_fwd_sm90<64, 128, 4, SCALE_SCORES, false>(a, p, s));
+  if (d == 80)  // 64 + 16 columns: 40 KB a stage
+    return (int)(rel ? launch_fwd_sm90<80, 128, 4, SCALE_SCORES, true>(a, p, s)
+                     : launch_fwd_sm90<80, 128, 4, SCALE_SCORES, false>(a, p, s));
   if (d == 128)  // 128-key tiles and the tables do not fit in registers
     return (int)(rel ? launch_fwd_sm90<128, 64, 4, SCALE_SCORES, true>(a, p, s)
                      : launch_fwd_sm90<128, 128, 3, SCALE_SCORES, false>(a, p, s));

@@ -45,6 +45,19 @@ __device__ __forceinline__ int swz(int row, int col, int region) {
          ((((col & 63) >> 3) ^ (row & 7)) << 4) + (col & 7) * 2;
 }
 
+// Byte offset of element (row, col < 16) in a narrow region of 32-byte rows
+// (see sm90.cuh).
+__device__ __forceinline__ int swz32(int row, int col) {
+  return row * 32 + ((((col >> 3) & 1) ^ ((row >> 2) & 1)) << 4) + (col & 7) * 2;
+}
+
+// Regions of a head of D columns in shared memory: D / 64 regions of 64
+// columns and, at d = 80, a narrow region of the last 16 (sm90.cuh).
+template <int D> struct HeadRegions {
+  static constexpr int NR = D / 64;         // full regions
+  static constexpr int NARROW = D % 64;     // columns of the narrow region: 0 or 16
+};
+
 // D (+)= A . B over TK / 16 steps, A (TK columns) in registers, B
 // MN-major: TK rows of a tile of 64-column regions `region` bytes apart.
 template <int N, int TK>
@@ -84,16 +97,19 @@ __device__ __forceinline__ void init_ring_barriers(uint32_t full0, uint32_t empt
 }
 
 // The producer thread's K and V in the forward kernel: every K and V tile
-// (stage s: a K tile and a V tile of TK keys, each D / 64 swizzled regions)
-// of head h of batch b into the ring, as far ahead as it allows.
+// (stage s: a K tile and a V tile of TK keys, each the regions of
+// HeadRegions<D>, the narrow one through its own maps) of head h of batch b
+// into the ring, as far ahead as it allows.
 template <int D, int TK, int STAGES>
 __device__ __forceinline__ void produce_kv_tiles(uint32_t ring, uint32_t full0, uint32_t empty0,
                                                  const CUtensorMap* map_k,
-                                                 const CUtensorMap* map_v, int h, int b,
+                                                 const CUtensorMap* map_v,
+                                                 const CUtensorMap* map_kn,
+                                                 const CUtensorMap* map_vn, int h, int b,
                                                  int nkt) {
-  constexpr int NR = D / 64;
+  constexpr int NR = HeadRegions<D>::NR, NARROW = HeadRegions<D>::NARROW;
   constexpr int REGION = TK * sm90::kRegionRowBytes;
-  constexpr int TILE = NR * REGION;
+  constexpr int TILE = NR * REGION + TK * NARROW * 2;
   int stage = 0;
   uint32_t phase = 1;  // the ring starts empty: the first waits pass
   for (int kt = 0; kt < nkt; ++kt) {
@@ -105,6 +121,10 @@ __device__ __forceinline__ void produce_kv_tiles(uint32_t ring, uint32_t full0, 
     for (int r = 0; r < NR; ++r) {
       sm90::tma_load_3d(dst + r * REGION, map_k, h * D + r * 64, kt * TK, b, full);
       sm90::tma_load_3d(dst + TILE + r * REGION, map_v, h * D + r * 64, kt * TK, b, full);
+    }
+    if constexpr (NARROW != 0) {
+      sm90::tma_load_3d(dst + NR * REGION, map_kn, h * D + NR * 64, kt * TK, b, full);
+      sm90::tma_load_3d(dst + TILE + NR * REGION, map_vn, h * D + NR * 64, kt * TK, b, full);
     }
     if (++stage == STAGES) {
       stage = 0;

@@ -1,6 +1,6 @@
 // Forward of the grouped windowed attention (K6 of the JAX package:
-// windowed_attention.py::windowed_attention_rel_pos), bf16, d = 64, up to
-// 208 tokens a window: the resident body of attention_fwd_resident.cuh (one
+// windowed_attention.py::windowed_attention_rel_pos), bf16, d = 64 or 80, up
+// to 208 tokens a window: the resident body of attention_fwd_resident.cuh (one
 // block a window-head, Q, K and V whole in shared memory, mma.sync fed by
 // ldmatrix, a two-stage cp.async ring across window-heads) with the scale on
 // the f32 scores. See that header for the H100 bound and the design, and

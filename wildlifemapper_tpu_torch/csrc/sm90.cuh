@@ -18,6 +18,12 @@
 //    16 rows moves the start by 2048 bytes, and the next region of 64 columns
 //    lies one leading byte offset further.
 // So no tile is ever copied transposed.
+//
+// A head dim of 80 is a region of 64 columns and a narrow region of 16: rows
+// of 32 bytes with the 16-byte chunk index XORed with (row / 4) % 2, which is
+// what a TMA box of 16 columns with CU_TENSOR_MAP_SWIZZLE_32B writes and what
+// a descriptor of layout type B32 reads (256-byte aligned; 8-row groups 256
+// bytes apart, a k-step of 16 rows MN-major 512 bytes).
 #pragma once
 
 #include <cuda.h>
@@ -151,10 +157,11 @@ template <int N> __device__ __forceinline__ void fence_acc(uint32_t (&a)[N][4]) 
 }
 
 // Descriptor of a swizzled region (see the header note). `addr` is a shared
-// address; offsets in bytes.
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+// address; offsets in bytes; layout type 1 is B128, 3 is B32.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint64_t layout = 1) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+         ((uint64_t)(sbo >> 4) << 32) | (layout << 62);
 }
 // K-major operand of `rows` x 64 (rows are M or N of the product).
 __device__ __forceinline__ uint64_t desc_kmajor(uint32_t addr) {
@@ -163,6 +170,14 @@ __device__ __forceinline__ uint64_t desc_kmajor(uint32_t addr) {
 // MN-major operand: the 64-column regions of a tile are `region_bytes` apart.
 __device__ __forceinline__ uint64_t desc_mnmajor(uint32_t addr, uint32_t region_bytes) {
   return make_desc(addr, region_bytes, 1024);
+}
+// The same for a narrow region of 16 columns (32-byte rows, B32): K-major
+// it is one k-step; MN-major its 16 columns are one atom.
+__device__ __forceinline__ uint64_t desc_kmajor32(uint32_t addr) {
+  return make_desc(addr, 16, 256, 3);
+}
+__device__ __forceinline__ uint64_t desc_mnmajor32(uint32_t addr) {
+  return make_desc(addr, 256, 256, 3);
 }
 // Advance a descriptor's start address by `bytes`.
 __device__ __forceinline__ uint64_t desc_advance(uint64_t desc, uint32_t bytes) {
@@ -173,6 +188,19 @@ __device__ __forceinline__ uint64_t desc_advance(uint64_t desc, uint32_t bytes) 
 // registers in the m16k16 fragment layout of each warp's 16 rows; `_ss`: A
 // from a K-major shared-memory descriptor. TRANS_B = 1 reads B MN-major.
 // `accumulate` = 0 overwrites D.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[2][4], const uint32_t (&a)[4], uint64_t b_desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, %14;\n"
+      "}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "r"(accumulate), "n"(TRANS_B));
+}
+
 template <int TRANS_B>
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[8][4], const uint32_t (&a)[4], uint64_t b_desc, int accumulate) {
   asm volatile(
@@ -363,8 +391,9 @@ __device__ __forceinline__ void wgmma_ss_n256(float (&d)[32][4], uint64_t a_desc
 template <int TRANS_B, int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 8][4], const uint32_t (&a)[4],
                                          uint64_t b_desc, int accumulate) {
-  static_assert(N == 64 || N == 96 || N == 128, "tile width");
-  if constexpr (N == 64) wgmma_rs_n64<TRANS_B>(d, a, b_desc, accumulate);
+  static_assert(N == 16 || N == 64 || N == 96 || N == 128, "tile width");
+  if constexpr (N == 16) wgmma_rs_n16<TRANS_B>(d, a, b_desc, accumulate);
+  else if constexpr (N == 64) wgmma_rs_n64<TRANS_B>(d, a, b_desc, accumulate);
   else if constexpr (N == 96) wgmma_rs_n96<TRANS_B>(d, a, b_desc, accumulate);
   else wgmma_rs_n128<TRANS_B>(d, a, b_desc, accumulate);
 }
@@ -406,13 +435,13 @@ inline EncodeTiledFn encode_tiled_fn() {
 }
 
 // A 3-D map (column, row, batch) over a bf16 operand read by stride, with a
-// box of box_cols columns x box_rows rows, 128-byte swizzled (one region of
-// 64 columns a box) or, without `swizzle`, rows of box_cols elements one
-// after the other. Built on the host for each launch (no device work, no
-// copy: the map travels as a kernel argument).
+// box of box_cols columns x box_rows rows, swizzled over `swizzle_bytes` (128:
+// one region of 64 columns a box; 32: a narrow region of 16) or, with 0,
+// rows of box_cols elements one after the other. Built on the host for each
+// launch (no device work, no copy: the map travels as a kernel argument).
 inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int cols, int rows, int batch,
                             long long row_stride, long long batch_stride, int box_rows,
-                            int box_cols = kRegionCols, bool swizzle = true) {
+                            int box_cols = kRegionCols, int swizzle_bytes = 128) {
   EncodeTiledFn encode = encode_tiled_fn();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)batch};
@@ -423,7 +452,9 @@ inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int cols, int row
   const cuuint32_t elem[3] = {1u, 1u, 1u};
   CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+                        swizzle_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                        : swizzle_bytes == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
+                                              : CU_TENSOR_MAP_SWIZZLE_NONE,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;

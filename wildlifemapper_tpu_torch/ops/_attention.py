@@ -9,9 +9,9 @@ built by the six `*_sm90.cu`; their dq kernel takes delta itself), and the
 windowed bf16 shapes (K1, K6: one window of at most 208 tokens) the
 resident bodies (csrc/attention_fwd_resident.cuh,
 attention_bwd_resident.cuh, built by the four `*_resident.cu`), whose
-backward is one kernel that also takes delta:
-`attention_body` says which launch takes which, from its dtype and shapes
-alone.
+backward is one kernel that also takes delta; at head dim 80 only the
+forward: `attention_body` says which launch takes which, from its
+direction, dtype and shapes alone.
 
 Layouts are the JAX package's: q (B, N, C) and k, v (B, M, C), head h in
 columns [h*d, (h+1)*d); for the packed qkv they are column slices of one
@@ -50,13 +50,14 @@ from . import _build
 # the batch and the heads ride blockIdx.z and blockIdx.y of every launch
 MAX_GRID_YZ = 65535
 
-# From this many keys on, a bf16 launch at d = 64 or 128 streams its tiles
-# through the Hopper bodies (csrc/attention_fwd_sm90.cuh,
-# attention_bwd_sm90.cuh).
+# From this many keys on, a bf16 launch at d = 64 or 128 (and the forward at
+# d = 80) streams its tiles through the Hopper bodies
+# (csrc/attention_fwd_sm90.cuh, attention_bwd_sm90.cuh).
 STREAM_MIN_KEYS = 512
-# Up to this many tokens a bf16 window at d = 64 is held whole in shared
-# memory by the resident bodies (csrc/attention_fwd_resident.cuh,
-# attention_bwd_resident.cuh): 13 tiles of 16 rows; the main paths' windows
+# Up to this many tokens a bf16 window at d = 64 (and the forward at d = 80)
+# is held whole in shared memory by the resident bodies
+# (csrc/attention_fwd_resident.cuh, attention_bwd_resident.cuh): 13 tiles of
+# 16 rows; the main paths' windows
 # are 196 (14 x 14) and 144 (12 x 12) tokens. Their rel tables are at most
 # RESIDENT_MAX_GRID wide.
 RESIDENT_MAX_TOKENS = 208
@@ -66,49 +67,61 @@ RESIDENT_MAX_GRID = 16
 # the forward stages the two tables side by side in rows of this width.
 SM90_REL_COLS = 128
 BODIES = ("mma", "sm90", "resident")
-# Head dims the kernels take: ViT-B / L / H run 64, 64, 80, the adaptor 128;
-# 80 runs the mma.sync / f32 tile bodies only (a fast body for it is later
-# work).
+DIRECTIONS = ("forward", "backward")
+# Head dims the kernels take: ViT-B / L / H run 64, 64, 80, the adaptor 128.
+# 80 takes the Hopper and the resident bodies forward and the mma.sync / f32
+# tile bodies backward (ViT-H is served, not trained).
 HEAD_DIMS = (32, 64, 80, 128)
 
 
 def attention_body(dtype: torch.dtype, d: int, nq: int, nk: int,
                    has_rel: bool,
-                   grid_hw: Optional[Tuple[int, int]] = None) -> str:
-    """Which kernel body a launch takes, from its dtype and shapes alone:
-    "sm90", the wgmma + TMA bodies, for bf16 at d = 64 or 128 with at least
-    STREAM_MIN_KEYS keys (K2, K4 and K5 on the main paths, with or without
-    rel tables, any number of queries); "resident", the one-block-a-
-    window-head bodies, for bf16 at d = 64 with rel tables of a grid
-    `grid_hw` at most RESIDENT_MAX_GRID a side and nq == nk <=
-    RESIDENT_MAX_TOKENS (every window of K1 and K6 on the main paths; when
-    `grid_hw` is not given the tables are taken to fit); else "mma", the
-    mma.sync (bf16) or scalar (f32) tile bodies of csrc/attention_fwd.cuh /
-    attention_bwd.cuh (f32, d = 32 or 80, d = 128 or N != M below
-    STREAM_MIN_KEYS keys, and a global block of 209 to 511 tokens that lands
-    in K1 or K6). Forward and backward of one attention take the same body.
-    Raises on what no body takes."""
+                   grid_hw: Optional[Tuple[int, int]] = None,
+                   direction: str = "forward") -> str:
+    """Which kernel body a launch takes, from its direction, dtype and
+    shapes alone: "sm90", the wgmma + TMA bodies, for bf16 at d = 64 or 128
+    (forward also d = 80) with at least STREAM_MIN_KEYS keys (K2, K4 and K5
+    on the main paths, ViT-H's K2 and K5, with or without rel tables, any
+    number of queries); "resident", the one-block-a-window-head bodies, for
+    bf16 at d = 64 (forward also d = 80) with rel tables of a grid `grid_hw`
+    at most RESIDENT_MAX_GRID a side and nq == nk <= RESIDENT_MAX_TOKENS
+    (every window of K1 and K6 on the main paths and ViT-H's; when `grid_hw`
+    is not given the tables are taken to fit); else "mma", the mma.sync
+    (bf16) or scalar (f32) tile bodies of csrc/attention_fwd.cuh /
+    attention_bwd.cuh (f32, d = 32, the backward at d = 80, d = 128 or N != M
+    below STREAM_MIN_KEYS keys, and a global block of 209 to 511 tokens that
+    lands in K1 or K6). `direction` is "forward" or "backward": at d = 80 the
+    two take different bodies, which compute the same function (the tile
+    backward reads the lse of the Hopper or resident forward). Raises on
+    what no body takes."""
+    if direction not in DIRECTIONS:
+        raise ValueError(f"direction {direction!r}: expected one of "
+                         f"{DIRECTIONS}")
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"kernel takes float32 or bfloat16, got {dtype}")
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not supported {HEAD_DIMS}")
     if nq < 1 or nk < 1:
         raise ValueError(f"empty attention: {nq} queries, {nk} keys")
-    if dtype == torch.bfloat16 and d in (64, 128) and nk >= STREAM_MIN_KEYS:
+    hopper = (64, 128, 80) if direction == "forward" else (64, 128)
+    if dtype == torch.bfloat16 and d in hopper and nk >= STREAM_MIN_KEYS:
         return "sm90"
-    if (dtype == torch.bfloat16 and d == 64 and has_rel
+    resident = (64, 80) if direction == "forward" else (64,)
+    if (dtype == torch.bfloat16 and d in resident and has_rel
             and nq == nk <= RESIDENT_MAX_TOKENS
             and (grid_hw is None or max(grid_hw) <= RESIDENT_MAX_GRID)):
         return "resident"
     return "mma"
 
 
-def _pick_body(body, q, d, nk, rel_h, rel_w) -> str:
+def _pick_body(body, q, d, nk, rel_h, rel_w,
+               direction: str = "forward") -> str:
     if body is None:
         has_rel = rel_h is not None
         return attention_body(
             q.dtype, d, q.shape[1], nk, has_rel,
-            (rel_h.shape[-1], rel_w.shape[-1]) if has_rel else None)
+            (rel_h.shape[-1], rel_w.shape[-1]) if has_rel else None,
+            direction)
     if body not in BODIES:
         raise ValueError(f"body {body!r}: expected one of {BODIES}")
     return body
@@ -284,7 +297,7 @@ def attention_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, n, c = q.shape
     m = k.shape[1]
     d, gh, gw = _check_attention(q, k, v, num_heads, rel_h, rel_w)
-    body = _pick_body(body, q, d, m, rel_h, rel_w)
+    body = _pick_body(body, q, d, m, rel_h, rel_w, "forward")
     if body == "sm90" and gh + gw > SM90_REL_COLS:
         raise ValueError(f"rel grid {gh}x{gw}: the Hopper forward takes "
                          f"gh + gw <= {SM90_REL_COLS}")
@@ -452,7 +465,7 @@ def attention_backward_launch(q, k, v, out, lse, dout, scale: float,
         raise ValueError(f"lse: expected contiguous float32 "
                          f"{(b, n, num_heads)}, got {tuple(lse.shape)} "
                          f"{lse.dtype}")
-    body = _pick_body(body, q, d, m, rel_h, rel_w)
+    body = _pick_body(body, q, d, m, rel_h, rel_w, "backward")
     if body == "sm90" and gh + gw > SM90_REL_COLS:
         raise ValueError(f"rel grid {gh}x{gw}: the Hopper backward takes "
                          f"gh + gw <= {SM90_REL_COLS}")
