@@ -9,7 +9,9 @@ forward, set criterion with the Hungarian match, backward through the
 backward kernels, clip, AdamW), each in both layouts of the attention
 kernels: attn_impl="packed" (K1 windowed, K2 global, K3 MLP, K4 adaptor) and
 attn_impl="grouped" (K6 windowed, K5 global, K4; plain MLP). Also serves
-ViT-L and ViT-H through the packed kernels.
+ViT-L and ViT-H through the packed kernels, and trains the ViT-H fine-tune
+with remat_blocks at its full width and depth (the path of the head-dim-80
+Hopper backward) in both layouts.
 Phases, one JSON line each; any failure raises and exits non-zero:
 
   1. device: the card's name and power limit; build the kernels from
@@ -17,7 +19,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      instantiation, the Hopper (wgmma + TMA) and the resident (windowed)
      bodies included, the latter, the Hopper forward and backward, the K3
      GEMM body and every head-dim-80 instantiation (the tile bodies, the
-     Hopper and the resident forward) held to no spill, and no line of
+     Hopper forward and backward, the resident forward) held to no spill,
+     and no line of
      ptxas saying it serialized the wgmma products of a kernel (C7515);
      TF32 off.
   2. kernels: each kernel against its plain PyTorch version on the card at
@@ -67,8 +70,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      N = 196 and 144; K2, K4 and K5 N = 4096 and 2304; K3 R = 16384 and
      9216, ragged at R = 1000 and at ViT-H's widths; all five attention
      kernels also ragged as in phase 2, K1, K2, K5 and K6 also at head dim
-     80 at ViT-H's shapes, the new forward beside the tile backward): once
-     with
+     80 at ViT-H's shapes, K2 and K5 there through the Hopper body both ways
+     at N = 4096 and 2304 and ragged (25x40, 20x50), K1 and K6 the resident
+     forward beside the tile backward): once with
      every input requiring a gradient (dqkv written by stride into one
      packed tensor, drel, the MLP's weight gradients; K5 with 4-D and with
      3-D tables) and once with the activations alone
@@ -91,6 +95,14 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      backward of K1 / K6 is one kernel a launch, 8 a step, and no dq or dk/dv
      kernel of theirs runs), peak memory, the loss falling, and one wait for
      the device per step (the matcher's copy).
+ 8b. the ViT-H fine-tune (train/synthetic.py, variant vit_h: frozen D 1280
+     encoder, 32 blocks, 16 heads of 80, seeded weights) with remat_blocks,
+     bf16, batch 4, three steps in each layout: finite, falling loss, frozen
+     parameters bit-identical, launch counts with the recomputed attention
+     forwards counted (K2 / K5 backward on the Hopper body at d = 80, K1 /
+     K6 on the tile bodies), one wait a step, peak memory; the same first
+     step without remat_blocks (losses and gradients against it, whether
+     bit-identical, its peak memory) and both steps' times in turns.
   9. times, training: ms per step with kernels and on the plain path
      (packed) or beside the packed layout (grouped), the matcher's share,
      each backward kernel against its plain version and against one PyTorch
@@ -104,9 +116,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      K2 / K4 / K5 at both shapes over 20 launches a turn with one library
      call over 20 launches and the card's name and power limit beside it
      (`forward_time`), ViT-H's K1, K2, K5 and K6 (head dim 80) at batch 1
-     and 4 the same way in turns with the tile body, and their tile
-     backward at batch 1 beside its plain version and library call; every
-     kernel beside its
+     and 4 the same way in turns with the tile body, the whole backward of
+     K2 and K5 (the Hopper body) in turns with the tile bodies' at batch 1
+     and 4 and that of K1 and K6 (the tile bodies) at batch 1, beside the
+     plain version and the library call; every kernel beside its
      bound (the larger of its FLOPs over 989
      TFLOP/s and its bytes over 3.35 TB/s); K3 forward and dh at R = 16384
      and 9216 (ViT-B) and at ViT-L's and ViT-H's widths over 20 launches in
@@ -136,6 +149,7 @@ N_BATCHES = 3
 TRAIN_STEPS = 3
 PEAK_FLOPS = 989e12   # H100 SXM, bf16 dense
 PEAK_BYTES = 3.35e12  # H100 SXM, HBM3
+PEAK_F32 = 67e12      # H100 SXM, float32 outside the tensor cores
 
 
 def emit(phase: str, **fields) -> None:
@@ -235,10 +249,25 @@ def host_us(fn, calls: int = 50) -> float:
     return (t1 - t0) / calls * 1e6
 
 
-def bound_ms(flops: float, nbytes: float):
-    """The least time the card could take: (ms, 'operations' | 'bytes')."""
-    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound_ms(flops: float, nbytes: float, f32_flops: float = 0.0):
+    """The least time the card could take: (ms, 'operations' | 'bytes').
+    `flops` run on the tensor cores in bf16, `f32_flops` outside them."""
+    t_ops = (flops / PEAK_FLOPS + f32_flops / PEAK_F32) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def attention_backward_bound(products: int, mac: float, scores: float,
+                             tables: bool, table_grads: bool, nbytes: float):
+    """bound_ms of an attention backward (or of one of its kernels) that
+    needs `products` products of `mac` multiply-adds each (the whole
+    backward five: S, dP, dV, dK, dQ; a design that computes S and dP in
+    two kernels does more, which is not counted) and, with rel tables, the
+    two table entries added to each of its `scores` scores and, with their
+    gradients, each score's dS summed into the two tables' gradients, in
+    f32 outside the tensor cores."""
+    f32 = scores * (2 * tables + 2 * table_grads)
+    return bound_ms(2 * products * mac, nbytes, f32)
 
 
 def nbytes(*tensors) -> int:
@@ -310,9 +339,11 @@ def main() -> int:
                              f"lines, spilling: {spilling}")
     # the K3 GEMM body's instantiations; head dim 80: the tile bodies (the
     # f32 forward, the bf16 and f32 backward), the Hopper forward (with and
+    # without tables), the Hopper backward (the dq kernel with tables and
+    # table gradients, with tables, without; the dk/dv kernel with and
     # without tables) and the resident forward (two key-tile counts), each
     # in both families; the Hopper forward's seven a family and the Hopper
-    # backward's ten
+    # backward's fifteen
     gemm_ptxas = [line for line in ptxas if "fused_mlp_gemm_sm90" in line]
     d80 = {"tile": [], "hopper": [], "resident": []}
     for line in ptxas:
@@ -328,8 +359,8 @@ def main() -> int:
     emit("ptxas_held_to_no_spill", gemm=gemm_ptxas, head_dim_80=d80,
          hopper_forward=fwd_ptxas, hopper_backward=bwd_ptxas)
     if (len(gemm_ptxas) < 3 or len(d80["tile"]) < 12
-            or len(d80["hopper"]) < 4 or len(d80["resident"]) < 4
-            or len(fwd_ptxas) < 14 or len(bwd_ptxas) < 20 or spilling):
+            or len(d80["hopper"]) < 14 or len(d80["resident"]) < 4
+            or len(fwd_ptxas) < 14 or len(bwd_ptxas) < 30 or spilling):
         raise AssertionError(f"K3 GEMM body: {len(gemm_ptxas)} ptxas lines, "
                              f"d = 80 bodies: "
                              f"{ {k: len(v) for k, v in d80.items()} }, "
@@ -988,8 +1019,9 @@ def main() -> int:
 
     def backward_counters(dt, d, n, m, hw):
         """The counters one forward and backward of an attention wrapper
-        move: the resident body's backward is one kernel (at d = 80 the
-        backward is the tile bodies' two kernels whatever the forward ran)."""
+        move: the resident body's backward is one kernel (the backward of a
+        d-80 window is the tile bodies' two kernels after the resident
+        forward)."""
         if attention_body(dt, d, n, m, hw is not None, hw,
                           "backward") == "resident":
             return ("launches", "backward_launches")
@@ -1055,12 +1087,17 @@ def main() -> int:
          lambda: attn_args(37, (10, 10), heads=3)[:3]),
         ("K1", "BW=1 H=1 N=196", 1, 64, (14, 14),
          lambda: attn_args(1, (14, 14), heads=1)[:3]),
-        # head dim 80 at ViT-H's shapes, batch 1: the Hopper and the
-        # resident forward, the tile backward
+        # head dim 80 at ViT-H's shapes, batch 1: the resident forward and
+        # the tile backward (K1), the Hopper bodies both ways (K2), also on
+        # the 48-grid and ragged against the Hopper bodies' blocks and tiles
         ("K1", "BW=25 H=16 N=196 d=80 (ViT-H)", 16, 80, (14, 14),
          lambda: attn_args(25, (14, 14), heads=16, d=80)[:3]),
         ("K2", "B=1 H=16 N=4096 d=80 (ViT-H)", 16, 80, (64, 64),
          lambda: attn_args(1, (64, 64), heads=16, d=80)[:3]),
+        ("K2", "B=1 H=16 N=2304 d=80 (48-grid)", 16, 80, (48, 48),
+         lambda: attn_args(1, (48, 48), heads=16, d=80)[:3]),
+        ("K2", "B=2 H=3 N=1000 d=80 (25x40)", 3, 80, (25, 40),
+         lambda: attn_args(2, (25, 40), heads=3, d=80)[:3]),
     ]
     wrappers = {"K1": windowed_attention_packed,
                 "K2": flash_attention_packed, "K4": cross_attention_packed}
@@ -1128,6 +1165,9 @@ def main() -> int:
                 if dkv:
                     bwd_err[f"{kid}_dkv"] = max(
                         bwd_err.get(f"{kid}_dkv", 0.0), *dkv)
+                if d == 80 and dt == torch.bfloat16:
+                    bwd_err[f"{kid}_d80"] = max(bwd_err.get(f"{kid}_d80", 0.0),
+                                                *errs.values())
                 del got, parts, tensors
             if dt == torch.bfloat16:
                 body = attention_body(dt, d, q.shape[1], k.shape[1],
@@ -1156,10 +1196,13 @@ def main() -> int:
         ("K6", "BWH=7 N=49 (7x7)", (7, 7), 7, 3, 64),
         ("K6", "BWH=111 N=100 (10x10)", (10, 10), 111, 3, 64),
         ("K6", "BWH=1 N=144", (12, 12), 1, 3, 64),
-        # head dim 80 at ViT-H's shapes, batch 1: the Hopper and the
-        # resident forward, the tile backward
+        # head dim 80 at ViT-H's shapes, batch 1: the resident forward and
+        # the tile backward (K6), the Hopper bodies both ways (K5), also on
+        # the 48-grid and ragged
         ("K6", "BWH=25*16 N=196 d=80", (14, 14), 25 * 16, 3, 80),
         ("K5", "BH=16 N=4096 d=80", (64, 64), 16, 4, 80),
+        ("K5", "BH=16 N=2304 d=80 (48-grid)", (48, 48), 16, 3, 80),
+        ("K5", "BH=6 N=1000 d=80 (20x50)", (20, 50), 6, 3, 80),
     ]
     wrappers.update(K5=flash_attention_rel_pos, K6=windowed_attention_rel_pos)
     grad_names = ("dq", "dk", "dv", "drel_h", "drel_w")
@@ -1223,6 +1266,9 @@ def main() -> int:
                     *(e for nm, e in errs.items() if nm not in ("dk", "dv")))
                 bwd_err[f"{kid}_dkv"] = max(bwd_err.get(f"{kid}_dkv", 0.0),
                                             errs["dk"], errs["dv"])
+                if d == 80 and dt == torch.bfloat16:
+                    bwd_err[f"{kid}_d80"] = max(bwd_err.get(f"{kid}_d80", 0.0),
+                                                *errs.values())
                 del got, tensors
             if dt == torch.bfloat16:
                 body = attention_body(dt, d, n, n, True, hw, "backward")
@@ -1332,8 +1378,9 @@ def main() -> int:
     # and none of their dq or dk/dv kernels runs
     windowed = ("windowed_attention_packed", "windowed_attention_rel_pos")
 
-    def per_step(with_k4, layout="packed", resident=False):
-        fwd = dict(per_forward[layout], cross_attention_packed=int(with_k4))
+    def per_step(with_k4, layout="packed", resident=False, forward=None):
+        fwd = dict(forward or per_forward[layout],
+                   cross_attention_packed=int(with_k4))
         attn = {n: v for n, v in fwd.items() if n != "fused_mlp"}
         one_kernel = {n: (v if resident and n in windowed else 0)
                       for n, v in attn.items()
@@ -1431,6 +1478,27 @@ def main() -> int:
     batch4 = train_batch(BATCH, seed=11)
     gen = torch.Generator(device=dev).manual_seed(3)
 
+    def one_wait(name, layout, sb, state):
+        """One more step under PyTorch's sync debug mode, which warns at
+        every call that waits for the device: the copy of the matching cost
+        to the host (ops/lsap.py) must be the only one."""
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                sb.train_step(state, batch4, gen)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        waits = [str(w.message)[:200] for w in caught
+                 if "synchroniz" in str(w.message).lower()]
+        emit("train_step_host_waits", config=name, layout=layout,
+             waits=len(waits), want=1, messages=waits)
+        if len(waits) != 1:
+            raise AssertionError(f"{name}: a train step waited for the "
+                                 f"device {len(waits)} times, want 1: "
+                                 f"{waits}")
+
     def training_path(layout):
         """Three bf16 steps at batch 4 in both training configurations with
         the kernels of `layout`: the counts set to 0 just before the run and
@@ -1502,26 +1570,8 @@ def main() -> int:
                                      f"{[m['loss'] for m in ms]}")
         del snapshots
 
-        # One more step of each configuration under PyTorch's sync debug
-        # mode, which warns at every call that waits for the device: the copy
-        # of the matching cost to the host (ops/lsap.py) must be the only one.
         for name, (sb, state) in trainers.items():
-            torch.cuda.synchronize()
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                with warnings.catch_warnings(record=True) as caught:
-                    warnings.simplefilter("always")
-                    sb.train_step(state, batch4, gen)
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-            waits = [str(w.message)[:200] for w in caught
-                     if "synchroniz" in str(w.message).lower()]
-            emit("train_step_host_waits", config=name, layout=layout,
-                 waits=len(waits), want=1, messages=waits)
-            if len(waits) != 1:
-                raise AssertionError(f"{name}: a train step waited for the "
-                                     f"device {len(waits)} times, want 1: "
-                                     f"{waits}")
+            one_wait(name, layout, sb, state)
 
         other = "plain" if layout == "packed" else "packed"
         for name, (sb, state) in trainers.items():
@@ -1561,6 +1611,136 @@ def main() -> int:
         attr: {n: path_counts["packed"][attr][n]
                + path_counts["grouped"][attr][n] for n in per}
         for attr, per in path_counts["packed"].items()}
+
+    # ---- 8b. ViT-H fine-tune with remat_blocks: the d-80 backward's path ----
+    # The frozen ViT-H encoder (D 1280, 32 blocks, 16 heads of 80; seeded
+    # random weights, no checkpoint is at hand) under the trainable adaptor
+    # and decoder, bf16, batch 4, in each layout. Each block keeps its input
+    # and its attention output and recomputes the rest in the backward: its
+    # attention forward is launched again (counted), the MLP's forward is
+    # not. The global blocks' backward is the Hopper body at d = 80 (K2 or
+    # K5), the windows' the tile bodies (K1 or K6).
+    def vit_h_trainer(layout, remat):
+        cfg = training_config("fine_tune", "bfloat16", True, BATCH,
+                              variant="vit_h", remat_blocks=remat)
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, attn_impl=layout))
+        sb = StepBuilder(cfg, generator=torch.Generator().manual_seed(0))
+        return sb, sb.init_state(steps_per_epoch=100)
+
+    def vit_h_want(layout):
+        """The counts of TRAIN_STEPS remat steps: per_step's at ViT-H's depth
+        (4 global blocks, 28 windowed, 32 MLPs, no K4; a d-80 window's
+        backward is two tile kernels), every attention forward twice."""
+        glob, win = (("flash_attention_packed", "windowed_attention_packed")
+                     if layout == "packed" else
+                     ("flash_attention_rel_pos", "windowed_attention_rel_pos"))
+        fwd = dict({n: 0 for n in per_forward[layout]}, **{
+            glob: 4, win: 28, "fused_mlp": 32 if layout == "packed" else 0})
+        per = per_step(False, layout, forward=fwd)
+        per["launches"] = {n: v * (1 if n == "fused_mlp" else 2)
+                           for n, v in per["launches"].items()}
+        return {attr: {n: v * TRAIN_STEPS for n, v in d.items()}
+                for attr, d in per.items()}
+
+    def trainable_grads(sb):
+        return {n: p.grad.detach().clone()
+                for n, p in sb.model.named_parameters() if p.grad is not None}
+
+    vit_h_counts = {}
+    for layout in ("packed", "grouped"):
+        sb_r, state_r = vit_h_trainer(layout, remat=True)
+        frozen = {n: p.detach().clone()
+                  for n, p in sb_r.model.named_parameters()
+                  if not p.requires_grad}
+        start_bytes = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        gen_h = torch.Generator(device=dev).manual_seed(13)
+        steps = []
+        reset_counts()             # the ViT-H path's run starts here
+        for i in range(TRAIN_STEPS):
+            _, metrics = sb_r.train_step(state_r, batch4, gen_h)
+            steps.append(metrics)
+            if i == 0 and layout == "packed":
+                first_grads = trainable_grads(sb_r)
+        torch.cuda.synchronize()
+        vit_h_counts[layout] = all_counts()
+        # ... and ends here
+        peak_remat = torch.cuda.max_memory_allocated()
+        want = vit_h_want(layout)
+        emit("vit_h_training_launches", layout=layout,
+             launches=vit_h_counts[layout], want=want)
+        if vit_h_counts[layout] != want:
+            raise AssertionError(f"ViT-H fine-tune, {layout}: launches "
+                                 f"{vit_h_counts[layout]}, want {want}")
+        ms = [{k: v.item() for k, v in m.items()} for m in steps]
+        changed = [n for n, p in sb_r.model.named_parameters()
+                   if not p.requires_grad and not torch.equal(p, frozen[n])]
+        finite = all(np.isfinite(v) for m in ms for v in m.values())
+        emit("vit_h_training", config="fine_tune", variant="vit_h",
+             layout=layout, remat_blocks=True, dtype="bfloat16", batch=BATCH,
+             steps=TRAIN_STEPS, gpu=gpu, loss=[m["loss"] for m in ms],
+             grad_norm=[m["grad_norm"] for m in ms],
+             parameters_frozen_identical=len(frozen) - len(changed),
+             parameters_trainable=sum(p.requires_grad for p in
+                                      sb_r.model.parameters()),
+             peak_memory_bytes=peak_remat,
+             allocated_at_start_bytes=start_bytes)
+        if not finite or changed or not ms[-1]["loss"] < ms[0]["loss"]:
+            raise AssertionError(f"ViT-H fine-tune, {layout}: losses "
+                                 f"{[m['loss'] for m in ms]}, frozen "
+                                 f"parameters changed: {changed[:5]}")
+        del frozen
+        if layout == "grouped":
+            del sb_r, state_r
+            torch.cuda.empty_cache()
+            continue
+        one_wait("fine_tune vit_h remat", layout, sb_r, state_r)
+        vit_h_remat = (sb_r, state_r, ms[0], peak_remat - start_bytes)
+
+    # the same first step without remat_blocks (same weights, batch and
+    # dropout seed): the same function, and the memory remat saves
+    sb_r, state_r, first_remat, above_remat = vit_h_remat
+    sb_n, state_n = vit_h_trainer("packed", remat=False)
+    start_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _, metrics = sb_n.train_step(state_n, batch4,
+                                 torch.Generator(device=dev).manual_seed(13))
+    torch.cuda.synchronize()
+    above_none = torch.cuda.max_memory_allocated() - start_bytes
+    first_none = {k: v.item() for k, v in metrics.items()}
+    grads_none = trainable_grads(sb_n)
+    same = (set(grads_none) == set(first_grads) and all(
+        torch.equal(first_grads[n], g) for n, g in grads_none.items()))
+    worst_rel = max(((first_grads[n] - g).norm() / g.norm().clamp_min(1e-30))
+                    .item() for n, g in grads_none.items())
+    emit("vit_h_remat_against_none", config="fine_tune", variant="vit_h",
+         dtype="bfloat16", batch=BATCH, gpu=gpu,
+         loss_remat=first_remat["loss"], loss_without=first_none["loss"],
+         grad_norm_remat=first_remat["grad_norm"],
+         grad_norm_without=first_none["grad_norm"],
+         gradients=len(grads_none), bit_identical=same,
+         max_relative_grad_err=worst_rel,
+         peak_memory_above_start_bytes_remat=above_remat,
+         peak_memory_above_start_bytes_without=above_none,
+         saved_by_remat_bytes=above_none - above_remat)
+    if (worst_rel > 1e-3 or not np.isclose(first_remat["loss"],
+                                           first_none["loss"], rtol=1e-4)):
+        raise AssertionError(f"ViT-H: remat_blocks changed the step (loss "
+                             f"{first_remat['loss']} against "
+                             f"{first_none['loss']}, relative gradient "
+                             f"error {worst_rel})")
+    del first_grads, grads_none
+    # the step's time with remat_blocks and without, in turns
+    ms_none, ms_remat = paired_ms(
+        lambda: sb_n.train_step(state_n, batch4, gen),
+        lambda: sb_r.train_step(state_r, batch4, gen), iters=2)
+    emit("train_step_time", config="fine_tune", variant="vit_h",
+         layout="packed", dtype="bfloat16", batch=BATCH, gpu=gpu,
+         ms_per_step_remat=ms_remat, ms_per_step_without_remat=ms_none,
+         tiles_per_s_remat=BATCH * 1000 / ms_remat)
+    del sb_r, state_r, sb_n, state_n, vit_h_remat
+    torch.cuda.empty_cache()
 
     ids = {"K1": "windowed_attention_packed", "K2": "flash_attention_packed",
            "K4": "cross_attention_packed", "K5": "flash_attention_rel_pos",
@@ -1724,24 +1904,29 @@ def main() -> int:
         # and the tables' gradients. The dk/dv kernel: 4 products (S, dP,
         # dK, dV); reads q, k, v, do, the tables, lse and delta, writes dk
         # and dv.
-        dq_b = bound_ms(6 * mac, nbytes(q, k, v, dout, q, rh, rw, rh, rw,
-                                        *stats) + (nbytes(out) if body ==
-                                                   "sm90" else 0))
-        dkv_b = bound_ms(8 * mac, nbytes(q, k, v, dout, k, v, rh, rw, *stats))
+        tabs = rh is not None
+        scores = b * heads * n * m
+        dq_b = attention_backward_bound(
+            3, mac, scores, tabs, tabs,
+            nbytes(q, k, v, dout, q, rh, rw, rh, rw, *stats)
+            + (nbytes(out) if body == "sm90" else 0))
+        dkv_b = attention_backward_bound(
+            4, mac, scores, tabs, False,
+            nbytes(q, k, v, dout, k, v, rh, rw, *stats))
         # the whole backward reads q, k, v, do, o, lse and the tables and
         # writes dq, dk, dv and the tables' gradients: 5 products (S, dP,
-        # dq, dk, dv) for the one-kernel body, 7 for a two-kernel one, which
-        # computes S and dP in each kernel
-        both_b = bound_ms((10 if body == "resident" else 14) * mac,
-                          nbytes(q, k, v, dout, out, lse, q, k, v, rh, rw,
-                                 rh, rw))
+        # dq, dk, dv), whichever body
+        both_b = attention_backward_bound(
+            5, mac, scores, tabs, tabs,
+            nbytes(q, k, v, dout, out, lse, q, k, v, rh, rw, rh, rw))
         emit("backward_kernel_time", kernel=kid, shape=shape, dtype="bfloat16",
              gpu=gpu, body=body, dq_ms=ms_dq,
              dq_without_drel_ms=ms_dq_nodrel, dkv_ms=ms_dkv,
              earlier_body_dq_ms=old_dq, earlier_body_dkv_ms=old_dkv,
              earlier_body_whole_ms=old_both, delta_pass_ms=delta_ms,
              both_ms=ms_both, without_drel_ms=ms_nodrel, plain_ms=ms_plain,
-             bound_ms=both_b[0], bound_by=both_b[1],
+             bound_ms=both_b[0], bound_by=both_b[1], dq_bound_ms=dq_b[0],
+             dkv_bound_ms=dkv_b[0], over_bound=ms_both / both_b[0],
              library_forward_ms=lib_fwd_ms, library_backward_ms=lib_bwd_ms)
         tc = train_counts
         if not primary:
@@ -1789,9 +1974,11 @@ def main() -> int:
     # ViT-H's attention (head dim 80, 16 heads) at batch 1 and 4: the bf16
     # forward of the Hopper body (K2, K5 on the 64-grid) and of the resident
     # body (K1, K6 on 25 windows of 14 an image) in turns with the tile body
-    # over 20 launches a turn, beside one library call and the bound; at
-    # batch 1 also the backward (the tile bodies: the delta pass and two
-    # kernels) beside autograd through the library call.
+    # over 20 launches a turn, beside one library call and the bound; the
+    # whole backward of K2 and K5 (the Hopper body: the dq kernel with delta
+    # inside, then dk/dv) in turns with the tile bodies' (the delta pass and
+    # two kernels) at batch 1 and 4, and that of K1 and K6 (the tile bodies)
+    # at batch 1, beside autograd through the library call.
     vit_h = {}
     for batch in (1, 4):
         for kid in ("K2", "K5", "K1", "K6"):
@@ -1837,41 +2024,79 @@ def main() -> int:
             row = dict(shape=shape, body=body, ms=new_ms,
                        earlier_body_ms=old_ms, library_ms=lib_ms,
                        plain_ms=plain_ms, bound_ms=fb, bound_by=fby)
-            if batch == 1:
+            bwd_body = attention_body(torch.bfloat16, 80, n, n, True, hw,
+                                      "backward")
+            if batch == 1 or bwd_body == "sm90":
                 with torch.no_grad():
                     out, lse = forward(body, lse=True)()
                     dout = torch.randn_like(out)
-                    bwd_ms = time_ms(lambda: attention_backward_launch(
+
+                    def backward(which_body):
+                        return lambda: attention_backward_launch(
+                            q, k, v, out, lse, dout, scale, heads, rh, rw,
+                            scale_scores=ss, body=which_body)
+                    tile_bwd_ms = None
+                    if bwd_body == "sm90":   # in turns with the tile bodies
+                        tile_bwd_ms, bwd_ms = paired_ms(backward("mma"),
+                                                        backward(bwd_body))
+                    else:
+                        bwd_ms = time_ms(backward(bwd_body))
+                    bwd_plain_ms = (time_ms(lambda: attention_backward_plain(
                         q, k, v, out, lse, dout, scale, heads, rh, rw,
-                        scale_scores=ss))
-                    bwd_plain_ms = time_ms(lambda: attention_backward_plain(
-                        q, k, v, out, lse, dout, scale, heads, rh, rw,
-                        scale_scores=ss))
+                        scale_scores=ss)) if batch == 1 else None)
                 lib_bwd_ms = time_ms(lib_bwd)
-                bb = bound_ms(14 * mac, nbytes(q, k, v, dout, out, lse, q, k,
-                                               v, rh, rw, rh, rw))
-                bwd_body = attention_body(torch.bfloat16, 80, n, n, True, hw,
-                                          "backward")
+                bb = attention_backward_bound(
+                    5, mac, nb * 16 * n * n, True, True,
+                    nbytes(q, k, v, dout, out, lse, q, k, v, rh, rw, rh, rw))
                 emit("backward_kernel_time", kernel=kid, shape=shape,
                      dtype="bfloat16", gpu=gpu, body=bwd_body,
-                     both_ms=bwd_ms, plain_ms=bwd_plain_ms, bound_ms=bb[0],
-                     bound_by=bb[1], library_backward_ms=lib_bwd_ms)
-                vit_h[kid] = dict(forward=row, backward=dict(
+                     both_ms=bwd_ms, earlier_body="mma",
+                     earlier_body_ms=tile_bwd_ms, plain_ms=bwd_plain_ms,
+                     bound_ms=bb[0], bound_by=bb[1],
+                     library_backward_ms=lib_bwd_ms,
+                     over_library=bwd_ms / lib_bwd_ms,
+                     over_bound=bwd_ms / bb[0])
+                vit_h.setdefault(kid, {})[f"backward_batch_{batch}"] = dict(
                     shape=shape, body=bwd_body, ms=bwd_ms,
-                    plain_ms=bwd_plain_ms, library_ms=lib_bwd_ms,
-                    bound_ms=bb[0], bound_by=bb[1]))
+                    earlier_body_ms=tile_bwd_ms, plain_ms=bwd_plain_ms,
+                    library_ms=lib_bwd_ms, bound_ms=bb[0], bound_by=bb[1])
                 del out, lse, dout
-            else:
-                vit_h[kid]["forward_batch_4"] = row
+            vit_h.setdefault(kid, {})[f"forward_batch_{batch}"] = row
             del q, k, v, rh, rw, lib_fwd, lib_bwd
             torch.cuda.empty_cache()
     for kid, rows in vit_h.items():
         report[ids[kid]]["vit_h_d80"] = {
-            "batch_1": rows["forward"], "batch_4": rows["forward_batch_4"]}
-        back = ids[kid] + ("_backward" if kid in ("K1", "K6")
-                           else "_backward_dq")
-        report[back]["vit_h_d80"] = dict(
-            rows["backward"], covers="the whole tile backward")
+            "batch_1": rows["forward_batch_1"],
+            "batch_4": rows["forward_batch_4"]}
+        if kid in ("K1", "K6"):
+            report[ids[kid] + "_backward"]["vit_h_d80"] = dict(
+                rows["backward_batch_1"], covers="the whole tile backward")
+            continue
+        # the Hopper body's d-80 backward, launched by the ViT-H fine-tune
+        # (phase 8b; K5 in its grouped run): the whole backward at batch 1,
+        # batch 4 beside it
+        layout = "grouped" if kid == "K5" else "packed"
+        wname = ids[kid]
+        one = rows["backward_batch_1"]
+        cu = ("wildlifemapper_tpu_torch/csrc/"
+              + ("grouped_" if kid == "K5" else "")
+              + "attention_bwd_{}_sm90.cu")
+        entry(wname + "_backward_d80", cu.format("dq"),
+              jax_ops + replaces_bwd[kid][0], body="sm90", head_dim=80,
+              source_dkv=cu.format("dkv"),
+              replaces_dkv=jax_ops + replaces_bwd[kid][1],
+              launches=vit_h_counts[layout]["backward_dq_launches"][wname],
+              launches_dkv=vit_h_counts[layout]["backward_dkv_launches"][
+                  wname],
+              launches_from="ViT-H fine-tune, remat_blocks, " + layout,
+              shape=one["shape"], max_abs_err=bwd_err[f"{kid}_d80"],
+              ms=one["ms"], covers="dq + delta, then dk/dv",
+              earlier_body_ms=one["earlier_body_ms"],
+              plain_ms=one["plain_ms"], bound_ms=one["bound_ms"],
+              bound_by=one["bound_by"], library_ms=one["library_ms"],
+              library="autograd through scaled_dot_product_attention "
+                      "(dq, dk, dv)",
+              batch_4=rows["backward_batch_4"])
 
     # K3 in bf16 at the main paths' two row counts and at ViT-L's and
     # ViT-H's widths: the forward in turns with the library chain, dh in
@@ -1967,12 +2192,14 @@ def main() -> int:
 
     order = ["windowed_attention_packed", "windowed_attention_packed_backward",
              "flash_attention_packed", "flash_attention_packed_backward_dq",
-             "flash_attention_packed_backward_dkv", "fused_mlp",
+             "flash_attention_packed_backward_dkv",
+             "flash_attention_packed_backward_d80", "fused_mlp",
              "fused_mlp_backward_dh", "cross_attention_packed",
              "cross_attention_packed_backward_dq",
              "cross_attention_packed_backward_dkv",
              "flash_attention_rel_pos", "flash_attention_rel_pos_backward_dq",
              "flash_attention_rel_pos_backward_dkv",
+             "flash_attention_rel_pos_backward_d80",
              "windowed_attention_rel_pos",
              "windowed_attention_rel_pos_backward"]
     for e in report.values():

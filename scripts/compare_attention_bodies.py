@@ -15,7 +15,7 @@ For each case (batch, heads, d, queries, keys, rel grid, scale placement,
 scale) it builds the kernels (registers and spills of the Hopper and resident
 instantiations are printed from nvcc's -Xptxas -v), runs forward and backward
 of each body at the launcher (ops/_attention.py, `body=`; at head dim 80 the
-Hopper and resident bodies run forward only, the backward is the tile
+resident body runs forward only, the backward of a window is the tile
 bodies'), and prints one JSON line: the largest forward and lse errors and the backward errors relative to
 each gradient's largest element against the plain version, whether a second
 backward is bit-identical, and CUDA-event times in ms, each body warmed up
@@ -187,7 +187,7 @@ def run_case(case, rng, dev) -> dict:
                 q, k, v, scale, h, rh, rw, return_lse=True, scale_scores=ss,
                 body=body)))
         if body not in ("mma", backward_body):
-            continue                    # a forward-only body (d = 80)
+            continue                    # a forward-only body (d-80 windows)
         runs = [backward(g) for g in (grads, None)]
         torch.cuda.synchronize()
 

@@ -6,15 +6,17 @@
                                    [--batch 4] [--iters 3] [--root CHECKOUT]
     python scripts/profile_port.py --train fine_tune|from_scratch
                                    [--plain | --attn-impl grouped]
+                                   [--variant vit_b|vit_l|vit_h] [--remat]
     python scripts/profile_port.py ... --no-trace [--iters 20]
     python scripts/profile_port.py --k3
 
 Runs forward + postprocess + NMS, or with --train whole train steps on a
 synthetic batch (train/synthetic.py), at ViT-B width in bf16 (random weights
-from a seed; serving also at ViT-L's or ViT-H's with --variant) under
-torch.profiler and prints JSON lines: the device time by
-kernel name (top 15), the summed device time, the wall time and the device
-idle share over the profiled window, with the card's name and power limit.
+from a seed; ViT-L's or ViT-H's with --variant, serving or training; --remat
+trains with remat_blocks) under torch.profiler and prints JSON lines: the
+device time by kernel name (top 15), the summed device time, the wall time,
+the device idle share over the profiled window and the peak device memory,
+with the card's name and power limit.
 Each kernel of the port is named beside its device name ("port_kernel":
 K3's GEMM body is "K3 forward" for its two passes and "K3 dh"; the attention
 kernels by body and direction), and one more line sums the device time of
@@ -176,7 +178,9 @@ def main() -> int:
                     help="time K3's forward and dh wrappers alone")
     ap.add_argument("--variant", default="vit_b",
                     choices=["vit_b", "vit_l", "vit_h"],
-                    help="the encoder served (training runs ViT-B)")
+                    help="the encoder served or trained")
+    ap.add_argument("--remat", action="store_true",
+                    help="train with remat_blocks")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--iters", type=int, default=3)
     args = ap.parse_args()
@@ -210,13 +214,22 @@ def main() -> int:
             wall_ms = (time.perf_counter() - t0) * 1000 / args.iters
         return prof, wall_ms
 
-    if args.train and args.variant != "vit_b":
-        ap.error("--train runs ViT-B only")
+    if args.remat and not args.train:
+        ap.error("--remat goes with --train")
+    torch.cuda.reset_peak_memory_stats()
     if args.train:
         cfg = training_config(args.train, use_kernels=not args.plain,
                               batch_size=args.batch)
-        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
-            cfg.model, attn_impl=args.attn_impl))
+        model = dataclasses.replace(cfg.model, attn_impl=args.attn_impl,
+                                    remat_blocks=args.remat)
+        if args.variant != "vit_b":
+            # the variant's encoder with the set-up's window, built here so
+            # that an older checkout (whose training_config is ViT-B only)
+            # trains the same configuration
+            model = dataclasses.replace(model, vit=dataclasses.replace(
+                model_config(args.variant).vit,
+                window_size=model.vit.window_size))
+        cfg = dataclasses.replace(cfg, model=model)
         builder = StepBuilder(cfg, generator=torch.Generator().manual_seed(0))
         state = builder.init_state(steps_per_epoch=100)
         batch = {k: torch.from_numpy(v).to(dev)
@@ -249,7 +262,9 @@ def main() -> int:
             "variant": args.variant, "root": args.root,
             "mode": "train" if args.train else "serve",
             "path": "plain" if args.plain else f"kernels, {args.attn_impl}",
-            "batch": args.batch, "gpu": gpu, "wall_ms_per_batch": wall_ms}
+            "remat_blocks": args.remat, "batch": args.batch, "gpu": gpu,
+            "wall_ms_per_batch": wall_ms,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
     if args.no_trace:
         print(json.dumps(dict(head, iters=args.iters)), flush=True)
         return 0

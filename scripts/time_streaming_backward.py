@@ -3,6 +3,7 @@ the shapes `chip_smoke.py` phase 6 runs them, timed at the launcher on one
 NVIDIA GPU (written for the H100), for comparing two checkouts in turns.
 
     python3 scripts/time_streaming_backward.py [--root CHECKOUT] [--label L]
+        [--d80]
 
 `--root` is the checkout whose `wildlifemapper_tpu_torch` is imported (this
 script's own by default), so that one call can time an older tree with the
@@ -16,7 +17,10 @@ timed over ten launches after a check against the plain backward (2e-2 of
 each gradient's largest element): `ms` by CUDA events around the launches,
 `device_ms` the kernels' own time under torch.profiler (where the host's
 launcher is slower than the kernels, `ms` times the host). One JSON line a
-shape, the card's name and power limit first. Fails without CUDA.
+shape, the card's name and power limit first. `--d80` runs ViT-H's shapes
+instead (head dim 80: K2 and K5 at batch 1 and 4 on the 64-grid, on the
+48-grid and ragged), which an older tree runs on the tile bodies. Fails
+without CUDA.
 """
 
 from __future__ import annotations
@@ -42,6 +46,15 @@ SHAPES = [
     ("K5", "BH=4*12 N=4096", 48, 1, 64, 4096, 4096, (64, 64)),
     ("K5", "BH=4*12 N=2304", 48, 1, 64, 2304, 2304, (48, 48)),
     ("K5", "BH=6 N=1000 (20x50)", 6, 1, 64, 1000, 1000, (20, 50)),
+]
+SHAPES_D80 = [
+    ("K2", "B=1 H=16 N=4096 d=80", 1, 16, 80, 4096, 4096, (64, 64)),
+    ("K2", "B=4 H=16 N=4096 d=80", 4, 16, 80, 4096, 4096, (64, 64)),
+    ("K5", "BH=16 N=4096 d=80", 16, 1, 80, 4096, 4096, (64, 64)),
+    ("K5", "BH=64 N=4096 d=80", 64, 1, 80, 4096, 4096, (64, 64)),
+    ("K2", "B=1 H=16 N=2304 d=80", 1, 16, 80, 2304, 2304, (48, 48)),
+    ("K2", "B=2 H=3 N=1000 d=80 (25x40)", 2, 3, 80, 1000, 1000, (25, 40)),
+    ("K5", "BH=6 N=1000 d=80 (20x50)", 6, 1, 80, 1000, 1000, (20, 50)),
 ]
 
 
@@ -80,6 +93,8 @@ def main() -> int:
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]),
                     help="checkout whose package is timed")
     ap.add_argument("--label", default="", help="names the run in the output")
+    ap.add_argument("--d80", action="store_true",
+                    help="ViT-H's shapes (head dim 80) instead of ViT-B's")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA GPU", file=sys.stderr)
@@ -102,7 +117,8 @@ def main() -> int:
                                 ).to(dev).to(dt)
 
     with torch.no_grad():
-        for kid, shape, b, h, d, nq, nk, hw in SHAPES:
+        for kid, shape, b, h, d, nq, nk, hw in (SHAPES_D80 if args.d80
+                                                 else SHAPES):
             ss = kid == "K5"
             c = h * d
             q, dout = randn((b, nq, c)), randn((b, nq, c))
@@ -126,7 +142,7 @@ def main() -> int:
             del ref, got
             row = dict(kernel=kid, shape=shape, label=args.label,
                        body=A.attention_body(dt, d, nq, nk, hw is not None,
-                                             hw),
+                                             hw, "backward"),
                        max_rel_err=worst)
             for drel in ((True, False) if hw else (True,)):
                 def backward():

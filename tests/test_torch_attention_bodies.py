@@ -45,16 +45,17 @@ def test_main_path_shapes(what, dtype, d, nq, nk, rel, body):
     assert attention_body(dtype, d, nq, nk, rel) == body
 
 
-# ViT-H (head dim 80, 16 heads) at its serving shapes: the bf16 forward on
-# the Hopper body (global blocks, the 64-grid) and the resident body
-# (windows of 14); every backward and f32 on the tile bodies.
+# ViT-H (head dim 80, 16 heads) at its shapes: the bf16 global blocks (the
+# 64-grid) on the Hopper bodies both ways, the windows of 14 on the resident
+# body forward and the tile bodies backward; f32 on the tile bodies.
 VIT_H = [
     ("K2", "forward", BF16, 4096, (64, 64), "sm90"),
     ("K5", "forward", BF16, 4096, (64, 64), "sm90"),
     ("K1", "forward", BF16, 196, (14, 14), "resident"),
     ("K6", "forward", BF16, 196, (14, 14), "resident"),
-    ("K2", "backward", BF16, 4096, (64, 64), "mma"),
-    ("K5", "backward", BF16, 4096, (64, 64), "mma"),
+    ("K2", "backward", BF16, 4096, (64, 64), "sm90"),
+    ("K5", "backward", BF16, 4096, (64, 64), "sm90"),
+    ("K2", "backward", BF16, 2304, (48, 48), "sm90"),
     ("K1", "backward", BF16, 196, (14, 14), "mma"),
     ("K6", "backward", BF16, 196, (14, 14), "mma"),
     ("K2", "forward", F32, 4096, (64, 64), "mma"),
@@ -81,13 +82,13 @@ def test_vit_h_shapes(kernel, direction, dtype, n, grid, body):
     (128, 4096, 4096, None),
 ])
 def test_backward_body_is_the_forward_body_but_at_d80(d, nq, nk, grid):
-    """Forward and backward take one body at d = 64 and 128; at d = 80 the
-    bf16 forward runs a Hopper or resident body and the backward the tile
-    bodies."""
+    """Forward and backward take one body at d = 64 and 128 and at d = 80
+    with many keys (the Hopper bodies); a d-80 window runs the resident
+    body forward and the tile bodies backward."""
     fwd = attention_body(BF16, d, nq, nk, grid is not None, grid)
     bwd = attention_body(BF16, d, nq, nk, grid is not None, grid,
                          direction="backward")
-    assert bwd == (fwd if d != 80 else "mma")
+    assert bwd == ("mma" if fwd == "resident" and d == 80 else fwd)
     assert fwd != "mma"
 
 
@@ -253,9 +254,11 @@ def test_hopper_header_note(name):
         for gone in ("add_rel_bias", "stage_rel_tables", "load_a_pair",
                      "__expf", "*= a.scale;"):
             assert gone not in code, gone
-        # head dim 80 runs here forward only, 64 + 16 columns: a narrow
-        # region by a second TMA box, a B32 k-step, P.V as n64 + n16
-        for words in ("at d = 64, 80 or 128", "Head dim 80", "forward only",
+        # head dim 80 runs here, its backward on the Hopper backward body,
+        # 64 + 16 columns: a narrow region by a second TMA box, a B32
+        # k-step, P.V as n64 + n16
+        for words in ("at d = 64, 80 or 128", "Head dim 80",
+                      "its backward on the Hopper backward body",
                       "narrow region", "32-byte swizzle", "5 k-steps",
                       "an n64 and an n16 product", "four stages"):
             assert words in flat, words
@@ -266,9 +269,10 @@ def test_hopper_header_note(name):
 
 @pytest.mark.parametrize("name,stays,d80", [
     ("attention_fwd.cuh", "attention_fwd_sm90.cuh",
-     "the backward of a bf16 d-80 attention still runs the tile bodies"),
+     "the backward of a bf16 d-80 window (K1, K6) still runs the tile "
+     "bodies"),
     ("attention_bwd.cuh", "attention_bwd_sm90.cuh",
-     "every bf16 backward at d = 80"),
+     "the bf16 backward of a d-80 window"),
 ])
 def test_tile_headers_say_what_still_runs_there(name, stays, d80):
     note = (_build.CSRC / name).read_text()
@@ -459,6 +463,28 @@ def test_hopper_backward_note_and_design():
         assert gone not in code, gone
 
 
+def test_hopper_backward_head_dim_80_note_and_design():
+    """The Hopper backward at ViT-H's head dim: the note says how a head of
+    80 columns is laid out and multiplied; the code loads the narrow
+    regions by maps of their own, takes their k-step and their n16
+    products, and instantiates d = 80 for both kernels."""
+    text = (_build.CSRC / "attention_bwd_sm90.cuh").read_text()
+    note = " ".join(text[:text.index("#pragma once")].replace("//", " ")
+                    .split())
+    for words in ("at d = 64, 80 or 128", "Head dim 80", "narrow region",
+                  "32-byte swizzle", "fifth k-step",
+                  "an n64 and an n16 product", "do not depend on d"):
+        assert words in note, words
+    code = (text[text.index("#pragma once"):]
+            + (_build.CSRC / "attention_sm90_common.cuh").read_text())
+    for word in ("desc_kmajor32(", "desc_mnmajor32(", "wgmma_rs<1, 16>",
+                 "wgmma_rs_head<D, TK>(dq", "wgmma_rs_head<D, TQ>(dk",
+                 "wgmma_rs_head<D, TQ>(dv", "&map_qn", "&map_don", "&map_kn",
+                 "&map_vn", "&map_qsn", "launch_dq_sm90<80, 64, 4",
+                 "launch_dkv_sm90<80, 64, 3"):
+        assert word in code, word
+
+
 class _StandInLibrary:
     """A kernel library whose every entry records its name and arguments and
     returns 0 (cudaSuccess): the launcher's calls without a card."""
@@ -514,6 +540,10 @@ def _launch_with_stand_ins(monkeypatch, dtype, d, n, heads, scale, rel,
     ("packed", 64, 1024, True, False),      # K2 under a frozen encoder
     ("packed", 128, 576, False, True),      # K4: the scale is no power of 2
     ("grouped", 64, 1024, True, True),      # K5
+    ("packed", 80, 1024, True, True),       # ViT-H's K2: no power of 2
+    ("packed", 80, 1024, True, False),      # ... under the frozen encoder
+    ("grouped", 80, 1024, True, True),      # ViT-H's K5
+    ("packed", 80, 576, False, True),       # d = 80 without tables
 ])
 def test_sm90_backward_runs_no_delta_pass(monkeypatch, family, d, n, rel,
                                           want_drel):
@@ -538,7 +568,8 @@ def test_sm90_backward_runs_no_delta_pass(monkeypatch, family, d, n, rel,
     # for both kernels; out for the dq kernel's delta
     assert dq_args[1:10] == dkv_args[1:10]
     assert dq_args[5] is not None and dq_args[7] is not None
-    assert (dq_args[8] is not None) == (not grouped and d == 128)
+    assert (dq_args[8] is not None) == (not grouped and d != 64)
+    assert dq_args[21] == d
     assert (dq_args[9] is not None) == rel
     assert (grads[3] is not None) == (rel and want_drel)
 
@@ -565,8 +596,9 @@ def _forward_with_stand_ins(monkeypatch, d, n, heads, scale_scores):
 ])
 def test_d80_forward_and_backward_entries(monkeypatch, kernel, n, entry):
     """At ViT-H's head dim the bf16 forward reaches the Hopper or the
-    resident C entry, with d = 80; its backward reaches the tile bodies'
-    two kernels after the plain delta pass."""
+    resident C entry, with d = 80; the backward of K2 and K5 reaches the
+    Hopper dq and dk/dv entries with no delta pass, that of K1 and K6 the
+    tile bodies' two kernels after the plain delta pass."""
     grouped = kernel in ("K5", "K6")
     heads = 1 if grouped else 2
     calls = _forward_with_stand_ins(monkeypatch, 80, n, heads, grouped)
@@ -578,6 +610,12 @@ def test_d80_forward_and_backward_entries(monkeypatch, kernel, n, entry):
         monkeypatch, BF16, 80, n, heads, 80 ** -0.5, True,
         scale_scores=grouped)
     prefix = "wm_grouped_attention_bwd" if grouped else "wm_attention_bwd"
+    if entry.endswith("_sm90"):
+        assert [name for name, _ in calls] == [prefix + "_dq_sm90",
+                                               prefix + "_dkv_sm90"]
+        assert [args[21] for _, args in calls] == [80, 80]
+        assert passes == [] and counts == (0, 1, 1)
+        return
     assert [name for name, _ in calls] == [prefix] * 2
     assert [args[0] for _, args in calls] == [0, 1]
     assert len(passes) == 1 and counts == (0, 1, 1)

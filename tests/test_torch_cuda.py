@@ -3,13 +3,13 @@ small ragged shapes (tile edges, odd token counts, every head dim: 32, 64,
 80 for ViT-H, 128). They
 need CUDA and skip elsewhere with the reason "needs CUDA (H100)".
 
-From 512 keys on, bf16 at d = 64 or 128 (and the forward at d = 80) runs
+From 512 keys on, bf16 at d = 64, 80 or 128 runs
 the Hopper bodies (wgmma and a TMA-fed ring, csrc/attention_fwd_sm90.cuh
 and attention_bwd_sm90.cuh): the
 STREAMING cases below are ragged against their 128-row blocks and their
 64- and 128-key tiles (grids that are no multiple of 8, N != M, a last tile
-of one or six keys, d = 128 with rel tables); their backward also with
-and without the table gradients, twice, and the delta its dq kernel
+of one or six keys, d = 128 with rel tables, d = 80); their backward also
+with and without the table gradients, twice, and the delta its dq kernel
 writes.
 
 Below 512 keys, bf16 at d = 64 (and the forward at d = 80) with rel tables
@@ -21,8 +21,9 @@ one window-head, more window-heads than the card has SMs; a window of one
 token has gradients that are zero but for rounding, so nothing to compare).
 
 At d = 80 (ViT-H) the D80 cases hold the Hopper and the resident forward
-against the tile body and the plain version, twice, with the tile backward
-after them.
+against the tile body and the plain version, twice, with the backward
+after them (the Hopper body from 512 keys on, the tile bodies below), and
+one fine-tune step with remat_blocks against the same step without it.
 
 This file imports neither JAX nor the JAX package's tests. On a machine
 without JAX run it as
@@ -571,7 +572,15 @@ STREAMING_REL = [(1000, 1000, 2, 64, (25, 40), None),
                  (513, 513, 1, 128, (27, 19), None),
                  (1000, 1000, 1, 128, (20, 50), None),
                  (600, 520, 2, 64, (8, 65), None),
-                 (700, 1024, 2, 64, (32, 32), 0.3)]
+                 (700, 1024, 2, 64, (32, 32), 0.3),
+                 # head dim 80 (ViT-H): 64 + 16 columns, the same grids, a
+                 # last tile of 8 keys, and a power-of-two scale (K scaled in
+                 # place in the dk/dv kernel, its narrow region too)
+                 (1000, 1000, 2, 80, (25, 40), None),
+                 (1000, 1000, 1, 80, (20, 50), None),
+                 (200, 1000, 2, 80, (25, 40), None),
+                 (600, 520, 2, 80, (8, 65), None),
+                 (1024, 1024, 2, 80, (32, 32), 0.25)]
 
 
 @pytest.mark.parametrize("family", ["packed", "grouped"])
@@ -620,7 +629,8 @@ def test_streaming_backward_with_and_without_table_gradients(
 
 @pytest.mark.parametrize("family", ["packed", "grouped"])
 @pytest.mark.parametrize("n,m,heads,d", [(300, 1030, 2, 128),
-                                         (1000, 1000, 3, 64)])
+                                         (1000, 1000, 3, 64),
+                                         (300, 1030, 2, 80)])
 def test_sm90_dq_kernel_writes_delta(cuda, family, n, m, heads, d):
     """delta = rowsum(do * o) in f32 from the dq kernel, against the plain
     pass (f32 sums in another order), and the dk/dv kernel alone on it."""
@@ -744,8 +754,9 @@ def test_d80_forward_bodies_agree_and_repeat(cuda, family, b, heads, hw,
                                              scale):
     """bf16 at d = 80 at the launcher: the Hopper or the resident forward
     against the tile body and the plain version, with and without the lse,
-    twice (bit-identical); the backward (the tile bodies) on its lse
-    against the plain backward."""
+    twice (bit-identical); the backward (the Hopper body from 512 keys on,
+    else the tile bodies) on its lse against the plain backward, twice
+    (bit-identical)."""
     from wildlifemapper_tpu_torch.ops._attention import (
         attention_backward_launch, attention_backward_plain, attention_body,
         attention_launch)
@@ -762,7 +773,8 @@ def test_d80_forward_bodies_agree_and_repeat(cuda, family, b, heads, hw,
     rw = _randn(rng, (b, n, heads, hw[1]), dt, cuda, 0.5)
     body = attention_body(dt, d, n, n, True, hw)
     assert body == ("sm90" if n >= 512 else "resident")
-    assert attention_body(dt, d, n, n, True, hw, "backward") == "mma"
+    assert attention_body(dt, d, n, n, True, hw, "backward") == (
+        "sm90" if n >= 512 else "mma")
     with torch.no_grad():
         ref, lse_ref = attention_plain(q, k, v, scale, heads, rh, rw,
                                        return_lse=True, scale_scores=ss)
@@ -783,10 +795,12 @@ def test_d80_forward_bodies_agree_and_repeat(cuda, family, b, heads, hw,
         out, lse = outs[body]
         want = attention_backward_plain(q, k, v, out, lse, dout, scale,
                                         heads, rh, rw, scale_scores=ss)
-        got = attention_backward_launch(q, k, v, out, lse, dout, scale,
-                                        heads, rh, rw, scale_scores=ss)
+        got, again = (attention_backward_launch(
+            q, k, v, out, lse, dout, scale, heads, rh, rw, scale_scores=ss)
+            for _ in range(2))
         torch.cuda.synchronize()
     _close_grads(got, want, dt, ("dq", "dk", "dv", "drel_h", "drel_w"))
+    assert all(torch.equal(g1, g2) for g1, g2 in zip(got, again))
 
 
 def test_d80_no_tables_and_ragged_rows(cuda):
@@ -961,3 +975,58 @@ def test_bad_dtype_raises(cuda):
     with pytest.raises(TypeError):
         windowed_attention_packed(qkv.half(), rel.half(), rel.half(), 0.125,
                                   2, (4, 4))
+
+
+def test_remat_step_on_the_card(cuda):
+    """A bf16 fine-tune step at ViT-H's head dim (D 160 in 2 heads of 80, a
+    global block of 1024 tokens through the Hopper bodies both ways,
+    windows of 14) with remat_blocks against the same step without it: the
+    recompute launches each block's attention forward again and not the
+    MLP's forward, and the step's losses and gradients agree at rtol 1e-6."""
+    import dataclasses
+
+    from wildlifemapper_tpu_torch import config as tcfg
+    from wildlifemapper_tpu_torch.ops.fused_mlp import fused_mlp
+    from wildlifemapper_tpu_torch.train.step import StepBuilder
+    from wildlifemapper_tpu_torch.train.synthetic import synthetic_batch
+
+    model = dataclasses.replace(
+        tcfg.model_config("vit_b", dtype="bfloat16",
+                          use_flash_attention=True),
+        img_size=512,
+        vit=tcfg.ViTConfig(embed_dim=160, depth=2, num_heads=2,
+                           global_attn_indexes=(1,), window_size=14,
+                           out_chans=32),
+        hfc=tcfg.HFCConfig(embed_dim=32, proj_dim=128, num_heads=1,
+                           ffn_dim=128, dropout=0.0),
+        decoder=tcfg.DecoderConfig(transformer_dim=32, mlp_dim=64,
+                                   num_queries=7, num_heads=2))
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in synthetic_batch(
+        2, seed=0, canvas=512, content=384, max_targets=8, min_boxes=1,
+        max_boxes=5).items()}
+    wrappers = (flash_attention_packed, windowed_attention_packed)
+    runs = {}
+    for remat in (False, True):
+        cfg = tcfg.Config(
+            model=dataclasses.replace(model, remat_blocks=remat),
+            train=tcfg.TrainConfig(freeze_encoder=True, clip_max_norm=1e9))
+        sb = StepBuilder(cfg, generator=torch.Generator().manual_seed(0))
+        state = sb.init_state(steps_per_epoch=10)
+        before = [_counts(w) for w in wrappers] + [fused_mlp.launches]
+        _, metrics = sb.train_step(state, batch)
+        torch.cuda.synchronize()
+        after = [_counts(w) for w in wrappers] + [fused_mlp.launches]
+        moved = [tuple(b - a for a, b in zip(x, y)) if isinstance(x, tuple)
+                 else y - x for x, y in zip(before, after)]
+        runs[remat] = (moved, {k: v.item() for k, v in metrics.items()},
+                       {n: p.grad for n, p in sb.model.named_parameters()
+                        if p.grad is not None})
+    # (launches, backward_launches, dq, dk/dv) of K2 and K1, K3 launches
+    assert runs[False][0] == [(1, 0, 1, 1), (1, 0, 1, 1), 2]
+    assert runs[True][0] == [(2, 0, 1, 1), (2, 0, 1, 1), 2]
+    for k, v in runs[False][1].items():
+        np.testing.assert_allclose(runs[True][1][k], v, rtol=1e-6, err_msg=k)
+    grads0, grads1 = runs[False][2], runs[True][2]
+    assert set(grads0) == set(grads1) and grads0
+    for n, g in grads0.items():
+        torch.testing.assert_close(grads1[n], g, rtol=1e-6, atol=0, msg=n)

@@ -179,21 +179,25 @@ def test_find_nvcc(monkeypatch, tmp_path):
 
 
 def test_attention_body_head_dims():
-    """ViT-H's head dim 80: the bf16 forward takes the Hopper body at 4096
-    keys on the 64-grid and the resident body on a window of 14; f32 and
-    every backward take the mma.sync / f32 tile bodies; a head dim no body
-    takes is refused with the reason."""
+    """ViT-H's head dim 80: bf16 takes the Hopper bodies both ways at 4096
+    keys on the 64-grid, the resident body forward and the tile bodies
+    backward on a window of 14; f32 takes the mma.sync / f32 tile bodies; a
+    head dim no body takes is refused with the reason."""
     bf16 = torch.bfloat16
-    assert attention_body(bf16, 80, 4096, 4096, True, (64, 64)) == "sm90"
-    assert attention_body(bf16, 80, 100, 4096, False, None) == "sm90"
+    for direction in ("forward", "backward"):
+        assert attention_body(bf16, 80, 4096, 4096, True, (64, 64),
+                              direction) == "sm90"
+        assert attention_body(bf16, 80, 100, 4096, False, None,
+                              direction) == "sm90"
     assert attention_body(bf16, 80, 196, 196, True, (14, 14)) == "resident"
+    assert attention_body(bf16, 80, 196, 196, True, (14, 14),
+                          direction="backward") == "mma"
     for nq, nk, rel, hw in ((196, 196, True, (14, 14)),
                             (4096, 4096, True, (64, 64)),
                             (100, 4096, False, None)):
-        assert attention_body(torch.float32, 80, nq, nk, rel, hw) == "mma"
-        for dt in (bf16, torch.float32):
-            assert attention_body(dt, 80, nq, nk, rel, hw,
-                                  direction="backward") == "mma"
+        for direction in ("forward", "backward"):
+            assert attention_body(torch.float32, 80, nq, nk, rel, hw,
+                                  direction) == "mma"
     for d in (16, 96, 256):
         with pytest.raises(ValueError, match=f"head dim {d} not supported"):
             attention_body(bf16, d, 196, 196, True, (14, 14))

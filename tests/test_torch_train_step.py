@@ -475,13 +475,27 @@ def test_training_configs():
         training_config("other")
 
 
-def test_remat_raises_in_training_only():
-    model = WildlifeMapper(tiny_config(tcfg, remat_blocks=True), device="cpu")
-    x = torch.zeros(1, 128, 128, 3)
-    with torch.inference_mode():
-        model(x)
-    with pytest.raises(NotImplementedError, match="remat_blocks"):
-        model(x, deterministic=False)
+def test_remat_leaves_the_serving_output_bit_identical():
+    """remat_blocks only changes what a backward keeps: the same weights
+    serve the same detections to the bit, under inference_mode and with
+    gradients on, and a training forward runs (tests/test_torch_remat.py
+    holds its gradients)."""
+    x = torch.randn(2, 128, 128, 3, generator=torch.Generator().manual_seed(1))
+    outs = {}
+    for remat in (False, True):
+        model = WildlifeMapper(tiny_config(tcfg, remat_blocks=remat),
+                               generator=torch.Generator().manual_seed(0),
+                               device="cpu")
+        with torch.inference_mode():
+            served = model(x)
+        outs[remat] = (served, model(x))
+        model(x, deterministic=False,
+              generator=torch.Generator().manual_seed(2))["pred_boxes"].sum(
+              ).backward()
+    for (a, b) in zip(outs[False], outs[True]):
+        for k in ("pred_logits", "pred_boxes"):
+            assert torch.equal(a[k], b[k]), k
+    assert outs[True][1]["pred_boxes"].requires_grad
 
 
 def test_default_device_is_the_card():

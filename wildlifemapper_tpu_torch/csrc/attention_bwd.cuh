@@ -46,14 +46,14 @@
 // do and the outputs are read and written by stride, so dq, dk and dv land
 // in the column blocks of one packed (B, N, 3C) dqkv.
 // Which launches still run here (ops/_attention.py::attention_body): every
-// f32 launch (the parity steps of all five kernels), d = 32, every bf16
-// backward at d = 80 (ViT-H's K1, K2, K5, K6, whose bf16 forward runs the
-// Hopper and the resident bodies and leaves the same lse; no Hopper body for
-// the d-80 backward yet), and the bf16
+// f32 launch (the parity steps of all five kernels), d = 32, the bf16
+// backward of a d-80 window (ViT-H's K1, K6, whose bf16 forward runs the
+// resident body and leaves the same lse; the resident backward is d = 64
+// only), and the bf16
 // launches below 512 keys that are no window the resident body holds: d = 128
 // or N != M, no rel tables, and a global block of 209 to 511 tokens that
-// lands in K1 or K6. The streaming bf16 shapes of K2, K4 and K5 take the
-// Hopper bodies of attention_bwd_sm90.cuh (wgmma, a TMA-fed ring), and the
+// lands in K1 or K6. The streaming bf16 shapes of K2, K4 and K5 (d = 64, 80
+// or 128) take the Hopper bodies of attention_bwd_sm90.cuh (wgmma, a TMA-fed ring), and the
 // bf16 windows of K1 and K6 (d = 64, N = M <= 208) the one-kernel body of
 // attention_bwd_resident.cuh, which also takes delta; the bf16 bodies here
 // stay the yardstick of both.

@@ -14,13 +14,16 @@
 //      (grouped_attention_bwd_dq_sm90.cu / grouped_attention_bwd_dkv_sm90.cu,
 //      SCALE_SCORES = true)
 //
-// at d = 64 or 128 in bf16 with many keys (ops/_attention.py::attention_body
-// says which launch comes here). The windowed shapes (K1, K6), d = 32 and
-// f32 stay with attention_bwd.cuh.
+// at d = 64, 80 or 128 in bf16 with many keys (ops/_attention.py::
+// attention_body says which launch comes here). The windowed shapes (K1,
+// K6; at d = 80 their backward too), d = 32 and f32 stay with
+// attention_bwd.cuh.
 //
 // What bounds them on the H100: operations, 6*N^2*d flops a head in the dq
 // kernel and 8*N^2*d in the dk/dv kernel against O(N*d) bytes (K2 at B 4,
-// H 12, N 4096, d 64: 0.313 + 0.417 ms at 989 TFLOP/s). What held the first
+// H 12, N 4096, d 64: 0.313 + 0.417 ms at 989 TFLOP/s; the function itself
+// needs 10*N^2*d, 0.521 ms there: the split computes S and dP in both
+// kernels). What held the first
 // Hopper body at 4-8x that bound was everything beside the products: a plain
 // delta pass before the kernels, the rel-table gradients summed lane by lane
 // into shared memory in warp-barrier steps, the bias read from tables for
@@ -75,7 +78,20 @@
 //    kernel where the scale is no power of two; a power-of-two scale is
 //    exact on K in the dk/dv kernel; the grouped family's scale where it is
 //    no power of two goes on the f32 scores, and the bias then follows as a
-//    product of its own.
+//    product of its own;
+//  * Head dim 80 (ViT-H's global blocks, K2 and K5) is 64 + 16 columns, laid
+//    out as the forward lays it out (attention_fwd_sm90.cuh): every head of
+//    Q, dO, K, V and round(q*scale) sits in a 128-byte-swizzled region of 64
+//    columns and a narrow region of 16 (32-byte rows, 32-byte swizzle, TMA
+//    boxes of their own from column h*80 + 64; sm90.cuh), so no byte is
+//    brought in that is not read. S and dP (S^T and dP^T) take a fifth
+//    k-step on the narrow regions' B32 descriptors (A and B K-major); dQ,
+//    dK and dV are each an n64 and an n16 product a k-step (B MN-major), the
+//    A operands from the same dS and P registers. The one-hot products do
+//    not depend on d. The tiles of d = 64 stay (64 keys a dq stage, 64
+//    queries a dk/dv stage): dK and dV hold 2 x 40 floats a thread, below
+//    what d = 128 holds; with the tables a dq stage is 36 KB and four fit
+//    (222,288 bytes), a dk/dv stage 46 KB and three fit.
 #pragma once
 
 #include <math.h>
@@ -189,6 +205,19 @@ __device__ __forceinline__ void wgmma_ss_k(float (&d)[M][4], uint32_t a, int a_r
   }
 }
 
+// D (+)= A . B^T over a head of D columns, A and B K-major: the D / 64
+// regions of 64 columns (a_region / b_region bytes apart) and, at d = 80, a
+// fifth k-step over the narrow regions of the last 16 columns (a_narrow,
+// b_narrow: 32-byte rows, the B32 descriptor).
+template <int D, int N, int M>
+__device__ __forceinline__ void wgmma_ss_head(float (&d)[M][4], uint32_t a, int a_region,
+                                              uint32_t a_narrow, uint32_t b, int b_region,
+                                              uint32_t b_narrow, bool acc) {
+  wgmma_ss_k<N>(d, a, a_region, b, b_region, HeadRegions<D>::NR * 4, acc);
+  if constexpr (HeadRegions<D>::NARROW != 0)
+    sm90::wgmma_ss<0, N>(d, sm90::desc_kmajor32(a_narrow), sm90::desc_kmajor32(b_narrow), 1);
+}
+
 // The 16-column steps of the one-hot product: those of the rel_w columns
 // [gh, gh + gw), whatever keys a tile holds ...
 __device__ __forceinline__ unsigned rel_w_steps(int gh, int gw) {
@@ -206,35 +235,43 @@ __device__ __forceinline__ unsigned rel_h_steps(int k0, int k1, int gw, unsigned
 // ---- dq (+ delta, + drel) kernel ------------------------------------------------
 
 // Shared-memory plan of the dq kernel, in bytes from the 1024-aligned base:
-// Q and dO of the block (NR regions of 128 rows each) and, with rel tables,
-// T (the block's rows of (rel_h | rel_w), two regions); the ring (K, V and,
-// with tables, the one-hot E of the tile's keys); the barriers.
+// Q and dO of the block (each the regions of HeadRegions<D>, 128 rows: D / 64
+// swizzled regions of 64 columns and at d = 80 a narrow one of 16) and, with
+// rel tables, T (the block's rows of (rel_h | rel_w), two regions); the ring
+// (K, V, each the same regions of TK rows, and, with tables, the one-hot E
+// of the tile's keys); the barriers.
 template <int D, int TK, int STAGES, bool HAS_REL>
 struct DqPlan {
-  static constexpr int NR = D / 64;
+  static constexpr int NR = HeadRegions<D>::NR;
+  static constexpr int NARROW = HeadRegions<D>::NARROW;  // 0 or 16 columns
   static constexpr int QREGION = kSm90Rows * sm90::kRegionRowBytes;
   static constexpr int REGION = TK * sm90::kRegionRowBytes;
-  static constexpr int TILE = NR * REGION;  // K or V of one stage
+  static constexpr int QTILE = NR * QREGION + kSm90Rows * NARROW * 2;  // Q or dO
+  static constexpr int TILE = NR * REGION + TK * NARROW * 2;  // K or V of one stage
   static constexpr int ETILE = HAS_REL ? (kRelCols / 64) * REGION : 0;
   static constexpr int STAGE = 2 * TILE + ETILE;
-  static constexpr int T = 2 * NR * QREGION;
+  static constexpr int T = 2 * QTILE;
   static constexpr int RING = T + (HAS_REL ? (kRelCols / 64) * QREGION : 0);
   static constexpr int BARS = RING + STAGES * STAGE;
   static constexpr int TOTAL = BARS + 16 * STAGES + 16;
+  static_assert(QTILE % 1024 == 0 && TILE % 1024 == 0, "swizzled regions on 1024 bytes");
 };
 
 // S = Q K^T (+ T E^T) and dP = dO V^T of one ring stage for a warpgroup's
-// 64 rows, A from shared memory, as one wgmma group.
+// 64 rows, A from shared memory (qa, da: its rows of Q and dO in the
+// 64-column regions; qn, dn: in the narrow ones), as one wgmma group.
 template <int D, int TK, int NS, bool HAS_REL>
 __device__ __forceinline__ void issue_s_dp(float (&s)[NS][4], float (&dp)[NS][4], uint32_t qa,
-                                           uint32_t da, uint32_t ta, uint32_t ks,
-                                           unsigned bias) {
+                                           uint32_t qn, uint32_t da, uint32_t dn, uint32_t ta,
+                                           uint32_t ks, unsigned bias) {
   using P = DqPlan<D, TK, 2, HAS_REL>;
+  constexpr int NAR = P::NR * P::REGION;  // a tile's narrow region
   sm90::wgmma_fence();
-  wgmma_ss_k<TK>(s, qa, P::QREGION, ks, P::REGION, D / 16, false);
+  wgmma_ss_head<D, TK>(s, qa, P::QREGION, qn, ks, P::REGION, ks + NAR, false);
   if (HAS_REL && bias)
     wgmma_ss_k<TK>(s, ta, P::QREGION, ks + 2 * P::TILE, P::REGION, kRelCols / 16, true, bias);
-  wgmma_ss_k<TK>(dp, da, P::QREGION, ks + P::TILE, P::REGION, D / 16, false);
+  wgmma_ss_head<D, TK>(dp, da, P::QREGION, dn, ks + P::TILE, P::REGION, ks + P::TILE + NAR,
+                       false);
   sm90::wgmma_commit();
 }
 
@@ -243,14 +280,18 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
     attn_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
                             const __grid_constant__ CUtensorMap map_do,
                             const __grid_constant__ CUtensorMap map_k,
-                            const __grid_constant__ CUtensorMap map_v, BwdSm90Args a) {
+                            const __grid_constant__ CUtensorMap map_v,
+                            const __grid_constant__ CUtensorMap map_qn,
+                            const __grid_constant__ CUtensorMap map_don,
+                            const __grid_constant__ CUtensorMap map_kn,
+                            const __grid_constant__ CUtensorMap map_vn, BwdSm90Args a) {
   using namespace sm90;
   using bf16 = __nv_bfloat16;
   using P = DqPlan<D, TK, STAGES, HAS_REL>;
   static_assert(!DREL || HAS_REL, "table gradients need tables");
   constexpr int NS = TK / 8;
   constexpr int ND = D / 8;
-  constexpr int NR = D / 64;
+  constexpr int NR = P::NR;
   constexpr int NE = kRelCols / 8;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -285,11 +326,16 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
     if (t < kConsumerThreads + 32) {
       const int lane = t - kConsumerThreads;
       if (lane == 0) {
-        mbar_expect_tx(qd_full, P::T);
+        mbar_expect_tx(qd_full, 2 * P::QTILE);
 #pragma unroll
         for (int r = 0; r < NR; ++r) {
           tma_load_3d(base + r * P::QREGION, &map_q, h * D + r * 64, q0, b, qd_full);
-          tma_load_3d(base + (NR + r) * P::QREGION, &map_do, h * D + r * 64, q0, b, qd_full);
+          tma_load_3d(base + P::QTILE + r * P::QREGION, &map_do, h * D + r * 64, q0, b, qd_full);
+        }
+        if constexpr (P::NARROW != 0) {
+          tma_load_3d(base + NR * P::QREGION, &map_qn, h * D + NR * 64, q0, b, qd_full);
+          tma_load_3d(base + P::QTILE + NR * P::QREGION, &map_don, h * D + NR * 64, q0, b,
+                      qd_full);
         }
       }
       int stage = 0;
@@ -304,6 +350,11 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
           for (int r = 0; r < NR; ++r) {
             tma_load_3d(dst + r * P::REGION, &map_k, h * D + r * 64, kt * TK, b, full);
             tma_load_3d(dst + P::TILE + r * P::REGION, &map_v, h * D + r * 64, kt * TK, b, full);
+          }
+          if constexpr (P::NARROW != 0) {
+            tma_load_3d(dst + NR * P::REGION, &map_kn, h * D + NR * 64, kt * TK, b, full);
+            tma_load_3d(dst + P::TILE + NR * P::REGION, &map_vn, h * D + NR * 64, kt * TK, b,
+                        full);
           }
         }
         if (HAS_REL) {  // E of the tile's keys: the last tile's ones out, its in
@@ -405,12 +456,24 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
                 qsg + ((long long)b * a.nq + q0 + row) * a.heads * D + h * D + col) = v;
         }
       }
+      if constexpr (P::NARROW != 0) {  // the narrow region: one chunk a thread
+        const int off = wg * 64 * 32 + tw * 16;
+        uint4* p = reinterpret_cast<uint4*>(gen + NR * P::QREGION + off);
+        const uint4 v = scale_chunk(*p, a.scale);
+        *p = v;
+        const int row = off / 32;
+        const int col = NR * 64 + ((((off % 32) >> 4) ^ ((row >> 2) & 1)) << 3);
+        if (qsg != nullptr && q0 + row < a.nq)
+          *reinterpret_cast<uint4*>(
+              qsg + ((long long)b * a.nq + q0 + row) * a.heads * D + h * D + col) = v;
+      }
     }
     fence_proxy_async();
     named_barrier(2 + wg, 128);
 
     const uint32_t qa = base + wg * 64 * kRegionRowBytes;
-    const uint32_t da = qa + NR * P::QREGION;
+    const uint32_t qn = base + NR * P::QREGION + wg * 64 * P::NARROW * 2;
+    const uint32_t da = qa + P::QTILE, dn = qn + P::QTILE;
     const uint32_t ta = base + P::T + wg * 64 * kRegionRowBytes;
     // dQ and the table gradients start with the first tile's product (an
     // accumulator set by other instructions while products are in flight
@@ -430,7 +493,7 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
     mbar_wait(full0, 0);
     if (wg == 1) your_turn(wg);  // warpgroup 0 issues first
     my_turn(wg);
-    issue_s_dp<D, TK, NS, HAS_REL>(s, dp, qa, da, ta, base + P::RING,
+    issue_s_dp<D, TK, NS, HAS_REL>(s, dp, qa, qn, da, dn, ta, base + P::RING,
                                    HAS_REL && !scale_s ? steps(0) : 0u);
     your_turn(wg);
     for (int kt = 0; kt < nkt; ++kt) {
@@ -483,14 +546,14 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
       if (more) mbar_wait(full0 + 8 * next, next == 0 ? phase ^ 1 : phase);
       my_turn(wg);
       wgmma_fence();
-      wgmma_rs_k<D, TK>(dq, pa, ks, P::REGION, kt > 0);
+      wgmma_rs_head<D, TK>(dq, pa, ks, P::REGION, ks + NR * P::REGION, kt > 0);
       if constexpr (DREL) wgmma_rs_k<kRelCols, TK>(dr, pa, ks + 2 * P::TILE, P::REGION, kt > 0);
       wgmma_commit();
       stage = next;
       if (next == 0) phase ^= 1;
       if (more)
-        issue_s_dp<D, TK, NS, HAS_REL>(s, dp, qa, da, ta, base + P::RING + stage * P::STAGE,
-                                       next_steps);
+        issue_s_dp<D, TK, NS, HAS_REL>(s, dp, qa, qn, da, dn, ta,
+                                       base + P::RING + stage * P::STAGE, next_steps);
       your_turn(wg);
     }
     if (wg == 0) my_turn(wg);  // the last arrival of warpgroup 1
@@ -533,16 +596,21 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
 // ---- dk/dv kernel ---------------------------------------------------------------
 
 // Shared-memory plan of the dk/dv kernel, in bytes from the 1024-aligned
-// base: resident K and V and, with rel tables, the one-hot E of the block's
-// keys; the ring (q, do, round(q*scale) where it is needed, T of the tile's
-// rows); lse and delta of each stage; the barriers.
+// base: resident K and V (each the regions of HeadRegions<D>, 128 rows) and,
+// with rel tables, the one-hot E of the block's keys; the ring (q, do,
+// round(q*scale) where it is needed, each the same regions of TQ rows, T of
+// the tile's rows); lse and delta of each stage; the barriers.
 template <int D, int TQ, int STAGES, bool HAS_REL>
 struct DkvPlan {
+  static constexpr int NR = HeadRegions<D>::NR;
+  static constexpr int NARROW = HeadRegions<D>::NARROW;  // 0 or 16 columns
   static constexpr int KREGION = kSm90Rows * sm90::kRegionRowBytes;
   static constexpr int QREGION = TQ * sm90::kRegionRowBytes;
-  static constexpr int E = 2 * (D / 64) * KREGION;
+  static constexpr int KTILE = NR * KREGION + kSm90Rows * NARROW * 2;  // K or V
+  static constexpr int E = 2 * KTILE;
   static constexpr int RING = E + (HAS_REL ? (kRelCols / 64) * KREGION : 0);
-  static constexpr int TILE = (D / 64) * QREGION;  // q, do or round(q*scale)
+  static constexpr int TILE = NR * QREGION + TQ * NARROW * 2;  // q, do or round(q*scale)
+  static_assert(KTILE % 1024 == 0 && TILE % 1024 == 0, "swizzled regions on 1024 bytes");
   int tt, stage, stats, bars, total;
   __host__ __device__ explicit DkvPlan(bool prescale) {
     tt = (prescale ? 3 : 2) * TILE;
@@ -554,19 +622,21 @@ struct DkvPlan {
 };
 
 // S^T = K Q^T (+ E T^T) and dP^T = V dO^T of one ring stage: 64 keys x TQ
-// queries a warpgroup, as one wgmma group.
+// queries a warpgroup, as one wgmma group. k_res, v_res: the warpgroup's
+// keys in the 64-column regions; k_nar, v_nar: in the narrow ones.
 template <int D, int TQ, int NS, bool HAS_REL>
 __device__ __forceinline__ void issue_st_dpt(float (&s)[NS][4], float (&dp)[NS][4],
-                                             uint32_t k_res, uint32_t v_res, uint32_t e_res,
-                                             uint32_t q_tile, uint32_t do_tile, uint32_t t_tile,
-                                             unsigned bias) {
-  constexpr int KREGION = kSm90Rows * sm90::kRegionRowBytes;
-  constexpr int QREGION = TQ * sm90::kRegionRowBytes;
+                                             uint32_t k_res, uint32_t k_nar, uint32_t v_res,
+                                             uint32_t v_nar, uint32_t e_res, uint32_t q_tile,
+                                             uint32_t do_tile, uint32_t t_tile, unsigned bias) {
+  using P = DkvPlan<D, TQ, 2, HAS_REL>;
+  constexpr int NAR = P::NR * P::QREGION;  // a tile's narrow region
   sm90::wgmma_fence();
-  wgmma_ss_k<TQ>(s, k_res, KREGION, q_tile, QREGION, D / 16, false);
+  wgmma_ss_head<D, TQ>(s, k_res, P::KREGION, k_nar, q_tile, P::QREGION, q_tile + NAR, false);
   if (HAS_REL && bias)
-    wgmma_ss_k<TQ>(s, e_res, KREGION, t_tile, QREGION, kRelCols / 16, true, bias);
-  wgmma_ss_k<TQ>(dp, v_res, KREGION, do_tile, QREGION, D / 16, false);
+    wgmma_ss_k<TQ>(s, e_res, P::KREGION, t_tile, P::QREGION, kRelCols / 16, true, bias);
+  wgmma_ss_head<D, TQ>(dp, v_res, P::KREGION, v_nar, do_tile, P::QREGION, do_tile + NAR,
+                       false);
   sm90::wgmma_commit();
 }
 
@@ -577,13 +647,18 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
                              const __grid_constant__ CUtensorMap map_q,
                              const __grid_constant__ CUtensorMap map_do,
                              const __grid_constant__ CUtensorMap map_qs,
-                             const __grid_constant__ CUtensorMap map_tab, BwdSm90Args a) {
+                             const __grid_constant__ CUtensorMap map_tab,
+                             const __grid_constant__ CUtensorMap map_kn,
+                             const __grid_constant__ CUtensorMap map_vn,
+                             const __grid_constant__ CUtensorMap map_qn,
+                             const __grid_constant__ CUtensorMap map_don,
+                             const __grid_constant__ CUtensorMap map_qsn, BwdSm90Args a) {
   using namespace sm90;
   using bf16 = __nv_bfloat16;
   using P = DkvPlan<D, TQ, STAGES, HAS_REL>;
   constexpr int NS = TQ / 8;     // 8-query groups of a tile
   constexpr int ND = D / 8;
-  constexpr int NR = D / 64;
+  constexpr int NR = P::NR;
   constexpr int NE = kRelCols / 8;
   // Where the scale goes: on round(q*scale), which the dq kernel wrote, in
   // the packed family where it is no power of two; on the f32 scores in the
@@ -620,7 +695,12 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
 #pragma unroll
         for (int r = 0; r < NR; ++r) {
           tma_load_3d(base + r * P::KREGION, &map_k, h * D + r * 64, k0, b, kv_full);
-          tma_load_3d(base + (NR + r) * P::KREGION, &map_v, h * D + r * 64, k0, b, kv_full);
+          tma_load_3d(base + P::KTILE + r * P::KREGION, &map_v, h * D + r * 64, k0, b, kv_full);
+        }
+        if constexpr (P::NARROW != 0) {
+          tma_load_3d(base + NR * P::KREGION, &map_kn, h * D + NR * 64, k0, b, kv_full);
+          tma_load_3d(base + P::KTILE + NR * P::KREGION, &map_vn, h * D + NR * 64, k0, b,
+                      kv_full);
         }
       }
       int stage = 0;
@@ -648,6 +728,12 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
             if (prescale)
               tma_load_3d(dst + 2 * P::TILE + r * P::QREGION, &map_qs, h * D + r * 64, q0, b,
                           full);
+          }
+          if constexpr (P::NARROW != 0) {
+            const uint32_t nar = dst + NR * P::QREGION;
+            tma_load_3d(nar, &map_qn, h * D + NR * 64, q0, b, full);
+            tma_load_3d(nar + P::TILE, &map_don, h * D + NR * 64, q0, b, full);
+            if (prescale) tma_load_3d(nar + 2 * P::TILE, &map_qsn, h * D + NR * 64, q0, b, full);
           }
           if (HAS_REL) {
 #pragma unroll
@@ -679,7 +765,8 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
     const int rA = warp * 16 + g, rB = rA + 8;  // keys, block-relative
     const bool okA = k0 + rA < a.nk, okB = k0 + rB < a.nk;
     const uint32_t k_res = base + wg * 64 * kRegionRowBytes;   // this warpgroup's 64 keys
-    const uint32_t v_res = k_res + NR * P::KREGION;
+    const uint32_t k_nar = base + NR * P::KREGION + wg * 64 * P::NARROW * 2;
+    const uint32_t v_res = k_res + P::KTILE, v_nar = k_nar + P::KTILE;
     const uint32_t e_res = base + P::E + wg * 64 * kRegionRowBytes;
 
     // this warpgroup's rows of E, and K * scale in place where that is exact
@@ -695,6 +782,10 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
       for (int i = tw; i < NR * 512; i += 128) {
         uint4* p = reinterpret_cast<uint4*>(gen + (i >> 9) * P::KREGION +
                                             wg * 64 * kRegionRowBytes + (i & 511) * 16);
+        *p = scale_chunk(*p, a.scale);
+      }
+      if constexpr (P::NARROW != 0) {  // the narrow region: one chunk a thread
+        uint4* p = reinterpret_cast<uint4*>(gen + NR * P::KREGION + wg * 64 * 32 + tw * 16);
         *p = scale_chunk(*p, a.scale);
       }
     }
@@ -718,7 +809,7 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
       const uint32_t q_tile = base + P::RING;
       if (wg == 1) your_turn(wg);  // warpgroup 0 issues first
       my_turn(wg);
-      issue_st_dpt<D, TQ, NS, HAS_REL>(s, dp, k_res, v_res, e_res, q_tile + qso,
+      issue_st_dpt<D, TQ, NS, HAS_REL>(s, dp, k_res, k_nar, v_res, v_nar, e_res, q_tile + qso,
                                        q_tile + P::TILE, q_tile + plan.tt, bias);
       your_turn(wg);
     }
@@ -776,15 +867,16 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
       if (more) mbar_wait(full0 + 8 * next, next == 0 ? phase ^ 1 : phase);
       my_turn(wg);
       wgmma_fence();
-      wgmma_rs_k<D, TQ>(dk, sa, q_tile, P::QREGION, qt > 0);
-      wgmma_rs_k<D, TQ>(dv, pa, q_tile + P::TILE, P::QREGION, qt > 0);
+      const uint32_t do_tile = q_tile + P::TILE;
+      wgmma_rs_head<D, TQ>(dk, sa, q_tile, P::QREGION, q_tile + NR * P::QREGION, qt > 0);
+      wgmma_rs_head<D, TQ>(dv, pa, do_tile, P::QREGION, do_tile + NR * P::QREGION, qt > 0);
       wgmma_commit();
       stage = next;
       if (next == 0) phase ^= 1;
       if (more) {
         const uint32_t nt = base + P::RING + stage * plan.stage;
-        issue_st_dpt<D, TQ, NS, HAS_REL>(s, dp, k_res, v_res, e_res, nt + qso, nt + P::TILE,
-                                         nt + plan.tt, bias);
+        issue_st_dpt<D, TQ, NS, HAS_REL>(s, dp, k_res, k_nar, v_res, v_nar, e_res, nt + qso,
+                                         nt + P::TILE, nt + plan.tt, bias);
       }
       your_turn(wg);
     }
@@ -834,7 +926,8 @@ template <int D, int TK, int STAGES, bool SCALE_SCORES, bool HAS_REL, bool DREL>
 cudaError_t launch_dq_sm90(const BwdSm90Args& a, const BwdSm90Operands& p, cudaStream_t stream) {
   const size_t smem = 1024 + (size_t)DqPlan<D, TK, STAGES, HAS_REL>::TOTAL;
   if (smem > (size_t)kMaxSmemBytes || !grid_ok(a, p.batch)) return cudaErrorInvalidValue;
-  CUtensorMap map_q, map_do, map_k, map_v;
+  constexpr int NARROW = HeadRegions<D>::NARROW;
+  CUtensorMap map_q, map_do, map_k, map_v, map_qn, map_don, map_kn, map_vn;
   cudaError_t err =
       sm90::make_map(&map_q, p.q, a.heads * D, a.nq, p.batch, p.q_rs, p.q_bs, kSm90Rows);
   if (err != cudaSuccess) return err;
@@ -844,11 +937,27 @@ cudaError_t launch_dq_sm90(const BwdSm90Args& a, const BwdSm90Operands& p, cudaS
   if (err != cudaSuccess) return err;
   err = sm90::make_map(&map_v, p.v, a.heads * D, a.nk, p.batch, p.v_rs, p.v_bs, TK);
   if (err != cudaSuccess) return err;
+  map_qn = map_q, map_don = map_do, map_kn = map_k, map_vn = map_v;  // unread below d = 80
+  if (NARROW != 0) {  // boxes of the 16 columns past the first region, 32-byte swizzled
+    err = sm90::make_map(&map_qn, p.q, a.heads * D, a.nq, p.batch, p.q_rs, p.q_bs, kSm90Rows,
+                         NARROW, 32);
+    if (err != cudaSuccess) return err;
+    err = sm90::make_map(&map_don, p.dout, a.heads * D, a.nq, p.batch, p.do_rs, p.do_bs,
+                         kSm90Rows, NARROW, 32);
+    if (err != cudaSuccess) return err;
+    err = sm90::make_map(&map_kn, p.k, a.heads * D, a.nk, p.batch, p.k_rs, p.k_bs, TK, NARROW,
+                         32);
+    if (err != cudaSuccess) return err;
+    err = sm90::make_map(&map_vn, p.v, a.heads * D, a.nk, p.batch, p.v_rs, p.v_bs, TK, NARROW,
+                         32);
+    if (err != cudaSuccess) return err;
+  }
   auto kernel = attn_bwd_dq_sm90_kernel<D, TK, STAGES, SCALE_SCORES, HAS_REL, DREL>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((a.nq + kSm90Rows - 1) / kSm90Rows, a.heads, p.batch);
-  kernel<<<grid, kSm90Threads, smem, stream>>>(map_q, map_do, map_k, map_v, a);
+  kernel<<<grid, kSm90Threads, smem, stream>>>(map_q, map_do, map_k, map_v, map_qn, map_don,
+                                               map_kn, map_vn, a);
   return cudaGetLastError();
 }
 
@@ -860,7 +969,9 @@ cudaError_t launch_dkv_sm90(const BwdSm90Args& a, const BwdSm90Operands& p,
     return cudaErrorInvalidValue;
   const size_t smem = 1024 + (size_t)DkvPlan<D, TQ, STAGES, HAS_REL>(prescale).total;
   if (smem > (size_t)kMaxSmemBytes || !grid_ok(a, p.batch)) return cudaErrorInvalidValue;
-  CUtensorMap map_k, map_v, map_q, map_do, map_qs, map_tab;
+  constexpr int NARROW = HeadRegions<D>::NARROW;
+  CUtensorMap map_k, map_v, map_q, map_do, map_qs, map_tab, map_kn, map_vn, map_qn, map_don,
+      map_qsn;
   cudaError_t err =
       sm90::make_map(&map_k, p.k, a.heads * D, a.nk, p.batch, p.k_rs, p.k_bs, kSm90Rows);
   if (err != cudaSuccess) return err;
@@ -881,11 +992,33 @@ cudaError_t launch_dkv_sm90(const BwdSm90Args& a, const BwdSm90Operands& p,
     err = sm90::make_map(&map_tab, a.tab, a.heads * kRelCols, a.nq, p.batch, rs, rs * a.nq, TQ);
     if (err != cudaSuccess) return err;
   }
+  map_kn = map_k, map_vn = map_v, map_qn = map_q, map_don = map_do, map_qsn = map_qs;
+  if (NARROW != 0) {  // boxes of the 16 columns past the first region, 32-byte swizzled
+    err = sm90::make_map(&map_kn, p.k, a.heads * D, a.nk, p.batch, p.k_rs, p.k_bs, kSm90Rows,
+                         NARROW, 32);
+    if (err != cudaSuccess) return err;
+    err = sm90::make_map(&map_vn, p.v, a.heads * D, a.nk, p.batch, p.v_rs, p.v_bs, kSm90Rows,
+                         NARROW, 32);
+    if (err != cudaSuccess) return err;
+    err = sm90::make_map(&map_qn, p.q, a.heads * D, a.nq, p.batch, p.q_rs, p.q_bs, TQ, NARROW,
+                         32);
+    if (err != cudaSuccess) return err;
+    err = sm90::make_map(&map_don, p.dout, a.heads * D, a.nq, p.batch, p.do_rs, p.do_bs, TQ,
+                         NARROW, 32);
+    if (err != cudaSuccess) return err;
+    if (prescale) {
+      const long long rs = (long long)a.heads * D;
+      err = sm90::make_map(&map_qsn, a.qs, a.heads * D, a.nq, p.batch, rs, rs * a.nq, TQ,
+                           NARROW, 32);
+      if (err != cudaSuccess) return err;
+    }
+  }
   auto kernel = attn_bwd_dkv_sm90_kernel<D, TQ, STAGES, SCALE_SCORES, HAS_REL>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((a.nk + kSm90Rows - 1) / kSm90Rows, a.heads, p.batch);
-  kernel<<<grid, kSm90Threads, smem, stream>>>(map_k, map_v, map_q, map_do, map_qs, map_tab, a);
+  kernel<<<grid, kSm90Threads, smem, stream>>>(map_k, map_v, map_q, map_do, map_qs, map_tab,
+                                               map_kn, map_vn, map_qn, map_don, map_qsn, a);
   return cudaGetLastError();
 }
 
@@ -895,8 +1028,8 @@ cudaError_t launch_dkv_sm90(const BwdSm90Args& a, const BwdSm90Operands& p,
 // and, with rel tables, their rows side by side into `tab` (B, nq, H,
 // kRelCols) and, where the packed family's scale is no power of two,
 // round(q*scale) into `qs` (B, nq, H*d); the dk/dv kernel reads them. bf16
-// only, d = 64 or 128, rel grids with gh + gw <= kRelCols; anything else is
-// refused.
+// only, d = 64, 80 or 128, rel grids with gh + gw <= kRelCols; anything else
+// is refused.
 template <bool SCALE_SCORES, int WHICH>
 int attention_bwd_sm90_entry(int dtype, const void* q, const void* k, const void* v,
                              const void* dout, const void* out, const void* lse, void* delta,
@@ -945,6 +1078,11 @@ int attention_bwd_sm90_entry(int dtype, const void* q, const void* k, const void
       if (rel) return (int)launch_dq_sm90<128, 32, 4, SCALE_SCORES, true, false>(a, p, s);
       return (int)launch_dq_sm90<128, 64, 3, SCALE_SCORES, false, false>(a, p, s);
     }
+    if (d == 80) {  // 64 + 16 columns: 36 KB a stage with the one-hot E
+      if (drel) return (int)launch_dq_sm90<80, 64, 4, SCALE_SCORES, true, true>(a, p, s);
+      if (rel) return (int)launch_dq_sm90<80, 64, 4, SCALE_SCORES, true, false>(a, p, s);
+      return (int)launch_dq_sm90<80, 64, 4, SCALE_SCORES, false, false>(a, p, s);
+    }
   } else {
     if (d == 64)
       return (int)(rel ? launch_dkv_sm90<64, 64, 3, SCALE_SCORES, true>(a, p, s)
@@ -954,6 +1092,9 @@ int attention_bwd_sm90_entry(int dtype, const void* q, const void* k, const void
     if (d == 128)
       return (int)(rel ? launch_dkv_sm90<128, 48, 2, SCALE_SCORES, true>(a, p, s)
                        : launch_dkv_sm90<128, 48, 3, SCALE_SCORES, false>(a, p, s));
+    if (d == 80)  // 64 + 16 columns: 64-query tiles, 46 KB a stage at most
+      return (int)(rel ? launch_dkv_sm90<80, 64, 3, SCALE_SCORES, true>(a, p, s)
+                       : launch_dkv_sm90<80, 64, 3, SCALE_SCORES, false>(a, p, s));
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -13,8 +13,8 @@
 // at d = 64, 80 or 128 in bf16 with many keys (ops/_attention.py::attention_body
 // says which launch comes here). The windowed shapes (K1, K6), d = 32 and
 // f32 stay with attention_fwd.cuh. Head dim 80 (ViT-H's global blocks, K2
-// and K5) runs here forward only: its backward stays with the tile bodies of
-// attention_bwd.cuh, which read this forward's lse (the same function).
+// and K5) runs here and its backward on the Hopper backward body of
+// attention_bwd_sm90.cuh in the same layout, which reads this forward's lse.
 //
 // What bounds it on the H100: operations, 4*N*M*d flops a head against
 // O((N + M)*d) bytes (K2 at B 4, H 12, N 4096, d 64: 206 GFLOP, 0.208 ms at
@@ -410,20 +410,7 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
   // an n64 product over the first region and an n16 one over the narrow one
   auto issue_pv = [&](int st, bool acc) {
     const uint32_t vs = base + P::RING + st * 2 * P::TILE + P::TILE;
-    if constexpr (P::NARROW == 0) {
-      wgmma_rs_k<D, TK>(o, pa, vs, P::REGION, acc);
-    } else {
-      static_assert(P::NR == 1 && P::NARROW == 16, "d = 80: 64 + 16 columns");
-      float(&o64)[8][4] = *reinterpret_cast<float(*)[8][4]>(&o[0][0]);
-      float(&o16)[2][4] = *reinterpret_cast<float(*)[2][4]>(&o[8][0]);
-#pragma unroll
-      for (int kk = 0; kk < TK / 16; ++kk) {
-        wgmma_rs<1, 64>(o64, pa[kk], desc_mnmajor(vs + kk * 16 * kRegionRowBytes, P::REGION),
-                        acc || kk > 0);
-        wgmma_rs<1, 16>(o16, pa[kk], desc_mnmajor32(vs + P::REGION + kk * 16 * 32),
-                        acc || kk > 0);
-      }
-    }
+    wgmma_rs_head<D, TK>(o, pa, vs, P::REGION, vs + P::NR * P::REGION, acc);
   };
   // The online softmax of rows rA, rB over the tile's scores (finite
   // maxima: every tile holds a key below nk), p in place of the scores;

@@ -69,6 +69,30 @@ __device__ __forceinline__ void wgmma_rs_k(float (&d)[N / 8][4], const uint32_t 
     wgmma_rs<1, N>(d, a[kk], desc_mnmajor(b + kk * 16 * kRegionRowBytes, region), acc || kk > 0);
 }
 
+// The same over a head of D columns: B's 64-column regions at b and, at
+// d = 80, its narrow region of the last 16 columns at b_narrow (TK rows of
+// 32 bytes), an n64 and an n16 product a k-step.
+template <int D, int TK>
+__device__ __forceinline__ void wgmma_rs_head(float (&d)[D / 8][4],
+                                              const uint32_t (&a)[TK / 16][4], uint32_t b,
+                                              int region, uint32_t b_narrow, bool acc) {
+  using namespace sm90;
+  if constexpr (HeadRegions<D>::NARROW == 0) {
+    wgmma_rs_k<D, TK>(d, a, b, region, acc);
+  } else {
+    static_assert(HeadRegions<D>::NR == 1 && HeadRegions<D>::NARROW == 16,
+                  "d = 80: 64 + 16 columns");
+    float(&d64)[8][4] = *reinterpret_cast<float(*)[8][4]>(&d[0][0]);
+    float(&d16)[2][4] = *reinterpret_cast<float(*)[2][4]>(&d[8][0]);
+#pragma unroll
+    for (int kk = 0; kk < TK / 16; ++kk) {
+      wgmma_rs<1, 64>(d64, a[kk], desc_mnmajor(b + kk * 16 * kRegionRowBytes, region),
+                      acc || kk > 0);
+      wgmma_rs<1, 16>(d16, a[kk], desc_mnmajor32(b_narrow + kk * 16 * 32), acc || kk > 0);
+    }
+  }
+}
+
 // The two consumer warpgroups issue their products in turns: warpgroup w
 // waits at barrier 4 + w, which completes when the other one has arrived
 // there after issuing its own, so one's exponentials run under the other's

@@ -74,7 +74,8 @@ class WildlifeMapper(nn.Module):
             hfc_ffn_dim=cfg.hfc.ffn_dim, hfc_proj_dim=cfg.hfc.proj_dim,
             hfc_dropout=cfg.hfc.dropout, use_flash=cfg.use_flash_attention,
             attn_impl=cfg.attn_impl, content_grid=cfg.content_grid,
-            hfc_scrambled_reshape=cfg.hfc.compat_scrambled_reshape)
+            hfc_scrambled_reshape=cfg.hfc.compat_scrambled_reshape,
+            remat_blocks=cfg.remat_blocks)
         self.prompt_encoder = nn.ModuleDict({
             "pe_layer": PositionEmbeddingRandom(
                 cfg.decoder.transformer_dim // 2)})
@@ -130,10 +131,6 @@ class WildlifeMapper(nn.Module):
                 ) -> Dict[str, torch.Tensor]:
         cfg = self.config
         dt = cfg.compute_dtype
-        if cfg.remat_blocks and not deterministic:
-            raise NotImplementedError(
-                "remat_blocks=True is not ported for training yet (ROADMAP "
-                "queue 1: remat and the large models)")
         if cfg.crop_prologue and cfg.content_size is not None:
             # From-scratch mode: the whole network, HFC included, runs on
             # the content pixels.

@@ -9,20 +9,27 @@ windowed attention (K1) below GLOBAL_N_THRESHOLD tokens, global attention
 With attn_impl "grouped" the qkv is split into per-head (B*heads, N, hd)
 operands, as the reference does, and attention runs the grouped kernels:
 K6 below the threshold, K5 at or above it; the MLP is the plain one.
+
+With remat_blocks a block keeps, for the backward, its input and its
+attention output and recomputes the rest there (the JAX package's remat
+policy, vit.py:381-391): see Block.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import rel_pos as rel_pos_ops
 from ..ops import windows as window_ops
 from ..ops.flash_attention import flash_attention_rel_pos
 from ..ops.flash_attention_v2 import flash_attention_packed
+from ..ops.fused_mlp import outputs_unread
 from ..ops.windowed_attention import windowed_attention_rel_pos
 from ..ops.windowed_attention_v2 import windowed_attention_packed
 from .common import LayerNorm, Linear, MLPBlock
@@ -153,16 +160,37 @@ class RelPosAttention(nn.Module):
         return self.proj(out).reshape(b, h, w, self.dim)
 
 
+def _mlp_recompute_contexts():
+    """checkpoint's context_fn for the MLP segment: nothing around the
+    forward, `outputs_unread` around the recompute."""
+    return contextlib.nullcontext(), outputs_unread()
+
+
 class Block(nn.Module):
     """Pre-norm transformer block with optional windowing
-    (reference image_encoder.py:141-204)."""
+    (reference image_encoder.py:141-204).
+
+    With `remat` and gradients enabled the block runs as two segments of
+    torch.utils.checkpoint (non-reentrant, which needs no parameter of the
+    block to take a gradient: in the fine-tune only the input carries one),
+    which keep for the backward only
+    their inputs: the block's input and its attention output (after
+    window_unpartition, before the residual add), the JAX package's
+    save_only_these_names("attn_out"). The backward recomputes norm1, qkv,
+    the rel-pos tables, the attention forward (its kernel launched again)
+    and proj from the input, and the residual add and norm2 from both; the
+    MLP's forward is not run again (its backward's dh kernel recomputes the
+    hidden from the MLP's input; `outputs_unread`). The blocks draw no
+    random numbers, so the recompute is the forward's own arithmetic."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, use_rel_pos: bool = True,
                  window_size: int = 0,
                  table_size: Tuple[int, int] = (64, 64),
-                 use_flash: bool = False, attn_impl: str = "packed"):
+                 use_flash: bool = False, attn_impl: str = "packed",
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.window_size = window_size
         self.norm1 = LayerNorm(dim)
         self.attn = RelPosAttention(
@@ -174,8 +202,8 @@ class Block(nn.Module):
         self.mlp = MLPBlock(dim, int(dim * mlp_ratio),
                             use_fused=use_flash and attn_impl == "packed")
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        shortcut = x
+    def _attention(self, x: torch.Tensor) -> torch.Tensor:
+        """norm1 -> (windows) -> attention -> (back to the grid)."""
         x = self.norm1(x)
         if self.window_size > 0:
             h, w = x.shape[1], x.shape[2]
@@ -184,8 +212,21 @@ class Block(nn.Module):
         if self.window_size > 0:
             x = window_ops.window_unpartition(x, self.window_size, pad_hw,
                                               (h, w))
-        x = shortcut + x
+        return x
+
+    def _residual_mlp(self, shortcut: torch.Tensor,
+                      attn_out: torch.Tensor) -> torch.Tensor:
+        x = shortcut + attn_out
         return x + self.mlp(self.norm2(x))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not (self.remat and torch.is_grad_enabled()):
+            return self._residual_mlp(x, self._attention(x))
+        attn_out = checkpoint(self._attention, x, use_reentrant=False,
+                              preserve_rng_state=False)
+        return checkpoint(self._residual_mlp, x, attn_out,
+                          use_reentrant=False, preserve_rng_state=False,
+                          context_fn=_mlp_recompute_contexts)
 
 
 class Neck(nn.Sequential):
@@ -224,7 +265,8 @@ class ImageEncoderViT(nn.Module):
                  hfc_dropout: float = 0.1, use_flash: bool = False,
                  attn_impl: str = "packed",
                  content_grid: Optional[int] = None,
-                 hfc_scrambled_reshape: bool = True):
+                 hfc_scrambled_reshape: bool = True,
+                 remat_blocks: bool = False):
         super().__init__()
         from .adaptor import CrossAttentionHfcPatch
 
@@ -246,7 +288,7 @@ class ImageEncoderViT(nn.Module):
                   qkv_bias=qkv_bias, use_rel_pos=use_rel_pos,
                   window_size=0 if i in global_attn_indexes else window_size,
                   table_size=(self.grid, self.grid), use_flash=use_flash,
-                  attn_impl=attn_impl)
+                  attn_impl=attn_impl, remat=remat_blocks)
             for i in range(depth))
         self.neck = Neck(embed_dim, out_chans)
 

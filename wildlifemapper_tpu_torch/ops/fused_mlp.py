@@ -38,12 +38,15 @@ operands in their own dtype and accumulates in f32, with PyTorch's
 reduced-precision (bf16) split-K reduction switched off around it.
 
 On a CPU tensor the wrapper runs the plain version and autograd
-differentiates it; on a CUDA tensor it launches the kernels or raises.
+differentiates it; on a CUDA tensor it launches the kernels or raises
+(within `outputs_unread()` it launches nothing: see there).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -206,12 +209,40 @@ def _fused_mlp_launch(x, w1, b1, w2, b2):
     return out
 
 
+# per thread, as torch's grad mode: the recompute runs in whichever thread
+# the autograd engine runs the backward, and enters the context there
+_state = threading.local()
+
+
+@contextlib.contextmanager
+def outputs_unread():
+    """For a forward whose output nobody reads: within this context the
+    CUDA wrapper keeps what its backward needs (its inputs) and launches no
+    kernel; the output it returns is a zero of the output's shape and dtype
+    that holds no memory (one element, stride 0), not the MLP's result. A
+    recompute of torch.utils.checkpoint is such a forward: it runs only for
+    the tensors it saves for the backward, and the backward's dh kernel
+    recomputes the hidden from the input, so the MLP's forward need not run
+    again, as the JAX package's remat leaves out a forward whose result its
+    backward does not read. The plain version (a CPU tensor) saves its
+    hidden and runs as always."""
+    before = getattr(_state, "outputs_unread", False)
+    _state.outputs_unread = True
+    try:
+        yield
+    finally:
+        _state.outputs_unread = before
+
+
 class _FusedMlpFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2):
         x, w1, b1, w2, b2 = (t.contiguous() for t in (x, w1, b1, w2, b2))
-        out = _fused_mlp_launch(x, w1, b1, w2, b2)
-        fused_mlp.launches += 1
+        if getattr(_state, "outputs_unread", False):
+            out = x.new_zeros(()).expand_as(x)
+        else:
+            out = _fused_mlp_launch(x, w1, b1, w2, b2)
+            fused_mlp.launches += 1
         if any(ctx.needs_input_grad):
             ctx.save_for_backward(x, w1, b1, w2)
         return out

@@ -17,13 +17,19 @@ TRAINING_CONFIGS = ("fine_tune", "from_scratch")
 
 
 def training_config(name: str, dtype: str = "bfloat16",
-                    use_kernels: bool = True, batch_size: int = 4) -> Config:
-    """ViT-B in one of two set-ups. 'fine_tune': full canvas, frozen
-    encoder, hfc.dropout 0.1 (the reference's way to train from the SAM
-    checkpoint). 'from_scratch':
-    crop_prologue at content 768, window 12, nothing frozen, hfc.dropout 0
-    (so the adaptor's attention runs its kernel too)."""
-    model = model_config("vit_b", dtype=dtype, use_flash_attention=use_kernels)
+                    use_kernels: bool = True, batch_size: int = 4,
+                    variant: str = "vit_b",
+                    remat_blocks: bool = False) -> Config:
+    """An encoder (`variant`: vit_b, vit_l or vit_h, at its published
+    width and depth) in one of two set-ups. 'fine_tune': full canvas,
+    frozen encoder, hfc.dropout 0.1 (the reference's way to train from the
+    SAM checkpoint). 'from_scratch': crop_prologue at content 768, window
+    12, nothing frozen, hfc.dropout 0 (so the adaptor's attention runs its
+    kernel too). `remat_blocks` recomputes each block's activations in the
+    backward but its input and attention output (models/vit.py: Block), the
+    knob that fits ViT-L / ViT-H training batches in device memory."""
+    model = model_config(variant, dtype=dtype, use_flash_attention=use_kernels,
+                         remat_blocks=remat_blocks)
     if name == "fine_tune":
         freeze = True
     elif name == "from_scratch":
