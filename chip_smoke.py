@@ -9,18 +9,18 @@ forward, set criterion with the Hungarian match, backward through the
 backward kernels, clip, AdamW), each in both layouts of the attention
 kernels: attn_impl="packed" (K1 windowed, K2 global, K3 MLP, K4 adaptor) and
 attn_impl="grouped" (K6 windowed, K5 global, K4; plain MLP). Also serves
-ViT-L and ViT-H through the packed kernels, and trains the ViT-H fine-tune
-with remat_blocks at its full width and depth (the path of the head-dim-80
-Hopper backward) in both layouts.
+ViT-L and ViT-H through the packed kernels (ViT-H also in f32), and trains
+the ViT-H fine-tune with remat_blocks at its full width and depth (the path
+of the head-dim-80 Hopper and resident backward) in both layouts.
 Phases, one JSON line each; any failure raises and exits non-zero:
 
   1. device: the card's name and power limit; build the kernels from
      wildlifemapper_tpu_torch/csrc (timed), registers and spills of every
      instantiation, the Hopper (wgmma + TMA) and the resident (windowed)
      bodies included, the latter, the Hopper forward and backward, the K3
-     GEMM body and every head-dim-80 instantiation (the tile bodies, the
-     Hopper forward and backward, the resident forward) held to no spill,
-     and no line of
+     GEMM body, the f32 K3 bodies at D 1280 and every head-dim-80
+     instantiation (the tile bodies, the Hopper forward and backward, the
+     resident forward and backward) held to no spill, and no line of
      ptxas saying it serialized the wgmma products of a kernel (C7515);
      TF32 off.
   2. kernels: each kernel against its plain PyTorch version on the card at
@@ -37,7 +37,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      7x7 with odd table widths, 100 = 10x10, one window-head, a window count
      that is a multiple of nothing); K3 at R = 16384 and 9216 and at rows
      ragged against the GEMM body's 128-row tiles (1, 129, 1000), ViT-L and
-     ViT-H widths (bf16 only at D = 1280, which the f32 body refuses); K1,
+     ViT-H widths (f32 at D = 1280 on 16-row tiles); K1,
      K2, K5 and K6 at head dim 80 at ViT-H's shapes (25 windows of 196 and
      4096 tokens, 16 heads, batch 1; bf16 through the Hopper and the
      resident bodies) and ragged against them (K2 on a 25x40 grid, K5 on
@@ -64,6 +64,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      launch counts of each run (ViT-H's d = 80 attention runs the Hopper
      body in its global blocks and the resident body in its windows, K3 the
      GEMM body), the forward's time beside the card's name and power limit.
+     Then ViT-B and ViT-H in f32 at batch 1 through the packed kernels (K3's
+     scalar body, at D 1280 for ViT-H; the tile attention bodies) against the
+     plain path with the same weights, logits and boxes at the full model's
+     atol 1e-4 / rtol 1e-3, with their launch counts.
   6. kernels, backward: the forward's lse, and the gradients that autograd
      takes through each public wrapper on the card, against the plain
      backward at the training shapes of both configurations (K1 and K6
@@ -71,8 +75,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      9216, ragged at R = 1000 and at ViT-H's widths; all five attention
      kernels also ragged as in phase 2, K1, K2, K5 and K6 also at head dim
      80 at ViT-H's shapes, K2 and K5 there through the Hopper body both ways
-     at N = 4096 and 2304 and ragged (25x40, 20x50), K1 and K6 the resident
-     forward beside the tile backward): once with
+     at N = 4096 and 2304 and ragged (25x40, 20x50), K1 and K6 through the
+     resident body both ways at N = 196 and ragged (7x7 with odd tables,
+     10x10); K3 in f32 also at ViT-H's widths): once with
      every input requiring a gradient (dqkv written by stride into one
      packed tensor, drel, the MLP's weight gradients; K5 with 4-D and with
      3-D tables) and once with the activations alone
@@ -100,7 +105,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      bf16, batch 4, three steps in each layout: finite, falling loss, frozen
      parameters bit-identical, launch counts with the recomputed attention
      forwards counted (K2 / K5 backward on the Hopper body at d = 80, K1 /
-     K6 on the tile bodies), one wait a step, peak memory; the same first
+     K6 one resident launch a block and no plain delta pass), one wait a
+     step, peak memory; the same first
      step without remat_blocks (losses and gradients against it, whether
      bit-identical, its peak memory) and both steps' times in turns.
   9. times, training: ms per step with kernels and on the plain path
@@ -117,9 +123,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      call over 20 launches and the card's name and power limit beside it
      (`forward_time`), ViT-H's K1, K2, K5 and K6 (head dim 80) at batch 1
      and 4 the same way in turns with the tile body, the whole backward of
-     K2 and K5 (the Hopper body) in turns with the tile bodies' at batch 1
-     and 4 and that of K1 and K6 (the tile bodies) at batch 1, beside the
-     plain version and the library call; every kernel beside its
+     K2 and K5 (the Hopper body) and of K1 and K6 (the resident body) in
+     turns with the tile bodies' at batch 1 and 4, beside the plain version
+     (batch 1) and the library call; every kernel beside its
      bound (the larger of its FLOPs over 989
      TFLOP/s and its bytes over 3.35 TB/s); K3 forward and dh at R = 16384
      and 9216 (ViT-B) and at ViT-L's and ViT-H's widths over 20 launches in
@@ -289,7 +295,7 @@ def main() -> int:
     from wildlifemapper_tpu_torch.eval.postprocess import (batched_nms,
                                                            postprocess)
     from wildlifemapper_tpu_torch.models import WildlifeMapper
-    from wildlifemapper_tpu_torch.ops import _build
+    from wildlifemapper_tpu_torch.ops import _attention, _build
     from wildlifemapper_tpu_torch.ops._attention import (
         _backward_kernel_launch, _sm90_backward_launch,
         attention_backward_launch, attention_backward_plain, attention_body,
@@ -330,21 +336,24 @@ def main() -> int:
     emit("device", kind=kind, gpu=gpu, count=torch.cuda.device_count(),
          torch=torch.__version__, cuda=torch.version.cuda,
          build_seconds=round(build_s, 2), ptxas=ptxas)
-    # the resident forward at d = 64 and 80 and its backward at d = 64, two
-    # instantiations (key tiles) each in each family
+    # the resident forward and backward at d = 64 and 80, two instantiations
+    # (key tiles) each in each family
     resident_ptxas = [line for line in ptxas if "resident_kernel" in line]
     spilling = [line for line in resident_ptxas if ", 0 B spilled" not in line]
-    if len(resident_ptxas) < 12 or spilling:
+    if len(resident_ptxas) < 16 or spilling:
         raise AssertionError(f"resident bodies: {len(resident_ptxas)} ptxas "
                              f"lines, spilling: {spilling}")
-    # the K3 GEMM body's instantiations; head dim 80: the tile bodies (the
+    # the K3 GEMM body's instantiations and the f32 K3 bodies at D 1280 (the
+    # forward on 16-row tiles, dh); head dim 80: the tile bodies (the
     # f32 forward, the bf16 and f32 backward), the Hopper forward (with and
     # without tables), the Hopper backward (the dq kernel with tables and
     # table gradients, with tables, without; the dk/dv kernel with and
-    # without tables) and the resident forward (two key-tile counts), each
-    # in both families; the Hopper forward's seven a family and the Hopper
-    # backward's fifteen
+    # without tables) and the resident forward and backward (two key-tile
+    # counts each), each in both families; the Hopper forward's seven a
+    # family and the Hopper backward's fifteen
     gemm_ptxas = [line for line in ptxas if "fused_mlp_gemm_sm90" in line]
+    k3_f32_d1280 = [line for line in ptxas if line.startswith(
+        ("fused_mlp_kernel<float,40,16>", "mlp_dh_kernel<1280>"))]
     d80 = {"tile": [], "hopper": [], "resident": []}
     for line in ptxas:
         if re.search(r"kernel<(float,)?80[,>]", line):
@@ -354,14 +363,18 @@ def main() -> int:
                  if line.startswith("attn_fwd_sm90")]
     bwd_ptxas = [line for line in ptxas
                  if line.startswith(("attn_bwd_dq_sm90", "attn_bwd_dkv_sm90"))]
-    spilling = [line for line in gemm_ptxas + sum(d80.values(), [])
-                + fwd_ptxas + bwd_ptxas if ", 0 B spilled" not in line]
-    emit("ptxas_held_to_no_spill", gemm=gemm_ptxas, head_dim_80=d80,
+    spilling = [line for line in gemm_ptxas + k3_f32_d1280
+                + sum(d80.values(), []) + fwd_ptxas + bwd_ptxas
+                if ", 0 B spilled" not in line]
+    emit("ptxas_held_to_no_spill", gemm=gemm_ptxas,
+         k3_f32_d1280=k3_f32_d1280, head_dim_80=d80,
          hopper_forward=fwd_ptxas, hopper_backward=bwd_ptxas)
-    if (len(gemm_ptxas) < 3 or len(d80["tile"]) < 12
-            or len(d80["hopper"]) < 14 or len(d80["resident"]) < 4
+    if (len(gemm_ptxas) < 3 or len(k3_f32_d1280) < 2
+            or len(d80["tile"]) < 12
+            or len(d80["hopper"]) < 14 or len(d80["resident"]) < 8
             or len(fwd_ptxas) < 14 or len(bwd_ptxas) < 30 or spilling):
         raise AssertionError(f"K3 GEMM body: {len(gemm_ptxas)} ptxas lines, "
+                             f"f32 K3 at D 1280: {len(k3_f32_d1280)}, "
                              f"d = 80 bodies: "
                              f"{ {k: len(v) for k, v in d80.items()} }, "
                              f"Hopper forward: {len(fwd_ptxas)}, backward: "
@@ -531,7 +544,7 @@ def main() -> int:
         ("windowed_attention_rel_pos", "BWH=1 N=144",
          lambda: grouped_args(1, (12, 12))),
         # ragged against the K3 GEMM body's 128-row tiles and 256-column
-        # tiles; ViT-L and ViT-H widths (the f32 body stops at D = 1024)
+        # tiles; ViT-L and ViT-H widths (f32: 16-row tiles at D = 1280)
         ("fused_mlp", "R=1000", lambda: mlp_args(1000)),
         ("fused_mlp", "R=129 D=1024 F=4096", lambda: mlp_args(129, 1024, 4096)),
         ("fused_mlp", "R=1 D=1280 F=5120", lambda: mlp_args(1, 1280, 5120)),
@@ -559,8 +572,6 @@ def main() -> int:
         ("windowed_attention_rel_pos", "BWH=10 N=100 (10x10) d=80",
          lambda: grouped_args(10, (10, 10), d=80)),
     ]
-    # shapes no f32 body takes: the wrapper must refuse them with the reason
-    bf16_only = {"R=1 D=1280 F=5120", "R=1000 D=1280 F=5120"}
     # fused_mlp keeps its biases in f32 whatever the compute dtype
     f32_positions = {"fused_mlp": (2, 4)}
     tol = {torch.float32: dict(atol=2e-5, rtol=1e-4),
@@ -574,14 +585,6 @@ def main() -> int:
                 keep32 = f32_positions.get(name, ())
                 args = [a.to(dt) if torch.is_tensor(a) and i not in keep32
                         else a for i, a in enumerate(base)]
-                if dt == torch.float32 and shape in bf16_only:
-                    try:
-                        kernels[name]["wrapper"](*args)
-                    except ValueError as exc:
-                        emit("kernel_refuses", kernel=name, shape=shape,
-                             dtype="float32", reason=str(exc))
-                        continue
-                    raise AssertionError(f"{name} {shape}: f32 not refused")
                 got = kernels[name]["wrapper"](*args)
                 torch.cuda.synchronize()
                 ref = kernels[name]["plain"](*[
@@ -912,6 +915,49 @@ def main() -> int:
         del kern_m, plain_m, out, ref, dets, emb
         torch.cuda.empty_cache()
 
+    # f32 through the packed kernels (K3's scalar body, at D 1280 for ViT-H,
+    # and the tile attention bodies) against the plain path with the same
+    # seeded weights, at the full model's tolerance of record; ViT-B's error
+    # from the same check beside ViT-H's
+    f32_err = {}
+    for variant in ("vit_b", "vit_h"):
+        cfg = model_config(variant, dtype="float32", use_flash_attention=True)
+        kern_m = WildlifeMapper(
+            cfg, generator=torch.Generator(device=dev).manual_seed(0)).eval()
+        plain_m = WildlifeMapper(dataclasses.replace(
+            cfg, use_flash_attention=False)).eval()
+        plain_m.load_state_dict(kern_m.state_dict())
+        v = cfg.vit
+        glob = len(v.global_attn_indexes)
+        reset_counts()
+        with torch.inference_mode():
+            out = kern_m(x1)
+            torch.cuda.synchronize()
+        check_launches(f"{variant} f32 forward, batch 1", counts(),
+                       {"windowed_attention_packed": v.depth - glob,
+                        "flash_attention_packed": glob,
+                        "fused_mlp": v.depth, "cross_attention_packed": 1,
+                        "flash_attention_rel_pos": 0,
+                        "windowed_attention_rel_pos": 0})
+        check_mlp_kernels(f"{variant} f32 forward, batch 1", 1)
+        with torch.inference_mode():
+            ref = plain_m(x1)
+        keys = ("pred_logits", "pred_boxes")
+        f32_err[variant] = dict(
+            {f"max_abs_diff_{k[5:]}": (out[k] - ref[k]).abs().max().item()
+             for k in keys},
+            within=all(bool(torch.allclose(out[k], ref[k], atol=1e-4,
+                                           rtol=1e-3)) for k in keys))
+        emit("large_model_f32", config=f"{variant} f32 full canvas", batch=1,
+             embed_dim=v.embed_dim, depth=v.depth, atol=1e-4, rtol=1e-3,
+             kernels_against_plain=f32_err[variant],
+             vit_b_same_check=f32_err["vit_b"])
+        del kern_m, plain_m, out, ref
+        torch.cuda.empty_cache()
+    if not all(e["within"] for e in f32_err.values()):
+        raise AssertionError(f"f32 forward with kernels against the plain "
+                             f"path beyond atol 1e-4 / rtol 1e-3: {f32_err}")
+
     # ---- 5. times ------------------------------------------------------------
     del served, grouped_served
     with torch.inference_mode():
@@ -1019,9 +1065,7 @@ def main() -> int:
 
     def backward_counters(dt, d, n, m, hw):
         """The counters one forward and backward of an attention wrapper
-        move: the resident body's backward is one kernel (the backward of a
-        d-80 window is the tile bodies' two kernels after the resident
-        forward)."""
+        move: the resident body's backward is one kernel, the others' two."""
         if attention_body(dt, d, n, m, hw is not None, hw,
                           "backward") == "resident":
             return ("launches", "backward_launches")
@@ -1087,11 +1131,16 @@ def main() -> int:
          lambda: attn_args(37, (10, 10), heads=3)[:3]),
         ("K1", "BW=1 H=1 N=196", 1, 64, (14, 14),
          lambda: attn_args(1, (14, 14), heads=1)[:3]),
-        # head dim 80 at ViT-H's shapes, batch 1: the resident forward and
-        # the tile backward (K1), the Hopper bodies both ways (K2), also on
-        # the 48-grid and ragged against the Hopper bodies' blocks and tiles
+        # head dim 80 at ViT-H's shapes, batch 1: the resident body both
+        # ways (K1), also on windows ragged against its 16-row tiles (odd
+        # table widths, a window of 100), the Hopper bodies both ways (K2),
+        # also on the 48-grid and ragged against their blocks and tiles
         ("K1", "BW=25 H=16 N=196 d=80 (ViT-H)", 16, 80, (14, 14),
          lambda: attn_args(25, (14, 14), heads=16, d=80)[:3]),
+        ("K1", "BW=3 H=3 N=49 (7x7) d=80", 3, 80, (7, 7),
+         lambda: attn_args(3, (7, 7), heads=3, d=80)[:3]),
+        ("K1", "BW=10 H=2 N=100 (10x10) d=80", 2, 80, (10, 10),
+         lambda: attn_args(10, (10, 10), heads=2, d=80)[:3]),
         ("K2", "B=1 H=16 N=4096 d=80 (ViT-H)", 16, 80, (64, 64),
          lambda: attn_args(1, (64, 64), heads=16, d=80)[:3]),
         ("K2", "B=1 H=16 N=2304 d=80 (48-grid)", 16, 80, (48, 48),
@@ -1196,10 +1245,12 @@ def main() -> int:
         ("K6", "BWH=7 N=49 (7x7)", (7, 7), 7, 3, 64),
         ("K6", "BWH=111 N=100 (10x10)", (10, 10), 111, 3, 64),
         ("K6", "BWH=1 N=144", (12, 12), 1, 3, 64),
-        # head dim 80 at ViT-H's shapes, batch 1: the resident forward and
-        # the tile backward (K6), the Hopper bodies both ways (K5), also on
+        # head dim 80 at ViT-H's shapes, batch 1: the resident body both
+        # ways (K6), also ragged, the Hopper bodies both ways (K5), also on
         # the 48-grid and ragged
         ("K6", "BWH=25*16 N=196 d=80", (14, 14), 25 * 16, 3, 80),
+        ("K6", "BWH=7 N=49 (7x7) d=80", (7, 7), 7, 3, 80),
+        ("K6", "BWH=20 N=100 (10x10) d=80", (10, 10), 20, 3, 80),
         ("K5", "BH=16 N=4096 d=80", (64, 64), 16, 4, 80),
         ("K5", "BH=16 N=2304 d=80 (48-grid)", (48, 48), 16, 3, 80),
         ("K5", "BH=6 N=1000 d=80 (20x50)", (20, 50), 6, 3, 80),
@@ -1287,15 +1338,14 @@ def main() -> int:
     mlp_names = ("dx", "dw1", "db1", "dw2", "db2")
     mlp_counters = ("launches", "backward_launches")
     # the training shapes, rows ragged against the GEMM body's tiles, and
-    # ViT-H's widths (bf16 only: the f32 body stops at D = 1024)
-    for shape, rows, dmod, dts in (
-            ("R=4*4096", 4 * 4096, 768, (torch.float32, torch.bfloat16)),
-            ("R=4*2304", 4 * 2304, 768, (torch.float32, torch.bfloat16)),
-            ("R=1000", 1000, 768, (torch.float32, torch.bfloat16)),
-            ("R=130 D=1280 F=5120", 130, 1280, (torch.bfloat16,))):
+    # ViT-H's widths (f32: the forward on 16-row tiles)
+    for shape, rows, dmod in (("R=4*4096", 4 * 4096, 768),
+                              ("R=4*2304", 4 * 2304, 768),
+                              ("R=1000", 1000, 768),
+                              ("R=130 D=1280 F=5120", 130, 1280)):
         base = mlp_args(rows, dmod, 4 * dmod)
         g32, da32 = randn((rows, dmod)), randn((rows, 4 * dmod))
-        for dt in dts:
+        for dt in (torch.float32, torch.bfloat16):
             g, da = g32.to(dt), da32.to(dt)
             with torch.no_grad():
                 xx, ww, bb = base[0].to(dt), base[1].to(dt), base[2]
@@ -1619,7 +1669,8 @@ def main() -> int:
     # and its attention output and recomputes the rest in the backward: its
     # attention forward is launched again (counted), the MLP's forward is
     # not. The global blocks' backward is the Hopper body at d = 80 (K2 or
-    # K5), the windows' the tile bodies (K1 or K6).
+    # K5), the windows' the resident body (K1 or K6): one launch a block and
+    # no plain delta pass, counted where the tile bodies would run one.
     def vit_h_trainer(layout, remat):
         cfg = training_config("fine_tune", "bfloat16", True, BATCH,
                               variant="vit_h", remat_blocks=remat)
@@ -1631,13 +1682,13 @@ def main() -> int:
     def vit_h_want(layout):
         """The counts of TRAIN_STEPS remat steps: per_step's at ViT-H's depth
         (4 global blocks, 28 windowed, 32 MLPs, no K4; a d-80 window's
-        backward is two tile kernels), every attention forward twice."""
+        backward is one resident kernel), every attention forward twice."""
         glob, win = (("flash_attention_packed", "windowed_attention_packed")
                      if layout == "packed" else
                      ("flash_attention_rel_pos", "windowed_attention_rel_pos"))
         fwd = dict({n: 0 for n in per_forward[layout]}, **{
             glob: 4, win: 28, "fused_mlp": 32 if layout == "packed" else 0})
-        per = per_step(False, layout, forward=fwd)
+        per = per_step(False, layout, resident=True, forward=fwd)
         per["launches"] = {n: v * (1 if n == "fused_mlp" else 2)
                            for n, v in per["launches"].items()}
         return {attr: {n: v * TRAIN_STEPS for n, v in d.items()}
@@ -1647,7 +1698,11 @@ def main() -> int:
         return {n: p.grad.detach().clone()
                 for n, p in sb.model.named_parameters() if p.grad is not None}
 
-    vit_h_counts = {}
+    def counted_delta(*args):
+        delta_passes[0] += 1
+        return real_delta(*args)
+
+    vit_h_counts, delta_passes, real_delta = {}, [0], _attention.attention_delta
     for layout in ("packed", "grouped"):
         sb_r, state_r = vit_h_trainer(layout, remat=True)
         frozen = {n: p.detach().clone()
@@ -1658,21 +1713,28 @@ def main() -> int:
         gen_h = torch.Generator(device=dev).manual_seed(13)
         steps = []
         reset_counts()             # the ViT-H path's run starts here
-        for i in range(TRAIN_STEPS):
-            _, metrics = sb_r.train_step(state_r, batch4, gen_h)
-            steps.append(metrics)
-            if i == 0 and layout == "packed":
-                first_grads = trainable_grads(sb_r)
-        torch.cuda.synchronize()
+        delta_passes[0] = 0
+        _attention.attention_delta = counted_delta
+        try:
+            for i in range(TRAIN_STEPS):
+                _, metrics = sb_r.train_step(state_r, batch4, gen_h)
+                steps.append(metrics)
+                if i == 0 and layout == "packed":
+                    first_grads = trainable_grads(sb_r)
+            torch.cuda.synchronize()
+        finally:
+            _attention.attention_delta = real_delta
         vit_h_counts[layout] = all_counts()
         # ... and ends here
         peak_remat = torch.cuda.max_memory_allocated()
         want = vit_h_want(layout)
         emit("vit_h_training_launches", layout=layout,
-             launches=vit_h_counts[layout], want=want)
-        if vit_h_counts[layout] != want:
+             launches=vit_h_counts[layout], want=want,
+             plain_delta_passes=delta_passes[0])
+        if vit_h_counts[layout] != want or delta_passes[0]:
             raise AssertionError(f"ViT-H fine-tune, {layout}: launches "
-                                 f"{vit_h_counts[layout]}, want {want}")
+                                 f"{vit_h_counts[layout]}, want {want}; "
+                                 f"{delta_passes[0]} plain delta passes")
         ms = [{k: v.item() for k, v in m.items()} for m in steps]
         changed = [n for n, p in sb_r.model.named_parameters()
                    if not p.requires_grad and not torch.equal(p, frozen[n])]
@@ -1976,9 +2038,9 @@ def main() -> int:
     # body (K1, K6 on 25 windows of 14 an image) in turns with the tile body
     # over 20 launches a turn, beside one library call and the bound; the
     # whole backward of K2 and K5 (the Hopper body: the dq kernel with delta
-    # inside, then dk/dv) in turns with the tile bodies' (the delta pass and
-    # two kernels) at batch 1 and 4, and that of K1 and K6 (the tile bodies)
-    # at batch 1, beside autograd through the library call.
+    # inside, then dk/dv) and of K1 and K6 (the resident body: one kernel) in
+    # turns with the tile bodies' (the delta pass and two kernels) at batch 1
+    # and 4, beside autograd through the library call.
     vit_h = {}
     for batch in (1, 4):
         for kid in ("K2", "K5", "K1", "K6"):
@@ -2026,41 +2088,37 @@ def main() -> int:
                        plain_ms=plain_ms, bound_ms=fb, bound_by=fby)
             bwd_body = attention_body(torch.bfloat16, 80, n, n, True, hw,
                                       "backward")
-            if batch == 1 or bwd_body == "sm90":
-                with torch.no_grad():
-                    out, lse = forward(body, lse=True)()
-                    dout = torch.randn_like(out)
+            with torch.no_grad():
+                out, lse = forward(body, lse=True)()
+                dout = torch.randn_like(out)
 
-                    def backward(which_body):
-                        return lambda: attention_backward_launch(
-                            q, k, v, out, lse, dout, scale, heads, rh, rw,
-                            scale_scores=ss, body=which_body)
-                    tile_bwd_ms = None
-                    if bwd_body == "sm90":   # in turns with the tile bodies
-                        tile_bwd_ms, bwd_ms = paired_ms(backward("mma"),
-                                                        backward(bwd_body))
-                    else:
-                        bwd_ms = time_ms(backward(bwd_body))
-                    bwd_plain_ms = (time_ms(lambda: attention_backward_plain(
+                def backward(which_body):
+                    return lambda: attention_backward_launch(
                         q, k, v, out, lse, dout, scale, heads, rh, rw,
-                        scale_scores=ss)) if batch == 1 else None)
-                lib_bwd_ms = time_ms(lib_bwd)
-                bb = attention_backward_bound(
-                    5, mac, nb * 16 * n * n, True, True,
-                    nbytes(q, k, v, dout, out, lse, q, k, v, rh, rw, rh, rw))
-                emit("backward_kernel_time", kernel=kid, shape=shape,
-                     dtype="bfloat16", gpu=gpu, body=bwd_body,
-                     both_ms=bwd_ms, earlier_body="mma",
-                     earlier_body_ms=tile_bwd_ms, plain_ms=bwd_plain_ms,
-                     bound_ms=bb[0], bound_by=bb[1],
-                     library_backward_ms=lib_bwd_ms,
-                     over_library=bwd_ms / lib_bwd_ms,
-                     over_bound=bwd_ms / bb[0])
-                vit_h.setdefault(kid, {})[f"backward_batch_{batch}"] = dict(
-                    shape=shape, body=bwd_body, ms=bwd_ms,
-                    earlier_body_ms=tile_bwd_ms, plain_ms=bwd_plain_ms,
-                    library_ms=lib_bwd_ms, bound_ms=bb[0], bound_by=bb[1])
-                del out, lse, dout
+                        scale_scores=ss, body=which_body)
+                # in turns with the tile bodies
+                tile_bwd_ms, bwd_ms = paired_ms(backward("mma"),
+                                                backward(bwd_body))
+                bwd_plain_ms = (time_ms(lambda: attention_backward_plain(
+                    q, k, v, out, lse, dout, scale, heads, rh, rw,
+                    scale_scores=ss)) if batch == 1 else None)
+            lib_bwd_ms = time_ms(lib_bwd)
+            bb = attention_backward_bound(
+                5, mac, nb * 16 * n * n, True, True,
+                nbytes(q, k, v, dout, out, lse, q, k, v, rh, rw, rh, rw))
+            emit("backward_kernel_time", kernel=kid, shape=shape,
+                 dtype="bfloat16", gpu=gpu, body=bwd_body,
+                 both_ms=bwd_ms, earlier_body="mma",
+                 earlier_body_ms=tile_bwd_ms, plain_ms=bwd_plain_ms,
+                 bound_ms=bb[0], bound_by=bb[1],
+                 library_backward_ms=lib_bwd_ms,
+                 over_library=bwd_ms / lib_bwd_ms,
+                 over_bound=bwd_ms / bb[0])
+            vit_h.setdefault(kid, {})[f"backward_batch_{batch}"] = dict(
+                shape=shape, body=bwd_body, ms=bwd_ms,
+                earlier_body_ms=tile_bwd_ms, plain_ms=bwd_plain_ms,
+                library_ms=lib_bwd_ms, bound_ms=bb[0], bound_by=bb[1])
+            del out, lse, dout
             vit_h.setdefault(kid, {})[f"forward_batch_{batch}"] = row
             del q, k, v, rh, rw, lib_fwd, lib_bwd
             torch.cuda.empty_cache()
@@ -2068,35 +2126,42 @@ def main() -> int:
         report[ids[kid]]["vit_h_d80"] = {
             "batch_1": rows["forward_batch_1"],
             "batch_4": rows["forward_batch_4"]}
-        if kid in ("K1", "K6"):
-            report[ids[kid] + "_backward"]["vit_h_d80"] = dict(
-                rows["backward_batch_1"], covers="the whole tile backward")
-            continue
-        # the Hopper body's d-80 backward, launched by the ViT-H fine-tune
-        # (phase 8b; K5 in its grouped run): the whole backward at batch 1,
-        # batch 4 beside it
-        layout = "grouped" if kid == "K5" else "packed"
+        # the d-80 backward, launched by the ViT-H fine-tune (phase 8b; K5 and
+        # K6 in its grouped run): the whole backward at batch 1, batch 4
+        # beside it; the Hopper body's two kernels (K2, K5), the resident
+        # body's one (K1, K6)
+        layout = "grouped" if kid in ("K5", "K6") else "packed"
         wname = ids[kid]
         one = rows["backward_batch_1"]
         cu = ("wildlifemapper_tpu_torch/csrc/"
-              + ("grouped_" if kid == "K5" else "")
-              + "attention_bwd_{}_sm90.cu")
-        entry(wname + "_backward_d80", cu.format("dq"),
-              jax_ops + replaces_bwd[kid][0], body="sm90", head_dim=80,
-              source_dkv=cu.format("dkv"),
-              replaces_dkv=jax_ops + replaces_bwd[kid][1],
-              launches=vit_h_counts[layout]["backward_dq_launches"][wname],
-              launches_dkv=vit_h_counts[layout]["backward_dkv_launches"][
-                  wname],
+              + ("grouped_" if kid in ("K5", "K6") else ""))
+        counts_h = vit_h_counts[layout]
+        if kid in ("K1", "K6"):
+            kernel_fields = dict(
+                body="resident", source=cu + "attention_bwd_resident.cu",
+                launches=counts_h["backward_launches"][wname],
+                covers="delta, dq, dk, dv and the table gradients in one "
+                       "kernel", kernels_per_backward=1)
+        else:
+            kernel_fields = dict(
+                body="sm90", source=cu + "attention_bwd_dq_sm90.cu",
+                source_dkv=cu + "attention_bwd_dkv_sm90.cu",
+                replaces_dkv=jax_ops + replaces_bwd[kid][1],
+                launches=counts_h["backward_dq_launches"][wname],
+                launches_dkv=counts_h["backward_dkv_launches"][wname],
+                covers="dq + delta, then dk/dv")
+        source = kernel_fields.pop("source")
+        entry(wname + "_backward_d80", source,
+              jax_ops + replaces_bwd[kid][0], head_dim=80,
               launches_from="ViT-H fine-tune, remat_blocks, " + layout,
               shape=one["shape"], max_abs_err=bwd_err[f"{kid}_d80"],
-              ms=one["ms"], covers="dq + delta, then dk/dv",
+              ms=one["ms"], earlier_body="mma",
               earlier_body_ms=one["earlier_body_ms"],
               plain_ms=one["plain_ms"], bound_ms=one["bound_ms"],
               bound_by=one["bound_by"], library_ms=one["library_ms"],
               library="autograd through scaled_dot_product_attention "
                       "(dq, dk, dv)",
-              batch_4=rows["backward_batch_4"])
+              batch_4=rows["backward_batch_4"], **kernel_fields)
 
     # K3 in bf16 at the main paths' two row counts and at ViT-L's and
     # ViT-H's widths: the forward in turns with the library chain, dh in
@@ -2191,6 +2256,7 @@ def main() -> int:
           r9216_over_r16384=small["dh"] / big["dh"])
 
     order = ["windowed_attention_packed", "windowed_attention_packed_backward",
+             "windowed_attention_packed_backward_d80",
              "flash_attention_packed", "flash_attention_packed_backward_dq",
              "flash_attention_packed_backward_dkv",
              "flash_attention_packed_backward_d80", "fused_mlp",
@@ -2201,7 +2267,8 @@ def main() -> int:
              "flash_attention_rel_pos_backward_dkv",
              "flash_attention_rel_pos_backward_d80",
              "windowed_attention_rel_pos",
-             "windowed_attention_rel_pos_backward"]
+             "windowed_attention_rel_pos_backward",
+             "windowed_attention_rel_pos_backward_d80"]
     for e in report.values():
         if e["launches"] <= 0:
             raise AssertionError(f"{e['name']}: not launched on the main path")

@@ -14,9 +14,9 @@ for the windowed ones.
 For each case (batch, heads, d, queries, keys, rel grid, scale placement,
 scale) it builds the kernels (registers and spills of the Hopper and resident
 instantiations are printed from nvcc's -Xptxas -v), runs forward and backward
-of each body at the launcher (ops/_attention.py, `body=`; at head dim 80 the
-resident body runs forward only, the backward of a window is the tile
-bodies'), and prints one JSON line: the largest forward and lse errors and the backward errors relative to
+of each body at the launcher (ops/_attention.py, `body=`; at head dim 80 as
+at 64, a window takes the resident body both ways, beside the tile bodies),
+and prints one JSON line: the largest forward and lse errors and the backward errors relative to
 each gradient's largest element against the plain version, whether a second
 backward is bit-identical, and CUDA-event times in ms, each body warmed up
 and timed over five launches: forward, the whole backward (for the tile
@@ -159,8 +159,6 @@ def run_case(case, rng, dev) -> dict:
                                      rw, scale_scores=ss)
     delta = A.attention_delta(dout, out, h).contiguous()
     chosen = A.attention_body(q.dtype, d, nq, nk, hw is not None, hw)
-    backward_body = A.attention_body(q.dtype, d, nq, nk, hw is not None, hw,
-                                     "backward")
     res = {}
     for body in dict.fromkeys(("mma", chosen)):
         got_out, got_lse = A.attention_launch(
@@ -186,8 +184,6 @@ def run_case(case, rng, dev) -> dict:
             fwd_with_lse_ms=time_ms(lambda: A.attention_launch(
                 q, k, v, scale, h, rh, rw, return_lse=True, scale_scores=ss,
                 body=body)))
-        if body not in ("mma", backward_body):
-            continue                    # a forward-only body (d-80 windows)
         runs = [backward(g) for g in (grads, None)]
         torch.cuda.synchronize()
 

@@ -1,9 +1,10 @@
 """The whole bf16 backward of the streaming attention kernels (K2, K4, K5) at
-the shapes `chip_smoke.py` phase 6 runs them, timed at the launcher on one
-NVIDIA GPU (written for the H100), for comparing two checkouts in turns.
+the shapes `chip_smoke.py` phase 6 runs them, or of the windowed ones (K1,
+K6), timed at the launcher on one NVIDIA GPU (written for the H100), for
+comparing two checkouts in turns.
 
     python3 scripts/time_streaming_backward.py [--root CHECKOUT] [--label L]
-        [--d80]
+        [--d80 | --windowed]
 
 `--root` is the checkout whose `wildlifemapper_tpu_torch` is imported (this
 script's own by default), so that one call can time an older tree with the
@@ -19,8 +20,12 @@ each gradient's largest element): `ms` by CUDA events around the launches,
 launcher is slower than the kernels, `ms` times the host). One JSON line a
 shape, the card's name and power limit first. `--d80` runs ViT-H's shapes
 instead (head dim 80: K2 and K5 at batch 1 and 4 on the 64-grid, on the
-48-grid and ragged), which an older tree runs on the tile bodies. Fails
-without CUDA.
+48-grid and ragged), which an older tree runs on the tile bodies.
+`--windowed` runs K1 and K6 on windows of 14 instead: at head dim 80
+(ViT-H, 16 heads) at batch 1 and 4 (25 and 100 windows), which an older tree
+runs on the tile bodies (a plain delta pass and two kernels), and at head
+dim 64 (ViT-B, 12 heads) at N 196 and 144 as the main paths give them at
+batch 4. Fails without CUDA.
 """
 
 from __future__ import annotations
@@ -55,6 +60,16 @@ SHAPES_D80 = [
     ("K2", "B=1 H=16 N=2304 d=80", 1, 16, 80, 2304, 2304, (48, 48)),
     ("K2", "B=2 H=3 N=1000 d=80 (25x40)", 2, 3, 80, 1000, 1000, (25, 40)),
     ("K5", "BH=6 N=1000 d=80 (20x50)", 6, 1, 80, 1000, 1000, (20, 50)),
+]
+SHAPES_WINDOWED = [
+    ("K1", "BW=25 H=16 N=196 d=80", 25, 16, 80, 196, 196, (14, 14)),
+    ("K1", "BW=100 H=16 N=196 d=80", 100, 16, 80, 196, 196, (14, 14)),
+    ("K6", "BWH=400 N=196 d=80", 400, 1, 80, 196, 196, (14, 14)),
+    ("K6", "BWH=1600 N=196 d=80", 1600, 1, 80, 196, 196, (14, 14)),
+    ("K1", "BW=100 N=196", 100, 12, 64, 196, 196, (14, 14)),
+    ("K1", "BW=64 N=144", 64, 12, 64, 144, 144, (12, 12)),
+    ("K6", "BWH=1200 N=196", 1200, 1, 64, 196, 196, (14, 14)),
+    ("K6", "BWH=768 N=144", 768, 1, 64, 144, 144, (12, 12)),
 ]
 
 
@@ -93,8 +108,11 @@ def main() -> int:
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]),
                     help="checkout whose package is timed")
     ap.add_argument("--label", default="", help="names the run in the output")
-    ap.add_argument("--d80", action="store_true",
-                    help="ViT-H's shapes (head dim 80) instead of ViT-B's")
+    which = ap.add_mutually_exclusive_group()
+    which.add_argument("--d80", action="store_true",
+                       help="ViT-H's shapes (head dim 80) instead of ViT-B's")
+    which.add_argument("--windowed", action="store_true",
+                       help="the windowed kernels (K1, K6) at d 80 and 64")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA GPU", file=sys.stderr)
@@ -117,9 +135,10 @@ def main() -> int:
                                 ).to(dev).to(dt)
 
     with torch.no_grad():
-        for kid, shape, b, h, d, nq, nk, hw in (SHAPES_D80 if args.d80
-                                                 else SHAPES):
-            ss = kid == "K5"
+        shapes = (SHAPES_D80 if args.d80 else
+                  SHAPES_WINDOWED if args.windowed else SHAPES)
+        for kid, shape, b, h, d, nq, nk, hw in shapes:
+            ss = kid in ("K5", "K6")
             c = h * d
             q, dout = randn((b, nq, c)), randn((b, nq, c))
             k, v = randn((b, nk, c)), randn((b, nk, c))

@@ -47,7 +47,7 @@ def test_main_path_shapes(what, dtype, d, nq, nk, rel, body):
 
 # ViT-H (head dim 80, 16 heads) at its shapes: the bf16 global blocks (the
 # 64-grid) on the Hopper bodies both ways, the windows of 14 on the resident
-# body forward and the tile bodies backward; f32 on the tile bodies.
+# bodies both ways; f32 on the tile bodies.
 VIT_H = [
     ("K2", "forward", BF16, 4096, (64, 64), "sm90"),
     ("K5", "forward", BF16, 4096, (64, 64), "sm90"),
@@ -56,8 +56,8 @@ VIT_H = [
     ("K2", "backward", BF16, 4096, (64, 64), "sm90"),
     ("K5", "backward", BF16, 4096, (64, 64), "sm90"),
     ("K2", "backward", BF16, 2304, (48, 48), "sm90"),
-    ("K1", "backward", BF16, 196, (14, 14), "mma"),
-    ("K6", "backward", BF16, 196, (14, 14), "mma"),
+    ("K1", "backward", BF16, 196, (14, 14), "resident"),
+    ("K6", "backward", BF16, 196, (14, 14), "resident"),
     ("K2", "forward", F32, 4096, (64, 64), "mma"),
     ("K1", "forward", F32, 196, (14, 14), "mma"),
     ("K5", "backward", F32, 4096, (64, 64), "mma"),
@@ -82,13 +82,12 @@ def test_vit_h_shapes(kernel, direction, dtype, n, grid, body):
     (128, 4096, 4096, None),
 ])
 def test_backward_body_is_the_forward_body_but_at_d80(d, nq, nk, grid):
-    """Forward and backward take one body at d = 64 and 128 and at d = 80
-    with many keys (the Hopper bodies); a d-80 window runs the resident
-    body forward and the tile bodies backward."""
+    """Forward and backward take one body at every head dim: the Hopper
+    bodies with many keys, the resident bodies on a window, d = 80 as 64."""
     fwd = attention_body(BF16, d, nq, nk, grid is not None, grid)
     bwd = attention_body(BF16, d, nq, nk, grid is not None, grid,
                          direction="backward")
-    assert bwd == ("mma" if fwd == "resident" and d == 80 else fwd)
+    assert bwd == fwd
     assert fwd != "mma"
 
 
@@ -269,18 +268,25 @@ def test_hopper_header_note(name):
 
 @pytest.mark.parametrize("name,stays,d80", [
     ("attention_fwd.cuh", "attention_fwd_sm90.cuh",
-     "the backward of a bf16 d-80 window (K1, K6) still runs the tile "
-     "bodies"),
+     "Each shape takes the same body backward"),
     ("attention_bwd.cuh", "attention_bwd_sm90.cuh",
-     "the bf16 backward of a d-80 window"),
+     "f32 launch (the parity steps of all five kernels, a d-80 window "
+     "included)"),
 ])
 def test_tile_headers_say_what_still_runs_there(name, stays, d80):
+    """The tile bodies keep f32 (a d-80 window's too), d = 32 and the bf16
+    launches no other body holds; no bf16 d-80 window runs there either way."""
     note = (_build.CSRC / name).read_text()
     note = note[:note.index("#pragma once")]
     assert stays in note
     assert stays.replace("_sm90", "_resident") in note
     assert "K1" in note and "K6" in note and "f32" in note
-    assert d80 in " ".join(note.replace("//", " ").split())
+    flat = " ".join(note.replace("//", " ").split())
+    assert d80 in flat
+    assert "d = 64 or 80, N = M <= 208" in flat
+    for gone in ("still runs the tile bodies", "backward of a d-80 window",
+                 "d = 64 only"):
+        assert gone not in flat, gone
 
 
 RESIDENT_HEADERS = {
@@ -313,18 +319,19 @@ def test_resident_header_note(name):
     assert "atomic" not in text.replace("no atomics", "")
     flat = " ".join(note.replace("//", " ").split())
     if name == "attention_fwd_resident.cuh":
-        # head dim 80 runs here forward only: ten chunks a row, one Q tile
-        # refilled by each warp
-        for words in ("d = 64 or 80", "Head dim 80", "forward only",
+        # head dim 80 runs here (and backward in the resident backward):
+        # ten chunks a row, one Q tile refilled by each warp
+        for words in ("d = 64 or 80", "Head dim 80", "both ways",
                       "ten 16-byte chunks", "206,336 bytes", "res_tile_off"):
             assert words in flat, words
+        assert "forward only" not in flat
         code = text[text.index("#pragma once"):]
         for word in ("launch_fwd_resident<80, 13, 7>",
                      "launch_fwd_resident<80, 9, 5>", "res_q_stages",
                      "res_copy_tile<D, ROWS>(qs"):
             assert word in code, word
     else:
-        assert "d = 64 only" in flat or "d = 80" not in flat
+        assert "d = 64 or 80" in flat and "d = 64 only" not in flat
 
 
 def test_resident_backward_is_one_kernel_with_delta_inside():
@@ -597,8 +604,8 @@ def _forward_with_stand_ins(monkeypatch, d, n, heads, scale_scores):
 def test_d80_forward_and_backward_entries(monkeypatch, kernel, n, entry):
     """At ViT-H's head dim the bf16 forward reaches the Hopper or the
     resident C entry, with d = 80; the backward of K2 and K5 reaches the
-    Hopper dq and dk/dv entries with no delta pass, that of K1 and K6 the
-    tile bodies' two kernels after the plain delta pass."""
+    Hopper dq and dk/dv entries, that of K1 and K6 the one resident backward
+    entry, with d = 80 and no delta pass either way."""
     grouped = kernel in ("K5", "K6")
     heads = 1 if grouped else 2
     calls = _forward_with_stand_ins(monkeypatch, 80, n, heads, grouped)
@@ -616,9 +623,37 @@ def test_d80_forward_and_backward_entries(monkeypatch, kernel, n, entry):
         assert [args[21] for _, args in calls] == [80, 80]
         assert passes == [] and counts == (0, 1, 1)
         return
-    assert [name for name, _ in calls] == [prefix] * 2
-    assert [args[0] for _, args in calls] == [0, 1]
-    assert len(passes) == 1 and counts == (0, 1, 1)
+    assert [name for name, _ in calls] == [prefix + "_resident"]
+    args = calls[0][1]
+    assert len(args) == len(_build._ATTENTION_BWD_RESIDENT)
+    assert args[18] == 80 and args[5] is not None     # d, the forward's out
+    assert passes == [] and counts == (1, 0, 0)
+
+
+def test_resident_backward_head_dim_80_note_and_design():
+    """The resident backward at ViT-H's head dim: the note says how a row of
+    80 columns is laid out, how many tile slots fit and which tensors come in
+    when, and that no instantiation may spill; the code instantiates d = 80
+    for both key-tile counts, the refills and the five-slot layout."""
+    text = (_build.CSRC / "attention_bwd_resident.cuh").read_text()
+    note = " ".join(text[:text.index("#pragma once")].replace("//", " ")
+                    .split())
+    for words in ("d = 64 or 80", "Head dim 80", "ten 16-byte chunks",
+                  "33,280 B", "five slots", "208,000 B", "row by row",
+                  "fifth k-step", "ldmatrix.trans", "0 bytes spilled",
+                  "CHA = 4 and CHB = 2"):
+        assert words in note, words
+    code = text[text.index("#pragma once"):]
+    for word in ("launch_bwd_resident<80, 13, 7, 4, 2>",
+                 "launch_bwd_resident<80, 9, 5, 3, 3>",
+                 "launch_bwd_resident<64, 13, 7, 5, 3>",
+                 "launch_bwd_resident<64, 9, 5, 5, 4>",
+                 "(D == 64 ? 7 : 5)", "constexpr bool REFILL",
+                 "copy_tensor(1, nb, nh, ks, r0, r1, lane, 32)",
+                 "res_ldbt<false, D, ROWS>", "(d != 64 && d != 80)"):
+        assert word in code, word
+    # the five slots of 33,280 bytes, the tables, E, lse and delta
+    assert 5 * 208 * 160 + 3 * 208 * 64 + 2 * 208 * 4 == 208_000 <= 232_448
 
 
 def test_tile_backward_keeps_its_delta_pass(monkeypatch):

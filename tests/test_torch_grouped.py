@@ -89,6 +89,7 @@ def test_flash_plain_matches_pallas(dtype, bh, hw, d):
     (6, (3, 3), 16),
     (3, (2, 4), 64),       # rectangular window
     (2, (8, 8), 32),       # a global block below GLOBAL_N_THRESHOLD
+    (5, (7, 7), 80),       # ViT-H's head dim on a ragged window
 ])
 def test_windowed_plain_matches_pallas(dtype, bwh, hw, d):
     jdt, tdt = DTYPES[dtype]
@@ -169,7 +170,7 @@ def test_flash_backward_plain_matches_pallas_vjp(table_dims, bh, hw, d):
 
 
 @pytest.mark.parametrize("bwh,hw,d", [(19, (4, 4), 16), (5, (3, 3), 32),
-                                      (2, (2, 4), 64)])
+                                      (2, (2, 4), 64), (5, (7, 7), 80)])
 def test_windowed_backward_plain_matches_pallas_vjp(bwh, hw, d):
     """The Pallas backward recomputes the softmax and takes delta = sum
     p*dp; the port's takes the forward's lse and rowsum(do*o): the same

@@ -180,9 +180,9 @@ def test_find_nvcc(monkeypatch, tmp_path):
 
 def test_attention_body_head_dims():
     """ViT-H's head dim 80: bf16 takes the Hopper bodies both ways at 4096
-    keys on the 64-grid, the resident body forward and the tile bodies
-    backward on a window of 14; f32 takes the mma.sync / f32 tile bodies; a
-    head dim no body takes is refused with the reason."""
+    keys on the 64-grid and the resident bodies both ways on a window of 14;
+    f32 takes the mma.sync / f32 tile bodies; a head dim no body takes is
+    refused with the reason."""
     bf16 = torch.bfloat16
     for direction in ("forward", "backward"):
         assert attention_body(bf16, 80, 4096, 4096, True, (64, 64),
@@ -191,7 +191,7 @@ def test_attention_body_head_dims():
                               direction) == "sm90"
     assert attention_body(bf16, 80, 196, 196, True, (14, 14)) == "resident"
     assert attention_body(bf16, 80, 196, 196, True, (14, 14),
-                          direction="backward") == "mma"
+                          direction="backward") == "resident"
     for nq, nk, rel, hw in ((196, 196, True, (14, 14)),
                             (4096, 4096, True, (64, 64)),
                             (100, 4096, False, None)):

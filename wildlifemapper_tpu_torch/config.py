@@ -105,8 +105,10 @@ class ModelConfig:
     content_size: Optional[int] = None
     # Crop the pixels before the prologue too (from-scratch configuration).
     crop_prologue: bool = False
-    # Rematerialise each ViT block in the backward pass. No effect on
-    # inference; not ported for training yet (the model raises).
+    # Rematerialise each ViT block in the backward pass: two checkpoint
+    # segments a block (models/vit.py::Block) that keep the block's input and
+    # its attention output; the backward recomputes the rest, all but the
+    # fused MLP's forward kernel. No effect on inference.
     remat_blocks: bool = False
 
     def __post_init__(self):

@@ -46,15 +46,13 @@
 // do and the outputs are read and written by stride, so dq, dk and dv land
 // in the column blocks of one packed (B, N, 3C) dqkv.
 // Which launches still run here (ops/_attention.py::attention_body): every
-// f32 launch (the parity steps of all five kernels), d = 32, the bf16
-// backward of a d-80 window (ViT-H's K1, K6, whose bf16 forward runs the
-// resident body and leaves the same lse; the resident backward is d = 64
-// only), and the bf16
-// launches below 512 keys that are no window the resident body holds: d = 128
-// or N != M, no rel tables, and a global block of 209 to 511 tokens that
-// lands in K1 or K6. The streaming bf16 shapes of K2, K4 and K5 (d = 64, 80
-// or 128) take the Hopper bodies of attention_bwd_sm90.cuh (wgmma, a TMA-fed ring), and the
-// bf16 windows of K1 and K6 (d = 64, N = M <= 208) the one-kernel body of
+// f32 launch (the parity steps of all five kernels, a d-80 window included),
+// d = 32, and the bf16 launches below 512 keys that are no window the
+// resident body holds: d = 128 or N != M, no rel tables, and a global block
+// of 209 to 511 tokens that lands in K1 or K6. The streaming bf16 shapes of
+// K2, K4 and K5 (d = 64, 80 or 128) take the Hopper bodies of
+// attention_bwd_sm90.cuh (wgmma, a TMA-fed ring), and the bf16 windows of K1
+// and K6 (d = 64 or 80, N = M <= 208) the one-kernel body of
 // attention_bwd_resident.cuh, which also takes delta; the bf16 bodies here
 // stay the yardstick of both.
 

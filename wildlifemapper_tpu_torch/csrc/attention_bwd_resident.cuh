@@ -1,7 +1,7 @@
 // Backward of the windowed attention of attention_fwd_resident.cuh, bf16,
-// d = 64: one kernel a window-head. It computes the function of the two
-// kernels of attention_bwd.cuh and of the delta pass before them (see that
-// header for the formulas and the rounding points) and takes over their
+// d = 64 or 80: one kernel a window-head. It computes the function of the
+// two kernels of attention_bwd.cuh and of the delta pass before them (see
+// that header for the formulas and the rounding points) and takes over their
 // windowed launches, for the TPU kernels
 //
 //   K1 wildlifemapper_tpu/ops/windowed_attention_v2.py::_bwd_kernel (:125;
@@ -16,11 +16,11 @@
 // attention_bwd.cuh.
 //
 // What bounds it on the H100: bytes. A window-head reads q, k, v, do, o
-// (5 x N x 128 B), the tables and lse, and writes dq, dk, dv and the table
-// gradients: 224 KB at N = 196, 0.08 ms for 1200 window-heads at 3.35 TB/s,
-// against 10 N^2 d flops (0.03 ms at 989 TFLOP/s). The tile bodies spent
-// 1.77 ms: a plain tensor pass for delta that wrote f32 copies of do and o,
-// then two kernels that each recomputed S and dP over 64 x 64 tiles padded
+// (5 x N x 2d B), the tables and lse, and writes dq, dk, dv and the table
+// gradients: 224 KB at N = 196, d = 64, 0.08 ms for 1200 window-heads at
+// 3.35 TB/s, against 10 N^2 d flops (0.03 ms at 989 TFLOP/s). The tile bodies
+// spent 1.77 ms: a plain tensor pass for delta that wrote f32 copies of do and
+// o, then two kernels that each recomputed S and dP over 64 x 64 tiles padded
 // to 256 x 256, with K (or q and do) copied transposed by 2-byte stores and
 // the table gradients added into shared memory lane by lane. A window-head
 // has one owner, so here one block makes all five gradients with no atomics
@@ -31,14 +31,14 @@
 //    get 128 registers a thread and spilled; 7 warps of 247 registers were
 //    faster on the H100);
 //  * Q, K, dO and V of the window-head are resident in shared memory in the
-//    forward's swizzled 128-byte rows, brought by 16-byte cp.async; every
-//    transposed operand (K in dS.K, Q in dS^T.Q, dO in P^T.dO) is read in
-//    place by ldmatrix.trans;
+//    forward's swizzled rows (res_tile_off), brought by 16-byte cp.async;
+//    every transposed operand (K in dS.K, Q in dS^T.Q, dO in P^T.dO) is read
+//    in place by ldmatrix.trans;
 //  * delta = rowsum(do * o) in f32 is taken inside the kernel: each warp
 //    reads its 16 rows of o from device memory as 16-byte vectors while the
 //    copies are in flight and multiplies them with the do tile;
 //  * pass 1, a warp owns 16 query rows at a time and walks the resident
-//    keys in chunks of CHA x 16 = 80 (registers: S and dP of a 16 x 208 strip
+//    keys in chunks of CHA x 16 (registers: S and dP of a 16 x 208 strip
 //    would be 208 a thread): S = Q.K^T + T.E^T and dP = dO.V^T, p = exp2((s - lse) log2 e)
 //    from the saved lse, ds = round(p (dp - delta)), dq += ds.K, and the
 //    table gradients as one more product, (drel_h | drel_w) += ds.E with the
@@ -46,20 +46,41 @@
 //    of the tensor cores from the ds registers into 16 accumulators a thread
 //    and are stored once. No shared-memory read-modify-write;
 //  * pass 2, a warp owns 16 keys at a time and walks the resident queries in
-//    chunks of CHB x 16 (48 or 64): it recomputes S^T = K.Q^T + E.T^T and dP^T = V.dO^T (7
+//    chunks of CHB x 16: it recomputes S^T = K.Q^T + E.T^T and dP^T = V.dO^T (7
 //    products a window-head in all, nothing staged: bf16 P and dS strips of
 //    208 x 208 would be 173 KB beside 106 KB of operands), then
 //    dv += round(p)^T.dO and dk += ds^T.Q;
-//  * one persistent block an SM walks its window-heads through a ring of
-//    tile slots. Shared memory at KT = 13 (208 rows): a slot is 26,624 B and
-//    four are in use, so two full stages (213 KB + tables) do not fit; seven
-//    slots (186,368 B), two table buffers and E (39,936 B) and lse / delta
-//    (1,664 B) make 227,968 B of 232,448: the next window-head's Q, K and dO
-//    are in flight while this one is computed, and its V follows when the
-//    round starts, under the delta pass. At KT = 9 eight slots fit and all
-//    four tensors are prefetched;
+//  * one persistent block an SM walks its window-heads through tile slots.
+//    At d = 64, KT = 13 (208 rows) a slot is 26,624 B and four are in use,
+//    so two full stages (213 KB + tables) do not fit; seven slots (186,368 B)
+//    in a ring, two table buffers and E (39,936 B) and lse / delta (1,664 B)
+//    make 227,968 B of 232,448: the next window-head's Q, K and dO are in
+//    flight while this one is computed, and its V follows when the round
+//    starts, under the delta pass. At KT = 9 eight slots fit and all four
+//    tensors are prefetched, at d = 64 and at d = 80;
 //  * every element of dq, dk, dv and the table gradients is owned by one
 //    thread and summed in a fixed order: two runs are bit-identical.
+//
+// Head dim 80 (ViT-H: 16 heads, windows of 196) takes the forward's row
+// layout: ten 16-byte chunks a row, chunks 0-7 in 128-byte rows and chunks
+// 8-9 in a part of 32-byte rows swizzled by (row / 4) % 2, so ldmatrix and
+// ldmatrix.trans stay free of bank conflicts in both parts; the products
+// take a fifth k-step (S, dP, S^T, dP^T) and ten column groups (dq, dk, dv).
+// A 208-row slot is 33,280 B, so at KT = 13 five slots fit beside the tables
+// and E (208,000 B in all), not a ring of seven. They are fixed: Q, K and V
+// in slots 0-2 and dO in slot 3 or 4 by the round's parity. The next
+// window-head's dO and tables come in under this one's products; its K and
+// V come in row by row in pass 2, where a warp reads only its own 16 rows of
+// K and V (the A operands): when a warp has written a key tile's dk and dv
+// it starts the next window-head's K and V rows of that tile into them
+// (pass 1 reads every key, so a block barrier separates the passes); its Q,
+// read by every warp until the round's end, comes in when the next round
+// starts, under the delta pass. The chunks are narrower than at d = 64,
+// where dq, dk and dv are a quarter larger: CHA = 4 and CHB = 2 at KT = 13
+// (40 dq, and 2 x 40 dk / dv accumulators beside a 16 x 32 S / dP chunk),
+// CHA = CHB = 3 at KT = 9; d = 64 keeps CHA = 5 and CHB = 3 (KT = 13) or 4
+// (KT = 9). chip_smoke.py phase 1 holds every instantiation to 0 bytes
+// spilled.
 //
 // Keys and rows past n are zeros in shared memory and their p is forced to
 // zero where a tile straddles n, so they add nothing; they are not written.
@@ -91,11 +112,12 @@ struct ResBwdArgs {
   int mode;  // ResScaleMode
 };
 
-// Tile slots of the ring: as many as fit beside the tables (see the header).
-template <int KT> __host__ __device__ constexpr int res_bwd_slots() { return KT > 9 ? 7 : 8; }
-template <int KT> __host__ __device__ constexpr int res_bwd_smem_bytes() {
-  return res_bwd_slots<KT>() * KT * 16 * kResTileRow + 3 * KT * 16 * kResTabRow +
-         2 * KT * 16 * 4;
+// Tile slots: as many as fit beside the tables and E (see the header).
+template <int D, int KT> __host__ __device__ constexpr int res_bwd_slots() {
+  return KT > 9 ? (D == 64 ? 7 : 5) : 8;
+}
+template <int D, int KT> __host__ __device__ constexpr int res_bwd_smem_bytes() {
+  return res_bwd_slots<D, KT>() * KT * 16 * D * 2 + 3 * KT * 16 * kResTabRow + 2 * KT * 16 * 4;
 }
 
 // One pair of a row's table gradients: columns c and c + 1 of a g-wide row.
@@ -109,15 +131,19 @@ __device__ __forceinline__ void res_store_drel(__nv_bfloat16* row, int g, int c,
   }
 }
 
-template <int KT, int NW, int CHA, int CHB>
+template <int D, int KT, int NW, int CHA, int CHB>
 __global__ void __launch_bounds__(NW * 32, 1) attn_bwd_resident_kernel(ResBwdArgs a) {
   using bf16 = __nv_bfloat16;
-  constexpr int ROWS = KT * 16;
-  constexpr int TILE = ROWS * kResTileRow, TAB = ROWS * kResTabRow;
-  constexpr int NSLOT = res_bwd_slots<KT>();
-  constexpr int EARLY = NSLOT - 4 < 4 ? NSLOT - 4 : 4;  // tensors prefetched a round ahead
+  constexpr int ROWS = KT * 16, CH = D / 8;
+  constexpr int TILE = ROWS * D * 2, TAB = ROWS * kResTabRow;
+  constexpr int NSLOT = res_bwd_slots<D, KT>();
+  // Fewer than seven slots (d = 80, KT = 13): no ring. Q, K, V in slots 0-2,
+  // dO in slot 3 or 4 by the round's parity; K and V of the next window-head
+  // come in row by row as pass 2 frees them (see the header).
+  constexpr bool REFILL = NSLOT < 7;
+  constexpr int EARLY = NSLOT - 4 < 4 ? NSLOT - 4 : 4;  // ring: tensors prefetched a round ahead
   constexpr uint32_t TABS = NSLOT * TILE, EYE = TABS + 2 * TAB, STATS = EYE + TAB;
-  constexpr int ND = kResD / 8, KD = kResD / 16;
+  constexpr int ND = D / 8, KD = D / 16;
   constexpr int MAXT = (KT + NW - 1) / NW;  // 16-row tiles a warp takes
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const uint32_t base = res_smem_u32(smem_raw);
@@ -128,60 +154,95 @@ __global__ void __launch_bounds__(NW * 32, 1) attn_bwd_resident_kernel(ResBwdArg
   const int total = a.batch * a.heads;
   const bool want_drel = a.drelh != nullptr;
 
-  res_init<KT>(smem_raw, NSLOT, TABS, EYE, a.n, a.gw, t, nthr);
+  res_init<KT, D>(smem_raw, NSLOT, TABS, EYE, a.n, a.gw, t, nthr);
   for (int i = t; i < 2 * ROWS; i += nthr) lse2_s[i] = 0.f;  // rows past n stay 0
   __syncthreads();
 
-  // Tensor j of a round whose first slot is s0 sits in slot (s0 + j) % NSLOT:
-  // 0 Q, 1 K, 2 dO, 3 V; the tables of round `it` in buffer it % 2.
+  // Rows [r0, r1) of tensor j (0 Q, 1 K, 2 dO, 3 V) of window-head (b, h)
+  // into `tile`, by threads tid of nt.
+  auto copy_tensor = [&](int j, long long b, int h, uint32_t tile, int r0, int r1, int tid,
+                         int nt) {
+    if (j == 0) res_copy_tile<D, ROWS>(tile, a.q + b * a.q_bs + h * D, a.q_rs, r1, tid, nt, r0);
+    if (j == 1) res_copy_tile<D, ROWS>(tile, a.k + b * a.k_bs + h * D, a.k_rs, r1, tid, nt, r0);
+    if (j == 2)
+      res_copy_tile<D, ROWS>(tile, a.dout + b * a.do_bs + h * D, a.do_rs, r1, tid, nt, r0);
+    if (j == 3) res_copy_tile<D, ROWS>(tile, a.v + b * a.v_bs + h * D, a.v_rs, r1, tid, nt, r0);
+  };
+  auto copy_tables = [&](long long b, int h, int tab) {
+    res_copy_tables(smem_raw, TABS + tab * TAB, a.relh, a.relw, b, h, a.heads, a.n, a.gh,
+                    a.gw, t, nthr);
+  };
+  // The ring: tensor j of a round whose first slot is s0 sits in slot
+  // (s0 + j) % NSLOT (0 Q, 1 K, 2 dO, 3 V); the tables of round `it` in
+  // buffer it % 2. Written out, not through copy_tensor: through it ptxas
+  // scheduled the d-64 kernels otherwise, up to 1 % slower on the H100.
   auto copy_in = [&](int wh, int s0, int tab, int j0, int j1) {
     const long long b = wh / a.heads;
     const int h = wh - (int)b * a.heads;
     for (int j = j0; j < j1; ++j) {
       const uint32_t tile = base + ((s0 + j) % NSLOT) * TILE;
-      if (j == 0) res_copy_tile(tile, a.q + b * a.q_bs + h * kResD, a.q_rs, a.n, t, nthr);
-      if (j == 1) res_copy_tile(tile, a.k + b * a.k_bs + h * kResD, a.k_rs, a.n, t, nthr);
-      if (j == 2) res_copy_tile(tile, a.dout + b * a.do_bs + h * kResD, a.do_rs, a.n, t, nthr);
-      if (j == 3) res_copy_tile(tile, a.v + b * a.v_bs + h * kResD, a.v_rs, a.n, t, nthr);
+      if (j == 0) res_copy_tile<D, ROWS>(tile, a.q + b * a.q_bs + h * D, a.q_rs, a.n, t, nthr);
+      if (j == 1) res_copy_tile<D, ROWS>(tile, a.k + b * a.k_bs + h * D, a.k_rs, a.n, t, nthr);
+      if (j == 2)
+        res_copy_tile<D, ROWS>(tile, a.dout + b * a.do_bs + h * D, a.do_rs, a.n, t, nthr);
+      if (j == 3) res_copy_tile<D, ROWS>(tile, a.v + b * a.v_bs + h * D, a.v_rs, a.n, t, nthr);
     }
-    if (j0 == 0)
-      res_copy_tables(smem_raw, TABS + tab * TAB, a.relh, a.relw, b, h, a.heads, a.n, a.gh,
-                       a.gw, t, nthr);
+    if (j0 == 0) copy_tables(b, h, tab);
   };
 
   int wh = blockIdx.x;
-  if (wh < total) copy_in(wh, 0, 0, 0, EARLY);
+  if (wh < total) {
+    if constexpr (REFILL) {
+      const long long b = wh / a.heads;
+      const int h = wh - (int)b * a.heads;
+      copy_tensor(2, b, h, base + 3 * TILE, 0, a.n, t, nthr);
+      copy_tensor(1, b, h, base + TILE, 0, a.n, t, nthr);
+      copy_tensor(3, b, h, base + 2 * TILE, 0, a.n, t, nthr);
+      copy_tables(b, h, 0);
+    } else {
+      copy_in(wh, 0, 0, 0, EARLY);
+    }
+  }
   res_commit();
   int s0 = 0;
   for (int it = 0; wh < total; wh += gridDim.x, ++it, s0 = (s0 + 4) % NSLOT) {
     const long long b = wh / a.heads;
     const int h = wh - (int)b * a.heads;
-    const uint32_t qs = base + s0 * TILE, ks = base + ((s0 + 1) % NSLOT) * TILE;
-    const uint32_t dos = base + ((s0 + 2) % NSLOT) * TILE, vs = base + ((s0 + 3) % NSLOT) * TILE;
+    const int next = wh + (int)gridDim.x;
+    const long long nb = next / a.heads;  // the next window-head's (b, h)
+    const int nh = next - (int)nb * a.heads;
+    const uint32_t qs = base + (REFILL ? 0 : s0 * TILE);
+    const uint32_t ks = base + (REFILL ? 1 : (s0 + 1) % NSLOT) * TILE;
+    const uint32_t dos = base + (REFILL ? 3 + (it & 1) : (s0 + 2) % NSLOT) * TILE;
+    const uint32_t vs = base + (REFILL ? 2 : (s0 + 3) % NSLOT) * TILE;
     const uint32_t tb = base + TABS + (it & 1) * TAB, eye = base + EYE;
 
-    // What was not prefetched (its slot was in use until the last barrier).
-    copy_in(wh, s0, it & 1, EARLY, 4);
+    // What was not prefetched (its slot was in use until the last barrier):
+    // V in the ring, Q with the refills.
+    if constexpr (REFILL)
+      copy_tensor(0, b, h, qs, 0, a.n, t, nthr);
+    else
+      copy_in(wh, s0, it & 1, EARLY, 4);
     res_commit();
 
     // This warp's rows of o and lse (tiles warp, warp + NW, ...), from device
-    // memory while the copies land: two lanes a row, 32 columns each.
+    // memory while the copies land: two lanes a row, D / 2 columns each.
     const int dhalf = lane & 1;
-    uint4 ov[MAXT][4];
+    uint4 ov[MAXT][CH / 2];
     float lse_row[MAXT];
 #pragma unroll
     for (int ti = 0; ti < MAXT; ++ti) {
       const int drow = (warp + ti * NW) * 16 + (lane >> 1);
-      const bf16* og = a.out + b * a.o_bs + h * kResD + drow * a.o_rs + dhalf * 32;
+      const bf16* og = a.out + b * a.o_bs + h * D + drow * a.o_rs + dhalf * (D / 2);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < CH / 2; ++i)
         ov[ti][i] =
             drow < a.n ? *reinterpret_cast<const uint4*>(og + i * 8) : make_uint4(0u, 0u, 0u, 0u);
       lse_row[ti] =
           (drow < a.n && dhalf == 0) ? a.lse[(b * a.n + drow) * a.heads + h] * kLog2e : 0.f;
     }
     res_wait<1>();
-    __syncthreads();  // Q, K, dO and the tables are in
+    __syncthreads();  // all but the copy just issued: dO and the tables are in
 
     // delta[row] = sum_d do * o in f32.
 #pragma unroll
@@ -190,9 +251,10 @@ __global__ void __launch_bounds__(NW * 32, 1) attn_bwd_resident_kernel(ResBwdArg
       float sum = 0.f;
       if (drow < a.n) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < CH / 2; ++i) {
+          const int c = dhalf * (CH / 2) + i;
           const uint4 dv4 = *reinterpret_cast<const uint4*>(
-              smem_raw + (dos - base) + res_off<false>(drow, dhalf * 4 + i));
+              smem_raw + (dos - base) + res_tile_off<D, ROWS>(drow, c, c >= 8));
           const uint32_t dw[4] = {dv4.x, dv4.y, dv4.z, dv4.w};
           const uint32_t ow[4] = {ov[ti][i].x, ov[ti][i].y, ov[ti][i].z, ov[ti][i].w};
 #pragma unroll
@@ -207,12 +269,20 @@ __global__ void __launch_bounds__(NW * 32, 1) attn_bwd_resident_kernel(ResBwdArg
       }
     }
 
-    // The next window-head's first tensors into the free slots.
-    if (wh + (int)gridDim.x < total)
-      copy_in(wh + gridDim.x, (s0 + 4) % NSLOT, (it + 1) & 1, 0, EARLY);
+    // The next window-head's first tensors into the free slots: in the ring
+    // Q, K, dO (or all four) and the tables; with the refills dO and the
+    // tables.
+    if (next < total) {
+      if constexpr (REFILL) {
+        copy_tensor(2, nb, nh, base + (3 + ((it + 1) & 1)) * TILE, 0, a.n, t, nthr);
+        copy_tables(nb, nh, (it + 1) & 1);
+      } else {
+        copy_in(next, (s0 + 4) % NSLOT, (it + 1) & 1, 0, EARLY);
+      }
+    }
     res_commit();
     res_wait<1>();
-    __syncthreads();  // V is in; lse and delta of every row are visible
+    __syncthreads();  // every tensor is in; lse and delta of every row are visible
 
     // ---- pass 1: this warp's 16-row query tiles against every key ----------
 #pragma unroll 1
@@ -237,15 +307,15 @@ __global__ void __launch_bounds__(NW * 32, 1) attn_bwd_resident_kernel(ResBwdArg
 #pragma unroll
         for (int kd = 0; kd < KD; ++kd) {
           uint32_t qa[4], da[4];
-          res_lda<false>(qa, qs, r0, 2 * kd, lane);
-          res_lda<false>(da, dos, r0, 2 * kd, lane);
+          res_lda<false, D, ROWS>(qa, qs, r0, 2 * kd, lane);
+          res_lda<false, D, ROWS>(da, dos, r0, 2 * kd, lane);
           if (a.mode != kResScaleScores) res_scale_regs(qa, a.scale);
 #pragma unroll
           for (int i = 0; i < CHA; ++i) {
             if (c0 + i < KT) {
               uint32_t kb[4], vb[4];
-              res_ldb<false>(kb, ks, 16 * (c0 + i), 2 * kd, lane);
-              res_ldb<false>(vb, vs, 16 * (c0 + i), 2 * kd, lane);
+              res_ldb<false, D, ROWS>(kb, ks, 16 * (c0 + i), 2 * kd, lane);
+              res_ldb<false, D, ROWS>(vb, vs, 16 * (c0 + i), 2 * kd, lane);
               mma_16816(s[2 * i], qa, kb[0], kb[1]);
               mma_16816(s[2 * i + 1], qa, kb[2], kb[3]);
               mma_16816(dp[2 * i], da, vb[0], vb[1]);
@@ -311,7 +381,7 @@ __global__ void __launch_bounds__(NW * 32, 1) attn_bwd_resident_kernel(ResBwdArg
 #pragma unroll
             for (int ndp = 0; ndp < ND / 2; ++ndp) {
               uint32_t kb[4];
-              res_ldbt<false>(kb, ks, 16 * (c0 + i), 2 * ndp, lane);
+              res_ldbt<false, D, ROWS>(kb, ks, 16 * (c0 + i), 2 * ndp, lane);
               mma_16816(dq[2 * ndp], dsa[i], kb[0], kb[1]);
               mma_16816(dq[2 * ndp + 1], dsa[i], kb[2], kb[3]);
             }
@@ -328,7 +398,7 @@ __global__ void __launch_bounds__(NW * 32, 1) attn_bwd_resident_kernel(ResBwdArg
         }
       }
 
-      bf16* dqg = a.dq + b * a.dq_bs + h * kResD;
+      bf16* dqg = a.dq + b * a.dq_bs + h * D;
 #pragma unroll
       for (int nd = 0; nd < ND; ++nd) {
         const int c = nd * 8 + 2 * t4;
@@ -354,6 +424,9 @@ __global__ void __launch_bounds__(NW * 32, 1) attn_bwd_resident_kernel(ResBwdArg
         }
       }
     }
+    // Pass 1 read every row of K and V; from here on a warp reads only its
+    // own rows of them, which the refills replace.
+    if constexpr (REFILL) __syncthreads();
 
     // ---- pass 2: this warp's 16-key tiles against every query --------------
 #pragma unroll 1
@@ -376,15 +449,15 @@ __global__ void __launch_bounds__(NW * 32, 1) attn_bwd_resident_kernel(ResBwdArg
 #pragma unroll
         for (int kd = 0; kd < KD; ++kd) {
           uint32_t ka[4], va[4];
-          res_lda<false>(ka, ks, r0, 2 * kd, lane);
-          res_lda<false>(va, vs, r0, 2 * kd, lane);
+          res_lda<false, D, ROWS>(ka, ks, r0, 2 * kd, lane);
+          res_lda<false, D, ROWS>(va, vs, r0, 2 * kd, lane);
           if (a.mode == kResScalePow2) res_scale_regs(ka, a.scale);
 #pragma unroll
           for (int i = 0; i < CHB; ++i) {
             if (c0 + i < KT) {
               uint32_t qb[4], db[4];
-              res_ldb<false>(qb, qs, 16 * (c0 + i), 2 * kd, lane);
-              res_ldb<false>(db, dos, 16 * (c0 + i), 2 * kd, lane);
+              res_ldb<false, D, ROWS>(qb, qs, 16 * (c0 + i), 2 * kd, lane);
+              res_ldb<false, D, ROWS>(db, dos, 16 * (c0 + i), 2 * kd, lane);
               if (a.mode == kResScaleRoundQ) res_scale_regs(qb, a.scale);
               mma_16816(st[2 * i], ka, qb[0], qb[1]);
               mma_16816(st[2 * i + 1], ka, qb[2], qb[3]);
@@ -447,8 +520,8 @@ __global__ void __launch_bounds__(NW * 32, 1) attn_bwd_resident_kernel(ResBwdArg
 #pragma unroll
             for (int ndp = 0; ndp < ND / 2; ++ndp) {
               uint32_t db[4], qb[4];
-              res_ldbt<false>(db, dos, 16 * (c0 + i), 2 * ndp, lane);
-              res_ldbt<false>(qb, qs, 16 * (c0 + i), 2 * ndp, lane);
+              res_ldbt<false, D, ROWS>(db, dos, 16 * (c0 + i), 2 * ndp, lane);
+              res_ldbt<false, D, ROWS>(qb, qs, 16 * (c0 + i), 2 * ndp, lane);
               mma_16816(dv[2 * ndp], pta[i], db[0], db[1]);
               mma_16816(dv[2 * ndp + 1], pta[i], db[2], db[3]);
               mma_16816(dk[2 * ndp], dsta[i], qb[0], qb[1]);
@@ -458,8 +531,8 @@ __global__ void __launch_bounds__(NW * 32, 1) attn_bwd_resident_kernel(ResBwdArg
         }
       }
 
-      bf16* dkg = a.dk + b * a.dk_bs + h * kResD;
-      bf16* dvg = a.dv + b * a.dv_bs + h * kResD;
+      bf16* dkg = a.dk + b * a.dk_bs + h * D;
+      bf16* dvg = a.dv + b * a.dv_bs + h * D;
 #pragma unroll
       for (int nd = 0; nd < ND; ++nd) {
         const int c = nd * 8 + 2 * t4;
@@ -474,17 +547,29 @@ __global__ void __launch_bounds__(NW * 32, 1) attn_bwd_resident_kernel(ResBwdArg
           *reinterpret_cast<uint32_t*>(dvg + rB * a.dv_rs + c) = pack_bf16x2(dv[nd][2], dv[nd][3]);
         }
       }
+      if constexpr (REFILL) {
+        // these K and V rows are spent (only this warp read them in pass 2):
+        // the next window-head's into them, waited for at the next round's
+        // first res_wait
+        __syncwarp();
+        if (next < total) {
+          const int r1 = min(r0 + 16, a.n);
+          copy_tensor(1, nb, nh, ks, r0, r1, lane, 32);
+          copy_tensor(3, nb, nh, vs, r0, r1, lane, 32);
+        }
+        res_commit();
+      }
     }
     __syncthreads();  // every slot of this round is free
   }
   res_wait<0>();
 }
 
-template <int KT, int NW, int CHA, int CHB>
+template <int D, int KT, int NW, int CHA, int CHB>
 cudaError_t launch_bwd_resident(const ResBwdArgs& a, cudaStream_t stream) {
-  constexpr int smem = res_bwd_smem_bytes<KT>();
+  constexpr int smem = res_bwd_smem_bytes<D, KT>();
   static_assert(smem <= kMaxSmemBytes, "shared memory of the backward");
-  auto kernel = attn_bwd_resident_kernel<KT, NW, CHA, CHB>;
+  auto kernel = attn_bwd_resident_kernel<D, KT, NW, CHA, CHB>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -512,7 +597,7 @@ int attention_bwd_resident_entry(int dtype, const void* q, const void* k, const 
                                  long long dk_bs, long long dk_rs, long long dv_bs,
                                  long long dv_rs, int gh, int gw, float scale, void* stream) {
   using bf16 = __nv_bfloat16;
-  if (!res_shapes_ok(dtype, batch, heads, nq, nk, relh, relw, gh, gw) || d != kResD ||
+  if (!res_shapes_ok(dtype, batch, heads, nq, nk, relh, relw, gh, gw) || (d != 64 && d != 80) ||
       lse == nullptr)
     return (int)cudaErrorInvalidValue;
   ResBwdArgs a;
@@ -533,8 +618,11 @@ int attention_bwd_resident_entry(int dtype, const void* q, const void* k, const 
   a.scale = scale;
   a.mode = res_scale_mode(scale, SCALE_SCORES);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(res_key_tiles(nq) == 9 ? launch_bwd_resident<9, 5, 5, 4>(a, s)
-                                      : launch_bwd_resident<13, 7, 5, 3>(a, s));
+  if (d == 80)
+    return (int)(res_key_tiles(nq) == 9 ? launch_bwd_resident<80, 9, 5, 3, 3>(a, s)
+                                        : launch_bwd_resident<80, 13, 7, 4, 2>(a, s));
+  return (int)(res_key_tiles(nq) == 9 ? launch_bwd_resident<64, 9, 5, 5, 4>(a, s)
+                                      : launch_bwd_resident<64, 13, 7, 5, 3>(a, s));
 }
 
 }  // namespace

@@ -15,8 +15,8 @@
 // main paths), rel tables at most 16 wide (ops/_attention.py::attention_body
 // says which launch comes here). Global blocks that land in K1 / K6 with more
 // keys, d = 32, d = 128 and f32 stay with attention_fwd.cuh. Head dim 80
-// (ViT-H's windows) runs here forward only: its backward stays with the tile
-// bodies of attention_bwd.cuh (attention_bwd_resident.cuh is d = 64 only).
+// (ViT-H's windows) runs here and in attention_bwd_resident.cuh, both ways
+// in the same row layout.
 //
 // What bounds it on the H100: bytes. A window-head reads 3 x N x 128 B of
 // q, k, v and N x 2 x g x 2 B of tables and writes N x 128 B: 111 KB at
@@ -97,7 +97,7 @@
 namespace wm {
 namespace {
 
-constexpr int kResD = 64;          // head dim of the resident bodies (the forward also 80)
+constexpr int kResD = 64;          // the helpers' default head dim (both bodies also take 80)
 constexpr int kResTileRow = 128;   // bytes of a q, k, v row at d = 64
 constexpr int kResTabRow = 64;     // bytes of a table row: rel_h in [0, 16), rel_w in [16, 32)
 constexpr int kResMaxGrid = 16;    // widest rel table
@@ -540,8 +540,8 @@ cudaError_t launch_fwd_resident(const ResFwdArgs& a, cudaStream_t stream) {
 
 // What both resident entries refuse (cudaErrorInvalidValue): anything but
 // bf16 with nq == nk <= 208, both rel tables at most 16 wide covering the
-// window, 16-byte aligned rows. Each entry checks its head dims (the
-// forward d = 64 and 80, the backward d = 64).
+// window, 16-byte aligned rows. Each entry checks its head dims (d = 64
+// and 80).
 inline bool res_shapes_ok(int dtype, int batch, int heads, int nq, int nk,
                           const void* relh, const void* relw, int gh, int gw) {
   return dtype == kBFloat16 && nq == nk && nq >= 1 && nq <= kResMaxTokens &&

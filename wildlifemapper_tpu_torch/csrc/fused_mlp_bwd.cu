@@ -16,7 +16,8 @@
 // This body recomputes h in scalar f32 FMAs (no TF32): a block keeps a tile
 // of 32 x rows in shared memory and streams w1 in 64-wide hidden chunks; the
 // epilogue of each chunk reads da and writes a and dh. D is one of 64, 128,
-// 256, 768 and 1024. bf16 inputs take the Hopper GEMM body of
+// 256, 768, 1024 and 1280 (ViT-H: the x tile and a w1 piece take 172,416
+// bytes of shared memory). bf16 inputs take the Hopper GEMM body of
 // mlp_gemm_sm90.cuh (epilogue BiasGeluGrad, where the header says what bounds
 // the kernel on the H100), and this entry refuses them.
 
@@ -101,11 +102,11 @@ mlp_dh_kernel(const float* __restrict__ x, const float* __restrict__ w1,
 template <int D>
 cudaError_t launch_dh(const void* x, const void* w1, const float* b1, const void* da,
                       void* act, void* dh, int R, int F, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)(MBM * (D + 1) + MBF * (MKD + 1));
-  if (smem > (size_t)kMaxSmemBytes) return cudaErrorInvalidValue;
+  constexpr int smem = sizeof(float) * (MBM * (D + 1) + MBF * (MKD + 1));
+  static_assert(smem <= kMaxSmemBytes, "shared memory of the f32 dh kernel");
   cudaError_t err = cudaFuncSetAttribute(mlp_dh_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+                                         smem);
   if (err != cudaSuccess) return err;
   dim3 grid((R + MBM - 1) / MBM);
   mlp_dh_kernel<D><<<grid, MTHREADS, smem, stream>>>(
@@ -133,6 +134,7 @@ extern "C" int wm_fused_mlp_dh(int dtype, const void* x, const void* w1, const v
       case 256: return (int)wm::launch_dh<256>(x, w1, b1f, da, act, dh, R, F, s);
       case 768: return (int)wm::launch_dh<768>(x, w1, b1f, da, act, dh, R, F, s);
       case 1024: return (int)wm::launch_dh<1024>(x, w1, b1f, da, act, dh, R, F, s);
+      case 1280: return (int)wm::launch_dh<1280>(x, w1, b1f, da, act, dh, R, F, s);
       default: return (int)cudaErrorInvalidValue;
     }
   }

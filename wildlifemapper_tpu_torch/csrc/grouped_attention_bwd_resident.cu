@@ -1,7 +1,8 @@
 // Backward of the grouped windowed attention (K6 of the JAX package:
-// windowed_attention.py::_bwd_kernel), bf16, d = 64, up to 208 tokens a
-// window: the one-kernel resident body of attention_bwd_resident.cuh (delta,
-// dq, dk, dv and the rel-table gradients of a window-head from one block)
+// windowed_attention.py::_bwd_kernel), bf16, d = 64 or 80, up to 208
+// tokens a window: the one-kernel resident body of
+// attention_bwd_resident.cuh (delta, dq, dk, dv and the rel-table gradients
+// of a window-head from one block)
 // with the scale on the f32 scores. See that header for the H100 bound and
 // the design; grouped_attention_bwd.cu keeps f32, d = 32 and the global
 // blocks that land in K6 with more keys.

@@ -9,9 +9,9 @@ built by the six `*_sm90.cu`; their dq kernel takes delta itself), and the
 windowed bf16 shapes (K1, K6: one window of at most 208 tokens) the
 resident bodies (csrc/attention_fwd_resident.cuh,
 attention_bwd_resident.cuh, built by the four `*_resident.cu`), whose
-backward is one kernel that also takes delta; at head dim 80 the resident
-body runs the forward only: `attention_body` says which launch takes which,
-from its direction, dtype and shapes alone.
+backward is one kernel that also takes delta, at head dim 64 and 80 alike:
+`attention_body` says which launch takes which, from its direction, dtype
+and shapes alone.
 
 Layouts are the JAX package's: q (B, N, C) and k, v (B, M, C), head h in
 columns [h*d, (h+1)*d); for the packed qkv they are column slices of one
@@ -54,8 +54,8 @@ MAX_GRID_YZ = 65535
 # tiles through the Hopper bodies (csrc/attention_fwd_sm90.cuh,
 # attention_bwd_sm90.cuh).
 STREAM_MIN_KEYS = 512
-# Up to this many tokens a bf16 window at d = 64 (and the forward at d = 80)
-# is held whole in shared memory by the resident bodies
+# Up to this many tokens a bf16 window at d = 64 or 80 is held whole in
+# shared memory by the resident bodies
 # (csrc/attention_fwd_resident.cuh, attention_bwd_resident.cuh): 13 tiles of
 # 16 rows; the main paths' windows
 # are 196 (14 x 14) and 144 (12 x 12) tokens. Their rel tables are at most
@@ -69,8 +69,7 @@ SM90_REL_COLS = 128
 BODIES = ("mma", "sm90", "resident")
 DIRECTIONS = ("forward", "backward")
 # Head dims the kernels take: ViT-B / L / H run 64, 64, 80, the adaptor 128.
-# 80 takes the Hopper bodies both ways and the resident body forward; the
-# backward of a d-80 window takes the mma.sync / f32 tile bodies.
+# 80 takes the Hopper bodies and the resident bodies both ways, as 64 does.
 HEAD_DIMS = (32, 64, 80, 128)
 
 
@@ -83,17 +82,15 @@ def attention_body(dtype: torch.dtype, d: int, nq: int, nk: int,
     128 with at least STREAM_MIN_KEYS keys (K2, K4 and K5 on the main paths,
     ViT-H's K2 and K5, with or without rel tables, any number of queries);
     "resident", the one-block-a-window-head bodies, for
-    bf16 at d = 64 (forward also d = 80) with rel tables of a grid `grid_hw`
-    at most RESIDENT_MAX_GRID a side and nq == nk <= RESIDENT_MAX_TOKENS
-    (every window of K1 and K6 on the main paths and ViT-H's; when `grid_hw`
-    is not given the tables are taken to fit); else "mma", the mma.sync
-    (bf16) or scalar (f32) tile bodies of csrc/attention_fwd.cuh /
-    attention_bwd.cuh (f32, d = 32, the backward of a d-80 window, d = 128
-    or N != M below STREAM_MIN_KEYS keys, and a global block of 209 to 511
-    tokens that lands in K1 or K6). `direction` is "forward" or "backward":
-    a d-80 window takes the resident body forward and the tile bodies
-    backward, which compute the same function (the tile backward reads the
-    resident forward's lse). Raises on what no body takes."""
+    bf16 at d = 64 or 80 with rel tables of a grid `grid_hw` at most
+    RESIDENT_MAX_GRID a side and nq == nk <= RESIDENT_MAX_TOKENS (every
+    window of K1 and K6 on the main paths and ViT-H's; when `grid_hw` is not
+    given the tables are taken to fit); else "mma", the mma.sync (bf16) or
+    scalar (f32) tile bodies of csrc/attention_fwd.cuh / attention_bwd.cuh
+    (f32, a d-80 window included, d = 32, d = 128 or N != M below
+    STREAM_MIN_KEYS keys, and a global block of 209 to 511 tokens that lands
+    in K1 or K6). `direction` is "forward" or "backward"; every shape takes
+    the same body both ways. Raises on what no body takes."""
     if direction not in DIRECTIONS:
         raise ValueError(f"direction {direction!r}: expected one of "
                          f"{DIRECTIONS}")
@@ -106,8 +103,7 @@ def attention_body(dtype: torch.dtype, d: int, nq: int, nk: int,
     if (dtype == torch.bfloat16 and d in (64, 80, 128)
             and nk >= STREAM_MIN_KEYS):
         return "sm90"
-    resident = (64, 80) if direction == "forward" else (64,)
-    if (dtype == torch.bfloat16 and d in resident and has_rel
+    if (dtype == torch.bfloat16 and d in (64, 80) and has_rel
             and nq == nk <= RESIDENT_MAX_TOKENS
             and (grid_hw is None or max(grid_hw) <= RESIDENT_MAX_GRID)):
         return "resident"

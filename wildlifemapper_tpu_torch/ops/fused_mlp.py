@@ -22,7 +22,8 @@ no D 1280 at all). Un-fused, the hidden round trip is 100.7 MB (0.06 ms at
 3.35 TB/s) against two products of 77 GFLOP each (0.078 ms each at 989
 TFLOP/s): operations bound both, and a bf16 hidden in device memory is the
 same rounding point as the Pallas kernel's. f32, the parity path, keeps
-the fused scalar body of csrc/fused_mlp.cu (D 64, 128, 256, 768, 1024).
+the fused scalar body of csrc/fused_mlp.cu (D 64, 128, 256, 768, 1024 and
+ViT-H's 1280).
 
 The backward follows `_mlp_bwd` (fused_mlp.py:139-175): da = g @ w2 rounded
 to x's dtype; the dh kernel (`_bwd_dh_kernel` :120, pallas_call :148; bf16:
@@ -83,8 +84,9 @@ def fused_mlp_dh_plain(x, w1, b1, da):
 
 # The GEMM body's epilogues (csrc/mlp_gemm_sm90.cuh::MlpEpilogue).
 _BIAS_GELU, _BIAS, _BIAS_GELU_GRAD = 0, 1, 2
-# D the f32 scalar bodies take (csrc/fused_mlp.cu, fused_mlp_bwd.cu)
-F32_DIMS = (64, 128, 256, 768, 1024)
+# D the f32 scalar bodies take (csrc/fused_mlp.cu, fused_mlp_bwd.cu): ViT-B,
+# L and H widths and the small ones of the tests
+F32_DIMS = (64, 128, 256, 768, 1024, 1280)
 
 
 def _check_kernel_shapes(x, *tensors):

@@ -11,7 +11,7 @@ block on a grid of fewer than GLOBAL_N_THRESHOLD tokens lands here too.
 
 The Pallas kernel held a group of 16 whole windows on chip with a one-pass
 softmax and, in the backward, a second softmax and delta = sum p*dp. In bf16
-at d = 64 a window of up to 208 tokens runs the resident bodies
+at d = 64 or 80 a window of up to 208 tokens runs the resident bodies
 (csrc/grouped_attention_resident.cu, grouped_attention_bwd_resident.cu): one
 block a window-head with Q, K and V whole in shared memory, a one-pass
 softmax that writes lse when a gradient is recorded, and one backward kernel

@@ -4,10 +4,10 @@ Replaces wildlifemapper_tpu/ops/windowed_attention_v2.py::
 windowed_attention_packed (:200) and its backward kernel (_bwd_kernel :125)
 in the 8 windowed ViT-B blocks: qkv (BW, N, 3C) as the qkv GEMM emits it, N = 196 (window 14
 on the 64-grid padded to 70, BW = B*25) or 144 (window 12 on the 48-grid,
-BW = B*16). In bf16 at d = 64 a window of up to 208 tokens runs the resident
-body (csrc/attention_resident.cu: one block a window-head, Q, K and V whole in
-shared memory; see csrc/attention_fwd_resident.cuh for what bounds it on the
-H100 and how the design answers it). f32, d = 32 and a global block of more
+BW = B*16). In bf16 at d = 64 or 80 (ViT-H) a window of up to 208 tokens
+runs the resident body (csrc/attention_resident.cu: one block a window-head,
+Q, K and V whole in shared memory; see csrc/attention_fwd_resident.cuh for
+what bounds it on the H100 and how the design answers it). f32, d = 32 and a global block of more
 tokens that lands here still run the tile body of csrc/attention.cu (shared
 with K2 and K4; csrc/attention_fwd.cuh).
 The rel tables are unpadded (BW, N, H, gh) / (BW, N, H, gw): the 16-lane
