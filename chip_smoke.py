@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths at the full ViT-B width, through its
+Drives the port's paths at the full ViT-B width, through its
 hand-written CUDA kernels, and checks them: serving (wildlifemapper_tpu_torch:
 HFC -> ViT-B -> box decoder -> postprocess + NMS) and training (train/step.py:
 forward, set criterion with the Hungarian match, backward through the
@@ -11,8 +11,9 @@ kernels: attn_impl="packed" (K1 windowed, K2 global, K3 MLP, K4 adaptor) and
 attn_impl="grouped" (K6 windowed, K5 global, K4; plain MLP). Also serves
 ViT-L and ViT-H through the packed kernels (ViT-H also in f32), and trains
 the ViT-H fine-tune with remat_blocks at its full width and depth (the path
-of the head-dim-80 Hopper and resident backward) in both layouts.
-Phases, one JSON line each; any failure raises and exits non-zero:
+of the head-dim-80 Hopper and resident backward) in both layouts, and runs
+the training loop (train/loop.py: loader, checkpoints, resume, per-epoch
+COCO evaluation) in two configurations. Phases, one JSON line each; any failure raises and exits non-zero:
 
   1. device: the card's name and power limit; build the kernels from
      wildlifemapper_tpu_torch/csrc (timed), registers and spills of every
@@ -125,13 +126,37 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      and 4 the same way in turns with the tile body, the whole backward of
      K2 and K5 (the Hopper body) and of K1 and K6 (the resident body) in
      turns with the tile bodies' at batch 1 and 4, beside the plain version
-     (batch 1) and the library call; every kernel beside its
+     (the forward at batch 1 and 4, the backward at batch 1) and the library
+     call; every kernel beside its
      bound (the larger of its FLOPs over 989
      TFLOP/s and its bytes over 3.35 TB/s); K3 forward and dh at R = 16384
      and 9216 (ViT-B) and at ViT-L's and ViT-H's widths over 20 launches in
      turns with their library yardsticks (bf16 F.linear -> F.gelu ->
      F.linear; F.linear and the GELU-gradient product), the forward's two
      passes alone, and the host time of one wrapper call of each.
+
+ 10. the training loop (train/loop.py through cli/train.py's Config, the
+     vendored annotation bundle, synthetic tiles at 1024 cached in a
+     temporary WM_SYNTH_CACHE, bf16, batch 4, full ViT-B): 10a the CLI's
+     fine-tune from the golden weights, 2 epochs of 8 steps with evaluation
+     on 4 val batches and a checkpoint every epoch, then a resumed third
+     epoch in the same process and an unbroken 3-epoch run: every file
+     written, the restored state bit for bit the saved one (parameters,
+     Adam's state, the lr, step, the dropout generator), COCO stats in
+     [0, 1] or -1, the resumed first loss within 2e-2 of the unbroken run's
+     (whether bit-identical printed); 10b from scratch from the port's own
+     initialisation (--train_encoder --content_size 768 --crop_prologue
+     --window_size 12, hfc.dropout 0), 24 steps, the mean loss of the last 6
+     below that of the first 6. The counts are set to 0 before 10a and read
+     after 10b (the kernels' "launches_loop"); one loop step's launches of
+     each configuration exactly those of a bf16 train step, and its waits
+     for the device (sync debug mode, from the end of one step to the end
+     of the next) at most 2. Read, not gated: the loop's ms a step and
+     tiles/s (CUDA events, first step excluded), the same step bare on a
+     resident batch, eval tiles/s, peak memory, the loader's host ms a
+     batch (thread and process mode, 2 workers, cold and warm), 20 steps of
+     the fine-tune in bf16 beside f32 from the same weights and batches,
+     and one whole epoch through cli.train.main.
 
 The last line is {"ok": true, "device": {...}}. Without CUDA, or without the
 rest of the repository beside it, the script fails before any result.
@@ -278,6 +303,343 @@ def attention_backward_bound(products: int, mac: float, scores: float,
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def trees_equal(a, b, where="") -> list:
+    """The paths at which two nested dicts / lists of tensors and numbers
+    differ (tensors compared bit for bit)."""
+    import torch
+
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            return [f"{where}: keys"]
+        return [p for k in a for p in trees_equal(a[k], b[k], f"{where}/{k}")]
+    if isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            return [f"{where}: length"]
+        return [p for i, (x, y) in enumerate(zip(a, b))
+                for p in trees_equal(x, y, f"{where}/{i}")]
+    if isinstance(a, torch.Tensor):
+        same = (isinstance(b, torch.Tensor) and a.shape == b.shape
+                and a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu()))
+        return [] if same else [where]
+    return [] if a == b else [where]
+
+
+def loop_phase(gpu, golden_sd, reset_counts, all_counts, per_step) -> dict:
+    """10. The training loop on the card (train/loop.py through the CLI's
+    config, the vendored annotation bundle, synthetic tiles at 1024, bf16,
+    batch 4, full ViT-B). Returns the launch counts of its main path: the
+    fine-tune runs of 10a and the from-scratch run of 10b, counted from 0
+    just before the first and read just after the last."""
+    import argparse
+    import os
+    import shutil
+    import tempfile
+    import warnings
+
+    import torch
+
+    from wildlifemapper_tpu_torch.cli import train as cli_train
+    from wildlifemapper_tpu_torch.data.loader import DataLoader, build_dataset
+    from wildlifemapper_tpu_torch.train import loop as loop_mod
+    from wildlifemapper_tpu_torch.train.checkpoints import CheckpointManager
+    from wildlifemapper_tpu_torch.train.profiling import StepWatch
+    from wildlifemapper_tpu_torch.train.step import StepBuilder
+
+    t_phase = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="wm_loop_"))
+    env_cache = os.environ.get("WM_SYNTH_CACHE")
+    os.environ["WM_SYNTH_CACHE"] = str(work / "synth")
+
+    def config(*flags, amp=True):
+        """The CLI's Config for these flags (its defaults: the fine-tune)."""
+        argv = ["--synthetic_data", "--synthetic_size", "1024",
+                "--batch_size", str(BATCH), "--checkpoint_every", "1",
+                *(["--use_amp"] if amp else []), *flags]
+        args = cli_train.add_config_args(
+            argparse.ArgumentParser()).parse_args(argv)
+        cli_train.check_ported(args)
+        return cli_train.config_from_args(args)
+
+    def train_run(cfg, workdir, watch_at=None, count_at=None, **kw):
+        """loop.train, watched (train/profiling.py::StepWatch): the launches
+        of step `count_at`, and the waits for the device of one loop
+        iteration, from the end of step `watch_at` - 1 to the end of step
+        `watch_at`: the read of an earlier step's metrics, the next batch,
+        its copy to the card and the step."""
+        r = {}
+
+        def before(k):
+            if k == count_at:
+                r["counts_before"] = all_counts()
+
+        def after(k):
+            if k == count_at:
+                now, was = all_counts(), r.pop("counts_before")
+                r["step_launches"] = {
+                    a: {n: now[a][n] - was[a][n] for n in now[a]}
+                    for a in now}
+            if k == watch_at:
+                torch.cuda.set_sync_debug_mode("default")
+                r["catcher"].__exit__(None, None, None)
+            if k + 1 == watch_at:
+                # the mode's own notice comes before the recording starts
+                torch.cuda.set_sync_debug_mode("warn")
+                r["catcher"] = warnings.catch_warnings(record=True)
+                r["caught"] = r["catcher"].__enter__()
+                warnings.simplefilter("always")
+
+        watch = StepWatch(before, after)
+        t0 = time.perf_counter()
+        stats = loop_mod.train(cfg, workdir=str(workdir),
+                               print_fn=lambda *a, **k: None, watch=watch,
+                               **kw)
+        torch.cuda.synchronize()
+        r.update(watch=watch, seconds=time.perf_counter() - t0, stats=stats,
+                 losses=[m["loss"].item() for m in watch.metrics],
+                 eval_batches=kw.get("max_eval_batches"))
+        if not all(np.isfinite(r["losses"])):
+            raise AssertionError(f"non-finite loop losses {r['losses']}")
+        return r
+
+    def eval_rate(r):
+        return BATCH * r["eval_batches"] / r["watch"].eval_seconds[-1]
+
+    def coco_ok(stats):
+        coco = {k: v for k, v in stats.items() if k.startswith("val/coco/")}
+        bad = {k: v for k, v in coco.items()
+               if not (v == -1.0 or 0.0 <= v <= 1.0)}
+        if not coco or bad:
+            raise AssertionError(f"COCO stats out of range: {bad or coco}")
+        return coco
+
+    try:
+        # ---- 10a. fine-tune from the golden weights, checkpoints, resume ----
+        ft = config()
+        reset_counts()                 # the loop's main path starts here
+        torch.cuda.reset_peak_memory_stats()
+        a = train_run(ft, work / "a", epochs=2, max_steps_per_epoch=8,
+                      max_eval_batches=4, init_state_dict=golden_sd,
+                      watch_at=5, count_at=3)
+        peak_ft = torch.cuda.max_memory_allocated()
+        written = sorted(os.listdir(work / "a"))
+        for f in ("checkpoint_epoch_0", "checkpoint_epoch_1",
+                  "best_checkpoint", "config.json", "best_loss.json"):
+            if f not in written:
+                raise AssertionError(f"10a: {f} not written: {written}")
+        waits = [str(w.message)[:200] for w in a["caught"]
+                 if "synchroniz" in str(w.message).lower()]
+        emit("loop_step_host_waits", config="fine_tune", waits=len(waits),
+             limit=2, messages=waits)
+        if len(waits) > 2:
+            raise AssertionError(f"a loop step waited for the device "
+                                 f"{len(waits)} times, at most 2: {waits}")
+        want = per_step(False, "packed", resident=True)
+        emit("loop_step_launches", config="fine_tune",
+             launches=a["step_launches"], want=want)
+        if a["step_launches"] != want:
+            raise AssertionError(f"fine-tune loop step: launches "
+                                 f"{a['step_launches']}, want {want}")
+
+        # the restored state is the saved one, bit for bit
+        fresh = StepBuilder(ft)
+        restored = fresh.init_state(steps_per_epoch=8)
+        gen = torch.Generator(device="cuda")
+        CheckpointManager(str(work / "a")).restore("checkpoint_epoch_1",
+                                                   restored, gen)
+        _, live, _, live_gen = a["watch"].last
+        diffs = (trees_equal(live.model.state_dict(),
+                             restored.model.state_dict(), "model")
+                 + trees_equal(live.optimizer.state_dict(),
+                               restored.optimizer.state_dict(), "optimizer")
+                 + trees_equal(live.scheduler.get_last_lr(),
+                               restored.scheduler.get_last_lr(), "lr")
+                 + trees_equal(live.step, restored.step, "step")
+                 + trees_equal(live_gen.get_state(), gen.get_state(),
+                               "generator"))
+        emit("loop_restore", checkpoint="checkpoint_epoch_1",
+             bit_identical=not diffs, differing=diffs[:10],
+             step=restored.step, lr=restored.scheduler.get_last_lr(),
+             adam_states=len(restored.optimizer.state_dict()["state"]))
+        if diffs:
+            raise AssertionError(f"restored state differs: {diffs[:10]}")
+        del fresh, restored
+
+        a_stats = coco_ok(a["stats"])
+        a_ms = a["watch"].ms_per_step(8)
+        a_eval = eval_rate(a)
+        a_losses = a["losses"]
+        # timed bare after the main path's counts are read (below)
+        a_bare = a["watch"].last
+        del live, live_gen, a
+
+        b = train_run(ft, work / "a", epochs=3, resume=True,
+                      max_steps_per_epoch=8, max_eval_batches=4,
+                      init_state_dict=golden_sd)
+        if "checkpoint_epoch_2" not in os.listdir(work / "a"):
+            raise AssertionError("10a: the resumed run wrote no "
+                                 "checkpoint_epoch_2")
+        coco_ok(b["stats"])
+        # the unbroken run reads the tiles that the runs above rendered
+        # (WM_SYNTH_CACHE): its steps time the loop on warm tiles
+        c = train_run(ft, work / "c", epochs=3, max_steps_per_epoch=8,
+                      max_eval_batches=1, init_state_dict=golden_sd)
+        c_ms = c["watch"].ms_per_step(8)
+        resumed, unbroken = b["losses"][0], c["losses"][16]
+        gap = abs(resumed - unbroken) / abs(unbroken)
+        emit("loop_resume", gpu=gpu, resumed_first_loss=resumed,
+             unbroken_epoch2_first_loss=unbroken,
+             bit_identical=resumed == unbroken, relative_gap=gap, limit=2e-2,
+             resumed_losses=b["losses"], unbroken_losses=c["losses"])
+        if gap > 2e-2:
+            raise AssertionError(f"resumed loss {resumed} against unbroken "
+                                 f"{unbroken}: {gap:.3g} relative")
+        del b, c
+        torch.cuda.empty_cache()
+
+        # ---- 10b. from scratch from the port's own initialisation ----------
+        fs = config("--train_encoder", "--content_size", "768",
+                    "--crop_prologue", "--window_size", "12")
+        # hfc.dropout 0, as train/synthetic.py's from_scratch: the adaptor's
+        # attention then trains through its kernel (K4)
+        fs = dataclasses.replace(fs, model=dataclasses.replace(
+            fs.model, hfc=dataclasses.replace(fs.model.hfc, dropout=0.0)))
+        torch.cuda.reset_peak_memory_stats()
+        d = train_run(fs, work / "d", epochs=1, max_steps_per_epoch=24,
+                      max_eval_batches=2, count_at=5)
+        peak_fs = torch.cuda.max_memory_allocated()
+        loop_counts = all_counts()     # ... and ends here
+        first, last = np.mean(d["losses"][:6]), np.mean(d["losses"][-6:])
+        want = per_step(True, "packed", resident=True)
+        emit("loop_from_scratch", gpu=gpu, losses=d["losses"],
+             mean_first_6=first, mean_last_6=last,
+             step_launches=d["step_launches"], want=want)
+        if not last < first:
+            raise AssertionError(f"from scratch: the loss did not fall, "
+                                 f"{first} -> {last}")
+        if d["step_launches"] != want:
+            raise AssertionError(f"from-scratch loop step: launches "
+                                 f"{d['step_launches']}, want {want}")
+        coco_ok(d["stats"])
+        d_ms = d["watch"].ms_per_step(24)
+        d_eval = eval_rate(d)
+
+        def bare(sb, st, bt, g):
+            """The same step unwatched on a resident batch (as phase 9)."""
+            return time_ms(lambda: StepBuilder.train_step(sb, st, bt, g),
+                           iters=10, warmup=2)
+
+        bare_ft = bare(*a_bare)
+        bare_fs = bare(*d["watch"].last)
+        del a_bare, d
+        torch.cuda.empty_cache()
+
+        emit("loop_times", gpu=gpu, batch=BATCH, dtype="bfloat16",
+             fine_tune_ms_per_step_by_epoch=a_ms,
+             fine_tune_tiles_per_s=[BATCH * 1000 / x for x in a_ms],
+             fine_tune_warm_tiles_ms_per_step_by_epoch=c_ms,
+             fine_tune_warm_tiles_tiles_per_s=[BATCH * 1000 / x
+                                               for x in c_ms],
+             fine_tune_bare_step_ms=bare_ft,
+             fine_tune_eval_tiles_per_s=a_eval,
+             fine_tune_peak_memory_bytes=peak_ft,
+             fine_tune_losses=a_losses, fine_tune_coco=a_stats,
+             from_scratch_ms_per_step=d_ms[0],
+             from_scratch_tiles_per_s=BATCH * 1000 / d_ms[0],
+             from_scratch_bare_step_ms=bare_fs,
+             from_scratch_eval_tiles_per_s=d_eval,
+             from_scratch_peak_memory_bytes=peak_fs)
+
+        # ---- bf16 against f32 over 20 steps, same weights and batches ------
+        curves = {}
+        for name, amp in (("bfloat16", True), ("float32", False)):
+            r = train_run(config(amp=amp), work / name, epochs=1,
+                          max_steps_per_epoch=20, max_eval_batches=1,
+                          init_state_dict=golden_sd)
+            curves[name] = r["losses"]
+            del r
+            torch.cuda.empty_cache()
+        rel = [abs(x - y) / abs(y) for x, y in
+               zip(curves["bfloat16"], curves["float32"])]
+        emit("loop_bf16_vs_f32", gpu=gpu, config="fine_tune", steps=20,
+             batch=BATCH, loss_bf16=curves["bfloat16"],
+             loss_f32=curves["float32"], relative_gap=rel,
+             largest_relative_gap=max(rel))
+
+        # ---- the loader: host ms a batch (the wait in next()) --------------
+        loader_ms = {}
+        for mode in ("thread", "process"):
+            os.environ["WM_SYNTH_CACHE"] = str(work / f"synth_{mode}")
+            loader = DataLoader(build_dataset("train", ft.data), BATCH,
+                                shuffle=True, seed=ft.train.seed,
+                                num_workers=2, worker_mode=mode,
+                                pin_memory=True)
+            try:
+                for cache in ("cold", "warm"):
+                    it = loader.epoch(5)
+                    waits_ms = []
+                    for _ in range(8):
+                        t0 = time.perf_counter()
+                        next(it)
+                        waits_ms.append((time.perf_counter() - t0) * 1e3)
+                    it.close()
+                    loader_ms[f"{mode}_{cache}"] = {
+                        "first_ms": waits_ms[0],
+                        "ms_per_batch": float(np.mean(waits_ms[1:]))}
+            finally:
+                loader.close()
+        emit("loader", gpu=gpu, batch=BATCH, num_workers=2,
+             synthetic_size=1024, resize_size=768, canvas_size=1024,
+             host_ms=loader_ms,
+             fine_tune_step_ms=a_ms[-1], from_scratch_step_ms=d_ms[0])
+        os.environ["WM_SYNTH_CACHE"] = str(work / "synth")
+
+        # ---- the CLI once: one whole epoch ---------------------------------
+        watch = StepWatch()
+        t0 = time.perf_counter()
+        cli_stats = cli_train.main([
+            "--synthetic_data", "--synthetic_size", "1024", "--use_amp",
+            "--batch_size", str(BATCH), "--epochs", "1", "--num_workers",
+            "4", "--work_dir", str(work / "cli")], watch=watch)
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        n = len(watch.metrics)
+        cli_losses = [m["loss"].item() for m in watch.metrics]
+        if not (n > 100 and np.isfinite(cli_losses).all()
+                and np.isfinite(cli_stats["train/loss"])):
+            raise AssertionError(f"cli: {n} steps, train/loss "
+                                 f"{cli_stats.get('train/loss')}")
+        coco_ok(cli_stats)
+        emit("loop_cli", gpu=gpu, steps=n, seconds=cli_s,
+             ms_per_step=watch.ms_per_step(n)[0],
+             eval_seconds=watch.eval_seconds[-1],
+             train_loss=cli_stats["train/loss"],
+             first_losses=cli_losses[:4], last_losses=cli_losses[-4:],
+             coco_AP=cli_stats["val/coco/AP"],
+             written=sorted(os.listdir(work / "cli")))
+    finally:
+        if env_cache is None:
+            os.environ.pop("WM_SYNTH_CACHE", None)
+        else:
+            os.environ["WM_SYNTH_CACHE"] = env_cache
+        shutil.rmtree(work, ignore_errors=True)
+    emit("loop_phase", seconds=time.perf_counter() - t_phase)
+    return loop_counts
+
+
+def loop_launches(name: str, counts: dict) -> int:
+    """A report entry's launches in the loop's run: the ViT-B loop runs no
+    head-dim-80 kernel."""
+    if name.endswith("_d80"):
+        return 0
+    for suffix, attr in (("_backward_dq", "backward_dq_launches"),
+                         ("_backward_dkv", "backward_dkv_launches"),
+                         ("_backward_dh", "backward_launches"),
+                         ("_backward", "backward_launches")):
+        if name.endswith(suffix):
+            return counts[attr][name[:-len(suffix)]]
+    return counts["launches"][name]
 
 
 def main() -> int:
@@ -2075,9 +2437,8 @@ def main() -> int:
                 old_ms, new_ms = paired_ms(forward("mma"), forward(body),
                                            iters=20)
                 lib_ms = time_ms(lib_fwd, iters=20)
-                plain_ms = (time_ms(lambda: attention_plain(
+                plain_ms = time_ms(lambda: attention_plain(
                     q, k, v, scale, heads, rh, rw, scale_scores=ss))
-                    if batch == 1 else None)
             emit("forward_time", kernel=kid, shape=shape, dtype="bfloat16",
                  gpu=gpu, body=body, launches_timed=20, ms=new_ms,
                  earlier_body="mma", earlier_body_ms=old_ms, bound_ms=fb,
@@ -2272,6 +2633,16 @@ def main() -> int:
     for e in report.values():
         if e["launches"] <= 0:
             raise AssertionError(f"{e['name']}: not launched on the main path")
+
+    # ---- 10. the training loop on the card ----------------------------------
+    loop_counts = loop_phase(gpu, golden_sd, reset_counts, all_counts,
+                             per_step)
+    grouped = ("flash_attention_rel_pos", "windowed_attention_rel_pos")
+    for name, e in report.items():
+        e["launches_loop"] = loop_launches(name, loop_counts)
+        on_path = not name.endswith("_d80") and not name.startswith(grouped)
+        if on_path and e["launches_loop"] <= 0:
+            raise AssertionError(f"{name}: not launched on the loop's path")
     print(json.dumps({"kernels": [report[n] for n in order], "gpu": gpu}),
           flush=True)
     print(gpu, flush=True)

@@ -1,10 +1,13 @@
 """Typed configuration for the PyTorch port of WildlifeMapper.
 
-A copy of the dataclasses of `wildlifemapper_tpu/config.py` that the port
-uses so far, with identical fields and defaults (DataConfig holds only the
-fields the steps read; the mesh config is not ported). The JAX package's config imports `jax.numpy`,
+A copy of the dataclasses of `wildlifemapper_tpu/config.py`, field for field
+with the same defaults, and its JSON persistence (`config_to_json` /
+`config_from_json`). Two differences: `Config` has no device-mesh entry (the
+port runs on one card), and `DataConfig.coco_path` defaults to the port's own
+copy of the annotation bundle. The JAX package's config imports `jax.numpy`,
 so the port cannot import it on a machine without JAX; the two copies are
-kept field-for-field equal (tests/test_torch_ops.py checks it).
+held equal by tests/test_torch_ops.py, and a config.json written by either
+package loads in the other (keys one side does not know are ignored).
 """
 
 from __future__ import annotations
@@ -13,6 +16,8 @@ import dataclasses
 from typing import Optional, Tuple
 
 import torch
+
+from .data.coco import ASSETS_DIR
 
 
 @dataclasses.dataclass(frozen=True)
@@ -164,17 +169,38 @@ class MatchCriterionConfig:
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
-    """The fields of the JAX package's DataConfig that the train and eval
-    steps read, with its defaults; the loader's fields arrive with the
-    loader."""
+    """Dataset + preprocessing (reference: dataloader_coco.py, augmentation.py,
+    misc.py:46-67)."""
 
+    # The vendored Mara-Wildlife / HerdNet bundle (data/coco.py).
+    coco_path: str = str(ASSETS_DIR)
+    image_root: str = ""          # directory containing train/ and val/ images
+    resize_size: int = 768        # RandomResize([768], max_size=768)
+    canvas_size: int = 1024       # zero-pad canvas (misc.py:50)
     mean: Tuple[float, float, float] = (0.485, 0.456, 0.406)
     std: Tuple[float, float, float] = (0.229, 0.224, 0.225)
-    # Fixed padded target count per image (None: sized from the dataset).
+    flip_prob: float = 0.5        # train-only FlipLR(0.5)
+    # The reference's FlipLR flips H of a CHW tensor (a vertical flip) while
+    # updating cy (augmentation.py:265-285). True replicates that.
+    flip_is_vertical: bool = True
+    # The reference's 4-image mosaic path is dead code
+    # (dataloader_coco.py:34). Off by default for parity.
+    use_mosaic: bool = False
+    # Fixed padded target count per image. None sizes it from the annotation
+    # file's densest image, so no ground truth is dropped; an explicit cap
+    # that undersizes the dataset is an error unless allow_truncation.
     max_targets: Optional[int] = None
+    allow_truncation: bool = False
     batch_size: int = 6
+    num_workers: int = 2
+    # "thread" or "process" (a spawned worker pool, data/loader.py).
+    worker_mode: str = "thread"
     # Ship uint8 canvases and normalise inside the step.
     device_normalize: bool = False
+    synthetic: bool = False       # generate tiles when images are absent
+    # Render synthetic tiles at this size instead of the annotation file's
+    # recorded dims (annotations are rescaled to match).
+    synthetic_size: Optional[int] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -232,3 +258,38 @@ def model_config(variant: str = "vit_b", **overrides) -> ModelConfig:
     """Build a ModelConfig for a registry variant ('vit_b'|'vit_l'|'vit_h')."""
     vit = VIT_REGISTRY[variant]
     return dataclasses.replace(ModelConfig(vit=vit), **overrides)
+
+
+# ---- persistence -----------------------------------------------------------
+# The exact Config is written beside the checkpoints (train/loop.py), so a
+# run is reconstructed at evaluation without its flags.
+
+def config_to_json(cfg: Config) -> str:
+    import json
+
+    return json.dumps(dataclasses.asdict(cfg), indent=2, sort_keys=True)
+
+
+def _from_dict(cls, d):
+    # Nested dataclass types come from the field defaults (every nested
+    # config field has one); keys the class does not know are ignored, so
+    # the JAX package's `mesh` entry is dropped here.
+    defaults = cls()
+    kwargs = {}
+    for f in dataclasses.fields(cls):
+        if f.name not in d:
+            continue
+        v = d[f.name]
+        default = getattr(defaults, f.name)
+        if dataclasses.is_dataclass(default) and isinstance(v, dict):
+            v = _from_dict(type(default), v)
+        elif isinstance(v, list):
+            v = tuple(v)
+        kwargs[f.name] = v
+    return cls(**kwargs)
+
+
+def config_from_json(text: str) -> Config:
+    import json
+
+    return _from_dict(Config, json.loads(text))

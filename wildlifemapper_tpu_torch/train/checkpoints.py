@@ -1,0 +1,138 @@
+"""Checkpointing (save / resume / best tracking); counterpart of
+wildlifemapper_tpu/train/checkpoints.py, with torch.save in place of orbax.
+
+Behavioral parity target: the reference saves {model, optimizer, epoch}
+every 40 epochs plus best_checkpoint.pth by lowest epoch train loss
+(train.py:344-372); resume restores the model and start_epoch
+(train.py:236-245). Here a checkpoint is one file holding everything a run
+needs to continue as if unbroken: the model's state dict (the reference's
+names), the optimizer's (Adam's moments and counts) and the scheduler's,
+`step`, the EMA parameters, and the state of the generator that draws the
+adaptor's dropout. It is written to a temporary file and renamed, so a crash
+leaves no half checkpoint.
+"""
+
+from __future__ import annotations
+
+import os
+from pathlib import Path
+from typing import Any, Callable, Dict, Optional, Union
+
+import torch
+
+from .step import TrainState
+
+
+def state_tree(state: TrainState,
+               generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+    """What a checkpoint holds for `state` (and the dropout generator)."""
+    return {
+        "model": state.model.state_dict(),
+        "optimizer": state.optimizer.state_dict(),
+        "scheduler": state.scheduler.state_dict(),
+        "step": int(state.step),
+        "ema_params": state.ema_params,
+        "generator": (generator.get_state() if generator is not None
+                      else None),
+    }
+
+
+class CheckpointManager:
+    def __init__(self, directory: str):
+        self.directory = Path(directory).absolute()
+        self.directory.mkdir(parents=True, exist_ok=True)
+
+    def _path(self, name) -> Path:
+        return self.directory / str(name)
+
+    def save(self, name, tree: Dict[str, Any], force: bool = True):
+        """torch.save `tree` under `name`, through a temporary file and a
+        rename; `force=False` leaves an existing checkpoint alone."""
+        path = self._path(name)
+        if path.exists() and not force:
+            return
+        tmp = path.with_name(f".{path.name}.{os.getpid()}.tmp")
+        torch.save(tree, tmp)
+        os.replace(tmp, path)
+
+    def load(self, name) -> Dict[str, Any]:
+        return torch.load(self._path(name), map_location="cpu",
+                          weights_only=True)
+
+    def restore(self, name, target: TrainState,
+                generator: Optional[torch.Generator] = None) -> TrainState:
+        """Load checkpoint `name` into `target` (its model, optimizer and
+        scheduler, in place) and `generator`; returns `target`."""
+        raw = self.load(name)
+        target.model.load_state_dict(raw["model"])
+        target.optimizer.load_state_dict(raw["optimizer"])
+        target.scheduler.load_state_dict(raw["scheduler"])
+        target.step = int(raw["step"])
+        if raw["ema_params"] is not None:
+            dev = next(target.model.parameters()).device
+            target.ema_params = {k: v.to(dev)
+                                 for k, v in raw["ema_params"].items()}
+        if generator is not None and raw["generator"] is not None:
+            generator.set_state(raw["generator"])
+        return target
+
+    def exists(self, name) -> bool:
+        return self._path(name).exists()
+
+    def save_epoch(self, epoch: int,
+                   state_tree: Union[Dict[str, Any],
+                                     Callable[[], Dict[str, Any]]],
+                   every: int = 40, is_best: bool = False,
+                   force_epoch: bool = False):
+        """Reference cadence: every N epochs + best-by-train-loss.
+
+        `state_tree` may be a zero-arg callable returning the tree — it is
+        only invoked when a save actually fires, so the epochs that save
+        nothing copy nothing from the card.
+
+        `force_epoch` writes the epoch checkpoint regardless of cadence —
+        the loop sets it on the final epoch so a follow-up invocation with
+        a higher epoch target resumes exactly where this one stopped."""
+        epoch_due = (epoch + 1) % every == 0 or force_epoch
+        if not (epoch_due or is_best):
+            return
+        if callable(state_tree):
+            state_tree = state_tree()
+        if epoch_due:
+            self.save(f"checkpoint_epoch_{epoch}", state_tree)
+        if is_best:
+            self.save("best_checkpoint", state_tree)
+
+    @staticmethod
+    def load_params(path: str, model: torch.nn.Module,
+                    use_ema: bool = False) -> torch.nn.Module:
+        """Load inference weights into `model` from a checkpoint file that
+        holds either a full train state (what the trainer saves) or a bare
+        state dict. With `use_ema` the EMA parameters replace the raw ones
+        (with a warning when the checkpoint has none). The load is strict,
+        so a topology mismatch fails loudly."""
+        raw = torch.load(path, map_location="cpu", weights_only=True)
+        if "optimizer" in raw:   # a train state; a bare state dict has none
+            sd = dict(raw["model"])
+            has_ema = raw.get("ema_params") is not None
+            if use_ema and not has_ema:
+                import warnings
+                warnings.warn(
+                    f"use_ema=True but checkpoint {path} carries no EMA "
+                    "tree (trained with ema_decay=0?); falling back to raw "
+                    "params", RuntimeWarning, stacklevel=2)
+            if use_ema and has_ema:
+                sd.update(raw["ema_params"])
+        else:
+            sd = raw
+        model.load_state_dict(sd)
+        return model
+
+    def latest_epoch(self) -> Optional[int]:
+        epochs = []
+        for p in self.directory.glob("checkpoint_epoch_*"):
+            try:
+                epochs.append(int(p.name.rsplit("_", 1)[1]))
+            except ValueError:
+                pass
+        return max(epochs) if epochs else None
