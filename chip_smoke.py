@@ -13,7 +13,9 @@ ViT-L and ViT-H through the packed kernels (ViT-H also in f32), and trains
 the ViT-H fine-tune with remat_blocks at its full width and depth (the path
 of the head-dim-80 Hopper and resident backward) in both layouts, and runs
 the training loop (train/loop.py: loader, checkpoints, resume, per-epoch
-COCO evaluation) in two configurations. Phases, one JSON line each; any failure raises and exits non-zero:
+COCO evaluation) in two configurations, and serves surveys (a reference
+.pth, orthomosaic detection of a full-size frame, drift-as-mAP, the native
+matcher). Phases, one JSON line each; any failure raises and exits non-zero:
 
   1. device: the card's name and power limit; build the kernels from
      wildlifemapper_tpu_torch/csrc (timed), registers and spills of every
@@ -157,6 +159,34 @@ COCO evaluation) in two configurations. Phases, one JSON line each; any failure 
      batch (thread and process mode, 2 workers, cold and warm), 20 steps of
      the fine-tune in bf16 beside f32 from the same weights and batches,
      and one whole epoch through cli.train.main.
+ 11. serving surveys (ViT-B, bf16 unless said): 11a the .pth reader
+     (compat/torch_convert.py): a trained WildlifeMapper checkpoint
+     ({model, optimizer, epoch}, `module.` prefixes) of the golden weights
+     loads into a fresh model bit for bit with nothing missing, and a raw SAM
+     file (no hfc key, decoder heads) loads its encoder and decoder
+     transformer bit for bit, the surgery cutting the heads and the fresh
+     hfc_* and head entries kept bit for bit and named; 11b orthomosaic
+     detection (eval/orthomosaic.py) of a 5472 x 3648 frame rendered by the
+     loader's synthetic renderer with the boxes of the val image of that
+     frame that has most, tile 1024, overlap 256, tile_batch 4 (35 tiles
+     in 9 batches), weights from a trained .pth of seeded weights whose class head is
+     scaled (CLASS_HEAD_SCALE): detect bit-identical to a synchronous loop
+     over the same batches, the launches of 9 forwards (the counts set to 0
+     before that detect and read after, the kernels' "launches_mosaic"),
+     finite detections within a tile of the frame, and f32 through the
+     kernels against f32 on the plain path with drift-as-mAP AP50 1.000 at
+     pseudo-GT 0.3 and 0.5; read: ms a mosaic and tiles/s (CUDA events and
+     wall, 3 turns), the host's ms extracting, launching, waiting and in
+     the NMS, the synchronous loop beside it, the device's busy ms and the
+     idle share (torch.profiler, in a pass of its own); 11c
+     drift-as-mAP (eval/drift.py) over 16 val tiles from the loader against
+     f32 on the plain path at the full canvas, pseudo-GT 0.3 and 0.5, with
+     fast_ap50 on the card beside each AP50: f32 with kernels gated at
+     1.000, bf16 with kernels in the three serving configurations and the
+     grouped full canvas, and ViT-H bf16 with kernels against ViT-H f32
+     plain at batch 1 over 4 tiles, read; 11d native.available() on the card
+     and the same 12 COCO stats through the C++ matcher as through
+     match_greedy.
 
 The last line is {"ok": true, "device": {...}}. Without CUDA, or without the
 rest of the repository beside it, the script fails before any result.
@@ -628,6 +658,385 @@ def loop_phase(gpu, golden_sd, reset_counts, all_counts, per_step) -> dict:
     return loop_counts
 
 
+# survey-facing constants of phase 11
+MOSAIC_TILE = 1024
+MOSAIC_OVERLAP = 256
+# the survey frame (27 of the bundle's 111 val images are 5472 x 3648): 35
+# tiles in 9 batches of 4, the last one tile of zeros
+MOSAIC_FRAME = (5472, 3648)
+# The golden weights give 51 identical queries (one box, class probability
+# 0.126 each), and the port's seeded initialisation none above 0.3, so a
+# pseudo ground truth at the thresholds of record (0.3, 0.5) would be empty:
+# the drift readings use seeded weights with the class head's output layer
+# scaled by this factor, which gives confident, distinct detections.
+CLASS_HEAD_SCALE = 4.0
+
+
+def survey_launches(name: str, counts: dict) -> int:
+    """A report entry's launches in the mosaic's run: forward kernels only
+    (serving), and no head-dim-80 one (ViT-B)."""
+    if "_backward" in name or name.endswith("_d80"):
+        return 0
+    return counts[name]
+
+
+def survey_phase(gpu, golden_sd, reset_counts, counts, per_forward) -> dict:
+    """11. Serving surveys: the .pth reader (11a), orthomosaic detection of
+    a full-size frame (11b), drift-as-mAP (11c) and the native matcher
+    (11d). Returns the launch counts of the mosaic's main path, 11b's one
+    detect, counted from 0 just before it and read just after."""
+    import shutil
+    import tempfile
+
+    import torch
+    from torch.autograd import DeviceType
+
+    from wildlifemapper_tpu_torch import native
+    from wildlifemapper_tpu_torch.compat.torch_convert import \
+        convert_checkpoint
+    from wildlifemapper_tpu_torch.config import DataConfig, model_config
+    from wildlifemapper_tpu_torch.data import tiler
+    from wildlifemapper_tpu_torch.data.loader import (_synthetic_image,
+                                                      build_dataset)
+    from wildlifemapper_tpu_torch.eval.drift import (drift_summary,
+                                                     run_detections)
+    from wildlifemapper_tpu_torch.eval.fast_ap import fast_ap50
+    from wildlifemapper_tpu_torch.eval.orthomosaic import (
+        OrthomosaicDetector, _nms_numpy)
+    from wildlifemapper_tpu_torch.models import WildlifeMapper
+    from wildlifemapper_tpu_torch.ops.fused_mlp import fused_mlp
+    from wildlifemapper_tpu_torch.weights import load_reference_state_dict
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    work = Path(tempfile.mkdtemp(prefix="wm_survey_"))
+    b_cfg = model_config("vit_b", dtype="bfloat16", use_flash_attention=True)
+
+    def fresh(cfg, seed):
+        return WildlifeMapper(cfg, generator=torch.Generator(
+            device=dev).manual_seed(seed)).eval()
+
+    def confident_sd(cfg):
+        m = fresh(cfg, 0)
+        with torch.no_grad():
+            m.mask_decoder.class_embed.layers[-1].weight.mul_(
+                CLASS_HEAD_SCALE)
+        sd = {k: v.detach().cpu() for k, v in m.state_dict().items()}
+        del m
+        return sd
+
+    def trained_file(sd, name):
+        """A trained WildlifeMapper checkpoint as the reference's trainer
+        writes it (train.py:350-354): DDP prefixes, optimizer, epoch."""
+        torch.save({"model": {"module." + k: v for k, v in sd.items()},
+                    "optimizer": {}, "epoch": 3}, work / name)
+        return str(work / name)
+
+    try:
+        # ---- 11a. the .pth reader ---------------------------------------------
+        golden = {k: torch.from_numpy(np.asarray(v))
+                  for k, v in golden_sd.items()}
+        m = fresh(b_cfg, 1)
+        rep = convert_checkpoint(trained_file(golden, "trained.pth"), m)
+        differ = [k for k, v in m.state_dict().items()
+                  if not torch.equal(v.cpu(), golden[k])]
+        emit("survey_weights", file="trained WildlifeMapper",
+             loaded=len(rep["loaded"]), missing=rep["missing"],
+             unexpected=rep["unexpected"], bit_identical=not differ,
+             differing=differ[:10])
+        if differ or rep["missing"]:
+            raise AssertionError(f"trained .pth: {len(differ)} entries "
+                                 f"differ, missing {rep['missing']}")
+        # raw SAM: no hfc key, decoder heads the surgery drops
+        cut = {k for k in m.state_dict() if "hfc" in k or (
+            k.startswith("mask_decoder.") and "transformer" not in k)}
+        sam = {k: v for k, v in golden.items() if k not in cut}
+        sam.update({"mask_decoder.iou_token.weight": torch.ones(1, 256),
+                    "mask_decoder.mask_tokens.weight": torch.ones(4, 256),
+                    "mask_decoder.output_upscaling.0.weight":
+                        torch.ones(256, 64, 2, 2),
+                    "mask_decoder.iou_prediction_head.layers.0.weight":
+                        torch.ones(256, 256)})
+        torch.save(sam, work / "sam.pth")
+        m = fresh(b_cfg, 2)
+        before = {k: v.clone() for k, v in m.state_dict().items()}
+        rep = convert_checkpoint(str(work / "sam.pth"), m)
+        after = m.state_dict()
+        enc_differ = [k for k in after if k not in cut
+                      and not torch.equal(after[k].cpu(), golden[k])]
+        kept_differ = [k for k in cut if not torch.equal(after[k], before[k])]
+        emit("survey_weights", file="raw SAM (surgery)",
+             loaded=len(rep["loaded"]), missing=rep["missing"],
+             unexpected=rep["unexpected"], kept_fresh=sorted(cut),
+             encoder_bit_identical=not enc_differ,
+             kept_bit_identical=not kept_differ)
+        if enc_differ or kept_differ or sorted(rep["missing"]) != sorted(cut):
+            raise AssertionError(f"raw SAM .pth: encoder differs at "
+                                 f"{enc_differ[:5]}, kept entries differ at "
+                                 f"{kept_differ[:5]}, missing "
+                                 f"{rep['missing']}")
+        del m, before, after
+
+        # ---- 11b. orthomosaic detection of a full-size frame ------------------
+        seeded = confident_sd(b_cfg)
+        m = fresh(b_cfg, 3)
+        rep = convert_checkpoint(trained_file(seeded, "survey.pth"), m)
+        if rep["missing"]:
+            raise AssertionError(f"survey .pth: missing {rep['missing']}")
+        index = build_dataset("val", DataConfig(synthetic=True)).index
+        image_id = max((i for i in index.ids if (
+            index.image_info(i)["width"], index.image_info(i)["height"])
+            == MOSAIC_FRAME), key=lambda i: len(index.annotations(i)))
+        info, anns = index.image_info(image_id), index.annotations(image_id)
+        t0 = time.perf_counter()
+        mosaic = _synthetic_image(image_id, info["width"], info["height"],
+                                  anns)
+        render_s = time.perf_counter() - t0
+        h, w = mosaic.shape[:2]
+        grid = tiler.make_tile_grid(h, w, MOSAIC_TILE, MOSAIC_OVERLAP)
+        n_batches = -(-grid.num_tiles // BATCH)
+
+        def detector(model, cfg, conf=0.5):
+            return OrthomosaicDetector(model, cfg, tile_batch=BATCH,
+                                       overlap=MOSAIC_OVERLAP,
+                                       confidence_threshold=conf,
+                                       nms_iou=0.4)
+
+        def sync_loop(det):
+            """The same batches one at a time: extract, copy, run, wait,
+            uncrop; then the host NMS."""
+            found = []
+            for idxs in tiler.batched(range(grid.num_tiles), BATCH):
+                batch = np.zeros((BATCH, MOSAIC_TILE, MOSAIC_TILE, 3),
+                                 np.uint8)
+                batch[:len(idxs)] = tiler.extract_tiles(mosaic, grid, idxs)
+                dets = det.run(torch.from_numpy(batch).to(dev))
+                torch.cuda.synchronize()
+                dets = {k: v.cpu().numpy() for k, v in dets.items()}
+                for j, ti in enumerate(idxs):
+                    keep = dets["keep"][j]
+                    found.append((tiler.uncrop_boxes(dets["boxes"][j][keep],
+                                                     grid.origins[ti]),
+                                  dets["scores"][j][keep],
+                                  dets["labels"][j][keep]))
+            boxes, scores, labels = (np.concatenate(c) for c in zip(*found))
+            keep = _nms_numpy(boxes, scores, det.nms_iou)
+            return {"boxes": boxes[keep], "scores": scores[keep],
+                    "labels": labels[keep]}
+
+        det = detector(m, b_cfg)
+        det.detect(mosaic)                     # builds and warms the kernels
+        torch.cuda.synchronize()
+        reset_counts()                 # the mosaic's main path starts here
+        out = det.detect(mosaic)
+        torch.cuda.synchronize()
+        mosaic_counts = counts()
+        mlp_kernels = fused_mlp.kernel_launches
+        want = {n: v * n_batches for n, v in per_forward["packed"].items()}
+        emit("path_launches", path="orthomosaic detect, bf16 packed",
+             launches=mosaic_counts, want=want,
+             mlp_kernel_launches=mlp_kernels)
+        if mosaic_counts != want or mlp_kernels != 2 * want["fused_mlp"]:
+            raise AssertionError(f"mosaic: launches {mosaic_counts} (K3 "
+                                 f"kernels {mlp_kernels}), want {want}")
+        sync = sync_loop(det)
+        same = all(np.array_equal(out[k], sync[k]) for k in out)
+        b = out["boxes"]
+        in_range = bool(np.isfinite(b).all() and np.isfinite(
+            out["scores"]).all() and (b[:, [0, 2]] >= -MOSAIC_TILE).all()
+            and (b[:, [0, 2]] <= w + MOSAIC_TILE).all()
+            and (b[:, [1, 3]] >= -MOSAIC_TILE).all()
+            and (b[:, [1, 3]] <= h + MOSAIC_TILE).all())
+        emit("mosaic", frame=[w, h], image_id=image_id, gt_boxes=len(anns),
+             tiles=grid.num_tiles, batches=n_batches,
+             padded=n_batches * BATCH - grid.num_tiles,
+             detections=len(b), render_s=render_s,
+             bit_identical_to_sync_loop=same, finite_in_range=in_range)
+        if not same or not in_range or not len(b):
+            raise AssertionError(f"mosaic: detect against the synchronous "
+                                 f"loop bit-identical {same}, finite and in "
+                                 f"range {in_range}, {len(b)} detections")
+
+        def clocked(fn):
+            """(CUDA-event ms, wall ms) of one call."""
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            return start.elapsed_time(end), (time.perf_counter() - t0) * 1e3
+
+        sync_loop(det)                         # its warm-up
+        turns = {"detect": [], "sync_loop": []}
+        host = []
+        for _ in range(3):
+            turns["detect"].append(clocked(lambda: det.detect(mosaic)))
+            host.append(dict(det.timing))
+            turns["sync_loop"].append(clocked(lambda: sync_loop(det)))
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            det.detect(mosaic)
+            torch.cuda.synchronize()
+            profiled_wall = (time.perf_counter() - t0) * 1e3
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA) / 1000
+        wall = [t[1] for t in turns["detect"]]
+        emit("mosaic_time", gpu=gpu, config="vit_b bf16 packed",
+             tiles=grid.num_tiles, tile_batch=BATCH,
+             detect_event_ms=[t[0] for t in turns["detect"]],
+             detect_wall_ms=wall,
+             tiles_per_s=[grid.num_tiles / (t / 1e3) for t in wall],
+             sync_loop_event_ms=[t[0] for t in turns["sync_loop"]],
+             sync_loop_wall_ms=[t[1] for t in turns["sync_loop"]],
+             host_extract_ms=[t["extract_ms"] for t in host],
+             host_launch_ms=[t["launch_ms"] for t in host],
+             host_wait_ms=[t["wait_ms"] for t in host],
+             host_nms_ms=[t.get("nms_ms", 0.0) for t in host],
+             # busy comes from the profiled pass: its idle share against
+             # that pass's own wall, and (unclamped) against the unprofiled
+             # turns' mean wall
+             device_busy_ms_profiled=busy,
+             profiled_wall_ms=profiled_wall,
+             idle_share_profiled=1 - busy / profiled_wall,
+             idle_share_busy_over_unprofiled_wall=1 - busy / np.mean(wall))
+        del det, m, out, sync
+
+        # f32 through the kernels against f32 on the plain path: the same
+        # mosaic's fused detections as drift-as-mAP
+        f32 = model_config("vit_b", dtype="float32", use_flash_attention=True)
+        fused = {}
+        for name, cfg in (("plain", dataclasses.replace(
+                f32, use_flash_attention=False)), ("kernels", f32)):
+            m = WildlifeMapper(cfg).eval()
+            m.load_state_dict(seeded)
+            d = detector(m, cfg, conf=0.05).detect(mosaic)
+            fused[name] = {k: v[None] for k, v in d.items()}
+            del m
+        torch.cuda.empty_cache()
+        mosaic_drift = {}
+        for thr in (0.3, 0.5):
+            s = drift_summary(fused["plain"], fused["kernels"], 1,
+                              gt_thresh=thr)
+            mosaic_drift[thr] = s["AP50"]
+        emit("mosaic_drift", config="vit_b f32 kernels against f32 plain",
+             gpu=gpu, detections={k: int(v["boxes"].shape[1])
+                                  for k, v in fused.items()},
+             pseudo_gt={thr: int((fused["plain"]["scores"] > thr).sum())
+                        for thr in (0.3, 0.5)},
+             ap50=mosaic_drift)
+        if any(v != 1.0 for v in mosaic_drift.values()):
+            raise AssertionError(f"mosaic f32 drift-as-mAP {mosaic_drift}")
+
+        # ---- 11c. drift-as-mAP over val tiles ---------------------------------
+        vds = build_dataset("val", DataConfig(synthetic=True,
+                                              synthetic_size=1024,
+                                              flip_prob=0.0))
+        tiles = np.stack([vds.get(i)["image"] for i in range(16)]
+                         ).astype(np.float32)
+
+        def detections(cfg, sd, x, batch):
+            m = WildlifeMapper(cfg).eval()
+            load_reference_state_dict(m, sd)
+            d = run_detections(m, x, batch)
+            del m
+            torch.cuda.empty_cache()
+            return d
+
+        def on_card(dets, thr):
+            return {k: torch.as_tensor(v, device=dev) for k, v in (
+                ("boxes", dets["boxes"]), ("scores", dets["scores"]),
+                ("labels", dets["labels"]),
+                ("keep", dets["scores"] > thr))}
+
+        def read(name, ref, dets, n, gate=False):
+            row = {}
+            for thr in (0.3, 0.5):
+                s = drift_summary(ref, dets, n, gt_thresh=thr)
+                g, p = on_card(ref, thr), on_card(dets, 0.05)
+                fast = fast_ap50(p["boxes"], p["scores"], p["labels"],
+                                 p["keep"], g["boxes"], g["labels"],
+                                 g["keep"])
+                row[thr] = dict(ap50=s["AP50"], ap=s["AP"],
+                                fast_ap50=float(fast),
+                                pseudo_gt=int((ref["scores"] > thr).sum()))
+            emit("drift_map", candidate=name, gpu=gpu, tiles=n,
+                 reference="f32 plain, full canvas", record=1.0,
+                 gated=gate, **{f"at_{t}": v for t, v in row.items()})
+            if gate and any(v["ap50"] != 1.0 for v in row.values()):
+                diff = np.argwhere(np.abs(ref["scores"] - dets["scores"])
+                                   > 1e-5)
+                emit("drift_map_differing", candidate=name,
+                     where=diff[:20].tolist(),
+                     ref_scores=[float(ref["scores"][i, j])
+                                 for i, j in diff[:20]],
+                     scores=[float(dets["scores"][i, j])
+                             for i, j in diff[:20]])
+                raise AssertionError(f"{name}: drift-as-mAP "
+                                     f"{ {t: v['ap50'] for t, v in row.items()} }")
+            return row
+
+        full_f32 = model_config("vit_b", dtype="float32",
+                                use_flash_attention=False)
+        ref = detections(full_f32, seeded, tiles, BATCH)
+        scratch = dataclasses.replace(
+            b_cfg, content_size=768, crop_prologue=True,
+            vit=dataclasses.replace(b_cfg.vit, window_size=12),
+            hfc=dataclasses.replace(b_cfg.hfc,
+                                    compat_scrambled_reshape=False))
+        candidates = {
+            "f32 kernels, full canvas": (f32, True),
+            "bf16 kernels, full canvas": (b_cfg, False),
+            "bf16 kernels, compat crop": (dataclasses.replace(
+                b_cfg, content_size=768), False),
+            "bf16 kernels, from scratch": (scratch, False),
+            "bf16 kernels, full canvas, grouped": (dataclasses.replace(
+                b_cfg, attn_impl="grouped"), False)}
+        drift_rows = {}
+        bf16_full = None
+        for name, (cfg, gate) in candidates.items():
+            dets = detections(cfg, seeded, tiles, BATCH)
+            drift_rows[name] = read(name, ref, dets, len(tiles), gate)
+            if name == "bf16 kernels, full canvas":
+                bf16_full = dets
+        # ViT-H: bf16 with kernels against f32 plain, batch 1, 4 tiles
+        vit_h = model_config("vit_h", dtype="bfloat16",
+                             use_flash_attention=True)
+        seeded_h = confident_sd(vit_h)
+        ref_h = detections(model_config("vit_h", dtype="float32",
+                                        use_flash_attention=False),
+                           seeded_h, tiles[:4], 1)
+        drift_rows["vit_h bf16 kernels"] = read(
+            "vit_h bf16 kernels, batch 1", ref_h,
+            detections(vit_h, seeded_h, tiles[:4], 1), 4)
+        del seeded_h
+
+        # ---- 11d. the native matcher ------------------------------------------
+        if not native.available():
+            raise AssertionError("native.available() is False on the card")
+        with_native = drift_summary(ref, bf16_full, len(tiles), gt_thresh=0.3)
+        coco_match = native.coco_match
+        native.coco_match = lambda *a: None
+        try:
+            with_numpy = drift_summary(ref, bf16_full, len(tiles),
+                                       gt_thresh=0.3)
+        finally:
+            native.coco_match = coco_match
+        emit("native", available=True, library=str(native.library_path()),
+             stats_equal=with_native == with_numpy, stats=with_native)
+        if with_native != with_numpy:
+            raise AssertionError(f"native matcher {with_native} against "
+                                 f"match_greedy {with_numpy}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit("survey_phase", seconds=time.perf_counter() - t_phase)
+    return mosaic_counts
+
+
 def loop_launches(name: str, counts: dict) -> int:
     """A report entry's launches in the loop's run: the ViT-B loop runs no
     head-dim-80 kernel."""
@@ -682,6 +1091,7 @@ def main() -> int:
                                                           training_config)
     from wildlifemapper_tpu_torch.weights import load_reference_state_dict
 
+    t_script = time.perf_counter()
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     gpu = gpu_query()
@@ -2643,6 +3053,17 @@ def main() -> int:
         on_path = not name.endswith("_d80") and not name.startswith(grouped)
         if on_path and e["launches_loop"] <= 0:
             raise AssertionError(f"{name}: not launched on the loop's path")
+
+    # ---- 11. serving surveys: .pth, orthomosaic, drift-as-mAP, native -------
+    mosaic_counts = survey_phase(gpu, golden_sd, reset_counts, counts,
+                                 per_forward)
+    for name, e in report.items():
+        e["launches_mosaic"] = survey_launches(name, mosaic_counts)
+        on_path = not ("_backward" in name or name.endswith("_d80")
+                       or name.startswith(grouped))
+        if on_path and e["launches_mosaic"] <= 0:
+            raise AssertionError(f"{name}: not launched on the mosaic's path")
+    emit("script", seconds=time.perf_counter() - t_script, gpu=gpu)
     print(json.dumps({"kernels": [report[n] for n in order], "gpu": gpu}),
           flush=True)
     print(gpu, flush=True)

@@ -90,16 +90,23 @@ def run(cfg, workdir, **kw):
 # ---- against the JAX package ---------------------------------------------------
 
 @pytest.fixture(scope="module")
-def jax_and_port(tmp_path_factory):
+def jax_init_sd():
+    """What the JAX train() draws for the tiny config, in the port's names."""
+    jc = tiny_config(jcfg, dropout=0.0)
+    params = jstep.StepBuilder(jc).init_params(
+        jax.random.PRNGKey(jc.train.seed))
+    return state_dict_from_jax(flat_numpy(params), depth=jc.model.vit.depth)
+
+
+@pytest.fixture(scope="module")
+def jax_and_port(tmp_path_factory, jax_init_sd):
     """One epoch of 3 steps, then evaluation on 2 val batches, through both
     train()s from the same weights: each step's metrics, the evaluator's
     inputs and the returned stats of each."""
     mp = pytest.MonkeyPatch()
     mp.setenv("WM_SYNTH_CACHE", "0")
     jc, tc = tiny_config(jcfg, dropout=0.0), tiny_config(tcfg, dropout=0.0)
-    params = jstep.StepBuilder(jc).init_params(
-        jax.random.PRNGKey(jc.train.seed))     # what the JAX train() draws
-    sd = state_dict_from_jax(flat_numpy(params), depth=jc.model.vit.depth)
+    sd = jax_init_sd
     steps = {"jax": [], "port": []}
     preds = {"jax": [], "port": []}
 
@@ -428,9 +435,37 @@ def test_val_image_overlays_logged(tmp_path):
     assert len(written) == img[0]["count"]
 
 
-def test_init_checkpoint_is_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        run(tiny_config(tcfg), tmp_path, init_checkpoint="sam_vit_b.pth")
+class _FirstStep(tstep.StepBuilder):
+    """A step builder that records each train step's metrics."""
+    metrics = []
+
+    def train_step(self, *a, **k):
+        state, metrics = super().train_step(*a, **k)
+        self.metrics.append(metrics)
+        return state, metrics
+
+
+def test_init_checkpoint_gives_jax_first_loss(jax_and_port, jax_init_sd,
+                                              tmp_path, monkeypatch):
+    """train(init_checkpoint=<a trained checkpoint's .pth>) of the weights
+    the JAX train() drew: the JAX run's first step, and the JAX loop's
+    line."""
+    steps, _, _ = jax_and_port
+    path = tmp_path / "wm.pth"
+    torch.save({"model": {"module." + k: v for k, v in jax_init_sd.items()},
+                "optimizer": {}, "epoch": 3}, path)
+    monkeypatch.setattr(tloop, "StepBuilder", _FirstStep)
+    monkeypatch.setattr(_FirstStep, "metrics", [])
+    lines = []
+    run(tiny_config(tcfg, dropout=0.0), tmp_path / "run", epochs=1,
+        max_steps_per_epoch=1, max_eval_batches=1, init_checkpoint=str(path),
+        print_fn=lambda *a, **k: lines.append(" ".join(map(str, a))))
+    assert (f"loaded {len(jax_init_sd)} tensors from {path}; kept init for 0"
+            in lines)
+    got, want = _FirstStep.metrics[0], steps["jax"][0]
+    for k in ("loss", "loss_ce", "loss_bbox", "loss_giou", "grad_norm"):
+        np.testing.assert_allclose(float(got[k]), float(want[k]), atol=ATOL,
+                                   rtol=RTOL, err_msg=k)
 
 
 # ---- the CLIs ------------------------------------------------------------------
@@ -464,12 +499,39 @@ def test_cli_config_matches_jax(extra):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (("--model_parallel", "2"), "queue 1 item 7"),
-    (("--checkpoint", "sam_vit_b.pth"), "queue 1 item 8")])
+    (("--model_parallel", "2"), "queue 1 item 7")])
 @pytest.mark.parametrize("cli", [tcli, tcli_eval], ids=["train", "evaluate"])
 def test_cli_refuses_unported_flags(cli, flags, match):
     with pytest.raises(NotImplementedError, match=match):
         cli.main(_argv(*flags))
+
+
+@pytest.mark.parametrize("cli", [tcli, tcli_eval], ids=["train", "evaluate"])
+def test_cli_takes_a_reference_checkpoint(cli, tmp_path, monkeypatch,
+                                          capsys):
+    """--checkpoint reads a reference .pth (a raw SAM file: no hfc keys, so
+    the decoder heads are cut and the adaptor keeps its initialisation)."""
+    cfg = tiny_config(tcfg)
+    monkeypatch.setattr(cli, "config_from_args", lambda args: cfg)
+    sd = tstep.StepBuilder(cfg, device="cpu").model.state_dict()
+    sam = {k: v for k, v in sd.items() if "hfc" not in k}
+    torch.save(sam, tmp_path / "sam.pth")
+    kept = sum("hfc" in k or (k.startswith("mask_decoder.")
+                              and "transformer" not in k) for k in sd)
+    argv = ["--checkpoint", str(tmp_path / "sam.pth"), "--device", "cpu",
+            "--work_dir", str(tmp_path / "w")]
+    if cli is tcli:
+        train = tloop.train
+        monkeypatch.setattr(tloop, "train", lambda c, **kw: train(
+            c, **dict(kw, epochs=1, max_steps_per_epoch=1,
+                      max_eval_batches=1)))
+        cli.main(argv)
+        want = (f"loaded {len(sd) - kept} tensors from "
+                f"{tmp_path / 'sam.pth'}; kept init for {kept}")
+    else:
+        cli.main(argv + ["--max_batches", "1"])
+        want = f"loaded {len(sd) - kept} tensors ({kept} kept at init)"
+    assert want in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("cli", [tcli, tcli_eval], ids=["train", "evaluate"])

@@ -519,8 +519,10 @@ def test_default_device_is_the_card():
 BANNED = {"jax", "jaxlib", "flax", "optax", "PIL", "wildlifemapper_tpu"}
 # The machine with the card has no PIL: only the functions that decode a real
 # image file or draw detection overlays import it, when they are called
-# (tests/test_torch_data.py imports the loop and the CLIs with PIL blocked).
-PIL_INSIDE = {"decode_image", "draw_detections", "render_detections"}
+# (tests/test_torch_data.py imports the loop and the CLIs with PIL blocked,
+# tests/test_torch_mosaic.py the orthomosaic slice and the drawing CLIs).
+PIL_INSIDE = {"decode_image", "draw_detections", "render_detections",
+              "decode_mosaic", "render_sample", "render_overlay"}
 
 
 def _imports(path: Path):

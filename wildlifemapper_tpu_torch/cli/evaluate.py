@@ -6,6 +6,8 @@ Usage:
   python -m wildlifemapper_tpu_torch.cli.evaluate --synthetic_data \\
       --synthetic_size 1024 --use_amp --config_json checkpoints/config.json \\
       --torch_checkpoint checkpoints/best_checkpoint [--split val] [--nms]
+  python -m wildlifemapper_tpu_torch.cli.evaluate --checkpoint best.pth
+      (a reference .pth: SAM or a trained WildlifeMapper)
 """
 
 from __future__ import annotations
@@ -13,7 +15,8 @@ from __future__ import annotations
 import argparse
 import dataclasses
 
-from .train import add_config_args, check_ported, config_from_args
+from .train import (add_config_args, add_device_arg, check_ported,
+                    config_from_args)
 
 
 def main(argv=None):
@@ -35,6 +38,7 @@ def main(argv=None):
                         "config so from-scratch runs (crop_prologue, "
                         "window 12, ...) evaluate with the exact trained "
                         "architecture")
+    add_device_arg(p)
     args = p.parse_args(argv)
     check_ported(args)
     cfg = config_from_args(args)
@@ -53,11 +57,17 @@ def main(argv=None):
     from ..train.step import StepBuilder
 
     ds = build_dataset(args.split, cfg.data)
-    builder = StepBuilder(cfg, generator=torch.Generator().manual_seed(0))
+    builder = StepBuilder(cfg, generator=torch.Generator().manual_seed(0),
+                          device=args.device)
     loader = DataLoader(ds, cfg.data.batch_size, shuffle=False,
                         drop_last=False,
                         pin_memory=builder.device.type == "cuda")
-    if args.torch_checkpoint:
+    if args.checkpoint:
+        from ..compat.torch_convert import convert_checkpoint
+        report = convert_checkpoint(args.checkpoint, builder.model)
+        print(f"loaded {len(report['loaded'])} tensors "
+              f"({len(report['missing'])} kept at init)")
+    elif args.torch_checkpoint:
         CheckpointManager.load_params(args.torch_checkpoint, builder.model,
                                       use_ema=args.use_ema)
     try:

@@ -4,8 +4,9 @@ wildlifemapper_tpu/cli/train.py, with its flags and defaults.
 Behavioral parity target: wildlifemapper/train.py's argparse surface
 (train.py:46-115) mapped onto the typed Config; plus flags the reference
 hardcodes (ce weight, queries, resize, canvas, hfc rate, image dirs).
-Trains on the card. `--checkpoint` (a reference .pth) and
-`--model_parallel` above 1 are refused: their code is not ported yet.
+Trains on the card. `--checkpoint` reads a reference .pth (SAM or a trained
+WildlifeMapper) through compat/torch_convert.py; `--model_parallel` above 1
+is refused: tensor parallelism is not ported yet.
 
 Usage:
   python -m wildlifemapper_tpu_torch.cli.train --synthetic_data \
@@ -32,8 +33,7 @@ def add_config_args(p: argparse.ArgumentParser):
     p.add_argument("--synthetic_data", action="store_true",
                    help="use generated tiles when image files are absent")
     p.add_argument("--checkpoint", default=None,
-                   help="torch .pth init (SAM or trained WM); not ported "
-                        "yet, refused")
+                   help="torch .pth init (SAM or trained WM)")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--work_dir", default="checkpoints")
     # optimization (reference defaults, train.py:62-101)
@@ -153,6 +153,14 @@ def add_config_args(p: argparse.ArgumentParser):
     return p
 
 
+def add_device_arg(p: argparse.ArgumentParser):
+    """The port's own flag beside the shared ones: where the model runs."""
+    p.add_argument("--device", default=None,
+                   help="torch device; default the card (raises without "
+                        "CUDA), 'cpu' to run on the CPU")
+    return p
+
+
 def check_ported(args):
     """Refuse the flags whose code the port does not have yet, rather than
     ignoring them."""
@@ -161,10 +169,6 @@ def check_ported(args):
             f"--model_parallel {args.model_parallel}: the port runs on one "
             "card; tensor parallelism is not ported yet (ROADMAP queue 1 "
             "item 7)")
-    if args.checkpoint:
-        raise NotImplementedError(
-            f"--checkpoint {args.checkpoint}: reading a reference .pth is "
-            "not ported yet (ROADMAP queue 1 item 8, compat/torch_convert.py)")
 
 
 def config_from_args(args) -> Config:
@@ -232,7 +236,9 @@ def config_from_args(args) -> Config:
 def main(argv=None, watch=None):
     """Train from the command line `argv`; `watch`, a
     train.profiling.StepWatch, clocks the loop's steps on the card."""
-    args = add_config_args(argparse.ArgumentParser(__doc__)).parse_args(argv)
+    p = add_config_args(argparse.ArgumentParser(__doc__))
+    add_device_arg(p)
+    args = p.parse_args(argv)
     check_ported(args)
     cfg = config_from_args(args)
 
@@ -243,7 +249,8 @@ def main(argv=None, watch=None):
                           project=args.wandb_project, run_name=args.run_name)
     try:
         stats = train(cfg, workdir=args.work_dir, logger_backend=logger,
-                      resume=args.resume, watch=watch)
+                      resume=args.resume, init_checkpoint=args.checkpoint,
+                      device=args.device, watch=watch)
         logger.log_summary(stats)
     finally:
         logger.finish()

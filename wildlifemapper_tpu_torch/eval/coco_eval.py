@@ -1,8 +1,9 @@
 """COCO-style detection evaluation (the standard 12-stat bbox suite),
 implemented from the COCOeval specification in pure numpy; a copy of
-wildlifemapper_tpu/eval/coco_eval.py that always matches with the numpy
-`match_greedy` (the JAX package's fallback when its native matcher is
-absent; the two are held equal by tests/test_native.py).
+wildlifemapper_tpu/eval/coco_eval.py. It matches through the port's
+native.coco_match (C++, built at first use) where that library builds, else
+with the numpy `match_greedy`; the two give equal stats
+(tests/test_torch_eval_tools.py).
 
 The reference evaluates with pycocotools' C extension
 (inference.py:15-17, 92-128, 278-323); that package is not in this image, so
@@ -164,7 +165,14 @@ class CocoEvaluator:
         gcrowd, g_ignore = gcrowd[gt_order], g_ignore[gt_order]
         ious = e["ious"][:, gt_order]
 
-        dtm, dt_ig, gtm = match_greedy(ious, IOU_THRS, g_ignore, gcrowd)
+        native_result = None
+        if len(dscores) and ious.shape[1]:
+            from .. import native
+            native_result = native.coco_match(ious, IOU_THRS, g_ignore, gcrowd)
+        if native_result is not None:
+            dtm, dt_ig, gtm = native_result
+        else:
+            dtm, dt_ig, gtm = match_greedy(ious, IOU_THRS, g_ignore, gcrowd)
         out_of_rng = (dareas < area_rng[0]) | (dareas > area_rng[1])
         dt_ig = dt_ig | ((dtm == 0) & out_of_rng[None, :])
         return {

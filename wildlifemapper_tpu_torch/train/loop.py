@@ -24,6 +24,7 @@ from typing import Dict, Mapping, Optional, Union
 import numpy as np
 import torch
 
+from ..compat.torch_convert import convert_checkpoint
 from ..config import Config, config_to_json
 from ..data.loader import DataLoader, build_dataset
 from ..eval.evaluate import evaluate, to_device, to_host
@@ -50,15 +51,11 @@ def train(cfg: Config, workdir: str = "checkpoints",
 
     The model is built on the card unless `device` says otherwise, its
     parameters drawn from `cfg.train.seed`, or taken from `init_state_dict`
-    (a state dict in the reference's names, as weights.py converts them).
-    `init_checkpoint`, the reference's .pth (SAM or a trained WildlifeMapper)
-    that the JAX trainer converts, is refused: its converter is not ported
-    yet. `watch` clocks the steps and evaluations on the card."""
-    if init_checkpoint:
-        raise NotImplementedError(
-            f"init_checkpoint={init_checkpoint!r}: reading a reference .pth "
-            "needs the checkpoint surgery of compat/torch_convert.py, which "
-            "is not ported yet (ROADMAP queue 1 item 8)")
+    (a state dict in the reference's names, as weights.py converts them),
+    or from `init_checkpoint`, the reference's .pth (SAM or a trained
+    WildlifeMapper) through compat/torch_convert.py, whose missing entries
+    keep their drawn values. `watch` clocks the steps and evaluations on the
+    card."""
     device = resolve_device(device)
     epochs = epochs if epochs is not None else cfg.train.epochs
 
@@ -90,6 +87,11 @@ def train(cfg: Config, workdir: str = "checkpoints",
             device=device)
         if init_state_dict is not None:
             load_reference_state_dict(builder.model, init_state_dict)
+        if init_checkpoint:
+            report = convert_checkpoint(init_checkpoint, builder.model)
+            print_fn(f"loaded {len(report['loaded'])} tensors from "
+                     f"{init_checkpoint}; kept init for "
+                     f"{len(report['missing'])}")
         state = builder.init_state(steps_per_epoch)
         ckpt = CheckpointManager(workdir)
         # Persist the exact Config beside the checkpoints so evaluation can

@@ -132,23 +132,27 @@ def state_dict_from_jax(flat: Mapping[str, np.ndarray], depth: int = 12
             for k, v in sd.items()}
 
 
-def load_reference_state_dict(model: nn.Module,
-                              state_dict: Mapping[str, object]) -> List[str]:
+def merge_state_dict(model: nn.Module, state_dict: Mapping[str, object],
+                     strict: bool = False) -> Dict[str, List[str]]:
     """Load a reference-named state dict (tensors or numpy arrays) into the
-    port's model. Drops `mask_decoder.iou_token.weight`; centre-slices
+    port's model, and report {"loaded", "missing", "unexpected"} in the
+    port's names. Drops `mask_decoder.iou_token.weight`; centre-slices
     rel-pos tables for a smaller window (27 rows into a window-12 model's
-    23, as the JAX converter does). Raises if any of the model's parameters
-    or buffers is missing, or on a shape mismatch. Returns the keys the
-    model does not have."""
+    23, as the JAX converter does); raises on any other shape mismatch.
+    With `strict=False` (the JAX converter's `merge_into_params`) an entry
+    the model has and the dict lacks keeps its value; with `strict=True`
+    one missing entry raises a KeyError before anything is loaded."""
     own = model.state_dict()
     missing = [k for k in own if k not in state_dict]
-    if missing:
+    if strict and missing:
         raise KeyError(f"state dict lacks {len(missing)} model entries, "
                        f"e.g. {missing[:5]}")
     unexpected = [k for k in state_dict
                   if k not in own and k not in DROPPED_KEYS]
     loaded = {}
     for k, target in own.items():
+        if k not in state_dict:
+            continue
         v = state_dict[k]
         v = (v.detach().cpu() if isinstance(v, torch.Tensor)
              else torch.from_numpy(np.asarray(v)))
@@ -156,14 +160,24 @@ def load_reference_state_dict(model: nn.Module,
                 and v.dim() == 2 and v.shape[0] > target.shape[0]
                 and (v.shape[0] - target.shape[0]) % 2 == 0
                 and v.shape[1] == target.shape[1]):
+            # relative distances of a smaller window are the table's centre
             off = (v.shape[0] - target.shape[0]) // 2
             v = v[off:off + target.shape[0]]
         if v.shape != target.shape:
             raise ValueError(f"shape mismatch for {k}: {tuple(v.shape)} vs "
                              f"model {tuple(target.shape)}")
         loaded[k] = v.to(target.dtype)
-    model.load_state_dict(loaded, strict=True)
-    return unexpected
+    model.load_state_dict(loaded, strict=not missing)
+    return {"loaded": list(loaded), "missing": missing,
+            "unexpected": unexpected}
+
+
+def load_reference_state_dict(model: nn.Module,
+                              state_dict: Mapping[str, object]) -> List[str]:
+    """`merge_state_dict` with `strict=True`: every parameter and buffer of
+    the model must be in the dict. Returns the keys the model does not
+    have."""
+    return merge_state_dict(model, state_dict, strict=True)["unexpected"]
 
 
 def load_adam_state(optimizer: torch.optim.Optimizer,
