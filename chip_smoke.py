@@ -15,7 +15,9 @@ of the head-dim-80 Hopper and resident backward) in both layouts, and runs
 the training loop (train/loop.py: loader, checkpoints, resume, per-epoch
 COCO evaluation) in two configurations, and serves surveys (a reference
 .pth, orthomosaic detection of a full-size frame, drift-as-mAP, the native
-matcher). Phases, one JSON line each; any failure raises and exits non-zero:
+matcher), and drives the compat surface (the predictor, the exported
+forward through the kernels' `wm::` operators, the operators themselves).
+Phases, one JSON line each; any failure raises and exits non-zero:
 
   1. device: the card's name and power limit; build the kernels from
      wildlifemapper_tpu_torch/csrc (timed), registers and spills of every
@@ -187,6 +189,30 @@ matcher). Phases, one JSON line each; any failure raises and exits non-zero:
      plain at batch 1 over 4 tiles, read; 11d native.available() on the card
      and the same 12 COCO stats through the C++ matcher as through
      match_greedy.
+
+ 12. the compat surface (ViT-B, bf16, seeded weights with the class head
+     scaled): 12a the predictor (compat/predictor.py) on a 3648 x 5472 uint8
+     frame: set_image launches K1 8, K2 4, K3 12 (24 GEMM launches), K4 1
+     and predict none (the counts set to 0 before each and read after);
+     its detections at score 0.05 and 0.5 and its embedding bit for bit
+     those of forward + postprocess(hw_swap_compat=False) + batched_nms on
+     the canvas it made; both calls timed (CUDA events and wall). 12b the
+     forward exported (compat/export.py) with a symbolic batch, packed and
+     grouped: the graph's `wm::` nodes (packed K1 8, K2 4, K3 12, K4 1;
+     grouped K6 8, K5 4, K4 1) and no scaled_dot_product_attention node,
+     the export's seconds and the artifact's bytes; both artifacts loaded
+     in a fresh process that imports wildlifemapper_tpu_torch.ops and not
+     the models, run at batch 1 and 4: bit for bit eager's outputs (else
+     held to bf16 2e-2, the reason printed) and eager's launch counts;
+     eager against the loaded program at batch 4 in turns. 12c every `wm::`
+     operator overload under torch.library.opcheck on the card at a small
+     shape. 12d the host's microseconds a call of K1 and K3 through the
+     wrapper, the operator and the operator's CUDA implementation (the
+     dispatcher's cost the difference within a turn, the median of seven
+     turns), phase 4's full-canvas packed serving
+     wall ms, and the dispatch's share of it against the 2 % that decides
+     the route (the operators, or the launchers with the operators only
+     under export).
 
 The last line is {"ok": true, "device": {...}}. Without CUDA, or without the
 rest of the repository beside it, the script fails before any result.
@@ -672,12 +698,12 @@ MOSAIC_FRAME = (5472, 3648)
 CLASS_HEAD_SCALE = 4.0
 
 
-def survey_launches(name: str, counts: dict) -> int:
-    """A report entry's launches in the mosaic's run: forward kernels only
-    (serving), and no head-dim-80 one (ViT-B)."""
+def forward_launches(name: str, counts: dict) -> int:
+    """A report entry's launches in a ViT-B serving run (the mosaic's,
+    phase 12's): forward kernels only, and no head-dim-80 one."""
     if "_backward" in name or name.endswith("_d80"):
         return 0
-    return counts[name]
+    return counts.get(name, 0)
 
 
 def survey_phase(gpu, golden_sd, reset_counts, counts, per_forward) -> dict:
@@ -1049,6 +1075,390 @@ def loop_launches(name: str, counts: dict) -> int:
         if name.endswith(suffix):
             return counts[attr][name[:-len(suffix)]]
     return counts["launches"][name]
+
+
+# the compat surface of phase 12: the frame a user hands the predictor (H x W
+# of 27 of the bundle's 111 val images), the calls a forward makes to the
+# forward kernels' operators (packed ViT-B: K1 8, K2 4, K3 12, K4 1), and the
+# share of phase 4's serving wall the operators' dispatch may take before
+# the wrappers would call the launchers directly (outside an export)
+COMPAT_FRAME_HW = (3648, 5472)
+OP_CALLS_PER_FORWARD = 25
+DISPATCH_SHARE_LIMIT = 0.02
+
+
+def compat_phase(gpu, golden_sd, reset_counts, counts, per_forward) -> dict:
+    """12. The compat surface on the card (ViT-B, bf16, seeded weights with
+    the class head scaled): 12a the predictor, 12b the exported forward in
+    both layouts (a fresh process loads it with the operators alone), 12c
+    each `wm::` operator under torch.library.opcheck, 12d the host's cost
+    of entering the kernels through the operators. Returns the launch
+    counts of the phase's main path: 12a's set_image and the exported
+    programs' runs at batch 4 in this process, each counted from 0 just
+    before it and read just after."""
+    import collections
+    import shutil
+    import tempfile
+
+    import torch
+    from torch.library import opcheck
+
+    from wildlifemapper_tpu_torch.compat.export import (export_forward,
+                                                        load_exported)
+    from wildlifemapper_tpu_torch.compat.predictor import \
+        WildlifeMapperPredictor
+    from wildlifemapper_tpu_torch.config import model_config
+    from wildlifemapper_tpu_torch.eval.postprocess import (batched_nms,
+                                                           postprocess)
+    from wildlifemapper_tpu_torch.models import WildlifeMapper
+    from wildlifemapper_tpu_torch.ops import _library
+    from wildlifemapper_tpu_torch.ops.fused_mlp import fused_mlp
+    from wildlifemapper_tpu_torch.ops.windowed_attention_v2 import \
+        windowed_attention_packed
+    from wildlifemapper_tpu_torch.weights import load_reference_state_dict
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    root = Path(__file__).resolve().parent
+    work = Path(tempfile.mkdtemp(prefix="wm_compat_"))
+    cfg = model_config("vit_b", dtype="bfloat16", use_flash_attention=True)
+    phase_counts = collections.Counter()
+
+    def event_ms(fn):
+        """(result, device ms, wall ms) of one call, synchronised."""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        res = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return res, start.elapsed_time(end), (time.perf_counter() - t0) * 1e3
+
+    def nonzero(c):
+        return {k: v for k, v in c.items() if v}
+
+    try:
+        model = WildlifeMapper(cfg, generator=torch.Generator(
+            device=dev).manual_seed(0)).eval()
+        with torch.no_grad():
+            model.mask_decoder.class_embed.layers[-1].weight.mul_(
+                CLASS_HEAD_SCALE)
+
+        # ---- 12a. the predictor -----------------------------------------------
+        frame = np.random.default_rng(12).integers(
+            0, 256, (*COMPAT_FRAME_HW, 3), dtype=np.uint8)
+        pred = WildlifeMapperPredictor(model)
+        pred.set_image(frame)                        # warm-up, not counted
+        pred.predict()
+        reset_counts()
+        _, set_ms, set_wall = event_ms(lambda: pred.set_image(frame))
+        set_counts = counts()
+        set_mlp_kernels = fused_mlp.kernel_launches
+        reset_counts()
+        dets, predict_ms, predict_wall = event_ms(
+            lambda: pred.predict(score_threshold=0.05))
+        predict_counts = counts()
+        phase_counts.update(set_counts)
+        want = per_forward["packed"]
+        emit("compat_predictor_launches", set_image=set_counts,
+             set_image_mlp_kernel_launches=set_mlp_kernels,
+             predict=predict_counts, want_set_image=want)
+        if (set_counts != want or set_mlp_kernels != 2 * want["fused_mlp"]
+                or any(predict_counts.values())):
+            raise AssertionError(f"predictor launches: set_image "
+                                 f"{set_counts}, predict {predict_counts}")
+        # the same canvas through the forward, postprocess and NMS
+        canvas = pred.preprocess(frame)
+        sizes = torch.tensor([COMPAT_FRAME_HW], device=dev)
+        same = {}
+        with torch.inference_mode():
+            out = model(canvas)
+            for thr in (0.05, 0.5):
+                got = pred.predict(score_threshold=thr)
+                ref = postprocess(out, sizes, thr, hw_swap_compat=False)
+                keep = batched_nms(ref["boxes"], ref["scores"],
+                                   ref["labels"], ref["keep"], 0.4,
+                                   class_aware=False)[0]
+                same[thr] = (len(got["boxes"]), all(
+                    np.array_equal(got[k], ref[k][0][keep].cpu().numpy())
+                    for k in ("boxes", "scores", "labels")))
+            emb_same = torch.equal(pred.get_image_embedding(),
+                                   model.encode(canvas))
+        set_times = [event_ms(lambda: pred.set_image(frame))[1:]
+                     for _ in range(3)]
+        predict_times = [event_ms(lambda: pred.predict())[1:]
+                         for _ in range(3)]
+        emit("compat_predictor", frame_hw=list(COMPAT_FRAME_HW), gpu=gpu,
+             detections={str(t): n for t, (n, _) in same.items()},
+             bit_identical_to_forward_postprocess_nms={
+                 str(t): s for t, (_, s) in same.items()},
+             embedding_bit_identical=emb_same,
+             set_image_ms=[set_ms] + [t[0] for t in set_times],
+             set_image_wall_ms=[set_wall] + [t[1] for t in set_times],
+             predict_ms=[predict_ms] + [t[0] for t in predict_times],
+             predict_wall_ms=[predict_wall] + [t[1] for t in predict_times],
+             first_predict_kept=int(len(dets["boxes"])))
+        if not emb_same or not all(s for _, s in same.values()):
+            raise AssertionError(f"predictor against forward + postprocess "
+                                 f"+ NMS: {same}, embedding {emb_same}")
+        del out, canvas
+
+        # ---- 12b. the exported forward, both layouts ---------------------------
+        grouped = WildlifeMapper(dataclasses.replace(
+            cfg, attn_impl="grouped")).eval()
+        grouped.load_state_dict(model.state_dict())
+        models = {"packed": model, "grouped": grouped}
+        rng = np.random.default_rng(13)
+        xs = {b: torch.from_numpy(rng.standard_normal(
+            size=(b, 1024, 1024, 3), dtype=np.float32)) for b in (1, 4)}
+        torch.save(xs, work / "inputs.pt")
+        paths, eager = {}, {}
+        for layout, m in models.items():
+            t0 = time.perf_counter()
+            program = export_forward(m, batch_size=None)
+            export_s = time.perf_counter() - t0
+            nodes = collections.Counter(
+                str(n.target).split(".")[1] for n in program.graph.nodes
+                if str(n.target).startswith("wm."))
+            library = [str(n.target) for n in program.graph.nodes
+                       if "scaled_dot_product" in str(n.target)]
+            calls = collections.Counter(
+                str(n.target) for n in program.graph.nodes
+                if n.op == "call_function")
+            paths[layout] = work / f"{layout}.pt2"
+            t0 = time.perf_counter()
+            torch.export.save(program, str(paths[layout]))
+            save_s = time.perf_counter() - t0
+            want = nonzero(per_forward[layout])
+            emit("compat_export", layout=layout, dtype="bfloat16",
+                 batch="Dim('batch')", export_seconds=export_s,
+                 save_seconds=save_s,
+                 artifact_bytes=paths[layout].stat().st_size,
+                 wm_nodes=dict(nodes), want=want,
+                 call_nodes=sum(calls.values()),
+                 most_called=calls.most_common(6),
+                 library_attention_nodes=library,
+                 range_constraints=str(program.range_constraints))
+            if dict(nodes) != want or library:
+                raise AssertionError(f"{layout} export: wm:: nodes {nodes}, "
+                                     f"want {want}; library {library}")
+            del program
+            eager[layout] = {}
+            with torch.no_grad():
+                for b, x in xs.items():
+                    reset_counts()
+                    o = m(x.to(dev))
+                    torch.cuda.synchronize()
+                    eager[layout][b] = ({k: v.cpu() for k, v in o.items()},
+                                        nonzero(counts()))
+        # a fresh process: the operators alone, no models module
+        fresh = work / "fresh.pt"
+        code = "\n".join([
+            "import sys, torch",
+            f"sys.path.insert(0, {str(root)!r})",
+            "import wildlifemapper_tpu_torch.ops",
+            "from wildlifemapper_tpu_torch.ops._library import WRAPPERS",
+            f"xs = torch.load({str(work / 'inputs.pt')!r})",
+            "res = {}",
+            f"for layout, path in {({k: str(v) for k, v in paths.items()})!r}"
+            ".items():",
+            "    program = torch.export.load(path).module()",
+            "    for b, x in xs.items():",
+            "        for w in WRAPPERS.values():",
+            "            w.launches = 0",
+            "        with torch.no_grad():",
+            "            out = program(x.cuda())",
+            "        torch.cuda.synchronize()",
+            "        res[layout, b] = ({k: v.cpu() for k, v in out.items()},",
+            "                          {n: w.launches for n, w in "
+            "WRAPPERS.items() if w.launches})",
+            "res['models_imported'] = 'wildlifemapper_tpu_torch.models' in "
+            "sys.modules",
+            f"torch.save(res, {str(fresh)!r})"])
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", code],
+                              capture_output=True, text=True, timeout=600)
+        fresh_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"fresh process failed:\n"
+                                 f"{proc.stderr[-4000:]}")
+        res = torch.load(fresh, weights_only=False)
+        if res.pop("models_imported"):
+            raise AssertionError("the fresh process imported the models")
+        for (layout, b), (outs, fresh_counts) in res.items():
+            ref, eager_counts = eager[layout][b]
+            diffs = {k: (outs[k].float() - ref[k].float()).abs().max().item()
+                     for k in ("pred_logits", "pred_boxes")}
+            bit = all(torch.equal(outs[k], ref[k]) for k in diffs)
+            close = all(torch.allclose(outs[k], ref[k], atol=2e-2, rtol=2e-2)
+                        for k in diffs)
+            emit("compat_exported_run", layout=layout, batch=b,
+                 process="fresh, wildlifemapper_tpu_torch.ops only",
+                 bit_identical_to_eager=bit, max_abs_diff=diffs,
+                 reason=None if bit else "held to bf16 2e-2: the program's "
+                 "aten graph rounds other than the eager modules",
+                 launches=fresh_counts, eager_launches=eager_counts,
+                 process_seconds=fresh_s)
+            if not close or fresh_counts != eager_counts:
+                raise AssertionError(f"exported {layout} at batch {b}: "
+                                     f"diff {diffs}, launches {fresh_counts}"
+                                     f" against eager's {eager_counts}")
+        # eager against the loaded program at batch 4, in turns; one
+        # counted run of each program
+        x4 = xs[4].to(dev)
+        for layout, m in models.items():
+            program = load_exported(paths[layout])
+            reset_counts()
+            with torch.no_grad():
+                program(x4)
+                torch.cuda.synchronize()
+            run_counts = counts()
+            phase_counts.update(run_counts)
+            with torch.no_grad():
+                eager_ms, exported_ms = paired_ms(lambda: m(x4),
+                                                  lambda: program(x4))
+            emit("compat_exported_time", layout=layout, batch=4, gpu=gpu,
+                 eager_forward_ms=eager_ms, exported_forward_ms=exported_ms,
+                 launches=nonzero(run_counts))
+            if nonzero(run_counts) != nonzero(per_forward[layout]):
+                raise AssertionError(f"loaded {layout} program: launches "
+                                     f"{run_counts}")
+            del program
+        del grouped, models, xs, x4, eager, res
+        torch.cuda.empty_cache()
+
+        # ---- 12c. each operator under opcheck on the card ----------------------
+        gen = torch.Generator(device=dev).manual_seed(14)
+
+        def r(*shape, dt=torch.bfloat16, scale=1.0):
+            return (torch.randn(*shape, generator=gen, device=dev)
+                    * scale).to(dt)
+
+        op_args = {
+            "windowed_attention_packed": (r(2, 16, 3 * 128),
+                                          r(2, 16, 2, 4, scale=0.5),
+                                          r(2, 16, 2, 4, scale=0.5), 0.125,
+                                          2),
+            "cross_attention_packed": (r(2, 16, 256), r(2, 24, 256),
+                                       r(2, 24, 256), 128 ** -0.5, 2),
+            "flash_attention_rel_pos": (r(4, 16, 64), r(4, 16, 64),
+                                        r(4, 16, 64),
+                                        r(4, 16, 1, 4, scale=0.5),
+                                        r(4, 16, 1, 4, scale=0.5), 0.125),
+            "fused_mlp": (r(32, 64), r(128, 64, scale=0.125),
+                          r(128, dt=torch.float32, scale=0.1),
+                          r(64, 128, scale=128 ** -0.5),
+                          r(64, dt=torch.float32, scale=0.1)),
+        }
+        op_args["flash_attention_packed"] = op_args[
+            "windowed_attention_packed"]
+        op_args["windowed_attention_rel_pos"] = op_args[
+            "flash_attention_rel_pos"]
+        checked = {}
+        for name in sorted(_library.IMPLS):
+            packet, _, overload = name.partition(".")
+            fn = getattr(getattr(torch.ops.wm, packet), overload or "default")
+            checked[name] = opcheck(fn, op_args[packet])
+        emit("compat_opcheck", device=torch.cuda.get_device_name(0),
+             results=checked)
+        if any(v != "SUCCESS" for res_ in checked.values()
+               for v in res_.values()):
+            raise AssertionError(f"opcheck on the card: {checked}")
+
+        # ---- 12d. the host's cost of the operators -----------------------------
+        g = torch.Generator(device=dev).manual_seed(15)
+
+        def rb(*shape, scale=1.0):
+            return (torch.randn(*shape, generator=g, device=dev)
+                    * scale).to(torch.bfloat16)
+
+        qkv, rh, rw = (rb(100, 196, 3 * 768), rb(100, 196, 12, 14, scale=0.5),
+                       rb(100, 196, 12, 14, scale=0.5))
+        x, w1, w2 = (rb(4 * 4096, 768), rb(3072, 768, scale=768 ** -0.5),
+                     rb(768, 3072, scale=3072 ** -0.5))
+        b1 = torch.randn(3072, generator=g, device=dev) * 0.1
+        b2 = torch.randn(768, generator=g, device=dev) * 0.1
+        k1_args, k3_args = (qkv, rh, rw, 0.125, 12), (x, w1, b1, w2, b2)
+        host = {}
+        with torch.inference_mode():
+            for kid, name, wrapper_call, args in (
+                    ("K1", "windowed_attention_packed",
+                     lambda: windowed_attention_packed(qkv, rh, rw, 0.125, 12,
+                                                       (14, 14)), k1_args),
+                    ("K3", "fused_mlp", lambda: fused_mlp(*k3_args),
+                     k3_args)):
+                impl = _library.IMPLS[name][1]
+                op = getattr(torch.ops.wm, name).default
+                rows = {"wrapper": [], "operator": [], "implementation": []}
+                hops = []
+                # the host is shared and its speed drifts between turns, so
+                # the hop is read within a turn (implementation, operator,
+                # operator, implementation) and its median over the turns
+                for _ in range(7):
+                    a1 = host_us(lambda: impl(*args), 200)
+                    b1 = host_us(lambda: op(*args), 200)
+                    b2 = host_us(lambda: op(*args), 200)
+                    a2 = host_us(lambda: impl(*args), 200)
+                    rows["implementation"] += [a1, a2]
+                    rows["operator"] += [b1, b2]
+                    rows["wrapper"].append(host_us(wrapper_call, 200))
+                    hops.append((b1 + b2 - a1 - a2) / 2)
+                host[kid] = {k: float(np.median(v)) for k, v in rows.items()}
+                host[kid]["dispatch"] = float(np.median(hops))
+                host[kid]["least"] = {k: min(v) for k, v in rows.items()}
+                host[kid]["dispatch_turns"] = hops
+                host[kid]["turns"] = rows
+        del qkv, rh, rw, x, w1, w2, b1, b2
+        # phase 4's full-canvas packed serving, golden weights, batch 4
+        serving = WildlifeMapper(cfg)
+        load_reference_state_dict(serving, golden_sd)
+        serving.eval()
+        xb = np.zeros((BATCH, 1024, 1024, 3), np.float32)
+        xb[:, :768, :768, :] = np.random.default_rng(100).standard_normal(
+            size=(BATCH, 768, 768, 3), dtype=np.float32)
+        xb = torch.from_numpy(xb).to(dev)
+        sizes4 = torch.full((BATCH, 2), 1024, dtype=torch.int32, device=dev)
+
+        def serve():
+            out = serving(xb)
+            dets = postprocess(out, sizes4, confidence_threshold=0.05)
+            dets["keep"] = batched_nms(dets["boxes"], dets["scores"],
+                                       dets["labels"], dets["keep"], 0.4,
+                                       class_aware=False)
+            return dets
+
+        walls = []
+        with torch.inference_mode():
+            for _ in range(2):
+                serve()
+            torch.cuda.synchronize()
+            for _ in range(3):
+                t0 = time.perf_counter()
+                for _ in range(10):
+                    serve()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) / 10 * 1e3)
+            events_ms = time_ms(serve, iters=10)
+        wall = float(np.median(walls))
+        dispatch_us = max(host["K1"]["dispatch"], host["K3"]["dispatch"])
+        share = OP_CALLS_PER_FORWARD * dispatch_us * 1e-3 / wall
+        route = ("operators" if share <= DISPATCH_SHARE_LIMIT
+                 else "launchers, operators only under export")
+        emit("compat_host_cost", gpu=gpu, host_us=host,
+             serving_full_canvas_packed_wall_ms=walls,
+             serving_full_canvas_packed_events_ms=events_ms,
+             op_calls_per_forward=OP_CALLS_PER_FORWARD,
+             dispatch_share_of_serving=share,
+             share_limit=DISPATCH_SHARE_LIMIT, route_kept="operators",
+             route_the_share_calls_for=route)
+        del serving, xb
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit("compat_phase", seconds=time.perf_counter() - t_phase)
+    return dict(phase_counts), host
 
 
 def main() -> int:
@@ -3058,11 +3468,25 @@ def main() -> int:
     mosaic_counts = survey_phase(gpu, golden_sd, reset_counts, counts,
                                  per_forward)
     for name, e in report.items():
-        e["launches_mosaic"] = survey_launches(name, mosaic_counts)
+        e["launches_mosaic"] = forward_launches(name, mosaic_counts)
         on_path = not ("_backward" in name or name.endswith("_d80")
                        or name.startswith(grouped))
         if on_path and e["launches_mosaic"] <= 0:
             raise AssertionError(f"{name}: not launched on the mosaic's path")
+
+    # ---- 12. the compat surface: predictor, export, operators ---------------
+    compat_counts, compat_host = compat_phase(gpu, golden_sd, reset_counts,
+                                              counts, per_forward)
+    for name, e in report.items():
+        e["launches_compat"] = forward_launches(name, compat_counts)
+        on_path = not ("_backward" in name or name.endswith("_d80"))
+        if on_path and e["launches_compat"] <= 0:
+            raise AssertionError(f"{name}: not launched on the compat path")
+    for name, kid in (("windowed_attention_packed", "K1"),
+                      ("fused_mlp", "K3")):
+        report[name]["host_us_compat"] = {
+            k: compat_host[kid][k]
+            for k in ("wrapper", "operator", "implementation", "dispatch")}
     emit("script", seconds=time.perf_counter() - t_script, gpu=gpu)
     print(json.dumps({"kernels": [report[n] for n in order], "gpu": gpu}),
           flush=True)

@@ -4,12 +4,14 @@ of the Hopper and the resident bodies must say and define. Runs on the
 CPU: no kernel is built or launched here (tests/test_torch_cuda.py holds
 the bodies against each other on the card)."""
 
+import contextlib
 import re
+import warnings
 
 import pytest
 import torch
 
-from wildlifemapper_tpu_torch.ops import _attention, _build
+from wildlifemapper_tpu_torch.ops import _attention, _build, _library
 from wildlifemapper_tpu_torch.ops._attention import (RESIDENT_MAX_GRID,
                                                      RESIDENT_MAX_TOKENS,
                                                      STREAM_MIN_KEYS,
@@ -504,6 +506,21 @@ class _StandInLibrary:
             self.calls.append((name, args))
             return 0
         return entry
+
+
+@contextlib.contextmanager
+def cuda_impls_on_cpu(*overloads):
+    """Within this context the named operators of ops/_library.py run their
+    CUDA implementations for CPU tensors: a CPU test reaches the launchers
+    (against a stand-in library) and the launch counts through the
+    operators, as a CUDA tensor does."""
+    with warnings.catch_warnings():
+        # overriding a registered kernel warns
+        warnings.simplefilter("ignore", UserWarning)
+        with torch.library._scoped_library(_library.NAMESPACE, "IMPL") as lib:
+            for name in overloads:
+                lib.impl(name, _library.IMPLS[name][1], "CPU")
+            yield
 
 
 def _launch_with_stand_ins(monkeypatch, dtype, d, n, heads, scale, rel,

@@ -37,6 +37,7 @@ import numpy as np
 import pytest
 import torch
 
+from wildlifemapper_tpu_torch.ops import _library
 from wildlifemapper_tpu_torch.ops._attention import attention_plain
 from wildlifemapper_tpu_torch.ops.cross_attention import (
     cross_attention_packed, cross_attention_packed_backward_plain,
@@ -1079,3 +1080,171 @@ def test_remat_step_on_the_card(cuda):
     assert set(grads0) == set(grads1) and grads0
     for n, g in grads0.items():
         torch.testing.assert_close(grads1[n], g, rtol=1e-6, atol=0, msg=n)
+
+
+# ---- the compat surface: the wm:: operators, export, the predictor ------------
+
+def _op_args_cuda(name, dtype, dev, batch=2):
+    """Small inputs of each `wm::` operator that its kernels take: 2 heads
+    of 64 on a 4x4 grid (the resident body in bf16), K4 2 heads of 128 with
+    24 keys, K3 64 -> 128."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def r(*shape, dt=dtype, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev)
+                * scale).to(dt)
+
+    if name in ("windowed_attention_packed", "flash_attention_packed"):
+        return (r(batch, 16, 3 * 128), r(batch, 16, 2, 4, scale=0.5),
+                r(batch, 16, 2, 4, scale=0.5), 0.125, 2)
+    if name == "cross_attention_packed":
+        return (r(batch, 16, 256), r(batch, 24, 256), r(batch, 24, 256),
+                128 ** -0.5, 2)
+    if name in ("flash_attention_rel_pos", "windowed_attention_rel_pos"):
+        return (r(2 * batch, 16, 64), r(2 * batch, 16, 64),
+                r(2 * batch, 16, 64), r(2 * batch, 16, 1, 4, scale=0.5),
+                r(2 * batch, 16, 1, 4, scale=0.5), 0.125)
+    return (r(16 * batch, 64), r(128, 64, scale=0.125),
+            r(128, dt=torch.float32, scale=0.1),
+            r(64, 128, scale=128 ** -0.5), r(64, dt=torch.float32, scale=0.1))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", [
+    "windowed_attention_packed", "windowed_attention_packed.lse",
+    "flash_attention_packed", "flash_attention_packed.lse", "fused_mlp",
+    "cross_attention_packed", "cross_attention_packed.lse",
+    "flash_attention_rel_pos", "flash_attention_rel_pos.lse",
+    "windowed_attention_rel_pos", "windowed_attention_rel_pos.lse"])
+def test_operator_on_the_card(cuda, name, dtype):
+    """Each overload under torch.library.opcheck through its CUDA
+    implementation, its output against the CPU implementation (the plain
+    version) at the kernels' tolerance, one launch counted a call."""
+    packet, _, overload = name.partition(".")
+    op = getattr(getattr(torch.ops.wm, packet), overload or "default")
+    args = _op_args_cuda(packet, dtype, cuda)
+    result = torch.library.opcheck(op, args)
+    assert set(result.values()) == {"SUCCESS"}, result
+    wrapper = _library.WRAPPERS[packet]
+    before = wrapper.launches
+    got = op(*args)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    want = op(*[a.cpu().float() if torch.is_tensor(a) else a for a in args])
+    for g, w in zip(*(((got,), (want,)) if torch.is_tensor(got)
+                      else (got, want))):
+        assert g.device.type == "cuda" and g.shape == w.shape
+        torch.testing.assert_close(g.float().cpu(), w.float(), **TOL[dtype])
+
+
+def _tiny_model_config(dtype, layout):
+    """A tiny model whose every attention the kernels take: ViT 2 heads of
+    32 on an 8x8 grid (windows of 16 tokens, one global block of 64), the
+    adaptor one head of 32."""
+    import dataclasses
+
+    from wildlifemapper_tpu_torch import config as tcfg
+
+    return dataclasses.replace(
+        tcfg.model_config("vit_b", dtype=dtype, use_flash_attention=True,
+                          attn_impl=layout),
+        img_size=128,
+        vit=tcfg.ViTConfig(embed_dim=64, depth=2, num_heads=2,
+                           global_attn_indexes=(1,), window_size=4,
+                           out_chans=32),
+        hfc=tcfg.HFCConfig(embed_dim=32, proj_dim=32, num_heads=1,
+                           ffn_dim=32),
+        decoder=tcfg.DecoderConfig(transformer_dim=32, mlp_dim=64,
+                                   num_queries=7, num_heads=2))
+
+
+TINY_PER_FORWARD = {
+    "packed": {"windowed_attention_packed": 1, "flash_attention_packed": 1,
+               "fused_mlp": 2, "cross_attention_packed": 1},
+    "grouped": {"windowed_attention_rel_pos": 1,
+                "flash_attention_rel_pos": 1, "cross_attention_packed": 1},
+}
+
+
+@pytest.mark.parametrize("layout", ["packed", "grouped"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_export_through_the_operators_on_the_card(cuda, monkeypatch, tmp_path,
+                                                  layout, dtype):
+    """The tiny model exported with a symbolic batch on the card: one `wm::`
+    node a kernel launch, no library attention, nothing launched while
+    tracing; saved, loaded and run at batch 1 and 3, bit for bit the eager
+    model, with eager's launches counted as the program runs."""
+    import collections
+
+    from wildlifemapper_tpu_torch.compat.export import (load_exported,
+                                                        save_exported)
+    from wildlifemapper_tpu_torch.models import WildlifeMapper
+    from wildlifemapper_tpu_torch.models import vit as tvit
+
+    monkeypatch.setattr(tvit, "GLOBAL_N_THRESHOLD", 64)
+    model = WildlifeMapper(_tiny_model_config(dtype, layout),
+                           generator=torch.Generator(
+                               device=cuda).manual_seed(0)).eval()
+
+    def launches():
+        return {n: w.launches for n, w in _library.WRAPPERS.items()}
+
+    before = launches()
+    path = save_exported(model, tmp_path / "m.pt2", batch_size=None)
+    assert launches() == before
+    program = torch.export.load(str(path))
+    nodes = collections.Counter(
+        str(n.target).split(".")[1] for n in program.graph.nodes
+        if str(n.target).startswith("wm."))
+    assert nodes == TINY_PER_FORWARD[layout]
+    assert not [n for n in program.graph.nodes
+                if "scaled_dot_product" in str(n.target)]
+    forward = load_exported(path)
+    for b in (1, 3):
+        x = torch.randn(b, 128, 128, 3, device=cuda)
+        with torch.no_grad():
+            start = launches()
+            got = forward(x)
+            torch.cuda.synchronize()
+            ran = {n: v - start[n] for n, v in launches().items() if v
+                   - start[n]}
+            want = model(x)
+        assert ran == TINY_PER_FORWARD[layout]
+        for k in ("pred_logits", "pred_boxes"):
+            assert torch.equal(got[k], want[k]), (b, k)
+
+
+@pytest.mark.parametrize("content_size", [None, 96])
+def test_predictor_is_the_forward_on_the_card(cuda, content_size):
+    """set_image launches the forward's kernels and predict none; the
+    detections bit for bit those of the forward + postprocess + NMS."""
+    import dataclasses
+
+    from wildlifemapper_tpu_torch.compat.predictor import \
+        WildlifeMapperPredictor
+    from wildlifemapper_tpu_torch.eval.postprocess import (batched_nms,
+                                                           postprocess)
+    from wildlifemapper_tpu_torch.models import WildlifeMapper
+
+    cfg = dataclasses.replace(_tiny_model_config("bfloat16", "packed"),
+                              content_size=content_size)
+    model = WildlifeMapper(cfg, generator=torch.Generator(
+        device=cuda).manual_seed(1)).eval()
+    pred = WildlifeMapperPredictor(model)
+    img = np.random.default_rng(0).integers(0, 256, (150, 200, 3),
+                                            dtype=np.uint8)
+    before = {n: w.launches for n, w in _library.WRAPPERS.items()}
+    pred.set_image(img)
+    mid = {n: w.launches for n, w in _library.WRAPPERS.items()}
+    got = pred.predict(score_threshold=0.0)
+    after = {n: w.launches for n, w in _library.WRAPPERS.items()}
+    assert mid != before and after == mid
+    canvas = pred.preprocess(img)
+    with torch.inference_mode():
+        out = model(canvas)
+        dets = postprocess(out, torch.tensor([[150, 200]], device=cuda), 0.0,
+                           hw_swap_compat=False)
+        keep = batched_nms(dets["boxes"], dets["scores"], dets["labels"],
+                           dets["keep"], 0.4, class_aware=False)[0]
+    for k in ("boxes", "scores", "labels"):
+        np.testing.assert_array_equal(got[k], dets[k][0][keep].cpu().numpy())

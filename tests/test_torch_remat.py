@@ -41,7 +41,8 @@ from wildlifemapper_tpu_torch.train.synthetic import training_config
 from wildlifemapper_tpu_torch.weights import (load_reference_state_dict,
                                               state_dict_from_jax)
 
-from tests.test_torch_attention_bodies import _StandInLibrary
+from tests.test_torch_attention_bodies import (_StandInLibrary,
+                                              cuda_impls_on_cpu)
 from tests.test_torch_train_step import (_batch, _jax_batch, _jax_params,
                                          _port_state_dict, _torch_batch,
                                          jcrit_loss)
@@ -151,7 +152,9 @@ def test_mlp_forward_within_outputs_unread_launches_nothing(monkeypatch):
     library records none and `launches` stays), and its backward (with the
     dh kernel's plain version here) gives the gradients it gives without
     the context: it does not read the output. The output it returns there
-    is an explicit zero that holds no memory."""
+    is an explicit zero that holds no memory. The forward's operator runs
+    its CUDA implementation (the launcher and the count) on these CPU
+    tensors, as it does on the card."""
     lib = _StandInLibrary()
     monkeypatch.setattr(_build, "load_kernels", lambda: lib)
     monkeypatch.setattr(_build, "stream_ptr", lambda t: 0)
@@ -166,7 +169,8 @@ def test_mlp_forward_within_outputs_unread_launches_nothing(monkeypatch):
         leaves = [t.clone().requires_grad_() for t in (x, w1, b1, w2, b2)]
         before = fmlp.fused_mlp.launches
         lib.calls.clear()
-        with fmlp.outputs_unread() if unread else contextlib.nullcontext():
+        with (fmlp.outputs_unread() if unread
+              else contextlib.nullcontext()), cuda_impls_on_cpu("fused_mlp"):
             out = fmlp._FusedMlpFn.apply(*leaves)
         launched.append(([name for name, _ in lib.calls],
                          fmlp.fused_mlp.launches - before))

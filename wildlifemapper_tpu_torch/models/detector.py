@@ -129,6 +129,13 @@ class WildlifeMapper(nn.Module):
     def forward(self, images: torch.Tensor, *, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None
                 ) -> Dict[str, torch.Tensor]:
+        return self.decode(self.encode(images, deterministic=deterministic,
+                                       generator=generator))
+
+    def encode(self, images: torch.Tensor, *, deterministic: bool = True,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The forward's first half: (crop prologue), HFC map, encoder ->
+        the image embedding (B, g, g, out_chans) in the compute dtype."""
         cfg = self.config
         dt = cfg.compute_dtype
         if cfg.crop_prologue and cfg.content_size is not None:
@@ -138,11 +145,17 @@ class WildlifeMapper(nn.Module):
 
         # HFC runs in f32, the result is cast to the compute dtype.
         hfc = hfc_filter(images.to(torch.float32), cfg.hfc.rate).to(dt)
-        emb = self.image_encoder(images.to(dt), hfc,
-                                 deterministic=deterministic,
-                                 generator=generator)
+        return self.image_encoder(images.to(dt), hfc,
+                                  deterministic=deterministic,
+                                  generator=generator)
 
-        pe = self.prompt_encoder["pe_layer"](cfg.grid_size).to(dt)
+    def decode(self, emb: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The forward's second half: the dense PE (sliced to the content
+        grid) and the box decoder on an image embedding -> {pred_logits,
+        pred_boxes (, aux_outputs)} in float32."""
+        cfg = self.config
+        pe = self.prompt_encoder["pe_layer"](cfg.grid_size).to(
+            cfg.compute_dtype)
         cg = cfg.content_grid
         if cg is not None and cg < cfg.grid_size:
             pe = pe[:cg, :cg]

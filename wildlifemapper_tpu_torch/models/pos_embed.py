@@ -4,15 +4,16 @@ The gaussian matrix is a buffer, as in the reference."""
 
 from __future__ import annotations
 
-import functools
 import math
 
 import numpy as np
 import torch
 import torch.nn as nn
 
+from ..ops._constants import device_constant
 
-@functools.lru_cache(maxsize=8)
+
+@device_constant
 def _grid_coords(g: int, device: torch.device) -> torch.Tensor:
     """(g, g, 2) pixel-centre (x, y) coords in [-1, 1] (pos_encoder.py:63-67),
     cached on the device: a host copy per forward would synchronise the

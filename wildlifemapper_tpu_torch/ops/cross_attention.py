@@ -12,7 +12,8 @@ The backward kernels are those of csrc/attention_bwd.cu without rel
 tables, on the lse the forward writes when a gradient is recorded.
 
 On a CPU tensor the wrapper runs the plain version and autograd
-differentiates it; on a CUDA tensor it launches the kernels or raises.
+differentiates it; on a CUDA tensor it launches the kernels or raises,
+the forward through its operator (ops/_library.py).
 """
 
 from __future__ import annotations
@@ -20,8 +21,7 @@ from __future__ import annotations
 import torch
 
 from ._attention import (attention_backward_launch,
-                         attention_backward_plain, attention_launch,
-                         attention_plain)
+                         attention_backward_plain, attention_plain)
 
 
 def cross_attention_packed_plain(q, k, v, scale: float,
@@ -40,13 +40,11 @@ def cross_attention_packed_backward_plain(q, k, v, out, lse, dout,
 class _CrossAttentionFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, scale, num_heads):
-        need_grad = any(ctx.needs_input_grad[:3])
-        res = attention_launch(q, k, v, scale, num_heads,
-                               return_lse=need_grad)
-        cross_attention_packed.launches += 1
-        if not need_grad:
-            return res
-        out, lse = res
+        # the forward kernel's operator (ops/_library.py) launches and counts
+        op = torch.ops.wm.cross_attention_packed
+        if not any(ctx.needs_input_grad[:3]):
+            return op.default(q, k, v, scale, num_heads)
+        out, lse = op.lse(q, k, v, scale, num_heads)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.scale, ctx.num_heads = scale, num_heads
         return out

@@ -21,7 +21,8 @@ Gradients of the tables come back in the shape that went in.
 `GroupedAttentionFn` is shared with K6 (ops/windowed_attention.py).
 
 On a CPU tensor the wrapper runs the plain version and autograd
-differentiates it; on a CUDA tensor it launches the kernels or raises.
+differentiates it; on a CUDA tensor it launches the kernels or raises,
+the forward through its operator (ops/_library.py).
 """
 
 from __future__ import annotations
@@ -31,8 +32,7 @@ from typing import Tuple
 import torch
 
 from ._attention import (attention_backward_launch,
-                         attention_backward_plain, attention_launch,
-                         attention_plain)
+                         attention_backward_plain, attention_plain)
 
 
 def _check(q, k, v, rel_h, rel_w, grid_hw):
@@ -86,18 +86,17 @@ def grouped_attention_backward_plain(q, k, v, rel_h, rel_w, out, lse, dout,
 
 class GroupedAttentionFn(torch.autograd.Function):
     """Forward and backward kernels on the grouped operands, shared by K5
-    and K6; `wrapper` is the public function whose launch counts move.
+    and K6; `wrapper` is the public function whose launch counts move, and
+    its name is that of the forward's operator.
     rel_h and rel_w arrive as (BH, N, 1, g) in q's dtype."""
 
     @staticmethod
     def forward(ctx, q, k, v, rel_h, rel_w, scale, wrapper):
-        need_grad = any(ctx.needs_input_grad[:5])
-        res = attention_launch(q, k, v, scale, 1, rel_h, rel_w,
-                               return_lse=need_grad, scale_scores=True)
-        wrapper.launches += 1
-        if not need_grad:
-            return res
-        out, lse = res
+        # the forward kernel's operator (ops/_library.py) launches and counts
+        op = getattr(torch.ops.wm, wrapper.__name__)
+        if not any(ctx.needs_input_grad[:5]):
+            return op.default(q, k, v, rel_h, rel_w, scale)
+        out, lse = op.lse(q, k, v, rel_h, rel_w, scale)
         ctx.save_for_backward(q, k, v, rel_h, rel_w, out, lse)
         ctx.scale, ctx.wrapper = scale, wrapper
         return out

@@ -15,7 +15,8 @@ recompute p = exp(s - lse) from the lse the forward writes when a gradient
 is recorded; delta = rowsum(do * o) is a plain f32 pass, as in `_v2g_bwd`.
 
 On a CPU tensor the wrapper runs the plain version and autograd
-differentiates it; on a CUDA tensor it launches the kernels or raises.
+differentiates it; on a CUDA tensor it launches the kernels or raises,
+the forward through its operator (ops/_library.py).
 """
 
 from __future__ import annotations

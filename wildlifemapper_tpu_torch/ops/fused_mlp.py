@@ -39,8 +39,9 @@ operands in their own dtype and accumulates in f32, with PyTorch's
 reduced-precision (bf16) split-K reduction switched off around it.
 
 On a CPU tensor the wrapper runs the plain version and autograd
-differentiates it; on a CUDA tensor it launches the kernels or raises
-(within `outputs_unread()` it launches nothing: see there).
+differentiates it; on a CUDA tensor it launches the kernels or raises,
+the forward through its operator (ops/_library.py; within
+`outputs_unread()` it launches nothing: see there).
 """
 
 from __future__ import annotations
@@ -243,8 +244,8 @@ class _FusedMlpFn(torch.autograd.Function):
         if getattr(_state, "outputs_unread", False):
             out = x.new_zeros(()).expand_as(x)
         else:
-            out = _fused_mlp_launch(x, w1, b1, w2, b2)
-            fused_mlp.launches += 1
+            # the forward's operator (ops/_library.py) launches and counts
+            out = torch.ops.wm.fused_mlp.default(x, w1, b1, w2, b2)
         if any(ctx.needs_input_grad):
             ctx.save_for_backward(x, w1, b1, w2)
         return out

@@ -15,6 +15,8 @@ import functools
 import numpy as np
 import torch
 
+from ._constants import device_constant
+
 # ITU-R 601 luma weights used by torchvision's Grayscale (network.py:41).
 _GRAY_WEIGHTS = (0.2989, 0.587, 0.114)
 
@@ -66,14 +68,14 @@ def _lowpass_matrices_np(h: int, w: int, rate: float):
 # in every forward would synchronise the stream. They are built outside
 # inference mode so that a later autograd caller may use them.
 
-@functools.lru_cache(maxsize=8)
+@device_constant
 def _lowpass_matrices(h: int, w: int, rate: float, device: torch.device):
     with torch.inference_mode(False):
         return tuple(torch.from_numpy(m).to(device)
                      for m in _lowpass_matrices_np(h, w, rate))
 
 
-@functools.lru_cache(maxsize=8)
+@device_constant
 def _mask(h: int, w: int, rate: float, device: torch.device, rfft: bool):
     m = _bandstop_mask_rfft_np(h, w, rate) if rfft \
         else _bandstop_mask_np(h, w, rate)
@@ -81,7 +83,7 @@ def _mask(h: int, w: int, rate: float, device: torch.device, rfft: bool):
         return torch.from_numpy(np.ascontiguousarray(m)).to(device)
 
 
-@functools.lru_cache(maxsize=8)
+@device_constant
 def _gray_weights(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     with torch.inference_mode(False):
         return torch.tensor(_GRAY_WEIGHTS, dtype=dtype, device=device)

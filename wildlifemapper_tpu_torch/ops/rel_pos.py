@@ -11,6 +11,8 @@ import functools
 import numpy as np
 import torch
 
+from ._constants import device_constant
+
 
 @functools.lru_cache(maxsize=32)
 def rel_pos_index(q_size: int, k_size: int) -> np.ndarray:
@@ -24,7 +26,7 @@ def rel_pos_index(q_size: int, k_size: int) -> np.ndarray:
     return rel.astype(np.int64)
 
 
-@functools.lru_cache(maxsize=32)
+@device_constant
 def _rel_pos_index_on(q_size: int, k_size: int, device: torch.device
                       ) -> torch.Tensor:
     # Kept on the device: copying a host array in every forward would

@@ -25,7 +25,8 @@ headers for what bounds each on the H100. The group padding of the Pallas
 call is not carried over.
 
 On a CPU tensor the wrapper runs the plain version and autograd
-differentiates it; on a CUDA tensor it launches the kernels or raises.
+differentiates it; on a CUDA tensor it launches the kernels or raises,
+the forward through its operator (ops/_library.py).
 """
 
 from __future__ import annotations

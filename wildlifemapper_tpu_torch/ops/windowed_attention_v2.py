@@ -22,7 +22,8 @@ which recomputes a full softmax. Gradients come back in the forward's layouts:
 dqkv packed (BW, N, 3C), drel (BW, N, H, gh/gw).
 
 On a CPU tensor the wrapper runs the plain version and autograd
-differentiates it; on a CUDA tensor it launches the kernels or raises.
+differentiates it; on a CUDA tensor it launches the kernels or raises,
+the forward through its operator (ops/_library.py).
 """
 
 from __future__ import annotations
@@ -32,8 +33,7 @@ from typing import Tuple
 import torch
 
 from ._attention import (attention_backward_launch,
-                         attention_backward_plain, attention_launch,
-                         attention_plain)
+                         attention_backward_plain, attention_plain)
 
 
 def _split(qkv: torch.Tensor):
@@ -74,18 +74,16 @@ windowed_attention_packed_backward_plain = packed_attention_backward_plain
 
 class PackedAttentionFn(torch.autograd.Function):
     """Forward and backward kernels on the packed qkv, shared by K1 and K2;
-    `wrapper` is the public function whose launch counts move."""
+    `wrapper` is the public function whose launch counts move, and its name
+    is that of the forward's operator."""
 
     @staticmethod
     def forward(ctx, qkv, rel_h, rel_w, scale, num_heads, wrapper):
-        q, k, v = _split(qkv)
-        need_grad = any(ctx.needs_input_grad[:3])
-        res = attention_launch(q, k, v, scale, num_heads, rel_h, rel_w,
-                               return_lse=need_grad)
-        wrapper.launches += 1
-        if not need_grad:
-            return res
-        out, lse = res
+        # the forward kernel's operator (ops/_library.py) launches and counts
+        op = getattr(torch.ops.wm, wrapper.__name__)
+        if not any(ctx.needs_input_grad[:3]):
+            return op.default(qkv, rel_h, rel_w, scale, num_heads)
+        out, lse = op.lse(qkv, rel_h, rel_w, scale, num_heads)
         ctx.save_for_backward(qkv, rel_h, rel_w, out, lse)
         ctx.scale, ctx.num_heads, ctx.wrapper = scale, num_heads, wrapper
         return out

@@ -132,6 +132,29 @@ def state_dict_from_jax(flat: Mapping[str, np.ndarray], depth: int = 12
             for k, v in sd.items()}
 
 
+def prompt_encoder_state_dict_from_jax(flat: Mapping[str, np.ndarray]
+                                       ) -> Dict[str, torch.Tensor]:
+    """The JAX package's compat PromptEncoder parameters, flat ('pe_gaussian',
+    'mask_conv1/kernel', 'mask_ln1/LayerNorm_0/scale', ...), -> the state
+    dict of compat/prompt_encoder.py in SAM's names: convs HWIO -> OIHW,
+    LayerNorm scale -> weight, the (4, C) point embeddings split into four
+    (1, C) embeddings. The inverse of the JAX package's
+    `convert_torch_prompt_encoder`."""
+    sd = {"pe_layer.positional_encoding_gaussian_matrix": flat["pe_gaussian"],
+          "not_a_point_embed.weight": flat["not_a_point_embed"],
+          "no_mask_embed.weight": flat["no_mask_embed"]}
+    for i, row in enumerate(np.asarray(flat["point_embeddings"])):
+        sd[f"point_embeddings.{i}.weight"] = row[None]
+    for j, conv in ((0, "mask_conv1"), (3, "mask_conv2"), (6, "mask_conv3")):
+        sd[f"mask_downscaling.{j}.weight"] = _conv(flat[f"{conv}/kernel"])
+        sd[f"mask_downscaling.{j}.bias"] = flat[f"{conv}/bias"]
+    for j, ln in ((1, "mask_ln1"), (4, "mask_ln2")):
+        sd[f"mask_downscaling.{j}.weight"] = flat[f"{ln}/LayerNorm_0/scale"]
+        sd[f"mask_downscaling.{j}.bias"] = flat[f"{ln}/LayerNorm_0/bias"]
+    return {k: torch.tensor(np.asarray(v, dtype=np.float32))
+            for k, v in sd.items()}
+
+
 def merge_state_dict(model: nn.Module, state_dict: Mapping[str, object],
                      strict: bool = False) -> Dict[str, List[str]]:
     """Load a reference-named state dict (tensors or numpy arrays) into the
