@@ -16,7 +16,8 @@ the training loop (train/loop.py: loader, checkpoints, resume, per-epoch
 COCO evaluation) in two configurations, and serves surveys (a reference
 .pth, orthomosaic detection of a full-size frame, drift-as-mAP, the native
 matcher), and drives the compat surface (the predictor, the exported
-forward through the kernels' `wm::` operators, the operators themselves).
+forward through the kernels' `wm::` operators, the operators themselves),
+and runs the data-parallel path (torchrun, DDP, two ranks on the card).
 Phases, one JSON line each; any failure raises and exits non-zero:
 
   1. device: the card's name and power limit; build the kernels from
@@ -213,6 +214,33 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      wall ms, and the dispatch's share of it against the 2 % that decides
      the route (the operators, or the launchers with the operators only
      under export).
+ 13. data parallel (parallel/, the criterion over the global batch, the
+     step through DistributedDataParallel; bf16 ViT-B, golden weights, the
+     first 32 train / 16 val images of the vendored bundle as synthetic
+     tiles at 1024): 13a `python -m torch.distributed.run --nproc_per_node
+     1 -m wildlifemapper_tpu_torch.cli.train` for one epoch of 8 steps with
+     evaluation (NCCL at world 1, the real entry point), then in this
+     process 3 fine-tune steps through DDP over NCCL at world 1 against the
+     same steps with no process group, bit for bit (losses, every
+     parameter), DDP's ms a step against none in turns, the f32 gradient
+     bytes all-reduced a step (fine-tune, from scratch) and the launches of
+     those steps (the counts set to 0 just before and read after); 13b-13d
+     two ranks on this card over gloo (this script with --rank-worker, each
+     under a timeout): 13b 3 steps of the fine-tune and from scratch
+     (hfc.dropout 0), 2 of phase 8's 4 rows a rank: losses, grad_norm and
+     every parameter identical on both ranks, and against one process at
+     batch 4 from the same weights and batches each step's loss and
+     grad_norm, the parameters' change and the last gradient within the
+     DIST_*_TOL relative gaps, which an unchanged state and one process on
+     half the batch must both exceed (with 2 cards or more, NCCL over cards
+     0 and 1 as well); 13c train/loop.py for 2 epochs of 4 steps with evaluation, then
+     a resumed third epoch: only rank 0 writes, both ranks the same COCO
+     stats, which one process's evaluation of the last checkpoint gives
+     within 1e-3 (bit for bit expected), every evaluation over the whole
+     val split; 13d phase 11b's frame and .pth split over the two ranks,
+     bit for bit one process's detect. The workers report their launch
+     counts, which join 13a's (the kernels' "launches_dist"). The gloo times
+     are not those of NCCL across cards.
 
 The last line is {"ok": true, "device": {...}}. Without CUDA, or without the
 rest of the repository beside it, the script fails before any result.
@@ -722,8 +750,7 @@ def survey_phase(gpu, golden_sd, reset_counts, counts, per_forward) -> dict:
         convert_checkpoint
     from wildlifemapper_tpu_torch.config import DataConfig, model_config
     from wildlifemapper_tpu_torch.data import tiler
-    from wildlifemapper_tpu_torch.data.loader import (_synthetic_image,
-                                                      build_dataset)
+    from wildlifemapper_tpu_torch.data.loader import build_dataset
     from wildlifemapper_tpu_torch.eval.drift import (drift_summary,
                                                      run_detections)
     from wildlifemapper_tpu_torch.eval.fast_ap import fast_ap50
@@ -809,14 +836,8 @@ def survey_phase(gpu, golden_sd, reset_counts, counts, per_forward) -> dict:
         rep = convert_checkpoint(trained_file(seeded, "survey.pth"), m)
         if rep["missing"]:
             raise AssertionError(f"survey .pth: missing {rep['missing']}")
-        index = build_dataset("val", DataConfig(synthetic=True)).index
-        image_id = max((i for i in index.ids if (
-            index.image_info(i)["width"], index.image_info(i)["height"])
-            == MOSAIC_FRAME), key=lambda i: len(index.annotations(i)))
-        info, anns = index.image_info(image_id), index.annotations(image_id)
         t0 = time.perf_counter()
-        mosaic = _synthetic_image(image_id, info["width"], info["height"],
-                                  anns)
+        mosaic, image_id, anns = survey_frame()
         render_s = time.perf_counter() - t0
         h, w = mosaic.shape[:2]
         grid = tiler.make_tile_grid(h, w, MOSAIC_TILE, MOSAIC_OVERLAP)
@@ -1461,6 +1482,704 @@ def compat_phase(gpu, golden_sd, reset_counts, counts, per_forward) -> dict:
     return dict(phase_counts), host
 
 
+# the data-parallel path of phase 13: two ranks, each with BATCH // 2 rows of
+# phase 8's batch of BATCH, or with phase 10's batch of BATCH in the loop;
+# small splits of the vendored bundle (synthetic tiles at 1024): 4 steps of
+# BATCH a rank over two ranks, 2 eval batches a rank (8 and 4 at world 1)
+DIST_WORLD = 2
+DIST_TIMEOUT_S = 420
+DIST_TRAIN_IMAGES = 32
+DIST_VAL_IMAGES = 16
+# 13b against one process at batch BATCH, each a relative gap: every step's
+# loss and grad_norm, ||change of the parameters over the steps|| and
+# ||gradient of the last step|| (L2 over every trainable parameter). Read on
+# an H100 (fine-tune / from scratch): 4.4e-7 / 2.5e-7, 1.4e-3, 2.5e-3 /
+# 3.5e-3, 1.2e-3; one process on half the batch: 1.9e-2, 5.7e-2, 0.17-0.18,
+# 0.41. Each limit lies about a decade from both.
+DIST_LOSS_TOL = 1e-4
+DIST_NORM_TOL = 1e-2
+DIST_CHANGE_TOL = 2.5e-2
+DIST_GRAD_TOL = 2e-2
+COUNT_NAMES = ("launches", "backward_launches", "backward_dq_launches",
+               "backward_dkv_launches")
+
+
+def port_wrappers() -> dict:
+    """The kernels' public wrappers, by report name: their launch counters."""
+    from wildlifemapper_tpu_torch.ops.cross_attention import \
+        cross_attention_packed
+    from wildlifemapper_tpu_torch.ops.flash_attention import \
+        flash_attention_rel_pos
+    from wildlifemapper_tpu_torch.ops.flash_attention_v2 import \
+        flash_attention_packed
+    from wildlifemapper_tpu_torch.ops.fused_mlp import fused_mlp
+    from wildlifemapper_tpu_torch.ops.windowed_attention import \
+        windowed_attention_rel_pos
+    from wildlifemapper_tpu_torch.ops.windowed_attention_v2 import \
+        windowed_attention_packed
+
+    return {"windowed_attention_packed": windowed_attention_packed,
+            "flash_attention_packed": flash_attention_packed,
+            "fused_mlp": fused_mlp,
+            "cross_attention_packed": cross_attention_packed,
+            "flash_attention_rel_pos": flash_attention_rel_pos,
+            "windowed_attention_rel_pos": windowed_attention_rel_pos}
+
+
+def relative_gap(got: dict, want: dict) -> float:
+    """||got - want|| / ||want||, L2 over every tensor of `want` together."""
+    num = den = 0.0
+    for n, w in want.items():
+        w = w.double()
+        num += float((got[n].double() - w).square().sum())
+        den += float(w.square().sum())
+    return math.sqrt(num / max(den, 1e-300))
+
+
+def worst_element_gap(got: dict, want: dict) -> float:
+    """max over tensors of max|got - want| / max|want|."""
+    return max(float((got[n].double() - w.double()).abs().max())
+               / max(float(w.abs().max()), 1e-300) for n, w in want.items())
+
+
+def step_readings(losses, norms, change, grad, want) -> dict:
+    """A run's gaps to one process's (`want`: losses, grad_norms, change,
+    grad), and whether 13b's limits pass it."""
+    r = {"loss": max(abs(a - b) / abs(b) for a, b in
+                     zip(losses, want["losses"])),
+         "grad_norm": max(abs(a - b) / abs(b) for a, b in
+                          zip(norms, want["grad_norms"])),
+         "change": relative_gap(change, want["change"]),
+         "grad": relative_gap(grad, want["grad"])}
+    limits = {"loss": DIST_LOSS_TOL, "grad_norm": DIST_NORM_TOL,
+              "change": DIST_CHANGE_TOL, "grad": DIST_GRAD_TOL}
+    r["over_limit"] = sorted(k for k in limits if not r[k] <= limits[k])
+    return r
+
+
+def trainable(model, grads=False) -> dict:
+    """The trainable parameters (or their gradients), on the host."""
+    return {n: (p.grad if grads else p).detach().float().cpu().clone()
+            for n, p in model.named_parameters() if p.requires_grad}
+
+
+def wrapper_counts(wrappers: dict) -> dict:
+    return {a: {n: getattr(w, a) for n, w in wrappers.items()
+                if hasattr(w, a)} for a in COUNT_NAMES}
+
+
+def add_counts(a: dict, b: dict) -> dict:
+    return {attr: {n: a[attr].get(n, 0) + b[attr].get(n, 0)
+                   for n in set(a[attr]) | set(b[attr])} for attr in a}
+
+
+def coco_subset(dst: Path) -> Path:
+    """The first DIST_TRAIN_IMAGES / DIST_VAL_IMAGES images of the vendored
+    bundle's train / val splits, with their annotations, as a coco_path."""
+    from wildlifemapper_tpu_torch.data.coco import ASSETS_DIR, load_ann_json
+
+    dst.mkdir(parents=True)
+    for split, n in (("train", DIST_TRAIN_IMAGES), ("val", DIST_VAL_IMAGES)):
+        d = load_ann_json(str(ASSETS_DIR / f"{split}.json"))
+        images = d["images"][:n]
+        ids = {im["id"] for im in images}
+        d = dict(d, images=images, annotations=[
+            a for a in d["annotations"] if a["image_id"] in ids])
+        (dst / f"{split}.json").write_text(json.dumps(d))
+    return dst
+
+
+def dist_step_config(name: str):
+    """Phase 8's bf16 training configuration `name` at batch BATCH, with
+    hfc.dropout 0: ranks draw their own masks, so a run over two ranks and
+    one over one process compare only without dropout."""
+    from wildlifemapper_tpu_torch.train.synthetic import training_config
+
+    cfg = training_config(name)
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, hfc=dataclasses.replace(cfg.model.hfc, dropout=0.0)))
+
+
+def dist_batch(step: int, rows=slice(None)):
+    """Step `step`'s synthetic batch of BATCH (its `rows`), on the card."""
+    import torch
+
+    from wildlifemapper_tpu_torch.train.synthetic import synthetic_batch
+
+    return {k: torch.from_numpy(v[rows]).cuda()
+            for k, v in synthetic_batch(BATCH, seed=40 + step).items()}
+
+
+def loop_cli_config(coco: Path):
+    """Phase 10's fine-tune configuration (the CLI's) over `coco`."""
+    import argparse
+
+    from wildlifemapper_tpu_torch.cli import train as cli_train
+
+    argv = ["--synthetic_data", "--synthetic_size", "1024", "--use_amp",
+            "--batch_size", str(BATCH), "--checkpoint_every", "1",
+            "--coco_path", str(coco)]
+    args = cli_train.add_config_args(argparse.ArgumentParser()).parse_args(
+        argv)
+    return cli_train.config_from_args(args)
+
+
+def survey_model(cfg, path):
+    """A fresh bf16 model on the card holding the weights of .pth `path`."""
+    import torch
+
+    from wildlifemapper_tpu_torch.compat.torch_convert import \
+        convert_checkpoint
+    from wildlifemapper_tpu_torch.models import WildlifeMapper
+
+    model = WildlifeMapper(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(3)).eval()
+    rep = convert_checkpoint(str(path), model)
+    if rep["missing"]:
+        raise AssertionError(f"survey .pth: missing {rep['missing']}")
+    return model
+
+
+def survey_frame():
+    """Phase 11b's frame: the loader's synthetic rendering, at 5472 x 3648,
+    of the boxes of the val image of that size that has most. Returns the
+    uint8 frame, its image id and its annotations."""
+    from wildlifemapper_tpu_torch.config import DataConfig
+    from wildlifemapper_tpu_torch.data.loader import (_synthetic_image,
+                                                      build_dataset)
+
+    index = build_dataset("val", DataConfig(synthetic=True)).index
+    image_id = max((i for i in index.ids if (
+        index.image_info(i)["width"], index.image_info(i)["height"])
+        == MOSAIC_FRAME), key=lambda i: len(index.annotations(i)))
+    info, anns = index.image_info(image_id), index.annotations(image_id)
+    return (_synthetic_image(image_id, info["width"], info["height"], anns),
+            image_id, anns)
+
+
+def detections_digest(evaluator) -> str:
+    """sha256 of the detections a COCO evaluator scores, in its order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for i in evaluator.img_ids:
+        h.update(str(i).encode())
+        for k in ("scores", "labels", "boxes"):
+            h.update(np.ascontiguousarray(evaluator._dts[i][k]).tobytes())
+    return h.hexdigest()
+
+
+def param_digest(model) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for n, p in model.named_parameters():
+        h.update(n.encode())
+        h.update(p.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def rank_worker(spec_path: str) -> int:
+    """One rank of phase 13 (`python3 chip_smoke.py --rank-worker
+    <spec.json>`, started by distributed_phase): 13b the train steps, 13c
+    the loop, 13d the mosaic, as the spec's tasks say; its results and its
+    kernels' launch counts into the spec's directory."""
+    import os
+    import torch
+
+    from wildlifemapper_tpu_torch.config import model_config
+    from wildlifemapper_tpu_torch.eval import coco_eval
+    from wildlifemapper_tpu_torch.eval.orthomosaic import OrthomosaicDetector
+    from wildlifemapper_tpu_torch.parallel import distributed as dist
+    from wildlifemapper_tpu_torch.parallel.mesh import make_mesh
+    from wildlifemapper_tpu_torch.train import loop as loop_mod
+    from wildlifemapper_tpu_torch.train.step import StepBuilder
+    from wildlifemapper_tpu_torch.weights import load_reference_state_dict
+
+    spec = json.loads(Path(spec_path).read_text())
+    rank, work, tag = spec["rank"], Path(spec["work"]), spec["tag"]
+    dist.init_distributed_mode(
+        init_method=f"tcp://127.0.0.1:{spec['port']}",
+        world_size=spec["world"], rank=rank, local_rank=spec["local_rank"],
+        backend=spec["backend"])
+    assert make_mesh() is torch.distributed.group.WORLD
+    wrappers = port_wrappers()
+    res = {"rank": rank, "backend": torch.distributed.get_backend(),
+           "device": torch.cuda.current_device(),
+           "device_name": torch.cuda.get_device_name()}
+    golden = torch.load(work / "golden.pt", weights_only=True)
+    per_rank = BATCH // spec["world"]
+    rows = slice(rank * per_rank, (rank + 1) * per_rank)
+
+    if "steps" in spec["tasks"]:                   # 13b
+        res["steps"] = {}
+        for name in ("fine_tune", "from_scratch"):
+            sb = StepBuilder(dist_step_config(name))
+            load_reference_state_dict(sb.model, golden)
+            state = sb.init_state(steps_per_epoch=100)
+            before = trainable(sb.model) if rank == 0 else None
+            losses, norms, ms = [], [], []
+            for i in range(TRAIN_STEPS):
+                batch = dist_batch(i, rows)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, metrics = sb.train_step(state, batch)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(metrics["loss"].item())
+                norms.append(metrics["grad_norm"].item())
+            if rank == 0:
+                after = trainable(sb.model)
+                torch.save({"change": {n: after[n] - p
+                                       for n, p in before.items()},
+                            "grad": trainable(sb.model, grads=True)},
+                           work / f"{tag}_{name}.pt")
+                del before, after
+            res["steps"][name] = {"losses": losses, "grad_norms": norms,
+                                  "ms": ms, "digest": param_digest(sb.model)}
+            del sb, state, batch
+            torch.cuda.empty_cache()
+
+    if "loop" in spec["tasks"]:                    # 13c
+        writes, scored = [], []
+        save, write_text = torch.save, Path.write_text
+        accumulate = coco_eval.CocoEvaluator.accumulate
+
+        def recording_save(obj, f, *a, **k):
+            if isinstance(f, (str, os.PathLike)):  # not the gathers' buffers
+                writes.append(Path(f).name)
+            return save(obj, f, *a, **k)
+
+        def recording_write_text(self, *a, **k):
+            writes.append(self.name)
+            return write_text(self, *a, **k)
+
+        def recording_accumulate(self):
+            scored.append((sorted(self.img_ids), detections_digest(self)))
+            return accumulate(self)
+
+        torch.save, Path.write_text = recording_save, recording_write_text
+        coco_eval.CocoEvaluator.accumulate = recording_accumulate
+        try:
+            cfg = loop_cli_config(Path(spec["coco"]))
+            quiet = dict(print_fn=lambda *a, **k: None,
+                         init_state_dict=golden, max_steps_per_epoch=4)
+            t0 = time.perf_counter()
+            first = loop_mod.train(cfg, workdir=spec["workdir"], epochs=2,
+                                   **quiet)
+            resumed = loop_mod.train(cfg, workdir=spec["workdir"], epochs=3,
+                                     resume=True, **quiet)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        finally:
+            torch.save, Path.write_text = save, write_text
+            coco_eval.CocoEvaluator.accumulate = accumulate
+        res["loop"] = {"first": first, "resumed": resumed, "writes": writes,
+                       "scored": scored, "seconds": seconds}
+        torch.cuda.empty_cache()
+
+    if "mosaic" in spec["tasks"]:                  # 13d
+        b_cfg = model_config("vit_b", dtype="bfloat16",
+                             use_flash_attention=True)
+        det = OrthomosaicDetector(
+            survey_model(b_cfg, work / "survey.pth"), b_cfg,
+            tile_batch=BATCH, overlap=MOSAIC_OVERLAP,
+            confidence_threshold=0.5, nms_iou=0.4)
+        frame = np.load(work / "frame.npy")
+        det.detect(frame)                          # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = det.detect(frame)
+        torch.cuda.synchronize()
+        res["mosaic"] = {"detections": len(out["boxes"]),
+                         "ms": (time.perf_counter() - t0) * 1e3,
+                         "timing": det.timing}
+        np.savez(work / f"{tag}_mosaic_rank{rank}.npz", **out)
+
+    torch.cuda.synchronize()
+    res["counts"] = wrapper_counts(wrappers)
+    (work / f"{tag}_rank{rank}.json").write_text(json.dumps(res))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(work: Path, tag: str, backend: str, one_card: bool,
+              tasks, coco: Path) -> list:
+    """Start DIST_WORLD rank workers (this script, --rank-worker), each
+    under a timeout; a rank that fails or hangs fails the phase. Returns
+    their results in rank order."""
+    import os
+
+    port = free_port()
+    procs = []
+    env = dict(os.environ, WM_SYNTH_CACHE="0")
+    try:
+        for r in range(DIST_WORLD):
+            spec = work / f"{tag}_spec{r}.json"
+            spec.write_text(json.dumps({
+                "rank": r, "world": DIST_WORLD, "port": port,
+                "local_rank": 0 if one_card else r, "backend": backend,
+                "tasks": list(tasks), "work": str(work), "tag": tag,
+                "coco": str(coco), "workdir": str(work / f"{tag}_loop")}))
+            log = open(work / f"{tag}_rank{r}.log", "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--rank-worker", str(spec)], stdout=log,
+                stderr=subprocess.STDOUT, env=env,
+                cwd=str(Path(__file__).resolve().parent)), log))
+        deadline = time.monotonic() + DIST_TIMEOUT_S
+        for p, _ in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    bad = [(r, p.returncode) for r, (p, _) in enumerate(procs)
+           if p.returncode != 0]
+    if bad:
+        tails = {r: (work / f"{tag}_rank{r}.log").read_text()[-3000:]
+                 for r, _ in bad}
+        raise AssertionError(f"13 {tag}: ranks failed or hung (rank, exit "
+                             f"code) {bad}: {tails}")
+    return [json.loads((work / f"{tag}_rank{r}.json").read_text())
+            for r in range(DIST_WORLD)]
+
+
+def distributed_phase(gpu, golden_sd, reset_counts, all_counts) -> dict:
+    """13. Data parallel (parallel/, the criterion over the global batch,
+    the step through DistributedDataParallel, the loop and the mosaic over
+    ranks). Returns the launch counts of its main path: 13a's world-1 DDP
+    steps in this process, counted from 0 just before them and read just
+    after, plus those of the two-rank workers of 13b-13d, each counted over
+    its own run."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from wildlifemapper_tpu_torch.config import model_config
+    from wildlifemapper_tpu_torch.data.loader import DataLoader, build_dataset
+    from wildlifemapper_tpu_torch.eval import coco_eval
+    from wildlifemapper_tpu_torch.eval.evaluate import evaluate
+    from wildlifemapper_tpu_torch.eval.orthomosaic import OrthomosaicDetector
+    from wildlifemapper_tpu_torch.models import WildlifeMapper
+    from wildlifemapper_tpu_torch.parallel import distributed as dist
+    from wildlifemapper_tpu_torch.parallel.mesh import make_mesh
+    from wildlifemapper_tpu_torch.train.step import StepBuilder
+    from wildlifemapper_tpu_torch.train.synthetic import training_config
+    from wildlifemapper_tpu_torch.weights import load_reference_state_dict
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    work = Path(tempfile.mkdtemp(prefix="wm_dist_"))
+    env_cache = os.environ.get("WM_SYNTH_CACHE")
+    os.environ["WM_SYNTH_CACHE"] = "0"
+    golden = {k: torch.from_numpy(np.asarray(v)) for k, v in golden_sd.items()}
+    try:
+        coco = coco_subset(work / "coco")
+        torch.save(golden, work / "golden.pt")
+
+        # ---- 13a. NCCL at world size 1: the CLI under torchrun ---------------
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", "1", "-m", "wildlifemapper_tpu_torch.cli.train",
+             "--synthetic_data", "--synthetic_size", "1024", "--use_amp",
+             "--batch_size", str(BATCH), "--epochs", "1", "--coco_path",
+             str(coco), "--work_dir", str(work / "cli")],
+            capture_output=True, text=True, timeout=DIST_TIMEOUT_S,
+            cwd=str(Path(__file__).resolve().parent),
+            env=dict(os.environ, WM_SYNTH_CACHE="0"))
+        cli_s = time.perf_counter() - t0
+        written = sorted(os.listdir(work / "cli")) if (
+            work / "cli").exists() else []
+        done = [line for line in res.stdout.splitlines()
+                if line.startswith("Epoch 0 done")]
+        emit("dist_torchrun_cli", gpu=gpu, returncode=res.returncode,
+             seconds=cli_s, steps=DIST_TRAIN_IMAGES // BATCH, epoch_line=done,
+             written=written)
+        if (res.returncode != 0 or not done
+                or not {"checkpoint_epoch_0", "config.json"} <= set(written)):
+            raise AssertionError(f"13a torchrun: exit {res.returncode}, "
+                                 f"written {written}: "
+                                 f"{(res.stdout + res.stderr)[-3000:]}")
+
+        # ---- 13a. NCCL at world 1 in this process: DDP against no group -------
+        batches = [dist_batch(i) for i in range(TRAIN_STEPS)]
+
+        def trainer(name="fine_tune"):
+            sb = StepBuilder(training_config(name))
+            load_reference_state_dict(sb.model, golden)
+            return sb, sb.init_state(steps_per_epoch=100), torch.Generator(
+                device=dev).manual_seed(11)
+
+        plain = trainer()              # built before the group: one process
+        dist.init_distributed_mode(
+            init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1,
+            rank=0, local_rank=0)
+        if make_mesh() is None or plain[1].data_parallel is not None:
+            raise AssertionError("13a: the data axis is the process group")
+
+        def three_steps(sb, state, gen):
+            losses = []
+            for b in batches:
+                state, m = sb.train_step(state, b, gen)
+                losses.append(m["loss"])
+            return [x.item() for x in losses]
+
+        ddp = trainer()
+        torch.cuda.synchronize()
+        reset_counts()                 # the phase's main path starts here
+        ddp_losses = three_steps(*ddp)
+        torch.cuda.synchronize()
+        path_counts = all_counts()
+        plain_losses = three_steps(*plain)
+        differ = trees_equal(dict(ddp[0].model.named_parameters()),
+                             dict(plain[0].model.named_parameters()),
+                             "param")
+        step_bytes = {"fine_tune": sum(
+            p.numel() * 4 for p in ddp[0].model.parameters()
+            if p.requires_grad)}
+        plain_ms, ddp_ms = paired_ms(
+            lambda: plain[0].train_step(plain[1], batches[0], plain[2]),
+            lambda: ddp[0].train_step(ddp[1], batches[0], ddp[2]))
+        del ddp, plain
+        torch.cuda.empty_cache()
+        scratch = trainer("from_scratch")
+        step_bytes["from_scratch"] = sum(
+            p.numel() * 4 for p in scratch[0].model.parameters()
+            if p.requires_grad)
+        del scratch
+        torch.distributed.destroy_process_group()
+        torch.cuda.empty_cache()
+        identical = ddp_losses == plain_losses and not differ
+        emit("dist_world1_ddp", gpu=gpu, backend="nccl", config="fine_tune",
+             dtype="bfloat16", batch=BATCH, steps=TRAIN_STEPS,
+             losses_ddp=ddp_losses, losses_no_group=plain_losses,
+             bit_identical=identical, differing=differ[:10],
+             ms_per_step_ddp=ddp_ms, ms_per_step_no_group=plain_ms,
+             ddp_cost_ms=ddp_ms - plain_ms,
+             bytes_all_reduced_per_step=step_bytes,
+             launches=path_counts)
+        if not identical:
+            raise AssertionError(f"13a: DDP at world 1 differs from no "
+                                 f"group: losses {ddp_losses} against "
+                                 f"{plain_losses}, params {differ[:10]}")
+
+        # ---- references in one process: 13b's steps, 13d's detect -------------
+        # the whole batch, and the control: rank 0's rows alone (a gradient
+        # from half the batch), which 13b's limits must refuse
+        def one_process(name, rows=slice(None)):
+            sb = StepBuilder(dist_step_config(name))
+            load_reference_state_dict(sb.model, golden)
+            state = sb.init_state(steps_per_epoch=100)
+            before = trainable(sb.model)
+            losses, norms = [], []
+            for i in range(TRAIN_STEPS):
+                state, m = sb.train_step(state, dist_batch(i, rows))
+                losses.append(m["loss"].item())
+                norms.append(m["grad_norm"].item())
+            after = trainable(sb.model)
+            run = {"losses": losses, "grad_norms": norms,
+                   "change": {n: after[n] - p for n, p in before.items()},
+                   "grad": trainable(sb.model, grads=True)}
+            del sb, state, before, after
+            torch.cuda.empty_cache()
+            return run
+
+        one = {name: one_process(name)
+               for name in ("fine_tune", "from_scratch")}
+        half = {name: one_process(name, slice(0, BATCH // 2))
+                for name in one}
+        b_cfg = model_config("vit_b", dtype="bfloat16",
+                             use_flash_attention=True)
+        seeded = WildlifeMapper(b_cfg, generator=torch.Generator(
+            device=dev).manual_seed(0))
+        with torch.no_grad():
+            seeded.mask_decoder.class_embed.layers[-1].weight.mul_(
+                CLASS_HEAD_SCALE)
+        torch.save({"model": {"module." + k: v.detach().cpu() for k, v in
+                              seeded.state_dict().items()},
+                    "optimizer": {}, "epoch": 3}, work / "survey.pth")
+        del seeded
+        frame = survey_frame()[0]
+        np.save(work / "frame.npy", frame)
+        want_mosaic = OrthomosaicDetector(
+            survey_model(b_cfg, work / "survey.pth"), b_cfg,
+            tile_batch=BATCH, overlap=MOSAIC_OVERLAP,
+            confidence_threshold=0.5, nms_iou=0.4).detect(frame)
+        torch.cuda.empty_cache()
+
+        # ---- 13b-13d. two ranks on this card over gloo ------------------------
+        ranks = run_ranks(work, "gloo", "gloo", True,
+                          ("steps", "loop", "mosaic"), coco)
+        for r in ranks:
+            path_counts = add_counts(path_counts, r["counts"])
+        reports = {"gloo": ranks}
+        if torch.cuda.device_count() >= 2:
+            reports["nccl"] = run_ranks(work, "nccl", "nccl", False,
+                                        ("steps",), coco)
+            for r in reports["nccl"]:
+                path_counts = add_counts(path_counts, r["counts"])
+        emit("dist_two_ranks_run", gpu=gpu, backends=sorted(reports),
+             nccl_two_cards=("run" if "nccl" in reports else
+                             f"not run: {torch.cuda.device_count()} card"),
+             devices=[[r["device"], r["device_name"]] for rs in
+                      reports.values() for r in rs])
+
+        # 13b: lock-step ranks, within the limits of one process at batch
+        # BATCH; the controls (an unchanged state, half the batch's
+        # gradient) over them, the second over every one
+        problems = []
+        for tag, rs in reports.items():
+            for name, want in one.items():
+                r0, r1 = (r["steps"][name] for r in rs)
+                got = torch.load(work / f"{tag}_{name}.pt",
+                                 weights_only=True)
+                gaps = step_readings(r0["losses"], r0["grad_norms"],
+                                     got["change"], got["grad"], want)
+                h = half[name]
+                controls = {
+                    "unchanged_state": relative_gap(
+                        {n: 0 * c for n, c in want["change"].items()},
+                        want["change"]),
+                    "half_batch": step_readings(h["losses"], h["grad_norms"],
+                                                h["change"], h["grad"], want)}
+                lock = (r0["losses"] == r1["losses"]
+                        and r0["grad_norms"] == r1["grad_norms"]
+                        and r0["digest"] == r1["digest"])
+                emit("dist_two_ranks_steps", gpu=gpu, backend=tag,
+                     config=name, dtype="bfloat16", rows_per_rank=BATCH // 2,
+                     losses=[r0["losses"], r1["losses"]],
+                     losses_one_process=want["losses"],
+                     grad_norms=r0["grad_norms"],
+                     grad_norms_one_process=want["grad_norms"],
+                     lock_step=lock, gaps=gaps,
+                     change_worst_element_gap=worst_element_gap(
+                         got["change"], want["change"]),
+                     controls=controls,
+                     limits={"loss": DIST_LOSS_TOL,
+                             "grad_norm": DIST_NORM_TOL,
+                             "change": DIST_CHANGE_TOL,
+                             "grad": DIST_GRAD_TOL},
+                     ms_per_step=[r0["ms"], r1["ms"]],
+                     note=("gloo stages the gradients through the host: "
+                           "not representative of NCCL" if tag == "gloo"
+                           else "NCCL over two cards"))
+                if not lock or gaps["over_limit"]:
+                    problems.append(f"13b {tag} {name}: lock-step {lock}, "
+                                    f"gaps {gaps}")
+                if (controls["unchanged_state"] <= DIST_CHANGE_TOL
+                        or len(controls["half_batch"]["over_limit"]) < 4):
+                    problems.append(f"13b {tag} {name}: the limits pass a "
+                                    f"control: {controls}")
+            del got
+
+        # 13c: rank 0 alone writes; both ranks the same mAP; one process's
+        # evaluation of the last checkpoint over the same split
+        (l0, l1) = (r["loop"] for r in ranks)
+        cfg = loop_cli_config(coco)
+        sb = StepBuilder(cfg)
+        raw = torch.load(work / "gloo_loop" / "checkpoint_epoch_2",
+                         map_location="cpu", weights_only=True)
+        sb.model.load_state_dict(raw["model"])
+        ds = build_dataset("val", cfg.data)
+        loader = DataLoader(ds, BATCH, shuffle=False, drop_last=False,
+                            pin_memory=True)
+        accumulate = coco_eval.CocoEvaluator.accumulate
+        one_digest = []
+
+        def recording_accumulate(self):
+            one_digest.append(detections_digest(self))
+            return accumulate(self)
+
+        coco_eval.CocoEvaluator.accumulate = recording_accumulate
+        try:
+            stats = evaluate(sb.eval_step, sb.model, loader, ds.index, cfg,
+                             print_fn=lambda *a, **k: None)
+        finally:
+            coco_eval.CocoEvaluator.accumulate = accumulate
+            loader.close()
+        del sb, raw
+        torch.cuda.empty_cache()
+        one_coco = {f"val/{k}": v for k, v in stats.items()
+                    if k.startswith("coco/")}
+        rank_coco = {k: v for k, v in l0["resumed"].items()
+                     if k.startswith("val/coco/")}
+        coco_gap = max(abs(one_coco[k] - rank_coco[k]) for k in one_coco)
+        want_files = {"config.json", "best_loss.json", "checkpoint_epoch_0",
+                      "checkpoint_epoch_1", "checkpoint_epoch_2",
+                      "best_checkpoint"}
+        rank0_files = {w.split(".")[1] if w.startswith(".") else w
+                       for w in l0["writes"]}
+        ids = sorted(ds.index.ids)
+        # the last evaluation of each rank (the resumed epoch's) against the
+        # one process's: the same detections in the same order
+        same_dets = [r["scored"][-1][1] == one_digest[0] for r in (l0, l1)]
+        whole = all(s[0] == ids for r in (l0, l1) for s in r["scored"])
+        emit("dist_two_ranks_loop", gpu=gpu, backend="gloo",
+             steps_per_epoch=4, epochs="2 + 1 resumed",
+             rank0_wrote=sorted(rank0_files), rank1_wrote=l1["writes"],
+             same_stats_on_both=l0["resumed"] == l1["resumed"],
+             AP=[l0["resumed"]["val/coco/AP"], l1["resumed"]["val/coco/AP"]],
+             AP_one_process=one_coco["val/coco/AP"],
+             coco_gap_one_process=coco_gap, coco_limit=1e-3,
+             bit_identical_one_process=one_coco == rank_coco,
+             detections_bit_identical_one_process=same_dets,
+             scored_whole_split=whole, val_images=len(ids),
+             seconds=[l0["seconds"], l1["seconds"]],
+             note="gloo two ranks on one card: not representative of NCCL")
+        if (l1["writes"] or not want_files <= rank0_files
+                or l0["first"] != l1["first"] or l0["resumed"] != l1["resumed"]
+                or coco_gap > 1e-3 or not all(same_dets) or not whole):
+            problems.append(
+                f"13c: rank 0 wrote {sorted(rank0_files)}, rank 1 "
+                f"{l1['writes']}; stats equal {l0['resumed'] == l1['resumed']}"
+                f"; one-process gap {coco_gap}, detections {same_dets}, "
+                f"whole split {whole}")
+
+        # 13d: the mosaic over the ranks is one process's detect
+        same = []
+        for r in range(DIST_WORLD):
+            got = np.load(work / f"gloo_mosaic_rank{r}.npz")
+            same.append(all(np.array_equal(got[k], v)
+                            for k, v in want_mosaic.items()))
+        emit("dist_two_ranks_mosaic", gpu=gpu, backend="gloo",
+             detections=len(want_mosaic["boxes"]),
+             bit_identical_one_process=same,
+             ms=[r["mosaic"]["ms"] for r in ranks],
+             host_timing=[r["mosaic"]["timing"] for r in ranks],
+             note="gloo two ranks on one card: not representative of NCCL")
+        if not all(same) or not len(want_mosaic["boxes"]):
+            problems.append(f"13d: the mosaic over two ranks equals one "
+                            f"process's detect: {same}")
+        if problems:
+            raise AssertionError("; ".join(problems))
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        if env_cache is None:
+            os.environ.pop("WM_SYNTH_CACHE", None)
+        else:
+            os.environ["WM_SYNTH_CACHE"] = env_cache
+        shutil.rmtree(work, ignore_errors=True)
+    emit("distributed_phase", seconds=time.perf_counter() - t_phase)
+    return path_counts
+
+
 def main() -> int:
     import torch
 
@@ -1789,8 +2508,7 @@ def main() -> int:
             del base, args, got, ref
             torch.cuda.empty_cache()
 
-    count_names = ("launches", "backward_launches", "backward_dq_launches",
-                   "backward_dkv_launches")
+    count_names = COUNT_NAMES
 
     def counts(attr="launches"):
         return {n: getattr(k["wrapper"], attr) for n, k in kernels.items()
@@ -3487,6 +4205,14 @@ def main() -> int:
         report[name]["host_us_compat"] = {
             k: compat_host[kid][k]
             for k in ("wrapper", "operator", "implementation", "dispatch")}
+    # ---- 13. data parallel: torchrun, DDP at world 1, two ranks ------------
+    dist_counts = distributed_phase(gpu, golden_sd, reset_counts, all_counts)
+    for name, e in report.items():
+        e["launches_dist"] = loop_launches(name, dist_counts)
+        on_path = not name.endswith("_d80") and not name.startswith(grouped)
+        if on_path and e["launches_dist"] <= 0:
+            raise AssertionError(f"{name}: not launched on the distributed "
+                                 f"path")
     emit("script", seconds=time.perf_counter() - t_script, gpu=gpu)
     print(json.dumps({"kernels": [report[n] for n in order], "gpu": gpu}),
           flush=True)
@@ -3498,4 +4224,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-worker"]:
+        sys.exit(rank_worker(sys.argv[2]))
     sys.exit(main())

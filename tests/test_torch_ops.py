@@ -49,10 +49,10 @@ def test_config_copy_matches_jax():
             assert td.pop("coco_path") == str(ASSETS_DIR)
             jd.pop("coco_path")
         assert jd == td, name
-    # ... and Config without the device mesh
+    # ... and Config, its device mesh included
     jfields = [f.name for f in dataclasses.fields(jcfg.Config)]
     tfields = [f.name for f in dataclasses.fields(tcfg.Config)]
-    assert tfields == [f for f in jfields if f != "mesh"]
+    assert tfields == jfields
     for f in tfields:
         if f != "data":
             assert (dataclasses.asdict(getattr(tcfg.Config(), f))

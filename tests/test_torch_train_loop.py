@@ -368,8 +368,8 @@ def test_best_metric_switch_resets_tracker(tmp_path, monkeypatch):
 
 def test_config_json_round_trips_through_both_packages(tmp_path):
     """train() writes the run's Config (max_targets resolved); it loads
-    back equal in the port, and in the JAX package as the same config with
-    the default mesh. A JAX config.json loads in the port."""
+    back equal in the port, and in the JAX package as the same config, mesh
+    included. A JAX config.json loads in the port, mesh included."""
     cfg = dataclasses.replace(tiny_config(tcfg), data=dataclasses.replace(
         tiny_config(tcfg).data, max_targets=None, allow_truncation=False))
     run(cfg, tmp_path, epochs=1, max_steps_per_epoch=1, max_eval_batches=1)
@@ -382,12 +382,13 @@ def test_config_json_round_trips_through_both_packages(tmp_path):
         criterion=dataclasses.replace(cfg.criterion, max_targets=resolved))
     j = jcfg.config_from_json(text)
     assert j.mesh == jcfg.MeshConfig()
-    assert json.loads(jcfg.config_to_json(j)) == dict(
-        json.loads(text), mesh=dataclasses.asdict(jcfg.MeshConfig()))
-    jtext = jcfg.config_to_json(tiny_config(jcfg))
+    assert json.loads(jcfg.config_to_json(j)) == json.loads(text)
+    jc = dataclasses.replace(tiny_config(jcfg),
+                             mesh=jcfg.MeshConfig(model_parallel_size=2))
+    jtext = jcfg.config_to_json(jc)
     from_jax = tcfg.config_from_json(jtext)
-    assert (json.loads(tcfg.config_to_json(from_jax))
-            == {k: v for k, v in json.loads(jtext).items() if k != "mesh"})
+    assert from_jax.mesh == tcfg.MeshConfig(model_parallel_size=2)
+    assert json.loads(tcfg.config_to_json(from_jax)) == json.loads(jtext)
 
 
 def test_load_params_from_trainstate_and_ema(tmp_path):
@@ -480,7 +481,7 @@ def _argv(*extra):
     ("--train_encoder", "--content_size", "48", "--crop_prologue",
      "--window_size", "3", "--mosaic", "--worker_mode", "process")])
 def test_cli_config_matches_jax(extra):
-    """The same flags give the JAX CLI's Config, less the mesh and the
+    """The same flags give the JAX CLI's Config, mesh included, less the
     annotations' default directory."""
     from wildlifemapper_tpu.cli import train as jcli
 
@@ -492,14 +493,14 @@ def test_cli_config_matches_jax(extra):
     assert set(vars(targs)) == set(vars(jargs))
     got = dataclasses.asdict(tcli.config_from_args(targs))
     want = dataclasses.asdict(jcli.config_from_args(jargs))
-    want.pop("mesh")
     assert got["data"].pop("coco_path") == tcfg.DataConfig().coco_path
     want["data"].pop("coco_path")
     assert got == want
 
 
 @pytest.mark.parametrize("flags,match", [
-    (("--model_parallel", "2"), "queue 1 item 7")])
+    (("--model_parallel", "2"),
+     "queue 1 item 7, \"Tensor parallelism\"")])
 @pytest.mark.parametrize("cli", [tcli, tcli_eval], ids=["train", "evaluate"])
 def test_cli_refuses_unported_flags(cli, flags, match):
     with pytest.raises(NotImplementedError, match=match):

@@ -5,11 +5,12 @@ wildlifemapper_tpu/cli/detect_mosaic.py, with its flags and JSON output.
 Usage:
   python -m wildlifemapper_tpu_torch.cli.detect_mosaic --images a.jpg b.tif \\
       --checkpoint best_checkpoint.pth --output detections.json
+  torchrun --nproc_per_node N -m wildlifemapper_tpu_torch.cli.detect_mosaic \\
+      ...   (each frame's tile batches split over N cards; rank 0 writes)
 
 Weights come from `--checkpoint` (a reference .pth: SAM or a trained
 WildlifeMapper); without it the model keeps seeded random weights. Decoding
-an image file needs PIL. One card: on a host with several GPUs it runs on
-the default one (no mesh).
+an image file needs PIL.
 """
 
 from __future__ import annotations
@@ -50,7 +51,11 @@ def main(argv=None):
 
     from ..eval.orthomosaic import OrthomosaicDetector
     from ..models import WildlifeMapper
+    from ..parallel import distributed as dist
 
+    distributed = dist.init_distributed_mode(device=args.device)
+    if distributed:
+        dist.setup_for_distributed(dist.is_main_process())
     model = WildlifeMapper(cfg.model, generator=torch.Generator().manual_seed(0),
                            device=args.device).eval()
     if args.checkpoint:
@@ -71,9 +76,12 @@ def main(argv=None):
         }
         print(f"{path}: {len(out['boxes'])} detections over "
               f"{img.shape[1]}x{img.shape[0]} px")
-    with open(args.output, "w") as f:
-        json.dump(results, f)
-    print(f"wrote {args.output}")
+    if dist.is_main_process():
+        with open(args.output, "w") as f:
+            json.dump(results, f)
+        print(f"wrote {args.output}")
+    if distributed:
+        torch.distributed.destroy_process_group()
     return results
 
 

@@ -6,12 +6,15 @@ Behavioral parity target: wildlifemapper/train.py's argparse surface
 hardcodes (ce weight, queries, resize, canvas, hfc rate, image dirs).
 Trains on the card. `--checkpoint` reads a reference .pth (SAM or a trained
 WildlifeMapper) through compat/torch_convert.py; `--model_parallel` above 1
-is refused: tensor parallelism is not ported yet.
+is refused: tensor parallelism is the next slice (ROADMAP.md queue 1 item 7).
 
 Usage:
   python -m wildlifemapper_tpu_torch.cli.train --synthetic_data \
       --synthetic_size 1024 --use_amp [--model_type vit_b] [--epochs 550] \
       [--batch_size 6] ...
+  torchrun --nproc_per_node N -m wildlifemapper_tpu_torch.cli.train ...
+      (data-parallel over N cards, one process each; --batch_size is each
+      rank's)
 """
 
 from __future__ import annotations
@@ -20,7 +23,8 @@ import argparse
 import dataclasses
 
 from ..config import (Config, DataConfig, EvalConfig,
-                      MatchCriterionConfig, TrainConfig, model_config)
+                      MatchCriterionConfig, MeshConfig, TrainConfig,
+                      model_config)
 
 
 def add_config_args(p: argparse.ArgumentParser):
@@ -141,8 +145,8 @@ def add_config_args(p: argparse.ArgumentParser):
                    help="fix the reference's PostProcess h/w swap")
     # parallelism
     p.add_argument("--model_parallel", type=int, default=1,
-                   help="tensor parallelism; the port runs on one card, "
-                        "above 1 is refused")
+                   help="tensor parallelism; not ported, above 1 is "
+                        "refused (data parallelism: torchrun)")
     # logging
     p.add_argument("--use_wandb", action="store_true")
     p.add_argument("--wandb_project", default="wildlifemapper-tpu")
@@ -165,10 +169,9 @@ def check_ported(args):
     """Refuse the flags whose code the port does not have yet, rather than
     ignoring them."""
     if args.model_parallel > 1:
+        from ..parallel.mesh import TP_REFUSAL
         raise NotImplementedError(
-            f"--model_parallel {args.model_parallel}: the port runs on one "
-            "card; tensor parallelism is not ported yet (ROADMAP queue 1 "
-            "item 7)")
+            f"--model_parallel {args.model_parallel}: {TP_REFUSAL}")
 
 
 def config_from_args(args) -> Config:
@@ -230,30 +233,42 @@ def config_from_args(args) -> Config:
             log_histograms_every=args.log_histograms_every),
         eval=EvalConfig(confidence_threshold=args.confidence_threshold,
                         hw_swap_compat=not args.fix_hw_swap),
+        mesh=MeshConfig(model_parallel_size=args.model_parallel),
     )
 
 
 def main(argv=None, watch=None):
     """Train from the command line `argv`; `watch`, a
-    train.profiling.StepWatch, clocks the loop's steps on the card."""
+    train.profiling.StepWatch, clocks the loop's steps on the card. Under
+    torchrun each rank joins the process group on its own card (LOCAL_RANK)
+    and the run is data-parallel over the ranks."""
     p = add_config_args(argparse.ArgumentParser(__doc__))
     add_device_arg(p)
     args = p.parse_args(argv)
     check_ported(args)
     cfg = config_from_args(args)
 
-    from ..train.logging import setup_logger
+    from ..parallel import distributed as dist
+    from ..train.logging import NoOpLogger, setup_logger
     from ..train.loop import train
 
-    logger = setup_logger(args.use_wandb, args.work_dir, config=cfg,
-                          project=args.wandb_project, run_name=args.run_name)
+    distributed = dist.init_distributed_mode(device=args.device)
+    if distributed:
+        dist.setup_for_distributed(dist.is_main_process())
+    logger = (setup_logger(args.use_wandb, args.work_dir, config=cfg,
+                           project=args.wandb_project,
+                           run_name=args.run_name)
+              if dist.is_main_process() else NoOpLogger())
     try:
         stats = train(cfg, workdir=args.work_dir, logger_backend=logger,
                       resume=args.resume, init_checkpoint=args.checkpoint,
-                      device=args.device, watch=watch)
+                      device=args.device, watch=watch, print_fn=print)
         logger.log_summary(stats)
     finally:
         logger.finish()
+        if distributed:
+            import torch.distributed
+            torch.distributed.destroy_process_group()
     return stats
 
 

@@ -2,12 +2,11 @@
 
 A copy of the dataclasses of `wildlifemapper_tpu/config.py`, field for field
 with the same defaults, and its JSON persistence (`config_to_json` /
-`config_from_json`). Two differences: `Config` has no device-mesh entry (the
-port runs on one card), and `DataConfig.coco_path` defaults to the port's own
-copy of the annotation bundle. The JAX package's config imports `jax.numpy`,
-so the port cannot import it on a machine without JAX; the two copies are
-held equal by tests/test_torch_ops.py, and a config.json written by either
-package loads in the other (keys one side does not know are ignored).
+`config_from_json`). One difference: `DataConfig.coco_path` defaults to the
+port's own copy of the annotation bundle. The JAX package's config imports
+`jax.numpy`, so the port cannot import it on a machine without JAX; the two
+copies are held equal by tests/test_torch_ops.py, and a config.json written
+by either package loads in the other, mesh included.
 """
 
 from __future__ import annotations
@@ -243,15 +242,24 @@ class EvalConfig:
 
 
 @dataclasses.dataclass(frozen=True)
-class Config:
-    """The JAX package's Config without its device-mesh entry (the port runs
-    on one card so far)."""
+class MeshConfig:
+    """Device-mesh layout. data = batch sharding (DP), model = tensor
+    sharding of attention heads / MLP hidden dims (TP; the port refuses a
+    model axis above 1, parallel/mesh.py)."""
 
+    data_axis: str = "data"
+    model_axis: str = "model"
+    model_parallel_size: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
     model: ModelConfig = ModelConfig()
     criterion: MatchCriterionConfig = MatchCriterionConfig()
     data: DataConfig = DataConfig()
     train: TrainConfig = TrainConfig()
     eval: EvalConfig = EvalConfig()
+    mesh: MeshConfig = MeshConfig()
 
 
 def model_config(variant: str = "vit_b", **overrides) -> ModelConfig:
@@ -272,8 +280,7 @@ def config_to_json(cfg: Config) -> str:
 
 def _from_dict(cls, d):
     # Nested dataclass types come from the field defaults (every nested
-    # config field has one); keys the class does not know are ignored, so
-    # the JAX package's `mesh` entry is dropped here.
+    # config field has one); keys the class does not know are ignored.
     defaults = cls()
     kwargs = {}
     for f in dataclasses.fields(cls):

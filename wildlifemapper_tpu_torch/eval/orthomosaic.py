@@ -8,6 +8,13 @@ forward + postprocess; its detections cross back to pinned host memory
 behind it. While the card runs batch i the host extracts batch i+1 and fuses
 batch i-1. Tile extraction and the final fusion are host-side numpy over
 small arrays.
+
+Over a process group (the data axis, parallel/mesh.py) each rank, on its own card,
+takes every N-th tile batch; the ranks' per-tile detections are gathered in
+tile order and every rank runs the final NMS on the whole set. The JAX
+package shards each batch over one process's devices instead; here one host
+thread would not feed N cards, since the survey path is bound by the host's
+dispatch on one.
 """
 
 from __future__ import annotations
@@ -21,6 +28,8 @@ import torch
 from ..config import ModelConfig
 from ..data import tiler
 from ..data.transforms import IMAGENET_MEAN, IMAGENET_STD
+from ..parallel.distributed import (all_gather_objects, get_rank,
+                                    get_world_size)
 from .evaluate import to_host
 from .postprocess import postprocess
 
@@ -49,10 +58,12 @@ class OrthomosaicDetector:
     """Detect over an arbitrarily large RGB mosaic with a trained model.
 
     The model holds its parameters (there is no `params` argument) and its
-    device is where the batches run. One card: there is no `mesh`, so
-    tile batches are not sharded over several (multi-GPU is not ported).
-    `timing` holds the host's ms of the last `detect`: extracting tiles,
-    waiting for detections, and the final NMS.
+    device is where the batches run. In a process group of N ranks the
+    tile batches are split over the ranks, batch i to rank i mod N, and every rank returns
+    the whole mosaic's detections: those of one process, since each tile
+    runs at the same batch size and position either way. `timing` holds
+    the host's ms of the last `detect`: extracting tiles, waiting for
+    detections, and the final NMS.
     """
 
     def __init__(self, model: torch.nn.Module, model_cfg: ModelConfig,
@@ -104,11 +115,15 @@ class OrthomosaicDetector:
         (N,), labels (N,), in tile order.
 
         Double-buffered: batch i is launched, then the host extracts batch
-        i+1 and fuses batch i-1 (tile IO overlapped with device compute)."""
+        i+1 and fuses batch i-1 (tile IO overlapped with device compute).
+        In a process group this rank runs its own batches and the
+        candidates of all are gathered."""
         h, w = mosaic.shape[:2]
         grid = tiler.make_tile_grid(h, w, self.cfg.img_size, self.overlap)
         batches = list(tiler.batched(range(grid.num_tiles), self.tile_batch))
-        found = []
+        ranks = get_world_size()
+        batches = batches[get_rank()::ranks]
+        found = []          # (tile index, boxes, scores, labels)
         timing = dict(extract_ms=0.0, launch_ms=0.0, wait_ms=0.0)
 
         def drain(idxs, host, done):
@@ -121,8 +136,8 @@ class OrthomosaicDetector:
                 keep = dets["keep"][j]
                 if not keep.any():
                     continue
-                found.append((tiler.uncrop_boxes(dets["boxes"][j][keep],
-                                                 grid.origins[ti]),
+                found.append((ti, tiler.uncrop_boxes(dets["boxes"][j][keep],
+                                                     grid.origins[ti]),
                               dets["scores"][j][keep],
                               dets["labels"][j][keep]))
 
@@ -151,10 +166,15 @@ class OrthomosaicDetector:
         if pending is not None:
             drain(*pending)
         self.timing = timing
+        if ranks > 1:
+            # every rank's tiles, back in tile order (each tile once)
+            found = sorted((f for part in all_gather_objects(found)
+                            for f in part), key=lambda f: f[0])
         if not found:
             return (np.zeros((0, 4), np.float32), np.zeros(0, np.float32),
                     np.zeros(0, np.int32))
-        boxes, scores, labels = (np.concatenate(c) for c in zip(*found))
+        boxes, scores, labels = (np.concatenate(c)
+                                 for c in list(zip(*found))[1:])
         return boxes, scores, labels
 
     def detect(self, mosaic: np.ndarray) -> Dict[str, np.ndarray]:

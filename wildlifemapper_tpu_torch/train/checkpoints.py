@@ -8,8 +8,12 @@ every 40 epochs plus best_checkpoint.pth by lowest epoch train loss
 needs to continue as if unbroken: the model's state dict (the reference's
 names), the optimizer's (Adam's moments and counts) and the scheduler's,
 `step`, the EMA parameters, and the state of the generator that draws the
-adaptor's dropout. It is written to a temporary file and renamed, so a crash
-leaves no half checkpoint.
+adaptor's dropout (every rank's, over a process group). It is written to a
+temporary file and renamed, so a crash leaves no half checkpoint.
+
+Over a process group only rank 0 writes, as in the JAX package, and every
+rank reads; each save ends in a barrier, so no rank resumes from a file that
+rank 0 is still writing.
 """
 
 from __future__ import annotations
@@ -20,20 +24,27 @@ from typing import Any, Callable, Dict, Optional, Union
 
 import torch
 
+from ..parallel.distributed import (all_gather_objects, barrier, get_rank,
+                                    get_world_size, is_main_process)
 from .step import TrainState
 
 
 def state_tree(state: TrainState,
                generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
-    """What a checkpoint holds for `state` (and the dropout generator)."""
+    """What a checkpoint holds for `state` (and the dropout generator:
+    over a process group, the list of every rank's, gathered here, so every
+    rank calls this). The tensors are the live ones: nothing is copied from
+    the card until a save writes them."""
+    gen = generator.get_state() if generator is not None else None
+    if gen is not None and get_world_size() > 1:
+        gen = all_gather_objects(gen)
     return {
         "model": state.model.state_dict(),
         "optimizer": state.optimizer.state_dict(),
         "scheduler": state.scheduler.state_dict(),
         "step": int(state.step),
         "ema_params": state.ema_params,
-        "generator": (generator.get_state() if generator is not None
-                      else None),
+        "generator": gen,
     }
 
 
@@ -46,14 +57,16 @@ class CheckpointManager:
         return self.directory / str(name)
 
     def save(self, name, tree: Dict[str, Any], force: bool = True):
-        """torch.save `tree` under `name`, through a temporary file and a
-        rename; `force=False` leaves an existing checkpoint alone."""
-        path = self._path(name)
-        if path.exists() and not force:
-            return
-        tmp = path.with_name(f".{path.name}.{os.getpid()}.tmp")
-        torch.save(tree, tmp)
-        os.replace(tmp, path)
+        """torch.save `tree` under `name` on rank 0, through a temporary
+        file and a rename; `force=False` leaves an existing checkpoint
+        alone. Every rank calls it and leaves it when the file is whole."""
+        if is_main_process():
+            path = self._path(name)
+            if force or not path.exists():
+                tmp = path.with_name(f".{path.name}.{os.getpid()}.tmp")
+                torch.save(tree, tmp)
+                os.replace(tmp, path)
+        barrier()
 
     def load(self, name) -> Dict[str, Any]:
         return torch.load(self._path(name), map_location="cpu",
@@ -72,8 +85,15 @@ class CheckpointManager:
             dev = next(target.model.parameters()).device
             target.ema_params = {k: v.to(dev)
                                  for k, v in raw["ema_params"].items()}
-        if generator is not None and raw["generator"] is not None:
-            generator.set_state(raw["generator"])
+        gen = raw["generator"]
+        if generator is not None and gen is not None:
+            if isinstance(gen, list):     # one state a rank
+                if get_rank() >= len(gen):
+                    raise ValueError(
+                        f"{name} holds the dropout generators of "
+                        f"{len(gen)} ranks; this is rank {get_rank()}")
+                gen = gen[get_rank()]
+            generator.set_state(gen)
         return target
 
     def exists(self, name) -> bool:
@@ -92,7 +112,9 @@ class CheckpointManager:
 
         `force_epoch` writes the epoch checkpoint regardless of cadence —
         the loop sets it on the final epoch so a follow-up invocation with
-        a higher epoch target resumes exactly where this one stopped."""
+        a higher epoch target resumes exactly where this one stopped.
+
+        Over a process group every rank calls it with the same arguments."""
         epoch_due = (epoch + 1) % every == 0 or force_epoch
         if not (epoch_due or is_best):
             return

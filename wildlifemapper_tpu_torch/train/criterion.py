@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from ..config import MatchCriterionConfig
 from ..ops import boxes as box_ops
 from ..ops.lsap import matching_cost_pad, solve_lsap
+from ..parallel.distributed import all_reduce_sum, sum_of_shares
 
 
 @torch.no_grad()
@@ -79,7 +80,8 @@ def hungarian_match(outputs: Dict[str, torch.Tensor],
 def set_criterion(outputs: Dict[str, torch.Tensor],
                   targets: Dict[str, torch.Tensor],
                   cfg: MatchCriterionConfig, num_classes: int = 7,
-                  row_valid: Optional[torch.Tensor] = None
+                  row_valid: Optional[torch.Tensor] = None,
+                  global_batch: bool = False
                   ) -> Dict[str, torch.Tensor]:
     """All losses: loss_ce / loss_bbox / loss_giou (weighted into 'loss')
     plus the logging metrics class_error, cardinality_error and num_boxes.
@@ -89,10 +91,19 @@ def set_criterion(outputs: Dict[str, torch.Tensor],
     Masking padded rows out of every sum and normaliser makes the
     fixed-shape losses equal to evaluating the unpadded batch. None means
     all rows are real.
+
+    global_batch: the step runs over the data axis (parallel/mesh.py): the
+    batch is the global one and each rank holds its own rows, as the JAX
+    step computes it over its mesh: the normalisers (the box count, the CE
+    weight sum) and the logging counts are summed over the ranks, each
+    rank's losses are its rows' share of the global ones, and the losses
+    returned are their sums over the ranks, identical on every rank. Their
+    backward gives each rank world_size times its share's gradient, which
+    DistributedDataParallel's mean over the ranks turns into the gradient of
+    the global loss. Nothing here waits for the host.
     """
-    logits = outputs["pred_logits"].float()                     # (B, Q, L)
-    pboxes = outputs["pred_boxes"].float()
-    b, q, num_logits = logits.shape
+    logits = outputs["pred_logits"]
+    num_logits = logits.shape[-1]
     if num_classes != num_logits - 1:
         raise ValueError(
             f"pred_logits has {num_logits} classes but the criterion got "
@@ -106,13 +117,38 @@ def set_criterion(outputs: Dict[str, torch.Tensor],
     targets = {"labels": targets["labels"].long(),
                "boxes": targets["boxes"].float(), "valid": valid}
 
+    out = _layer_losses(outputs, targets, cfg, num_classes, row_valid,
+                        global_batch)
+    # Deep supervision: matching and losses again per intermediate layer.
+    for i, aux in enumerate(outputs.get("aux_outputs", [])):
+        aux_losses = _layer_losses(aux, targets, cfg, num_classes, row_valid,
+                                   global_batch)
+        out[f"loss_ce_{i}"] = aux_losses["loss_ce"]
+        out[f"loss_bbox_{i}"] = aux_losses["loss_bbox"]
+        out[f"loss_giou_{i}"] = aux_losses["loss_giou"]
+        out["loss"] = out["loss"] + aux_losses["loss"]
+    if global_batch:
+        keys = [k for k in out if k.startswith("loss")]
+        total = sum_of_shares(torch.stack([out[k] for k in keys]))
+        out.update(zip(keys, total.unbind()))
+    return out
+
+
+def _layer_losses(outputs: Dict[str, torch.Tensor],
+                  targets: Dict[str, torch.Tensor],
+                  cfg: MatchCriterionConfig, num_classes: int,
+                  row_valid: Optional[torch.Tensor], global_batch: bool
+                  ) -> Dict[str, torch.Tensor]:
+    """One decoder layer's match and losses; with `global_batch`, this
+    rank's shares of the global losses."""
+    logits = outputs["pred_logits"].float()                     # (B, Q, L)
+    pboxes = outputs["pred_boxes"].float()
+    b, q, num_logits = logits.shape
+    valid = targets["valid"]
     match_cols, matched = hungarian_match(outputs, targets, cfg)
 
-    # Global box count for normalisation, clamped to >= 1.
-    num_boxes = valid.float().sum().clamp(min=1.0)
-
-    # --- classification loss: weighted CE normalised by the sum of the
-    # selected weights (1 for real classes, eos_coef for no-object) --------
+    # --- classification: weighted CE normalised by the sum of the selected
+    # weights (1 for real classes, eos_coef for no-object) ------------------
     tgt_labels = torch.gather(targets["labels"], 1, match_cols)
     target_classes = torch.where(
         matched, tgt_labels, torch.full_like(tgt_labels, num_classes))
@@ -122,14 +158,37 @@ def set_criterion(outputs: Dict[str, torch.Tensor],
                     logits.new_full((), cfg.eos_coef), logits.new_ones(()))
     if row_valid is not None:
         w = w * row_valid[:, None]
-    loss_ce = (w * nll).sum() / w.sum().clamp(min=1e-9)
 
     # class_error: 100 - top-1 accuracy of matched predictions over the real
     # classes (the reference slices off the no-object logit first).
     pred_cls = logits[..., :-1].argmax(-1)
     correct = (pred_cls == tgt_labels) & matched
-    n_matched = matched.float().sum().clamp(min=1e-9)
-    class_error = 100.0 * (1.0 - correct.float().sum() / n_matched)
+    # cardinality (logging only)
+    card_pred = (logits.argmax(-1) != num_logits - 1).float().sum(1)
+    card_abs = (card_pred - valid.float().sum(1)).abs()
+    rows = row_valid.float() if row_valid is not None else None
+
+    n_boxes, w_sum = valid.float().sum(), w.sum()
+    n_matched, n_correct = matched.float().sum(), correct.float().sum()
+    if global_batch:
+        # the normalisers and the logging counts over the ranks, in one
+        # collective
+        if rows is None:
+            rows = logits.new_ones(b)
+        n_boxes, w_sum, n_matched, n_correct, card_sum, n_rows = \
+            all_reduce_sum(torch.stack([
+                n_boxes, w_sum, n_matched, n_correct,
+                (card_abs * rows).sum(), rows.sum()])).unbind()
+        cardinality_error = card_sum / n_rows.clamp(min=1.0)
+    elif rows is None:
+        cardinality_error = card_abs.mean()
+    else:
+        cardinality_error = (card_abs * rows).sum() / rows.sum().clamp(min=1.0)
+    # the box count for normalisation, clamped to >= 1
+    num_boxes = n_boxes.clamp(min=1.0)
+
+    loss_ce = (w * nll).sum() / w_sum.clamp(min=1e-9)
+    class_error = 100.0 * (1.0 - n_correct / n_matched.clamp(min=1e-9))
 
     # --- box losses -----------------------------------------------------------
     tgt_boxes = torch.gather(targets["boxes"], 1,
@@ -142,18 +201,9 @@ def set_criterion(outputs: Dict[str, torch.Tensor],
         box_ops.box_cxcywh_to_xyxy(tgt_boxes))
     loss_giou = torch.where(matched, 1.0 - giou, zero).sum() / num_boxes
 
-    # --- cardinality (logging only) -------------------------------------------
-    card_pred = (logits.argmax(-1) != num_logits - 1).float().sum(1)
-    card_abs = (card_pred - valid.float().sum(1)).abs()
-    if row_valid is None:
-        cardinality_error = card_abs.mean()
-    else:
-        rv = row_valid.float()
-        cardinality_error = (card_abs * rv).sum() / rv.sum().clamp(min=1.0)
-
     loss = (cfg.ce_loss_coef * loss_ce + cfg.bbox_loss_coef * loss_bbox
             + cfg.giou_loss_coef * loss_giou)
-    out = {
+    return {
         "loss": loss,
         "loss_ce": loss_ce,
         "loss_bbox": loss_bbox,
@@ -162,12 +212,3 @@ def set_criterion(outputs: Dict[str, torch.Tensor],
         "cardinality_error": cardinality_error.detach(),
         "num_boxes": num_boxes,
     }
-    # Deep supervision: matching and losses again per intermediate layer.
-    for i, aux in enumerate(outputs.get("aux_outputs", [])):
-        aux_losses = set_criterion(aux, targets, cfg, num_classes,
-                                   row_valid=row_valid)
-        out[f"loss_ce_{i}"] = aux_losses["loss_ce"]
-        out[f"loss_bbox_{i}"] = aux_losses["loss_bbox"]
-        out[f"loss_giou_{i}"] = aux_losses["loss_giou"]
-        out["loss"] = out["loss"] + aux_losses["loss"]
-    return out

@@ -9,6 +9,12 @@ the matching cost crosses to the host (ops/lsap.py), and once where the host
 reads the previous step's metrics, which are complete by then (they crossed
 to pinned host memory behind their step). The batch comes from pinned host
 memory and its copy does not wait.
+
+Over a process group (parallel/distributed.py) every rank runs this loop on
+its own card with its shard of each epoch (the loaders' process_index /
+process_count) through the data-parallel step; the meters and the
+evaluation's detections are merged over the ranks, and only rank 0 writes
+config.json, the best tracker and the checkpoints.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from ..config import Config, config_to_json
 from ..data.loader import DataLoader, build_dataset
 from ..eval.evaluate import evaluate, to_device, to_host
 from ..models.detector import resolve_device
+from ..parallel.distributed import get_rank, get_world_size
 from ..weights import load_reference_state_dict
 from .checkpoints import CheckpointManager, state_tree
 from .metrics import MetricLogger
@@ -55,9 +62,11 @@ def train(cfg: Config, workdir: str = "checkpoints",
     or from `init_checkpoint`, the reference's .pth (SAM or a trained
     WildlifeMapper) through compat/torch_convert.py, whose missing entries
     keep their drawn values. `watch` clocks the steps and evaluations on the
-    card."""
+    card. In a process group (parallel/distributed.py) the run is
+    data-parallel over the world, each rank on its current card."""
     device = resolve_device(device)
     epochs = epochs if epochs is not None else cfg.train.epochs
+    rank, ranks = get_rank(), get_world_size()
 
     train_ds = build_dataset("train", cfg.data)
     val_ds = build_dataset("val", cfg.data)
@@ -73,10 +82,12 @@ def train(cfg: Config, workdir: str = "checkpoints",
     pin = device.type == "cuda"
     train_loader = DataLoader(
         train_ds, cfg.data.batch_size, shuffle=True, seed=cfg.train.seed,
-        drop_last=True, num_workers=cfg.data.num_workers,
-        worker_mode=cfg.data.worker_mode, pin_memory=pin)
+        drop_last=True, process_index=rank, process_count=ranks,
+        num_workers=cfg.data.num_workers, worker_mode=cfg.data.worker_mode,
+        pin_memory=pin)
     val_loader = DataLoader(val_ds, cfg.data.batch_size, shuffle=False,
-                            drop_last=False, pin_memory=pin)
+                            drop_last=False, process_index=rank,
+                            process_count=ranks, pin_memory=pin)
     try:
         steps_per_epoch = train_loader.batches_per_epoch()
         if max_steps_per_epoch:
@@ -94,14 +105,15 @@ def train(cfg: Config, workdir: str = "checkpoints",
                      f"{len(report['missing'])}")
         state = builder.init_state(steps_per_epoch)
         ckpt = CheckpointManager(workdir)
-        # Persist the exact Config beside the checkpoints so evaluation can
-        # rebuild a from-scratch run without its flags.
-        (Path(workdir) / "config.json").write_text(config_to_json(cfg))
-        # the adaptor's dropout draws from a generator on the card, saved and
-        # restored with the checkpoints so a resumed run draws what an unbroken
-        # one draws
+        if rank == 0:
+            # Persist the exact Config beside the checkpoints so evaluation
+            # can rebuild a from-scratch run without its flags.
+            (Path(workdir) / "config.json").write_text(config_to_json(cfg))
+        # the adaptor's dropout draws from a generator on the card, one seed
+        # a rank, saved and restored with the checkpoints so a resumed run
+        # draws what an unbroken one draws
         dropout_gen = torch.Generator(device=device).manual_seed(
-            cfg.train.seed + 1)
+            cfg.train.seed + 1 + rank)
         start_epoch = 0
         if resume and ckpt.latest_epoch() is not None:
             ep = ckpt.latest_epoch()
@@ -216,6 +228,7 @@ def train(cfg: Config, workdir: str = "checkpoints",
                 is_best = candidate < best_value
             if is_best:
                 best_value = candidate
+            if is_best and rank == 0:
                 # "loss" key kept for segmented-run readers of older files
                 best_file.write_text(json.dumps(
                     {"loss": epoch_loss, "epoch": epoch,

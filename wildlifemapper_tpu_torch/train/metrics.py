@@ -3,9 +3,8 @@ wildlifemapper_tpu/train/metrics.py.
 
 Equivalent of the reference's SmoothedValue / MetricLogger
 (segment_anything/utils/misc.py:222-378): median/avg over a sliding window,
-global averages, periodic progress lines with ETA and iteration/data timing.
-The port runs in one process; merging meters across processes is not
-ported yet (see synchronize_between_processes).
+global averages, periodic progress lines with ETA and iteration/data timing,
+and the merge of the meters over the ranks of a process group.
 """
 
 from __future__ import annotations
@@ -97,15 +96,21 @@ class MetricLogger:
         return {k: m.global_avg for k, m in self.meters.items()}
 
     def synchronize_between_processes(self):
-        """Sum each meter's (count, total) across processes (reference:
-        misc.py:240-251). With one process there is nothing to merge, and
-        this returns at once; a run of several processes is refused, since
-        the port's multi-GPU path is not written yet."""
-        import torch.distributed as dist
+        """Sum each meter's (count, total) across processes so global_avg is
+        a true global average (reference: SmoothedValue.synchronize_between_
+        processes, misc.py:240-251 — a dist.all_reduce of [count, total]).
 
-        if not (dist.is_available() and dist.is_initialized()) \
-                or dist.get_world_size() == 1:
+        Meter NAME SETS can differ across processes (ragged), so this
+        gathers a dict of pairs by the object all_gather rather than a
+        collective over a tensor. The sums run in rank order, so every rank
+        ends with the same averages to the last bit."""
+        from ..parallel.distributed import all_gather_objects, get_world_size
+
+        if get_world_size() == 1:
             return
-        raise NotImplementedError(
-            "merging meters across processes is not ported yet "
-            "(multi-GPU training)")
+        local = {k: (m.count, m.total) for k, m in self.meters.items()}
+        gathered = all_gather_objects(local)
+        for k in sorted(set().union(*gathered)):
+            pairs = [g[k] for g in gathered if k in g]
+            self.meters[k].count = sum(c for c, _ in pairs)
+            self.meters[k].total = sum(t for _, t in pairs)

@@ -12,6 +12,13 @@ A step synchronises with the host once, in the criterion, where the matching
 cost crosses to scipy (ops/lsap.py); once more for each aux layer. The
 metrics stay on the device until the caller reads them.
 
+Over the data axis (the default process group, parallel/mesh.py) each
+rank runs the step on its own rows: the forward goes through DistributedDataParallel, which averages
+the gradients over the ranks inside the backward, and the criterion
+normalises over the global batch, so that clip, AdamW and EMA see the
+gradient of the global loss and stay identical on every rank (the JAX step
+over an N-way data axis). The eval step runs the bare model.
+
 Frozen parameters (the freeze policy of train/optimizer.py) have
 requires_grad False, so autograd skips their weight-gradient products while
 activation gradients still reach the trainable patch / HFC embeddings below
@@ -25,10 +32,12 @@ import functools
 from typing import Dict, Optional, Tuple, Union
 
 import torch
+from torch.nn.parallel import DistributedDataParallel
 
 from ..config import Config
 from ..models import WildlifeMapper
 from ..models.detector import resolve_device
+from ..parallel.mesh import data_parallel, make_mesh
 from .criterion import set_criterion
 from .optimizer import build_optimizer, clip_by_global_norm_
 
@@ -45,6 +54,9 @@ class TrainState:
     # Exponential moving average of every parameter by name
     # (TrainConfig.ema_decay > 0); None when EMA is off.
     ema_params: Optional[Dict[str, torch.Tensor]] = None
+    # `model` wrapped for the data axis, which the train step's forward goes
+    # through; None on one process.
+    data_parallel: Optional[DistributedDataParallel] = None
 
 
 @functools.lru_cache(maxsize=8)
@@ -82,27 +94,33 @@ def device_normalize(images: torch.Tensor,
 
 class StepBuilder:
     """Builds the model and the train / eval steps for a Config, on the card
-    unless the caller passes device="cpu" (as WildlifeMapper)."""
+    unless the caller passes device="cpu" (as WildlifeMapper). Built in a
+    process group, the train step is data-parallel over its ranks."""
 
     def __init__(self, cfg: Config,
                  generator: Optional[torch.Generator] = None,
                  device: Union[None, str, torch.device] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        # the data axis: the default process group, None in one process
+        self.mesh = make_mesh(cfg.mesh.model_parallel_size)
         self.model = WildlifeMapper(cfg.model, generator=generator,
                                     device=self.device)
 
     def init_state(self, steps_per_epoch: int) -> TrainState:
         """Apply the freeze policy and build the optimizer, the schedule and
         the EMA copy around `self.model` (load weights into
-        `self.model` first)."""
+        `self.model` first), and over the data axis the data-parallel
+        wrapper, which takes rank 0's parameters."""
         opt, sched = build_optimizer(self.model, self.cfg.train,
                                      steps_per_epoch)
+        wrapped = (data_parallel(self.model) if self.mesh is not None
+                   else None)
         ema = None
         if self.cfg.train.ema_decay > 0:
             ema = {k: p.detach().clone()
                    for k, p in self.model.named_parameters()}
-        return TrainState(self.model, opt, sched, 0, ema)
+        return TrainState(self.model, opt, sched, 0, ema, wrapped)
 
     def images(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """The batch's images as the model takes them (uint8 canvases are
@@ -120,13 +138,18 @@ class StepBuilder:
         the adaptor's dropout (needed when hfc.dropout > 0) and must live on
         that device. Returns the state and the metrics (the criterion's
         dict plus grad_norm, the global norm of the trainable gradients
-        before clipping), as 0-d tensors on the device."""
+        before clipping), as 0-d tensors on the device; over the data axis,
+        the batch is this rank's rows and the metrics are the global
+        batch's."""
         cfg = self.cfg
         model = state.model
-        out = model(self.images(batch), deterministic=False,
-                    generator=generator)
+        forward = (model if state.data_parallel is None
+                   else state.data_parallel)
+        out = forward(self.images(batch), deterministic=False,
+                      generator=generator)
         losses = set_criterion(out, batch, cfg.criterion,
-                               num_classes=cfg.model.num_classes)
+                               num_classes=cfg.model.num_classes,
+                               global_batch=self.mesh is not None)
         state.optimizer.zero_grad(set_to_none=True)
         losses["loss"].backward()
 
@@ -155,5 +178,6 @@ class StepBuilder:
         out = model(self.images(batch), deterministic=True)
         losses = set_criterion(out, batch, self.cfg.criterion,
                                num_classes=self.cfg.model.num_classes,
-                               row_valid=batch.get("batch_valid"))
+                               row_valid=batch.get("batch_valid"),
+                               global_batch=self.mesh is not None)
         return out, losses
