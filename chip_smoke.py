@@ -17,7 +17,8 @@ COCO evaluation) in two configurations, and serves surveys (a reference
 .pth, orthomosaic detection of a full-size frame, drift-as-mAP, the native
 matcher), and drives the compat surface (the predictor, the exported
 forward through the kernels' `wm::` operators, the operators themselves),
-and runs the data-parallel path (torchrun, DDP, two ranks on the card).
+and runs the data-parallel path (torchrun, DDP, two ranks on the card), and
+trains ViT-L and ViT-H from scratch and runs the scripts users run.
 Phases, one JSON line each; any failure raises and exits non-zero:
 
   1. device: the card's name and power limit; build the kernels from
@@ -47,7 +48,13 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      K2, K5 and K6 at head dim 80 at ViT-H's shapes (25 windows of 196 and
      4096 tokens, 16 heads, batch 1; bf16 through the Hopper and the
      resident bodies) and ragged against them (K2 on a 25x40 grid, K5 on
-     20x50, K1 on windows of 7x7, K6 on 10x10).
+     20x50, K1 on windows of 7x7, K6 on 10x10); and at the large encoders'
+     training shapes at batch 4 (phase 14): K1 on 100 windows of 196 and
+     64 of 144 with 16 heads of 64, and on 64 windows of 144 at head dim
+     80, K2 at 16 heads of 64 on N = 4096 and 2304 and at d 80 on 2304,
+     K6 at d 80 on 1024 window-heads of 144, K5 on 64 heads of 2304 at d
+     64 and 80, K3 at R = 9216 with D 1024 / F 4096 and D 1280 / F 5120,
+     in bf16 (14c holds their f32 path end to end).
   3. end to end: the f32 forward with kernels, in each layout, against the
      PyTorch reference's logits and boxes in tests/goldens/full_model.npz
      (weights regenerated from their names), at atol 1e-4 / rtol 1e-3, and
@@ -83,7 +90,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      80 at ViT-H's shapes, K2 and K5 there through the Hopper body both ways
      at N = 4096 and 2304 and ragged (25x40, 20x50), K1 and K6 through the
      resident body both ways at N = 196 and ragged (7x7 with odd tables,
-     10x10); K3 in f32 also at ViT-H's widths): once with
+     10x10); K3 in f32 also at ViT-H's widths; the large encoders'
+     training shapes of phase 2, K1, K2, K5, K6 and K3, in bf16): once with
      every input requiring a gradient (dqkv written by stride into one
      packed tensor, drel, the MLP's weight gradients; K5 with 4-D and with
      3-D tables) and once with the activations alone
@@ -138,7 +146,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      and 9216 (ViT-B) and at ViT-L's and ViT-H's widths over 20 launches in
      turns with their library yardsticks (bf16 F.linear -> F.gelu ->
      F.linear; F.linear and the GELU-gradient product), the forward's two
-     passes alone, and the host time of one wrapper call of each.
+     passes alone, and the host time of one wrapper call of each; the
+     large encoders' attention shapes of phase 2, forward and whole
+     backward, each in turns with the library call, beside the plain
+     versions and the bounds, and K3 at R = 9216 with ViT-L's and ViT-H's
+     widths (the kernels' "large_shapes").
 
  10. the training loop (train/loop.py through cli/train.py's Config, the
      vendored annotation bundle, synthetic tiles at 1024 cached in a
@@ -161,7 +173,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      resident batch, eval tiles/s, peak memory, the loader's host ms a
      batch (thread and process mode, 2 workers, cold and warm), 20 steps of
      the fine-tune in bf16 beside f32 from the same weights and batches,
-     and one whole epoch through cli.train.main.
+     and one whole epoch through cli.train.main with the host's RSS a
+     step (/proc/self/status).
  11. serving surveys (ViT-B, bf16 unless said): 11a the .pth reader
      (compat/torch_convert.py): a trained WildlifeMapper checkpoint
      ({model, optimizer, epoch}, `module.` prefixes) of the golden weights
@@ -241,6 +254,34 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      bit for bit one process's detect. The workers report their launch
      counts, which join 13a's (the kernels' "launches_dist"). The gloo times
      are not those of NCCL across cards.
+ 14. the large encoders and the scripts users run (seeded weights, bf16,
+     packed, remat_blocks): 14a ViT-L (D 1024, 24 blocks, 16 heads of 64)
+     at batch 4, 3 steps of the fine-tune and of from scratch
+     (train/synthetic.py: crop prologue, windows of 12): finite, falling
+     losses, frozen parameters bit-identical and every trainable one moved
+     (the encoder's from scratch), the launch counts forward and backward
+     with the recomputed attention forwards counted, one wait a step, peak
+     memory, ms a step; the first from-scratch step without remat against
+     the remat step (whether bit-identical, each gradient within 1e-3 of
+     its norm) with its peak memory, both steps in turns, and the matrix
+     products of proj's and qkv's shapes one profiled step of each
+     dispatches (the recompute repeats qkv's, not proj's); 14b ViT-H from
+     scratch (D 1280, 32 blocks, 16 heads of 80) at batch 1 and 4, the
+     same, with AdamW's ms over the step's gradients, and one step of the
+     grouped layout at batch 1 (K6 on windows of 144, K5 on 2304 at d 80);
+     the counts set to 0 just before each of these runs and read just
+     after (the kernels' "launches_large"); 14c one f32 from-scratch step
+     of ViT-L and of ViT-H at batch 1 through the kernels against the plain
+     path, phase 7's tolerances; 14d the scripts: prewarm_synth_cache_torch
+     .py fills a temporary WM_SYNTH_CACHE over the bundle's first 16 train
+     and 8 val images, cli.train from scratch with ViT-L and --remat runs
+     two epochs of 4 steps with their evaluations on that cache (tiles/s,
+     the host's RSS a step over the second epoch), eval_checkpoint_series_
+     torch.sh scores the last epoch's checkpoint (its coco/AP within 1e-3 of
+     the loop's), val_curve.py reads the run's log (a row an epoch), and
+     drift_map_torch.py over 4 val
+     tiles: f32 through the kernels against f32 plain at AP50 1.000 at
+     pseudo-GT 0.3 and 0.5.
 
 The last line is {"ok": true, "device": {...}}. Without CUDA, or without the
 rest of the repository beside it, the script fails before any result.
@@ -679,8 +720,9 @@ def loop_phase(gpu, golden_sd, reset_counts, all_counts, per_step) -> dict:
              fine_tune_step_ms=a_ms[-1], from_scratch_step_ms=d_ms[0])
         os.environ["WM_SYNTH_CACHE"] = str(work / "synth")
 
-        # ---- the CLI once: one whole epoch ---------------------------------
-        watch = StepWatch()
+        # ---- the CLI once: one whole epoch, the host's RSS a step ---------
+        rss = []
+        watch = StepWatch(after=lambda k: rss.append(vm_rss_mb()))
         t0 = time.perf_counter()
         cli_stats = cli_train.main([
             "--synthetic_data", "--synthetic_size", "1024", "--use_amp",
@@ -700,7 +742,7 @@ def loop_phase(gpu, golden_sd, reset_counts, all_counts, per_step) -> dict:
              eval_seconds=watch.eval_seconds[-1],
              train_loss=cli_stats["train/loss"],
              first_losses=cli_losses[:4], last_losses=cli_losses[-4:],
-             coco_AP=cli_stats["val/coco/AP"],
+             coco_AP=cli_stats["val/coco/AP"], host_rss=rss_reading(rss),
              written=sorted(os.listdir(work / "cli")))
     finally:
         if env_cache is None:
@@ -1573,13 +1615,14 @@ def add_counts(a: dict, b: dict) -> dict:
                    for n in set(a[attr]) | set(b[attr])} for attr in a}
 
 
-def coco_subset(dst: Path) -> Path:
-    """The first DIST_TRAIN_IMAGES / DIST_VAL_IMAGES images of the vendored
-    bundle's train / val splits, with their annotations, as a coco_path."""
+def coco_subset(dst: Path, n_train: int = DIST_TRAIN_IMAGES,
+                n_val: int = DIST_VAL_IMAGES) -> Path:
+    """The first n_train / n_val images of the vendored bundle's train / val
+    splits, with their annotations, as a coco_path."""
     from wildlifemapper_tpu_torch.data.coco import ASSETS_DIR, load_ann_json
 
     dst.mkdir(parents=True)
-    for split, n in (("train", DIST_TRAIN_IMAGES), ("val", DIST_VAL_IMAGES)):
+    for split, n in (("train", n_train), ("val", n_val)):
         d = load_ann_json(str(ASSETS_DIR / f"{split}.json"))
         images = d["images"][:n]
         ids = {im["id"] for im in images}
@@ -2180,6 +2223,483 @@ def distributed_phase(gpu, golden_sd, reset_counts, all_counts) -> dict:
     return path_counts
 
 
+# the large encoders' paths of phase 14: 14d's CLI epoch over the first
+# LARGE_TRAIN_IMAGES / LARGE_VAL_IMAGES images of the bundle (4 steps of
+# BATCH, 2 eval batches), the drift script over LARGE_DRIFT_TILES tiles
+LARGE_TRAIN_IMAGES = 16
+LARGE_VAL_IMAGES = 8
+LARGE_DRIFT_TILES = 4
+LARGE_SCRIPT_TIMEOUT_S = 300
+
+
+def vm_rss_mb() -> float:
+    """This process's resident set on the host in MB (/proc/self/status)."""
+    for line in Path("/proc/self/status").read_text().splitlines():
+        if line.startswith("VmRSS:"):
+            return int(line.split()[1]) / 1024
+    raise RuntimeError("no VmRSS line in /proc/self/status")
+
+
+def rss_reading(rss: list) -> dict:
+    """A loop's host RSS a step: the first, the last, and the growth a step
+    (least squares over the steps after the first quarter, where the loader
+    and the allocator have warmed up)."""
+    tail = rss[len(rss) // 4:]
+    slope = (float(np.polyfit(np.arange(len(tail)), tail, 1)[0])
+             if len(tail) > 1 else 0.0)
+    return {"steps": len(rss), "first_mb": rss[0], "last_mb": rss[-1],
+            "max_mb": max(rss), "growth_mb_per_step": slope}
+
+
+def block_forward(cfg) -> dict:
+    """The launches of one forward of `cfg`'s encoder blocks, by wrapper:
+    each windowed block's attention, each global block's and, in the packed
+    layout, each block's MLP (the adaptor's, K4, per_step adds)."""
+    v = cfg.model.vit
+    glob = len(v.global_attn_indexes)
+    packed = cfg.model.attn_impl == "packed"
+    out = dict.fromkeys(port_wrappers(), 0)
+    out["flash_attention_packed" if packed else
+        "flash_attention_rel_pos"] = glob
+    out["windowed_attention_packed" if packed else
+        "windowed_attention_rel_pos"] = v.depth - glob
+    out["fused_mlp"] = v.depth if packed else 0
+    return out
+
+
+def large_launches(name: str, counts: dict) -> int:
+    """A report entry's launches on phase 14's main path (`counts` by
+    variant): the forward and K3 / K4 entries count both encoders, the
+    head-dim-80 backward entries ViT-H's, the others ViT-L's (head dim 64).
+    The grouped layout runs at d 80 only."""
+    vit_l, vit_h = counts["vit_l"], counts["vit_h"]
+    if name.endswith("_backward_d80"):
+        base = name[:-len("_backward_d80")]
+        return vit_h["backward_launches" if base.startswith("windowed")
+                     else "backward_dq_launches"][base]
+    if "_backward" in name and not name.startswith(("fused_mlp",
+                                                    "cross_attention")):
+        return loop_launches(name, vit_l)
+    return loop_launches(name, add_counts(vit_l, vit_h))
+
+
+def large_phase(gpu, reset_counts, all_counts, per_step, one_wait,
+                step_parity, batch4) -> dict:
+    """14. The large encoders' training paths and the scripts users run.
+    Returns the launch counts of its main path by variant: 14a's bf16 steps
+    (ViT-L) and 14b's (ViT-H), each run counted from 0 just before it and
+    read just after."""
+    import argparse
+    import contextlib
+    import io
+    import os
+    import shutil
+    import subprocess
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from wildlifemapper_tpu_torch.cli import train as cli_train
+    from wildlifemapper_tpu_torch.config import model_config
+    from wildlifemapper_tpu_torch.models import WildlifeMapper
+    from wildlifemapper_tpu_torch.train.profiling import StepWatch
+    from wildlifemapper_tpu_torch.train.step import StepBuilder
+    from wildlifemapper_tpu_torch.train.synthetic import training_config
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(21)   # the timed steps'
+    zero = {a: dict.fromkeys(port_wrappers(), 0) for a in COUNT_NAMES}
+    path_counts = {"vit_l": zero, "vit_h": zero}
+
+    def trainer(name, variant, batch, remat=True, layout="packed"):
+        cfg = training_config(name, "bfloat16", True, batch,
+                              variant=variant, remat_blocks=remat)
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, attn_impl=layout))
+        sb = StepBuilder(cfg, generator=torch.Generator(device=dev)
+                         .manual_seed(0))
+        return sb, sb.init_state(steps_per_epoch=100)
+
+    def rows(batch):
+        return {k: v[:batch] for k, v in batch4.items()}
+
+    def want_counts(cfg, steps):
+        """per_step's counts at the encoder's depth (K4 without the
+        adaptor's dropout, the from-scratch set-up); with remat every
+        block's attention forward twice, the MLP's once."""
+        fwd = block_forward(cfg)
+        per = per_step(cfg.model.hfc.dropout == 0.0, cfg.model.attn_impl,
+                       resident=True, forward=fwd)
+        blocks = {n for n in fwd if n.startswith(("windowed", "flash"))}
+        if cfg.model.remat_blocks:
+            per["launches"] = {n: v * (2 if n in blocks else 1)
+                               for n, v in per["launches"].items()}
+        return {a: {n: v * steps for n, v in d.items()}
+                for a, d in per.items()}
+
+    def grads_of(sb):
+        return {n: p.grad.detach().clone()
+                for n, p in sb.model.named_parameters() if p.grad is not None}
+
+    def run(tag, name, variant, batch, layout="packed", steps=TRAIN_STEPS,
+            keep_first=False):
+        """`steps` bf16 steps with remat_blocks, seeded weights: the counts
+        set to 0 just before and read just after, finite (and, over several
+        steps, falling) losses, trainable parameters moved and frozen ones
+        bit-identical, peak memory. Returns the trainer, its state, the
+        batch, the metrics, the first step's gradients (keep_first) and its
+        peak above what was allocated before the steps."""
+        sb, state = trainer(name, variant, batch, layout=layout)
+        batch_ = rows(batch)
+        before = {n: p.detach().clone()
+                  for n, p in sb.model.named_parameters()}
+        gen = torch.Generator(device=dev).manual_seed(13)
+        torch.cuda.synchronize()
+        start_bytes = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        metrics, first = [], None
+        reset_counts()                 # the run starts here
+        for i in range(steps):
+            _, m = sb.train_step(state, batch_, gen)
+            metrics.append(m)
+            if i == 0:
+                # the first step's peak: its activations, gradients and the
+                # AdamW moments it makes (the clone below not counted)
+                torch.cuda.synchronize()
+                first_peak = torch.cuda.max_memory_allocated() - start_bytes
+                if keep_first:
+                    first = grads_of(sb)
+        torch.cuda.synchronize()
+        got = all_counts()
+        # ... and ends here
+        peak = torch.cuda.max_memory_allocated()
+        path_counts[variant] = add_counts(path_counts[variant], got)
+        want = want_counts(sb.cfg, steps)
+        emit("large_training_launches", run=tag, launches=got, want=want)
+        if got != want:
+            raise AssertionError(f"{tag}: launches {got}, want {want}")
+        ms = [{k: v.item() for k, v in m.items()} for m in metrics]
+        unmoved, changed, encoder = [], [], 0
+        for n, p in sb.model.named_parameters():
+            same = torch.equal(p.detach(), before[n])
+            if p.requires_grad and same:
+                unmoved.append(n)
+            if not p.requires_grad and not same:
+                changed.append(n)
+            encoder += (p.requires_grad
+                        and n.startswith("image_encoder.blocks."))
+        del before
+        finite = all(np.isfinite(v) for m in ms for v in m.values())
+        falling = steps == 1 or ms[-1]["loss"] < ms[0]["loss"]
+        trainable_n = sum(p.requires_grad for p in sb.model.parameters())
+        emit("large_training", run=tag, variant=variant, config=name,
+             layout=layout, remat_blocks=True, dtype="bfloat16", batch=batch,
+             steps=steps, gpu=gpu, loss=[m["loss"] for m in ms],
+             grad_norm=[m["grad_norm"] for m in ms],
+             parameters_trainable=trainable_n,
+             encoder_block_parameters_trainable=encoder,
+             trainable_elements=sum(p.numel() for p in sb.model.parameters()
+                                    if p.requires_grad),
+             parameters_moved=trainable_n - len(unmoved),
+             parameters_frozen_identical=sum(
+                 not p.requires_grad for p in sb.model.parameters())
+             - len(changed),
+             peak_memory_bytes=peak,
+             peak_above_start_bytes=peak - start_bytes,
+             first_step_peak_above_start_bytes=first_peak,
+             allocated_at_start_bytes=start_bytes)
+        if (not finite or not falling or unmoved or changed
+                or (name == "from_scratch") != (encoder > 0)):
+            raise AssertionError(f"{tag}: losses {[m['loss'] for m in ms]}, "
+                                 f"trainable unmoved {unmoved[:5]}, frozen "
+                                 f"changed {changed[:5]}, {encoder} encoder "
+                                 "block parameters trainable")
+        return sb, state, batch_, ms, first, first_peak
+
+    def against_none(tag, variant, batch, first_ms, first_grads, above):
+        """The same first step without remat_blocks (same weights, batch
+        and dropout seed): losses and gradients against the remat step's,
+        whether bit-identical, and its peak memory. Returns its trainer."""
+        sb, state = trainer("from_scratch", variant, batch, remat=False)
+        torch.cuda.synchronize()
+        start_bytes = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _, m = sb.train_step(state, rows(batch),
+                             torch.Generator(device=dev).manual_seed(13))
+        torch.cuda.synchronize()
+        above_none = torch.cuda.max_memory_allocated() - start_bytes
+        loss = m["loss"].item()
+        grads = grads_of(sb)
+        same = (set(grads) == set(first_grads) and all(
+            torch.equal(first_grads[n], g) for n, g in grads.items())
+            and loss == first_ms["loss"])
+        worst = max(((first_grads[n] - g).norm()
+                     / g.norm().clamp_min(1e-30)).item()
+                    for n, g in grads.items())
+        emit("large_remat_against_none", run=tag, variant=variant,
+             config="from_scratch", dtype="bfloat16", batch=batch, gpu=gpu,
+             loss_remat=first_ms["loss"], loss_without=loss,
+             grad_norm_remat=first_ms["grad_norm"],
+             grad_norm_without=m["grad_norm"].item(), gradients=len(grads),
+             bit_identical=same, max_relative_grad_err=worst,
+             first_step_peak_above_start_bytes_remat=above,
+             first_step_peak_above_start_bytes_without=above_none,
+             saved_by_remat_bytes=above_none - above)
+        if worst > 1e-3 or not np.isclose(first_ms["loss"], loss, rtol=1e-4):
+            raise AssertionError(f"{tag}: remat_blocks changed the step "
+                                 f"(loss {first_ms['loss']} against {loss}, "
+                                 f"relative gradient error {worst})")
+        del grads
+        return sb, state
+
+    def products(sb, state, batch_, dim):
+        """The matrix products of proj's and of qkv's shape (aten::addmm of
+        an (R, dim) input) one profiled step dispatches, the backward's
+        recompute included."""
+        r = batch_["image"].shape[0] * (768 // 16) ** 2
+        shapes = {"proj": [[dim], [r, dim], [dim, dim]],
+                  "qkv": [[3 * dim], [r, dim], [dim, 3 * dim]]}
+        found = dict.fromkeys(shapes, 0)
+        with profile(activities=[ProfilerActivity.CPU],
+                     record_shapes=True) as prof:
+            sb.train_step(state, batch_,
+                          torch.Generator(device=dev).manual_seed(17))
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.name == "aten::addmm":
+                got = [list(s) for s in e.input_shapes[:3]]
+                for k, s in shapes.items():
+                    found[k] += got == s
+        return found
+
+    # ---- 14a. ViT-L: the fine-tune and from scratch, remat ----------------
+    sb, state, batch_, ms, _, above = run("14a vit_l fine_tune", "fine_tune",
+                                          "vit_l", BATCH)
+    one_wait("vit_l fine_tune remat", "packed", sb, state)
+    step_ms = time_ms(lambda: sb.train_step(state, batch_, gen), iters=3)
+    emit("large_step_time", run="14a vit_l fine_tune", batch=BATCH, gpu=gpu,
+         ms_per_step=step_ms, tiles_per_s=BATCH * 1000 / step_ms)
+    del sb, state
+    torch.cuda.empty_cache()
+    sb, state, batch_, ms, first, above = run(
+        "14a vit_l from_scratch", "from_scratch", "vit_l", BATCH,
+        keep_first=True)
+    one_wait("vit_l from_scratch remat", "packed", sb, state)
+    sb_n, state_n = against_none("14a", "vit_l", BATCH, ms[0], first, above)
+    del first
+    ms_none, ms_remat = paired_ms(
+        lambda: sb_n.train_step(state_n, batch_, gen),
+        lambda: sb.train_step(state, batch_, gen), iters=2)
+    # proj's GEMM in the recompute: the products of each shape in one step
+    # with remat and without; the recompute repeats qkv's (one a block) and
+    # must not repeat proj's
+    prod_remat = products(sb, state, batch_, 1024)
+    prod_none = products(sb_n, state_n, batch_, 1024)
+    emit("large_step_time", run="14a vit_l from_scratch", batch=BATCH,
+         gpu=gpu, ms_per_step_remat=ms_remat, ms_per_step_without=ms_none,
+         tiles_per_s_remat=BATCH * 1000 / ms_remat,
+         addmm_remat=prod_remat, addmm_without=prod_none)
+    depth = sb.cfg.model.vit.depth
+    if (prod_remat["proj"] != prod_none["proj"] or prod_none["proj"] < depth
+            or prod_remat["qkv"] != prod_none["qkv"] + depth):
+        raise AssertionError(f"14a: the recompute's products {prod_remat} "
+                             f"against {prod_none} without remat: want "
+                             f"{depth} more of qkv's shape and as many of "
+                             "proj's")
+    del sb, state, sb_n, state_n
+    torch.cuda.empty_cache()
+
+    # ---- 14b. ViT-H from scratch, remat, batch 1 and 4; grouped -----------
+    for batch in (1, BATCH):
+        tag = f"14b vit_h from_scratch batch {batch}"
+        sb, state, batch_, ms, first, above = run(
+            tag, "from_scratch", "vit_h", batch, keep_first=batch == BATCH)
+        # AdamW over the trained parameters (the last step's gradients)
+        adamw_ms = time_ms(state.optimizer.step, iters=3)
+        if batch == BATCH:
+            one_wait("vit_h from_scratch remat", "packed", sb, state)
+            sb_n, state_n = against_none("14b", "vit_h", batch, ms[0], first,
+                                         above)
+            del first
+            ms_none, step_ms = paired_ms(
+                lambda: sb_n.train_step(state_n, batch_, gen),
+                lambda: sb.train_step(state, batch_, gen), iters=2)
+            del sb_n, state_n
+        else:
+            step_ms, ms_none = time_ms(
+                lambda: sb.train_step(state, batch_, gen), iters=3), None
+        emit("large_step_time", run=tag, batch=batch, gpu=gpu,
+             ms_per_step_remat=step_ms, ms_per_step_without=ms_none,
+             tiles_per_s_remat=batch * 1000 / step_ms, adamw_ms=adamw_ms,
+             adamw_share=adamw_ms / step_ms)
+        del sb, state
+        torch.cuda.empty_cache()
+    run("14b vit_h from_scratch grouped batch 1", "from_scratch", "vit_h", 1,
+        layout="grouped", steps=1)
+    torch.cuda.empty_cache()
+
+    # ---- 14c. f32 parity through the kernels, from scratch, batch 1 -------
+    for variant in ("vit_l", "vit_h"):
+        step_parity("from_scratch", 1, with_k4=True, variant=variant)
+        torch.cuda.empty_cache()
+
+    # ---- 14d. the scripts on the card ---------------------------------------
+    repo = Path(__file__).resolve().parent
+    scripts = repo / "scripts"
+    work = Path(tempfile.mkdtemp(prefix="wm_large_"))
+    env_cache = os.environ.get("WM_SYNTH_CACHE")
+    try:
+        coco = coco_subset(work / "coco", LARGE_TRAIN_IMAGES, LARGE_VAL_IMAGES)
+        cache = work / "synth"
+        env = dict(os.environ, WM_SYNTH_CACHE=str(cache))
+        t0 = time.perf_counter()
+        pre = subprocess.run(
+            [sys.executable, str(scripts / "prewarm_synth_cache_torch.py"),
+             "--coco_path", str(coco), "--synthetic_size", "1024"],
+            env=env, capture_output=True, text=True,
+            timeout=LARGE_SCRIPT_TIMEOUT_S)
+        prewarm_s = time.perf_counter() - t0
+        tiles = sorted(p.name for p in cache.glob("*.npz"))
+        emit("large_script", script="prewarm_synth_cache_torch.py",
+             returncode=pre.returncode, seconds=prewarm_s, tiles=len(tiles),
+             tail=pre.stdout.splitlines()[-2:], stderr=pre.stderr[-500:])
+        if (pre.returncode or "PREWARM_DONE" not in pre.stdout
+                or len(tiles) != LARGE_TRAIN_IMAGES + LARGE_VAL_IMAGES):
+            raise AssertionError(f"prewarm: rc {pre.returncode}, "
+                                 f"{len(tiles)} tiles")
+
+        # the CLI from scratch with ViT-L and remat: two epochs with their
+        # evaluations over the warm disk cache; the host's RSS a step, read
+        # over the second epoch, when the loader's in-memory tile cache
+        # holds every tile (the first epoch grows it by its new tiles)
+        os.environ["WM_SYNTH_CACHE"] = str(cache)
+        rss = []
+        watch = StepWatch(after=lambda k: rss.append(vm_rss_mb()))
+        run_dir = work / "run"
+        log = io.StringIO()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            stats = cli_train.main([
+                "--model_type", "vit_l", "--train_encoder", "--content_size",
+                "768", "--crop_prologue", "--window_size", "12", "--remat",
+                "--synthetic_data", "--synthetic_size", "1024", "--use_amp",
+                "--device_normalize", "--batch_size", str(BATCH),
+                "--epochs", "2", "--checkpoint_every", "1",
+                "--coco_path", str(coco), "--work_dir", str(run_dir)],
+                watch=watch)
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        cli_counts = all_counts()
+        (run_dir / "train.log").write_text(log.getvalue())
+        steps = len(watch.metrics)
+        per_epoch = LARGE_TRAIN_IMAGES // BATCH
+        losses = [m["loss"].item() for m in watch.metrics]
+        loop_ap = stats["val/coco/AP"]        # the last epoch's
+        epoch_ms = watch.ms_per_step(per_epoch)
+        emit("large_cli", gpu=gpu, steps=steps, seconds=cli_s,
+             ms_per_step=epoch_ms, tiles_per_s=BATCH * 1000 / epoch_ms[-1],
+             eval_seconds=watch.eval_seconds,
+             eval_tiles_per_s=LARGE_VAL_IMAGES / watch.eval_seconds[-1],
+             losses=losses, coco_AP=loop_ap, launches=cli_counts,
+             host_rss_mb=rss, host_rss_second_epoch=rss_reading(
+                 rss[per_epoch:]),
+             written=sorted(p.name for p in run_dir.iterdir()))
+        if steps != 2 * per_epoch or not np.isfinite(losses).all() or not (
+                loop_ap == -1.0 or 0 <= loop_ap <= 1):
+            raise AssertionError(f"cli: {steps} steps, losses {losses}, "
+                                 f"coco/AP {loop_ap}")
+
+        # the drift script (seeded ViT-B weights, class head scaled, as a
+        # bare state dict) beside the checkpoint series over the run
+        drift_model = WildlifeMapper(model_config("vit_b"),
+                                     generator=torch.Generator(device=dev)
+                                     .manual_seed(0))
+        with torch.no_grad():
+            drift_model.mask_decoder.class_embed.layers[-1].weight.mul_(
+                CLASS_HEAD_SCALE)
+        torch.save({k: v.cpu() for k, v in drift_model.state_dict().items()},
+                   work / "drift_weights.pt")
+        del drift_model
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        drift = subprocess.Popen(
+            [sys.executable, str(scripts / "drift_map_torch.py"), "--n_imgs",
+             str(LARGE_DRIFT_TILES), "--val_tiles", "--coco_path", str(coco),
+             "--torch_checkpoint", str(work / "drift_weights.pt")],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+        try:
+            series = subprocess.run(
+                ["bash", str(scripts / "eval_checkpoint_series_torch.sh")],
+                env=dict(env, RUN=str(run_dir), BATCH=str(BATCH), EPOCHS="1",
+                         CONFIG_JSON=str(run_dir / "config.json"),
+                         EXTRA_ARGS=" ".join([
+                             "--synthetic_data", "--synthetic_size", "1024",
+                             "--use_amp", "--device_normalize",
+                             "--coco_path", str(coco)])),
+                capture_output=True, text=True,
+                timeout=LARGE_SCRIPT_TIMEOUT_S)
+            series_s = time.perf_counter() - t0
+            drift_out, drift_err = drift.communicate(
+                timeout=LARGE_SCRIPT_TIMEOUT_S)
+            drift_s = time.perf_counter() - t0
+        finally:
+            if drift.poll() is None:
+                drift.kill()
+                drift.wait()
+        series_ap = [float(x) for x in re.findall(
+            r"^coco/AP: ([-\d.]+)$", series.stdout, re.M)]
+        emit("large_script", script="eval_checkpoint_series_torch.sh",
+             returncode=series.returncode, seconds=series_s,
+             lines=series.stdout.splitlines()[-8:], coco_AP=series_ap,
+             loop_coco_AP=loop_ap, stderr=series.stderr[-500:])
+        if (series.returncode or "SERIES_DONE" not in series.stdout
+                or "FAILED" in series.stdout or len(series_ap) != 1
+                or abs(series_ap[0] - loop_ap) > 1e-3):
+            raise AssertionError(f"checkpoint series: coco/AP {series_ap} "
+                                 f"against the loop's {loop_ap}")
+
+        curve = subprocess.run(
+            [sys.executable, str(scripts / "val_curve.py"),
+             str(run_dir / "train.log")], capture_output=True, text=True,
+            timeout=60)
+        curve_rows = [line.split() for line in curve.stdout.splitlines()
+                      if line.split() and line.split()[0].isdigit()]
+        emit("large_script", script="val_curve.py",
+             returncode=curve.returncode, rows=curve_rows)
+        if (curve.returncode or [r[0] for r in curve_rows] != ["0", "1"]
+                or any(len(r) != 5 for r in curve_rows)
+                or abs(float(curve_rows[-1][3]) - loop_ap) > 1e-3):
+            raise AssertionError(f"val_curve: {curve_rows}, rc "
+                                 f"{curve.returncode}")
+
+        drift_rows = {m[0]: (float(m[1]), float(m[2])) for m in re.findall(
+            r"^(\S+) *: AP=([-\d.]+) AP50=([-\d.]+)$", drift_out, re.M)}
+        n_gt = re.search(r"pseudo-GT detections: (\d+)", drift_out)
+        emit("large_script", script="drift_map_torch.py",
+             returncode=drift.returncode, seconds=drift_s,
+             n_imgs=LARGE_DRIFT_TILES,
+             pseudo_gt=int(n_gt.group(1)) if n_gt else None,
+             rows=drift_rows, stderr=drift_err[-500:])
+        gate = [drift_rows.get(k, (None, None))[1]
+                for k in ("f32+kernels", "f32+kernels@serve0.5")]
+        if drift.returncode or not n_gt or int(n_gt.group(1)) == 0 \
+                or gate != [1.0, 1.0]:
+            raise AssertionError(f"drift map: f32 with kernels against f32 "
+                                 f"plain AP50 {gate}, want 1.000")
+    finally:
+        if env_cache is None:
+            os.environ.pop("WM_SYNTH_CACHE", None)
+        else:
+            os.environ["WM_SYNTH_CACHE"] = env_cache
+        shutil.rmtree(work, ignore_errors=True)
+    emit("large_phase", seconds=time.perf_counter() - t_phase)
+    return path_counts
+
+
 def main() -> int:
     import torch
 
@@ -2345,6 +2865,45 @@ def main() -> int:
         return [randn((r, d)), randn((f, d), d ** -0.5), randn((f,), 0.1),
                 randn((d, f), f ** -0.5), randn((d,), 0.1)]
 
+    # the large encoders' training shapes at batch 4 (phase 14): ViT-L's 16
+    # heads of 64 on the full canvas and on the 48-grid, ViT-H's from-scratch
+    # windows of 144 and 48-grid at head dim 80 (both layouts), K3 at
+    # ViT-L's and ViT-H's widths at R 9216
+    large_cases = [
+        ("windowed_attention_packed", "BW=4*25 H=16 N=196 (ViT-L)",
+         lambda: attn_args(100, (14, 14), heads=16)),
+        ("windowed_attention_packed", "BW=4*16 H=16 N=144 (ViT-L scratch)",
+         lambda: attn_args(64, (12, 12), heads=16)),
+        ("windowed_attention_packed",
+         "BW=4*16 H=16 N=144 d=80 (ViT-H scratch)",
+         lambda: attn_args(64, (12, 12), heads=16, d=80)),
+        ("flash_attention_packed", "B=4 H=16 N=4096 (ViT-L)",
+         lambda: attn_args(4, (64, 64), heads=16)),
+        ("flash_attention_packed", "B=4 H=16 N=2304 (ViT-L scratch)",
+         lambda: attn_args(4, (48, 48), heads=16)),
+        ("flash_attention_packed", "B=4 H=16 N=2304 d=80 (ViT-H scratch)",
+         lambda: attn_args(4, (48, 48), heads=16, d=80)),
+        ("windowed_attention_rel_pos",
+         "BWH=4*16*16 N=144 d=80 (ViT-H scratch)",
+         lambda: grouped_args(4 * 16 * 16, (12, 12), d=80)),
+        ("flash_attention_rel_pos", "BH=4*16 N=2304 (ViT-L scratch)",
+         lambda: grouped_args(4 * 16, (48, 48))),
+        ("flash_attention_rel_pos", "BH=4*16 N=2304 d=80 (ViT-H scratch)",
+         lambda: grouped_args(4 * 16, (48, 48), d=80)),
+        ("fused_mlp", "R=4*2304 D=1024 F=4096 (ViT-L scratch)",
+         lambda: mlp_args(4 * 2304, 1024, 4096)),
+        ("fused_mlp", "R=4*2304 D=1280 F=5120 (ViT-H scratch)",
+         lambda: mlp_args(4 * 2304, 1280, 5120)),
+    ]
+
+    def dtypes(shape):
+        """f32 and bf16; the large encoders' training shapes bf16 alone,
+        the dtype phase 14 trains in (14c holds their f32 path end to end
+        through the tile bodies)."""
+        if "(ViT-L" in shape or "scratch)" in shape:
+            return (torch.bfloat16,)
+        return (torch.float32, torch.bfloat16)
+
     def launcher_args(name, args):
         """An attention wrapper's arguments as the launcher takes them: q, k,
         v, scale, heads, the tables (the grouped family's as (BH, N, 1, g))
@@ -2472,7 +3031,7 @@ def main() -> int:
          lambda: attn_args(3, (7, 7), heads=3, d=80)),
         ("windowed_attention_rel_pos", "BWH=10 N=100 (10x10) d=80",
          lambda: grouped_args(10, (10, 10), d=80)),
-    ]
+    ] + large_cases
     # fused_mlp keeps its biases in f32 whatever the compute dtype
     f32_positions = {"fused_mlp": (2, 4)}
     tol = {torch.float32: dict(atol=2e-5, rtol=1e-4),
@@ -2482,7 +3041,7 @@ def main() -> int:
     with torch.inference_mode():
         for name, shape, make in cases:
             base = make()
-            for dt in (torch.float32, torch.bfloat16):
+            for dt in dtypes(shape):
                 keep32 = f32_positions.get(name, ())
                 args = [a.to(dt) if torch.is_tensor(a) and i not in keep32
                         else a for i, a in enumerate(base)]
@@ -3047,6 +3606,17 @@ def main() -> int:
          lambda: attn_args(1, (48, 48), heads=16, d=80)[:3]),
         ("K2", "B=2 H=3 N=1000 d=80 (25x40)", 3, 80, (25, 40),
          lambda: attn_args(2, (25, 40), heads=3, d=80)[:3]),
+        # the large encoders' training shapes at batch 4 (phase 14)
+        ("K1", "BW=4*25 H=16 N=196 (ViT-L)", 16, 64, (14, 14),
+         lambda: attn_args(100, (14, 14), heads=16)[:3]),
+        ("K1", "BW=4*16 H=16 N=144 d=80 (ViT-H scratch)", 16, 80, (12, 12),
+         lambda: attn_args(64, (12, 12), heads=16, d=80)[:3]),
+        ("K2", "B=4 H=16 N=4096 (ViT-L)", 16, 64, (64, 64),
+         lambda: attn_args(4, (64, 64), heads=16)[:3]),
+        ("K2", "B=4 H=16 N=2304 (ViT-L scratch)", 16, 64, (48, 48),
+         lambda: attn_args(4, (48, 48), heads=16)[:3]),
+        ("K2", "B=4 H=16 N=2304 d=80 (ViT-H scratch)", 16, 80, (48, 48),
+         lambda: attn_args(4, (48, 48), heads=16, d=80)[:3]),
     ]
     wrappers = {"K1": windowed_attention_packed,
                 "K2": flash_attention_packed, "K4": cross_attention_packed}
@@ -3055,7 +3625,7 @@ def main() -> int:
         cw, scale = heads * d, d ** -0.5
         dout32 = randn(base[0].shape[:2] + (cw,))
         rest = (scale, heads) + ((hw,) if hw else ())
-        for dt in (torch.float32, torch.bfloat16):
+        for dt in dtypes(shape):
             dout = dout32.to(dt)
             ref = None
             for frozen in (False, True):
@@ -3154,6 +3724,12 @@ def main() -> int:
         ("K5", "BH=16 N=4096 d=80", (64, 64), 16, 4, 80),
         ("K5", "BH=16 N=2304 d=80 (48-grid)", (48, 48), 16, 3, 80),
         ("K5", "BH=6 N=1000 d=80 (20x50)", (20, 50), 6, 3, 80),
+        # the large encoders' training shapes at batch 4 (phase 14)
+        ("K6", "BWH=4*16*16 N=144 d=80 (ViT-H scratch)", (12, 12),
+         4 * 16 * 16, 3, 80),
+        ("K5", "BH=4*16 N=2304 (ViT-L scratch)", (48, 48), 4 * 16, 3, 64),
+        ("K5", "BH=4*16 N=2304 d=80 (ViT-H scratch)", (48, 48), 4 * 16, 3,
+         80),
     ]
     wrappers.update(K5=flash_attention_rel_pos, K6=windowed_attention_rel_pos)
     grad_names = ("dq", "dk", "dv", "drel_h", "drel_w")
@@ -3164,7 +3740,7 @@ def main() -> int:
             base[4] = base[4].reshape(bh, *hw, hw[1])
         scale, n = d ** -0.5, hw[0] * hw[1]
         dout32 = randn(base[0].shape)
-        for dt in (torch.float32, torch.bfloat16):
+        for dt in dtypes(shape):
             dout = dout32.to(dt)
             ref = None
             for frozen in (False, True):
@@ -3242,10 +3818,14 @@ def main() -> int:
     for shape, rows, dmod in (("R=4*4096", 4 * 4096, 768),
                               ("R=4*2304", 4 * 2304, 768),
                               ("R=1000", 1000, 768),
-                              ("R=130 D=1280 F=5120", 130, 1280)):
+                              ("R=130 D=1280 F=5120", 130, 1280),
+                              ("R=4*2304 D=1024 F=4096 (ViT-L scratch)",
+                               4 * 2304, 1024),
+                              ("R=4*2304 D=1280 F=5120 (ViT-H scratch)",
+                               4 * 2304, 1280)):
         base = mlp_args(rows, dmod, 4 * dmod)
         g32, da32 = randn((rows, dmod)), randn((rows, 4 * dmod))
-        for dt in (torch.float32, torch.bfloat16):
+        for dt in dtypes(shape):
             g, da = g32.to(dt), da32.to(dt)
             with torch.no_grad():
                 xx, ww, bb = base[0].to(dt), base[1].to(dt), base[2]
@@ -3310,16 +3890,22 @@ def main() -> int:
                 synthetic_batch(batch_size, seed).items()}
 
     def build_trainer(name, dtype, use_kernels, batch_size, clip=None,
-                      layout="packed"):
+                      layout="packed", variant="vit_b"):
+        """ViT-B from the golden weights; ViT-L and ViT-H from seeded
+        weights (the same with and without kernels)."""
         cfg = training_config(name, dtype=dtype, use_kernels=use_kernels,
-                              batch_size=batch_size)
+                              batch_size=batch_size, variant=variant)
         cfg = dataclasses.replace(cfg, model=dataclasses.replace(
             cfg.model, attn_impl=layout))
         if clip is not None:
             cfg = dataclasses.replace(cfg, train=dataclasses.replace(
                 cfg.train, clip_max_norm=clip))
-        sb = StepBuilder(cfg)
-        load_reference_state_dict(sb.model, golden_sd)
+        if variant == "vit_b":
+            sb = StepBuilder(cfg)
+            load_reference_state_dict(sb.model, golden_sd)
+        else:
+            sb = StepBuilder(cfg, generator=torch.Generator(device=dev)
+                             .manual_seed(0))
         return sb, sb.init_state(steps_per_epoch=100)
 
     # kernel launches of one train step, by counter: each attention
@@ -3346,7 +3932,8 @@ def main() -> int:
     def all_counts():
         return {attr: counts(attr) for attr in count_names}
 
-    def step_parity(name, batch_size, with_k4, layout="packed"):
+    def step_parity(name, batch_size, with_k4, layout="packed",
+                    variant="vit_b"):
         """One f32 step with kernels against the same step on the plain
         path: same weights, batch and dropout seed, no clipping (so that
         the raw gradients stay in .grad)."""
@@ -3354,17 +3941,20 @@ def main() -> int:
         parity = {}
         for path, use_kernels in (("kernels", True), ("plain", False)):
             sb, state = build_trainer(name, "float32", use_kernels,
-                                      batch_size, clip=1e9, layout=layout)
+                                      batch_size, clip=1e9, layout=layout,
+                                      variant=variant)
             reset_counts()
             _, metrics = sb.train_step(
                 state, batch, torch.Generator(device=dev).manual_seed(5))
             torch.cuda.synchronize()
             if use_kernels:
                 got_counts = all_counts()
-                if got_counts != per_step(with_k4, layout):
-                    raise AssertionError(f"{name} {layout}: f32 step "
-                                         f"launches {got_counts}, want "
-                                         f"{per_step(with_k4, layout)}")
+                want = per_step(with_k4, layout, forward=block_forward(
+                    sb.cfg))
+                if got_counts != want:
+                    raise AssertionError(f"{variant} {name} {layout}: f32 "
+                                         f"step launches {got_counts}, want "
+                                         f"{want}")
             parity[path] = (
                 {k: v.item() for k, v in metrics.items()},
                 {n: p.grad.clone() for n, p in sb.model.named_parameters()
@@ -3375,14 +3965,16 @@ def main() -> int:
         # Each gradient elementwise at the stated tolerance and, since many
         # are far smaller than the atol at these random weights, also by its
         # own norm: |g_k - g_p| <= 1e-3 |g_p| for every parameter whose
-        # gradient is more than rounding noise (a key bias's is zero but
-        # for that).
+        # gradient is more than rounding noise. An attention key bias's
+        # exact gradient is zero (the softmax is invariant to a bias added
+        # to every key), so it is held elementwise only.
         worst, worst_name, worst_rel, worst_rel_name = 0.0, "", 0.0, ""
         smallest_checked = float("inf")
         for pname, gp in g_p.items():
             err = (g_k[pname] - gp).abs().max().item()
             rel_p = 0.0
-            if gp.norm().item() > 1e-10 * m_p["grad_norm"]:
+            if (not pname.endswith("k_proj.bias")
+                    and gp.norm().item() > 1e-10 * m_p["grad_norm"]):
                 rel_p = ((g_k[pname] - gp).norm() / gp.norm()).item()
                 smallest_checked = min(smallest_checked, gp.norm().item())
             if err > worst:
@@ -3398,7 +3990,8 @@ def main() -> int:
         num = sum(((g_k[n] - g_p[n]) ** 2).sum() for n in g_p).sqrt().item()
         rel = num / max(m_p["grad_norm"], 1e-12)
         emit("train_step_parity",
-             config=f"{name} {layout} f32 batch {batch_size}",
+             config=f"{variant} {name} {layout} f32 batch {batch_size}",
+             gpu=gpu,
              metrics_kernels=m_k, metrics_plain=m_p, gradients=len(g_p),
              max_abs_grad_err=worst, worst_gradient=worst_name,
              max_relative_err_of_one_gradient=worst_rel,
@@ -4062,6 +4655,73 @@ def main() -> int:
                       "(dq, dk, dv)",
               batch_4=rows["backward_batch_4"], **kernel_fields)
 
+    # The large encoders' attention shapes at batch 4 (phase 14): the bf16
+    # forward in turns with one library call over 20 launches a turn, the
+    # whole backward in turns with autograd through that call, the plain
+    # versions beside them, and the bounds.
+    large_timed = [
+        ("K1", "BW=100 H=16 N=196 (ViT-L)", 100, 64, (14, 14)),
+        ("K1", "BW=64 H=16 N=144 (ViT-L scratch)", 64, 64, (12, 12)),
+        ("K1", "BW=64 H=16 N=144 d=80 (ViT-H scratch)", 64, 80, (12, 12)),
+        ("K2", "B=4 H=16 N=4096 (ViT-L)", 4, 64, (64, 64)),
+        ("K2", "B=4 H=16 N=2304 (ViT-L scratch)", 4, 64, (48, 48)),
+        ("K2", "B=4 H=16 N=2304 d=80 (ViT-H scratch)", 4, 80, (48, 48)),
+        ("K6", "BWH=1024 N=144 d=80 (ViT-H scratch)", 64, 80, (12, 12)),
+        ("K5", "BH=64 N=2304 (ViT-L scratch)", 4, 64, (48, 48)),
+        ("K5", "BH=64 N=2304 d=80 (ViT-H scratch)", 4, 80, (48, 48)),
+    ]
+    for kid, shape, nb, d, hw in large_timed:
+        n, ss = hw[0] * hw[1], kid in ("K5", "K6")
+        heads, scale, cw = (1 if ss else 16), d ** -0.5, 16 * d
+        if ss:          # the grouped operands: one head, BH batches
+            q, k, v = (randn((nb * 16, n, d)).to(torch.bfloat16)
+                       for _ in range(3))
+            rh, rw = (randn((nb * 16, n, 1, g), 0.5).to(torch.bfloat16)
+                      for g in hw)
+        else:
+            q, k, v = randn((nb, n, 3 * cw)).to(torch.bfloat16).split(cw, -1)
+            rh, rw = (randn((nb, n, 16, g), 0.5).to(torch.bfloat16)
+                      for g in hw)
+        mac = nb * 16 * n * n * d
+        fb = bound_ms(4 * mac, nbytes(q, k, v, q, rh, rw))
+        lib_fwd, lib_bwd = sdpa_pair(q, k, v, rh, rw, heads, scale)
+        with torch.no_grad():
+            def kern_fwd():
+                return attention_launch(q, k, v, scale, heads, rh, rw,
+                                        scale_scores=ss)
+            lib_ms, fwd_ms = paired_ms(lib_fwd, kern_fwd, iters=20)
+            fwd_plain_ms = time_ms(lambda: attention_plain(
+                q, k, v, scale, heads, rh, rw, scale_scores=ss), iters=2)
+            out, lse = attention_launch(q, k, v, scale, heads, rh, rw,
+                                        return_lse=True, scale_scores=ss)
+            dout = torch.randn_like(out)
+
+            def kern_bwd():
+                return attention_backward_launch(
+                    q, k, v, out, lse, dout, scale, heads, rh, rw,
+                    scale_scores=ss)
+            bwd_plain_ms = time_ms(lambda: attention_backward_plain(
+                q, k, v, out, lse, dout, scale, heads, rh, rw,
+                scale_scores=ss), iters=1)
+        lib_bwd_ms, bwd_ms = paired_ms(lib_bwd, kern_bwd)
+        bb = attention_backward_bound(
+            5, mac, nb * 16 * n * n, True, True,
+            nbytes(q, k, v, dout, out, lse, q, k, v, rh, rw, rh, rw))
+        row = dict(
+            shape=shape, head_dim=d,
+            body=attention_body(torch.bfloat16, d, n, n, True, hw),
+            backward_body=attention_body(torch.bfloat16, d, n, n, True, hw,
+                                         "backward"),
+            ms=fwd_ms, plain_ms=fwd_plain_ms, library_ms=lib_ms,
+            bound_ms=fb[0], bound_by=fb[1], backward_ms=bwd_ms,
+            backward_plain_ms=bwd_plain_ms, backward_library_ms=lib_bwd_ms,
+            backward_bound_ms=bb[0], backward_bound_by=bb[1])
+        emit("large_kernel_time", kernel=kid, dtype="bfloat16", gpu=gpu,
+             launches_timed=20, **row)
+        report[ids[kid]].setdefault("large_shapes", []).append(row)
+        del q, k, v, rh, rw, out, lse, dout, lib_fwd, lib_bwd
+        torch.cuda.empty_cache()
+
     # K3 in bf16 at the main paths' two row counts and at ViT-L's and
     # ViT-H's widths: the forward in turns with the library chain, dh in
     # turns with F.linear and the GELU-gradient product (yardsticks only),
@@ -4078,7 +4738,8 @@ def main() -> int:
 
     k3 = {}
     for rows, dmod, fdim in ((4 * 4096, 768, 3072), (4 * 2304, 768, 3072),
-                             (4 * 4096, 1024, 4096), (4096, 1280, 5120)):
+                             (4 * 4096, 1024, 4096), (4096, 1280, 5120),
+                             (4 * 2304, 1024, 4096), (4 * 2304, 1280, 5120)):
         if (rows, dmod) == tuple(xx.shape):
             x_, w1, b1, da_ = xx, ww, bb, dd
         else:
@@ -4139,7 +4800,15 @@ def main() -> int:
           ms_r9216=small["fwd"], library_ms_r9216=small["chain"],
           bound_ms_r9216=small["fb"][0],
           r9216_over_r16384=small["fwd"] / big["fwd"],
-          ms_phase5=kernel_ms["fused_mlp"][0])
+          ms_phase5=kernel_ms["fused_mlp"][0],
+          large_shapes=[dict(
+              shape=f"R={rows} D={dmod} F={4 * dmod}", ms=r["fwd"],
+              library_ms=r["chain"], bound_ms=r["fb"][0],
+              bound_by=r["fb"][1], dh_ms=r["dh"],
+              dh_linear_gelu_grad_ms=r["lib_dh"], dh_bound_ms=r["db"][0],
+              dh_bound_by=r["db"][1])
+              for (rows, dmod), r in k3.items() if rows == 4 * 2304
+              and dmod > 768])
     entry("fused_mlp_backward_dh", mlp_cu, jax_ops + "fused_mlp.py:148",
           launches=train_counts["backward_launches"]["fused_mlp"],
           shape=shape, max_abs_err=bwd_err["K3_dh"], ms=big["dh"],
@@ -4213,6 +4882,18 @@ def main() -> int:
         if on_path and e["launches_dist"] <= 0:
             raise AssertionError(f"{name}: not launched on the distributed "
                                  f"path")
+    # ---- 14. the large encoders' training paths and the scripts -----------
+    large_counts = large_phase(gpu, reset_counts, all_counts, per_step,
+                               one_wait, step_parity, batch4)
+    d64_grouped_backward = ("flash_attention_rel_pos_backward",
+                            "windowed_attention_rel_pos_backward")
+    for name, e in report.items():
+        e["launches_large"] = large_launches(name, large_counts)
+        on_path = (not name.startswith(d64_grouped_backward)
+                   or name.endswith("_d80"))
+        if on_path and e["launches_large"] <= 0:
+            raise AssertionError(f"{name}: not launched on the large "
+                                 f"encoders' path")
     emit("script", seconds=time.perf_counter() - t_script, gpu=gpu)
     print(json.dumps({"kernels": [report[n] for n in order], "gpu": gpu}),
           flush=True)

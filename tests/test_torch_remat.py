@@ -9,12 +9,16 @@ What is compared, and how tightly:
     layouts and with the encoder frozen or not: losses at rtol 1e-6 and
     every gradient at rtol 1e-6 (the JAX package's own remat test holds
     its loss at rtol 1e-6, tests/test_train_loop.py:354);
-  * the port's remat train step against the JAX package's remat model at
-    head dim 80 (D 160, 2 heads of 80, depth 2, one global block), weights
-    carried across by `state_dict_from_jax`: losses at atol 1e-4 / rtol
-    1e-3 and every trainable gradient at atol 5e-4 / rtol 1e-3 (the
-    tolerances of record for the model and for gradients); the JAX side
-    runs its Pallas kernels as its own tests run them on the CPU;
+  * the port's train step against the JAX package's at head dim 80 (D
+    160, 2 heads of 80, depth 2, one global block), weights carried across
+    by `state_dict_from_jax`, in the fine-tune (frozen encoder, remat) and
+    from scratch in ViT-H's shape (crop prologue, windows of 12 on a
+    24-grid: four windows of 144 and a global block of 576, every
+    parameter trained, the encoder's gradients included; remat on and off
+    on both sides): losses at atol 1e-4 / rtol 1e-3 and every trainable
+    gradient at atol 5e-4 / rtol 1e-3 (the tolerances of record for the
+    model and for gradients); the JAX side runs its Pallas kernels as its
+    own tests run them on the CPU;
   * the fused MLP's forward within `outputs_unread` (the recompute of the
     MLP segment): no launch, the same gradients.
 Every comparison with the JAX package sets hfc.dropout = 0.
@@ -50,16 +54,29 @@ from tests.torch_common import tiny_config, to_numpy
 
 
 def _remat_configs(mod, remat, use_flash, head_dim=32, attn_impl="packed",
-                   **train):
+                   from_scratch=False, **train):
     """The tiny Config of tests/torch_common.py (2 heads; width 2 x
-    head_dim), hfc.dropout 0, no clipping, in one package."""
+    head_dim), hfc.dropout 0, no clipping, in one package. `from_scratch`
+    gives it the from-scratch shape of train/synthetic.py at a quarter of
+    ViT-H's grid: a 512 canvas with 384-px content (crop prologue, the
+    24-grid), windows of 12, the unscrambled adaptor reshape."""
     model = tiny_config(mod, use_flash_attention=use_flash,
                         attn_impl=attn_impl, remat_blocks=remat)
     model = dataclasses.replace(
         model, vit=dataclasses.replace(model.vit, embed_dim=2 * head_dim),
         hfc=dataclasses.replace(model.hfc, dropout=0.0))
+    if from_scratch:
+        model = dataclasses.replace(
+            model, img_size=SCRATCH_CANVAS, content_size=SCRATCH_CONTENT,
+            crop_prologue=True,
+            vit=dataclasses.replace(model.vit, window_size=12),
+            hfc=dataclasses.replace(model.hfc,
+                                    compat_scrambled_reshape=False))
     return mod.Config(model=model, train=mod.TrainConfig(clip_max_norm=1e9,
                                                          **train))
+
+
+SCRATCH_CANVAS, SCRATCH_CONTENT = 512, 384
 
 
 def _port_step(cfg, sd, batch):
@@ -104,20 +121,31 @@ def test_remat_step_equals_the_step_without_it(monkeypatch, use_flash,
 
 
 @pytest.mark.parametrize("use_flash", [False, True])
-def test_remat_step_matches_jax_at_head_dim_80(monkeypatch, use_flash):
-    """The port's remat step against the JAX package's remat model, frozen
-    encoder (the fine-tune), at ViT-H's head dim: D 160 in 2 heads of 80,
-    depth 2 with one global block (through K2 and K1 with the kernels'
-    plain versions here, Pallas in the JAX package)."""
-    monkeypatch.setattr(jvit, "GLOBAL_N_THRESHOLD", 32)
-    monkeypatch.setattr(tvit, "GLOBAL_N_THRESHOLD", 32)
-    jc, tc = (_remat_configs(mod, True, use_flash, head_dim=80,
-                             freeze_encoder=True) for mod in (jcfg, tcfg))
+@pytest.mark.parametrize("setup,remat", [("fine_tune", True),
+                                         ("from_scratch", True),
+                                         ("from_scratch", False)])
+def test_remat_step_matches_jax_at_head_dim_80(monkeypatch, setup, remat,
+                                                use_flash):
+    """The port's step against the JAX package's at ViT-H's head dim: D 160
+    in 2 heads of 80, depth 2 with one global block (through K2 and K1
+    with the kernels' plain versions here, Pallas in the JAX package). The
+    fine-tune freezes the encoder and runs remat; from scratch trains
+    every parameter in ViT-H's from-scratch shape (windows of 12 x 12 = 144
+    tokens, the global block on the 24-grid), with remat on and off."""
+    scratch = setup == "from_scratch"
+    # windows of 144 below the threshold, the global 576 above it
+    threshold = 200 if scratch else 32
+    monkeypatch.setattr(jvit, "GLOBAL_N_THRESHOLD", threshold)
+    monkeypatch.setattr(tvit, "GLOBAL_N_THRESHOLD", threshold)
+    jc, tc = (_remat_configs(mod, remat, use_flash, head_dim=80,
+                             from_scratch=scratch, freeze_encoder=not scratch)
+              for mod in (jcfg, tcfg))
     assert jc.model.vit.embed_dim // jc.model.vit.num_heads == 80
     jb, params = _jax_params(jc)
     jstate = jb.init_state(params, steps_per_epoch=10)
-    batch = _batch(seed=4)
-    trainable, frozen = jstep._split_params(jstate.params, True)
+    batch = (_batch(seed=4, size=SCRATCH_CANVAS, content=SCRATCH_CONTENT)
+             if scratch else _batch(seed=4))
+    trainable, frozen = jstep._split_params(jstate.params, not scratch)
 
     def loss_fn(tr):
         out = jb.model.apply(jstep._merge_params(tr, frozen),
@@ -131,7 +159,7 @@ def test_remat_step_matches_jax_at_head_dim_80(monkeypatch, use_flash):
                                               jax.random.PRNGKey(1))
     model, metrics, grads = _port_step(tc, _port_state_dict(params["params"]),
                                        batch)
-    assert model.config.remat_blocks
+    assert model.config.remat_blocks == remat
     np.testing.assert_allclose(float(metrics["loss"]), float(jloss),
                                atol=1e-4, rtol=1e-3)
     for k in ("loss", "loss_ce", "loss_bbox", "loss_giou", "grad_norm"):
@@ -139,8 +167,11 @@ def test_remat_step_matches_jax_at_head_dim_80(monkeypatch, use_flash):
                                    atol=1e-4, rtol=1e-3, err_msg=k)
     want = state_dict_from_jax({k: np.asarray(v) for k, v in jgrads.items()},
                                depth=2)
-    assert grads and not any(n.startswith("image_encoder.blocks.")
-                             for n in grads)
+    encoder = [n for n in grads if n.startswith("image_encoder.blocks.")]
+    assert grads and bool(encoder) == scratch
+    if scratch:
+        assert set(grads) == set(want)
+        assert {n for n, p in model.named_parameters()} == set(grads)
     for n, g in grads.items():
         np.testing.assert_allclose(to_numpy(g), to_numpy(want[n]), atol=5e-4,
                                    rtol=1e-3, err_msg=n)

@@ -73,10 +73,10 @@ def _port_state_dict(tree, depth=2):
     return state_dict_from_jax(flat_numpy({"params": tree}), depth=depth)
 
 
-def _batch(seed=0, b=2, t=6, counts=(4, 2)):
+def _batch(seed=0, b=2, t=6, counts=(4, 2), size=128, content=96):
     rng = np.random.default_rng(seed)
-    image = np.zeros((b, 128, 128, 3), np.float32)
-    image[:, :96, :96] = rng.normal(size=(b, 96, 96, 3))
+    image = np.zeros((b, size, size, 3), np.float32)
+    image[:, :content, :content] = rng.normal(size=(b, content, content, 3))
     boxes = rng.uniform(0.15, 0.6, size=(b, t, 4)).astype(np.float32)
     boxes[..., 2:] *= 0.3
     return {"image": image,
@@ -522,7 +522,8 @@ BANNED = {"jax", "jaxlib", "flax", "optax", "PIL", "wildlifemapper_tpu"}
 # (tests/test_torch_data.py imports the loop and the CLIs with PIL blocked,
 # tests/test_torch_mosaic.py the orthomosaic slice and the drawing CLIs).
 PIL_INSIDE = {"decode_image", "draw_detections", "render_detections",
-              "decode_mosaic", "render_sample", "render_overlay"}
+              "decode_mosaic", "render_sample", "render_overlay",
+              "probe_image_size"}
 
 
 def _imports(path: Path):

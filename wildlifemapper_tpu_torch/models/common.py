@@ -11,7 +11,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.fused_mlp import fused_mlp
+from ..ops.fused_mlp import fused_mlp, outputs_unread_active
 
 
 class Linear(nn.Linear):
@@ -20,6 +20,43 @@ class Linear(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b = None if self.bias is None else self.bias.to(x.dtype)
         return F.linear(x, self.weight.to(x.dtype), b)
+
+    def forward_in_remat(self, x: torch.Tensor) -> torch.Tensor:
+        """forward for the last layer of a remat segment, whose output the
+        recompute does not read: see _RematLinearFn."""
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return _RematLinearFn.apply(x, self.weight.to(x.dtype), b)
+
+
+class _RematLinearFn(torch.autograd.Function):
+    """F.linear that keeps x and the weight for its backward and, within
+    ops.fused_mlp.outputs_unread() (the recompute of a remat segment, which
+    runs only for the tensors the backward saves), runs no product and
+    returns a zero that holds no memory (one element, stride 0): the JAX
+    package's remat leaves out a product whose result its backward does not
+    read. The backward is addmm's (AddmmBackward0, through which F.linear
+    differentiates) on the same operands: dx = g W, dW = g^T x, db = g
+    summed to the bias's shape."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        ctx.save_for_backward(x, weight)
+        if outputs_unread_active():
+            return x.new_zeros(()).expand(*x.shape[:-1], weight.shape[0])
+        return F.linear(x, weight, bias)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, weight = ctx.saved_tensors
+        g = grad.reshape(-1, grad.shape[-1])
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = g.mm(weight).view(x.shape)
+        if ctx.needs_input_grad[1]:
+            dw = g.t().mm(x.reshape(-1, x.shape[-1]))
+        if ctx.needs_input_grad[2]:
+            db = g.sum_to_size(weight.shape[:1])
+        return dx, dw, db
 
 
 class LayerNorm(nn.LayerNorm):

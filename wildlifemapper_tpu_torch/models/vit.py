@@ -69,18 +69,22 @@ class RelPosAttention(nn.Module):
     `table_size` is the grid the rel-pos parameters are sized for. On a
     smaller input grid (content crop) the tables are centre-sliced: the
     patch resolution is unchanged, so relative distance d maps to the same
-    row as on the full grid.
+    row as on the full grid. With `remat` (the attention segment of a remat
+    Block) proj, the segment's last product, runs no product in the
+    segment's recompute (models/common.py: Linear.forward_in_remat).
     """
 
     def __init__(self, dim: int, num_heads: int, table_size: Tuple[int, int],
                  qkv_bias: bool = True, use_rel_pos: bool = True,
-                 use_flash: bool = False, attn_impl: str = "packed"):
+                 use_flash: bool = False, attn_impl: str = "packed",
+                 remat: bool = False):
         super().__init__()
         self.dim = dim
         self.num_heads = num_heads
         self.use_rel_pos = use_rel_pos
         self.use_flash = use_flash
         self.attn_impl = attn_impl
+        self.remat = remat
         head_dim = dim // num_heads
         self.qkv = Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = Linear(dim, dim)
@@ -157,11 +161,15 @@ class RelPosAttention(nn.Module):
                 out = torch.matmul(attn, v)
             out = out.reshape(b, heads, n, head_dim).permute(0, 2, 1, 3)
             out = out.reshape(b, n, self.dim)
-        return self.proj(out).reshape(b, h, w, self.dim)
+        if self.remat and torch.is_grad_enabled():
+            out = self.proj.forward_in_remat(out)
+        else:
+            out = self.proj(out)
+        return out.reshape(b, h, w, self.dim)
 
 
-def _mlp_recompute_contexts():
-    """checkpoint's context_fn for the MLP segment: nothing around the
+def _recompute_contexts():
+    """checkpoint's context_fn for a remat segment: nothing around the
     forward, `outputs_unread` around the recompute."""
     return contextlib.nullcontext(), outputs_unread()
 
@@ -177,11 +185,15 @@ class Block(nn.Module):
     their inputs: the block's input and its attention output (after
     window_unpartition, before the residual add), the JAX package's
     save_only_these_names("attn_out"). The backward recomputes norm1, qkv,
-    the rel-pos tables, the attention forward (its kernel launched again)
-    and proj from the input, and the residual add and norm2 from both; the
-    MLP's forward is not run again (its backward's dh kernel recomputes the
-    hidden from the MLP's input; `outputs_unread`). The blocks draw no
-    random numbers, so the recompute is the forward's own arithmetic."""
+    the rel-pos tables and the attention forward (its kernel launched
+    again) from the input, and the residual add and norm2 from both;
+    neither proj's product nor the MLP's forward runs again, since their
+    backward reads their inputs and not their outputs (`outputs_unread`
+    around each segment's recompute: proj keeps its input and the weight,
+    the MLP's dh kernel recomputes the hidden from the MLP's input). The
+    attention segment ends at proj: window_unpartition runs outside it,
+    where it saves nothing. The blocks draw no random numbers, so the
+    recompute is the forward's own arithmetic."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, use_rel_pos: bool = True,
@@ -197,22 +209,26 @@ class Block(nn.Module):
             dim, num_heads,
             (window_size, window_size) if window_size > 0 else table_size,
             qkv_bias=qkv_bias, use_rel_pos=use_rel_pos, use_flash=use_flash,
-            attn_impl=attn_impl)
+            attn_impl=attn_impl, remat=remat)
         self.norm2 = LayerNorm(dim)
         self.mlp = MLPBlock(dim, int(dim * mlp_ratio),
                             use_fused=use_flash and attn_impl == "packed")
 
-    def _attention(self, x: torch.Tensor) -> torch.Tensor:
-        """norm1 -> (windows) -> attention -> (back to the grid)."""
+    def _attend(self, x: torch.Tensor) -> torch.Tensor:
+        """norm1 -> (windows) -> attention, proj included."""
         x = self.norm1(x)
         if self.window_size > 0:
-            h, w = x.shape[1], x.shape[2]
-            x, pad_hw = window_ops.window_partition(x, self.window_size)
-        x = self.attn(x)
+            x, _ = window_ops.window_partition(x, self.window_size)
+        return self.attn(x)
+
+    def _attention(self, x: torch.Tensor, attend) -> torch.Tensor:
+        """attend(x), back on x's grid from the windows."""
+        out = attend(x)
         if self.window_size > 0:
-            x = window_ops.window_unpartition(x, self.window_size, pad_hw,
-                                              (h, w))
-        return x
+            h, w, ws = x.shape[1], x.shape[2], self.window_size
+            out = window_ops.window_unpartition(
+                out, ws, (h + (-h) % ws, w + (-w) % ws), (h, w))
+        return out
 
     def _residual_mlp(self, shortcut: torch.Tensor,
                       attn_out: torch.Tensor) -> torch.Tensor:
@@ -221,12 +237,13 @@ class Block(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not (self.remat and torch.is_grad_enabled()):
-            return self._residual_mlp(x, self._attention(x))
-        attn_out = checkpoint(self._attention, x, use_reentrant=False,
-                              preserve_rng_state=False)
+            return self._residual_mlp(x, self._attention(x, self._attend))
+        attn_out = self._attention(x, lambda t: checkpoint(
+            self._attend, t, use_reentrant=False, preserve_rng_state=False,
+            context_fn=_recompute_contexts))
         return checkpoint(self._residual_mlp, x, attn_out,
                           use_reentrant=False, preserve_rng_state=False,
-                          context_fn=_mlp_recompute_contexts)
+                          context_fn=_recompute_contexts)
 
 
 class Neck(nn.Sequential):

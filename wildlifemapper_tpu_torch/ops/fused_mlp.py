@@ -229,7 +229,7 @@ def outputs_unread():
     again, as the JAX package's remat leaves out a forward whose result its
     backward does not read. The plain version (a CPU tensor) saves its
     hidden and runs as always."""
-    before = getattr(_state, "outputs_unread", False)
+    before = outputs_unread_active()
     _state.outputs_unread = True
     try:
         yield
@@ -237,11 +237,16 @@ def outputs_unread():
         _state.outputs_unread = before
 
 
+def outputs_unread_active() -> bool:
+    """Whether this thread is within `outputs_unread()`."""
+    return getattr(_state, "outputs_unread", False)
+
+
 class _FusedMlpFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2):
         x, w1, b1, w2, b2 = (t.contiguous() for t in (x, w1, b1, w2, b2))
-        if getattr(_state, "outputs_unread", False):
+        if outputs_unread_active():
             out = x.new_zeros(()).expand_as(x)
         else:
             # the forward's operator (ops/_library.py) launches and counts
