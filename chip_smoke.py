@@ -18,7 +18,8 @@ COCO evaluation) in two configurations, and serves surveys (a reference
 matcher), and drives the compat surface (the predictor, the exported
 forward through the kernels' `wm::` operators, the operators themselves),
 and runs the data-parallel path (torchrun, DDP, two ranks on the card), and
-trains ViT-L and ViT-H from scratch and runs the scripts users run.
+trains ViT-L and ViT-H from scratch and runs the scripts users run, and
+trains over a model axis of two ranks (tensor parallelism) on the card.
 Phases, one JSON line each; any failure raises and exits non-zero:
 
   1. device: the card's name and power limit; build the kernels from
@@ -54,7 +55,13 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      80, K2 at 16 heads of 64 on N = 4096 and 2304 and at d 80 on 2304,
      K6 at d 80 on 1024 window-heads of 144, K5 on 64 heads of 2304 at d
      64 and 80, K3 at R = 9216 with D 1024 / F 4096 and D 1280 / F 5120,
-     in bf16 (14c holds their f32 path end to end).
+     in bf16 (14c holds their f32 path end to end); and at a rank's shapes
+     over a model axis of 2 (phase 15, "(TP rank"), in bf16: K1 on 64
+     windows of 144 with 8 heads of 80 and on 100 windows of 196 with 6
+     of 64, K2 at 8 heads of 80 on 2304 and 6 of 64 on 4096, K3 at R =
+     9216 with D 1280 / F 2560 and R = 16384 with D 768 / F 1536, K4 at 4
+     heads of 128 on 2304 and 4096, K5 on 24 heads of 4096, K6 on 600
+     window-heads of 196.
   3. end to end: the f32 forward with kernels, in each layout, against the
      PyTorch reference's logits and boxes in tests/goldens/full_model.npz
      (weights regenerated from their names), at atol 1e-4 / rtol 1e-3, and
@@ -91,7 +98,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      at N = 4096 and 2304 and ragged (25x40, 20x50), K1 and K6 through the
      resident body both ways at N = 196 and ragged (7x7 with odd tables,
      10x10); K3 in f32 also at ViT-H's widths; the large encoders'
-     training shapes of phase 2, K1, K2, K5, K6 and K3, in bf16): once with
+     training shapes of phase 2, K1, K2, K5, K6 and K3, in bf16; a rank's
+     shapes over a model axis of 2, in bf16: K1, K2 and K3 at ViT-H's and
+     ViT-B's, K4 at 4 heads of 128 on 2304, K5 and K6 at ViT-B's): once with
      every input requiring a gradient (dqkv written by stride into one
      packed tensor, drel, the MLP's weight gradients; K5 with 4-D and with
      3-D tables) and once with the activations alone
@@ -171,10 +180,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      of the next) at most 2. Read, not gated: the loop's ms a step and
      tiles/s (CUDA events, first step excluded), the same step bare on a
      resident batch, eval tiles/s, peak memory, the loader's host ms a
-     batch (thread and process mode, 2 workers, cold and warm), 20 steps of
-     the fine-tune in bf16 beside f32 from the same weights and batches,
-     and one whole epoch through cli.train.main with the host's RSS a
-     step (/proc/self/status).
+     batch (thread and process mode, 2 workers, cold and warm, 4 batches
+     each), 10 steps of the fine-tune in bf16 beside f32 from the same
+     weights and batches,
+     and one whole epoch through cli.train.main over the bundle's first 192
+     train and 32 val images (48 steps) with the host's RSS a step
+     (/proc/self/status).
  11. serving surveys (ViT-B, bf16 unless said): 11a the .pth reader
      (compat/torch_convert.py): a trained WildlifeMapper checkpoint
      ({model, optimizer, epoch}, `module.` prefixes) of the golden weights
@@ -230,16 +241,18 @@ Phases, one JSON line each; any failure raises and exits non-zero:
  13. data parallel (parallel/, the criterion over the global batch, the
      step through DistributedDataParallel; bf16 ViT-B, golden weights, the
      first 32 train / 16 val images of the vendored bundle as synthetic
-     tiles at 1024): 13a `python -m torch.distributed.run --nproc_per_node
-     1 -m wildlifemapper_tpu_torch.cli.train` for one epoch of 8 steps with
-     evaluation (NCCL at world 1, the real entry point), then in this
-     process 3 fine-tune steps through DDP over NCCL at world 1 against the
-     same steps with no process group, bit for bit (losses, every
-     parameter), DDP's ms a step against none in turns, the f32 gradient
-     bytes all-reduced a step (fine-tune, from scratch) and the launches of
-     those steps (the counts set to 0 just before and read after); 13b-13d
-     two ranks on this card over gloo (this script with --rank-worker, each
-     under a timeout): 13b 3 steps of the fine-tune and from scratch
+     tiles at 1024): 13a in this process 3 fine-tune steps through DDP
+     over NCCL at world 1 against the same steps with no process group,
+     bit for bit (losses, every parameter), DDP's ms a step against none in
+     turns, the f32 gradient bytes all-reduced a step (fine-tune, from
+     scratch) and the launches of those steps (the counts set to 0 just
+     before and read after); then, side by side with 13b-13d's ranks and
+     phase 15's (none of them timed against another), `python -m
+     torch.distributed.run --nproc_per_node 1 -m
+     wildlifemapper_tpu_torch.cli.train` for one epoch of 8 steps with
+     evaluation (NCCL at world 1, the real entry point); 13b-13d two ranks
+     on this card over gloo (this script with --rank-worker, each under a
+     timeout): 13b 3 steps of the fine-tune and from scratch
      (hfc.dropout 0), 2 of phase 8's 4 rows a rank: losses, grad_norm and
      every parameter identical on both ranks, and against one process at
      batch 4 from the same weights and batches each step's loss and
@@ -282,6 +295,33 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      drift_map_torch.py over 4 val
      tiles: f32 through the kernels against f32 plain at AP50 1.000 at
      pseudo-GT 0.3 and 0.5.
+ 15. tensor parallelism (parallel/mesh.py's model axis,
+     parallel/tensor_parallel.py), run after phase 13 and before 14: two
+     ranks on this card over gloo (this script with --tp-worker, under a
+     timeout, started beside phase 13's subprocesses; NCCL refuses two
+     ranks on one device), a model axis of 2 and one data rank. 15a ViT-B's
+     fine-tune (packed and grouped) and from scratch (packed), bf16,
+     golden weights, hfc.dropout 0, phase 8's batch of 4 on both ranks, 3
+     steps against one process: 13b's four relative gaps (loss, grad_norm,
+     the parameters' change, the last gradient, over the whole trainable
+     parameters gathered from the ranks), the ranks in lock step (losses,
+     and every whole parameter bit-identical), each rank's launches those
+     of one process; a control that the checks must refuse: the fine-tune
+     with block 0's qkv input losing its gradient's sum over the ranks
+     (patched in the worker). 15b ViT-H from scratch with remat_blocks at
+     full width and depth, batch 4, 2 steps and a third with remat off on
+     the same model: finite losses, the whole parameters bit-identical
+     across the ranks, the all-reduces of a step as many with remat as
+     without, each rank's first-step peak above its start and its exact
+     bytes of parameters, gradients and AdamW moments against the count
+     the sharding rules give (from the whole model's shapes on the meta
+     device). 15c (a rank's kernel shapes) runs in phases 2 and 6. 15d
+     train/loop.py over the two ranks for one epoch of 4 steps with
+     evaluation; its checkpoint (the one-process format) resumed in this
+     process at a model axis of 1 for a second epoch: each epoch's loss
+     within 2e-2 of one process's unbroken run. The workers report their
+     launch counts (the kernels' "launches_tp"); the step times over gloo
+     bound nothing of NCCL across cards.
 
 The last line is {"ok": true, "device": {...}}. Without CUDA, or without the
 rest of the repository beside it, the script fails before any result.
@@ -451,6 +491,17 @@ def trees_equal(a, b, where="") -> list:
     return [] if a == b else [where]
 
 
+# phase 10's CLI epoch: the first LOOP_CLI_TRAIN_IMAGES / LOOP_CLI_VAL_IMAGES
+# images of the bundle (48 steps of BATCH and 8 evaluation batches; the whole
+# bundle would take 232 and 28)
+LOOP_CLI_TRAIN_IMAGES = 192
+LOOP_CLI_VAL_IMAGES = 32
+# the loader's batches timed in each mode and cache state (the first one
+# apart), and the fine-tune's steps in bf16 beside f32
+LOOP_LOADER_BATCHES = 4
+LOOP_DTYPE_STEPS = 10
+
+
 def loop_phase(gpu, golden_sd, reset_counts, all_counts, per_step) -> dict:
     """10. The training loop on the card (train/loop.py through the CLI's
     config, the vendored annotation bundle, synthetic tiles at 1024, bf16,
@@ -484,7 +535,6 @@ def loop_phase(gpu, golden_sd, reset_counts, all_counts, per_step) -> dict:
                 *(["--use_amp"] if amp else []), *flags]
         args = cli_train.add_config_args(
             argparse.ArgumentParser()).parse_args(argv)
-        cli_train.check_ported(args)
         return cli_train.config_from_args(args)
 
     def train_run(cfg, workdir, watch_at=None, count_at=None, **kw):
@@ -676,18 +726,20 @@ def loop_phase(gpu, golden_sd, reset_counts, all_counts, per_step) -> dict:
              from_scratch_eval_tiles_per_s=d_eval,
              from_scratch_peak_memory_bytes=peak_fs)
 
-        # ---- bf16 against f32 over 20 steps, same weights and batches ------
+        # ---- bf16 against f32 over LOOP_DTYPE_STEPS steps, same weights and
+        # batches
         curves = {}
         for name, amp in (("bfloat16", True), ("float32", False)):
             r = train_run(config(amp=amp), work / name, epochs=1,
-                          max_steps_per_epoch=20, max_eval_batches=1,
-                          init_state_dict=golden_sd)
+                          max_steps_per_epoch=LOOP_DTYPE_STEPS,
+                          max_eval_batches=1, init_state_dict=golden_sd)
             curves[name] = r["losses"]
             del r
             torch.cuda.empty_cache()
         rel = [abs(x - y) / abs(y) for x, y in
                zip(curves["bfloat16"], curves["float32"])]
-        emit("loop_bf16_vs_f32", gpu=gpu, config="fine_tune", steps=20,
+        emit("loop_bf16_vs_f32", gpu=gpu, config="fine_tune",
+             steps=LOOP_DTYPE_STEPS,
              batch=BATCH, loss_bf16=curves["bfloat16"],
              loss_f32=curves["float32"], relative_gap=rel,
              largest_relative_gap=max(rel))
@@ -704,7 +756,7 @@ def loop_phase(gpu, golden_sd, reset_counts, all_counts, per_step) -> dict:
                 for cache in ("cold", "warm"):
                     it = loader.epoch(5)
                     waits_ms = []
-                    for _ in range(8):
+                    for _ in range(LOOP_LOADER_BATCHES):
                         t0 = time.perf_counter()
                         next(it)
                         waits_ms.append((time.perf_counter() - t0) * 1e3)
@@ -724,15 +776,19 @@ def loop_phase(gpu, golden_sd, reset_counts, all_counts, per_step) -> dict:
         rss = []
         watch = StepWatch(after=lambda k: rss.append(vm_rss_mb()))
         t0 = time.perf_counter()
+        cli_coco = coco_subset(work / "cli_coco", LOOP_CLI_TRAIN_IMAGES,
+                               LOOP_CLI_VAL_IMAGES)
         cli_stats = cli_train.main([
             "--synthetic_data", "--synthetic_size", "1024", "--use_amp",
             "--batch_size", str(BATCH), "--epochs", "1", "--num_workers",
-            "4", "--work_dir", str(work / "cli")], watch=watch)
+            "4", "--coco_path", str(cli_coco),
+            "--work_dir", str(work / "cli")], watch=watch)
         torch.cuda.synchronize()
         cli_s = time.perf_counter() - t0
         n = len(watch.metrics)
         cli_losses = [m["loss"].item() for m in watch.metrics]
-        if not (n > 100 and np.isfinite(cli_losses).all()
+        if not (n == LOOP_CLI_TRAIN_IMAGES // BATCH
+                and np.isfinite(cli_losses).all()
                 and np.isfinite(cli_stats["train/loss"])):
             raise AssertionError(f"cli: {n} steps, train/loss "
                                  f"{cli_stats.get('train/loss')}")
@@ -1341,12 +1397,59 @@ def compat_phase(gpu, golden_sd, reset_counts, counts, per_forward) -> dict:
             "sys.modules",
             f"torch.save(res, {str(fresh)!r})"])
         t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-c", code],
-                              capture_output=True, text=True, timeout=600)
+        proc = subprocess.Popen([sys.executable, "-c", code],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        try:
+            # ---- 12c. each operator under opcheck on the card, while the
+            # fresh process loads and runs the programs ---------------------
+            gen = torch.Generator(device=dev).manual_seed(14)
+
+            def r(*shape, dt=torch.bfloat16, scale=1.0):
+                return (torch.randn(*shape, generator=gen, device=dev)
+                        * scale).to(dt)
+
+            op_args = {
+                "windowed_attention_packed": (r(2, 16, 3 * 128),
+                                              r(2, 16, 2, 4, scale=0.5),
+                                              r(2, 16, 2, 4, scale=0.5), 0.125,
+                                              2),
+                "cross_attention_packed": (r(2, 16, 256), r(2, 24, 256),
+                                           r(2, 24, 256), 128 ** -0.5, 2),
+                "flash_attention_rel_pos": (r(4, 16, 64), r(4, 16, 64),
+                                            r(4, 16, 64),
+                                            r(4, 16, 1, 4, scale=0.5),
+                                            r(4, 16, 1, 4, scale=0.5), 0.125),
+                "fused_mlp": (r(32, 64), r(128, 64, scale=0.125),
+                              r(128, dt=torch.float32, scale=0.1),
+                              r(64, 128, scale=128 ** -0.5),
+                              r(64, dt=torch.float32, scale=0.1)),
+            }
+            op_args["flash_attention_packed"] = op_args[
+                "windowed_attention_packed"]
+            op_args["windowed_attention_rel_pos"] = op_args[
+                "flash_attention_rel_pos"]
+            checked = {}
+            for name in sorted(_library.IMPLS):
+                packet, _, overload = name.partition(".")
+                fn = getattr(getattr(torch.ops.wm, packet),
+                             overload or "default")
+                checked[name] = opcheck(fn, op_args[packet])
+            emit("compat_opcheck", device=torch.cuda.get_device_name(0),
+                 results=checked)
+            if any(v != "SUCCESS" for res_ in checked.values()
+                   for v in res_.values()):
+                raise AssertionError(f"opcheck on the card: {checked}")
+
+            _, stderr = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
         fresh_s = time.perf_counter() - t0
         if proc.returncode != 0:
             raise AssertionError(f"fresh process failed:\n"
-                                 f"{proc.stderr[-4000:]}")
+                                 f"{stderr[-4000:]}")
         res = torch.load(fresh, weights_only=False)
         if res.pop("models_imported"):
             raise AssertionError("the fresh process imported the models")
@@ -1391,44 +1494,6 @@ def compat_phase(gpu, golden_sd, reset_counts, counts, per_forward) -> dict:
             del program
         del grouped, models, xs, x4, eager, res
         torch.cuda.empty_cache()
-
-        # ---- 12c. each operator under opcheck on the card ----------------------
-        gen = torch.Generator(device=dev).manual_seed(14)
-
-        def r(*shape, dt=torch.bfloat16, scale=1.0):
-            return (torch.randn(*shape, generator=gen, device=dev)
-                    * scale).to(dt)
-
-        op_args = {
-            "windowed_attention_packed": (r(2, 16, 3 * 128),
-                                          r(2, 16, 2, 4, scale=0.5),
-                                          r(2, 16, 2, 4, scale=0.5), 0.125,
-                                          2),
-            "cross_attention_packed": (r(2, 16, 256), r(2, 24, 256),
-                                       r(2, 24, 256), 128 ** -0.5, 2),
-            "flash_attention_rel_pos": (r(4, 16, 64), r(4, 16, 64),
-                                        r(4, 16, 64),
-                                        r(4, 16, 1, 4, scale=0.5),
-                                        r(4, 16, 1, 4, scale=0.5), 0.125),
-            "fused_mlp": (r(32, 64), r(128, 64, scale=0.125),
-                          r(128, dt=torch.float32, scale=0.1),
-                          r(64, 128, scale=128 ** -0.5),
-                          r(64, dt=torch.float32, scale=0.1)),
-        }
-        op_args["flash_attention_packed"] = op_args[
-            "windowed_attention_packed"]
-        op_args["windowed_attention_rel_pos"] = op_args[
-            "flash_attention_rel_pos"]
-        checked = {}
-        for name in sorted(_library.IMPLS):
-            packet, _, overload = name.partition(".")
-            fn = getattr(getattr(torch.ops.wm, packet), overload or "default")
-            checked[name] = opcheck(fn, op_args[packet])
-        emit("compat_opcheck", device=torch.cuda.get_device_name(0),
-             results=checked)
-        if any(v != "SUCCESS" for res_ in checked.values()
-               for v in res_.values()):
-            raise AssertionError(f"opcheck on the card: {checked}")
 
         # ---- 12d. the host's cost of the operators -----------------------------
         g = torch.Generator(device=dev).manual_seed(15)
@@ -1613,6 +1678,12 @@ def wrapper_counts(wrappers: dict) -> dict:
 def add_counts(a: dict, b: dict) -> dict:
     return {attr: {n: a[attr].get(n, 0) + b[attr].get(n, 0)
                    for n in set(a[attr]) | set(b[attr])} for attr in a}
+
+
+def sub_counts(a: dict, b: dict) -> dict:
+    """The launches counted in `a` and not yet in `b` (an earlier read)."""
+    return {attr: {n: a[attr].get(n, 0) - b[attr].get(n, 0)
+                   for n in a[attr]} for attr in a}
 
 
 def coco_subset(dst: Path, n_train: int = DIST_TRAIN_IMAGES,
@@ -1854,59 +1925,84 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_ranks(work: Path, tag: str, backend: str, one_card: bool,
-              tasks, coco: Path) -> list:
-    """Start DIST_WORLD rank workers (this script, --rank-worker), each
-    under a timeout; a rank that fails or hangs fails the phase. Returns
-    their results in rank order."""
-    import os
+class Workers:
+    """Worker processes of this script (`flag` <spec.json>, one a rank),
+    started together, each logging to <work>/<tag>_rank<r>.log and
+    reporting to <work>/<tag>_rank<r>.json, all under one timeout."""
 
-    port = free_port()
-    procs = []
-    env = dict(os.environ, WM_SYNTH_CACHE="0")
-    try:
-        for r in range(DIST_WORLD):
-            spec = work / f"{tag}_spec{r}.json"
-            spec.write_text(json.dumps({
-                "rank": r, "world": DIST_WORLD, "port": port,
-                "local_rank": 0 if one_card else r, "backend": backend,
-                "tasks": list(tasks), "work": str(work), "tag": tag,
-                "coco": str(coco), "workdir": str(work / f"{tag}_loop")}))
-            log = open(work / f"{tag}_rank{r}.log", "w")
-            procs.append((subprocess.Popen(
-                [sys.executable, str(Path(__file__).resolve()),
-                 "--rank-worker", str(spec)], stdout=log,
-                stderr=subprocess.STDOUT, env=env,
-                cwd=str(Path(__file__).resolve().parent)), log))
-        deadline = time.monotonic() + DIST_TIMEOUT_S
-        for p, _ in procs:
-            p.wait(timeout=max(1.0, deadline - time.monotonic()))
-    except subprocess.TimeoutExpired:
-        pass
-    finally:
-        for p, log in procs:
+    def __init__(self, work: Path, tag: str, flag: str, specs: list,
+                 timeout_s: float):
+        import os
+
+        self.work, self.tag, self.procs = work, tag, []
+        self.deadline = time.monotonic() + timeout_s
+        env = dict(os.environ, WM_SYNTH_CACHE="0")
+        try:
+            for r, spec in enumerate(specs):
+                path = work / f"{tag}_spec{r}.json"
+                path.write_text(json.dumps(spec))
+                log = open(work / f"{tag}_rank{r}.log", "w")
+                self.procs.append((subprocess.Popen(
+                    [sys.executable, str(Path(__file__).resolve()), flag,
+                     str(path)], stdout=log, stderr=subprocess.STDOUT,
+                    env=env, cwd=str(Path(__file__).resolve().parent)), log))
+        except BaseException:
+            self.stop()
+            raise
+
+    def stop(self) -> None:
+        """Kill what still runs (a hung rank) and close the logs."""
+        for p, log in self.procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
             log.close()
-    bad = [(r, p.returncode) for r, (p, _) in enumerate(procs)
-           if p.returncode != 0]
-    if bad:
-        tails = {r: (work / f"{tag}_rank{r}.log").read_text()[-3000:]
-                 for r, _ in bad}
-        raise AssertionError(f"13 {tag}: ranks failed or hung (rank, exit "
-                             f"code) {bad}: {tails}")
-    return [json.loads((work / f"{tag}_rank{r}.json").read_text())
-            for r in range(DIST_WORLD)]
+
+    def wait(self) -> list:
+        """Their results in rank order; a rank that fails or hangs fails
+        the phase."""
+        try:
+            for p, _ in self.procs:
+                p.wait(timeout=max(1.0, self.deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            self.stop()
+        bad = [(r, p.returncode) for r, (p, _) in enumerate(self.procs)
+               if p.returncode != 0]
+        if bad:
+            tails = {r: (self.work / f"{self.tag}_rank{r}.log").read_text()[
+                -3000:] for r, _ in bad}
+            raise AssertionError(f"{self.tag}: ranks failed or hung (rank, "
+                                 f"exit code) {bad}: {tails}")
+        return [json.loads((self.work / f"{self.tag}_rank{r}.json")
+                           .read_text()) for r in range(len(self.procs))]
 
 
-def distributed_phase(gpu, golden_sd, reset_counts, all_counts) -> dict:
+def start_ranks(work: Path, tag: str, backend: str, one_card: bool,
+                tasks, coco: Path) -> Workers:
+    """DIST_WORLD rank workers of phase 13 (this script, --rank-worker)."""
+    port = free_port()
+    return Workers(work, tag, "--rank-worker", [{
+        "rank": r, "world": DIST_WORLD, "port": port,
+        "local_rank": 0 if one_card else r, "backend": backend,
+        "tasks": list(tasks), "work": str(work), "tag": tag,
+        "coco": str(coco), "workdir": str(work / f"{tag}_loop")}
+        for r in range(DIST_WORLD)], DIST_TIMEOUT_S)
+
+
+def distributed_phase(gpu, golden_sd, reset_counts, all_counts,
+                      alongside=None, while_waiting=None) -> dict:
     """13. Data parallel (parallel/, the criterion over the global batch,
     the step through DistributedDataParallel, the loop and the mosaic over
     ranks). Returns the launch counts of its main path: 13a's world-1 DDP
     steps in this process, counted from 0 just before them and read just
     after, plus those of the two-rank workers of 13b-13d, each counted over
-    its own run."""
+    its own run. Once 13a's timed steps are done its subprocesses (the CLI
+    under torchrun, the two ranks) run side by side, and `alongside()`
+    starts phase 15's ranks beside them; `while_waiting()` runs once this
+    process's references are made, before it waits for the
+    subprocesses."""
     import os
     import shutil
     import tempfile
@@ -1931,34 +2027,10 @@ def distributed_phase(gpu, golden_sd, reset_counts, all_counts) -> dict:
     env_cache = os.environ.get("WM_SYNTH_CACHE")
     os.environ["WM_SYNTH_CACHE"] = "0"
     golden = {k: torch.from_numpy(np.asarray(v)) for k, v in golden_sd.items()}
+    cli = gloo = None
     try:
         coco = coco_subset(work / "coco")
         torch.save(golden, work / "golden.pt")
-
-        # ---- 13a. NCCL at world size 1: the CLI under torchrun ---------------
-        t0 = time.perf_counter()
-        res = subprocess.run(
-            [sys.executable, "-m", "torch.distributed.run", "--standalone",
-             "--nproc_per_node", "1", "-m", "wildlifemapper_tpu_torch.cli.train",
-             "--synthetic_data", "--synthetic_size", "1024", "--use_amp",
-             "--batch_size", str(BATCH), "--epochs", "1", "--coco_path",
-             str(coco), "--work_dir", str(work / "cli")],
-            capture_output=True, text=True, timeout=DIST_TIMEOUT_S,
-            cwd=str(Path(__file__).resolve().parent),
-            env=dict(os.environ, WM_SYNTH_CACHE="0"))
-        cli_s = time.perf_counter() - t0
-        written = sorted(os.listdir(work / "cli")) if (
-            work / "cli").exists() else []
-        done = [line for line in res.stdout.splitlines()
-                if line.startswith("Epoch 0 done")]
-        emit("dist_torchrun_cli", gpu=gpu, returncode=res.returncode,
-             seconds=cli_s, steps=DIST_TRAIN_IMAGES // BATCH, epoch_line=done,
-             written=written)
-        if (res.returncode != 0 or not done
-                or not {"checkpoint_epoch_0", "config.json"} <= set(written)):
-            raise AssertionError(f"13a torchrun: exit {res.returncode}, "
-                                 f"written {written}: "
-                                 f"{(res.stdout + res.stderr)[-3000:]}")
 
         # ---- 13a. NCCL at world 1 in this process: DDP against no group -------
         batches = [dist_batch(i) for i in range(TRAIN_STEPS)]
@@ -2022,6 +2094,38 @@ def distributed_phase(gpu, golden_sd, reset_counts, all_counts) -> dict:
                                  f"group: losses {ddp_losses} against "
                                  f"{plain_losses}, params {differ[:10]}")
 
+        # ---- the subprocesses, side by side: 13a's CLI under torchrun, the
+        # two ranks of 13b-13d (the .pth and the frame of 13d first), and
+        # phase 15's ranks; the references of this process meanwhile
+        b_cfg = model_config("vit_b", dtype="bfloat16",
+                             use_flash_attention=True)
+        seeded = WildlifeMapper(b_cfg, generator=torch.Generator(
+            device=dev).manual_seed(0))
+        with torch.no_grad():
+            seeded.mask_decoder.class_embed.layers[-1].weight.mul_(
+                CLASS_HEAD_SCALE)
+        torch.save({"model": {"module." + k: v.detach().cpu() for k, v in
+                              seeded.state_dict().items()},
+                    "optimizer": {}, "epoch": 3}, work / "survey.pth")
+        del seeded
+        frame = survey_frame()[0]
+        np.save(work / "frame.npy", frame)
+        t_cli = time.perf_counter()
+        cli_log = open(work / "cli.log", "w")
+        cli = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", "1", "-m", "wildlifemapper_tpu_torch.cli.train",
+             "--synthetic_data", "--synthetic_size", "1024", "--use_amp",
+             "--batch_size", str(BATCH), "--epochs", "1", "--coco_path",
+             str(coco), "--work_dir", str(work / "cli")],
+            stdout=cli_log, stderr=subprocess.STDOUT,
+            cwd=str(Path(__file__).resolve().parent),
+            env=dict(os.environ, WM_SYNTH_CACHE="0"))
+        gloo = start_ranks(work, "gloo", "gloo", True,
+                           ("steps", "loop", "mosaic"), coco)
+        if alongside is not None:
+            alongside()
+
         # ---- references in one process: 13b's steps, 13d's detect -------------
         # the whole batch, and the control: rank 0's rows alone (a gradient
         # from half the batch), which 13b's limits must refuse
@@ -2047,34 +2151,47 @@ def distributed_phase(gpu, golden_sd, reset_counts, all_counts) -> dict:
                for name in ("fine_tune", "from_scratch")}
         half = {name: one_process(name, slice(0, BATCH // 2))
                 for name in one}
-        b_cfg = model_config("vit_b", dtype="bfloat16",
-                             use_flash_attention=True)
-        seeded = WildlifeMapper(b_cfg, generator=torch.Generator(
-            device=dev).manual_seed(0))
-        with torch.no_grad():
-            seeded.mask_decoder.class_embed.layers[-1].weight.mul_(
-                CLASS_HEAD_SCALE)
-        torch.save({"model": {"module." + k: v.detach().cpu() for k, v in
-                              seeded.state_dict().items()},
-                    "optimizer": {}, "epoch": 3}, work / "survey.pth")
-        del seeded
-        frame = survey_frame()[0]
-        np.save(work / "frame.npy", frame)
         want_mosaic = OrthomosaicDetector(
             survey_model(b_cfg, work / "survey.pth"), b_cfg,
             tile_batch=BATCH, overlap=MOSAIC_OVERLAP,
             confidence_threshold=0.5, nms_iou=0.4).detect(frame)
         torch.cuda.empty_cache()
+        if while_waiting is not None:
+            while_waiting()
+
+        # ---- 13a. NCCL at world size 1: the CLI under torchrun ---------------
+        try:
+            returncode = cli.wait(timeout=max(1.0, DIST_TIMEOUT_S - (
+                time.perf_counter() - t_cli)))
+        except subprocess.TimeoutExpired:
+            returncode = "timeout"
+        finally:
+            if cli.poll() is None:
+                cli.kill()
+                cli.wait()
+            cli_log.close()
+        cli_s = time.perf_counter() - t_cli
+        cli_out = (work / "cli.log").read_text()
+        written = sorted(os.listdir(work / "cli")) if (
+            work / "cli").exists() else []
+        done = [line for line in cli_out.splitlines()
+                if line.startswith("Epoch 0 done")]
+        emit("dist_torchrun_cli", gpu=gpu, returncode=returncode,
+             seconds=cli_s, steps=DIST_TRAIN_IMAGES // BATCH, epoch_line=done,
+             written=written, note="beside phase 13's and 15's ranks")
+        if (returncode != 0 or not done
+                or not {"checkpoint_epoch_0", "config.json"} <= set(written)):
+            raise AssertionError(f"13a torchrun: exit {returncode}, "
+                                 f"written {written}: {cli_out[-3000:]}")
 
         # ---- 13b-13d. two ranks on this card over gloo ------------------------
-        ranks = run_ranks(work, "gloo", "gloo", True,
-                          ("steps", "loop", "mosaic"), coco)
+        ranks = gloo.wait()
         for r in ranks:
             path_counts = add_counts(path_counts, r["counts"])
         reports = {"gloo": ranks}
         if torch.cuda.device_count() >= 2:
-            reports["nccl"] = run_ranks(work, "nccl", "nccl", False,
-                                        ("steps",), coco)
+            reports["nccl"] = start_ranks(work, "nccl", "nccl", False,
+                                          ("steps",), coco).wait()
             for r in reports["nccl"]:
                 path_counts = add_counts(path_counts, r["counts"])
         emit("dist_two_ranks_run", gpu=gpu, backends=sorted(reports),
@@ -2212,6 +2329,11 @@ def distributed_phase(gpu, golden_sd, reset_counts, all_counts) -> dict:
         if problems:
             raise AssertionError("; ".join(problems))
     finally:
+        if cli is not None and cli.poll() is None:
+            cli.kill()
+            cli.wait()
+        if gloo is not None:
+            gloo.stop()
         if torch.distributed.is_initialized():
             torch.distributed.destroy_process_group()
         if env_cache is None:
@@ -2220,6 +2342,512 @@ def distributed_phase(gpu, golden_sd, reset_counts, all_counts) -> dict:
             os.environ["WM_SYNTH_CACHE"] = env_cache
         shutil.rmtree(work, ignore_errors=True)
     emit("distributed_phase", seconds=time.perf_counter() - t_phase)
+    return path_counts
+
+
+# the tensor-parallel path of phase 15: a model axis of TP_RANKS ranks on
+# this card over gloo (NCCL refuses two ranks on one device), each rank with
+# the whole batch of BATCH (one data rank)
+TP_RANKS = 2
+TP_TIMEOUT_S = 480
+TP_LAYOUTS = (("fine_tune", "packed"), ("fine_tune", "grouped"),
+              ("from_scratch", "packed"))
+TP_VIT_H_STEPS = 2
+# 15d: the loop's epochs of TP_LOOP_STEPS steps and TP_LOOP_EVAL_BATCHES
+# evaluation batches; each epoch's mean loss against one process's unbroken
+# run (phase 10's limit for a resumed epoch)
+TP_LOOP_STEPS = 4
+TP_LOOP_EVAL_BATCHES = 2
+TP_LOOP_TOL = 2e-2
+
+
+def tp_config(name: str, layout: str = "packed",
+              model_parallel: int = TP_RANKS):
+    """13b's bf16 configuration `name` (hfc.dropout 0) in `layout`, over a
+    model axis of `model_parallel`."""
+    from wildlifemapper_tpu_torch.config import MeshConfig
+
+    cfg = dist_step_config(name)
+    return dataclasses.replace(
+        cfg, mesh=MeshConfig(model_parallel_size=model_parallel),
+        model=dataclasses.replace(cfg.model, attn_impl=layout))
+
+
+def tp_vit_h_config(remat: bool = True, model_parallel: int = TP_RANKS):
+    """Phase 14b's ViT-H from scratch at BATCH over a model axis."""
+    from wildlifemapper_tpu_torch.config import MeshConfig
+    from wildlifemapper_tpu_torch.train.synthetic import training_config
+
+    cfg = training_config("from_scratch", "bfloat16", True, BATCH,
+                          variant="vit_h", remat_blocks=remat)
+    return dataclasses.replace(
+        cfg, mesh=MeshConfig(model_parallel_size=model_parallel))
+
+
+def tp_memory_rule(cfg) -> dict:
+    """What the sharding rules say a rank holds of `cfg`'s model, counted
+    from the whole model's shapes (built on the meta device): elements of
+    every parameter and of the trainable ones, one process's and a rank's
+    (a split parameter's numel / P)."""
+    from wildlifemapper_tpu_torch.models import WildlifeMapper
+    from wildlifemapper_tpu_torch.parallel.mesh import param_pspec
+    from wildlifemapper_tpu_torch.train.optimizer import param_group
+
+    model = WildlifeMapper(cfg.model, device="meta")
+    p = cfg.mesh.model_parallel_size
+    specs = param_pspec(model, p)
+    out = dict.fromkeys(("params", "trainable", "params_rank",
+                         "trainable_rank"), 0)
+    for n, t in model.named_parameters():
+        rank_n = t.numel() // p if specs[n] else t.numel()
+        train = param_group(n, cfg.train.freeze_encoder) != "frozen"
+        out["params"] += t.numel()
+        out["params_rank"] += rank_n
+        out["trainable"] += t.numel() * train
+        out["trainable_rank"] += rank_n * train
+    return out
+
+
+def tp_worker(spec_path: str) -> int:
+    """One rank of phase 15 (`python3 chip_smoke.py --tp-worker
+    <spec.json>`, started by tp_phase): 15a the three configurations' steps
+    at P = 2, 15b ViT-H from scratch, 15d the loop, then the control (one
+    block's copy_to_model without its backward sum); its results and its
+    kernels' launch counts on the main path (15a, 15b, 15d) into the spec's
+    directory."""
+    import hashlib
+
+    import torch
+
+    from wildlifemapper_tpu_torch.parallel import distributed as dist
+    from wildlifemapper_tpu_torch.parallel.mesh import make_mesh
+    from wildlifemapper_tpu_torch.parallel.tensor_parallel import \
+        all_reduce_model
+    from wildlifemapper_tpu_torch.train import loop as loop_mod
+    from wildlifemapper_tpu_torch.train.step import StepBuilder
+    from wildlifemapper_tpu_torch.weights import load_reference_state_dict
+
+    spec = json.loads(Path(spec_path).read_text())
+    rank, work = spec["rank"], Path(spec["work"])
+    dist.init_distributed_mode(
+        init_method=f"tcp://127.0.0.1:{spec['port']}",
+        world_size=TP_RANKS, rank=rank, local_rank=0, backend="gloo")
+    mesh = make_mesh(TP_RANKS)
+    wrappers = port_wrappers()
+    res = {"rank": rank, "model_rank": mesh.model_rank,
+           "data_size": mesh.data_size,
+           "device_name": torch.cuda.get_device_name()}
+    golden = torch.load(work / "golden.pt", weights_only=True)
+
+    def digests(model, whole_only=False):
+        out = {}
+        for n, p in model.named_parameters():
+            if whole_only and hasattr(p, "model_parallel_split"):
+                continue
+            out[n] = hashlib.sha256(
+                p.detach().float().cpu().numpy().tobytes()).hexdigest()
+        return out
+
+    def gathered(state, grads=False):
+        """The trainable parameters (or gradients) of the whole model,
+        gathered over the model group, on the host."""
+        named = {n: (p.grad if grads else p).detach()
+                 for n, p in state.model.named_parameters()
+                 if p.requires_grad}
+        return {n: t.float().cpu() for n, t in
+                state.model_parallel.gather(named).items()}
+
+    def steps(name, layout, tag, patch=None):
+        """TRAIN_STEPS steps of 15a's configuration: losses, norms, ms, the
+        digests of every parameter; rank 0 writes the change of the whole
+        trainable parameters and the last gradients."""
+        sb = StepBuilder(tp_config(name, layout))
+        load_reference_state_dict(sb.model, golden)
+        state = sb.init_state(steps_per_epoch=100)
+        if patch is not None:
+            patch(sb.model)
+        before = gathered(state)
+        counts = wrapper_counts(wrappers)
+        losses, norms, ms = [], [], []
+        for i in range(TRAIN_STEPS):
+            batch = dist_batch(i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = sb.train_step(state, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(m["loss"].item())
+            norms.append(m["grad_norm"].item())
+        counts = sub_counts(wrapper_counts(wrappers), counts)
+        after, grad = gathered(state), gathered(state, grads=True)
+        if rank == 0:
+            torch.save({"change": {n: after[n] - p
+                                   for n, p in before.items()},
+                        "grad": grad}, work / f"tp_{tag}.pt")
+        out = {"losses": losses, "grad_norms": norms, "ms": ms,
+               "counts": counts,
+               "digests": digests(sb.model, whole_only=True),
+               "split": sum(hasattr(p, "model_parallel_split")
+                            for p in sb.model.parameters())}
+        del sb, state, before, after, grad
+        torch.cuda.empty_cache()
+        return out
+
+    # ---- 15a. ViT-B, three configurations --------------------------------
+    seconds = res["seconds"] = {}
+    t_section = time.perf_counter()
+    res["steps"] = {f"{n}_{lay}": steps(n, lay, f"{n}_{lay}")
+                    for n, lay in TP_LAYOUTS}
+    counts_a = wrapper_counts(wrappers)
+    seconds["15a"] = time.perf_counter() - t_section
+    t_section = time.perf_counter()
+
+    # ---- 15b. ViT-H from scratch, remat, full depth ----------------------
+    # TP_VIT_H_STEPS steps with remat_blocks, then one more with it off on
+    # the same model (the all-reduces a step either way)
+    from wildlifemapper_tpu_torch.train.synthetic import synthetic_batch
+
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in synthetic_batch(BATCH, seed=11).items()}
+    sb = StepBuilder(tp_vit_h_config(), generator=torch.Generator(
+        device="cuda").manual_seed(0))
+    state = sb.init_state(steps_per_epoch=100)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    vit_h = {}
+    for remat in (True, False):
+        for blk in sb.model.image_encoder.blocks:
+            blk.remat = blk.attn.remat = remat
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms, reduces, peaks = [], [], [], []
+        for _ in range(TP_VIT_H_STEPS if remat else 1):
+            before = all_reduce_model.count
+            t0 = time.perf_counter()
+            _, m = sb.train_step(state, batch, gen)
+            losses.append(m["loss"].item())
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            reduces.append(all_reduce_model.count - before)
+            peaks.append(torch.cuda.max_memory_allocated() - start)
+        vit_h["remat" if remat else "none"] = {
+            "losses": losses, "ms": ms, "all_reduces": reduces,
+            "peak_above_start_bytes": peaks}
+        if remat:
+            params = list(sb.model.parameters())
+            moments = [v for st in state.optimizer.state.values()
+                       for k, v in st.items()
+                       if k in ("exp_avg", "exp_avg_sq")]
+            vit_h["remat"].update(
+                allocated_at_start_bytes=start,
+                param_bytes=sum(p.numel() * p.element_size()
+                                for p in params),
+                grad_bytes=sum(p.grad.numel() * p.grad.element_size()
+                               for p in params if p.grad is not None),
+                moment_bytes=sum(v.numel() * v.element_size()
+                                 for v in moments),
+                whole_digests=digests(sb.model, whole_only=True))
+            del params, moments
+    res["vit_h"] = vit_h
+    del sb, state, batch
+    torch.cuda.empty_cache()
+    counts_b = wrapper_counts(wrappers)
+    seconds["15b"] = time.perf_counter() - t_section
+
+    # ---- 15d. the loop over the two ranks --------------------------------
+    cfg = dataclasses.replace(
+        loop_cli_config(Path(spec["coco"])),
+        mesh=tp_config("fine_tune").mesh)
+    t0 = time.perf_counter()
+    res["loop"] = loop_mod.train(
+        cfg, workdir=spec["workdir"], epochs=1, init_state_dict=golden,
+        max_steps_per_epoch=TP_LOOP_STEPS,
+        max_eval_batches=TP_LOOP_EVAL_BATCHES,
+        print_fn=lambda *a, **k: None)
+    torch.cuda.synchronize()
+    seconds["15d"] = time.perf_counter() - t0
+    counts_d = wrapper_counts(wrappers)           # the main path ends here
+    # by encoder: ViT-B's (15a and the loop), ViT-H's (15b, head dim 80)
+    res["counts"] = {
+        "vit_b": add_counts(counts_a, sub_counts(counts_d, counts_b)),
+        "vit_h": sub_counts(counts_b, counts_a)}
+
+    # ---- 15a's control: block 0's qkv input without its backward sum -----
+    def no_backward_sum(model):
+        model.image_encoder.blocks[0].attn.qkv.group = None
+
+    t0 = time.perf_counter()
+    res["control"] = steps("fine_tune", "packed", "control",
+                           patch=no_backward_sum)
+    seconds["control"] = time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    (work / f"tp_rank{rank}.json").write_text(json.dumps(res))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def start_tp_phase(golden_sd) -> dict:
+    """Phase 15's work directory (the bundle's subset, the golden weights)
+    and its TP_RANKS workers (this script, --tp-worker), started."""
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="wm_tp_"))
+    coco = coco_subset(work / "coco")
+    torch.save({k: torch.from_numpy(np.asarray(v))
+                for k, v in golden_sd.items()}, work / "golden.pt")
+    port = free_port()
+    workers = Workers(work, "tp", "--tp-worker", [{
+        "rank": r, "port": port, "work": str(work), "coco": str(coco),
+        "workdir": str(work / "tp_loop")} for r in range(TP_RANKS)],
+        TP_TIMEOUT_S)
+    return {"t0": t0, "work": work, "coco": coco, "workers": workers}
+
+
+def tp_references(started, golden_sd, reset_counts, all_counts) -> dict:
+    """Phase 15's references in this process, made while its ranks run:
+    15a's three configurations at P = 1 (TRAIN_STEPS steps at batch BATCH:
+    losses, norms, the trainable parameters' change, the last gradients,
+    the launches) and 15d's loop, two epochs unbroken (each epoch's
+    stats)."""
+    import os
+
+    import torch
+
+    from wildlifemapper_tpu_torch.train import loop as loop_mod
+    from wildlifemapper_tpu_torch.train.logging import NoOpLogger
+    from wildlifemapper_tpu_torch.train.step import StepBuilder
+    from wildlifemapper_tpu_torch.weights import load_reference_state_dict
+
+    work, coco = started["work"], started["coco"]
+    golden = {k: torch.from_numpy(np.asarray(v)) for k, v in golden_sd.items()}
+    env_cache = os.environ.get("WM_SYNTH_CACHE")
+    os.environ["WM_SYNTH_CACHE"] = "0"
+    try:
+        # 15a's: one process at batch BATCH
+        def one_process(name, layout):
+            sb = StepBuilder(tp_config(name, layout, model_parallel=1))
+            load_reference_state_dict(sb.model, golden)
+            state = sb.init_state(steps_per_epoch=100)
+            before = trainable(sb.model)
+            losses, norms = [], []
+            reset_counts()
+            for i in range(TRAIN_STEPS):
+                state, m = sb.train_step(state, dist_batch(i))
+                losses.append(m["loss"].item())
+                norms.append(m["grad_norm"].item())
+            counts = all_counts()
+            after = trainable(sb.model)
+            run = {"losses": losses, "grad_norms": norms,
+                   "change": {n: after[n] - p for n, p in before.items()},
+                   "grad": trainable(sb.model, grads=True), "counts": counts}
+            del sb, state, before, after
+            torch.cuda.empty_cache()
+            return run
+
+        wants = {f"{n}_{lay}": one_process(n, lay) for n, lay in TP_LAYOUTS}
+
+        # 15d's: the loop's two epochs in one process, unbroken
+        cfg = dataclasses.replace(loop_cli_config(coco), mesh=tp_config(
+            "fine_tune", model_parallel=1).mesh)
+        quiet = dict(init_state_dict=golden, print_fn=lambda *a, **k: None,
+                     max_steps_per_epoch=TP_LOOP_STEPS,
+                     max_eval_batches=TP_LOOP_EVAL_BATCHES)
+
+        class Epochs(NoOpLogger):
+            def __init__(self):
+                self.stats = []
+
+            def log_epoch(self, epoch, stats):
+                self.stats.append(stats)
+
+        unbroken = Epochs()
+        loop_mod.train(cfg, workdir=str(work / "tp_unbroken"), epochs=2,
+                       logger_backend=unbroken, **quiet)
+    finally:
+        if env_cache is None:
+            os.environ.pop("WM_SYNTH_CACHE", None)
+        else:
+            os.environ["WM_SYNTH_CACHE"] = env_cache
+    return {"wants": wants, "unbroken": unbroken.stats}
+
+
+def tp_phase(gpu, golden_sd, reset_counts, all_counts, started=None) -> dict:
+    """15. Tensor parallelism (the model axis of parallel/mesh.py) over two
+    ranks on this card: 15a ViT-B's three configurations against one
+    process, with a control the limits must refuse; 15b ViT-H from scratch
+    at full width and depth; 15d the loop and its checkpoint resumed in one
+    process. (15c, the kernels at a rank's shapes, runs in phases 2 and
+    6.) Returns the launch counts of its main path by encoder (ViT-B: 15a
+    and 15d; ViT-H: 15b), over both ranks, each counted over its own
+    run. `started` is start_tp_phase's, when the ranks run already (beside
+    phase 13's)."""
+    import os
+    import shutil
+
+    import torch
+
+    from wildlifemapper_tpu_torch.train import loop as loop_mod
+
+    started = started or start_tp_phase(golden_sd)
+    work, coco = started["work"], started["coco"]
+    env_cache = os.environ.get("WM_SYNTH_CACHE")
+    os.environ["WM_SYNTH_CACHE"] = "0"
+    golden = {k: torch.from_numpy(np.asarray(v)) for k, v in golden_sd.items()}
+    problems = []
+    try:
+        refs = started.get("refs") or tp_references(
+            started, golden_sd, reset_counts, all_counts)
+        wants, unbroken = refs["wants"], refs["unbroken"]
+        ranks = started["workers"].wait()
+        path_counts = {v: ranks[0]["counts"][v] for v in ("vit_b", "vit_h")}
+        for r in ranks[1:]:
+            path_counts = {v: add_counts(c, r["counts"][v])
+                           for v, c in path_counts.items()}
+
+        # ---- 15a. against one process at batch BATCH --------------------
+        for name, layout in TP_LAYOUTS:
+            key = f"{name}_{layout}"
+            want = wants.pop(key)
+            r0, r1 = (r["steps"][key] for r in ranks)
+            got = torch.load(work / f"tp_{key}.pt", weights_only=True)
+            gaps = step_readings(r0["losses"], r0["grad_norms"],
+                                 got["change"], got["grad"], want)
+            whole = [n for n in r0["digests"]
+                     if r0["digests"][n] == r1["digests"][n]]
+            lock = (r0["losses"] == r1["losses"]
+                    and r0["grad_norms"] == r1["grad_norms"])
+            # each rank launches every kernel a layer, as one process does
+            same_launches = r0["counts"] == r1["counts"] == want["counts"]
+            emit("tp_steps", gpu=gpu, backend="gloo", config=name,
+                 layout=layout, dtype="bfloat16", batch=BATCH,
+                 model_parallel=TP_RANKS, steps=TRAIN_STEPS,
+                 losses=[r0["losses"], r1["losses"]],
+                 losses_one_process=want["losses"],
+                 grad_norms=r0["grad_norms"],
+                 grad_norms_one_process=want["grad_norms"], gaps=gaps,
+                 change_worst_element_gap=worst_element_gap(
+                     got["change"], want["change"]),
+                 limits={"loss": DIST_LOSS_TOL, "grad_norm": DIST_NORM_TOL,
+                         "change": DIST_CHANGE_TOL, "grad": DIST_GRAD_TOL},
+                 split_parameters=r0["split"],
+                 whole_parameters=len(r0["digests"]),
+                 whole_identical_across_ranks=len(whole), lock_step=lock,
+                 launches_rank=r0["counts"],
+                 launches_equal_one_process=same_launches,
+                 ms_per_step=[r0["ms"], r1["ms"]],
+                 note="two gloo ranks on one card: the sums over the "
+                      "model group stage through the host; not NCCL")
+            if (gaps["over_limit"] or not lock or not r0["split"]
+                    or not same_launches or len(whole) != len(r0["digests"])):
+                problems.append(f"15a {key}: gaps {gaps}, lock-step {lock}, "
+                                f"{len(whole)} of {len(r0['digests'])} "
+                                f"identical, {r0['split']} split, launches "
+                                f"{r0['counts']} against {want['counts']}")
+            if key == "fine_tune_packed":
+                want_ft = want
+            del got, want
+        ctl = [r["control"] for r in ranks]
+        got = torch.load(work / "tp_control.pt", weights_only=True)
+        gaps = step_readings(ctl[0]["losses"], ctl[0]["grad_norms"],
+                             got["change"], got["grad"], want_ft)
+        apart = sum(ctl[0]["digests"][n] != ctl[1]["digests"][n]
+                    for n in ctl[0]["digests"])
+        emit("tp_control", gpu=gpu, config="fine_tune", layout="packed",
+             patched="block 0's qkv input: copy_to_model without its "
+                     "backward sum over the model group",
+             gaps=gaps, whole_parameters_apart=apart)
+        if not gaps["over_limit"] and apart == 0:
+            problems.append(f"15a: the control passes the checks: {gaps}")
+        del got, want_ft
+
+        # ---- 15b. ViT-H from scratch -------------------------------------
+        rule = tp_memory_rule(tp_vit_h_config())
+        h0, h1 = (r["vit_h"] for r in ranks)
+        want_bytes = {"param_bytes": 4 * rule["params_rank"],
+                      "grad_bytes": 4 * rule["trainable_rank"],
+                      "moment_bytes": 8 * rule["trainable_rank"]}
+        got_bytes = [{k: h["remat"][k] for k in want_bytes} for h in (h0, h1)]
+        same_whole = h0["remat"]["whole_digests"] == \
+            h1["remat"]["whole_digests"]
+        finite = all(np.isfinite(x) for h in (h0, h1)
+                     for run in h.values() for x in run["losses"])
+        reduces = [[h["remat"]["all_reduces"][0], h["none"]["all_reduces"][0]]
+                   for h in (h0, h1)]
+        peaks = [h["remat"]["peak_above_start_bytes"] for h in (h0, h1)]
+        emit("tp_vit_h", gpu=gpu, backend="gloo", config="from_scratch",
+             variant="vit_h", remat_blocks=True, dtype="bfloat16",
+             batch=BATCH, model_parallel=TP_RANKS,
+             losses=[h["remat"]["losses"] for h in (h0, h1)],
+             loss_without_remat=[h["none"]["losses"] for h in (h0, h1)],
+             ms_per_step=[h["remat"]["ms"] for h in (h0, h1)],
+             ms_per_step_without_remat=[h["none"]["ms"] for h in (h0, h1)],
+             all_reduces_per_step_remat_and_none=reduces,
+             first_step_peak_above_start_bytes=[p[0] for p in peaks],
+             peak_above_start_bytes_by_step=peaks,
+             step3_without_remat_peak_above_start_bytes=[
+                 h["none"]["peak_above_start_bytes"][0] for h in (h0, h1)],
+             allocated_at_start_bytes=[h["remat"]["allocated_at_start_bytes"]
+                                       for h in (h0, h1)],
+             rank_bytes=got_bytes, rule_bytes=want_bytes,
+             one_process_elements={"params": rule["params"],
+                                   "trainable": rule["trainable"]},
+             rank_share=rule["params_rank"] / rule["params"],
+             whole_parameters=len(h0["remat"]["whole_digests"]),
+             whole_parameters_identical=same_whole,
+             note="two gloo ranks share one card and its host: the step "
+                  "times bound nothing of NCCL across cards")
+        if (not finite or not same_whole
+                or any(g != want_bytes for g in got_bytes)
+                or any(a != b for a, b in reduces)):
+            problems.append(f"15b: finite {finite}, whole parameters "
+                            f"identical {same_whole}, bytes {got_bytes} "
+                            f"against {want_bytes}, all-reduces {reduces}")
+
+        # ---- 15d. the loop's checkpoint resumed in one process -----------
+        # the ranks ran epoch 0 at P = 2; one process resumes its
+        # checkpoint (the whole model) for epoch 1, and runs both epochs
+        # unbroken from the same weights
+        l0, l1 = ranks[0]["loop"], ranks[1]["loop"]
+        cfg = dataclasses.replace(loop_cli_config(coco), mesh=tp_config(
+            "fine_tune", model_parallel=1).mesh)
+        quiet = dict(init_state_dict=golden, print_fn=lambda *a, **k: None,
+                     max_steps_per_epoch=TP_LOOP_STEPS,
+                     max_eval_batches=TP_LOOP_EVAL_BATCHES)
+        resume = work / "tp_resume"
+        resume.mkdir()
+        shutil.copy(work / "tp_loop" / "checkpoint_epoch_0", resume)
+        resumed = loop_mod.train(cfg, workdir=str(resume), epochs=2,
+                                 resume=True, **quiet)
+        want = [e["train/loss"] for e in unbroken]
+        got = [l0["train/loss"], resumed["train/loss"]]
+        gaps = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+        emit("tp_loop", gpu=gpu, backend="gloo",
+             steps_per_epoch=TP_LOOP_STEPS,
+             eval_batches=TP_LOOP_EVAL_BATCHES, model_parallel=TP_RANKS,
+             loss_epoch0_ranks=[l0["train/loss"], l1["train/loss"]],
+             AP_ranks=[l0["val/coco/AP"], l1["val/coco/AP"]],
+             loss_epoch1_resumed_one_process=resumed["train/loss"],
+             loss_unbroken_one_process=want, relative_gaps=gaps,
+             limit=TP_LOOP_TOL, same_stats_on_both=l0 == l1)
+        emit("tp_rank_seconds", seconds=[r["seconds"] for r in ranks])
+        if l0 != l1 or not max(gaps) <= TP_LOOP_TOL:
+            problems.append(f"15d: stats equal {l0 == l1}, the loss gaps to "
+                            f"one unbroken process {gaps}")
+        if problems:
+            raise AssertionError("; ".join(problems))
+    finally:
+        started["workers"].stop()
+        if env_cache is None:
+            os.environ.pop("WM_SYNTH_CACHE", None)
+        else:
+            os.environ["WM_SYNTH_CACHE"] = env_cache
+        shutil.rmtree(work, ignore_errors=True)
+    emit("tp_phase", seconds=time.perf_counter() - started["t0"],
+         note="its ranks ran beside phase 13's subprocesses")
     return path_counts
 
 
@@ -2281,6 +2909,23 @@ def large_launches(name: str, counts: dict) -> int:
                                                     "cross_attention")):
         return loop_launches(name, vit_l)
     return loop_launches(name, add_counts(vit_l, vit_h))
+
+
+def tp_launches(name: str, counts: dict) -> int:
+    """A report entry's launches on phase 15's main path (`counts` by
+    encoder): the head-dim-80 backward entries ViT-H's (packed; the
+    grouped d-80 entries none), the other backward entries of the
+    attention kernels ViT-B's, the forward and K3 / K4 entries both's."""
+    if name.endswith("_backward_d80"):
+        base = name[:-len("_backward_d80")]
+        if base.endswith("rel_pos"):
+            return 0
+        return counts["vit_h"]["backward_launches" if base.startswith(
+            "windowed") else "backward_dq_launches"][base]
+    if "_backward" in name and not name.startswith(("fused_mlp",
+                                                    "cross_attention")):
+        return loop_launches(name, counts["vit_b"])
+    return loop_launches(name, add_counts(counts["vit_b"], counts["vit_h"]))
 
 
 def large_phase(gpu, reset_counts, all_counts, per_step, one_wait,
@@ -2587,8 +3232,8 @@ def large_phase(gpu, reset_counts, all_counts, per_step, one_wait,
                 "768", "--crop_prologue", "--window_size", "12", "--remat",
                 "--synthetic_data", "--synthetic_size", "1024", "--use_amp",
                 "--device_normalize", "--batch_size", str(BATCH),
-                "--epochs", "2", "--checkpoint_every", "1",
-                "--coco_path", str(coco), "--work_dir", str(run_dir)],
+                "--epochs", "2", "--checkpoint_every", "2", "--best_every",
+                "2", "--coco_path", str(coco), "--work_dir", str(run_dir)],
                 watch=watch)
         torch.cuda.synchronize()
         cli_s = time.perf_counter() - t0
@@ -2895,12 +3540,39 @@ def main() -> int:
         ("fused_mlp", "R=4*2304 D=1280 F=5120 (ViT-H scratch)",
          lambda: mlp_args(4 * 2304, 1280, 5120)),
     ]
+    # a rank's shapes at a model axis of 2 (phase 15): half of every block's
+    # heads and of its MLP's hidden width, half of the adaptor's heads
+    tp_cases = [
+        ("windowed_attention_packed", "BW=4*16 H=8 N=144 d=80 (TP rank ViT-H)",
+         lambda: attn_args(64, (12, 12), heads=8, d=80)),
+        ("windowed_attention_packed", "BW=4*25 H=6 N=196 (TP rank ViT-B)",
+         lambda: attn_args(100, (14, 14), heads=6)),
+        ("flash_attention_packed", "B=4 H=8 N=2304 d=80 (TP rank ViT-H)",
+         lambda: attn_args(4, (48, 48), heads=8, d=80)),
+        ("flash_attention_packed", "B=4 H=6 N=4096 (TP rank ViT-B)",
+         lambda: attn_args(4, (64, 64), heads=6)),
+        ("fused_mlp", "R=4*2304 D=1280 F=2560 (TP rank ViT-H)",
+         lambda: mlp_args(4 * 2304, 1280, 2560)),
+        ("fused_mlp", "R=4*4096 D=768 F=1536 (TP rank ViT-B)",
+         lambda: mlp_args(4 * 4096, 768, 1536)),
+        ("cross_attention_packed", "B=4 H=4 N=M=2304 (TP rank)",
+         lambda: [randn((4, 2304, c // 2)), randn((4, 2304, c // 2)),
+                  randn((4, 2304, c // 2)), hd ** -0.5, c // hd // 2]),
+        ("cross_attention_packed", "B=4 H=4 N=M=4096 (TP rank)",
+         lambda: [randn((4, 4096, c // 2)), randn((4, 4096, c // 2)),
+                  randn((4, 4096, c // 2)), hd ** -0.5, c // hd // 2]),
+        ("flash_attention_rel_pos", "BH=4*6 N=4096 (TP rank ViT-B)",
+         lambda: grouped_args(4 * 6, (64, 64))),
+        ("windowed_attention_rel_pos", "BWH=4*25*6 N=196 (TP rank ViT-B)",
+         lambda: grouped_args(4 * 25 * 6, (14, 14))),
+    ]
 
     def dtypes(shape):
         """f32 and bf16; the large encoders' training shapes bf16 alone,
         the dtype phase 14 trains in (14c holds their f32 path end to end
         through the tile bodies)."""
-        if "(ViT-L" in shape or "scratch)" in shape:
+        if ("(ViT-L" in shape or "scratch)" in shape
+                or "(TP rank" in shape):
             return (torch.bfloat16,)
         return (torch.float32, torch.bfloat16)
 
@@ -3031,7 +3703,7 @@ def main() -> int:
          lambda: attn_args(3, (7, 7), heads=3, d=80)),
         ("windowed_attention_rel_pos", "BWH=10 N=100 (10x10) d=80",
          lambda: grouped_args(10, (10, 10), d=80)),
-    ] + large_cases
+    ] + large_cases + tp_cases
     # fused_mlp keeps its biases in f32 whatever the compute dtype
     f32_positions = {"fused_mlp": (2, 4)}
     tol = {torch.float32: dict(atol=2e-5, rtol=1e-4),
@@ -3617,6 +4289,17 @@ def main() -> int:
          lambda: attn_args(4, (48, 48), heads=16)[:3]),
         ("K2", "B=4 H=16 N=2304 d=80 (ViT-H scratch)", 16, 80, (48, 48),
          lambda: attn_args(4, (48, 48), heads=16, d=80)[:3]),
+        # a rank's shapes at a model axis of 2 (phase 15)
+        ("K1", "BW=4*16 H=8 N=144 d=80 (TP rank ViT-H)", 8, 80, (12, 12),
+         lambda: attn_args(64, (12, 12), heads=8, d=80)[:3]),
+        ("K1", "BW=4*25 H=6 N=196 (TP rank ViT-B)", 6, 64, (14, 14),
+         lambda: attn_args(100, (14, 14), heads=6)[:3]),
+        ("K2", "B=4 H=8 N=2304 d=80 (TP rank ViT-H)", 8, 80, (48, 48),
+         lambda: attn_args(4, (48, 48), heads=8, d=80)[:3]),
+        ("K2", "B=4 H=6 N=4096 (TP rank ViT-B)", 6, 64, (64, 64),
+         lambda: attn_args(4, (64, 64), heads=6)[:3]),
+        ("K4", "B=4 H=4 N=M=2304 (TP rank)", 4, 128, None,
+         lambda: [randn((4, 2304, c // 2)) for _ in range(3)]),
     ]
     wrappers = {"K1": windowed_attention_packed,
                 "K2": flash_attention_packed, "K4": cross_attention_packed}
@@ -3730,6 +4413,10 @@ def main() -> int:
         ("K5", "BH=4*16 N=2304 (ViT-L scratch)", (48, 48), 4 * 16, 3, 64),
         ("K5", "BH=4*16 N=2304 d=80 (ViT-H scratch)", (48, 48), 4 * 16, 3,
          80),
+        # a rank's shapes at a model axis of 2 (phase 15)
+        ("K5", "BH=4*6 N=4096 (TP rank ViT-B)", (64, 64), 4 * 6, 4, 64),
+        ("K6", "BWH=4*25*6 N=196 (TP rank ViT-B)", (14, 14), 4 * 25 * 6, 3,
+         64),
     ]
     wrappers.update(K5=flash_attention_rel_pos, K6=windowed_attention_rel_pos)
     grad_names = ("dq", "dk", "dv", "drel_h", "drel_w")
@@ -3815,16 +4502,18 @@ def main() -> int:
     mlp_counters = ("launches", "backward_launches")
     # the training shapes, rows ragged against the GEMM body's tiles, and
     # ViT-H's widths (f32: the forward on 16-row tiles)
-    for shape, rows, dmod in (("R=4*4096", 4 * 4096, 768),
-                              ("R=4*2304", 4 * 2304, 768),
-                              ("R=1000", 1000, 768),
-                              ("R=130 D=1280 F=5120", 130, 1280),
-                              ("R=4*2304 D=1024 F=4096 (ViT-L scratch)",
-                               4 * 2304, 1024),
-                              ("R=4*2304 D=1280 F=5120 (ViT-H scratch)",
-                               4 * 2304, 1280)):
-        base = mlp_args(rows, dmod, 4 * dmod)
-        g32, da32 = randn((rows, dmod)), randn((rows, 4 * dmod))
+    for shape, rows, dmod, fmod in (
+            ("R=4*4096", 4 * 4096, 768, 3072),
+            ("R=4*2304", 4 * 2304, 768, 3072),
+            ("R=1000", 1000, 768, 3072),
+            ("R=130 D=1280 F=5120", 130, 1280, 5120),
+            ("R=4*2304 D=1024 F=4096 (ViT-L scratch)", 4 * 2304, 1024, 4096),
+            ("R=4*2304 D=1280 F=5120 (ViT-H scratch)", 4 * 2304, 1280, 5120),
+            # a rank's shapes at a model axis of 2 (phase 15)
+            ("R=4*2304 D=1280 F=2560 (TP rank ViT-H)", 4 * 2304, 1280, 2560),
+            ("R=4*4096 D=768 F=1536 (TP rank ViT-B)", 4 * 4096, 768, 1536)):
+        base = mlp_args(rows, dmod, fmod)
+        g32, da32 = randn((rows, dmod)), randn((rows, fmod))
         for dt in dtypes(shape):
             g, da = g32.to(dt), da32.to(dt)
             with torch.no_grad():
@@ -4875,13 +5564,40 @@ def main() -> int:
             k: compat_host[kid][k]
             for k in ("wrapper", "operator", "implementation", "dispatch")}
     # ---- 13. data parallel: torchrun, DDP at world 1, two ranks ------------
-    dist_counts = distributed_phase(gpu, golden_sd, reset_counts, all_counts)
+    # ---- 15. tensor parallelism: a model axis of two ranks ------------------
+    # 15's ranks run beside 13's subprocesses, started once 13's timed steps
+    # are done
+    tp_started = []
+
+    def tp_refs():
+        """15's references in this process while the ranks run."""
+        for started in tp_started:
+            started["refs"] = tp_references(started, golden_sd,
+                                            reset_counts, all_counts)
+
+    try:
+        dist_counts = distributed_phase(
+            gpu, golden_sd, reset_counts, all_counts,
+            alongside=lambda: tp_started.append(start_tp_phase(golden_sd)),
+            while_waiting=tp_refs)
+        for name, e in report.items():
+            e["launches_dist"] = loop_launches(name, dist_counts)
+            on_path = (not name.endswith("_d80")
+                       and not name.startswith(grouped))
+            if on_path and e["launches_dist"] <= 0:
+                raise AssertionError(f"{name}: not launched on the "
+                                     f"distributed path")
+        tp_counts = tp_phase(gpu, golden_sd, reset_counts, all_counts,
+                             tp_started[0] if tp_started else None)
+    finally:
+        for started in tp_started:
+            started["workers"].stop()
     for name, e in report.items():
-        e["launches_dist"] = loop_launches(name, dist_counts)
-        on_path = not name.endswith("_d80") and not name.startswith(grouped)
-        if on_path and e["launches_dist"] <= 0:
-            raise AssertionError(f"{name}: not launched on the distributed "
-                                 f"path")
+        e["launches_tp"] = tp_launches(name, tp_counts)
+        on_path = not (name.endswith("_d80") and "rel_pos" in name)
+        if on_path and e["launches_tp"] <= 0:
+            raise AssertionError(f"{name}: not launched on the tensor-"
+                                 f"parallel path")
     # ---- 14. the large encoders' training paths and the scripts -----------
     large_counts = large_phase(gpu, reset_counts, all_counts, per_step,
                                one_wait, step_parity, batch4)
@@ -4907,4 +5623,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank-worker"]:
         sys.exit(rank_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--tp-worker"]:
+        sys.exit(tp_worker(sys.argv[2]))
     sys.exit(main())

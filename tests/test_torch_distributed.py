@@ -589,8 +589,8 @@ def test_config_round_trip_with_mesh():
 def test_single_process_needs_no_group(monkeypatch):
     """Without torchrun's environment init_distributed_mode does nothing;
     the helpers answer for one process; there is no data axis, and a model
-    axis is refused, by the mesh and by a StepBuilder whose config asks for
-    one."""
+    axis asks for its ranks, from the mesh and from a StepBuilder whose
+    config asks for one."""
     from wildlifemapper_tpu_torch import config as tcfg
     from wildlifemapper_tpu_torch.parallel import distributed as dist
     from wildlifemapper_tpu_torch.parallel import mesh as mesh_lib
@@ -604,12 +604,13 @@ def test_single_process_needs_no_group(monkeypatch):
     obj = {"a": [1, 2]}
     assert dist.all_gather_objects(obj)[0] is obj
     assert dist.save_on_master(lambda x: x + 1, 1) == 2
-    with pytest.raises(NotImplementedError, match="Tensor parallelism"):
+    ask = "model_parallel=2 .* run a multiple of 2 processes"
+    with pytest.raises(ValueError, match=ask):
         mesh_lib.make_mesh(model_parallel=2)
     assert mesh_lib.make_mesh() is None
     cfg = dataclasses.replace(step_config(tcfg), mesh=tcfg.MeshConfig(
         model_parallel_size=2))
-    with pytest.raises(NotImplementedError, match="Tensor parallelism"):
+    with pytest.raises(ValueError, match=ask):
         StepBuilder(cfg, device="cpu")
 
 

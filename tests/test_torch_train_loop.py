@@ -498,13 +498,38 @@ def test_cli_config_matches_jax(extra):
     assert got == want
 
 
-@pytest.mark.parametrize("flags,match", [
-    (("--model_parallel", "2"),
-     "queue 1 item 7, \"Tensor parallelism\"")])
 @pytest.mark.parametrize("cli", [tcli, tcli_eval], ids=["train", "evaluate"])
-def test_cli_refuses_unported_flags(cli, flags, match):
-    with pytest.raises(NotImplementedError, match=match):
-        cli.main(_argv(*flags))
+def test_cli_takes_model_parallel(cli, tmp_path, monkeypatch):
+    """--model_parallel 2: the trainer, as two gloo ranks on the CPU under
+    torchrun's environment, reaches the split step (each rank holds half of
+    every block's heads); the evaluation CLI parses the flag and evaluates
+    in one process with the model whole, as the JAX package's does."""
+    if cli is tcli:
+        from tests.test_torch_tensor_parallel import run_cli_ranks
+
+        for r in run_cli_ranks(tmp_path, _argv("--model_parallel", "2")):
+            assert r["model_parallel"] == 2
+            assert r["split"] and r["model_size"] == 2
+            assert r["qkv"] == [3 * 64 // 2, 64]
+            assert np.isfinite(r["loss"])
+        return
+    seen = []
+    init = tstep.StepBuilder.__init__
+
+    def recording_init(self, cfg, *a, **k):
+        seen.append(cfg.mesh.model_parallel_size)
+        init(self, cfg, *a, **k)
+
+    def tiny(args):
+        seen.append(args.model_parallel)
+        return tiny_config(tcfg)
+
+    monkeypatch.setattr(cli, "config_from_args", tiny)
+    monkeypatch.setattr(tstep.StepBuilder, "__init__", recording_init)
+    stats = cli.main(_argv("--model_parallel", "2", "--device", "cpu",
+                           "--max_batches", "1"))
+    assert seen == [2, 1]
+    assert "coco/AP" in stats
 
 
 @pytest.mark.parametrize("cli", [tcli, tcli_eval], ids=["train", "evaluate"])

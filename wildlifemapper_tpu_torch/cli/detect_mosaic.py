@@ -22,8 +22,7 @@ from pathlib import Path
 import numpy as np
 
 from ..data.transforms import decode_image
-from .train import (add_config_args, add_device_arg, check_ported,
-                    config_from_args)
+from .train import add_config_args, add_device_arg, config_from_args
 
 
 def decode_mosaic(path) -> np.ndarray:
@@ -44,7 +43,6 @@ def main(argv=None):
     p.add_argument("--score_threshold", type=float, default=0.5)
     add_device_arg(p)
     args = p.parse_args(argv)
-    check_ported(args)
     cfg = config_from_args(args)
 
     import torch

@@ -8,6 +8,11 @@ Usage:
       --torch_checkpoint checkpoints/best_checkpoint [--split val] [--nms]
   python -m wildlifemapper_tpu_torch.cli.evaluate --checkpoint best.pth
       (a reference .pth: SAM or a trained WildlifeMapper)
+
+It evaluates in one process with the model whole, as the JAX package's
+evaluate CLI does (it builds no mesh): --model_parallel is parsed with the
+trainer's flags and does not split the model. A checkpoint written by a
+tensor-parallel run holds the whole model.
 """
 
 from __future__ import annotations
@@ -15,8 +20,8 @@ from __future__ import annotations
 import argparse
 import dataclasses
 
-from .train import (add_config_args, add_device_arg, check_ported,
-                    config_from_args)
+from ..config import MeshConfig
+from .train import add_config_args, add_device_arg, config_from_args
 
 
 def main(argv=None):
@@ -40,8 +45,8 @@ def main(argv=None):
                         "architecture")
     add_device_arg(p)
     args = p.parse_args(argv)
-    check_ported(args)
-    cfg = config_from_args(args)
+    # one process, the model whole, whatever --model_parallel says
+    cfg = dataclasses.replace(config_from_args(args), mesh=MeshConfig())
     if args.config_json:
         from ..config import config_from_json
         with open(args.config_json) as f:

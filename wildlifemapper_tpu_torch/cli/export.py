@@ -20,8 +20,7 @@ from __future__ import annotations
 
 import argparse
 
-from .train import (add_config_args, add_device_arg, check_ported,
-                    config_from_args)
+from .train import add_config_args, add_device_arg, config_from_args
 
 
 def main(argv=None):
@@ -36,7 +35,6 @@ def main(argv=None):
                         "--orbax_checkpoint")
     add_device_arg(p)
     args = p.parse_args(argv)
-    check_ported(args)
     cfg = config_from_args(args)
 
     import torch

@@ -5,8 +5,9 @@ Behavioral parity target: wildlifemapper/train.py's argparse surface
 (train.py:46-115) mapped onto the typed Config; plus flags the reference
 hardcodes (ce weight, queries, resize, canvas, hfc rate, image dirs).
 Trains on the card. `--checkpoint` reads a reference .pth (SAM or a trained
-WildlifeMapper) through compat/torch_convert.py; `--model_parallel` above 1
-is refused: tensor parallelism is the next slice (ROADMAP.md queue 1 item 7).
+WildlifeMapper) through compat/torch_convert.py; `--model_parallel P` splits
+the model over groups of P ranks (parallel/mesh.py), the rest of the world
+being the data axis.
 
 Usage:
   python -m wildlifemapper_tpu_torch.cli.train --synthetic_data \
@@ -14,7 +15,11 @@ Usage:
       [--batch_size 6] ...
   torchrun --nproc_per_node N -m wildlifemapper_tpu_torch.cli.train ...
       (data-parallel over N cards, one process each; --batch_size is each
-      rank's)
+      data rank's)
+  torchrun --nproc_per_node N -m wildlifemapper_tpu_torch.cli.train \
+      --model_parallel P ...
+      (N / P data ranks x P model ranks: each model group of P cards holds
+      one model, split by heads and hidden widths, and takes the same rows)
 """
 
 from __future__ import annotations
@@ -145,8 +150,9 @@ def add_config_args(p: argparse.ArgumentParser):
                    help="fix the reference's PostProcess h/w swap")
     # parallelism
     p.add_argument("--model_parallel", type=int, default=1,
-                   help="tensor parallelism; not ported, above 1 is "
-                        "refused (data parallelism: torchrun)")
+                   help="tensor parallelism: split the model over groups of "
+                        "this many ranks (torchrun with a multiple of it); "
+                        "the evaluation CLIs run one process unsplit")
     # logging
     p.add_argument("--use_wandb", action="store_true")
     p.add_argument("--wandb_project", default="wildlifemapper-tpu")
@@ -163,15 +169,6 @@ def add_device_arg(p: argparse.ArgumentParser):
                    help="torch device; default the card (raises without "
                         "CUDA), 'cpu' to run on the CPU")
     return p
-
-
-def check_ported(args):
-    """Refuse the flags whose code the port does not have yet, rather than
-    ignoring them."""
-    if args.model_parallel > 1:
-        from ..parallel.mesh import TP_REFUSAL
-        raise NotImplementedError(
-            f"--model_parallel {args.model_parallel}: {TP_REFUSAL}")
 
 
 def config_from_args(args) -> Config:
@@ -241,11 +238,11 @@ def main(argv=None, watch=None):
     """Train from the command line `argv`; `watch`, a
     train.profiling.StepWatch, clocks the loop's steps on the card. Under
     torchrun each rank joins the process group on its own card (LOCAL_RANK)
-    and the run is data-parallel over the ranks."""
+    and the run is data-parallel over the data ranks, tensor-parallel over
+    groups of --model_parallel ranks."""
     p = add_config_args(argparse.ArgumentParser(__doc__))
     add_device_arg(p)
     args = p.parse_args(argv)
-    check_ported(args)
     cfg = config_from_args(args)
 
     from ..parallel import distributed as dist

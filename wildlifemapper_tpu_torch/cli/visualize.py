@@ -20,8 +20,7 @@ from pathlib import Path
 import numpy as np
 
 from ..train.logging import draw_detections
-from .train import (add_config_args, add_device_arg, check_ported,
-                    config_from_args)
+from .train import add_config_args, add_device_arg, config_from_args
 
 
 def render_overlay(image, size, boxes, labels, scores, gt_boxes=None,
@@ -73,7 +72,6 @@ def main(argv=None):
                         "glance")
     add_device_arg(p)
     args = p.parse_args(argv)
-    check_ported(args)
     cfg = config_from_args(args)
     if args.config_json:
         from ..config import config_from_json

@@ -18,7 +18,8 @@ import torch
 
 from ..config import Config
 from ..data.loader import DataLoader
-from ..parallel.distributed import all_gather_objects, get_world_size
+from ..parallel.distributed import (all_gather_objects, data_group,
+                                    get_data_world_size)
 from ..train.metrics import MetricLogger
 from .coco_eval import CocoEvaluator
 from .postprocess import batched_nms, postprocess
@@ -171,15 +172,17 @@ def evaluate(eval_step: Callable, model: torch.nn.Module, loader: DataLoader,
     finally:
         batches.close()
 
-    if get_world_size() > 1:
+    if get_data_world_size() > 1:
         # cross-process merge (reference: pickle all_gather of eval_imgs,
-        # inference.py:240-259). Every rank scores the same list, in the
-        # split's own order, which one process's unshuffled loader follows:
-        # the same detections then give one process's stats to the last bit
-        # (score ties across images break by that order). An id that the
-        # loader repeats to pad a shard counts once.
+        # inference.py:240-259) over the data group, whose ranks hold one
+        # rank of each model group: a model group's detections, the same on
+        # each of its ranks, enter once. Every rank scores the same list, in
+        # the split's own order, which one process's unshuffled loader
+        # follows: the same detections then give one process's stats to the
+        # last bit (score ties across images break by that order). An id
+        # that the loader repeats to pad a shard counts once.
         dts = {}
-        for shard in all_gather_objects(evaluator._dts):
+        for shard in all_gather_objects(evaluator._dts, data_group()):
             for img_id, pred in shard.items():
                 dts.setdefault(img_id, pred)
         order = {img_id: n for n, img_id in enumerate(gt_index.ids)}

@@ -15,7 +15,11 @@ from .common import LayerNorm, Linear, MLPBlock, MLPHead
 
 class DownsampleAttention(nn.Module):
     """Separate q/k/v projections with internal-dim downsampling
-    (reference transformer.py:185-240). Scales after QK."""
+    (reference transformer.py:185-240). Scales after QK.
+
+    Split over the model axis (parallel/mesh.py::shard_model), q_proj,
+    k_proj and v_proj are column splits by whole heads and out_proj the
+    row split; `num_heads` and `internal` are then this rank's."""
 
     def __init__(self, embedding_dim: int, num_heads: int,
                  downsample_rate: int = 1):
@@ -27,6 +31,18 @@ class DownsampleAttention(nn.Module):
         self.k_proj = Linear(embedding_dim, internal)
         self.v_proj = Linear(embedding_dim, internal)
         self.out_proj = Linear(internal, embedding_dim)
+
+    def tp_width(self) -> int:
+        """What a model axis must divide to split the layer: its heads."""
+        return self.num_heads
+
+    def tp_split(self, group, ranks: int, rank: int) -> None:
+        """Run as this rank's heads (parallel/mesh.py::shard_model)."""
+        self.num_heads //= ranks
+        self.internal //= ranks
+        for proj in (self.q_proj, self.k_proj, self.v_proj):
+            proj.split, proj.group = "column", group
+        self.out_proj.split, self.out_proj.group = "row", group
 
     def forward(self, q, k, v):
         heads, internal = self.num_heads, self.internal

@@ -13,6 +13,12 @@ K6 below the threshold, K5 at or above it; the MLP is the plain one.
 With remat_blocks a block keeps, for the backward, its input and its
 attention output and recomputes the rest there (the JAX package's remat
 policy, vit.py:381-391): see Block.
+
+Under tensor parallelism (parallel/mesh.py::shard_model) a block's
+attention holds whole heads of q, k and v and proj's matching input
+columns, and its MLP a slice of the hidden width: the kernels run on this
+rank's heads or hidden shard, and each of the two sums over the model group
+runs outside the remat segments (Block).
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from ..ops.flash_attention_v2 import flash_attention_packed
 from ..ops.fused_mlp import outputs_unread
 from ..ops.windowed_attention import windowed_attention_rel_pos
 from ..ops.windowed_attention_v2 import windowed_attention_packed
+from ..parallel.tensor_parallel import copy_to_model
 from .common import LayerNorm, Linear, MLPBlock
 
 # Token-count boundary between the windowed kernel and the global kernel, as
@@ -72,6 +79,13 @@ class RelPosAttention(nn.Module):
     row as on the full grid. With `remat` (the attention segment of a remat
     Block) proj, the segment's last product, runs no product in the
     segment's recompute (models/common.py: Linear.forward_in_remat).
+
+    Split over the model axis, `num_heads` and `width` are this rank's (its
+    heads, heads x head_dim): qkv holds the rows [q, k, v] of those heads,
+    so the packed (B, N, 3 * width) operand is what K1 / K2 take, and proj
+    is the matching row split. The rel-pos tables stay whole on every rank
+    and reach the attention through copy_to_model, which sums their
+    gradient over the ranks' heads.
     """
 
     def __init__(self, dim: int, num_heads: int, table_size: Tuple[int, int],
@@ -85,7 +99,8 @@ class RelPosAttention(nn.Module):
         self.use_flash = use_flash
         self.attn_impl = attn_impl
         self.remat = remat
-        head_dim = dim // num_heads
+        self.head_dim = head_dim = dim // num_heads
+        self.width = dim              # this rank's q (k, v) width
         self.qkv = Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = Linear(dim, dim)
         if use_rel_pos:
@@ -104,12 +119,29 @@ class RelPosAttention(nn.Module):
             rw = rw[off:off + 2 * w - 1]
         return rh.to(dt), rw.to(dt)
 
+    def tp_width(self) -> int:
+        """What a model axis must divide to split the layer: its heads."""
+        return self.num_heads
+
+    def tp_split(self, group, ranks: int, rank: int) -> None:
+        """Run as this rank's heads (parallel/mesh.py::shard_model)."""
+        self.num_heads //= ranks
+        self.width //= ranks
+        self.qkv.split, self.qkv.group = "column", group
+        self.proj.split, self.proj.group = "row", group
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.proj.finish(self.partial(x))
+
+    def partial(self, x: torch.Tensor) -> torch.Tensor:
+        """The attention's output, or with a split this rank's share of it
+        (proj's product over its heads, without the bias)."""
         b, h, w, _ = x.shape
         n = h * w
         dt = x.dtype
         heads = self.num_heads
-        head_dim = self.dim // heads
+        head_dim = self.head_dim
+        width = self.width
         scale = head_dim ** -0.5
         if self.use_flash and not self.use_rel_pos and n >= GLOBAL_N_THRESHOLD:
             raise ValueError(
@@ -117,15 +149,17 @@ class RelPosAttention(nn.Module):
                 "use_flash_attention: the global kernel takes the rel-pos "
                 "tables (set use_rel_pos=True or use_flash_attention=False)")
 
-        qkv = self.qkv(x.reshape(b, n, self.dim))             # (B, N, 3C)
+        qkv = self.qkv.partial(x.reshape(b, n, self.dim))     # (B, N, 3C)
         if self.use_rel_pos:
             rph, rpw = self._tables(h, w, dt)
+            rph = copy_to_model(rph, self.qkv.group)
+            rpw = copy_to_model(rpw, self.qkv.group)
 
         if (self.use_flash and self.use_rel_pos
                 and self.attn_impl == "packed"):
             rh_sel = rel_pos_ops.select_rel_pos(rph, h, h)    # (h, kh, d)
             rw_sel = rel_pos_ops.select_rel_pos(rpw, w, w)    # (w, kw, d)
-            q5 = qkv[:, :, :self.dim].reshape(b, h, w, heads, head_dim)
+            q5 = qkv[:, :, :width].reshape(b, h, w, heads, head_dim)
             rel_h = torch.einsum("brced,rkd->brcek", q5, rh_sel
                                  ).reshape(b, n, heads, h)
             rel_w = torch.einsum("brced,ckd->brcek", q5, rw_sel
@@ -160,11 +194,11 @@ class RelPosAttention(nn.Module):
                 attn = torch.softmax(attn, dim=-1).to(dt)
                 out = torch.matmul(attn, v)
             out = out.reshape(b, heads, n, head_dim).permute(0, 2, 1, 3)
-            out = out.reshape(b, n, self.dim)
+            out = out.reshape(b, n, width)
         if self.remat and torch.is_grad_enabled():
             out = self.proj.forward_in_remat(out)
         else:
-            out = self.proj(out)
+            out = self.proj.partial(out)
         return out.reshape(b, h, w, self.dim)
 
 
@@ -193,7 +227,14 @@ class Block(nn.Module):
     the MLP's dh kernel recomputes the hidden from the MLP's input). The
     attention segment ends at proj: window_unpartition runs outside it,
     where it saves nothing. The blocks draw no random numbers, so the
-    recompute is the forward's own arithmetic."""
+    recompute is the forward's own arithmetic.
+
+    Split over the model axis, the segments end at the partial products
+    of proj and of the MLP, and their sums over the model group (and the
+    row splits' biases) run after each segment, outside it: a recompute
+    issues no collective, which a rank could not match on its peers (the
+    non-reentrant recompute runs when the backward first needs a saved
+    tensor)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, use_rel_pos: bool = True,
@@ -215,35 +256,41 @@ class Block(nn.Module):
                             use_fused=use_flash and attn_impl == "packed")
 
     def _attend(self, x: torch.Tensor) -> torch.Tensor:
-        """norm1 -> (windows) -> attention, proj included."""
+        """norm1 -> (windows) -> attention, proj's product included (this
+        rank's share of it under a split)."""
         x = self.norm1(x)
         if self.window_size > 0:
             x, _ = window_ops.window_partition(x, self.window_size)
-        return self.attn(x)
+        return self.attn.partial(x)
 
     def _attention(self, x: torch.Tensor, attend) -> torch.Tensor:
-        """attend(x), back on x's grid from the windows."""
+        """attend(x), back on x's grid from the windows, summed over the
+        model group."""
         out = attend(x)
         if self.window_size > 0:
             h, w, ws = x.shape[1], x.shape[2], self.window_size
             out = window_ops.window_unpartition(
                 out, ws, (h + (-h) % ws, w + (-w) % ws), (h, w))
-        return out
+        return self.attn.proj.finish(out)
 
-    def _residual_mlp(self, shortcut: torch.Tensor,
-                      attn_out: torch.Tensor) -> torch.Tensor:
+    def _residual_mlp(self, shortcut: torch.Tensor, attn_out: torch.Tensor):
+        """(the residual sum, the MLP's output or this rank's share of
+        it)."""
         x = shortcut + attn_out
-        return x + self.mlp(self.norm2(x))
+        return x, self.mlp.partial(self.norm2(x))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not (self.remat and torch.is_grad_enabled()):
-            return self._residual_mlp(x, self._attention(x, self._attend))
+            x, mlp_out = self._residual_mlp(
+                x, self._attention(x, self._attend))
+            return x + self.mlp.finish(mlp_out)
         attn_out = self._attention(x, lambda t: checkpoint(
             self._attend, t, use_reentrant=False, preserve_rng_state=False,
             context_fn=_recompute_contexts))
-        return checkpoint(self._residual_mlp, x, attn_out,
-                          use_reentrant=False, preserve_rng_state=False,
-                          context_fn=_recompute_contexts)
+        x, mlp_out = checkpoint(self._residual_mlp, x, attn_out,
+                                use_reentrant=False, preserve_rng_state=False,
+                                context_fn=_recompute_contexts)
+        return x + self.mlp.finish(mlp_out)
 
 
 class Neck(nn.Sequential):

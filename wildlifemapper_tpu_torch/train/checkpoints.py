@@ -13,7 +13,12 @@ temporary file and renamed, so a crash leaves no half checkpoint.
 
 Over a process group only rank 0 writes, as in the JAX package, and every
 rank reads; each save ends in a barrier, so no rank resumes from a file that
-rank 0 is still writing.
+rank 0 is still writing. Under tensor parallelism a checkpoint keeps the
+one-process format: the model's, Adam's and the EMA's shards are gathered
+over the model group before rank 0 writes, and a restore cuts the whole
+state to this rank's shard, so a run resumes at any model axis, as orbax
+lets the JAX package's. The dropout generators are the data ranks' (the
+ranks of one model group draw the same masks).
 """
 
 from __future__ import annotations
@@ -24,26 +29,44 @@ from typing import Any, Callable, Dict, Optional, Union
 
 import torch
 
-from ..parallel.distributed import (all_gather_objects, barrier, get_rank,
-                                    get_world_size, is_main_process)
+from ..parallel.distributed import (all_gather_objects, barrier,
+                                    data_group, get_data_rank,
+                                    get_data_world_size, is_main_process)
 from .step import TrainState
+
+
+def _param_names(state: TrainState):
+    """The name of each of the optimizer's parameter indices."""
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    return [names[id(p)] for g in state.optimizer.param_groups
+            for p in g["params"]]
 
 
 def state_tree(state: TrainState,
                generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
     """What a checkpoint holds for `state` (and the dropout generator:
-    over a process group, the list of every rank's, gathered here, so every
+    over a data axis, the list of every data rank's, gathered here, so every
     rank calls this). The tensors are the live ones: nothing is copied from
-    the card until a save writes them."""
+    the card until a save writes them; under tensor parallelism they are
+    the whole model's, gathered over the model group."""
     gen = generator.get_state() if generator is not None else None
-    if gen is not None and get_world_size() > 1:
-        gen = all_gather_objects(gen)
+    if gen is not None and get_data_world_size() > 1:
+        gen = all_gather_objects(gen, data_group())
+    model = state.model.state_dict()
+    optimizer = state.optimizer.state_dict()
+    ema = state.ema_params
+    shards = state.model_parallel
+    if shards is not None:
+        model = shards.gather(model)
+        optimizer = shards.gather_opt_state(optimizer, _param_names(state))
+        if ema is not None:
+            ema = shards.gather(ema)
     return {
-        "model": state.model.state_dict(),
-        "optimizer": state.optimizer.state_dict(),
+        "model": model,
+        "optimizer": optimizer,
         "scheduler": state.scheduler.state_dict(),
         "step": int(state.step),
-        "ema_params": state.ema_params,
+        "ema_params": ema,
         "generator": gen,
     }
 
@@ -75,24 +98,34 @@ class CheckpointManager:
     def restore(self, name, target: TrainState,
                 generator: Optional[torch.Generator] = None) -> TrainState:
         """Load checkpoint `name` into `target` (its model, optimizer and
-        scheduler, in place) and `generator`; returns `target`."""
+        scheduler, in place) and `generator`; returns `target`. Under
+        tensor parallelism the whole state is cut to this rank's shard."""
         raw = self.load(name)
-        target.model.load_state_dict(raw["model"])
-        target.optimizer.load_state_dict(raw["optimizer"])
+        model, optimizer, ema = raw["model"], raw["optimizer"], \
+            raw["ema_params"]
+        shards = target.model_parallel
+        if shards is not None:
+            model = shards.shard(model)
+            optimizer = shards.shard_opt_state(optimizer,
+                                               _param_names(target))
+            if ema is not None:
+                ema = shards.shard(ema)
+        target.model.load_state_dict(model)
+        target.optimizer.load_state_dict(optimizer)
         target.scheduler.load_state_dict(raw["scheduler"])
         target.step = int(raw["step"])
-        if raw["ema_params"] is not None:
+        if ema is not None:
             dev = next(target.model.parameters()).device
-            target.ema_params = {k: v.to(dev)
-                                 for k, v in raw["ema_params"].items()}
+            target.ema_params = {k: v.to(dev) for k, v in ema.items()}
         gen = raw["generator"]
         if generator is not None and gen is not None:
-            if isinstance(gen, list):     # one state a rank
-                if get_rank() >= len(gen):
+            if isinstance(gen, list):     # one state a data rank
+                rank = get_data_rank()
+                if rank >= len(gen):
                     raise ValueError(
                         f"{name} holds the dropout generators of "
-                        f"{len(gen)} ranks; this is rank {get_rank()}")
-                gen = gen[get_rank()]
+                        f"{len(gen)} data ranks; this is data rank {rank}")
+                gen = gen[rank]
             generator.set_state(gen)
         return target
 

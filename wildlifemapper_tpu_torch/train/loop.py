@@ -11,10 +11,13 @@ to pinned host memory behind their step). The batch comes from pinned host
 memory and its copy does not wait.
 
 Over a process group (parallel/distributed.py) every rank runs this loop on
-its own card with its shard of each epoch (the loaders' process_index /
-process_count) through the data-parallel step; the meters and the
-evaluation's detections are merged over the ranks, and only rank 0 writes
-config.json, the best tracker and the checkpoints.
+its own card with its data rank's shard of each epoch (the loaders'
+process_index / process_count over the data group) through the
+data-parallel step; the meters and the evaluation's detections are merged
+over the data group, and only rank 0 writes config.json, the best tracker
+and the checkpoints. Under tensor parallelism (cfg.mesh.model_parallel_size
+P > 1) the P ranks of a model group take the same rows, draw the same
+dropout masks and hold one model between them.
 """
 
 from __future__ import annotations
@@ -35,7 +38,9 @@ from ..config import Config, config_to_json
 from ..data.loader import DataLoader, build_dataset
 from ..eval.evaluate import evaluate, to_device, to_host
 from ..models.detector import resolve_device
-from ..parallel.distributed import get_rank, get_world_size
+from ..parallel.distributed import (get_data_rank, get_data_world_size,
+                                    get_rank)
+from ..parallel.mesh import make_mesh
 from ..weights import load_reference_state_dict
 from .checkpoints import CheckpointManager, state_tree
 from .metrics import MetricLogger
@@ -63,10 +68,13 @@ def train(cfg: Config, workdir: str = "checkpoints",
     WildlifeMapper) through compat/torch_convert.py, whose missing entries
     keep their drawn values. `watch` clocks the steps and evaluations on the
     card. In a process group (parallel/distributed.py) the run is
-    data-parallel over the world, each rank on its current card."""
+    data-parallel over the data group, each rank on its current card, and
+    with cfg.mesh.model_parallel_size above 1 tensor-parallel over each
+    model group."""
     device = resolve_device(device)
     epochs = epochs if epochs is not None else cfg.train.epochs
-    rank, ranks = get_rank(), get_world_size()
+    make_mesh(cfg.mesh.model_parallel_size)      # the grid the loop reads
+    rank, ranks = get_data_rank(), get_data_world_size()
 
     train_ds = build_dataset("train", cfg.data)
     val_ds = build_dataset("val", cfg.data)
@@ -105,13 +113,14 @@ def train(cfg: Config, workdir: str = "checkpoints",
                      f"{len(report['missing'])}")
         state = builder.init_state(steps_per_epoch)
         ckpt = CheckpointManager(workdir)
-        if rank == 0:
+        if get_rank() == 0:
             # Persist the exact Config beside the checkpoints so evaluation
             # can rebuild a from-scratch run without its flags.
             (Path(workdir) / "config.json").write_text(config_to_json(cfg))
         # the adaptor's dropout draws from a generator on the card, one seed
-        # a rank, saved and restored with the checkpoints so a resumed run
-        # draws what an unbroken one draws
+        # a data rank (a model group's ranks draw the same masks), saved and
+        # restored with the checkpoints so a resumed run draws what an
+        # unbroken one draws
         dropout_gen = torch.Generator(device=device).manual_seed(
             cfg.train.seed + 1 + rank)
         start_epoch = 0
@@ -228,7 +237,7 @@ def train(cfg: Config, workdir: str = "checkpoints",
                 is_best = candidate < best_value
             if is_best:
                 best_value = candidate
-            if is_best and rank == 0:
+            if is_best and get_rank() == 0:
                 # "loss" key kept for segmented-run readers of older files
                 best_file.write_text(json.dumps(
                     {"loss": epoch_loss, "epoch": epoch,

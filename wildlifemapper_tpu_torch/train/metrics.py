@@ -103,13 +103,15 @@ class MetricLogger:
         Meter NAME SETS can differ across processes (ragged), so this
         gathers a dict of pairs by the object all_gather rather than a
         collective over a tensor. The sums run in rank order, so every rank
-        ends with the same averages to the last bit."""
-        from ..parallel.distributed import all_gather_objects, get_world_size
+        ends with the same averages to the last bit. They run over the data
+        group: the ranks of a model group hold the same rows' meters."""
+        from ..parallel.distributed import (all_gather_objects, data_group,
+                                            get_data_world_size)
 
-        if get_world_size() == 1:
+        if get_data_world_size() == 1:
             return
         local = {k: (m.count, m.total) for k, m in self.meters.items()}
-        gathered = all_gather_objects(local)
+        gathered = all_gather_objects(local, data_group())
         for k in sorted(set().union(*gathered)):
             pairs = [g[k] for g in gathered if k in g]
             self.meters[k].count = sum(c for c, _ in pairs)

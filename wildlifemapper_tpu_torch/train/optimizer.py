@@ -8,7 +8,8 @@ clipping; counterpart of wildlifemapper_tpu/train/optimizer.py.
     an optional linear warm-up.
   * Freeze policy (reference network.py:19-34): inside the image encoder
     only hfc_embed / hfc_attn / patch_embed train.
-  * Gradient clipping by global norm 0.1 over the trainable parameters.
+  * Gradient clipping by global norm 0.1 over the trainable parameters
+    (under tensor parallelism the norm of the whole model's gradients).
 
 torch.optim.AdamW with eps 1e-8, betas (0.9, 0.999) and decoupled decay
 agrees with optax.adamw term by term: p <- p - lr*(m_hat / (sqrt(v_hat) +
@@ -17,12 +18,13 @@ eps) + wd*p), with lr read at the count of updates already made.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, List, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
 
 from ..config import TrainConfig
+from ..parallel.tensor_parallel import all_reduce_model
 
 HFC_PREFIXES = ("image_encoder.hfc_embed.", "image_encoder.hfc_attn.",
                 "image_encoder.patch_embed.")
@@ -89,15 +91,35 @@ def build_optimizer(model: nn.Module, cfg: TrainConfig, steps_per_epoch: int):
 
 @torch.no_grad()
 def clip_by_global_norm_(grads: Iterable[torch.Tensor],
-                         max_norm: float) -> torch.Tensor:
+                         max_norm: float,
+                         sharded: Optional[Iterable[bool]] = None,
+                         model_group=None) -> torch.Tensor:
     """optax.clip_by_global_norm in place: gradients are left alone when
     their global norm is below max_norm and otherwise become
     g / norm * max_norm (torch's clip_grad_norm_ divides by norm + 1e-6,
     a 1e-5 relative difference at max_norm 0.1). Returns the norm before
-    clipping, without synchronising with the host."""
+    clipping, without synchronising with the host.
+
+    Under tensor parallelism `sharded` marks the gradients that are this
+    rank's shard of a split parameter (parallel/mesh.py): their squared
+    norm is summed over `model_group` (one collective on the device), and
+    the other gradients, whole on every rank, count once."""
     grads = list(grads)
-    norm = torch.linalg.vector_norm(
-        torch.stack(torch._foreach_norm(grads)))
+    if model_group is not None:
+        sharded = list(sharded)
+        own = [g for g, s in zip(grads, sharded) if s]
+        whole = [g for g, s in zip(grads, sharded) if not s]
+
+        def sq(gs):
+            if not gs:
+                return grads[0].new_zeros((), dtype=torch.float32)
+            return torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(gs))).float().square()
+
+        norm = (sq(whole) + all_reduce_model(sq(own), model_group)).sqrt()
+    else:
+        norm = torch.linalg.vector_norm(
+            torch.stack(torch._foreach_norm(grads)))
     below = norm < max_norm
     one = torch.ones_like(norm)
     torch._foreach_div_(grads, torch.where(below, one, norm))

@@ -12,12 +12,22 @@ A step synchronises with the host once, in the criterion, where the matching
 cost crosses to scipy (ops/lsap.py); once more for each aux layer. The
 metrics stay on the device until the caller reads them.
 
-Over the data axis (the default process group, parallel/mesh.py) each
-rank runs the step on its own rows: the forward goes through DistributedDataParallel, which averages
-the gradients over the ranks inside the backward, and the criterion
-normalises over the global batch, so that clip, AdamW and EMA see the
-gradient of the global loss and stay identical on every rank (the JAX step
-over an N-way data axis). The eval step runs the bare model.
+Over the data axis (the data group of parallel/mesh.py: the default
+process group without a model axis) each rank runs the step on its own
+rows: the forward goes through DistributedDataParallel over the data group,
+which averages the gradients over its ranks inside the backward, and the
+criterion normalises over the global batch of the data group, so that clip,
+AdamW and EMA see the gradient of the global loss and stay identical on
+every rank of the group (the JAX step over an N-way data axis). The eval
+step runs the bare model.
+
+Over a model axis (`cfg.mesh.model_parallel_size` P > 1, the JAX
+`StepBuilder(cfg, mesh=make_mesh(P), use_tp=True)` step) `init_state` splits
+the model (parallel/mesh.py::shard_model) before it builds the optimizer:
+each rank holds its shard of every split pair, so AdamW's moments and the
+EMA follow their parameters' shards, and the clip's norm is the whole
+model's. The model ranks of a data group take the same rows, compute the
+same loss and keep their whole parameters in lock step.
 
 Frozen parameters (the freeze policy of train/optimizer.py) have
 requires_grad False, so autograd skips their weight-gradient products while
@@ -37,7 +47,8 @@ from torch.nn.parallel import DistributedDataParallel
 from ..config import Config
 from ..models import WildlifeMapper
 from ..models.detector import resolve_device
-from ..parallel.mesh import data_parallel, make_mesh
+from ..parallel.mesh import (Mesh, ModelShards, data_axis, data_parallel,
+                             make_mesh, shard_model)
 from .criterion import set_criterion
 from .optimizer import build_optimizer, clip_by_global_norm_
 
@@ -57,6 +68,8 @@ class TrainState:
     # `model` wrapped for the data axis, which the train step's forward goes
     # through; None on one process.
     data_parallel: Optional[DistributedDataParallel] = None
+    # how `model` is split over the model axis; None without one
+    model_parallel: Optional[ModelShards] = None
 
 
 @functools.lru_cache(maxsize=8)
@@ -95,32 +108,40 @@ def device_normalize(images: torch.Tensor,
 class StepBuilder:
     """Builds the model and the train / eval steps for a Config, on the card
     unless the caller passes device="cpu" (as WildlifeMapper). Built in a
-    process group, the train step is data-parallel over its ranks."""
+    process group, the train step is data-parallel over its data group, and
+    with cfg.mesh.model_parallel_size P > 1 tensor-parallel over groups of
+    P ranks (which needs a process group of a multiple of P ranks)."""
 
     def __init__(self, cfg: Config,
                  generator: Optional[torch.Generator] = None,
                  device: Union[None, str, torch.device] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        # the data axis: the default process group, None in one process
+        # P = 1: the data axis, the default process group (None in one
+        # process); P > 1: the grid of data x model ranks
         self.mesh = make_mesh(cfg.mesh.model_parallel_size)
+        # the group the step is data-parallel over, None if it is not
+        self.data_group = data_axis(self.mesh)
         self.model = WildlifeMapper(cfg.model, generator=generator,
                                     device=self.device)
 
     def init_state(self, steps_per_epoch: int) -> TrainState:
-        """Apply the freeze policy and build the optimizer, the schedule and
-        the EMA copy around `self.model` (load weights into
-        `self.model` first), and over the data axis the data-parallel
-        wrapper, which takes rank 0's parameters."""
+        """Split `self.model` over the model axis, if there is one, apply
+        the freeze policy and build the optimizer, the schedule and the EMA
+        copy around it (load whole weights into `self.model` first), and
+        over the data axis the data-parallel wrapper, which takes the data
+        group's first rank's parameters."""
+        shards = (shard_model(self.model, self.mesh)
+                  if isinstance(self.mesh, Mesh) else None)
         opt, sched = build_optimizer(self.model, self.cfg.train,
                                      steps_per_epoch)
-        wrapped = (data_parallel(self.model) if self.mesh is not None
-                   else None)
+        wrapped = (data_parallel(self.model, self.data_group)
+                   if self.data_group is not None else None)
         ema = None
         if self.cfg.train.ema_decay > 0:
             ema = {k: p.detach().clone()
                    for k, p in self.model.named_parameters()}
-        return TrainState(self.model, opt, sched, 0, ema, wrapped)
+        return TrainState(self.model, opt, sched, 0, ema, wrapped, shards)
 
     def images(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """The batch's images as the model takes them (uint8 canvases are
@@ -149,13 +170,17 @@ class StepBuilder:
                       generator=generator)
         losses = set_criterion(out, batch, cfg.criterion,
                                num_classes=cfg.model.num_classes,
-                               global_batch=self.mesh is not None)
+                               global_batch=self.data_group is not None)
         state.optimizer.zero_grad(set_to_none=True)
         losses["loss"].backward()
 
-        grads = [p.grad for g in state.optimizer.param_groups
-                 for p in g["params"] if p.grad is not None]
-        grad_norm = clip_by_global_norm_(grads, cfg.train.clip_max_norm)
+        params = [p for g in state.optimizer.param_groups
+                  for p in g["params"] if p.grad is not None]
+        grad_norm = clip_by_global_norm_(
+            [p.grad for p in params], cfg.train.clip_max_norm,
+            [hasattr(p, "model_parallel_split") for p in params],
+            None if state.model_parallel is None
+            else state.model_parallel.mesh.model)
         state.optimizer.step()
         state.scheduler.step()
         state.step += 1
@@ -179,5 +204,5 @@ class StepBuilder:
         losses = set_criterion(out, batch, self.cfg.criterion,
                                num_classes=self.cfg.model.num_classes,
                                row_valid=batch.get("batch_valid"),
-                               global_batch=self.mesh is not None)
+                               global_batch=self.data_group is not None)
         return out, losses
