@@ -26,7 +26,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      wildlifemapper_tpu_torch/csrc (timed), registers and spills of every
      instantiation, the Hopper (wgmma + TMA) and the resident (windowed)
      bodies included, the latter, the Hopper forward and backward, the K3
-     GEMM body, the f32 K3 bodies at D 1280 and every head-dim-80
+     GEMM body, the f32 K3 GEMM body (also to at most 128 registers, two
+     blocks an SM) and every head-dim-80
      instantiation (the tile bodies, the Hopper forward and backward, the
      resident forward and backward) held to no spill, and no line of
      ptxas saying it serialized the wgmma products of a kernel (C7515);
@@ -45,7 +46,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      7x7 with odd table widths, 100 = 10x10, one window-head, a window count
      that is a multiple of nothing); K3 at R = 16384 and 9216 and at rows
      ragged against the GEMM body's 128-row tiles (1, 129, 1000), ViT-L and
-     ViT-H widths (f32 at D = 1280 on 16-row tiles); K1,
+     ViT-H widths (both dtypes, also ViT-H at R = 4096 and a
+     tensor-parallel rank's F 2560 / 1536 at R = 1000), every K3 case in
+     both dtypes run twice, bit-identical; K1,
      K2, K5 and K6 at head dim 80 at ViT-H's shapes (25 windows of 196 and
      4096 tokens, 16 heads, batch 1; bf16 through the Hopper and the
      resident bodies) and ragged against them (K2 on a 25x40 grid, K5 on
@@ -85,7 +88,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      body in its global blocks and the resident body in its windows, K3 the
      GEMM body), the forward's time beside the card's name and power limit.
      Then ViT-B and ViT-H in f32 at batch 1 through the packed kernels (K3's
-     scalar body, at D 1280 for ViT-H; the tile attention bodies) against the
+     f32 GEMM body, at D 1280 for ViT-H; the tile attention bodies) against the
      plain path with the same weights, logits and boxes at the full model's
      atol 1e-4 / rtol 1e-3, with their launch counts.
   6. kernels, backward: the forward's lse, and the gradients that autograd
@@ -159,7 +162,19 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      large encoders' attention shapes of phase 2, forward and whole
      backward, each in turns with the library call, beside the plain
      versions and the bounds, and K3 at R = 9216 with ViT-L's and ViT-H's
-     widths (the kernels' "large_shapes").
+     widths (the kernels' "large_shapes"). 9b the f32 bodies
+     (scripts/time_f32_kernels.py, F32_ITERS launches a turn): K3's f32 GEMM
+     body forward and dh at R = 16384 and 9216 with D 768 and 1024, R = 4096
+     and 9216 with D 1280, each in turns with its f32 library call (cuBLAS
+     SGEMM chains, TF32 off) beside its bound (f32 operations over 67
+     TFLOP/s) and its plain version; the f32 attention bodies (K1, K2, K4,
+     K5, K6) forward and whole backward at the main paths' shapes in turns
+     with SDPA (the bias as attn_mask) and autograd through it
+     (`f32_kernel_time`); the f32 ViT-B full-canvas forward at batch 4
+     under the profiler, its device ms and K3's share (`f32_forward_device`;
+     phase 10 reads the same for its f32 steps, `loop_f32_device`). The
+     "kernels" line gains the f32 K3 body's forward and dh, their launches
+     those of the f32 paths (phases 3, 4b, 7 and 14c).
 
  10. the training loop (train/loop.py through cli/train.py's Config, the
      vendored annotation bundle, synthetic tiles at 1024 cached in a
@@ -346,6 +361,13 @@ TRAIN_STEPS = 3
 PEAK_FLOPS = 989e12   # H100 SXM, bf16 dense
 PEAK_BYTES = 3.35e12  # H100 SXM, HBM3
 PEAK_F32 = 67e12      # H100 SXM, float32 outside the tensor cores
+# registers a thread of the f32 K3 GEMM body: 256 threads, two blocks an SM
+F32_GEMM_REGISTERS = 128
+# the f32 K3 GEMM body's kernel, as the profiler names it
+K3_F32_KERNEL = "fused_mlp_gemm_f32_kernel"
+# launches a turn when phase 9 times the f32 bodies beside their library
+# calls (scripts/time_f32_kernels.py; each call takes 0.3-80 ms)
+F32_ITERS = 3
 
 
 def emit(phase: str, **fields) -> None:
@@ -443,6 +465,30 @@ def host_us(fn, calls: int = 50) -> float:
     t1 = time.perf_counter()
     torch.cuda.synchronize()
     return (t1 - t0) / calls * 1e6
+
+
+def device_ms_and_share(fn, name_part: str, calls: int = 1):
+    """fn() `calls` times under torch.profiler (the device's activity
+    alone): (the last call's result, the device's kernel ms a call, the ms
+    a call of the kernels whose names hold `name_part`, their share of the
+    device's kernel time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            res = fn()
+        torch.cuda.synchronize()
+    total = part = 0.0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            total += e.self_device_time_total
+            if name_part in e.key:
+                part += e.self_device_time_total
+    return (res, total / 1e3 / calls, part / 1e3 / calls,
+            part / total if total else 0.0)
 
 
 def bound_ms(flops: float, nbytes: float, f32_flops: float = 0.0):
@@ -727,15 +773,30 @@ def loop_phase(gpu, golden_sd, reset_counts, all_counts, per_step) -> dict:
              from_scratch_peak_memory_bytes=peak_fs)
 
         # ---- bf16 against f32 over LOOP_DTYPE_STEPS steps, same weights and
-        # batches
+        # batches; the f32 run under the profiler (device time alone): its
+        # device ms a step and the share of the f32 K3 GEMM body
         curves = {}
         for name, amp in (("bfloat16", True), ("float32", False)):
-            r = train_run(config(amp=amp), work / name, epochs=1,
-                          max_steps_per_epoch=LOOP_DTYPE_STEPS,
-                          max_eval_batches=1, init_state_dict=golden_sd)
+            def run():
+                return train_run(config(amp=amp), work / name, epochs=1,
+                                 max_steps_per_epoch=LOOP_DTYPE_STEPS,
+                                 max_eval_batches=1,
+                                 init_state_dict=golden_sd)
+            if amp:
+                r = run()
+            else:
+                r, f32_ms, f32_k3_ms, f32_k3_share = device_ms_and_share(
+                    run, K3_F32_KERNEL)
             curves[name] = r["losses"]
             del r
             torch.cuda.empty_cache()
+        emit("loop_f32_device", gpu=gpu, config="fine_tune", batch=BATCH,
+             steps=LOOP_DTYPE_STEPS, eval_batches=1,
+             device_ms_per_step=f32_ms / LOOP_DTYPE_STEPS,
+             k3_ms_per_step=f32_k3_ms / LOOP_DTYPE_STEPS,
+             k3_share=f32_k3_share,
+             note="device kernel time of the run (its steps and one "
+                  "evaluation batch) over its steps")
         rel = [abs(x - y) / abs(y) for x, y in
                zip(curves["bfloat16"], curves["float32"])]
         emit("loop_bf16_vs_f32", gpu=gpu, config="fine_tune",
@@ -3409,8 +3470,9 @@ def main() -> int:
     if len(resident_ptxas) < 16 or spilling:
         raise AssertionError(f"resident bodies: {len(resident_ptxas)} ptxas "
                              f"lines, spilling: {spilling}")
-    # the K3 GEMM body's instantiations and the f32 K3 bodies at D 1280 (the
-    # forward on 16-row tiles, dh); head dim 80: the tile bodies (the
+    # the K3 GEMM body's instantiations and the f32 K3 GEMM body's three
+    # (fc1 + GELU, fc2, dh), the latter also at most F32_GEMM_REGISTERS
+    # registers a thread (two blocks an SM); head dim 80: the tile bodies (the
     # f32 forward, the bf16 and f32 backward), the Hopper forward (with and
     # without tables), the Hopper backward (the dq kernel with tables and
     # table gradients, with tables, without; the dk/dv kernel with and
@@ -3418,8 +3480,10 @@ def main() -> int:
     # counts each), each in both families; the Hopper forward's seven a
     # family and the Hopper backward's fifteen
     gemm_ptxas = [line for line in ptxas if "fused_mlp_gemm_sm90" in line]
-    k3_f32_d1280 = [line for line in ptxas if line.startswith(
-        ("fused_mlp_kernel<float,40,16>", "mlp_dh_kernel<1280>"))]
+    k3_f32 = [line for line in ptxas
+              if line.startswith("fused_mlp_gemm_f32_kernel<")]
+    k3_f32_regs = [int(re.search(r": (\d+) registers", line).group(1))
+                   for line in k3_f32]
     d80 = {"tile": [], "hopper": [], "resident": []}
     for line in ptxas:
         if re.search(r"kernel<(float,)?80[,>]", line):
@@ -3429,18 +3493,18 @@ def main() -> int:
                  if line.startswith("attn_fwd_sm90")]
     bwd_ptxas = [line for line in ptxas
                  if line.startswith(("attn_bwd_dq_sm90", "attn_bwd_dkv_sm90"))]
-    spilling = [line for line in gemm_ptxas + k3_f32_d1280
+    spilling = [line for line in gemm_ptxas + k3_f32
                 + sum(d80.values(), []) + fwd_ptxas + bwd_ptxas
                 if ", 0 B spilled" not in line]
-    emit("ptxas_held_to_no_spill", gemm=gemm_ptxas,
-         k3_f32_d1280=k3_f32_d1280, head_dim_80=d80,
-         hopper_forward=fwd_ptxas, hopper_backward=bwd_ptxas)
-    if (len(gemm_ptxas) < 3 or len(k3_f32_d1280) < 2
+    emit("ptxas_held_to_no_spill", gemm=gemm_ptxas, k3_f32=k3_f32,
+         head_dim_80=d80, hopper_forward=fwd_ptxas, hopper_backward=bwd_ptxas)
+    if (len(gemm_ptxas) < 3 or len(k3_f32) < 3
+            or max(k3_f32_regs) > F32_GEMM_REGISTERS
             or len(d80["tile"]) < 12
             or len(d80["hopper"]) < 14 or len(d80["resident"]) < 8
             or len(fwd_ptxas) < 14 or len(bwd_ptxas) < 30 or spilling):
         raise AssertionError(f"K3 GEMM body: {len(gemm_ptxas)} ptxas lines, "
-                             f"f32 K3 at D 1280: {len(k3_f32_d1280)}, "
+                             f"f32 K3 GEMM body: {k3_f32}, "
                              f"d = 80 bodies: "
                              f"{ {k: len(v) for k, v in d80.items()} }, "
                              f"Hopper forward: {len(fwd_ptxas)}, backward: "
@@ -3675,13 +3739,21 @@ def main() -> int:
          lambda: grouped_args(111, (10, 10))),
         ("windowed_attention_rel_pos", "BWH=1 N=144",
          lambda: grouped_args(1, (12, 12))),
-        # ragged against the K3 GEMM body's 128-row tiles and 256-column
-        # tiles; ViT-L and ViT-H widths (f32: 16-row tiles at D = 1280)
+        # ragged against the K3 GEMM bodies' 128-row tiles and 256- (bf16)
+        # or 128-column (f32) tiles; ViT-L and ViT-H widths; a
+        # tensor-parallel rank's F in both dtypes (F 2560 at ViT-H, 1536 at
+        # ViT-B, neither a multiple of the f32 body's raster group)
         ("fused_mlp", "R=1000", lambda: mlp_args(1000)),
         ("fused_mlp", "R=129 D=1024 F=4096", lambda: mlp_args(129, 1024, 4096)),
         ("fused_mlp", "R=1 D=1280 F=5120", lambda: mlp_args(1, 1280, 5120)),
         ("fused_mlp", "R=1000 D=1280 F=5120",
          lambda: mlp_args(1000, 1280, 5120)),
+        ("fused_mlp", "R=4096 D=1280 F=5120 (ViT-H at batch 1)",
+         lambda: mlp_args(4096, 1280, 5120)),
+        ("fused_mlp", "R=1000 D=1280 F=2560 (a rank's F)",
+         lambda: mlp_args(1000, 1280, 2560)),
+        ("fused_mlp", "R=1000 D=768 F=1536 (a rank's F)",
+         lambda: mlp_args(1000, 768, 1536)),
         # head dim 80 (ViT-H: D 1280, 16 heads) at ViT-H's serving shapes
         # at batch 1: bf16 through the Hopper and the resident bodies, f32
         # through the tile bodies; then ragged against the Hopper body's
@@ -3732,7 +3804,20 @@ def main() -> int:
                                          f"disagrees with its plain version "
                                          f"(max abs err {err})")
                 errors[name] = max(errors[name], err)
-                if dt == torch.bfloat16:
+                if dt == torch.float32 and name == "fused_mlp":
+                    errors["fused_mlp_f32"] = max(
+                        errors.get("fused_mlp_f32", 0.0), err)
+                if name == "fused_mlp":
+                    # both GEMM bodies: one owner and one order of sums for
+                    # every element, so a second call is bit-identical
+                    same = torch.equal(got, kernels[name]["wrapper"](*args))
+                    emit("forward_repeat", kernel=name, shape=shape,
+                         dtype=str(dt).replace("torch.", ""),
+                         bit_identical=same, outputs=["out"])
+                    if not same:
+                        raise AssertionError(f"{name} {shape} {dt}: two "
+                                             f"forward runs differ")
+                elif dt == torch.bfloat16:
                     forward_repeat(name, shape, args)
                 if dt == torch.bfloat16 and name not in kernel_inputs:
                     kernel_inputs[name] = (shape, args)
@@ -3754,7 +3839,7 @@ def main() -> int:
 
     def check_mlp_kernels(what, per_call):
         """K3's kernel launches of a run: per_call for each wrapper call
-        (bf16: the GEMM body's two passes; f32: the fused scalar body)."""
+        (the GEMM body's two passes in bf16 and in f32)."""
         got, calls = fused_mlp.kernel_launches, fused_mlp.launches
         emit("mlp_kernel_launches", path=what, wrapper_calls=calls,
              kernel_launches=got, want=per_call * calls)
@@ -3780,6 +3865,11 @@ def main() -> int:
         emit("path_launches", path=what, launches=got, want=want)
         if got != want or not any(want.values()):
             raise AssertionError(f"{what}: launches {got}, want {want}")
+
+    # the f32 K3 GEMM body's wrapper calls on the f32 paths, each read just
+    # after a run that started from counts of 0: phase 3's forwards, phase
+    # 4b's f32 forwards, and the f32 steps of phases 7 and 14c
+    f32_k3 = {"forward": 0, "dh": 0}
 
     # ---- 3. end to end against the PyTorch reference -----------------------
     npz = np.load(Path(__file__).resolve().parent / "tests" / "goldens"
@@ -3809,7 +3899,8 @@ def main() -> int:
                                    npz["boxes"], atol=1e-4, rtol=1e-3)
         check_launches(f"one f32 forward, {layout}", e2e_counts,
                        per_forward[layout])
-        check_mlp_kernels(f"one f32 forward, {layout}", 1)
+        check_mlp_kernels(f"one f32 forward, {layout}", 2)
+        f32_k3["forward"] += e2e_counts["fused_mlp"]
         del model, out
         torch.cuda.empty_cache()
 
@@ -4046,8 +4137,8 @@ def main() -> int:
         del kern_m, plain_m, out, ref, dets, emb
         torch.cuda.empty_cache()
 
-    # f32 through the packed kernels (K3's scalar body, at D 1280 for ViT-H,
-    # and the tile attention bodies) against the plain path with the same
+    # f32 through the packed kernels (K3's f32 GEMM body, at D 1280 for
+    # ViT-H, and the tile attention bodies) against the plain path with the same
     # seeded weights, at the full model's tolerance of record; ViT-B's error
     # from the same check beside ViT-H's
     f32_err = {}
@@ -4070,7 +4161,8 @@ def main() -> int:
                         "fused_mlp": v.depth, "cross_attention_packed": 1,
                         "flash_attention_rel_pos": 0,
                         "windowed_attention_rel_pos": 0})
-        check_mlp_kernels(f"{variant} f32 forward, batch 1", 1)
+        check_mlp_kernels(f"{variant} f32 forward, batch 1", 2)
+        f32_k3["forward"] += fused_mlp.launches
         with torch.inference_mode():
             ref = plain_m(x1)
         keys = ("pred_logits", "pred_boxes")
@@ -4500,13 +4592,17 @@ def main() -> int:
 
     mlp_names = ("dx", "dw1", "db1", "dw2", "db2")
     mlp_counters = ("launches", "backward_launches")
-    # the training shapes, rows ragged against the GEMM body's tiles, and
-    # ViT-H's widths (f32: the forward on 16-row tiles)
+    # the training shapes, rows ragged against the GEMM bodies' tiles, and
+    # ViT-L's and ViT-H's widths, and (in both dtypes) a tensor-parallel
+    # rank's F
     for shape, rows, dmod, fmod in (
             ("R=4*4096", 4 * 4096, 768, 3072),
             ("R=4*2304", 4 * 2304, 768, 3072),
             ("R=1000", 1000, 768, 3072),
             ("R=130 D=1280 F=5120", 130, 1280, 5120),
+            ("R=257 D=1024 F=4096", 257, 1024, 4096),
+            ("R=1000 D=1280 F=2560 (a rank's F)", 1000, 1280, 2560),
+            ("R=1000 D=768 F=1536 (a rank's F)", 1000, 768, 1536),
             ("R=4*2304 D=1024 F=4096 (ViT-L scratch)", 4 * 2304, 1024, 4096),
             ("R=4*2304 D=1280 F=5120 (ViT-H scratch)", 4 * 2304, 1280, 5120),
             # a rank's shapes at a model axis of 2 (phase 15)
@@ -4521,13 +4617,13 @@ def main() -> int:
                 got = fused_mlp_dh(xx, ww, bb, da)
                 torch.cuda.synchronize()
                 ref = fused_mlp_dh_plain(xx, ww, bb, da)
-                bwd_err["K3_dh"] = max(
-                    bwd_err.get("K3_dh", 0.0),
+                key = "K3_dh" if dt == torch.bfloat16 else "K3_dh_f32"
+                bwd_err[key] = max(
+                    bwd_err.get(key, 0.0),
                     grads_close(f"K3 {shape}", got, ref, dt, ("a", "dh")))
-                # without a: the same dh; the forward twice: bit-identical
-                # in bf16, where every element of the GEMM body has one
-                # owner and a fixed order of sums (the f32 bodies' are
-                # printed)
+                # without a: the same dh; the forward twice: bit-identical,
+                # since every element of either GEMM body has one owner and
+                # a fixed order of sums
                 no_act, dh_again = fused_mlp_dh(xx, ww, bb, da, False)
                 out1 = fused_mlp(xx, ww, bb, base[3].to(dt), base[4])
                 out2 = fused_mlp(xx, ww, bb, base[3].to(dt), base[4])
@@ -4536,8 +4632,7 @@ def main() -> int:
                 emit("mlp_repeat", shape=shape,
                      dtype=str(dt).replace("torch.", ""), a_left_out=no_act
                      is None, max_abs_diff=same)
-                if no_act is not None or (dt == torch.bfloat16
-                                          and any(same.values())):
+                if no_act is not None or any(same.values()):
                     raise AssertionError(f"K3 {shape} {dt}: dh without a or "
                                          f"a second forward differs {same}")
                 del no_act, dh_again, out1, out2
@@ -4644,6 +4739,8 @@ def main() -> int:
                     raise AssertionError(f"{variant} {name} {layout}: f32 "
                                          f"step launches {got_counts}, want "
                                          f"{want}")
+                f32_k3["forward"] += got_counts["launches"]["fused_mlp"]
+                f32_k3["dh"] += got_counts["backward_launches"]["fused_mlp"]
             parity[path] = (
                 {k: v.item() for k, v in metrics.items()},
                 {n: p.grad.clone() for n, p in sb.model.named_parameters()
@@ -5504,13 +5601,67 @@ def main() -> int:
           max_abs_err_of="a, dh",
           max_abs_err_wrapper_gradients=bwd_err["K3_wrapper"],
           plain_ms=big["dh_plain"], bound_ms=big["db"][0],
-          bound_by=big["db"][1], library_ms=None,
-          note_linear_gelu_grad_bf16_ms=big["lib_dh"],
+          bound_by=big["db"][1], library_ms=big["lib_dh"],
+          library="bf16 F.linear and the GELU-gradient product",
           bound_operations_ms=2 * 4 * 4096 * dmod * fdim / PEAK_FLOPS * 1e3,
           bound_bytes_ms=big["dh_bytes_ms"],
-          ms_r9216=small["dh"], note_linear_gelu_grad_bf16_ms_r9216=small[
-              "lib_dh"], bound_ms_r9216=small["db"][0],
+          ms_r9216=small["dh"], library_ms_r9216=small["lib_dh"],
+          bound_ms_r9216=small["db"][0],
           r9216_over_r16384=small["dh"] / big["dh"])
+
+    # ---- 9b. the f32 bodies beside their library calls ----------------------
+    # K3's f32 GEMM body forward and dh at the shapes above, the f32
+    # attention bodies (K1, K2, K4, K5, K6: the tile bodies) forward and
+    # backward at the main paths' shapes, each in turns with its library
+    # call (scripts/time_f32_kernels.py, which also times an older tree);
+    # then the f32 ViT-B full-canvas forward at batch 4 (packed, golden
+    # weights) under the profiler, with K3's share of its device time
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "scripts"))
+    import time_f32_kernels
+
+    f32_rows = {}
+    for row in (*time_f32_kernels.k3_rows(
+                    dev, F32_ITERS,
+                    plain_for=time_f32_kernels.K3_SHAPES[:1]),
+                *time_f32_kernels.attention_rows(dev, F32_ITERS)):
+        emit("f32_kernel_time", gpu=gpu, **row)
+        f32_rows[row["kernel"], row["shape"]] = row
+    f32_model = build(dataclasses.replace(base_cfg, dtype="float32"))
+    with torch.inference_mode():
+        f32_model(batches[0])                   # warm-up
+        _, fwd_dev_ms, fwd_k3_ms, fwd_k3_share = device_ms_and_share(
+            lambda: f32_model(batches[0]), K3_F32_KERNEL, calls=3)
+    emit("f32_forward_device", gpu=gpu, config="vit_b f32 full canvas packed",
+         batch=BATCH, device_ms=fwd_dev_ms, k3_ms=fwd_k3_ms,
+         k3_share=fwd_k3_share)
+    del f32_model
+    torch.cuda.empty_cache()
+    k3_row = f32_rows["K3", "R=16384 D=768 F=3072"]
+    f32_cu = "wildlifemapper_tpu_torch/csrc/fused_mlp{}.cu"
+    # the f32 body's entries of the "kernels" line, added after the later
+    # phases' launch readings (which count by the bf16 entries' names)
+    f32_report = {
+        "fused_mlp_f32": dict(
+            name="fused_mlp_f32", route="cuda", source=f32_cu.format(""),
+            replaces=jax_ops + "fused_mlp.py:103", dtype="float32",
+            shape="R=16384 D=768 F=3072", max_abs_err=errors["fused_mlp_f32"],
+            ms=k3_row["forward_ms"], plain_ms=k3_row["forward_plain_ms"],
+            bound_ms=k3_row["forward_bound_ms"],
+            bound_by=k3_row["forward_bound_by"],
+            library_ms=k3_row["library_chain_ms"],
+            library="f32 F.linear -> F.gelu -> F.linear (three calls)",
+            forward_device_ms_vit_b_batch4=fwd_dev_ms,
+            k3_share_of_forward=fwd_k3_share),
+        "fused_mlp_backward_dh_f32": dict(
+            name="fused_mlp_backward_dh_f32", route="cuda",
+            source=f32_cu.format("_bwd"),
+            replaces=jax_ops + "fused_mlp.py:148", dtype="float32",
+            shape="R=16384 D=768 F=3072",
+            max_abs_err=bwd_err["K3_dh_f32"], max_abs_err_of="a, dh",
+            ms=k3_row["dh_ms"], plain_ms=k3_row["dh_plain_ms"],
+            bound_ms=k3_row["dh_bound_ms"], bound_by=k3_row["dh_bound_by"],
+            library_ms=k3_row["dh_library_ms"],
+            library="f32 F.linear and the GELU-gradient product")}
 
     order = ["windowed_attention_packed", "windowed_attention_packed_backward",
              "windowed_attention_packed_backward_d80",
@@ -5610,6 +5761,13 @@ def main() -> int:
         if on_path and e["launches_large"] <= 0:
             raise AssertionError(f"{name}: not launched on the large "
                                  f"encoders' path")
+    for name, key in (("fused_mlp_f32", "forward"),
+                      ("fused_mlp_backward_dh_f32", "dh")):
+        f32_report[name]["launches"] = f32_k3[key]
+        if f32_k3[key] <= 0:
+            raise AssertionError(f"{name}: not launched on the f32 paths")
+    report.update(f32_report)
+    order += list(f32_report)
     emit("script", seconds=time.perf_counter() - t_script, gpu=gpu)
     print(json.dumps({"kernels": [report[n] for n in order], "gpu": gpu}),
           flush=True)

@@ -3,6 +3,7 @@
     python scripts/profile_port.py [--config full_canvas|compat_crop|from_scratch]
                                    [--plain | --attn-impl grouped]
                                    [--variant vit_b|vit_l|vit_h]
+                                   [--dtype bfloat16|float32]
                                    [--batch 4] [--iters 3] [--root CHECKOUT]
     python scripts/profile_port.py --train fine_tune|from_scratch
                                    [--plain | --attn-impl grouped]
@@ -13,7 +14,8 @@
 Runs forward + postprocess + NMS, or with --train whole train steps on a
 synthetic batch (train/synthetic.py), at ViT-B width in bf16 (random weights
 from a seed; ViT-L's or ViT-H's with --variant, serving or training; --remat
-trains with remat_blocks) under torch.profiler and prints JSON lines: the
+trains with remat_blocks; --dtype float32 the f32 path every CLI takes
+without --use_amp) under torch.profiler and prints JSON lines: the
 device time by kernel name (top 15), the summed device time, the wall time,
 the device idle share over the profiled window and the peak device memory,
 with the card's name and power limit.
@@ -69,6 +71,9 @@ from wildlifemapper_tpu_torch.train.synthetic import (  # noqa: E402
 PORT_KERNELS = [
     (r"fused_mlp_gemm_sm90_kernel<[01]>", "K3 forward"),
     (r"fused_mlp_gemm_sm90_kernel<2>", "K3 dh"),
+    (r"fused_mlp_gemm_f32_kernel<[01]>", "K3 forward (f32)"),
+    (r"fused_mlp_gemm_f32_kernel<2>", "K3 dh (f32)"),
+    # the f32 scalar bodies of trees before the f32 GEMM body
     (r"fused_mlp_kernel<", "K3 forward (f32)"),
     (r"mlp_dh_kernel<", "K3 dh (f32)"),
     (r"attn_fwd_resident", "attention forward, resident (K1 / K6)"),
@@ -144,8 +149,8 @@ def k3_times(gpu: str) -> None:
 
 
 def config(name: str, plain: bool, attn_impl: str = "packed",
-           variant: str = "vit_b"):
-    cfg = model_config(variant, dtype="bfloat16",
+           variant: str = "vit_b", dtype: str = "bfloat16"):
+    cfg = model_config(variant, dtype=dtype,
                        use_flash_attention=not plain, attn_impl=attn_impl)
     if name == "compat_crop":
         cfg = dataclasses.replace(cfg, content_size=768)
@@ -181,6 +186,9 @@ def main() -> int:
                     help="the encoder served or trained")
     ap.add_argument("--remat", action="store_true",
                     help="train with remat_blocks")
+    ap.add_argument("--dtype", default="bfloat16",
+                    choices=["bfloat16", "float32"],
+                    help="the compute dtype served or trained")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--iters", type=int, default=3)
     args = ap.parse_args()
@@ -218,7 +226,8 @@ def main() -> int:
         ap.error("--remat goes with --train")
     torch.cuda.reset_peak_memory_stats()
     if args.train:
-        cfg = training_config(args.train, use_kernels=not args.plain,
+        cfg = training_config(args.train, dtype=args.dtype,
+                              use_kernels=not args.plain,
                               batch_size=args.batch)
         model = dataclasses.replace(cfg.model, attn_impl=args.attn_impl,
                                     remat_blocks=args.remat)
@@ -239,7 +248,8 @@ def main() -> int:
             lambda: builder.train_step(state, batch, g))
     else:
         model = WildlifeMapper(config(args.config, args.plain,
-                                      args.attn_impl, args.variant),
+                                      args.attn_impl, args.variant,
+                                      args.dtype),
                                generator=torch.Generator().manual_seed(0))
         model.eval()
         g = torch.Generator(device=dev).manual_seed(1)
@@ -262,7 +272,8 @@ def main() -> int:
             "variant": args.variant, "root": args.root,
             "mode": "train" if args.train else "serve",
             "path": "plain" if args.plain else f"kernels, {args.attn_impl}",
-            "remat_blocks": args.remat, "batch": args.batch, "gpu": gpu,
+            "remat_blocks": args.remat, "batch": args.batch,
+            "dtype": args.dtype, "gpu": gpu,
             "wall_ms_per_batch": wall_ms,
             "peak_memory_bytes": torch.cuda.max_memory_allocated()}
     if args.no_trace:

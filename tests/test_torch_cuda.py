@@ -148,17 +148,22 @@ def test_cross_kernel(cuda, dtype, b, n, m, heads, d):
 
 
 # K3 shapes (rows, D, F). bf16 runs the Hopper GEMM body (128-row tiles, 128
-# or 256 columns; csrc/mlp_gemm_sm90.cuh): rows ragged against the tile (1,
-# 127, 129, 1000), F that is no multiple of the column tile (320), and
-# ViT-B / L / H widths with F = 4D; f32 the fused scalar bodies (D 1280 in
-# test_fused_mlp_f32_at_vit_h_width).
+# or 256 columns; csrc/mlp_gemm_sm90.cuh), f32 the f32 GEMM body (128 x 128
+# tiles; csrc/mlp_gemm_f32.cuh): rows ragged against the tile (1, 127, 129,
+# 257, 1000), F that is no multiple of the column tile (320), and ViT-B / L
+# / H widths with F = 4D; f32 also at ViT-H's D 1280 with a tensor-parallel
+# rank's F (2560 and 1536: half and a little more than a quarter of 5120)
+# and at a D and F that are multiples of 4 and of nothing larger (D 68 is
+# also no multiple of the 16-deep k slab).
 MLP_SHAPES = [(50, 64, 128), (33, 768, 3072), (70, 1024, 256),
               (1, 768, 3072), (127, 64, 256), (129, 128, 512),
               (1000, 256, 320)]
 MLP_CASES = ([(dt, *shape) for dt in DTYPES for shape in MLP_SHAPES]
              + [(torch.bfloat16, *shape) for shape in
                 [(300, 768, 3072), (200, 1024, 4096), (130, 1280, 5120),
-                 (257, 1280, 320)]])
+                 (257, 1280, 320)]]
+             + [(torch.float32, *shape) for shape in
+                [(257, 1280, 1536), (129, 1280, 2560), (33, 68, 132)]])
 
 
 def _mlp_inputs(rng, r, dim, hidden, dtype, dev):
@@ -178,9 +183,10 @@ def test_fused_mlp_kernel(cuda, dtype, r, dim, hidden):
         got = fused_mlp(x, w1, b1, w2, b2)
         torch.cuda.synchronize()
         ref = fused_mlp_plain(x, w1, b1, w2, b2)   # same rounding points
-    # one wrapper call; bf16 runs the GEMM body twice (fc1 + GELU, fc2)
+    # one wrapper call; the GEMM body of either dtype runs twice (fc1 +
+    # GELU, fc2)
     assert (fused_mlp.launches, fused_mlp.kernel_launches) == (
-        before[0] + 1, before[1] + (2 if dtype == torch.bfloat16 else 1))
+        before[0] + 1, before[1] + 2)
     torch.testing.assert_close(got.float(), ref.float(), **TOL[dtype])
 
 
@@ -201,27 +207,29 @@ def test_fused_mlp_dh_kernel(cuda, want_act, dtype, r, dim, hidden):
                  ("dh", "a"))
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("r,dim,hidden", [(1000, 768, 3072),
                                           (130, 1280, 5120)])
-def test_fused_mlp_gemm_repeats(cuda, r, dim, hidden):
-    """Every output element of the GEMM body has one owner and a fixed order
-    of sums: two runs of the forward and of dh are bit-identical."""
+def test_fused_mlp_gemm_repeats(cuda, dtype, r, dim, hidden):
+    """Every output element of the GEMM bodies (bf16 and f32) has one owner
+    and a fixed order of sums: two runs of the forward and of dh are
+    bit-identical, and dh without a is the dh written beside a."""
     rng = np.random.default_rng(r)
-    x, w1, b1, w2, b2 = _mlp_inputs(rng, r, dim, hidden, torch.bfloat16,
-                                    cuda)
-    da = _randn(rng, (r, hidden), torch.bfloat16, cuda)
+    x, w1, b1, w2, b2 = _mlp_inputs(rng, r, dim, hidden, dtype, cuda)
+    da = _randn(rng, (r, hidden), dtype, cuda)
     with torch.inference_mode():
         first = [fused_mlp(x, w1, b1, w2, b2), *fused_mlp_dh(x, w1, b1, da)]
         second = [fused_mlp(x, w1, b1, w2, b2), *fused_mlp_dh(x, w1, b1, da)]
+        no_act, dh_alone = fused_mlp_dh(x, w1, b1, da, False)
         torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert no_act is None and torch.equal(dh_alone, first[2])
 
 
 @pytest.mark.parametrize("r,hidden", [(1, 5120), (130, 5120), (257, 320)])
 def test_fused_mlp_f32_at_vit_h_width(cuda, r, hidden):
-    """The f32 scalar bodies at ViT-H's D 1280 (the forward on 16-row
-    tiles): the forward, a and dh against the plain versions at the f32
-    tolerance, one kernel a forward."""
+    """The f32 GEMM body at ViT-H's D 1280: the forward, a and dh against
+    the plain versions at the f32 tolerance, two kernels a forward."""
     rng = np.random.default_rng(r + hidden)
     x, w1, b1, w2, b2 = _mlp_inputs(rng, r, 1280, hidden, torch.float32, cuda)
     da = _randn(rng, (r, hidden), torch.float32, cuda)
@@ -232,7 +240,7 @@ def test_fused_mlp_f32_at_vit_h_width(cuda, r, hidden):
         torch.cuda.synchronize()
         ref = fused_mlp_plain(x, w1, b1, w2, b2)
         ref_act, ref_dh = fused_mlp_dh_plain(x, w1, b1, da)
-    assert fused_mlp.kernel_launches == before + 1
+    assert fused_mlp.kernel_launches == before + 2
     for g, want in ((got, ref), (act, ref_act), (dh, ref_dh)):
         torch.testing.assert_close(g, want, **TOL[torch.float32])
 

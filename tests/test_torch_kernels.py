@@ -23,7 +23,9 @@ from wildlifemapper_tpu_torch.ops.cross_attention import (
     cross_attention_packed, cross_attention_packed_plain)
 from wildlifemapper_tpu_torch.ops.flash_attention_v2 import (
     flash_attention_packed, flash_attention_packed_plain)
-from wildlifemapper_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_plain
+from wildlifemapper_tpu_torch.ops.fused_mlp import (_check_kernel_shapes,
+                                                     fused_mlp,
+                                                     fused_mlp_plain)
 from wildlifemapper_tpu_torch.ops.windowed_attention_v2 import (
     windowed_attention_packed, windowed_attention_packed_plain)
 
@@ -111,7 +113,8 @@ def test_cross_plain_matches_pallas(dtype, b, n, m, heads, d):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("r,dim,hidden", [(64, 64, 256), (96, 32, 128),
-                                          (8, 1280, 5120)])     # ViT-H
+                                          (8, 1280, 5120),      # ViT-H
+                                          (100, 1280, 2560)])   # a TP rank
 def test_fused_mlp_plain_matches_pallas(dtype, r, dim, hidden):
     jdt, tdt = DTYPES[dtype]
     rng = np.random.default_rng(r + dim)
@@ -164,6 +167,37 @@ def test_wrapper_dispatch(case):
         wrapper(*meta)
 
 
+@pytest.mark.parametrize("dtype,r,dim,hidden,ok", [
+    # f32: D and F multiples of 4, any rows: ViT-H's width, a tensor-parallel
+    # rank's F (2560 at P 2, 1536), ragged rows
+    (torch.float32, 100, 1280, 5120, True),
+    (torch.float32, 100, 1280, 2560, True),
+    (torch.float32, 100, 1280, 1536, True),
+    (torch.float32, 1, 768, 1536, True),
+    (torch.float32, 33, 68, 132, True),
+    (torch.float32, 100, 1282, 5120, False),
+    (torch.float32, 100, 1280, 2562, False),
+    (torch.float32, 100, 66, 256, False),
+    # bf16: multiples of 8
+    (torch.bfloat16, 100, 1280, 2560, True),
+    (torch.bfloat16, 33, 68, 136, False),
+    (torch.bfloat16, 33, 64, 132, False),
+])
+def test_kernel_shape_rule(dtype, r, dim, hidden, ok):
+    """The shapes the K3 kernels take (`_check_kernel_shapes`, the same
+    rule the CUDA entries hold): D and F multiples of 4 in f32 (the f32 GEMM
+    body's 16-byte rows) and of 8 in bf16 (the Hopper body's tensor maps),
+    any number of rows; anything else is refused before a launch."""
+    x = torch.zeros(r, dim, dtype=dtype)
+    w1 = torch.zeros(hidden, dim, dtype=dtype)
+    w2 = torch.zeros(dim, hidden, dtype=dtype)
+    if ok:
+        _check_kernel_shapes(x, w1, w2)
+    else:
+        with pytest.raises(ValueError, match="multiples of"):
+            _check_kernel_shapes(x, w1, w2)
+
+
 def test_find_nvcc(monkeypatch, tmp_path):
     """nvcc comes from CUDA_HOME first; with none anywhere the build
     raises instead of falling back."""
@@ -208,7 +242,7 @@ def test_sources_and_hash():
     names = {p.name for p in _build.sources()}
     assert {"attention.cu", "attention_bwd.cu", "grouped_attention.cu",
             "grouped_attention_bwd.cu", "fused_mlp.cu", "fused_mlp_bwd.cu",
-            "mlp_gemm_sm90.cu", "mlp_gemm_sm90.cuh",
+            "mlp_gemm_sm90.cu", "mlp_gemm_sm90.cuh", "mlp_gemm_f32.cuh",
             "attention_fwd.cuh", "attention_bwd.cuh", "common.cuh",
             "sm90.cuh", "attention_sm90_common.cuh",
             "attention_fwd_sm90.cuh", "attention_bwd_sm90.cuh",

@@ -188,7 +188,8 @@ def _mlp_inputs(r, dim, hidden):
 
 
 @pytest.mark.parametrize("r,dim,hidden", [(64, 64, 256), (96, 32, 128),
-                                          (8, 1280, 5120)])     # ViT-H
+                                          (8, 1280, 5120),      # ViT-H
+                                          (100, 1280, 2560)])   # a TP rank
 def test_fused_mlp_backward_matches_pallas(r, dim, hidden):
     x, w1, b1, w2, b2, g = _mlp_inputs(r, dim, hidden)
     _, vjp = jax.vjp(j_mlp, *(jnp.asarray(t) for t in (x, w1, b1, w2, b2)))

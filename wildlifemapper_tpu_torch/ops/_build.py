@@ -74,8 +74,9 @@ _SIGNATURES = {
     "wm_attention_bwd_resident": _ATTENTION_BWD_RESIDENT,
     "wm_grouped_attention_fwd_resident": _ATTENTION_FWD,
     "wm_grouped_attention_bwd_resident": _ATTENTION_BWD_RESIDENT,
-    # K3: the f32 bodies, and the bf16 Hopper GEMM body with its epilogues
-    "wm_fused_mlp_fwd": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # K3: the f32 GEMM body (the forward's two passes, dh), and the bf16
+    # Hopper GEMM body with its epilogues
+    "wm_fused_mlp_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "wm_fused_mlp_dh": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "wm_mlp_gemm": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "wm_mlp_forward": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],

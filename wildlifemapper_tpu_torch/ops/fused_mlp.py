@@ -21,14 +21,18 @@ call at R 16384) with an fc2 accumulator that filled the register file (so
 no D 1280 at all). Un-fused, the hidden round trip is 100.7 MB (0.06 ms at
 3.35 TB/s) against two products of 77 GFLOP each (0.078 ms each at 989
 TFLOP/s): operations bound both, and a bf16 hidden in device memory is the
-same rounding point as the Pallas kernel's. f32, the parity path, keeps
-the fused scalar body of csrc/fused_mlp.cu (D 64, 128, 256, 768, 1024 and
-ViT-H's 1280).
+same rounding point as the Pallas kernel's. f32, the parity path, runs the
+register-tiled f32 GEMM body of csrc/mlp_gemm_f32.cuh (on the CUDA cores:
+f32 without TF32 has no tensor core) in the same two passes from one host
+call (csrc/fused_mlp.cu), through an f32 hidden: the Pallas kernel's f32
+GELU output is not rounded before fc2 either. It takes D and F that are
+multiples of 4.
 
 The backward follows `_mlp_bwd` (fused_mlp.py:139-175): da = g @ w2 rounded
 to x's dtype; the dh kernel (`_bwd_dh_kernel` :120, pallas_call :148; bf16:
 the same GEMM body with its BiasGeluGrad epilogue, which reads da by TMA
-and writes a and dh through shared memory; f32: csrc/fused_mlp_bwd.cu)
+and writes a and dh through shared memory; f32: the f32 body's
+BiasGeluGrad epilogue, csrc/fused_mlp_bwd.cu)
 recomputes h = x @ w1^T + b1 and writes a = gelu(h) and dh = da * gelu'(h),
 both in x's dtype, so h never reaches device memory;
 dx = dh @ w1 and the weight and bias gradients are library products and
@@ -83,25 +87,26 @@ def fused_mlp_dh_plain(x, w1, b1, da):
     return (h * cdf).to(x.dtype), (da.float() * (cdf + h * pdf)).to(x.dtype)
 
 
-# The GEMM body's epilogues (csrc/mlp_gemm_sm90.cuh::MlpEpilogue).
+# The GEMM bodies' epilogues (csrc/mlp_gemm_sm90.cuh::MlpEpilogue, the same
+# numbers as csrc/mlp_gemm_f32.cuh::F32Epilogue).
 _BIAS_GELU, _BIAS, _BIAS_GELU_GRAD = 0, 1, 2
-# D the f32 scalar bodies take (csrc/fused_mlp.cu, fused_mlp_bwd.cu): ViT-B,
-# L and H widths and the small ones of the tests
-F32_DIMS = (64, 128, 256, 768, 1024, 1280)
+# D and F must be multiples of these: the rows of every operand are whole
+# 16-byte pieces (the bf16 body's tensor maps, the f32 body's 16-byte loads)
+ROW_MULTIPLE = {torch.bfloat16: 8, torch.float32: 4}
 
 
 def _check_kernel_shapes(x, *tensors):
-    """What the kernels take: bf16 rows of a multiple of 8 elements (the
-    GEMM body's tensor maps), f32 D in F32_DIMS and F a multiple of 64 (the
-    scalar bodies); every operand on a 16-byte boundary."""
+    """What the kernels take: D and F multiples of ROW_MULTIPLE (8 in bf16,
+    4 in f32), any number of rows; every operand on a 16-byte boundary."""
     d, f = x.shape[1], tensors[0].shape[0]
-    if x.dtype == torch.bfloat16:
-        if d % 8 or f % 8:
-            raise ValueError(f"fused_mlp: bf16 needs D and F multiples of 8, "
-                             f"got D={d}, F={f}")
-    elif d not in F32_DIMS or f % 64:
-        raise ValueError(f"fused_mlp: the f32 kernels take D in {F32_DIMS} "
-                         f"and F a multiple of 64, got D={d}, F={f}")
+    mult = ROW_MULTIPLE.get(x.dtype)
+    if mult is None:
+        raise TypeError(f"fused_mlp: the kernels take float32 or bfloat16, "
+                        f"got {x.dtype}")
+    if d % mult or f % mult:
+        raise ValueError(f"fused_mlp: {str(x.dtype).replace('torch.', '')} "
+                         f"needs D and F multiples of {mult}, got D={d}, "
+                         f"F={f}")
     if any(t.data_ptr() % 16 for t in (x, *tensors)):
         raise ValueError("fused_mlp: operands must start on a 16-byte "
                          "boundary")
@@ -121,8 +126,9 @@ def _gemm(epilogue, a, b, bias, out, da=None, act=None):
 
 def fused_mlp_dh(x, w1, b1, da, want_act: bool = True):
     """Launch K3's dh kernel on CUDA tensors: (a, dh), each (R, F) in x's
-    dtype; a is None unless `want_act`. bf16: the GEMM body with its
-    BiasGeluGrad epilogue; f32: csrc/fused_mlp_bwd.cu."""
+    dtype; a is None unless `want_act`. The GEMM body of x's dtype with its
+    BiasGeluGrad epilogue (bf16: csrc/mlp_gemm_sm90.cu; f32:
+    csrc/fused_mlp_bwd.cu)."""
     x, w1, b1, da = (t.contiguous() for t in (x, w1, b1, da))
     r, d = x.shape
     f = w1.shape[0]
@@ -186,29 +192,25 @@ def fused_mlp_backward_plain(x, w1, b1, w2, b2, g):
 
 def _fused_mlp_launch(x, w1, b1, w2, b2):
     """The forward's kernels on CUDA tensors: two launches of the GEMM body
-    through an (R, F) hidden scratch in bf16, the fused scalar body in
-    f32. Returns out (R, D)."""
+    of x's dtype through an (R, F) hidden scratch in x's dtype, both from
+    one host call (bf16 wm_mlp_forward, f32 wm_fused_mlp_fwd: the
+    forward's host time is the wrapper's and two launches). Returns out
+    (R, D)."""
     r, d = x.shape
     f = w1.shape[0]
     _check_kernel_shapes(x, w1, w2)
     out = torch.empty_like(x)
-    if x.dtype == torch.bfloat16:
-        # both passes from one host call (wm_mlp_forward): the forward's
-        # host time is the wrapper's, its tensor maps and two launches
-        hidden = torch.empty((r, f), dtype=x.dtype, device=x.device)
-        err = _build.load_kernels().wm_mlp_forward(
-            x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+    hidden = torch.empty((r, f), dtype=x.dtype, device=x.device)
+    ptrs = (x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
             b2.data_ptr(), hidden.data_ptr(), out.data_ptr(), r, d, f,
             _build.stream_ptr(x))
-        _build.check(err, "fused_mlp GEMM kernels")
-        fused_mlp.kernel_launches += 2
+    lib = _build.load_kernels()
+    if x.dtype == torch.bfloat16:
+        err = lib.wm_mlp_forward(*ptrs)
     else:
-        err = _build.load_kernels().wm_fused_mlp_fwd(
-            _build.dtype_code(x), x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-            w2.data_ptr(), b2.data_ptr(), out.data_ptr(), r, d, f,
-            _build.stream_ptr(x))
-        _build.check(err, "fused_mlp kernel")
-        fused_mlp.kernel_launches += 1
+        err = lib.wm_fused_mlp_fwd(_build.dtype_code(x), *ptrs)
+    _build.check(err, "fused_mlp GEMM kernels")
+    fused_mlp.kernel_launches += 2
     return out
 
 
@@ -281,7 +283,7 @@ def fused_mlp(x, w1, b1, w2, b2) -> torch.Tensor:
 
 
 # wrapper calls that launched the forward's kernels (one a call), and the
-# kernels they launched (bf16: the GEMM body's two passes, f32: one)
+# kernels they launched (the GEMM body's two passes, in either dtype)
 fused_mlp.launches = 0
 fused_mlp.kernel_launches = 0
 # backward kernels launched (one per backward: a and dh from the recompute)
