@@ -29,9 +29,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      GEMM body, the f32 K3 GEMM body (also to at most 128 registers, two
      blocks an SM) and every head-dim-80
      instantiation (the tile bodies, the Hopper forward and backward, the
-     resident forward and backward) held to no spill, and no line of
-     ptxas saying it serialized the wgmma products of a kernel (C7515);
-     TF32 off.
+     resident forward and backward) held to no spill, the f32 streaming
+     backward's twelve instantiations (csrc/attention_bwd_f32.cuh) too, and
+     no line of ptxas saying it serialized the wgmma products of a kernel
+     (C7515); TF32 off.
   2. kernels: each kernel against its plain PyTorch version on the card at
      the shapes the serving path gives it, f32 at atol 2e-5 / rtol 1e-4 and
      bf16 (against the plain version in f32 on the same bf16-rounded
@@ -112,7 +113,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      the f32 product of the same operands. The bf16 backward of the
      resident bodies (K1, K6: one kernel) and of the Hopper body (K2, K4,
      K5: the dq kernel with delta inside, then dk/dv) twice at the launcher
-     at every shape they take, every gradient bit-identical.
+     at every shape they take, every gradient bit-identical; the same for
+     the f32 backward of K2 and K5 at every shape that takes the
+     register-tiled f32 body (d 64 and 80, at least 512 keys: B 4 at N 4096
+     and 2304, BH 48, ViT-H's B 1, H 16, N 4096 and BH 16 at d 80).
   7. train step, parity: f32, one step with kernels against the same step on
      the plain path (same weights, batch and dropout seed) in each training
      configuration and each layout: losses, grad_norm and every trainable
@@ -174,7 +178,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      under the profiler, its device ms and K3's share (`f32_forward_device`;
      phase 10 reads the same for its f32 steps, `loop_f32_device`). The
      "kernels" line gains the f32 K3 body's forward and dh, their launches
-     those of the f32 paths (phases 3, 4b, 7 and 14c).
+     those of the f32 paths (phases 3, 4b, 7 and 14c), and the f32
+     streaming backward of K2 and K5 (the register-tiled body: its time at
+     the full canvas beside the tile body's, the plain version's, the
+     library call's and the bound, ViT-H's d 80 beside; its launches those
+     of the f32 steps of phases 7 and 14c, whose global blocks all take it).
 
  10. the training loop (train/loop.py through cli/train.py's Config, the
      vendored annotation bundle, synthetic tiles at 1024 cached in a
@@ -368,6 +376,11 @@ K3_F32_KERNEL = "fused_mlp_gemm_f32_kernel"
 # launches a turn when phase 9 times the f32 bodies beside their library
 # calls (scripts/time_f32_kernels.py; each call takes 0.3-80 ms)
 F32_ITERS = 3
+# the f32 streaming backward's rows of the "kernels" line: (kernel, shape)
+# of scripts/time_f32_kernels.py at the full canvas, and ViT-H's d-80 shape
+F32_BWD_MAIN = {"flash_attention_packed": ("K2", "B=4 N=4096"),
+                "flash_attention_rel_pos": ("K5", "BH=4*12 N=4096")}
+F32_BWD_D80 = {"K2": "B=1 H=16 N=4096 d=80", "K5": "BH=16 N=4096 d=80"}
 
 
 def emit(phase: str, **fields) -> None:
@@ -3509,6 +3522,15 @@ def main() -> int:
                              f"{ {k: len(v) for k, v in d80.items()} }, "
                              f"Hopper forward: {len(fwd_ptxas)}, backward: "
                              f"{len(bwd_ptxas)}, spilling: {spilling}")
+    # the f32 streaming backward (csrc/attention_bwd_f32.cuh): the dq kernel
+    # at d 64 and 80 with 64- and 48-key tiles, the dk/dv kernel at d 64 and
+    # 80, each in both families, none spilling
+    f32_bwd_ptxas = [line for line in ptxas
+                     if line.startswith("attn_bwd_f32_")]
+    emit("ptxas_f32_backward", lines=f32_bwd_ptxas)
+    if (len(f32_bwd_ptxas) != 12
+            or any(", 0 B spilled" not in line for line in f32_bwd_ptxas)):
+        raise AssertionError(f"f32 backward body: {f32_bwd_ptxas}")
     # ptxas says only in an info line (C7515) that it serialized every wgmma
     # of a kernel, which undoes what the Hopper bodies stand on
     serialized = serialized_wgmma(build_log)
@@ -3634,7 +3656,7 @@ def main() -> int:
     def dtypes(shape):
         """f32 and bf16; the large encoders' training shapes bf16 alone,
         the dtype phase 14 trains in (14c holds their f32 path end to end
-        through the tile bodies)."""
+        through the kernels)."""
         if ("(ViT-L" in shape or "scratch)" in shape
                 or "(TP rank" in shape):
             return (torch.bfloat16,)
@@ -3870,6 +3892,10 @@ def main() -> int:
     # after a run that started from counts of 0: phase 3's forwards, phase
     # 4b's f32 forwards, and the f32 steps of phases 7 and 14c
     f32_k3 = {"forward": 0, "dh": 0}
+    # the f32 streaming backward's launches (its dq and its dk/dv kernel, one
+    # of each a backward) on the same paths' f32 steps (phases 7 and 14c):
+    # every global block's backward there takes the f32 body
+    f32_bwd = {"flash_attention_packed": 0, "flash_attention_rel_pos": 0}
 
     # ---- 3. end to end against the PyTorch reference -----------------------
     npz = np.load(Path(__file__).resolve().parent / "tests" / "goldens"
@@ -4403,6 +4429,9 @@ def main() -> int:
         for dt in dtypes(shape):
             dout = dout32.to(dt)
             ref = None
+            f32_body = (dt == torch.float32 and attention_body(
+                dt, d, base[0].shape[1], base[1].shape[1], hw is not None,
+                hw, "backward") == "f32")
             for frozen in (False, True):
                 tensors = leaves(base, dt, frozen)
                 got = through_wrapper(
@@ -4462,7 +4491,13 @@ def main() -> int:
                 if d == 80 and dt == torch.bfloat16:
                     bwd_err[f"{kid}_d80"] = max(bwd_err.get(f"{kid}_d80", 0.0),
                                                 *errs.values())
+                if f32_body:
+                    bwd_err[f"{kid}_f32"] = max(bwd_err.get(f"{kid}_f32", 0.0),
+                                                *errs.values())
                 del got, parts, tensors
+            if f32_body:
+                repeat_check(kid, shape, lambda: attention_backward_launch(
+                    q, k, v, out, lse, dout, scale, heads, rh, rw), "f32")
             if dt == torch.bfloat16:
                 body = attention_body(dt, d, q.shape[1], k.shape[1],
                                       rh is not None, hw, "backward")
@@ -4522,6 +4557,8 @@ def main() -> int:
         for dt in dtypes(shape):
             dout = dout32.to(dt)
             ref = None
+            f32_body = (dt == torch.float32 and attention_body(
+                dt, d, n, n, True, hw, "backward") == "f32")
             for frozen in (False, True):
                 tensors = [t.to(dt).detach().requires_grad_(
                     i < 3 or not frozen) for i, t in enumerate(base)]
@@ -4575,7 +4612,14 @@ def main() -> int:
                 if d == 80 and dt == torch.bfloat16:
                     bwd_err[f"{kid}_d80"] = max(bwd_err.get(f"{kid}_d80", 0.0),
                                                 *errs.values())
+                if f32_body:
+                    bwd_err[f"{kid}_f32"] = max(bwd_err.get(f"{kid}_f32", 0.0),
+                                                *errs.values())
                 del got, tensors
+            if f32_body:
+                repeat_check(kid, shape, lambda: attention_backward_launch(
+                    q, k, v, out, lse, dout, scale, 1, rh4, rw4,
+                    scale_scores=True), "f32")
             if dt == torch.bfloat16:
                 body = attention_body(dt, d, n, n, True, hw, "backward")
                 if body in ("resident", "sm90"):
@@ -4741,6 +4785,13 @@ def main() -> int:
                                          f"{want}")
                 f32_k3["forward"] += got_counts["launches"]["fused_mlp"]
                 f32_k3["dh"] += got_counts["backward_launches"]["fused_mlp"]
+                for wname in f32_bwd:
+                    dq_n = got_counts["backward_dq_launches"].get(wname, 0)
+                    if dq_n != got_counts["backward_dkv_launches"].get(
+                            wname, 0):
+                        raise AssertionError(f"{wname}: f32 step's dq and "
+                                             "dk/dv launches differ")
+                    f32_bwd[wname] += dq_n
             parity[path] = (
                 {k: v.item() for k, v in metrics.items()},
                 {n: p.grad.clone() for n, p in sb.model.named_parameters()
@@ -4793,6 +4844,14 @@ def main() -> int:
             raise AssertionError(f"{name}: f32 train step: relative "
                                  f"gradient error {rel}")
 
+    # the f32 steps' global blocks take the f32 body both ways of the grid:
+    # d 64 (ViT-B, ViT-L) and 80 (ViT-H) on the 64- and the 48-grid
+    f32_bodies = {f"d={hd} grid={g}x{g}": attention_body(
+        torch.float32, hd, g * g, g * g, True, (g, g), "backward")
+        for hd in (64, 80) for g in (64, 48)}
+    emit("f32_backward_body", bodies=f32_bodies)
+    if set(f32_bodies.values()) != {"f32"}:
+        raise AssertionError(f"f32 global blocks' backward: {f32_bodies}")
     # every gradient, rel tables and MLP weights included; then the frozen
     # encoder, where the backward kernels write activation gradients only
     for layout in ("packed", "grouped"):
@@ -5623,7 +5682,8 @@ def main() -> int:
     for row in (*time_f32_kernels.k3_rows(
                     dev, F32_ITERS,
                     plain_for=time_f32_kernels.K3_SHAPES[:1]),
-                *time_f32_kernels.attention_rows(dev, F32_ITERS)):
+                *time_f32_kernels.attention_rows(
+                    dev, F32_ITERS, plain_for=tuple(F32_BWD_MAIN.values()))):
         emit("f32_kernel_time", gpu=gpu, **row)
         f32_rows[row["kernel"], row["shape"]] = row
     f32_model = build(dataclasses.replace(base_cfg, dtype="float32"))
@@ -5662,6 +5722,38 @@ def main() -> int:
             bound_ms=k3_row["dh_bound_ms"], bound_by=k3_row["dh_bound_by"],
             library_ms=k3_row["dh_library_ms"],
             library="f32 F.linear and the GELU-gradient product")}
+    # the f32 streaming backward of K2 and K5 (csrc/attention_bwd_f32.cuh):
+    # its time, the tile body's and the plain version's at the main path's
+    # full canvas, ViT-H's d 80 beside
+    for wname, (kid, shape) in F32_BWD_MAIN.items():
+        row = f32_rows[kid, shape]
+        d80 = f32_rows[kid, F32_BWD_D80[kid]]
+        if row["backward_body"] != "f32" or d80["backward_body"] != "f32":
+            raise AssertionError(f"{kid}: f32 backward body "
+                                 f"{row['backward_body']}")
+        f32_report[wname + "_backward_f32"] = dict(
+            name=wname + "_backward_f32", route="cuda",
+            source=("wildlifemapper_tpu_torch/csrc/"
+                    + ("grouped_" if kid == "K5" else "")
+                    + "attention_bwd_f32.cu"),
+            replaces=(jax_ops + "flash_attention.py:268" if kid == "K5" else
+                      jax_ops + "flash_attention_v2.py:364, :392"),
+            dtype="float32", shape=shape, kernels_per_backward=2,
+            max_abs_err=bwd_err[f"{kid}_f32"], max_abs_err_of=(
+                "dq, dk, dv, drel_h, drel_w through the wrapper, every f32 "
+                "shape of phase 6 that takes the body"),
+            ms=row["backward_ms"], earlier_body_ms=row["backward_tile_ms"],
+            plain_ms=row["backward_plain_ms"],
+            bound_ms=row["backward_bound_ms"],
+            bound_by=row["backward_bound_by"],
+            library_ms=row["backward_library_ms"],
+            library="f32 autograd through scaled_dot_product_attention "
+                    "with the bias as attn_mask (dq, dk, dv)",
+            bit_identical=row["backward_bit_identical"],
+            d80_shape=F32_BWD_D80[kid], d80_ms=d80["backward_ms"],
+            d80_earlier_body_ms=d80["backward_tile_ms"],
+            d80_bound_ms=d80["backward_bound_ms"],
+            d80_library_ms=d80["backward_library_ms"])
 
     order = ["windowed_attention_packed", "windowed_attention_packed_backward",
              "windowed_attention_packed_backward_d80",
@@ -5766,6 +5858,12 @@ def main() -> int:
         f32_report[name]["launches"] = f32_k3[key]
         if f32_k3[key] <= 0:
             raise AssertionError(f"{name}: not launched on the f32 paths")
+    for wname, n in f32_bwd.items():
+        # one dq and one dk/dv launch a backward
+        f32_report[wname + "_backward_f32"]["launches"] = 2 * n
+        if n <= 0:
+            raise AssertionError(f"{wname}: the f32 backward body was not "
+                                 "launched on the f32 steps")
     report.update(f32_report)
     order += list(f32_report)
     emit("script", seconds=time.perf_counter() - t_script, gpu=gpu)

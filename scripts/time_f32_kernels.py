@@ -1,28 +1,36 @@
 """Every f32 kernel body of the port, timed on one NVIDIA GPU (written for the
 H100) beside its library call and its bound: K3's forward and dh at the
 shapes `chip_smoke.py` phase 9 times in bf16, and the f32 attention bodies
-(K1, K2, K4, K5, K6) forward and backward at the main paths' shapes. For
-PERF.md's f32 rows, and for comparing two checkouts in turns.
+(K1, K2, K4, K5, K6) forward and backward at the main paths' shapes and at
+ViT-H's head dim 80 (K2, K5 on the 64-grid, batch 1). For PERF.md's f32
+rows, and for comparing two checkouts in turns.
 
     python3 scripts/time_f32_kernels.py [--root CHECKOUT] [--label L]
-        [--k3 | --attention] [--iters N]
+        [--k3 | --attention] [--iters N] [--plain]
 
 `--root` is the checkout whose `wildlifemapper_tpu_torch` is imported (this
 script's own by default), so that one call can time an older tree with the
 same script: run it as parent / change / change / parent. Only what every
 tree of the port has is called (the `fused_mlp` and `fused_mlp_dh` wrappers,
 `attention_launch`, `attention_backward_launch`), so each body is whatever
-that tree runs in f32. Every shape is first checked against its plain
-version (f32 2e-5 / 1e-4 for the forward outputs, 5e-4 / 1e-3 for a, dh and
-the attention gradients, the tolerances of record) and run twice, K3 bit for
-bit. Then, by CUDA events over `--iters` launches after a warm-up, each
-kernel in turns with its library call (library, kernel, kernel, library):
+that tree runs in f32: from 512 keys at d 64 and 80 the backward of K2 and
+K5 is the register-tiled f32 body (csrc/attention_bwd_f32.cuh) where the
+tree has one, and the tile body before. Every shape is first checked
+against its plain version (f32 2e-5 / 1e-4 for the forward outputs, 5e-4 /
+1e-3 for a, dh and the attention gradients, the tolerances of record) and
+run twice, K3 and the attention backward bit for bit. Then, by CUDA events
+over `--iters` launches after a warm-up, each kernel in turns with its
+library call (library, kernel, kernel, library):
 
 - K3 forward: `F.linear -> F.gelu -> F.linear` in f32 (cuBLAS SGEMM; TF32
   is off); dh: `F.linear` and the GELU-gradient product. K3's plain
   versions are timed too, after the pairs.
 - attention: one `F.scaled_dot_product_attention` with the rel-pos bias as
-  `attn_mask`, and autograd through it for dq, dk, dv.
+  `attn_mask`, and autograd through it for dq, dk, dv. Where a tree runs
+  the f32 body, the tile body's backward at the same inputs is timed after
+  the pair (`backward_tile_ms`). `--plain` times the plain versions after
+  the pairs here too (`forward_plain_ms`, `backward_plain_ms`), which
+  `chip_smoke.py` does for its first K2 and K5 shapes (`plain_for`).
 
 The bound is the larger of the f32 operations over 67 TFLOP/s (no tensor
 core runs f32 without TF32) and the bytes over 3.35 TB/s, each input read
@@ -67,6 +75,9 @@ ATTENTION_SHAPES = [
     ("K5", "BH=4*12 N=2304", 48, 1, 64, 2304, 2304, (48, 48)),
     ("K6", "BWH=4*25*12 N=196", 1200, 1, 64, 196, 196, (14, 14)),
     ("K6", "BWH=4*16*12 N=144", 768, 1, 64, 144, 144, (12, 12)),
+    # ViT-H's global blocks (head dim 80, 16 heads) at batch 1
+    ("K2", "B=1 H=16 N=4096 d=80", 1, 16, 80, 4096, 4096, (64, 64)),
+    ("K5", "BH=16 N=4096 d=80", 16, 1, 80, 4096, 4096, (64, 64)),
 ]
 
 
@@ -185,10 +196,13 @@ def k3_rows(dev, iters: int = ITERS, shapes=K3_SHAPES, seed: int = 0,
 
 
 def attention_rows(dev, iters: int = ITERS, shapes=ATTENTION_SHAPES,
-                   seed: int = 0):
+                   seed: int = 0, plain_for=()):
     """One dict a shape: an f32 attention body forward and backward (the
     whole backward at the launcher, the rel tables' gradients included)
-    beside one SDPA call and autograd through it, and their bounds."""
+    beside one SDPA call and autograd through it, and their bounds; where
+    the tree runs the f32 body, the tile body's backward too; for the
+    (kernel, shape) pairs in `plain_for` the plain versions' times."""
+    from wildlifemapper_tpu_torch.ops import _attention
     from wildlifemapper_tpu_torch.ops._attention import (
         attention_backward_launch, attention_backward_plain,
         attention_launch, attention_plain)
@@ -214,7 +228,15 @@ def attention_rows(dev, iters: int = ITERS, shapes=ATTENTION_SHAPES,
                                         return_lse=True, scale_scores=ss)
             grads = attention_backward_launch(q, k, v, out, lse, dout, scale,
                                               h, rh, rw, scale_scores=ss)
+            again = attention_backward_launch(q, k, v, out, lse, dout, scale,
+                                              h, rh, rw, scale_scores=ss)
             torch.cuda.synchronize()
+            repeat = all(torch.equal(a, b) for a, b in zip(grads, again)
+                         if a is not None)
+            if not repeat:
+                raise AssertionError(f"{kid} {shape}: two backward runs "
+                                     "differ")
+            del again
             err = _check(f"{kid} {shape}", out, attention_plain(
                 q, k, v, scale, h, rh, rw, scale_scores=ss), 2e-5, 1e-4)
             ref = attention_backward_plain(q, k, v, out, lse, dout, scale, h,
@@ -250,6 +272,21 @@ def attention_rows(dev, iters: int = ITERS, shapes=ATTENTION_SHAPES,
             lambda: attention_backward_launch(q, k, v, out, lse, dout, scale,
                                               h, rh, rw, scale_scores=ss),
             iters)
+        body = (_attention.attention_body(
+            torch.float32, d, nq, nk, hw is not None, hw, "backward")
+            if "f32" in getattr(_attention, "BODIES", ()) else "mma")
+        tile_ms = plain_ms = fwd_plain_ms = None
+        with torch.no_grad():
+            if body == "f32":
+                tile_ms = time_ms(lambda: attention_backward_launch(
+                    q, k, v, out, lse, dout, scale, h, rh, rw,
+                    scale_scores=ss, body="mma"), max(1, iters // 3))
+            if (kid, shape) in plain_for:
+                fwd_plain_ms = time_ms(lambda: attention_plain(
+                    q, k, v, scale, h, rh, rw, scale_scores=ss), iters)
+                plain_ms = time_ms(lambda: attention_backward_plain(
+                    q, k, v, out, lse, dout, scale, h, rh, rw,
+                    scale_scores=ss), iters)
         mac = b * h * nq * nk * d
         scores = b * h * nq * nk * bool(hw)
         fb = bound(4 * mac + 2 * scores, nbytes(q, k, v, rh, rw, out))
@@ -264,7 +301,11 @@ def attention_rows(dev, iters: int = ITERS, shapes=ATTENTION_SHAPES,
                    backward_over_library=bwd_ms / lib_bwd_ms,
                    forward_over_bound=fwd_ms / fb[0],
                    backward_over_bound=bwd_ms / bb[0], max_abs_err=err,
-                   backward_max_abs_err=bwd_err, iters=iters,
+                   backward_max_abs_err=bwd_err, backward_body=body,
+                   backward_bit_identical=repeat,
+                   backward_tile_ms=tile_ms, forward_plain_ms=fwd_plain_ms,
+                   backward_plain_ms=plain_ms,
+                   iters=iters,
                    library="F.scaled_dot_product_attention"
                    + (" with the bias as attn_mask" if hw else ""))
         del q, k, v, dout, rh, rw, out, lse, grads, qh, kh, vh, bias, lib_out
@@ -282,6 +323,8 @@ def main() -> int:
                        help="the attention bodies alone")
     ap.add_argument("--iters", type=int, default=ITERS,
                     help="launches a timing")
+    ap.add_argument("--plain", action="store_true",
+                    help="also time the attention shapes' plain versions")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA GPU", file=sys.stderr)
@@ -302,7 +345,8 @@ def main() -> int:
     if not args.attention:
         rows.append(k3_rows(dev, args.iters))
     if not args.k3:
-        rows.append(attention_rows(dev, args.iters))
+        rows.append(attention_rows(dev, args.iters, plain_for=[
+            (s[0], s[1]) for s in ATTENTION_SHAPES] if args.plain else ()))
     for gen in rows:
         for row in gen:
             print(json.dumps(dict(row, label=args.label)), flush=True)

@@ -1,6 +1,7 @@
 """Which kernel body an attention launch takes (ops/_attention.py::
-attention_body, a pure function of dtype and shapes), and what the sources
-of the Hopper and the resident bodies must say and define. Runs on the
+attention_body, a pure function of direction, dtype and shapes), and what
+the sources of the Hopper, the resident and the f32 bodies must say and
+define. Runs on the
 CPU: no kernel is built or launched here (tests/test_torch_cuda.py holds
 the bodies against each other on the card)."""
 
@@ -12,10 +13,12 @@ import pytest
 import torch
 
 from wildlifemapper_tpu_torch.ops import _attention, _build, _library
-from wildlifemapper_tpu_torch.ops._attention import (RESIDENT_MAX_GRID,
+from wildlifemapper_tpu_torch.ops._attention import (F32_KEY_TILES,
+                                                     RESIDENT_MAX_GRID,
                                                      RESIDENT_MAX_TOKENS,
                                                      STREAM_MIN_KEYS,
-                                                     attention_body)
+                                                     attention_body,
+                                                     f32_key_tile)
 
 BF16, F32 = torch.bfloat16, torch.float32
 
@@ -47,9 +50,73 @@ def test_main_path_shapes(what, dtype, d, nq, nk, rel, body):
     assert attention_body(dtype, d, nq, nk, rel) == body
 
 
+# The backward at the main paths' shapes, with their grids: the f32 global
+# blocks of K2 and K5 (d 64 at 4096 and 2304, ViT-H's d 80, a tensor-parallel
+# rank's six heads of 64, which are the same shapes a head) take the
+# register-tiled f32 body; the f32 windows, K4 (d 128), d 32 and a grid no
+# key tile holds stay on the tile body; every bf16 backward keeps its body.
+MAIN_PATH_BACKWARD = [
+    ("K2 f32 full canvas", F32, 64, 4096, (64, 64), "f32"),
+    ("K2 f32 48-grid", F32, 64, 2304, (48, 48), "f32"),
+    ("K5 f32 full canvas", F32, 64, 4096, (64, 64), "f32"),
+    ("K5 f32 48-grid", F32, 64, 2304, (48, 48), "f32"),
+    ("K2 f32 ViT-H", F32, 80, 4096, (64, 64), "f32"),
+    ("K2 f32 ViT-H 48-grid", F32, 80, 2304, (48, 48), "f32"),
+    ("K4 f32", F32, 128, 4096, None, "mma"),
+    ("K4 f32 48-grid", F32, 128, 2304, None, "mma"),
+    ("K1 f32 window of 14", F32, 64, 196, (14, 14), "mma"),
+    ("K6 f32 window of 12", F32, 64, 144, (12, 12), "mma"),
+    ("K1 f32 ViT-H window", F32, 80, 196, (14, 14), "mma"),
+    ("d 32 f32", F32, 32, 4096, (64, 64), "mma"),
+    ("K2 f32 25x40 grid", F32, 64, 1000, (25, 40), "mma"),
+    ("K2 bf16 full canvas", BF16, 64, 4096, (64, 64), "sm90"),
+    ("K5 bf16 48-grid", BF16, 64, 2304, (48, 48), "sm90"),
+    ("K4 bf16", BF16, 128, 4096, None, "sm90"),
+    ("K2 bf16 ViT-H", BF16, 80, 4096, (64, 64), "sm90"),
+    ("K1 bf16 window of 14", BF16, 64, 196, (14, 14), "resident"),
+    ("K6 bf16 ViT-H window", BF16, 80, 196, (14, 14), "resident"),
+    ("d 32 bf16", BF16, 32, 4096, (64, 64), "mma"),
+]
+
+
+@pytest.mark.parametrize("what,dtype,d,n,grid,body", MAIN_PATH_BACKWARD,
+                         ids=[c[0] for c in MAIN_PATH_BACKWARD])
+def test_main_path_backward_shapes(what, dtype, d, n, grid, body):
+    """The backward's body; the forward of every one of these shapes keeps
+    the body it had (the f32 forward the tile body)."""
+    rel = grid is not None
+    assert attention_body(dtype, d, n, n, rel, grid, "backward") == body
+    forward = attention_body(dtype, d, n, n, rel, grid)
+    assert forward == (body if dtype == BF16 else "mma")
+
+
+@pytest.mark.parametrize("gw,tile", [(64, 64), (32, 64), (16, 64),
+                                     (48, 48), (24, 48), (None, 64),
+                                     (40, None), (50, None), (8, None),
+                                     (12, None), (96, None), (128, None)])
+def test_f32_key_tile_is_whole_grid_rows(gw, tile):
+    """The f32 body's key tile holds whole grid rows: 64 keys, or 48 where
+    the width divides 48 and not 64; other widths (the ragged 25 x 40 grid
+    of the card tests among them) stay on the tile body, backward too."""
+    assert f32_key_tile(gw) == tile
+    assert tile is None or tile in F32_KEY_TILES
+    if gw is not None:
+        grid = (4096 // gw if 4096 % gw == 0 else 1000 // gw, gw)
+        n = grid[0] * gw
+        if n >= STREAM_MIN_KEYS:
+            want = "f32" if tile else "mma"
+            assert attention_body(F32, 64, n, n, True, grid,
+                                  "backward") == want
+    text = (_build.CSRC / "attention_bwd_f32.cuh").read_text()
+    assert "if (64 % gw == 0) return 64;" in text
+    assert "if (48 % gw == 0) return 48;" in text
+    assert "if (gw < 16 || gw % 8 != 0) return 0;" in text
+
+
 # ViT-H (head dim 80, 16 heads) at its shapes: the bf16 global blocks (the
 # 64-grid) on the Hopper bodies both ways, the windows of 14 on the resident
-# bodies both ways; f32 on the tile bodies.
+# bodies both ways; f32 on the tile bodies but for the global blocks'
+# backward, which takes the f32 body.
 VIT_H = [
     ("K2", "forward", BF16, 4096, (64, 64), "sm90"),
     ("K5", "forward", BF16, 4096, (64, 64), "sm90"),
@@ -62,8 +129,10 @@ VIT_H = [
     ("K6", "backward", BF16, 196, (14, 14), "resident"),
     ("K2", "forward", F32, 4096, (64, 64), "mma"),
     ("K1", "forward", F32, 196, (14, 14), "mma"),
-    ("K5", "backward", F32, 4096, (64, 64), "mma"),
+    ("K5", "backward", F32, 4096, (64, 64), "f32"),
     ("K6", "backward", F32, 196, (14, 14), "mma"),
+    ("K2", "backward", F32, 4096, (64, 64), "f32"),
+    ("K2", "backward", F32, 2304, (48, 48), "f32"),
 ]
 
 
@@ -110,6 +179,7 @@ def test_direction_is_checked():
 ])
 def test_other_bf16_shapes(d, nq, nk, rel, body):
     assert attention_body(BF16, d, nq, nk, rel) == body
+    assert attention_body(BF16, d, nq, nk, rel, direction="backward") == body
 
 
 # The resident body: bf16, d = 64, one window of at most RESIDENT_MAX_TOKENS
@@ -158,6 +228,8 @@ def test_body_does_not_depend_on_the_queries(nq):
     assert attention_body(BF16, 64, nq, 4096, True) == "sm90"
     assert attention_body(BF16, 64, nq, 144, True) == "mma"
     assert attention_body(F32, 64, nq, 4096, True) == "mma"
+    assert attention_body(F32, 64, nq, 4096, True, None, "backward") == "f32"
+    assert attention_body(F32, 80, nq, 4096, False, None, "backward") == "f32"
 
 
 @pytest.mark.parametrize("dtype,d,nq,nk,error", [
@@ -200,6 +272,8 @@ def test_dispatch_reads_no_environment(monkeypatch):
         monkeypatch.setenv(name, "mma")
     assert attention_body(BF16, 128, 4096, 4096, False) == "sm90"
     assert attention_body(BF16, 80, 196, 196, True, (14, 14)) == "resident"
+    assert attention_body(F32, 64, 4096, 4096, True, (64, 64),
+                          "backward") == "f32"
     assert "environ" not in (_build.CSRC.parent / "ops"
                              / "_attention.py").read_text()
 
@@ -270,21 +344,26 @@ def test_hopper_header_note(name):
 
 @pytest.mark.parametrize("name,stays,d80", [
     ("attention_fwd.cuh", "attention_fwd_sm90.cuh",
-     "Each shape takes the same body backward"),
+     "Each bf16 shape takes the same body backward"),
     ("attention_bwd.cuh", "attention_bwd_sm90.cuh",
-     "f32 launch (the parity steps of all five kernels, a d-80 window "
-     "included)"),
+     "in f32 the windows (K1, K6, a d-80 window included), K4 (d = 128), "
+     "d = 32 and a grid whose width no f32 key tile holds"),
 ])
 def test_tile_headers_say_what_still_runs_there(name, stays, d80):
-    """The tile bodies keep f32 (a d-80 window's too), d = 32 and the bf16
-    launches no other body holds; no bf16 d-80 window runs there either way."""
+    """The tile bodies keep the f32 forward, the f32 windows (a d-80
+    window's too), K4's d 128, d = 32 and the bf16 launches no other body
+    holds; the f32 streaming backward runs the f32 body; no bf16 d-80
+    window runs there either way."""
     note = (_build.CSRC / name).read_text()
     note = note[:note.index("#pragma once")]
     assert stays in note
     assert stays.replace("_sm90", "_resident") in note
+    assert "attention_bwd_f32.cuh" in note
     assert "K1" in note and "K6" in note and "f32" in note
     flat = " ".join(note.replace("//", " ").split())
     assert d80 in flat
+    if name == "attention_bwd.cuh":
+        assert "every f32 launch" not in flat
     assert "d = 64 or 80, N = M <= 208" in flat
     for gone in ("still runs the tile bodies", "backward of a d-80 window",
                  "d = 64 only"):
@@ -439,6 +518,13 @@ def test_every_entry_has_a_signature():
     # dq kernel leaves for the dk/dv kernel (round(q*scale), the tables)
     assert len(_build._ATTENTION_BWD_SM90) == len(
         _build._ATTENTION_BWD) - 1 + 3 + 2
+    f32 = {n for n in defined if n.endswith("_f32")}
+    assert f32 == {"wm_attention_bwd_f32", "wm_grouped_attention_bwd_f32"}
+    for n in f32:
+        assert _build._SIGNATURES[n] == _build._ATTENTION_BWD_F32
+    # `which` and no dtype; out and its two strides beside delta
+    assert len(_build._ATTENTION_BWD_F32) == len(
+        _build._ATTENTION_BWD) - 1 + 3
 
 
 def test_port_sources_import_no_jax():
@@ -598,6 +684,122 @@ def test_sm90_backward_runs_no_delta_pass(monkeypatch, family, d, n, rel,
     assert (grads[3] is not None) == (rel and want_drel)
 
 
+@pytest.mark.parametrize("family,d,n,rel,want_drel", [
+    ("packed", 64, 4096, True, True),       # K2, the full canvas
+    ("packed", 64, 2304, True, False),      # K2 on the 48-grid, frozen
+    ("grouped", 64, 4096, True, True),      # K5
+    ("grouped", 64, 2304, True, False),
+    ("packed", 80, 4096, True, True),       # ViT-H's K2
+    ("grouped", 80, 1024, True, True),      # ViT-H's K5 on a 32-grid
+    ("packed", 64, 576, False, True),       # no tables
+])
+def test_f32_backward_runs_no_delta_pass(monkeypatch, family, d, n, rel,
+                                         want_drel):
+    """The f32 streaming backward launches its dq kernel, which takes delta
+    itself, and then its dk/dv kernel, and no plain delta pass; both get
+    the same delta scratch, (B, N, H) f32, and the forward's out for the dq
+    kernel; the counters move as for the Hopper backward."""
+    grouped = family == "grouped"
+    heads = 1 if grouped else 2
+    assert attention_body(F32, d, n, n, rel, None, "backward") == "f32"
+    calls, passes, counts, grads = _launch_with_stand_ins(
+        monkeypatch, F32, d, n, heads, d ** -0.5, rel, scale_scores=grouped,
+        want_drel=want_drel)
+    entry = ("wm_grouped_attention_bwd_f32" if grouped
+             else "wm_attention_bwd_f32")
+    assert [name for name, _ in calls] == [entry, entry]
+    assert passes == [] and counts == (0, 1, 1)
+    (_, dq_args), (_, dkv_args) = calls
+    assert len(dq_args) == len(_build._ATTENTION_BWD_F32) == len(dkv_args)
+    # which, q, k, v, dout, out, lse, delta, rel_h, rel_w, dq, dk, dv, ...
+    assert (dq_args[0], dkv_args[0]) == (0, 1)
+    assert dq_args[1:15] == dkv_args[1:15]
+    assert dq_args[5] is not None and dq_args[7] is not None
+    assert (dq_args[8] is not None) == rel
+    assert (dq_args[13] is not None) == (rel and want_drel)
+    assert dq_args[19] == d and dq_args[17:19] == (n, n)
+    assert (grads[3] is not None) == (rel and want_drel)
+
+
+def test_f32_body_refuses_what_it_does_not_hold(monkeypatch):
+    """Named outright, the f32 body refuses before any launch what it does
+    not take: bf16, d 128, a grid no key tile holds, a forward."""
+    lib = _StandInLibrary()
+    monkeypatch.setattr(_build, "load_kernels", lambda: lib)
+    monkeypatch.setattr(_build, "stream_ptr", lambda t: 0)
+
+    def launch(dtype, d, gh, gw):
+        n = gh * gw
+        q = torch.zeros(1, n, d, dtype=dtype)
+        rh = torch.zeros(1, n, 1, gh, dtype=dtype)
+        rw = torch.zeros(1, n, 1, gw, dtype=dtype)
+        return _attention.attention_backward_launch(
+            q, q, q, q, torch.zeros(1, n, 1), q, 0.125, 1, rh, rw,
+            body="f32")
+
+    for args in ((BF16, 64, 32, 32), (F32, 128, 32, 32), (F32, 64, 25, 40),
+                 (F32, 64, 64, 8)):
+        with pytest.raises(ValueError, match="f32 body"):
+            launch(*args)
+    launch(F32, 64, 32, 32)
+    q = torch.zeros(1, 1024, 64)
+    with pytest.raises(ValueError, match="f32 body is a backward"):
+        _attention.attention_launch(q, q, q, 0.125, 1, body="f32")
+    assert [name for name, _ in lib.calls] == ["wm_attention_bwd_f32"] * 2
+
+
+F32_SOURCES = ["attention_bwd_f32.cu", "grouped_attention_bwd_f32.cu"]
+
+
+@pytest.mark.parametrize("name", F32_SOURCES)
+def test_f32_backward_source(name):
+    """One small source a family, so the nvcc runs stay side by side; each
+    says which TPU kernel it stands for and where the other shapes run."""
+    path = _build.CSRC / name
+    assert path in _build.sources()
+    text = path.read_text()
+    assert "JAX package" in text and "attention_bwd_f32.cuh" in text
+    assert ("K5" if name.startswith("grouped") else "K2") in text
+    assert "tile body" in text
+    assert len(re.findall(r"^WM_DEFINE_ATTENTION_BWD_F32\(", text,
+                          re.M)) == 1
+    assert len(text.splitlines()) < 30
+
+
+def test_f32_backward_header_note():
+    """The f32 body names the TPU kernels it replaces, its bound on the H100
+    and what the design does about it; the design is in the code."""
+    text = (_build.CSRC / "attention_bwd_f32.cuh").read_text()
+    note = text[:text.index("#pragma once")]
+    flat = " ".join(note.replace("//", " ").split())
+    for replaced in ("flash_attention_v2.py::_bwd_dq_kernel (:229",
+                     "pallas_call :364", "::_bwd_dkv_kernel (:276",
+                     "pallas_call :392", "flash_attention.py::_bwd_kernel "
+                     "(:133", "pallas_call :268"):
+        assert replaced in flat, replaced
+    for words in ("What bounds it on the H100", "operations", "67 TFLOP/s",
+                  "721 GFLOP", "8 x 4 register tile", "128 bytes a clock",
+                  "cp.async",
+                  "double-buffered", "delta inside the dq kernel",
+                  "whole grid rows", "No TF32", "no atomics",
+                  "bit-identical", "d 64 and 80", "ptxas",
+                  "__launch_bounds__(256, 1)"):
+        assert words in flat, words
+    code = text[text.index("#pragma once"):]
+    for word in ("fb_scores<D, NJ>(s, qt", "fb_scores<D, NJ>(dp, dot",
+                 "fb_scores<D, NI>(p, kt_", "fb_scores<D, NI>(ds, vt_",
+                 "fb_grad<D, BK>(acc, xs", "fb_grad<D, BQT>(dvacc, xs",
+                 "fb_grad<D, BQT>(dkacc, xs", "fb_cp16(", "fb_cp4(",
+                 "fb_pair_sum(", "a.delta[stat] = sum", "relw[e][n]",
+                 "drw[e][n] += p[e][n]", "fb_get<NJ>(xs", "float acc[8][NC]",
+                 "launch_f32_dq<80, 48", "launch_f32_dkv<80"):
+        assert word in code, word
+    # 8 x 4 register tiles: 8 resident rows, two 128-bit loads a step
+    assert "r0 + (e & 3) + 16 * (e >> 2)" in code
+    assert "atomic" not in code
+    assert len(re.findall(r"^__global__ void", code, re.M)) == 2
+
+
 def _forward_with_stand_ins(monkeypatch, d, n, heads, scale_scores):
     lib = _StandInLibrary()
     monkeypatch.setattr(_build, "load_kernels", lambda: lib)
@@ -675,9 +877,11 @@ def test_resident_backward_head_dim_80_note_and_design():
 
 def test_tile_backward_keeps_its_delta_pass(monkeypatch):
     """The f32 tile bodies still run the plain delta pass before their two
-    kernels."""
+    kernels: K4's head dim, 128, stays there."""
+    assert attention_body(F32, 128, 1024, 1024, True, (32, 32),
+                          "backward") == "mma"
     calls, passes, counts, _ = _launch_with_stand_ins(
-        monkeypatch, F32, 64, 1024, 2, 0.125, True)
+        monkeypatch, F32, 128, 1024, 2, 128 ** -0.5, True)
     assert [name for name, _ in calls] == ["wm_attention_bwd"] * 2
     assert len(passes) == 1 and counts == (0, 1, 1)
     assert [args[0] for _, args in calls] == [0, 1]

@@ -21,6 +21,13 @@ one window-head, more window-heads than the card has SMs; a window of one
 token has gradients that are zero but for rounding, so nothing to compare),
 at d = 64 and at d = 80.
 
+In f32 the backward of the same streaming shapes (d = 64 or 80, at least
+512 keys, grids 16, 24, 32, 48 or 64 wide) runs the register-tiled f32 body
+(csrc/attention_bwd_f32.cuh): the F32_STREAMING cases hold it against the
+plain version and the tile body in both families, with and without tables
+and table gradients, ragged against its 128-row blocks and its 64- and
+48-key tiles, twice, with the delta its dq kernel writes.
+
 At d = 80 (ViT-H) the D80 cases hold the Hopper and the resident forward
 against the tile body and the plain version, twice, with the backward
 after them (the Hopper body from 512 keys on, the resident body below), and
@@ -684,6 +691,119 @@ def test_sm90_dq_kernel_writes_delta(cuda, family, n, m, heads, d):
     torch.testing.assert_close(scratch[0], ref, atol=1e-4, rtol=1e-4)
     for g1, g2 in zip(grads, whole[:3]):
         assert torch.equal(g1, g2)
+
+
+# queries, keys, heads, head dim, rel grid, scale (None: d ** -0.5) of the
+# f32 streaming backward: rows ragged against its 128-row blocks, no tables
+# with N != M and a last key tile of one key, 48-key tiles of two grid rows
+# (gw 24) with a last tile of half, 64-key tiles of four grid rows (gw 16),
+# the 48- and 64-grids of the main paths, d = 80, and scales that are no
+# power of two (the packed family's q*scale once a tile in the dk/dv kernel)
+F32_STREAMING = [(1000, 700, 2, 64, None, None),
+                 (513, 513, 1, 64, None, None),
+                 (600, 600, 2, 64, (25, 24), None),
+                 (1024, 1024, 2, 64, (64, 16), 0.3),
+                 (2304, 2304, 1, 64, (48, 48), None),
+                 (1000, 700, 2, 80, None, None),
+                 (1008, 1008, 1, 80, (21, 48), None),
+                 (576, 576, 2, 80, (24, 24), None),
+                 (1024, 1024, 2, 80, (32, 32), 0.25),
+                 (4096, 4096, 1, 80, (64, 64), None)]
+
+
+@pytest.mark.parametrize("family", ["packed", "grouped"])
+@pytest.mark.parametrize("n,m,heads,d,hw,scale", F32_STREAMING)
+def test_f32_streaming_backward(cuda, family, n, m, heads, d, hw, scale):
+    """f32 at the launcher, the register-tiled f32 body (delta inside the
+    dq kernel) against the plain version and the tile body at the f32
+    gradient tolerance, with every gradient and with the activations'
+    alone, each twice and bit-identical; the table gradients change none of
+    dq, dk, dv; the delta the dq kernel leaves against the plain pass."""
+    from wildlifemapper_tpu_torch.ops._attention import (
+        _f32_backward_launch, attention_backward_launch,
+        attention_backward_plain, attention_body, attention_delta,
+        attention_launch)
+
+    ss = family == "grouped"
+    dt = torch.float32
+    rng = np.random.default_rng(n + 7 * m + d)
+    c = heads * d
+    q = _randn(rng, (2, n, c), dt, cuda)
+    k, v = (_randn(rng, (2, m, c), dt, cuda) for _ in range(2))
+    dout = _randn(rng, (2, n, c), dt, cuda)
+    rh = rw = None
+    if hw:
+        rh = _randn(rng, (2, n, heads, hw[0]), dt, cuda, 0.5)
+        rw = _randn(rng, (2, n, heads, hw[1]), dt, cuda, 0.5)
+    scale = d ** -0.5 if scale is None else scale
+    assert attention_body(dt, d, n, m, hw is not None, hw,
+                          "backward") == "f32"
+    with torch.no_grad():
+        out, lse = attention_launch(q, k, v, scale, heads, rh, rw,
+                                    return_lse=True, scale_scores=ss)
+        want = attention_backward_plain(q, k, v, out, lse, dout, scale,
+                                        heads, rh, rw, scale_scores=ss)
+        runs = {drel: [attention_backward_launch(
+            q, k, v, out, lse, dout, scale, heads, rh, rw,
+            want_drel=drel, scale_scores=ss) for _ in range(2)]
+            for drel in (True, False)}
+        tile = attention_backward_launch(q, k, v, out, lse, dout, scale,
+                                         heads, rh, rw, scale_scores=ss,
+                                         body="mma")
+        delta = torch.empty_like(lse)
+        grads = [torch.empty_like(t) for t in (q, k, v)]
+        _f32_backward_launch(0, q, k, v, dout, out, lse, delta, rh, rw,
+                             *grads, None, None, scale, heads, d,
+                             *(hw or (0, 0)), scale_scores=ss)
+        torch.cuda.synchronize()
+    names = ("dq", "dk", "dv", "drel_h", "drel_w")
+    got = runs[True][0]
+    assert [g is None for g in got] == [r is None for r in want]
+    pairs = [(nm, g, r, t) for nm, g, r, t in zip(names, got, want, tile)
+             if r is not None]
+    _close_grads([g for _, g, _, _ in pairs], [r for _, _, r, _ in pairs],
+                 dt, [nm for nm, _, _, _ in pairs])
+    _close_grads([g for _, g, _, _ in pairs], [t for _, _, _, t in pairs],
+                 dt, [nm + " against the tile body" for nm, _, _, _ in pairs])
+    assert runs[False][0][3] is None and runs[False][0][4] is None
+    for first, second in runs.values():
+        for g1, g2 in zip(first, second):
+            assert g1 is None or torch.equal(g1, g2)
+    for g1, g2 in zip(runs[True][0][:3], runs[False][0][:3]):
+        assert torch.equal(g1, g2)
+    torch.testing.assert_close(delta, attention_delta(dout, out, heads),
+                               atol=1e-5, rtol=1e-5)
+    assert torch.equal(grads[0], got[0])
+
+
+def test_f32_body_keeps_other_grids_on_the_tile_body(cuda):
+    """A grid whose width no f32 key tile holds (25 x 40) keeps its f32
+    backward on the tile body, which matches the plain version; named
+    outright, the f32 body refuses it before any launch."""
+    from wildlifemapper_tpu_torch.ops._attention import (
+        attention_backward_launch, attention_backward_plain, attention_body,
+        attention_launch)
+
+    dt, heads, d, hw = torch.float32, 2, 64, (25, 40)
+    n = hw[0] * hw[1]
+    rng = np.random.default_rng(40)
+    q, k, v, dout = (_randn(rng, (1, n, heads * d), dt, cuda)
+                     for _ in range(4))
+    rh = _randn(rng, (1, n, heads, hw[0]), dt, cuda, 0.5)
+    rw = _randn(rng, (1, n, heads, hw[1]), dt, cuda, 0.5)
+    assert attention_body(dt, d, n, n, True, hw, "backward") == "mma"
+    with torch.no_grad():
+        out, lse = attention_launch(q, k, v, 0.125, heads, rh, rw,
+                                    return_lse=True)
+        got = attention_backward_launch(q, k, v, out, lse, dout, 0.125,
+                                        heads, rh, rw)
+        torch.cuda.synchronize()
+        want = attention_backward_plain(q, k, v, out, lse, dout, 0.125,
+                                        heads, rh, rw)
+        with pytest.raises(ValueError, match="f32 body"):
+            attention_backward_launch(q, k, v, out, lse, dout, 0.125, heads,
+                                      rh, rw, body="f32")
+    _close_grads(got, want, dt, ("dq", "dk", "dv", "drel_h", "drel_w"))
 
 
 # batch (windows), heads, grid, scale (None: d ** -0.5), head dim: the

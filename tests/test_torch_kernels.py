@@ -215,8 +215,9 @@ def test_find_nvcc(monkeypatch, tmp_path):
 def test_attention_body_head_dims():
     """ViT-H's head dim 80: bf16 takes the Hopper bodies both ways at 4096
     keys on the 64-grid and the resident bodies both ways on a window of 14;
-    f32 takes the mma.sync / f32 tile bodies; a head dim no body takes is
-    refused with the reason."""
+    f32 takes the tile bodies but for the backward from 512 keys, which
+    takes the register-tiled f32 body; a head dim no body takes is refused
+    with the reason."""
     bf16 = torch.bfloat16
     for direction in ("forward", "backward"):
         assert attention_body(bf16, 80, 4096, 4096, True, (64, 64),
@@ -230,8 +231,10 @@ def test_attention_body_head_dims():
                             (4096, 4096, True, (64, 64)),
                             (100, 4096, False, None)):
         for direction in ("forward", "backward"):
+            want = ("f32" if direction == "backward" and nk >= 512
+                    else "mma")
             assert attention_body(torch.float32, 80, nq, nk, rel, hw,
-                                  direction) == "mma"
+                                  direction) == want
     for d in (16, 96, 256):
         with pytest.raises(ValueError, match=f"head dim {d} not supported"):
             attention_body(bf16, d, 196, 196, True, (14, 14))

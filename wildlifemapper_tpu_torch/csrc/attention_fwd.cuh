@@ -50,8 +50,10 @@
 // 208: 196 and 144 on the main paths) the resident body of
 // attention_fwd_resident.cuh (one block a window-head, a one-pass softmax);
 // the bf16 body here stays the yardstick of both (chip_smoke.py times them
-// side by side). Each shape takes the same body backward (attention_bwd.cuh,
-// attention_bwd_sm90.cuh, attention_bwd_resident.cuh).
+// side by side). Each bf16 shape takes the same body backward
+// (attention_bwd.cuh, attention_bwd_sm90.cuh, attention_bwd_resident.cuh);
+// in f32 the streaming shapes' backward (K2, K5: d = 64 or 80, >= 512 keys)
+// takes the register-tiled body of attention_bwd_f32.cuh.
 //
 // Rounding points follow the Pallas kernels: q*scale is rounded to the input
 // type before QK (packed family) or the f32 scores take the scale (grouped

@@ -29,6 +29,10 @@
 // sum_k p*dp up to the rounding of out. The 16-window group padding and the
 // E/T expansion operands of the Pallas kernel are TPU tiling artefacts and
 // have no counterpart.
+//
+// K5's f32 backward at d = 64 or 80 runs the register-tiled f32 body
+// instead (grouped_attention_bwd_f32.cu, attention_bwd_f32.cuh); its
+// windows (K6) and bf16 leftovers stay here.
 
 #include "attention_bwd.cuh"
 

@@ -9,9 +9,12 @@ built by the six `*_sm90.cu`; their dq kernel takes delta itself), and the
 windowed bf16 shapes (K1, K6: one window of at most 208 tokens) the
 resident bodies (csrc/attention_fwd_resident.cuh,
 attention_bwd_resident.cuh, built by the four `*_resident.cu`), whose
-backward is one kernel that also takes delta, at head dim 64 and 80 alike:
-`attention_body` says which launch takes which, from its direction, dtype
-and shapes alone.
+backward is one kernel that also takes delta, at head dim 64 and 80 alike.
+The f32 backward at the streaming shapes (K2, K5: d = 64 or 80, at least
+512 keys) runs the register-tiled f32 body (csrc/attention_bwd_f32.cuh,
+built by attention_bwd_f32.cu and grouped_attention_bwd_f32.cu; its dq
+kernel takes delta itself). `attention_body` says which launch takes which,
+from its direction, dtype and shapes alone.
 
 Layouts are the JAX package's: q (B, N, C) and k, v (B, M, C), head h in
 columns [h*d, (h+1)*d); for the packed qkv they are column slices of one
@@ -66,11 +69,27 @@ RESIDENT_MAX_GRID = 16
 # backward's one-hot products run over (rel_h | rel_w | 0) of this width,
 # the forward stages the two tables side by side in rows of this width.
 SM90_REL_COLS = 128
-BODIES = ("mma", "sm90", "resident")
+# The f32 streaming backward's key tiles (csrc/attention_bwd_f32.cuh): a
+# tile is a whole number of rows of the rel grid, 64 keys or, where the grid
+# width divides 48 and not 64, 48; grids of another width stay on the tile
+# body.
+F32_KEY_TILES = (64, 48)
+BODIES = ("mma", "sm90", "resident", "f32")
 DIRECTIONS = ("forward", "backward")
 # Head dims the kernels take: ViT-B / L / H run 64, 64, 80, the adaptor 128.
 # 80 takes the Hopper bodies and the resident bodies both ways, as 64 does.
 HEAD_DIMS = (32, 64, 80, 128)
+
+
+def f32_key_tile(gw: Optional[int]) -> Optional[int]:
+    """The f32 streaming backward's key tile for a rel grid `gw` wide (None:
+    no tables), or None where that body takes no such grid: gw a multiple of
+    8, at least 16, dividing 64 or 48 (the kernels' `f32_key_tile`)."""
+    if gw is None:
+        return F32_KEY_TILES[0]
+    if gw < 16 or gw % 8:
+        return None
+    return next((t for t in F32_KEY_TILES if t % gw == 0), None)
 
 
 def attention_body(dtype: torch.dtype, d: int, nq: int, nk: int,
@@ -85,12 +104,18 @@ def attention_body(dtype: torch.dtype, d: int, nq: int, nk: int,
     bf16 at d = 64 or 80 with rel tables of a grid `grid_hw` at most
     RESIDENT_MAX_GRID a side and nq == nk <= RESIDENT_MAX_TOKENS (every
     window of K1 and K6 on the main paths and ViT-H's; when `grid_hw` is not
-    given the tables are taken to fit); else "mma", the mma.sync (bf16) or
-    scalar (f32) tile bodies of csrc/attention_fwd.cuh / attention_bwd.cuh
-    (f32, a d-80 window included, d = 32, d = 128 or N != M below
-    STREAM_MIN_KEYS keys, and a global block of 209 to 511 tokens that lands
-    in K1 or K6). `direction` is "forward" or "backward"; every shape takes
-    the same body both ways. Raises on what no body takes."""
+    given the tables are taken to fit); "f32", the register-tiled f32
+    backward of csrc/attention_bwd_f32.cuh, for the f32 backward at d = 64
+    or 80 with at least STREAM_MIN_KEYS keys and, with tables, a grid whose
+    width `f32_key_tile` takes (K2 and K5 on the main paths, ViT-H's at
+    d 80, the tensor-parallel ranks'; when `grid_hw` is not given the tables
+    are taken to fit); else "mma", the mma.sync (bf16) or scalar (f32) tile
+    bodies of csrc/attention_fwd.cuh / attention_bwd.cuh (the f32 forward,
+    the f32 windows and the f32 backward of other grids, d = 32, d = 128 or
+    N != M below STREAM_MIN_KEYS keys, and a global block of 209 to 511
+    tokens that lands in K1 or K6). `direction` is "forward" or "backward":
+    a bf16 shape takes the same body both ways, an f32 one differs only at
+    the streaming shapes' backward. Raises on what no body takes."""
     if direction not in DIRECTIONS:
         raise ValueError(f"direction {direction!r}: expected one of "
                          f"{DIRECTIONS}")
@@ -107,6 +132,11 @@ def attention_body(dtype: torch.dtype, d: int, nq: int, nk: int,
             and nq == nk <= RESIDENT_MAX_TOKENS
             and (grid_hw is None or max(grid_hw) <= RESIDENT_MAX_GRID)):
         return "resident"
+    if (dtype == torch.float32 and direction == "backward" and d in (64, 80)
+            and nk >= STREAM_MIN_KEYS
+            and (not has_rel or grid_hw is None
+                 or f32_key_tile(grid_hw[1]) is not None)):
+        return "f32"
     return "mma"
 
 
@@ -294,6 +324,9 @@ def attention_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     m = k.shape[1]
     d, gh, gw = _check_attention(q, k, v, num_heads, rel_h, rel_w)
     body = _pick_body(body, q, d, m, rel_h, rel_w, "forward")
+    if body == "f32":
+        raise ValueError("the f32 body is a backward: the f32 forward runs "
+                         "the tile body")
     if body == "sm90" and gh + gw > SM90_REL_COLS:
         raise ValueError(f"rel grid {gh}x{gw}: the Hopper forward takes "
                          f"gh + gw <= {SM90_REL_COLS}")
@@ -390,6 +423,54 @@ def _sm90_backward_launch(kernel: int, q, k, v, dout, out, lse, scratch,
                  + ("dq + delta", "dk/dv")[kernel])
 
 
+def _f32_backward_launch(kernel: int, q, k, v, dout, out, lse, delta,
+                         rel_h, rel_w, dq, dk, dv, drh, drw, scale: float,
+                         num_heads: int, d: int, gh: int, gw: int,
+                         scale_scores: bool = False) -> None:
+    """Launch one kernel of the f32 streaming backward,
+    csrc/attention_bwd_f32.cu (with `scale_scores`,
+    csrc/grouped_attention_bwd_f32.cu), on checked operands. 0, the dq
+    kernel: dq, drel_h / drel_w when they are given, and `delta` =
+    rowsum(dout * out), (B, N, H) f32, which it writes. 1, the dk/dv kernel:
+    dk and dv, reading that delta; it runs after the dq kernel on the same
+    stream. Raises if the launch fails."""
+    b, n, _ = q.shape
+    lib = _build.load_kernels()
+    entry = getattr(lib, ("wm_grouped_attention_bwd" if scale_scores
+                          else "wm_attention_bwd") + "_f32")
+    err = entry(
+        kernel, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        out.data_ptr(), lse.data_ptr(), delta.data_ptr(), _ptr(rel_h),
+        _ptr(rel_w), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(drh),
+        _ptr(drw), b, num_heads, n, k.shape[1], d,
+        q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+        v.stride(0), v.stride(1), dout.stride(0), dout.stride(1),
+        out.stride(0), out.stride(1),
+        dq.stride(0), dq.stride(1), dk.stride(0), dk.stride(1),
+        dv.stride(0), dv.stride(1), gh, gw, float(scale),
+        _build.stream_ptr(q))
+    _build.check(err, "f32 attention backward kernel "
+                 + ("dq + delta", "dk/dv")[kernel])
+
+
+def _check_f32_body(d: int, gw: int, has_rel: bool, tensors) -> None:
+    """What the f32 streaming backward takes: f32 at d = 64 or 80, a grid
+    width `f32_key_tile` takes, rows and tables on 16-byte boundaries (its
+    tiles arrive by 16-byte copies)."""
+    if tensors[0].dtype != torch.float32 or d not in (64, 80):
+        raise ValueError(f"the f32 body takes float32 at d = 64 or 80, got "
+                         f"{tensors[0].dtype} at d = {d}")
+    if has_rel and f32_key_tile(gw) is None:
+        raise ValueError(f"rel grid {gw} wide: the f32 body takes widths "
+                         f"of 16, 24, 32, 48 or 64")
+    for i, t in enumerate(tensors):
+        rows = t.dim() == 3
+        if t.data_ptr() % 16 or (rows and (t.stride(0) % 4
+                                           or t.stride(1) % 4)):
+            raise ValueError(f"f32 body: operand {i} must be 16-byte "
+                             f"aligned (strides {t.stride()})")
+
+
 def _resident_backward_launch(q, k, v, dout, out, lse, rel_h, rel_w, dq, dk,
                               dv, drh, drw, scale: float, num_heads: int,
                               d: int, gh: int, gw: int,
@@ -434,7 +515,10 @@ def attention_backward_launch(q, k, v, out, lse, dout, scale: float,
     "sm90" the two kernels of csrc/attention_bwd_{dq,dkv}_sm90.cu (their
     grouped_ counterparts), the dq kernel taking delta itself and leaving
     it, with what else `sm90_scratch` names, for the dk/dv kernel; for
-    "mma" the plain delta pass and the two kernels of
+    "f32" the two kernels of csrc/attention_bwd_f32.cu
+    (csrc/grouped_attention_bwd_f32.cu), the dq kernel taking delta itself
+    and leaving it for the dk/dv kernel; for "mma" the plain delta pass and
+    the two kernels of
     csrc/attention_bwd.cu (csrc/grouped_attention_bwd.cu). The dq kernel
     also writes drel_h / drel_w when rel tables are given and `want_drel`;
     the dk/dv kernel runs after it. `grads`, when given, are the
@@ -475,6 +559,19 @@ def attention_backward_launch(q, k, v, out, lse, dout, scale: float,
         _count(wrapper, "backward_launches")
         return dq, dk, dv, drh, drw
     counters = ("backward_dq_launches", "backward_dkv_launches")
+    if body == "f32":
+        _check_f32_body(d, gw, rel_h is not None,
+                        [t for t in (q, k, v, dout, out, dq, dk, dv, rel_h,
+                                     rel_w) if t is not None])
+        # the dq kernel takes delta itself and leaves it for the dk/dv kernel
+        delta = torch.empty((b, n, num_heads), dtype=torch.float32,
+                            device=q.device)
+        for kernel, counter in enumerate(counters):
+            _f32_backward_launch(kernel, q, k, v, dout, out, lse, delta,
+                                 rel_h, rel_w, dq, dk, dv, drh, drw, scale,
+                                 num_heads, d, gh, gw, scale_scores)
+            _count(wrapper, counter)
+        return dq, dk, dv, drh, drw
     if body == "sm90":
         # the dq kernel takes delta itself and leaves it for the dk/dv kernel
         scratch = sm90_scratch(q, num_heads, scale, scale_scores,

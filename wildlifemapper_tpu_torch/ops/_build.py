@@ -55,6 +55,10 @@ _ATTENTION_BWD_SM90 = ([_I] + [_P] * 16 + [_I] * 5 + [_LL] * 16
 # the one-kernel windowed backward: `out` (with its strides) in place of delta
 _ATTENTION_BWD_RESIDENT = ([_I] + [_P] * 13 + [_I] * 5 + [_LL] * 16
                            + [_I, _I, ctypes.c_float, _P])
+# the f32 streaming backward: `which`, then `out` (with its strides) beside
+# the delta scratch the dq kernel writes for the dk/dv kernel; no dtype
+_ATTENTION_BWD_F32 = ([_I] + [_P] * 14 + [_I] * 5 + [_LL] * 16
+                      + [_I, _I, ctypes.c_float, _P])
 _SIGNATURES = {
     # the packed family (K1, K2, K4) and the grouped family (K5, K6) take
     # the same arguments
@@ -69,6 +73,9 @@ _SIGNATURES = {
     "wm_grouped_attention_fwd_sm90": _ATTENTION_FWD,
     "wm_grouped_attention_bwd_dq_sm90": _ATTENTION_BWD_SM90,
     "wm_grouped_attention_bwd_dkv_sm90": _ATTENTION_BWD_SM90,
+    # the register-tiled f32 body of the streaming backward (K2, K5)
+    "wm_attention_bwd_f32": _ATTENTION_BWD_F32,
+    "wm_grouped_attention_bwd_f32": _ATTENTION_BWD_F32,
     # the resident bodies of the windowed shapes (K1, K6), bf16
     "wm_attention_fwd_resident": _ATTENTION_FWD,
     "wm_attention_bwd_resident": _ATTENTION_BWD_RESIDENT,

@@ -11,9 +11,12 @@ BH = B*12, N = 4096 on the full canvas or 2304 under either crop; rel tables
 
 The forward kernel is csrc/grouped_attention.cu: the streaming online-softmax
 body of the packed family with the scale on the f32 scores, reading the
-grouped operands as they are (one head, BH batches). The backward is the two
-kernels of csrc/grouped_attention_bwd.cu (dq + drel walking keys, dk/dv
-walking queries) on the lse the forward writes when a gradient is recorded;
+grouped operands as they are (one head, BH batches). The backward is two
+kernels (dq + drel walking keys, dk/dv walking queries) on the lse the
+forward writes when a gradient is recorded: in bf16 the Hopper body
+(csrc/grouped_attention_bwd_{dq,dkv}_sm90.cu), in f32 the register-tiled f32
+body (csrc/grouped_attention_bwd_f32.cu), the tile body
+(csrc/grouped_attention_bwd.cu) where neither takes the shape;
 the Pallas backward's accumulation into shared dk/dv blocks relies on the
 TPU's in-order grid and is a race on a GPU (see that source's header).
 Gradients of the tables come back in the shape that went in.

@@ -10,9 +10,13 @@ bf16) exceeds a block's 227 KB of shared memory, so the kernel
 (csrc/attention.cu, shared with K1 and K4) streams keys with an online
 softmax. Rel tables are (B, N, H, gh) / (B, N, H, gw).
 
-The backward kernels (csrc/attention_bwd.cu) stream tiles likewise and
-recompute p = exp(s - lse) from the lse the forward writes when a gradient
-is recorded; delta = rowsum(do * o) is a plain f32 pass, as in `_v2g_bwd`.
+The backward kernels stream tiles likewise and recompute p = exp(s - lse)
+from the lse the forward writes when a gradient is recorded: in bf16 the
+Hopper body (csrc/attention_bwd_{dq,dkv}_sm90.cu), in f32 the register-tiled
+f32 body (csrc/attention_bwd_f32.cu), whose dq kernel takes delta =
+rowsum(do * o) itself; the tile body (csrc/attention_bwd.cu, a plain f32
+delta pass first, as in `_v2g_bwd`) where neither takes the shape
+(ops/_attention.py::attention_body).
 
 On a CPU tensor the wrapper runs the plain version and autograd
 differentiates it; on a CUDA tensor it launches the kernels or raises,
