@@ -30,7 +30,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      blocks an SM) and every head-dim-80
      instantiation (the tile bodies, the Hopper forward and backward, the
      resident forward and backward) held to no spill, the f32 streaming
-     backward's twelve instantiations (csrc/attention_bwd_f32.cuh) too, and
+     backward's twelve instantiations (csrc/attention_bwd_f32.cuh) and the
+     f32 window backward's twelve (csrc/attention_bwd_f32_window.cuh) too, and
      no line of ptxas saying it serialized the wgmma products of a kernel
      (C7515); TF32 off.
   2. kernels: each kernel against its plain PyTorch version on the card at
@@ -116,13 +117,17 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      at every shape they take, every gradient bit-identical; the same for
      the f32 backward of K2 and K5 at every shape that takes the
      register-tiled f32 body (d 64 and 80, at least 512 keys: B 4 at N 4096
-     and 2304, BH 48, ViT-H's B 1, H 16, N 4096 and BH 16 at d 80).
+     and 2304, BH 48, ViT-H's B 1, H 16, N 4096 and BH 16 at d 80), and of
+     K1 and K6 at every shape that takes the f32 window body (d 64 and 80,
+     N = M <= 208: the main paths' windows of 196 and 144, ViT-H's, ragged
+     7x7 and 10x10; one kernel a backward, delta inside).
   7. train step, parity: f32, one step with kernels against the same step on
      the plain path (same weights, batch and dropout seed) in each training
      configuration and each layout: losses, grad_norm and every trainable
      gradient at atol 5e-4 / rtol 1e-3 and within 1e-3 of its own norm;
-     launch counts (f32: every attention backward is a dq and a dk/dv
-     kernel).
+     launch counts (f32: the windowed backward of K1 / K6 is one kernel of
+     the f32 window body a launch, every other attention backward a dq and a
+     dk/dv kernel).
   8. training: bf16, batch 4, three steps on a synthetic uint8 batch in each
      of the two training configurations (train/synthetic.py), once for each
      layout: finite losses, trainable parameters moved and frozen ones
@@ -182,7 +187,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      streaming backward of K2 and K5 (the register-tiled body: its time at
      the full canvas beside the tile body's, the plain version's, the
      library call's and the bound, ViT-H's d 80 beside; its launches those
-     of the f32 steps of phases 7 and 14c, whose global blocks all take it).
+     of the f32 steps of phases 7 and 14c, whose global blocks all take it),
+     and the f32 window backward of K1 and K6 the same way (the full
+     canvas's windows of 196, ViT-H's d-80 windows beside at batch 1 and 4;
+     its launches those of the same f32 steps, whose windows all take it).
 
  10. the training loop (train/loop.py through cli/train.py's Config, the
      vendored annotation bundle, synthetic tiles at 1024 cached in a
@@ -381,6 +389,15 @@ F32_ITERS = 3
 F32_BWD_MAIN = {"flash_attention_packed": ("K2", "B=4 N=4096"),
                 "flash_attention_rel_pos": ("K5", "BH=4*12 N=4096")}
 F32_BWD_D80 = {"K2": "B=1 H=16 N=4096 d=80", "K5": "BH=16 N=4096 d=80"}
+# the f32 window backward's rows of the "kernels" line: (kernel, shape) of
+# scripts/time_f32_kernels.py at the full canvas, and ViT-H's d-80 window
+# at batch 1 and 4 (K6: batch 1)
+F32_WIN_MAIN = {"windowed_attention_packed": ("K1", "BW=4*25 N=196"),
+                "windowed_attention_rel_pos": ("K6", "BWH=4*25*12 N=196")}
+F32_WIN_D80 = {"K1": ("BW=25 H=16 N=196 d=80", "BW=4*25 H=16 N=196 d=80"),
+               "K6": ("BWH=25*16 N=196 d=80",)}
+# the f32 window body's kernel, as ptxas names it
+F32_WINDOW_KERNEL = "attn_bwd_f32_window_kernel"
 
 
 def emit(phase: str, **fields) -> None:
@@ -669,7 +686,7 @@ def loop_phase(gpu, golden_sd, reset_counts, all_counts, per_step) -> dict:
         if len(waits) > 2:
             raise AssertionError(f"a loop step waited for the device "
                                  f"{len(waits)} times, at most 2: {waits}")
-        want = per_step(False, "packed", resident=True)
+        want = per_step(False, "packed")
         emit("loop_step_launches", config="fine_tune",
              launches=a["step_launches"], want=want)
         if a["step_launches"] != want:
@@ -745,7 +762,7 @@ def loop_phase(gpu, golden_sd, reset_counts, all_counts, per_step) -> dict:
         peak_fs = torch.cuda.max_memory_allocated()
         loop_counts = all_counts()     # ... and ends here
         first, last = np.mean(d["losses"][:6]), np.mean(d["losses"][-6:])
-        want = per_step(True, "packed", resident=True)
+        want = per_step(True, "packed")
         emit("loop_from_scratch", gpu=gpu, losses=d["losses"],
              mean_first_6=first, mean_last_6=last,
              step_launches=d["step_launches"], want=want)
@@ -3050,7 +3067,7 @@ def large_phase(gpu, reset_counts, all_counts, per_step, one_wait,
         block's attention forward twice, the MLP's once."""
         fwd = block_forward(cfg)
         per = per_step(cfg.model.hfc.dropout == 0.0, cfg.model.attn_impl,
-                       resident=True, forward=fwd)
+                       forward=fwd)
         blocks = {n for n in fwd if n.startswith(("windowed", "flash"))}
         if cfg.model.remat_blocks:
             per["launches"] = {n: v * (2 if n in blocks else 1)
@@ -3526,11 +3543,21 @@ def main() -> int:
     # at d 64 and 80 with 64- and 48-key tiles, the dk/dv kernel at d 64 and
     # 80, each in both families, none spilling
     f32_bwd_ptxas = [line for line in ptxas
-                     if line.startswith("attn_bwd_f32_")]
+                     if line.startswith("attn_bwd_f32_")
+                     and not line.startswith(F32_WINDOW_KERNEL)]
     emit("ptxas_f32_backward", lines=f32_bwd_ptxas)
     if (len(f32_bwd_ptxas) != 12
             or any(", 0 B spilled" not in line for line in f32_bwd_ptxas)):
         raise AssertionError(f"f32 backward body: {f32_bwd_ptxas}")
+    # the f32 windows' backward (csrc/attention_bwd_f32_window.cuh): d 64
+    # and 80, 5 warps of 8 rows a thread and 7 warps of 7 or 8, each in both
+    # families, none spilling
+    f32_win_ptxas = [line for line in ptxas
+                     if line.startswith(F32_WINDOW_KERNEL)]
+    emit("ptxas_f32_window_backward", lines=f32_win_ptxas)
+    if (len(f32_win_ptxas) != 12
+            or any(", 0 B spilled" not in line for line in f32_win_ptxas)):
+        raise AssertionError(f"f32 window backward body: {f32_win_ptxas}")
     # ptxas says only in an info line (C7515) that it serialized every wgmma
     # of a kernel, which undoes what the Hopper bodies stand on
     serialized = serialized_wgmma(build_log)
@@ -3896,6 +3923,10 @@ def main() -> int:
     # of each a backward) on the same paths' f32 steps (phases 7 and 14c):
     # every global block's backward there takes the f32 body
     f32_bwd = {"flash_attention_packed": 0, "flash_attention_rel_pos": 0}
+    # the f32 window body's launches (one a backward) on the same steps:
+    # every window's backward there takes it
+    f32_win = {"windowed_attention_packed": 0,
+               "windowed_attention_rel_pos": 0}
 
     # ---- 3. end to end against the PyTorch reference -----------------------
     npz = np.load(Path(__file__).resolve().parent / "tests" / "goldens"
@@ -4314,9 +4345,10 @@ def main() -> int:
 
     def backward_counters(dt, d, n, m, hw):
         """The counters one forward and backward of an attention wrapper
-        move: the resident body's backward is one kernel, the others' two."""
+        move: the resident body's backward and the f32 window body's are one
+        kernel, the others' two."""
         if attention_body(dt, d, n, m, hw is not None, hw,
-                          "backward") == "resident":
+                          "backward") in ("resident", "f32_window"):
             return ("launches", "backward_launches")
         return attn_counters
 
@@ -4429,9 +4461,10 @@ def main() -> int:
         for dt in dtypes(shape):
             dout = dout32.to(dt)
             ref = None
-            f32_body = (dt == torch.float32 and attention_body(
-                dt, d, base[0].shape[1], base[1].shape[1], hw is not None,
-                hw, "backward") == "f32")
+            body = attention_body(dt, d, base[0].shape[1], base[1].shape[1],
+                                  hw is not None, hw, "backward")
+            f32_body = (body if dt == torch.float32
+                        and body in ("f32", "f32_window") else None)
             for frozen in (False, True):
                 tensors = leaves(base, dt, frozen)
                 got = through_wrapper(
@@ -4492,12 +4525,12 @@ def main() -> int:
                     bwd_err[f"{kid}_d80"] = max(bwd_err.get(f"{kid}_d80", 0.0),
                                                 *errs.values())
                 if f32_body:
-                    bwd_err[f"{kid}_f32"] = max(bwd_err.get(f"{kid}_f32", 0.0),
-                                                *errs.values())
+                    key = f"{kid}_{f32_body}"
+                    bwd_err[key] = max(bwd_err.get(key, 0.0), *errs.values())
                 del got, parts, tensors
             if f32_body:
                 repeat_check(kid, shape, lambda: attention_backward_launch(
-                    q, k, v, out, lse, dout, scale, heads, rh, rw), "f32")
+                    q, k, v, out, lse, dout, scale, heads, rh, rw), f32_body)
             if dt == torch.bfloat16:
                 body = attention_body(dt, d, q.shape[1], k.shape[1],
                                       rh is not None, hw, "backward")
@@ -4557,8 +4590,9 @@ def main() -> int:
         for dt in dtypes(shape):
             dout = dout32.to(dt)
             ref = None
-            f32_body = (dt == torch.float32 and attention_body(
-                dt, d, n, n, True, hw, "backward") == "f32")
+            body = attention_body(dt, d, n, n, True, hw, "backward")
+            f32_body = (body if dt == torch.float32
+                        and body in ("f32", "f32_window") else None)
             for frozen in (False, True):
                 tensors = [t.to(dt).detach().requires_grad_(
                     i < 3 or not frozen) for i, t in enumerate(base)]
@@ -4613,13 +4647,13 @@ def main() -> int:
                     bwd_err[f"{kid}_d80"] = max(bwd_err.get(f"{kid}_d80", 0.0),
                                                 *errs.values())
                 if f32_body:
-                    bwd_err[f"{kid}_f32"] = max(bwd_err.get(f"{kid}_f32", 0.0),
-                                                *errs.values())
+                    key = f"{kid}_{f32_body}"
+                    bwd_err[key] = max(bwd_err.get(key, 0.0), *errs.values())
                 del got, tensors
             if f32_body:
                 repeat_check(kid, shape, lambda: attention_backward_launch(
                     q, k, v, out, lse, dout, scale, 1, rh4, rw4,
-                    scale_scores=True), "f32")
+                    scale_scores=True), f32_body)
             if dt == torch.bfloat16:
                 body = attention_body(dt, d, n, n, True, hw, "backward")
                 if body in ("resident", "sm90"):
@@ -4738,18 +4772,19 @@ def main() -> int:
 
     # kernel launches of one train step, by counter: each attention
     # backward launches its dq kernel and its dk/dv kernel, K3's its one;
-    # in bf16 (`resident`) the windowed backward of K1 / K6 is one kernel
-    # and none of their dq or dk/dv kernels runs
+    # the windowed backward of K1 / K6 is one kernel (the resident body in
+    # bf16, the f32 window body in f32) and none of their dq or dk/dv
+    # kernels runs
     windowed = ("windowed_attention_packed", "windowed_attention_rel_pos")
 
-    def per_step(with_k4, layout="packed", resident=False, forward=None):
+    def per_step(with_k4, layout="packed", forward=None):
         fwd = dict(forward or per_forward[layout],
                    cross_attention_packed=int(with_k4))
         attn = {n: v for n, v in fwd.items() if n != "fused_mlp"}
-        one_kernel = {n: (v if resident and n in windowed else 0)
+        one_kernel = {n: (v if n in windowed else 0)
                       for n, v in attn.items()
                       if n != "cross_attention_packed"}
-        two_kernels = {n: (0 if resident and n in windowed else v)
+        two_kernels = {n: (0 if n in windowed else v)
                        for n, v in attn.items()}
         return {"launches": fwd,
                 "backward_launches": {"fused_mlp": fwd["fused_mlp"],
@@ -4792,6 +4827,9 @@ def main() -> int:
                         raise AssertionError(f"{wname}: f32 step's dq and "
                                              "dk/dv launches differ")
                     f32_bwd[wname] += dq_n
+                for wname in f32_win:
+                    f32_win[wname] += got_counts["backward_launches"].get(
+                        wname, 0)
             parity[path] = (
                 {k: v.item() for k, v in metrics.items()},
                 {n: p.grad.clone() for n, p in sb.model.named_parameters()
@@ -4852,6 +4890,13 @@ def main() -> int:
     emit("f32_backward_body", bodies=f32_bodies)
     if set(f32_bodies.values()) != {"f32"}:
         raise AssertionError(f"f32 global blocks' backward: {f32_bodies}")
+    # and their windows the f32 window body: 14 and 12 wide at d 64 and 80
+    f32_win_bodies = {f"d={hd} window={w}x{w}": attention_body(
+        torch.float32, hd, w * w, w * w, True, (w, w), "backward")
+        for hd in (64, 80) for w in (14, 12)}
+    emit("f32_window_backward_body", bodies=f32_win_bodies)
+    if set(f32_win_bodies.values()) != {"f32_window"}:
+        raise AssertionError(f"f32 windows' backward: {f32_win_bodies}")
     # every gradient, rel tables and MLP weights included; then the frozen
     # encoder, where the backward kernels write activation gradients only
     for layout in ("packed", "grouped"):
@@ -4918,8 +4963,7 @@ def main() -> int:
         # ... and ends here
         want_counts = {}
         for with_k4 in (False, True):          # fine_tune, from_scratch
-            for attr, per in per_step(with_k4, layout,
-                                      resident=True).items():
+            for attr, per in per_step(with_k4, layout).items():
                 tot = want_counts.setdefault(attr, {})
                 for n, v in per.items():
                     tot[n] = tot.get(n, 0) + v * TRAIN_STEPS
@@ -5026,7 +5070,7 @@ def main() -> int:
                      ("flash_attention_rel_pos", "windowed_attention_rel_pos"))
         fwd = dict({n: 0 for n in per_forward[layout]}, **{
             glob: 4, win: 28, "fused_mlp": 32 if layout == "packed" else 0})
-        per = per_step(False, layout, resident=True, forward=fwd)
+        per = per_step(False, layout, forward=fwd)
         per["launches"] = {n: v * (1 if n == "fused_mlp" else 2)
                            for n, v in per["launches"].items()}
         return {attr: {n: v * TRAIN_STEPS for n, v in d.items()}
@@ -5683,7 +5727,8 @@ def main() -> int:
                     dev, F32_ITERS,
                     plain_for=time_f32_kernels.K3_SHAPES[:1]),
                 *time_f32_kernels.attention_rows(
-                    dev, F32_ITERS, plain_for=tuple(F32_BWD_MAIN.values()))):
+                    dev, F32_ITERS, plain_for=tuple(F32_BWD_MAIN.values())
+                    + tuple(F32_WIN_MAIN.values()))):
         emit("f32_kernel_time", gpu=gpu, **row)
         f32_rows[row["kernel"], row["shape"]] = row
     f32_model = build(dataclasses.replace(base_cfg, dtype="float32"))
@@ -5754,6 +5799,43 @@ def main() -> int:
             d80_earlier_body_ms=d80["backward_tile_ms"],
             d80_bound_ms=d80["backward_bound_ms"],
             d80_library_ms=d80["backward_library_ms"])
+    # the f32 window backward of K1 and K6
+    # (csrc/attention_bwd_f32_window.cuh): its time, the tile body's and the
+    # plain version's at the full canvas's windows, ViT-H's d-80 windows
+    # beside (K1 at batch 1 and 4)
+    for wname, (kid, shape) in F32_WIN_MAIN.items():
+        row = f32_rows[kid, shape]
+        d80 = [f32_rows[kid, s] for s in F32_WIN_D80[kid]]
+        bodies = {r["shape"]: r["backward_body"] for r in (row, *d80)}
+        if set(bodies.values()) != {"f32_window"}:
+            raise AssertionError(f"{kid}: f32 backward body {bodies}")
+        entry = dict(
+            name=wname + "_backward_f32", route="cuda",
+            source=("wildlifemapper_tpu_torch/csrc/"
+                    + ("grouped_" if kid == "K6" else "")
+                    + "attention_bwd_f32_window.cu"),
+            replaces=(jax_ops + "windowed_attention.py:173" if kid == "K6"
+                      else jax_ops + "windowed_attention_v2.py:260"),
+            dtype="float32", shape=shape, kernels_per_backward=1,
+            max_abs_err=bwd_err[f"{kid}_f32_window"], max_abs_err_of=(
+                "dq, dk, dv, drel_h, drel_w through the wrapper, every f32 "
+                "shape of phase 6 that takes the body"),
+            ms=row["backward_ms"], earlier_body_ms=row["backward_tile_ms"],
+            plain_ms=row["backward_plain_ms"],
+            bound_ms=row["backward_bound_ms"],
+            bound_by=row["backward_bound_by"],
+            library_ms=row["backward_library_ms"],
+            library="f32 autograd through scaled_dot_product_attention "
+                    "with the bias as attn_mask (dq, dk, dv)",
+            bit_identical=row["backward_bit_identical"])
+        for tag, r in zip(("d80", "d80_batch4"), d80):
+            entry.update({f"{tag}_shape": r["shape"],
+                          f"{tag}_ms": r["backward_ms"],
+                          f"{tag}_earlier_body_ms": r["backward_tile_ms"],
+                          f"{tag}_bound_ms": r["backward_bound_ms"],
+                          f"{tag}_bound_by": r["backward_bound_by"],
+                          f"{tag}_library_ms": r["backward_library_ms"]})
+        f32_report[wname + "_backward_f32"] = entry
 
     order = ["windowed_attention_packed", "windowed_attention_packed_backward",
              "windowed_attention_packed_backward_d80",
@@ -5864,6 +5946,12 @@ def main() -> int:
         if n <= 0:
             raise AssertionError(f"{wname}: the f32 backward body was not "
                                  "launched on the f32 steps")
+    for wname, n in f32_win.items():
+        # one launch a backward
+        f32_report[wname + "_backward_f32"]["launches"] = n
+        if n <= 0:
+            raise AssertionError(f"{wname}: the f32 window backward body was "
+                                 "not launched on the f32 steps")
     report.update(f32_report)
     order += list(f32_report)
     emit("script", seconds=time.perf_counter() - t_script, gpu=gpu)

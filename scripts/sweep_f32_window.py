@@ -1,0 +1,231 @@
+"""Variants of the f32 windows' backward body (K1, K6;
+csrc/attention_bwd_f32_window.cuh), timed on one NVIDIA GPU (written for the
+H100) at the main paths' window shapes:
+
+    python3 scripts/sweep_f32_window.py [--variants body,one_block,...]
+        [--turns N] [--tables full|no_drel|none] [--shapes 0,1,...]
+
+A variant is the header with the edits VARIANTS names ("body": none, the
+header as the port builds it): one block a window-head running both passes,
+8 rows a thread at 161 to 196 tokens, the score products' column loop
+unrolled once, four times or fully. Each variant's header is written with
+copies of the body's two sources (attention_bwd_f32_window.cu and
+grouped_attention_bwd_f32_window.cu) into build/sweep_f32_window/<variant>/,
+built there, one nvcc a source, all started together, and each library is
+loaded with ctypes; the port's own library is not touched. Every edit must
+match the header once, so a variant that no longer applies fails to build.
+At every shape each variant is run once and held to the plain backward
+(ops/_attention.py::attention_backward_plain) at the f32 gradient
+tolerance, 5e-4 / 1e-3, then timed in N turns by CUDA events over 10
+launches, the variants in turn. `--tables no_drel` passes
+the rel tables without their gradients, `none` no tables at all (what the
+tables cost; the outputs are then not compared). One JSON line a variant
+(ptxas registers and spills of each instantiation) and a shape (each
+variant's best turn in ms), the card's name and power limit first. Fails
+without CUDA.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+BUILD = ROOT / "build" / "sweep_f32_window"
+FAMILIES = {False: "attention_bwd_f32_window",
+            True: "grouped_attention_bwd_f32_window"}
+HEADER = "attention_bwd_f32_window.cuh"
+SCORE_LOOP = "#pragma unroll 2\n  for (int c = 0; c < D; c += 4) {"
+
+
+def _unroll(n: str) -> list:
+    return [(SCORE_LOOP, SCORE_LOOP.replace("unroll 2", n))]
+
+
+# name -> [(text of the header, its replacement)]
+VARIANTS = {
+    "body": [],
+    "one_block": [
+        ("const bool pass1 = blockIdx.x % 2 == 0;\n  const int wh = blockIdx.x / 2;",
+         "const bool pass1 = true;\n  const int wh = blockIdx.x;"),
+        ("    return;\n  }\n\n  // ---- pass 2",
+         "  }\n  __syncthreads();\n\n  // ---- pass 2"),
+        ("(long long)batch * a.heads * 2;", "(long long)batch * a.heads;")],
+    "rows8": [("  if (n <= 196) return launch_f32_window<D, 7, 7, SCALE_SCORES>"
+               "(a, batch, stream);\n", "")],
+    "unroll1": _unroll("unroll 1"),
+    "unroll4": _unroll("unroll 4"),
+    "unroll_full": _unroll("unroll"),
+}
+# label, grouped (K6), windows (or window-heads), heads, head dim, grid
+SHAPES = [("K1 BW=4*25 N=196", False, 100, 12, 64, (14, 14)),
+          ("K6 BWH=4*25*12 N=196", True, 1200, 1, 64, (14, 14)),
+          ("K1 BW=4*16 N=144", False, 64, 12, 64, (12, 12)),
+          ("K6 BWH=4*16*12 N=144", True, 768, 1, 64, (12, 12)),
+          ("K1 BW=4*25 H=16 N=196 d=80", False, 100, 16, 80, (14, 14)),
+          ("K1 BW=4*16 H=16 N=144 d=80", False, 64, 16, 80, (12, 12))]
+ITERS = 10
+
+
+def ptxas(log: str) -> list:
+    """'kernel<D,W,R[,scale_scores]>: registers, spill bytes' lines."""
+    out, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"attn_bwd_f32_window_kernelI(.*?)EEv", line)
+        if m and "entry function" in line:
+            args = re.findall(r"Li(\d+)", m.group(1))
+            if "Lb1" in m.group(1):
+                args.append("scale_scores")
+            name = f"<{','.join(args)}>"
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            spill = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append(f"{name}: {m.group(1)} registers, {spill} B spilled")
+            name = None
+    return out
+
+
+def variant_header(text: str, edits: list) -> str:
+    """The header with `edits` made, each matching it exactly once."""
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise ValueError(f"edit matches {text.count(old)} times: {old!r}")
+        text = text.replace(old, new)
+    return text
+
+
+def build(variants: list) -> dict:
+    """{(variant, grouped): (entry, ptxas lines)}, one nvcc a source."""
+    from wildlifemapper_tpu_torch.ops import _build
+
+    nvcc = _build.find_nvcc()
+    csrc = _build.CSRC
+    header = (csrc / HEADER).read_text()
+    procs = {}
+    for name in variants:
+        out = BUILD / name
+        out.mkdir(parents=True, exist_ok=True)
+        (out / HEADER).write_text(variant_header(header, VARIANTS[name]))
+        for grouped, src in FAMILIES.items():
+            (out / f"{src}.cu").write_text((csrc / f"{src}.cu").read_text())
+            # the copy's own directory first: its header, then csrc's
+            cmd = [nvcc, *_build.NVCC_FLAGS, "-I", str(csrc), "-shared",
+                   "-o", str(out / f"{src}.so"), str(out / f"{src}.cu")]
+            procs[name, grouped] = subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)
+    entries = {}
+    for (name, grouped), proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"{name}: nvcc failed\n{log[-3000:]}")
+        lib = ctypes.CDLL(str(BUILD / name / f"{FAMILIES[grouped]}.so"))
+        fn = getattr(lib, "wm_" + FAMILIES[grouped])
+        fn.argtypes = _build._ATTENTION_BWD_F32_WINDOW
+        fn.restype = ctypes.c_int
+        entries[name, grouped] = (fn, ptxas(log))
+    return entries
+
+
+def launch(fn, q, k, v, out, lse, dout, scale, heads, rh, rw, grads):
+    """One launch of a variant's C entry, with the port's arguments."""
+    from wildlifemapper_tpu_torch.ops._attention import window_backward_args
+
+    gh, gw = (rh.shape[-1], rw.shape[-1]) if rh is not None else (0, 0)
+    err = fn(*window_backward_args(q, k, v, dout, out, lse, rh, rw, *grads,
+                                   scale, heads, q.shape[-1] // heads, gh,
+                                   gw))
+    if err:
+        raise RuntimeError(f"launch failed with cudaError_t {err}")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--variants", default=",".join(VARIANTS))
+    ap.add_argument("--turns", type=int, default=3)
+    ap.add_argument("--tables", choices=("full", "no_drel", "none"),
+                    default="full")
+    ap.add_argument("--shapes", default=",".join(
+        str(i) for i in range(len(SHAPES))))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("needs a CUDA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from wildlifemapper_tpu_torch.ops._attention import (
+        attention_backward_plain, attention_launch)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gpu = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(json.dumps(dict(gpu=gpu, tables=args.tables)), flush=True)
+    variants = args.variants.split(",")
+    entries = build(variants)
+    for name in variants:
+        print(json.dumps(dict(variant=name, edits=len(VARIANTS[name]),
+                              ptxas=entries[name, False][1]
+                              + entries[name, True][1])), flush=True)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for i in map(int, args.shapes.split(",")):
+        label, grouped, b, heads, d, hw = SHAPES[i]
+        n, c, scale = hw[0] * hw[1], heads * d, d ** -0.5
+        q, k, v, dout = (torch.randn(b, n, c, device=dev, generator=gen)
+                         for _ in range(4))
+        rh = torch.randn(b, n, heads, hw[0], device=dev, generator=gen) * 0.5
+        rw = torch.randn(b, n, heads, hw[1], device=dev, generator=gen) * 0.5
+        with torch.no_grad():
+            out, lse = attention_launch(q, k, v, scale, heads, rh, rw,
+                                        return_lse=True,
+                                        scale_scores=grouped)
+            want = attention_backward_plain(q, k, v, out, lse, dout, scale,
+                                            heads, rh, rw,
+                                            scale_scores=grouped)
+        tabs = (rh, rw) if args.tables != "none" else (None, None)
+        runs, errs = {}, {}
+        for name in variants:
+            fn = entries[name, grouped][0]
+            grads = [torch.empty_like(t) for t in (q, k, v)] + (
+                [torch.empty_like(rh), torch.empty_like(rw)]
+                if args.tables == "full" else [None, None])
+            runs[name] = (fn, grads)
+            launch(fn, q, k, v, out, lse, dout, scale, heads, *tabs, grads)
+            torch.cuda.synchronize()
+            if args.tables != "none":
+                pairs = [(g, w) for g, w in zip(grads, want) if g is not None]
+                for g, w in pairs:
+                    torch.testing.assert_close(g, w, atol=5e-4, rtol=1e-3,
+                                               msg=f"{name} at {label}")
+                errs[name] = max((g - w).abs().max().item()
+                                 for g, w in pairs)
+        best = {name: float("inf") for name in variants}
+        for _ in range(args.turns):
+            for name, (fn, grads) in runs.items():
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(ITERS):
+                    launch(fn, q, k, v, out, lse, dout, scale, heads, *tabs,
+                           grads)
+                end.record()
+                torch.cuda.synchronize()
+                best[name] = min(best[name], start.elapsed_time(end) / ITERS)
+        print(json.dumps(dict(shape=label, tables=args.tables, ms=best,
+                              max_abs_err=errs)), flush=True)
+        del q, k, v, dout, rh, rw, out, lse, want, runs
+        torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

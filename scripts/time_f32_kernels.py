@@ -2,11 +2,12 @@
 H100) beside its library call and its bound: K3's forward and dh at the
 shapes `chip_smoke.py` phase 9 times in bf16, and the f32 attention bodies
 (K1, K2, K4, K5, K6) forward and backward at the main paths' shapes and at
-ViT-H's head dim 80 (K2, K5 on the 64-grid, batch 1). For PERF.md's f32
-rows, and for comparing two checkouts in turns.
+ViT-H's head dim 80 (K2, K5 on the 64-grid, batch 1; K1 on windows of 14 at
+batch 1 and 4, K6 at batch 1). For PERF.md's f32 rows, and for comparing
+two checkouts in turns.
 
     python3 scripts/time_f32_kernels.py [--root CHECKOUT] [--label L]
-        [--k3 | --attention] [--iters N] [--plain]
+        [--k3 | --attention | --windows] [--iters N] [--plain]
 
 `--root` is the checkout whose `wildlifemapper_tpu_torch` is imported (this
 script's own by default), so that one call can time an older tree with the
@@ -15,7 +16,9 @@ tree of the port has is called (the `fused_mlp` and `fused_mlp_dh` wrappers,
 `attention_launch`, `attention_backward_launch`), so each body is whatever
 that tree runs in f32: from 512 keys at d 64 and 80 the backward of K2 and
 K5 is the register-tiled f32 body (csrc/attention_bwd_f32.cuh) where the
-tree has one, and the tile body before. Every shape is first checked
+tree has one, and the windows' backward (K1, K6 at d 64 and 80, up to 208
+tokens) the f32 window body (csrc/attention_bwd_f32_window.cuh); the tile
+body before. `--windows` times the windows' rows alone. Every shape is first checked
 against its plain version (f32 2e-5 / 1e-4 for the forward outputs, 5e-4 /
 1e-3 for a, dh and the attention gradients, the tolerances of record) and
 run twice, K3 and the attention backward bit for bit. Then, by CUDA events
@@ -27,8 +30,8 @@ library call (library, kernel, kernel, library):
   versions are timed too, after the pairs.
 - attention: one `F.scaled_dot_product_attention` with the rel-pos bias as
   `attn_mask`, and autograd through it for dq, dk, dv. Where a tree runs
-  the f32 body, the tile body's backward at the same inputs is timed after
-  the pair (`backward_tile_ms`). `--plain` times the plain versions after
+  the f32 body or the f32 window body, the tile body's backward at the same
+  inputs is timed after the pair (`backward_tile_ms`). `--plain` times the plain versions after
   the pairs here too (`forward_plain_ms`, `backward_plain_ms`), which
   `chip_smoke.py` does for its first K2 and K5 shapes (`plain_for`).
 
@@ -78,7 +81,12 @@ ATTENTION_SHAPES = [
     # ViT-H's global blocks (head dim 80, 16 heads) at batch 1
     ("K2", "B=1 H=16 N=4096 d=80", 1, 16, 80, 4096, 4096, (64, 64)),
     ("K5", "BH=16 N=4096 d=80", 16, 1, 80, 4096, 4096, (64, 64)),
+    # ViT-H's windows (head dim 80, 16 heads) at batch 1 and 4
+    ("K1", "BW=25 H=16 N=196 d=80", 25, 16, 80, 196, 196, (14, 14)),
+    ("K1", "BW=4*25 H=16 N=196 d=80", 100, 16, 80, 196, 196, (14, 14)),
+    ("K6", "BWH=25*16 N=196 d=80", 400, 1, 80, 196, 196, (14, 14)),
 ]
+WINDOW_SHAPES = [s for s in ATTENTION_SHAPES if s[0] in ("K1", "K6")]
 
 
 def time_ms(fn, iters: int) -> float:
@@ -277,7 +285,7 @@ def attention_rows(dev, iters: int = ITERS, shapes=ATTENTION_SHAPES,
             if "f32" in getattr(_attention, "BODIES", ()) else "mma")
         tile_ms = plain_ms = fwd_plain_ms = None
         with torch.no_grad():
-            if body == "f32":
+            if body in ("f32", "f32_window"):
                 tile_ms = time_ms(lambda: attention_backward_launch(
                     q, k, v, out, lse, dout, scale, h, rh, rw,
                     scale_scores=ss, body="mma"), max(1, iters // 3))
@@ -321,6 +329,8 @@ def main() -> int:
     which.add_argument("--k3", action="store_true", help="K3 alone")
     which.add_argument("--attention", action="store_true",
                        help="the attention bodies alone")
+    which.add_argument("--windows", action="store_true",
+                       help="the windows' attention rows alone (K1, K6)")
     ap.add_argument("--iters", type=int, default=ITERS,
                     help="launches a timing")
     ap.add_argument("--plain", action="store_true",
@@ -342,11 +352,12 @@ def main() -> int:
           flush=True)
     dev = torch.device("cuda")
     rows = []
-    if not args.attention:
+    if not (args.attention or args.windows):
         rows.append(k3_rows(dev, args.iters))
     if not args.k3:
-        rows.append(attention_rows(dev, args.iters, plain_for=[
-            (s[0], s[1]) for s in ATTENTION_SHAPES] if args.plain else ()))
+        shapes = WINDOW_SHAPES if args.windows else ATTENTION_SHAPES
+        rows.append(attention_rows(dev, args.iters, shapes, plain_for=[
+            (s[0], s[1]) for s in shapes] if args.plain else ()))
     for gen in rows:
         for row in gen:
             print(json.dumps(dict(row, label=args.label)), flush=True)

@@ -14,11 +14,13 @@ import torch
 
 from wildlifemapper_tpu_torch.ops import _attention, _build, _library
 from wildlifemapper_tpu_torch.ops._attention import (F32_KEY_TILES,
+                                                     F32_WINDOW_SLAB,
                                                      RESIDENT_MAX_GRID,
                                                      RESIDENT_MAX_TOKENS,
                                                      STREAM_MIN_KEYS,
                                                      attention_body,
-                                                     f32_key_tile)
+                                                     f32_key_tile,
+                                                     f32_window_smem_bytes)
 
 BF16, F32 = torch.bfloat16, torch.float32
 
@@ -41,6 +43,7 @@ MAIN_PATH = [
     ("K5 parity", F32, 64, 2304, 2304, True, "mma"),
     ("K1 parity", F32, 64, 196, 196, True, "mma"),
     ("K6 parity", F32, 64, 144, 144, True, "mma"),
+    ("K1 parity ViT-H window", F32, 80, 196, 196, True, "mma"),
 ]
 
 
@@ -53,8 +56,10 @@ def test_main_path_shapes(what, dtype, d, nq, nk, rel, body):
 # The backward at the main paths' shapes, with their grids: the f32 global
 # blocks of K2 and K5 (d 64 at 4096 and 2304, ViT-H's d 80, a tensor-parallel
 # rank's six heads of 64, which are the same shapes a head) take the
-# register-tiled f32 body; the f32 windows, K4 (d 128), d 32 and a grid no
-# key tile holds stay on the tile body; every bf16 backward keeps its body.
+# register-tiled f32 body; the f32 windows of K1 and K6 (d 64 and 80) the
+# f32 window body; K4 (d 128), d 32, a grid no key tile holds and a global
+# block of 209 tokens stay on the tile body; every bf16 backward keeps its
+# body.
 MAIN_PATH_BACKWARD = [
     ("K2 f32 full canvas", F32, 64, 4096, (64, 64), "f32"),
     ("K2 f32 48-grid", F32, 64, 2304, (48, 48), "f32"),
@@ -64,9 +69,13 @@ MAIN_PATH_BACKWARD = [
     ("K2 f32 ViT-H 48-grid", F32, 80, 2304, (48, 48), "f32"),
     ("K4 f32", F32, 128, 4096, None, "mma"),
     ("K4 f32 48-grid", F32, 128, 2304, None, "mma"),
-    ("K1 f32 window of 14", F32, 64, 196, (14, 14), "mma"),
-    ("K6 f32 window of 12", F32, 64, 144, (12, 12), "mma"),
-    ("K1 f32 ViT-H window", F32, 80, 196, (14, 14), "mma"),
+    ("K1 f32 window of 14", F32, 64, 196, (14, 14), "f32_window"),
+    ("K6 f32 window of 12", F32, 64, 144, (12, 12), "f32_window"),
+    ("K1 f32 ViT-H window", F32, 80, 196, (14, 14), "f32_window"),
+    ("K6 f32 ViT-H window of 12", F32, 80, 144, (12, 12), "f32_window"),
+    ("d 32 f32 window of 14", F32, 32, 196, (14, 14), "mma"),
+    ("K1 f32 global block of 209", F32, 64, 209, (11, 19), "mma"),
+    ("K6 f32 window of 14, tables 17 wide", F32, 64, 204, (12, 17), "mma"),
     ("d 32 f32", F32, 32, 4096, (64, 64), "mma"),
     ("K2 f32 25x40 grid", F32, 64, 1000, (25, 40), "mma"),
     ("K2 bf16 full canvas", BF16, 64, 4096, (64, 64), "sm90"),
@@ -130,7 +139,7 @@ VIT_H = [
     ("K2", "forward", F32, 4096, (64, 64), "mma"),
     ("K1", "forward", F32, 196, (14, 14), "mma"),
     ("K5", "backward", F32, 4096, (64, 64), "f32"),
-    ("K6", "backward", F32, 196, (14, 14), "mma"),
+    ("K6", "backward", F32, 196, (14, 14), "f32_window"),
     ("K2", "backward", F32, 4096, (64, 64), "f32"),
     ("K2", "backward", F32, 2304, (48, 48), "f32"),
 ]
@@ -346,13 +355,14 @@ def test_hopper_header_note(name):
     ("attention_fwd.cuh", "attention_fwd_sm90.cuh",
      "Each bf16 shape takes the same body backward"),
     ("attention_bwd.cuh", "attention_bwd_sm90.cuh",
-     "in f32 the windows (K1, K6, a d-80 window included), K4 (d = 128), "
-     "d = 32 and a grid whose width no f32 key tile holds"),
+     "in f32 K4 (d = 128), d = 32, a grid whose width no f32 key tile "
+     "holds (25 x 40) and a block of 209 to 511 tokens that lands in K1 or "
+     "K6"),
 ])
 def test_tile_headers_say_what_still_runs_there(name, stays, d80):
-    """The tile bodies keep the f32 forward, the f32 windows (a d-80
-    window's too), K4's d 128, d = 32 and the bf16 launches no other body
-    holds; the f32 streaming backward runs the f32 body; no bf16 d-80
+    """The tile bodies keep the f32 forward, K4's d 128, d = 32 and the
+    launches no other body holds; the f32 streaming backward runs the f32
+    body and the f32 windows' backward the f32 window body; no bf16 d-80
     window runs there either way."""
     note = (_build.CSRC / name).read_text()
     note = note[:note.index("#pragma once")]
@@ -360,13 +370,15 @@ def test_tile_headers_say_what_still_runs_there(name, stays, d80):
     assert stays.replace("_sm90", "_resident") in note
     assert "attention_bwd_f32.cuh" in note
     assert "K1" in note and "K6" in note and "f32" in note
+    if name == "attention_bwd.cuh":
+        assert "attention_bwd_f32_window.cuh" in note
     flat = " ".join(note.replace("//", " ").split())
     assert d80 in flat
     if name == "attention_bwd.cuh":
         assert "every f32 launch" not in flat
     assert "d = 64 or 80, N = M <= 208" in flat
     for gone in ("still runs the tile bodies", "backward of a d-80 window",
-                 "d = 64 only"):
+                 "d = 64 only", "in f32 the windows"):
         assert gone not in flat, gone
 
 
@@ -518,13 +530,20 @@ def test_every_entry_has_a_signature():
     # dq kernel leaves for the dk/dv kernel (round(q*scale), the tables)
     assert len(_build._ATTENTION_BWD_SM90) == len(
         _build._ATTENTION_BWD) - 1 + 3 + 2
-    f32 = {n for n in defined if n.endswith("_f32")}
-    assert f32 == {"wm_attention_bwd_f32", "wm_grouped_attention_bwd_f32"}
+    f32 = {n for n in defined if "_f32" in n}
+    assert f32 == {"wm_attention_bwd_f32", "wm_grouped_attention_bwd_f32",
+                   "wm_attention_bwd_f32_window",
+                   "wm_grouped_attention_bwd_f32_window"}
     for n in f32:
-        assert _build._SIGNATURES[n] == _build._ATTENTION_BWD_F32
+        assert _build._SIGNATURES[n] == (
+            _build._ATTENTION_BWD_F32_WINDOW if n.endswith("_window")
+            else _build._ATTENTION_BWD_F32)
     # `which` and no dtype; out and its two strides beside delta
     assert len(_build._ATTENTION_BWD_F32) == len(
         _build._ATTENTION_BWD) - 1 + 3
+    # the window body: the resident backward's arguments without a dtype
+    assert _build._ATTENTION_BWD_F32_WINDOW == \
+        _build._ATTENTION_BWD_RESIDENT[1:]
 
 
 def test_port_sources_import_no_jax():
@@ -914,3 +933,142 @@ def test_sm90_backward_refuses_wide_grids():
         _attention.attention_backward_launch(
             q, k, v, out, torch.zeros(1, n, heads), dout, 0.125, heads, rh,
             rw)
+
+
+F32_WINDOW_SOURCES = ["attention_bwd_f32_window.cu",
+                      "grouped_attention_bwd_f32_window.cu"]
+
+
+@pytest.mark.parametrize("name", F32_WINDOW_SOURCES)
+def test_f32_window_backward_source(name):
+    """One small source a family, so the nvcc runs stay side by side; each
+    says which TPU kernel it stands for and where the other shapes run."""
+    path = _build.CSRC / name
+    assert path in _build.sources()
+    text = path.read_text()
+    assert "JAX package" in text and "attention_bwd_f32_window.cuh" in text
+    assert ("K6" if name.startswith("grouped") else "K1") in text
+    assert "tile body" in text and "resident body" in text
+    assert len(re.findall(r"^WM_DEFINE_ATTENTION_BWD_F32_WINDOW\(", text,
+                          re.M)) == 1
+    assert len(text.splitlines()) < 30
+
+
+@pytest.mark.parametrize("d", [64, 80])
+@pytest.mark.parametrize("tokens", [1, 6, 100, 144, 160, 161, 196,
+                                    RESIDENT_MAX_TOKENS])
+def test_f32_window_shared_memory_fits(d, tokens):
+    """The f32 window body's shared memory, one function of head dim and
+    tokens for the kernel's launch and for its note, fits a block; 161 to
+    208 tokens take the 7-warp instantiation, the rest the 5-warp one."""
+    smem = f32_window_smem_bytes(d, tokens)
+    assert smem <= 232_448
+    rows = 224 if tokens > 160 else 160
+    tables = max(RESIDENT_MAX_GRID * rows,
+                 2 * F32_WINDOW_SLAB * (2 * RESIDENT_MAX_GRID + 1))
+    assert smem == 4 * (2 * d * rows + 4 * F32_WINDOW_SLAB * (d + 4)
+                        + F32_WINDOW_SLAB * (rows + 4) + 2 * rows + tables)
+    text = (_build.CSRC / "attention_bwd_f32_window.cuh").read_text()
+    assert f"kFwSlab = {F32_WINDOW_SLAB};" in text
+    assert f"kFwMaxGrid = {RESIDENT_MAX_GRID};" in text
+
+
+def test_f32_window_header_note():
+    """The f32 window body names the Pallas call sites it replaces, says
+    that it takes delta itself and has no atomics, and gives its shared
+    memory at d 64 and d 80 (from f32_window_smem_bytes)."""
+    text = (_build.CSRC / "attention_bwd_f32_window.cuh").read_text()
+    note = text[:text.index("#pragma once")]
+    flat = " ".join(note.replace("//", " ").split())
+    for replaced in ("windowed_attention_v2.py::_bwd_kernel (:125",
+                     "pallas_call :260",
+                     "windowed_attention.py::_bwd_kernel (:64",
+                     "pallas_call :173"):
+        assert replaced in flat, replaced
+    for d in (64, 80):
+        smem = f32_window_smem_bytes(d, RESIDENT_MAX_TOKENS)
+        assert smem < 232_448
+        assert f"{smem:,} B at d {d}" in flat, smem
+    for words in ("What bounds it on the H100: operations", "67 TFLOP/s",
+                  "29.5 GFLOP", "delta inside", "no plain pass runs",
+                  "no atomics", "bit-identical", "No TF32",
+                  "two passes with the resident side swapped",
+                  "two blocks a window-head", "Eight products",
+                  "register tiles of 8 x 4", "whole grid rows",
+                  "Nothing is added into shared memory lane by lane",
+                  "cp.async", "double-buffered", "d 64 and 80",
+                  "0 bytes spilled", "232,448"):
+        assert words in flat, words
+    code = text[text.index("#pragma once"):]
+    assert "atomic" not in code
+    assert len(re.findall(r"^__global__ void", code, re.M)) == 1
+
+
+@pytest.mark.parametrize("family,d,hw,want_drel", [
+    ("packed", 64, (14, 14), True),      # K1 on the full canvas
+    ("packed", 64, (12, 12), False),     # K1 on the 48-grid, frozen
+    ("grouped", 64, (14, 14), True),     # K6
+    ("grouped", 64, (12, 12), True),
+    ("packed", 80, (14, 14), True),      # ViT-H's K1
+    ("packed", 80, (14, 14), False),
+    ("grouped", 80, (12, 12), True),     # ViT-H's K6 from scratch
+    ("packed", 64, (10, 10), True),      # a ragged window
+])
+def test_f32_window_backward_is_one_launch(monkeypatch, family, d, hw,
+                                           want_drel):
+    """The f32 window body is one launch a backward, counted on
+    `backward_launches`, with no plain delta pass and no scratch: its entry
+    gets the forward's out in delta's place, and the tables' gradients only
+    when they are wanted."""
+    grouped = family == "grouped"
+    heads = 1 if grouped else 2
+    n = hw[0] * hw[1]
+    assert attention_body(F32, d, n, n, True, hw, "backward") == "f32_window"
+    calls, passes, counts, grads = _launch_with_stand_ins(
+        monkeypatch, F32, d, n, heads, d ** -0.5, True, scale_scores=grouped,
+        want_drel=want_drel)
+    entry = ("wm_grouped_attention_bwd_f32_window" if grouped
+             else "wm_attention_bwd_f32_window")
+    assert [name for name, _ in calls] == [entry]
+    assert passes == [] and counts == (1, 0, 0)
+    args = calls[0][1]
+    assert len(args) == len(_build._ATTENTION_BWD_F32_WINDOW)
+    # q, k, v, dout, out, lse, rel_h, rel_w, dq, dk, dv, drel_h, drel_w, ...
+    assert args[4] is not None and args[6] is not None
+    assert (args[11] is not None) == want_drel
+    assert args[15:18] == (n, n, d) and args[34:36] == hw
+    assert (grads[3] is not None) == want_drel
+
+
+def test_f32_window_body_refuses_what_it_does_not_hold(monkeypatch):
+    """Named outright, the f32 window body refuses before any launch what
+    it does not take: bf16, d 32 or 128, N != M, more than
+    RESIDENT_MAX_TOKENS tokens, tables wider than RESIDENT_MAX_GRID, a
+    forward."""
+    lib = _StandInLibrary()
+    monkeypatch.setattr(_build, "load_kernels", lambda: lib)
+    monkeypatch.setattr(_build, "stream_ptr", lambda t: 0)
+
+    def launch(dtype, d, gh, gw, m=None):
+        n = gh * gw
+        m = n if m is None else m
+        q = torch.zeros(1, n, d, dtype=dtype)
+        kv = torch.zeros(1, m, d, dtype=dtype)
+        rh = torch.zeros(1, n, 1, gh, dtype=dtype)
+        rw = torch.zeros(1, n, 1, m // gh, dtype=dtype)
+        return _attention.attention_backward_launch(
+            q, kv, kv, q, torch.zeros(1, n, 1), q, 0.125, 1, rh, rw,
+            body="f32_window")
+
+    for args in ((BF16, 64, 14, 14), (F32, 32, 14, 14), (F32, 128, 14, 14),
+                 (F32, 64, 11, 19), (F32, 64, 17, 12),
+                 (F32, 64, 14, 14, 182)):
+        with pytest.raises(ValueError, match="f32_window body"):
+            launch(*args)
+    launch(F32, 64, 14, 14)
+    launch(F32, 80, RESIDENT_MAX_GRID, 13)
+    q = torch.zeros(1, 196, 64)
+    with pytest.raises(ValueError, match="f32_window body is a backward"):
+        _attention.attention_launch(q, q, q, 0.125, 1, body="f32_window")
+    assert [name for name, _ in lib.calls] == [
+        "wm_attention_bwd_f32_window"] * 2

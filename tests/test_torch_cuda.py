@@ -26,7 +26,12 @@ In f32 the backward of the same streaming shapes (d = 64 or 80, at least
 (csrc/attention_bwd_f32.cuh): the F32_STREAMING cases hold it against the
 plain version and the tile body in both families, with and without tables
 and table gradients, ragged against its 128-row blocks and its 64- and
-48-key tiles, twice, with the delta its dq kernel writes.
+48-key tiles, twice, with the delta its dq kernel writes. The f32 backward
+of the windows the resident bodies take (d = 64 or 80, N = M <= 208, tables
+at most 16 wide) runs the f32 window body (csrc/attention_bwd_f32_window.cuh,
+one kernel, delta inside): the F32_WINDOW cases hold it against the plain
+version and the tile body in both families, with and without the table
+gradients, ragged against its slabs and warps, twice, with no delta pass.
 
 At d = 80 (ViT-H) the D80 cases hold the Hopper and the resident forward
 against the tile body and the plain version, twice, with the backward
@@ -277,10 +282,12 @@ def _counts(wrapper):
 
 def _one_backward(dtype, d, n, hw):
     """What one forward and backward add to COUNTERS: the resident body's
-    backward is one kernel, the others' a dq and a dk/dv kernel."""
+    backward and the f32 window body's are one kernel, the others' a dq and
+    a dk/dv kernel."""
     from wildlifemapper_tpu_torch.ops._attention import attention_body
 
-    if attention_body(dtype, d, n, n, True, hw, "backward") == "resident":
+    if attention_body(dtype, d, n, n, True, hw, "backward") in (
+            "resident", "f32_window"):
         return (1, 1, 0, 0)
     return (1, 0, 1, 1)
 
@@ -806,6 +813,83 @@ def test_f32_body_keeps_other_grids_on_the_tile_body(cuda):
     _close_grads(got, want, dt, ("dq", "dk", "dv", "drel_h", "drel_w"))
 
 
+# windows, heads, grid, head dim, scale (None: d ** -0.5) of the f32 window
+# body: the main paths' windows of 14 and 12 (7 warps of 28 rows, 5 warps of
+# 32), windows padded against the 32-row slabs and the warps (100 = 10 x 10,
+# 49, 6 tokens with ten grid rows a key slab, 169 = 13 x 13 and 180 = 12 x
+# 15 on 28-row warps, 208 = 13 x 16 and 16 x 13 on 7 warps of 32 with key
+# slabs of two grid rows of 13), more window-heads than SMs, d = 80 (ViT-H),
+# and scales that are no power of two
+F32_WINDOW = [(100, 2, (14, 14), 64, None), (37, 3, (12, 12), 64, None),
+              (5, 2, (10, 10), 64, None), (3, 1, (7, 7), 64, None),
+              (3, 1, (2, 3), 64, None), (2, 2, (13, 16), 64, None),
+              (2, 1, (16, 13), 64, None), (141, 1, (12, 12), 64, 0.3),
+              (3, 2, (13, 13), 64, None), (2, 1, (12, 15), 80, None),
+              (25, 4, (14, 14), 80, None), (9, 2, (12, 12), 80, None),
+              (4, 2, (10, 10), 80, None), (3, 2, (14, 14), 80, 0.3)]
+
+
+@pytest.mark.parametrize("family", ["packed", "grouped"])
+@pytest.mark.parametrize("bw,heads,hw,d,scale", F32_WINDOW)
+def test_f32_window_backward(cuda, family, bw, heads, hw, d, scale):
+    """f32 at the launcher, the one-kernel f32 window body (delta inside)
+    against the plain version and the tile body at the f32 gradient
+    tolerance, with every gradient and with the activations' alone, each
+    twice and bit-identical; the table gradients change none of dq, dk, dv;
+    no plain delta pass runs."""
+    from wildlifemapper_tpu_torch.ops import _attention
+
+    calls = []
+    real = _attention.attention_delta
+
+    def counted(*args):
+        calls.append(1)
+        return real(*args)
+
+    ss = family == "grouped"
+    dt = torch.float32
+    n = hw[0] * hw[1]
+    rng = np.random.default_rng(bw + 7 * n + d)
+    c = heads * d
+    q, k, v, dout = (_randn(rng, (bw, n, c), dt, cuda) for _ in range(4))
+    rh = _randn(rng, (bw, n, heads, hw[0]), dt, cuda, 0.5)
+    rw = _randn(rng, (bw, n, heads, hw[1]), dt, cuda, 0.5)
+    scale = d ** -0.5 if scale is None else scale
+    assert _attention.attention_body(dt, d, n, n, True, hw,
+                                     "backward") == "f32_window"
+    with torch.no_grad():
+        out, lse = _attention.attention_launch(q, k, v, scale, heads, rh, rw,
+                                               return_lse=True,
+                                               scale_scores=ss)
+        want = _attention.attention_backward_plain(
+            q, k, v, out, lse, dout, scale, heads, rh, rw, scale_scores=ss)
+        _attention.attention_delta = counted
+        try:
+            runs = {drel: [_attention.attention_backward_launch(
+                q, k, v, out, lse, dout, scale, heads, rh, rw,
+                want_drel=drel, scale_scores=ss) for _ in range(2)]
+                for drel in (True, False)}
+            torch.cuda.synchronize()
+        finally:
+            _attention.attention_delta = real
+        tile = _attention.attention_backward_launch(
+            q, k, v, out, lse, dout, scale, heads, rh, rw, scale_scores=ss,
+            body="mma")
+        torch.cuda.synchronize()
+    assert calls == []
+    names = ("dq", "dk", "dv", "drel_h", "drel_w")
+    got = runs[True][0]
+    _close_grads(got, want, dt, names)
+    _close_grads(got, tile, dt, [nm + " against the tile body"
+                                 for nm in names])
+    assert runs[False][0][3] is None and runs[False][0][4] is None
+    for first, second in runs.values():
+        for g1, g2 in zip(first, second):
+            assert g1 is None or torch.equal(g1, g2)
+    for g1, g2 in zip(runs[True][0][:3], runs[False][0][:3]):
+        assert torch.equal(g1, g2)
+
+
 # batch (windows), heads, grid, scale (None: d ** -0.5), head dim: the
 # resident bodies' 16-row tiles and 144- / 208-row instantiations, odd table
 # widths (2-byte table loads), one window-head, more window-heads than SMs,
@@ -973,10 +1057,10 @@ def test_d80_no_tables_and_ragged_rows(cuda):
     torch.testing.assert_close(first[1], lse_ref, atol=2e-2, rtol=2e-2)
 
 
-def test_d80_backward_is_the_tile_bodies(cuda):
-    """At d = 80 the windowed wrappers' bf16 backward is no longer the tile
-    bodies' delta pass and two kernels: one resident launch a backward, as
-    at d = 64, in both families; their f32 backward still is."""
+def test_d80_windowed_backward_is_one_launch(cuda):
+    """At d = 80 the windowed wrappers' backward is one launch with no
+    plain delta pass: the resident body in bf16, the f32 window body in f32,
+    as at d = 64, in both families."""
     from wildlifemapper_tpu_torch.ops import _attention
 
     calls = []
@@ -991,7 +1075,7 @@ def test_d80_backward_is_the_tile_bodies(cuda):
     try:
         for dtype, delta_passes, moved in (
                 (torch.bfloat16, 0, (1, 1, 0, 0)),
-                (torch.float32, 1, (1, 0, 1, 1))):
+                (torch.float32, 0, (1, 1, 0, 0))):
             qkv = _randn(rng, (3, 196, 3 * 2 * 80), dtype,
                          cuda).requires_grad_()
             rh = _randn(rng, (3, 196, 2, 14), dtype, cuda, 0.5)
@@ -1023,9 +1107,8 @@ def test_d80_backward_is_the_tile_bodies(cuda):
 
 
 def test_resident_backward_counts_one_launch(cuda):
-    """The windowed wrappers' bf16 backward is one kernel and runs no delta
-    pass; their f32 backward is still the delta pass and the two tile
-    kernels."""
+    """The windowed wrappers' backward is one kernel and runs no delta
+    pass: the resident body in bf16, the f32 window body in f32."""
     from wildlifemapper_tpu_torch.ops import _attention
 
     calls = []
@@ -1040,7 +1123,7 @@ def test_resident_backward_counts_one_launch(cuda):
     try:
         for dtype, delta_passes, moved in (
                 (torch.bfloat16, 0, (1, 1, 0, 0)),
-                (torch.float32, 1, (1, 0, 1, 1))):
+                (torch.float32, 0, (1, 1, 0, 0))):
             qkv = _randn(rng, (3, 196, 3 * 2 * 64), dtype,
                          cuda).requires_grad_()
             rh = _randn(rng, (3, 196, 2, 14), dtype, cuda, 0.5)

@@ -169,8 +169,12 @@ def test_flash_backward_plain_matches_pallas_vjp(table_dims, bh, hw, d):
                                    err_msg=name)
 
 
-@pytest.mark.parametrize("bwh,hw,d", [(19, (4, 4), 16), (5, (3, 3), 32),
-                                      (2, (2, 4), 64), (5, (7, 7), 80)])
+@pytest.mark.parametrize("bwh,hw,d", [
+    (19, (4, 4), 16), (5, (3, 3), 32), (2, (2, 4), 64), (5, (7, 7), 80),
+    # the windows the f32 window body takes on the card (2 windows of 2
+    # heads): 14 x 14 and 12 x 12 at head dim 64 and 80
+    (4, (14, 14), 64), (4, (12, 12), 64), (4, (14, 14), 80),
+    (4, (12, 12), 80)])
 def test_windowed_backward_plain_matches_pallas_vjp(bwh, hw, d):
     """The Pallas backward recomputes the softmax and takes delta = sum
     p*dp; the port's takes the forward's lse and rowsum(do*o): the same

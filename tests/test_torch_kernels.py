@@ -216,7 +216,8 @@ def test_attention_body_head_dims():
     """ViT-H's head dim 80: bf16 takes the Hopper bodies both ways at 4096
     keys on the 64-grid and the resident bodies both ways on a window of 14;
     f32 takes the tile bodies but for the backward from 512 keys, which
-    takes the register-tiled f32 body; a head dim no body takes is refused
+    takes the register-tiled f32 body, and the backward of a window of 14,
+    which takes the f32 window body; a head dim no body takes is refused
     with the reason."""
     bf16 = torch.bfloat16
     for direction in ("forward", "backward"):
@@ -231,8 +232,8 @@ def test_attention_body_head_dims():
                             (4096, 4096, True, (64, 64)),
                             (100, 4096, False, None)):
         for direction in ("forward", "backward"):
-            want = ("f32" if direction == "backward" and nk >= 512
-                    else "mma")
+            want = ("mma" if direction == "forward"
+                    else "f32" if nk >= 512 else "f32_window")
             assert attention_body(torch.float32, 80, nq, nk, rel, hw,
                                   direction) == want
     for d in (16, 96, 256):

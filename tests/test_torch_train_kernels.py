@@ -85,6 +85,10 @@ def _packed_port_grads(wrapper, backward_plain, qkv, rel_h, rel_w, dout,
     (2, (3, 5), 2, 32),      # rectangular
     (1, (14, 14), 2, 16),    # the 196-token window of the full canvas
     (2, (4, 4), 2, 80),      # ViT-H's head dim
+    # the windows the f32 window body takes on the card: 14 x 14 and 12 x
+    # 12 at head dim 64 and 80
+    (2, (14, 14), 2, 64), (2, (12, 12), 2, 64),
+    (2, (14, 14), 2, 80), (2, (12, 12), 2, 80),
 ])
 def test_windowed_backward_matches_pallas(bw, hw, heads, d):
     qkv, rel_h, rel_w, dout = _attn_inputs(bw + d, bw, hw, heads, d)

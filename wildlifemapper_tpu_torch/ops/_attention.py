@@ -13,8 +13,12 @@ backward is one kernel that also takes delta, at head dim 64 and 80 alike.
 The f32 backward at the streaming shapes (K2, K5: d = 64 or 80, at least
 512 keys) runs the register-tiled f32 body (csrc/attention_bwd_f32.cuh,
 built by attention_bwd_f32.cu and grouped_attention_bwd_f32.cu; its dq
-kernel takes delta itself). `attention_body` says which launch takes which,
-from its direction, dtype and shapes alone.
+kernel takes delta itself), and the f32 backward of the windows the resident
+bodies take in bf16 (K1, K6) the register-tiled f32 window body
+(csrc/attention_bwd_f32_window.cuh, built by attention_bwd_f32_window.cu and
+grouped_attention_bwd_f32_window.cu: one kernel a window-head that takes
+delta itself). `attention_body` says which launch takes which, from its
+direction, dtype and shapes alone.
 
 Layouts are the JAX package's: q (B, N, C) and k, v (B, M, C), head h in
 columns [h*d, (h+1)*d); for the packed qkv they are column slices of one
@@ -32,8 +36,8 @@ The backward follows the JAX package's packed backward kernels
 recomputed with the forward's rounding points, p = exp(s - lse) from the
 saved lse, delta = rowsum(do * o) per head in f32, ds and p rounded to the
 input type before the gradient products. K1 and K6 compute the same
-function (in bf16 in one kernel that takes delta itself, the resident body;
-in f32 with the same two kernels); their Pallas backwards
+function (in one kernel that takes delta itself: the resident body in bf16,
+the f32 window body in f32); their Pallas backwards
 (windowed_attention_v2.py:125, windowed_attention.py:64) recompute a full
 softmax and take delta = sum p*dp instead, which is the same function up to
 a rounding of the working type.
@@ -74,7 +78,10 @@ SM90_REL_COLS = 128
 # width divides 48 and not 64, 48; grids of another width stay on the tile
 # body.
 F32_KEY_TILES = (64, 48)
-BODIES = ("mma", "sm90", "resident", "f32")
+# The f32 window body (csrc/attention_bwd_f32_window.cuh) walks slabs of this
+# many rows; its blocks are 5 warps up to 160 tokens and 7 up to 224.
+F32_WINDOW_SLAB = 32
+BODIES = ("mma", "sm90", "resident", "f32", "f32_window")
 DIRECTIONS = ("forward", "backward")
 # Head dims the kernels take: ViT-B / L / H run 64, 64, 80, the adaptor 128.
 # 80 takes the Hopper bodies and the resident bodies both ways, as 64 does.
@@ -90,6 +97,19 @@ def f32_key_tile(gw: Optional[int]) -> Optional[int]:
     if gw < 16 or gw % 8:
         return None
     return next((t for t in F32_KEY_TILES if t % gw == 0), None)
+
+
+def f32_window_smem_bytes(d: int, tokens: int) -> int:
+    """Shared memory of a block of the f32 window body for `tokens` tokens
+    at head dim `d` (the kernel's `fw_smem_bytes`): two resident k-major
+    tensors of 32 * warps rows, two stages of two slabs, the p / ds tile,
+    lse and delta, and the tables (pass 1's rel_w of every row, or pass 2's
+    two stages of a slab's rel_h | rel_w rows), in f32."""
+    rows = 32 * (7 if tokens > 160 else 5)
+    s, g = F32_WINDOW_SLAB, RESIDENT_MAX_GRID
+    tables = max(g * rows, 2 * s * (2 * g + 1))
+    return 4 * (2 * d * rows + 2 * 2 * s * (d + 4) + s * (rows + 4)
+                + 2 * rows + tables)
 
 
 def attention_body(dtype: torch.dtype, d: int, nq: int, nk: int,
@@ -109,13 +129,16 @@ def attention_body(dtype: torch.dtype, d: int, nq: int, nk: int,
     or 80 with at least STREAM_MIN_KEYS keys and, with tables, a grid whose
     width `f32_key_tile` takes (K2 and K5 on the main paths, ViT-H's at
     d 80, the tensor-parallel ranks'; when `grid_hw` is not given the tables
-    are taken to fit); else "mma", the mma.sync (bf16) or scalar (f32) tile
-    bodies of csrc/attention_fwd.cuh / attention_bwd.cuh (the f32 forward,
-    the f32 windows and the f32 backward of other grids, d = 32, d = 128 or
-    N != M below STREAM_MIN_KEYS keys, and a global block of 209 to 511
-    tokens that lands in K1 or K6). `direction` is "forward" or "backward":
-    a bf16 shape takes the same body both ways, an f32 one differs only at
-    the streaming shapes' backward. Raises on what no body takes."""
+    are taken to fit); "f32_window", the one-kernel register-tiled f32
+    backward of csrc/attention_bwd_f32_window.cuh, for the f32 backward of
+    the windows "resident" takes in bf16 (K1 and K6 on the main paths,
+    ViT-H's d-80 windows); else "mma", the mma.sync (bf16) or scalar (f32)
+    tile bodies of csrc/attention_fwd.cuh / attention_bwd.cuh (the f32
+    forward, the f32 backward of other grids, d = 32, d = 128 or N != M
+    below STREAM_MIN_KEYS keys, and a global block of 209 to 511 tokens that
+    lands in K1 or K6). `direction` is "forward" or "backward": a bf16 shape
+    takes the same body both ways, an f32 one differs at the streaming
+    shapes' and the windows' backward. Raises on what no body takes."""
     if direction not in DIRECTIONS:
         raise ValueError(f"direction {direction!r}: expected one of "
                          f"{DIRECTIONS}")
@@ -128,10 +151,12 @@ def attention_body(dtype: torch.dtype, d: int, nq: int, nk: int,
     if (dtype == torch.bfloat16 and d in (64, 80, 128)
             and nk >= STREAM_MIN_KEYS):
         return "sm90"
-    if (dtype == torch.bfloat16 and d in (64, 80) and has_rel
-            and nq == nk <= RESIDENT_MAX_TOKENS
-            and (grid_hw is None or max(grid_hw) <= RESIDENT_MAX_GRID)):
+    window = (d in (64, 80) and has_rel and nq == nk <= RESIDENT_MAX_TOKENS
+              and (grid_hw is None or max(grid_hw) <= RESIDENT_MAX_GRID))
+    if window and dtype == torch.bfloat16:
         return "resident"
+    if window and direction == "backward":
+        return "f32_window"
     if (dtype == torch.float32 and direction == "backward" and d in (64, 80)
             and nk >= STREAM_MIN_KEYS
             and (not has_rel or grid_hw is None
@@ -324,9 +349,9 @@ def attention_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     m = k.shape[1]
     d, gh, gw = _check_attention(q, k, v, num_heads, rel_h, rel_w)
     body = _pick_body(body, q, d, m, rel_h, rel_w, "forward")
-    if body == "f32":
-        raise ValueError("the f32 body is a backward: the f32 forward runs "
-                         "the tile body")
+    if body in ("f32", "f32_window"):
+        raise ValueError(f"the {body} body is a backward: the f32 forward "
+                         "runs the tile body")
     if body == "sm90" and gh + gw > SM90_REL_COLS:
         raise ValueError(f"rel grid {gh}x{gw}: the Hopper forward takes "
                          f"gh + gw <= {SM90_REL_COLS}")
@@ -453,48 +478,80 @@ def _f32_backward_launch(kernel: int, q, k, v, dout, out, lse, delta,
                  + ("dq + delta", "dk/dv")[kernel])
 
 
-def _check_f32_body(d: int, gw: int, has_rel: bool, tensors) -> None:
-    """What the f32 streaming backward takes: f32 at d = 64 or 80, a grid
-    width `f32_key_tile` takes, rows and tables on 16-byte boundaries (its
-    tiles arrive by 16-byte copies)."""
+def _check_f32_body(d: int, gw: int, has_rel: bool, tensors,
+                    window: bool = False) -> None:
+    """What the f32 bodies take: f32 at d = 64 or 80, rows and tables on
+    16-byte boundaries (their tiles arrive by 16-byte copies); the streaming
+    body a grid width `f32_key_tile` takes, the window body one window
+    (`_check_f32_window`)."""
+    name = "f32_window" if window else "f32"
     if tensors[0].dtype != torch.float32 or d not in (64, 80):
-        raise ValueError(f"the f32 body takes float32 at d = 64 or 80, got "
+        raise ValueError(f"the {name} body takes float32 at d = 64 or 80, got "
                          f"{tensors[0].dtype} at d = {d}")
-    if has_rel and f32_key_tile(gw) is None:
+    if not window and has_rel and f32_key_tile(gw) is None:
         raise ValueError(f"rel grid {gw} wide: the f32 body takes widths "
                          f"of 16, 24, 32, 48 or 64")
     for i, t in enumerate(tensors):
         rows = t.dim() == 3
         if t.data_ptr() % 16 or (rows and (t.stride(0) % 4
                                            or t.stride(1) % 4)):
-            raise ValueError(f"f32 body: operand {i} must be 16-byte "
+            raise ValueError(f"{name} body: operand {i} must be 16-byte "
                              f"aligned (strides {t.stride()})")
 
 
-def _resident_backward_launch(q, k, v, dout, out, lse, rel_h, rel_w, dq, dk,
-                              dv, drh, drw, scale: float, num_heads: int,
-                              d: int, gh: int, gw: int,
-                              scale_scores: bool) -> None:
+def _check_f32_window(n: int, m: int, gh: int, gw: int) -> None:
+    """The windows the f32 window body takes: N == M <= RESIDENT_MAX_TOKENS
+    with tables at most RESIDENT_MAX_GRID wide."""
+    if n != m or n > RESIDENT_MAX_TOKENS or max(gh, gw) > RESIDENT_MAX_GRID:
+        raise ValueError(f"the f32_window body takes N == M <= "
+                         f"{RESIDENT_MAX_TOKENS} with tables at most "
+                         f"{RESIDENT_MAX_GRID} wide, got N {n}, M {m}, grid "
+                         f"{gh}x{gw}")
+
+
+def window_backward_args(q, k, v, dout, out, lse, rel_h, rel_w, dq, dk, dv,
+                         drh, drw, scale: float, num_heads: int, d: int,
+                         gh: int, gw: int) -> tuple:
+    """The arguments of a one-kernel windowed backward's C entry
+    (`_build._ATTENTION_BWD_F32_WINDOW`; the resident entry takes the dtype
+    code before them): pointers, shapes, the row strides of every operand,
+    the grid, the scale and the stream."""
+    b, n, _ = q.shape
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), _ptr(rel_h), _ptr(rel_w),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(drh),
+            _ptr(drw), b, num_heads, n, k.shape[1], d,
+            q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+            v.stride(0), v.stride(1), dout.stride(0), dout.stride(1),
+            out.stride(0), out.stride(1),
+            dq.stride(0), dq.stride(1), dk.stride(0), dk.stride(1),
+            dv.stride(0), dv.stride(1), gh, gw, float(scale),
+            _build.stream_ptr(q))
+
+
+def _resident_backward_launch(q, *args, scale_scores: bool) -> None:
     """Launch the one backward kernel of csrc/attention_bwd_resident.cu
     (with `scale_scores`, of csrc/grouped_attention_bwd_resident.cu) on
-    checked operands: delta, dq, dk, dv and, when drh / drw are given, the
-    rel-table gradients of every window-head. Raises if the launch fails."""
-    b, n, _ = q.shape
-    lib = _build.load_kernels()
-    entry = getattr(lib, ("wm_grouped_attention_bwd" if scale_scores
-                          else "wm_attention_bwd") + "_resident")
-    err = entry(
-        _build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        dout.data_ptr(), out.data_ptr(), lse.data_ptr(), _ptr(rel_h),
-        _ptr(rel_w), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(drh),
-        _ptr(drw), b, num_heads, n, k.shape[1], d,
-        q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-        v.stride(0), v.stride(1), dout.stride(0), dout.stride(1),
-        out.stride(0), out.stride(1),
-        dq.stride(0), dq.stride(1), dk.stride(0), dk.stride(1),
-        dv.stride(0), dv.stride(1), gh, gw, float(scale),
-        _build.stream_ptr(q))
+    checked operands (`window_backward_args`' arguments): delta, dq, dk, dv
+    and, when drh / drw are given, the rel-table gradients of every
+    window-head. Raises if the launch fails."""
+    entry = getattr(_build.load_kernels(),
+                    ("wm_grouped_attention_bwd" if scale_scores
+                     else "wm_attention_bwd") + "_resident")
+    err = entry(_build.dtype_code(q), *window_backward_args(q, *args))
     _build.check(err, "windowed attention backward kernel")
+
+
+def _f32_window_backward_launch(*args, scale_scores: bool) -> None:
+    """Launch the one backward kernel of csrc/attention_bwd_f32_window.cu
+    (with `scale_scores`, of csrc/grouped_attention_bwd_f32_window.cu) on
+    checked operands, as `_resident_backward_launch`. Raises if the launch
+    fails."""
+    entry = getattr(_build.load_kernels(),
+                    ("wm_grouped_attention_bwd" if scale_scores
+                     else "wm_attention_bwd") + "_f32_window")
+    err = entry(*window_backward_args(*args))
+    _build.check(err, "f32 windowed attention backward kernel")
 
 
 def _count(wrapper, counter: str) -> None:
@@ -511,7 +568,9 @@ def attention_backward_launch(q, k, v, out, lse, dout, scale: float,
                               body: Optional[str] = None):
     """Launch the backward on CUDA tensors. For the "resident" body that is
     one kernel (csrc/attention_bwd_resident.cu or, with `scale_scores`,
-    csrc/grouped_attention_bwd_resident.cu) that takes delta itself; for
+    csrc/grouped_attention_bwd_resident.cu) that takes delta itself, and so
+    for "f32_window" (csrc/attention_bwd_f32_window.cu,
+    csrc/grouped_attention_bwd_f32_window.cu); for
     "sm90" the two kernels of csrc/attention_bwd_{dq,dkv}_sm90.cu (their
     grouped_ counterparts), the dq kernel taking delta itself and leaving
     it, with what else `sm90_scratch` names, for the dk/dv kernel; for
@@ -555,7 +614,17 @@ def attention_backward_launch(q, k, v, out, lse, dout, scale: float,
     if body == "resident":
         _resident_backward_launch(q, k, v, dout, out, lse, rel_h, rel_w, dq,
                                   dk, dv, drh, drw, scale, num_heads, d, gh,
-                                  gw, scale_scores)
+                                  gw, scale_scores=scale_scores)
+        _count(wrapper, "backward_launches")
+        return dq, dk, dv, drh, drw
+    if body == "f32_window":
+        _check_f32_body(d, gw, rel_h is not None,
+                        [q, k, v, dout, out, dq, dk, dv], window=True)
+        _check_f32_window(n, m, gh, gw)
+        # one kernel, delta taken inside: no scratch, no plain pass
+        _f32_window_backward_launch(q, k, v, dout, out, lse, rel_h, rel_w,
+                                    dq, dk, dv, drh, drw, scale, num_heads,
+                                    d, gh, gw, scale_scores=scale_scores)
         _count(wrapper, "backward_launches")
         return dq, dk, dv, drh, drw
     counters = ("backward_dq_launches", "backward_dkv_launches")

@@ -59,6 +59,10 @@ _ATTENTION_BWD_RESIDENT = ([_I] + [_P] * 13 + [_I] * 5 + [_LL] * 16
 # the delta scratch the dq kernel writes for the dk/dv kernel; no dtype
 _ATTENTION_BWD_F32 = ([_I] + [_P] * 14 + [_I] * 5 + [_LL] * 16
                       + [_I, _I, ctypes.c_float, _P])
+# the f32 windowed backward: one kernel, `out` (with its strides) in place of
+# delta, no `which` and no dtype
+_ATTENTION_BWD_F32_WINDOW = ([_P] * 13 + [_I] * 5 + [_LL] * 16
+                             + [_I, _I, ctypes.c_float, _P])
 _SIGNATURES = {
     # the packed family (K1, K2, K4) and the grouped family (K5, K6) take
     # the same arguments
@@ -76,6 +80,9 @@ _SIGNATURES = {
     # the register-tiled f32 body of the streaming backward (K2, K5)
     "wm_attention_bwd_f32": _ATTENTION_BWD_F32,
     "wm_grouped_attention_bwd_f32": _ATTENTION_BWD_F32,
+    # the register-tiled f32 body of the windows' backward (K1, K6)
+    "wm_attention_bwd_f32_window": _ATTENTION_BWD_F32_WINDOW,
+    "wm_grouped_attention_bwd_f32_window": _ATTENTION_BWD_F32_WINDOW,
     # the resident bodies of the windowed shapes (K1, K6), bf16
     "wm_attention_fwd_resident": _ATTENTION_FWD,
     "wm_attention_bwd_resident": _ATTENTION_BWD_RESIDENT,
