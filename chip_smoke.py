@@ -30,16 +30,20 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      blocks an SM) and every head-dim-80
      instantiation (the tile bodies, the Hopper forward and backward, the
      resident forward and backward) held to no spill, the f32 streaming
-     backward's twelve instantiations (csrc/attention_bwd_f32.cuh) and the
-     f32 window backward's twelve (csrc/attention_bwd_f32_window.cuh) too, and
-     no line of ptxas saying it serialized the wgmma products of a kernel
-     (C7515); TF32 off.
+     backward's twelve instantiations (csrc/attention_bwd_f32.cuh), the
+     f32 window backward's twelve (csrc/attention_bwd_f32_window.cuh) and
+     K4's f32 body at d 128, its forward and its backward's delta, dk/dv
+     and dq kernels (csrc/attention_fwd_f32.cuh, attention_bwd_f32_d128.cuh)
+     too, and no line of ptxas saying it serialized the wgmma products of a
+     kernel (C7515); TF32 off.
   2. kernels: each kernel against its plain PyTorch version on the card at
      the shapes the serving path gives it, f32 at atol 2e-5 / rtol 1e-4 and
      bf16 (against the plain version in f32 on the same bf16-rounded
      inputs) at 2e-2, and the bf16 forward of the Hopper body (K2, K4, K5)
-     and of the resident body (K1, K6) twice at the launcher at every shape
-     it takes, O and the lse bit-identical; K5 and K6 also at d = 128 and 32, where their scale
+     and of the resident body (K1, K6), and K4's f32 forward on the f32 body
+     (N = M 4096 and 2304, ragged N != M, a tensor-parallel rank's 4 heads),
+     twice at the launcher at every shape it takes, O and the lse
+     bit-identical; K5 and K6 also at d = 128 and 32, where their scale
      on the f32 scores rounds differently from a scaled q; K2, K4 and K5
      also at shapes that are ragged against the Hopper bodies' 128-row
      blocks and 64- or 128-key tiles (N = 1000 on 25x40 and 20x50 grids,
@@ -120,7 +124,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      and 2304, BH 48, ViT-H's B 1, H 16, N 4096 and BH 16 at d 80), and of
      K1 and K6 at every shape that takes the f32 window body (d 64 and 80,
      N = M <= 208: the main paths' windows of 196 and 144, ViT-H's, ragged
-     7x7 and 10x10; one kernel a backward, delta inside).
+     7x7 and 10x10; one kernel a backward, delta inside), and of K4 at every
+     shape that takes its f32 body (d 128: N = M 4096 and 2304, ragged N !=
+     M, a rank's 4 heads in f32 as in bf16; a delta kernel, the dk/dv kernel
+     that leaves ds, the dq kernel).
   7. train step, parity: f32, one step with kernels against the same step on
      the plain path (same weights, batch and dropout seed) in each training
      configuration and each layout: losses, grad_norm and every trainable
@@ -190,7 +197,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      of the f32 steps of phases 7 and 14c, whose global blocks all take it),
      and the f32 window backward of K1 and K6 the same way (the full
      canvas's windows of 196, ViT-H's d-80 windows beside at batch 1 and 4;
-     its launches those of the same f32 steps, whose windows all take it).
+     its launches those of the same f32 steps, whose windows all take it),
+     and K4's f32 body forward and backward (d 128: N = M 4096, the
+     48-grid's 2304 beside, each beside the tile body's time, the plain
+     version's, the library call's and the bound; its launches those of the
+     f32 paths, phases 3, 4b, 7 and 14c).
 
  10. the training loop (train/loop.py through cli/train.py's Config, the
      vendored annotation bundle, synthetic tiles at 1024 cached in a
@@ -398,6 +409,16 @@ F32_WIN_D80 = {"K1": ("BW=25 H=16 N=196 d=80", "BW=4*25 H=16 N=196 d=80"),
                "K6": ("BWH=25*16 N=196 d=80",)}
 # the f32 window body's kernel, as ptxas names it
 F32_WINDOW_KERNEL = "attn_bwd_f32_window_kernel"
+# K4's f32 body at head dim 128 (csrc/attention_fwd_f32.cuh,
+# attention_bwd_f32_d128.cuh): its kernels as ptxas names them
+F32_D128_KERNELS = ("attn_fwd_f32_kernel<128,128>",
+                    "attn_bwd_f32_d128_delta_kernel<128>",
+                    "attn_bwd_f32_d128_dkv_kernel<128>",
+                    "attn_bwd_f32_d128_dq_kernel<128>")
+# K4's f32 rows of the "kernels" line: (kernel, shape) of
+# scripts/time_f32_kernels.py at the full canvas, the 48-grid beside
+F32_K4 = ("K4", "B=4 N=M=4096")
+F32_K4_2304 = ("K4", "B=4 N=M=2304")
 
 
 def emit(phase: str, **fields) -> None:
@@ -3544,7 +3565,8 @@ def main() -> int:
     # 80, each in both families, none spilling
     f32_bwd_ptxas = [line for line in ptxas
                      if line.startswith("attn_bwd_f32_")
-                     and not line.startswith(F32_WINDOW_KERNEL)]
+                     and not line.startswith(F32_WINDOW_KERNEL)
+                     and not line.startswith(F32_D128_KERNELS)]
     emit("ptxas_f32_backward", lines=f32_bwd_ptxas)
     if (len(f32_bwd_ptxas) != 12
             or any(", 0 B spilled" not in line for line in f32_bwd_ptxas)):
@@ -3558,6 +3580,14 @@ def main() -> int:
     if (len(f32_win_ptxas) != 12
             or any(", 0 B spilled" not in line for line in f32_win_ptxas)):
         raise AssertionError(f"f32 window backward body: {f32_win_ptxas}")
+    # K4's f32 body at d 128: the forward, and the backward's delta, dk/dv
+    # and dq kernels, none spilling
+    f32_d128_ptxas = [line for line in ptxas
+                      if line.startswith(F32_D128_KERNELS)]
+    emit("ptxas_f32_d128", lines=f32_d128_ptxas)
+    if (len(f32_d128_ptxas) != len(F32_D128_KERNELS)
+            or any(", 0 B spilled" not in line for line in f32_d128_ptxas)):
+        raise AssertionError(f"K4's f32 body: {f32_d128_ptxas}")
     # ptxas says only in an info line (C7515) that it serialized every wgmma
     # of a kernel, which undoes what the Hopper bodies stand on
     serialized = serialized_wgmma(build_log)
@@ -3684,8 +3714,9 @@ def main() -> int:
         """f32 and bf16; the large encoders' training shapes bf16 alone,
         the dtype phase 14 trains in (14c holds their f32 path end to end
         through the kernels)."""
+        k4_rank = shape.startswith("B=4 H=4 N=M")    # f32 too (K4's body)
         if ("(ViT-L" in shape or "scratch)" in shape
-                or "(TP rank" in shape):
+                or ("(TP rank" in shape and not k4_rank)):
             return (torch.bfloat16,)
         return (torch.float32, torch.bfloat16)
 
@@ -3707,9 +3738,9 @@ def main() -> int:
         return None
 
     def forward_repeat(name, shape, args):
-        """The Hopper or the resident forward twice on the same operands,
-        with the lse: every output element has one owner and a fixed order
-        of sums, so O and the lse are bit-identical."""
+        """The Hopper, the resident or the f32 forward twice on the same
+        operands, with the lse: every output element has one owner and a
+        fixed order of sums, so O and the lse are bit-identical."""
         la = launcher_args(name, args)
         if la is None:
             return
@@ -3853,9 +3884,10 @@ def main() -> int:
                                          f"disagrees with its plain version "
                                          f"(max abs err {err})")
                 errors[name] = max(errors[name], err)
-                if dt == torch.float32 and name == "fused_mlp":
-                    errors["fused_mlp_f32"] = max(
-                        errors.get("fused_mlp_f32", 0.0), err)
+                if dt == torch.float32 and name in ("fused_mlp",
+                                                    "cross_attention_packed"):
+                    errors[name + "_f32"] = max(
+                        errors.get(name + "_f32", 0.0), err)
                 if name == "fused_mlp":
                     # both GEMM bodies: one owner and one order of sums for
                     # every element, so a second call is bit-identical
@@ -3866,7 +3898,7 @@ def main() -> int:
                     if not same:
                         raise AssertionError(f"{name} {shape} {dt}: two "
                                              f"forward runs differ")
-                elif dt == torch.bfloat16:
+                else:
                     forward_repeat(name, shape, args)
                 if dt == torch.bfloat16 and name not in kernel_inputs:
                     kernel_inputs[name] = (shape, args)
@@ -3927,6 +3959,11 @@ def main() -> int:
     # every window's backward there takes it
     f32_win = {"windowed_attention_packed": 0,
                "windowed_attention_rel_pos": 0}
+    # K4's f32 body (d 128): its forward launches on the same paths, and its
+    # backward's two counters as read on the f32 steps (a backward calls the
+    # dk/dv entry, which launches the delta kernel and then the dk/dv
+    # kernel, and then the dq entry)
+    f32_k4 = {"forward": 0, "backward_dq": 0, "backward_dkv": 0}
 
     # ---- 3. end to end against the PyTorch reference -----------------------
     npz = np.load(Path(__file__).resolve().parent / "tests" / "goldens"
@@ -3958,6 +3995,7 @@ def main() -> int:
                        per_forward[layout])
         check_mlp_kernels(f"one f32 forward, {layout}", 2)
         f32_k3["forward"] += e2e_counts["fused_mlp"]
+        f32_k4["forward"] += e2e_counts["cross_attention_packed"]
         del model, out
         torch.cuda.empty_cache()
 
@@ -4220,6 +4258,7 @@ def main() -> int:
                         "windowed_attention_rel_pos": 0})
         check_mlp_kernels(f"{variant} f32 forward, batch 1", 2)
         f32_k3["forward"] += fused_mlp.launches
+        f32_k4["forward"] += cross_attention_packed.launches
         with torch.inference_mode():
             ref = plain_m(x1)
         keys = ("pred_logits", "pred_boxes")
@@ -4820,6 +4859,11 @@ def main() -> int:
                                          f"{want}")
                 f32_k3["forward"] += got_counts["launches"]["fused_mlp"]
                 f32_k3["dh"] += got_counts["backward_launches"]["fused_mlp"]
+                f32_k4["forward"] += got_counts["launches"][
+                    "cross_attention_packed"]
+                for way in ("dq", "dkv"):
+                    f32_k4["backward_" + way] += got_counts[
+                        f"backward_{way}_launches"]["cross_attention_packed"]
                 for wname in f32_bwd:
                     dq_n = got_counts["backward_dq_launches"].get(wname, 0)
                     if dq_n != got_counts["backward_dkv_launches"].get(
@@ -5728,7 +5772,7 @@ def main() -> int:
                     plain_for=time_f32_kernels.K3_SHAPES[:1]),
                 *time_f32_kernels.attention_rows(
                     dev, F32_ITERS, plain_for=tuple(F32_BWD_MAIN.values())
-                    + tuple(F32_WIN_MAIN.values()))):
+                    + tuple(F32_WIN_MAIN.values()) + (F32_K4, F32_K4_2304))):
         emit("f32_kernel_time", gpu=gpu, **row)
         f32_rows[row["kernel"], row["shape"]] = row
     f32_model = build(dataclasses.replace(base_cfg, dtype="float32"))
@@ -5836,6 +5880,42 @@ def main() -> int:
                           f"{tag}_bound_by": r["backward_bound_by"],
                           f"{tag}_library_ms": r["backward_library_ms"]})
         f32_report[wname + "_backward_f32"] = entry
+    # K4's f32 body at d 128 both ways (csrc/attention_fwd_f32.cuh,
+    # attention_bwd_f32_d128.cuh): its time, the tile body's and the plain
+    # version's at the full canvas, the 48-grid (the from-scratch step's)
+    # beside
+    k4_rows = (f32_rows[F32_K4], f32_rows[F32_K4_2304])
+    bodies = {r[w + "_body"] for r in k4_rows for w in ("forward", "backward")}
+    if bodies != {"f32"}:
+        raise AssertionError(f"K4: f32 bodies {bodies}")
+    for way, src, where, err in (
+            ("forward", "attention_fwd_f32.cu", "cross_attention.py:160",
+             errors["cross_attention_packed_f32"]),
+            ("backward", "attention_bwd_f32_d128.cu",
+             "cross_attention.py:208, :227", bwd_err["K4_f32"])):
+        row, row48 = k4_rows
+        wname = "cross_attention_packed" + (
+            "_backward" if way == "backward" else "") + "_f32"
+        f32_report[wname] = dict(
+            name=wname, route="cuda",
+            source="wildlifemapper_tpu_torch/csrc/" + src,
+            replaces=jax_ops + where, dtype="float32", shape=row["shape"],
+            max_abs_err=err, max_abs_err_of=(
+                "out (phase 2)" if way == "forward" else
+                "dq, dk, dv through the wrapper (phase 6)")
+            + ", every f32 shape that takes the body",
+            ms=row[way + "_ms"], earlier_body_ms=row[way + "_tile_ms"],
+            plain_ms=row[way + "_plain_ms"],
+            bound_ms=row[way + "_bound_ms"], bound_by=row[way + "_bound_by"],
+            library_ms=row[way + "_library_ms"],
+            library="f32 scaled_dot_product_attention" + (
+                "" if way == "forward" else ", autograd (dq, dk, dv)"),
+            bit_identical=row[way + "_bit_identical"],
+            n2304_shape=row48["shape"], n2304_ms=row48[way + "_ms"],
+            n2304_earlier_body_ms=row48[way + "_tile_ms"],
+            n2304_plain_ms=row48[way + "_plain_ms"],
+            n2304_bound_ms=row48[way + "_bound_ms"],
+            n2304_library_ms=row48[way + "_library_ms"])
 
     order = ["windowed_attention_packed", "windowed_attention_packed_backward",
              "windowed_attention_packed_backward_d80",
@@ -5946,6 +6026,26 @@ def main() -> int:
         if n <= 0:
             raise AssertionError(f"{wname}: the f32 backward body was not "
                                  "launched on the f32 steps")
+    k4_f32 = f32_report["cross_attention_packed_f32"]
+    k4_f32["launches"] = f32_k4["forward"]
+    k4_f32_bwd = f32_report["cross_attention_packed_backward_f32"]
+    k4_f32_bwd.update(
+        launches=f32_k4["backward_dq"] + f32_k4["backward_dkv"],
+        launches_dq=f32_k4["backward_dq"],
+        launches_dkv=f32_k4["backward_dkv"],
+        launches_are=(
+            "calls of the body's C entry, each counter as read: "
+            "backward_dkv_launches (a call launches the delta kernel, then "
+            "the dk/dv kernel) and backward_dq_launches (the dq kernel); "
+            "kernel launches are dq + 2 x dkv"))
+    for wname, n in (("cross_attention_packed_f32", f32_k4["forward"]),
+                     ("cross_attention_packed_backward_f32 (dq)",
+                      f32_k4["backward_dq"]),
+                     ("cross_attention_packed_backward_f32 (dk/dv)",
+                      f32_k4["backward_dkv"])):
+        if n <= 0:
+            raise AssertionError(f"{wname}: K4's f32 body was not launched "
+                                 "on the f32 paths")
     for wname, n in f32_win.items():
         # one launch a backward
         f32_report[wname + "_backward_f32"]["launches"] = n

@@ -8,12 +8,10 @@ H100) at the main paths' window shapes:
 A variant is the header with the edits VARIANTS names ("body": none, the
 header as the port builds it): one block a window-head running both passes,
 8 rows a thread at 161 to 196 tokens, the score products' column loop
-unrolled once, four times or fully. Each variant's header is written with
+unrolled once, four times or fully. Each variant's header is built with
 copies of the body's two sources (attention_bwd_f32_window.cu and
-grouped_attention_bwd_f32_window.cu) into build/sweep_f32_window/<variant>/,
-built there, one nvcc a source, all started together, and each library is
-loaded with ctypes; the port's own library is not touched. Every edit must
-match the header once, so a variant that no longer applies fails to build.
+grouped_attention_bwd_f32_window.cu) under build/sweep_f32_window/<variant>/
+by scripts/sweep_build.py; every edit must match the header once.
 At every shape each variant is run once and held to the plain backward
 (ops/_attention.py::attention_backward_plain) at the f32 gradient
 tolerance, 5e-4 / 1e-3, then timed in N turns by CUDA events over 10
@@ -28,17 +26,16 @@ without CUDA.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
-import re
 import subprocess
 import sys
 from pathlib import Path
 
 import torch
 
+import sweep_build
+
 ROOT = Path(__file__).resolve().parents[1]
-BUILD = ROOT / "build" / "sweep_f32_window"
 FAMILIES = {False: "attention_bwd_f32_window",
             True: "grouped_attention_bwd_f32_window"}
 HEADER = "attention_bwd_f32_window.cuh"
@@ -72,68 +69,6 @@ SHAPES = [("K1 BW=4*25 N=196", False, 100, 12, 64, (14, 14)),
           ("K1 BW=4*25 H=16 N=196 d=80", False, 100, 16, 80, (14, 14)),
           ("K1 BW=4*16 H=16 N=144 d=80", False, 64, 16, 80, (12, 12))]
 ITERS = 10
-
-
-def ptxas(log: str) -> list:
-    """'kernel<D,W,R[,scale_scores]>: registers, spill bytes' lines."""
-    out, name = [], None
-    for line in log.splitlines():
-        m = re.search(r"attn_bwd_f32_window_kernelI(.*?)EEv", line)
-        if m and "entry function" in line:
-            args = re.findall(r"Li(\d+)", m.group(1))
-            if "Lb1" in m.group(1):
-                args.append("scale_scores")
-            name = f"<{','.join(args)}>"
-        m = re.search(r"(\d+) bytes spill stores", line)
-        if m and name:
-            spill = m.group(1)
-        m = re.search(r"Used (\d+) registers", line)
-        if m and name:
-            out.append(f"{name}: {m.group(1)} registers, {spill} B spilled")
-            name = None
-    return out
-
-
-def variant_header(text: str, edits: list) -> str:
-    """The header with `edits` made, each matching it exactly once."""
-    for old, new in edits:
-        if text.count(old) != 1:
-            raise ValueError(f"edit matches {text.count(old)} times: {old!r}")
-        text = text.replace(old, new)
-    return text
-
-
-def build(variants: list) -> dict:
-    """{(variant, grouped): (entry, ptxas lines)}, one nvcc a source."""
-    from wildlifemapper_tpu_torch.ops import _build
-
-    nvcc = _build.find_nvcc()
-    csrc = _build.CSRC
-    header = (csrc / HEADER).read_text()
-    procs = {}
-    for name in variants:
-        out = BUILD / name
-        out.mkdir(parents=True, exist_ok=True)
-        (out / HEADER).write_text(variant_header(header, VARIANTS[name]))
-        for grouped, src in FAMILIES.items():
-            (out / f"{src}.cu").write_text((csrc / f"{src}.cu").read_text())
-            # the copy's own directory first: its header, then csrc's
-            cmd = [nvcc, *_build.NVCC_FLAGS, "-I", str(csrc), "-shared",
-                   "-o", str(out / f"{src}.so"), str(out / f"{src}.cu")]
-            procs[name, grouped] = subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)
-    entries = {}
-    for (name, grouped), proc in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise RuntimeError(f"{name}: nvcc failed\n{log[-3000:]}")
-        lib = ctypes.CDLL(str(BUILD / name / f"{FAMILIES[grouped]}.so"))
-        fn = getattr(lib, "wm_" + FAMILIES[grouped])
-        fn.argtypes = _build._ATTENTION_BWD_F32_WINDOW
-        fn.restype = ctypes.c_int
-        entries[name, grouped] = (fn, ptxas(log))
-    return entries
 
 
 def launch(fn, q, k, v, out, lse, dout, scale, heads, rh, rw, grads):
@@ -170,11 +105,15 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip()
     print(json.dumps(dict(gpu=gpu, tables=args.tables)), flush=True)
     variants = args.variants.split(",")
-    entries = build(variants)
+    entries = sweep_build.build(
+        "sweep_f32_window",
+        {name: (HEADER, VARIANTS[name], list(FAMILIES.values()))
+         for name in variants}, "attn_bwd_f32_window_kernel")
     for name in variants:
         print(json.dumps(dict(variant=name, edits=len(VARIANTS[name]),
-                              ptxas=entries[name, False][1]
-                              + entries[name, True][1])), flush=True)
+                              ptxas=[line for src in FAMILIES.values()
+                                     for line in entries[name, src][1]])),
+              flush=True)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     for i in map(int, args.shapes.split(",")):
@@ -194,7 +133,7 @@ def main() -> int:
         tabs = (rh, rw) if args.tables != "none" else (None, None)
         runs, errs = {}, {}
         for name in variants:
-            fn = entries[name, grouped][0]
+            fn = entries[name, FAMILIES[grouped]][0]
             grads = [torch.empty_like(t) for t in (q, k, v)] + (
                 [torch.empty_like(rh), torch.empty_like(rw)]
                 if args.tables == "full" else [None, None])

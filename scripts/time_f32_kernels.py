@@ -7,7 +7,7 @@ batch 1 and 4, K6 at batch 1). For PERF.md's f32 rows, and for comparing
 two checkouts in turns.
 
     python3 scripts/time_f32_kernels.py [--root CHECKOUT] [--label L]
-        [--k3 | --attention | --windows] [--iters N] [--plain]
+        [--k3 | --attention | --windows | --k4] [--iters N] [--plain]
 
 `--root` is the checkout whose `wildlifemapper_tpu_torch` is imported (this
 script's own by default), so that one call can time an older tree with the
@@ -17,8 +17,11 @@ tree of the port has is called (the `fused_mlp` and `fused_mlp_dh` wrappers,
 that tree runs in f32: from 512 keys at d 64 and 80 the backward of K2 and
 K5 is the register-tiled f32 body (csrc/attention_bwd_f32.cuh) where the
 tree has one, and the windows' backward (K1, K6 at d 64 and 80, up to 208
-tokens) the f32 window body (csrc/attention_bwd_f32_window.cuh); the tile
-body before. `--windows` times the windows' rows alone. Every shape is first checked
+tokens) the f32 window body (csrc/attention_bwd_f32_window.cuh), and K4
+(d 128 without tables, from 512 keys) the register-tiled f32 body both ways
+(csrc/attention_fwd_f32.cuh, attention_bwd_f32_d128.cuh); the tile body
+before. `--windows` times the windows' rows alone, `--k4` K4's (B 4, N = M
+4096 and the from-scratch 2304). Every shape is first checked
 against its plain version (f32 2e-5 / 1e-4 for the forward outputs, 5e-4 /
 1e-3 for a, dh and the attention gradients, the tolerances of record) and
 run twice, K3 and the attention backward bit for bit. Then, by CUDA events
@@ -31,7 +34,9 @@ library call (library, kernel, kernel, library):
 - attention: one `F.scaled_dot_product_attention` with the rel-pos bias as
   `attn_mask`, and autograd through it for dq, dk, dv. Where a tree runs
   the f32 body or the f32 window body, the tile body's backward at the same
-  inputs is timed after the pair (`backward_tile_ms`). `--plain` times the plain versions after
+  inputs is timed after the pair (`backward_tile_ms`), and where its
+  forward runs the f32 body, the tile body's forward (`forward_tile_ms`).
+  `--plain` times the plain versions after
   the pairs here too (`forward_plain_ms`, `backward_plain_ms`), which
   `chip_smoke.py` does for its first K2 and K5 shapes (`plain_for`).
 
@@ -74,6 +79,7 @@ ATTENTION_SHAPES = [
     ("K2", "B=4 N=4096", 4, 12, 64, 4096, 4096, (64, 64)),
     ("K2", "B=4 N=2304", 4, 12, 64, 2304, 2304, (48, 48)),
     ("K4", "B=4 N=M=4096", 4, 8, 128, 4096, 4096, None),
+    ("K4", "B=4 N=M=2304", 4, 8, 128, 2304, 2304, None),
     ("K5", "BH=4*12 N=4096", 48, 1, 64, 4096, 4096, (64, 64)),
     ("K5", "BH=4*12 N=2304", 48, 1, 64, 2304, 2304, (48, 48)),
     ("K6", "BWH=4*25*12 N=196", 1200, 1, 64, 196, 196, (14, 14)),
@@ -87,6 +93,7 @@ ATTENTION_SHAPES = [
     ("K6", "BWH=25*16 N=196 d=80", 400, 1, 80, 196, 196, (14, 14)),
 ]
 WINDOW_SHAPES = [s for s in ATTENTION_SHAPES if s[0] in ("K1", "K6")]
+K4_SHAPES = [s for s in ATTENTION_SHAPES if s[0] == "K4"]
 
 
 def time_ms(fn, iters: int) -> float:
@@ -245,6 +252,10 @@ def attention_rows(dev, iters: int = ITERS, shapes=ATTENTION_SHAPES,
                 raise AssertionError(f"{kid} {shape}: two backward runs "
                                      "differ")
             del again
+            fwd_repeat = torch.equal(out, attention_launch(
+                q, k, v, scale, h, rh, rw, scale_scores=ss))
+            if not fwd_repeat:
+                raise AssertionError(f"{kid} {shape}: two forward runs differ")
             err = _check(f"{kid} {shape}", out, attention_plain(
                 q, k, v, scale, h, rh, rw, scale_scores=ss), 2e-5, 1e-4)
             ref = attention_backward_plain(q, k, v, out, lse, dout, scale, h,
@@ -280,15 +291,20 @@ def attention_rows(dev, iters: int = ITERS, shapes=ATTENTION_SHAPES,
             lambda: attention_backward_launch(q, k, v, out, lse, dout, scale,
                                               h, rh, rw, scale_scores=ss),
             iters)
-        body = (_attention.attention_body(
-            torch.float32, d, nq, nk, hw is not None, hw, "backward")
+        body, fwd_body = ((_attention.attention_body(
+            torch.float32, d, nq, nk, hw is not None, hw, way)
             if "f32" in getattr(_attention, "BODIES", ()) else "mma")
-        tile_ms = plain_ms = fwd_plain_ms = None
+            for way in ("backward", "forward"))
+        tile_ms = fwd_tile_ms = plain_ms = fwd_plain_ms = None
         with torch.no_grad():
             if body in ("f32", "f32_window"):
                 tile_ms = time_ms(lambda: attention_backward_launch(
                     q, k, v, out, lse, dout, scale, h, rh, rw,
                     scale_scores=ss, body="mma"), max(1, iters // 3))
+            if fwd_body != "mma":
+                fwd_tile_ms = time_ms(lambda: attention_launch(
+                    q, k, v, scale, h, rh, rw, scale_scores=ss, body="mma"),
+                    iters)
             if (kid, shape) in plain_for:
                 fwd_plain_ms = time_ms(lambda: attention_plain(
                     q, k, v, scale, h, rh, rw, scale_scores=ss), iters)
@@ -310,8 +326,10 @@ def attention_rows(dev, iters: int = ITERS, shapes=ATTENTION_SHAPES,
                    forward_over_bound=fwd_ms / fb[0],
                    backward_over_bound=bwd_ms / bb[0], max_abs_err=err,
                    backward_max_abs_err=bwd_err, backward_body=body,
-                   backward_bit_identical=repeat,
-                   backward_tile_ms=tile_ms, forward_plain_ms=fwd_plain_ms,
+                   forward_body=fwd_body, backward_bit_identical=repeat,
+                   forward_bit_identical=fwd_repeat,
+                   backward_tile_ms=tile_ms, forward_tile_ms=fwd_tile_ms,
+                   forward_plain_ms=fwd_plain_ms,
                    backward_plain_ms=plain_ms,
                    iters=iters,
                    library="F.scaled_dot_product_attention"
@@ -331,6 +349,8 @@ def main() -> int:
                        help="the attention bodies alone")
     which.add_argument("--windows", action="store_true",
                        help="the windows' attention rows alone (K1, K6)")
+    which.add_argument("--k4", action="store_true",
+                       help="K4's attention rows alone (d 128, no tables)")
     ap.add_argument("--iters", type=int, default=ITERS,
                     help="launches a timing")
     ap.add_argument("--plain", action="store_true",
@@ -352,10 +372,11 @@ def main() -> int:
           flush=True)
     dev = torch.device("cuda")
     rows = []
-    if not (args.attention or args.windows):
+    if not (args.attention or args.windows or args.k4):
         rows.append(k3_rows(dev, args.iters))
     if not args.k3:
-        shapes = WINDOW_SHAPES if args.windows else ATTENTION_SHAPES
+        shapes = (WINDOW_SHAPES if args.windows else
+                  K4_SHAPES if args.k4 else ATTENTION_SHAPES)
         rows.append(attention_rows(dev, args.iters, shapes, plain_for=[
             (s[0], s[1]) for s in shapes] if args.plain else ()))
     for gen in rows:

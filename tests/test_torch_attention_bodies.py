@@ -39,7 +39,7 @@ MAIN_PATH = [
     ("K6 window of 14", BF16, 64, 196, 196, True, "resident"),
     ("K6 window of 12", BF16, 64, 144, 144, True, "resident"),
     ("K2 parity", F32, 64, 4096, 4096, True, "mma"),
-    ("K4 parity", F32, 128, 4096, 4096, False, "mma"),
+    ("K4 parity", F32, 128, 4096, 4096, False, "f32"),
     ("K5 parity", F32, 64, 2304, 2304, True, "mma"),
     ("K1 parity", F32, 64, 196, 196, True, "mma"),
     ("K6 parity", F32, 64, 144, 144, True, "mma"),
@@ -56,10 +56,10 @@ def test_main_path_shapes(what, dtype, d, nq, nk, rel, body):
 # The backward at the main paths' shapes, with their grids: the f32 global
 # blocks of K2 and K5 (d 64 at 4096 and 2304, ViT-H's d 80, a tensor-parallel
 # rank's six heads of 64, which are the same shapes a head) take the
-# register-tiled f32 body; the f32 windows of K1 and K6 (d 64 and 80) the
-# f32 window body; K4 (d 128), d 32, a grid no key tile holds and a global
-# block of 209 tokens stay on the tile body; every bf16 backward keeps its
-# body.
+# register-tiled f32 body, and so does K4 (d 128, no tables), both ways; the
+# f32 windows of K1 and K6 (d 64 and 80) the f32 window body; d 32, a grid
+# no key tile holds and a global block of 209 tokens stay on the tile body;
+# every bf16 backward keeps its body.
 MAIN_PATH_BACKWARD = [
     ("K2 f32 full canvas", F32, 64, 4096, (64, 64), "f32"),
     ("K2 f32 48-grid", F32, 64, 2304, (48, 48), "f32"),
@@ -67,8 +67,8 @@ MAIN_PATH_BACKWARD = [
     ("K5 f32 48-grid", F32, 64, 2304, (48, 48), "f32"),
     ("K2 f32 ViT-H", F32, 80, 4096, (64, 64), "f32"),
     ("K2 f32 ViT-H 48-grid", F32, 80, 2304, (48, 48), "f32"),
-    ("K4 f32", F32, 128, 4096, None, "mma"),
-    ("K4 f32 48-grid", F32, 128, 2304, None, "mma"),
+    ("K4 f32", F32, 128, 4096, None, "f32"),
+    ("K4 f32 48-grid", F32, 128, 2304, None, "f32"),
     ("K1 f32 window of 14", F32, 64, 196, (14, 14), "f32_window"),
     ("K6 f32 window of 12", F32, 64, 144, (12, 12), "f32_window"),
     ("K1 f32 ViT-H window", F32, 80, 196, (14, 14), "f32_window"),
@@ -92,11 +92,13 @@ MAIN_PATH_BACKWARD = [
                          ids=[c[0] for c in MAIN_PATH_BACKWARD])
 def test_main_path_backward_shapes(what, dtype, d, n, grid, body):
     """The backward's body; the forward of every one of these shapes keeps
-    the body it had (the f32 forward the tile body)."""
+    the body it had (the f32 forward the tile body) but K4's f32 forward,
+    which takes the f32 body as its backward does."""
     rel = grid is not None
     assert attention_body(dtype, d, n, n, rel, grid, "backward") == body
     forward = attention_body(dtype, d, n, n, rel, grid)
-    assert forward == (body if dtype == BF16 else "mma")
+    both_ways = dtype == BF16 or (d == 128 and not rel)
+    assert forward == (body if both_ways else "mma")
 
 
 @pytest.mark.parametrize("gw,tile", [(64, 64), (32, 64), (16, 64),
@@ -355,15 +357,15 @@ def test_hopper_header_note(name):
     ("attention_fwd.cuh", "attention_fwd_sm90.cuh",
      "Each bf16 shape takes the same body backward"),
     ("attention_bwd.cuh", "attention_bwd_sm90.cuh",
-     "in f32 K4 (d = 128), d = 32, a grid whose width no f32 key tile "
-     "holds (25 x 40) and a block of 209 to 511 tokens that lands in K1 or "
-     "K6"),
+     "in f32 d = 128 below 512 keys or with tables, d = 32, a grid whose "
+     "width no f32 key tile holds (25 x 40) and a block of 209 to 511 tokens "
+     "that lands in K1 or K6"),
 ])
 def test_tile_headers_say_what_still_runs_there(name, stays, d80):
-    """The tile bodies keep the f32 forward, K4's d 128, d = 32 and the
-    launches no other body holds; the f32 streaming backward runs the f32
-    body and the f32 windows' backward the f32 window body; no bf16 d-80
-    window runs there either way."""
+    """The tile bodies keep the f32 forward of K1, K2, K5 and K6, d = 32 and
+    the launches no other body holds; the f32 streaming backward runs the
+    f32 body, K4 in f32 the f32 body both ways and the f32 windows' backward
+    the f32 window body; no bf16 d-80 window runs there either way."""
     note = (_build.CSRC / name).read_text()
     note = note[:note.index("#pragma once")]
     assert stays in note
@@ -372,10 +374,14 @@ def test_tile_headers_say_what_still_runs_there(name, stays, d80):
     assert "K1" in note and "K6" in note and "f32" in note
     if name == "attention_bwd.cuh":
         assert "attention_bwd_f32_window.cuh" in note
+    assert "attention_bwd_f32_d128.cuh" in note
     flat = " ".join(note.replace("//", " ").split())
     assert d80 in flat
-    if name == "attention_bwd.cuh":
-        assert "every f32 launch" not in flat
+    assert "every f32 launch" not in flat
+    assert "in f32 K4 (d = 128)" not in flat
+    if name == "attention_fwd.cuh":
+        assert "attention_fwd_f32.cuh" in note
+        assert "f32 launches of K1, K2, K5 and K6" in flat
     assert "d = 64 or 80, N = M <= 208" in flat
     for gone in ("still runs the tile bodies", "backward of a d-80 window",
                  "d = 64 only", "in f32 the windows"):
@@ -533,11 +539,18 @@ def test_every_entry_has_a_signature():
     f32 = {n for n in defined if "_f32" in n}
     assert f32 == {"wm_attention_bwd_f32", "wm_grouped_attention_bwd_f32",
                    "wm_attention_bwd_f32_window",
-                   "wm_grouped_attention_bwd_f32_window"}
+                   "wm_grouped_attention_bwd_f32_window",
+                   "wm_attention_fwd_f32", "wm_attention_bwd_f32_d128"}
     for n in f32:
         assert _build._SIGNATURES[n] == (
             _build._ATTENTION_BWD_F32_WINDOW if n.endswith("_window")
+            else _build._ATTENTION_FWD if "_fwd_" in n
+            else _build._ATTENTION_BWD_F32_D128 if n.endswith("_d128")
             else _build._ATTENTION_BWD_F32)
+    # the d-128 backward: no tables, their gradients or grid (four pointers,
+    # two ints), the ds scratch and its row width beside delta
+    assert len(_build._ATTENTION_BWD_F32_D128) == len(
+        _build._ATTENTION_BWD_F32) - 6 + 2
     # `which` and no dtype; out and its two strides beside delta
     assert len(_build._ATTENTION_BWD_F32) == len(
         _build._ATTENTION_BWD) - 1 + 3
@@ -896,7 +909,8 @@ def test_resident_backward_head_dim_80_note_and_design():
 
 def test_tile_backward_keeps_its_delta_pass(monkeypatch):
     """The f32 tile bodies still run the plain delta pass before their two
-    kernels: K4's head dim, 128, stays there."""
+    kernels: head dim 128 with tables stays there (K4, which has none, takes
+    the f32 body)."""
     assert attention_body(F32, 128, 1024, 1024, True, (32, 32),
                           "backward") == "mma"
     calls, passes, counts, _ = _launch_with_stand_ins(
@@ -1072,3 +1086,139 @@ def test_f32_window_body_refuses_what_it_does_not_hold(monkeypatch):
         _attention.attention_launch(q, q, q, 0.125, 1, body="f32_window")
     assert [name for name, _ in lib.calls] == [
         "wm_attention_bwd_f32_window"] * 2
+
+
+# K4 in f32 (d 128, no tables) on the register-tiled f32 body both ways: the
+# full canvas, the 48-grid, N != M (ragged), a tensor-parallel rank's 4 heads
+K4_F32 = [(8, 4096, 4096), (8, 2304, 2304), (8, 1000, 1024), (8, 2304, 4096),
+          (4, 2304, 2304)]
+
+
+@pytest.mark.parametrize("heads,n,m", K4_F32,
+                         ids=[f"H{h}-N{n}-M{m}" for h, n, m in K4_F32])
+def test_k4_f32_runs_the_f32_body_both_ways(monkeypatch, heads, n, m):
+    """Through the adaptor's wrapper: the forward enters the f32 forward
+    entry (d 128, an lse buffer), the backward the d-128 f32 entry twice,
+    the delta and dk/dv kernels first and the dq kernel after them, with no
+    plain delta pass, and each counter moves by one."""
+    from wildlifemapper_tpu_torch.ops.cross_attention import (
+        _CrossAttentionFn, cross_attention_packed)
+    assert attention_body(F32, 128, n, m, False) == "f32"
+    assert attention_body(F32, 128, n, m, False, None, "backward") == "f32"
+    lib = _StandInLibrary()
+    passes = []
+    monkeypatch.setattr(_build, "load_kernels", lambda: lib)
+    monkeypatch.setattr(_build, "stream_ptr", lambda t: 0)
+    monkeypatch.setattr(_attention, "attention_delta",
+                        lambda *a: passes.append(a))
+    gen = torch.Generator().manual_seed(0)
+    c = heads * 128
+    q = torch.randn(1, n, c, generator=gen).requires_grad_()
+    k, v = (torch.randn(1, m, c, generator=gen).requires_grad_()
+            for _ in range(2))
+    fn = cross_attention_packed
+    before = (fn.launches, fn.backward_dq_launches, fn.backward_dkv_launches)
+    with cuda_impls_on_cpu("cross_attention_packed",
+                           "cross_attention_packed.lse"):
+        out = _CrossAttentionFn.apply(q, k, v, 128 ** -0.5, heads)
+    out.backward(torch.ones_like(out))
+    after = (fn.launches, fn.backward_dq_launches, fn.backward_dkv_launches)
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+    assert passes == []
+    assert [name for name, _ in lib.calls] == [
+        "wm_attention_fwd_f32", "wm_attention_bwd_f32_d128",
+        "wm_attention_bwd_f32_d128"]
+    (_, fwd), (_, dkv_args), (_, dq_args) = lib.calls
+    assert len(fwd) == len(_build._ATTENTION_FWD)
+    assert fwd[0] == _build.DTYPE_CODES[F32] and fwd[7] is not None  # lse
+    assert fwd[5] is None and fwd[9:13] == (heads, n, m, 128)
+    assert len(dq_args) == len(_build._ATTENTION_BWD_F32_D128)
+    # which, q, k, v, dout, out, lse, delta, ds, dq, dk, dv, B, H, N, M, d,
+    # N': one scratch, written by the delta and dk/dv kernels, read by dq
+    assert (dkv_args[0], dq_args[0]) == (0, 1)
+    assert dq_args[1:] == dkv_args[1:]
+    assert None not in dq_args[1:12]
+    assert dq_args[13:18] == (heads, n, m, 128, -(-n // 128) * 128)
+
+
+def test_k4_f32_body_refuses_what_it_does_not_hold(monkeypatch):
+    """Named outright at d 128, the f32 body refuses before any launch, both
+    ways, what it does not take: tables, bf16, fewer than 512 keys, the
+    grouped family (the scale on the scores); d 32 it refuses too."""
+    lib = _StandInLibrary()
+    monkeypatch.setattr(_build, "load_kernels", lambda: lib)
+    monkeypatch.setattr(_build, "stream_ptr", lambda t: 0)
+
+    def both(dtype=F32, d=128, n=1024, m=1024, rel=False, grouped=False):
+        q = torch.zeros(1, n, d, dtype=dtype)
+        k = torch.zeros(1, m, d, dtype=dtype)
+        rh = rw = None
+        if rel:
+            rh = torch.zeros(1, n, 1, 32, dtype=dtype)
+            rw = torch.zeros(1, n, 1, m // 32, dtype=dtype)
+        _attention.attention_launch(q, k, k, 0.125, 1, rh, rw,
+                                    scale_scores=grouped, body="f32")
+        _attention.attention_backward_launch(
+            q, k, k, q, torch.zeros(1, n, 1), q, 0.125, 1, rh, rw,
+            scale_scores=grouped, body="f32")
+
+    for kw in (dict(rel=True), dict(dtype=BF16), dict(m=STREAM_MIN_KEYS - 1),
+               dict(n=600, m=256), dict(grouped=True)):
+        with pytest.raises(ValueError, match="f32 body"):
+            both(**kw)
+    with pytest.raises(ValueError, match="f32 body is a backward at d = 32"):
+        both(d=32)
+    assert lib.calls == []
+    both(n=600, m=STREAM_MIN_KEYS)
+    assert [name for name, _ in lib.calls] == [
+        "wm_attention_fwd_f32"] + ["wm_attention_bwd_f32_d128"] * 2
+
+
+F32_D128_SOURCES = {"attention_fwd_f32.cu": "attention_fwd_f32.cuh",
+                    "attention_bwd_f32_d128.cu": "attention_bwd_f32_d128.cuh"}
+
+
+@pytest.mark.parametrize("name", sorted(F32_D128_SOURCES))
+def test_k4_f32_source(name):
+    """One small source an entry, so the nvcc runs stay side by side; each
+    says which TPU kernel it stands for and where the other shapes run."""
+    path = _build.CSRC / name
+    assert path in _build.sources()
+    text = path.read_text()
+    assert "JAX package" in text and F32_D128_SOURCES[name] in text
+    assert "K4" in text and "cross_attention.py" in text
+    assert "tile body" in text
+    assert len(re.findall(r"^WM_DEFINE_ATTENTION_\w+_F32\w*\(", text,
+                          re.M)) == 1
+    assert len(text.splitlines()) < 30
+
+
+K4_F32_HEADERS = {
+    "attention_fwd_f32.cuh": (
+        "cross_attention.py::_fwd_kernel (:64", "pallas_call :160",
+        "274.9 GFLOP", "8 x 8 register tile", "BK = 128 keys",
+        "warp shuffles", "one stage", "200,704 B", "96-key tiles",
+        "576 blocks"),
+    "attention_bwd_f32_d128.cuh": (
+        "cross_attention.py::_bwd_dq_kernel (:90", "pallas_call :208",
+        "::_bwd_dkv_kernel (:116", "pallas_call :227", "687 GFLOP",
+        "five products", "seven products here at 40 TFLOP/s",
+        "8 x 4 register tiles", "8 x 8 register tiles", "the delta kernel",
+        "no plain delta pass", "2.15 GB", "231,936 B", "98,304 B",
+        "no atomics", "bit-identical"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(K4_F32_HEADERS))
+def test_k4_f32_header_note(name):
+    """Each d-128 f32 body names the Pallas call sites it replaces, its
+    bound on the H100 and what the design does about it, with no atomics in
+    the code. The card test test_k4_f32_body holds what the code does."""
+    text = (_build.CSRC / name).read_text()
+    note = text[:text.index("#pragma once")]
+    flat = " ".join(note.replace("//", " ").split())
+    for w in ("What bounds it on the H100", "operations", "67 TFLOP/s",
+              "No TF32", "cp.async", "__launch_bounds__(256, 1)", "ptxas",
+              *K4_F32_HEADERS[name]):
+        assert w in flat, w
+    assert "atomic" not in text[text.index("#pragma once"):]

@@ -813,6 +813,64 @@ def test_f32_body_keeps_other_grids_on_the_tile_body(cuda):
     _close_grads(got, want, dt, ("dq", "dk", "dv", "drel_h", "drel_w"))
 
 
+# batch, queries, keys, heads of K4 in f32 (d 128, no tables) on the f32 body
+# both ways: the full canvas and the 48-grid, a ragged N against M, N past M,
+# a tensor-parallel rank's 4 heads, one key past a 64-key tile
+K4_F32 = [(1, 4096, 4096, 2), (2, 2304, 2304, 2), (2, 1000, 1024, 2),
+          (1, 1030, 577, 2), (2, 2304, 2304, 4), (1, 300, 513, 1)]
+
+
+@pytest.mark.parametrize("b,n,m,heads", K4_F32)
+def test_k4_f32_body(cuda, b, n, m, heads):
+    """K4 in f32 through the register-tiled f32 body both ways against the
+    plain version (forward 2e-5 / 1e-4 and the lse, gradients 5e-4 / 1e-3)
+    and the tile body, each twice and bit-identical; the delta the delta
+    kernel leaves against the plain pass, and dk, dv of the first launch
+    alone (delta, dk/dv) as the whole backward's."""
+    from wildlifemapper_tpu_torch.ops._attention import (
+        _f32_d128_backward_launch, attention_backward_launch,
+        attention_backward_plain, attention_body, attention_delta,
+        attention_launch, attention_plain, f32_d128_scratch)
+
+    dt, d = torch.float32, 128
+    rng = np.random.default_rng(n + 3 * m + heads)
+    c, scale = heads * d, d ** -0.5
+    q, dout = (_randn(rng, (b, n, c), dt, cuda) for _ in range(2))
+    k, v = (_randn(rng, (b, m, c), dt, cuda) for _ in range(2))
+    assert attention_body(dt, d, n, m, False) == "f32"
+    assert attention_body(dt, d, n, m, False, None, "backward") == "f32"
+    with torch.no_grad():
+        out, lse = attention_launch(q, k, v, scale, heads, return_lse=True)
+        out2, lse2 = attention_launch(q, k, v, scale, heads, return_lse=True)
+        ref_out, ref_lse = attention_plain(q, k, v, scale, heads,
+                                           return_lse=True)
+        tile_out = attention_launch(q, k, v, scale, heads, body="mma")
+        runs = [attention_backward_launch(q, k, v, out, lse, dout, scale,
+                                          heads)[:3] for _ in range(2)]
+        want = attention_backward_plain(q, k, v, out, lse, dout, scale,
+                                        heads)[:3]
+        tile = attention_backward_launch(q, k, v, out, lse, dout, scale,
+                                         heads, body="mma")[:3]
+        scratch = f32_d128_scratch(q, k, heads)
+        grads = [torch.empty_like(t) for t in (q, k, v)]
+        _f32_d128_backward_launch(0, q, k, v, dout, out, lse, scratch,
+                                  *grads, scale, heads)
+        torch.cuda.synchronize()
+    assert scratch[1].shape == (b, heads, m, -(-n // 128) * 128)
+    torch.testing.assert_close(out, ref_out, **TOL[dt])
+    torch.testing.assert_close(out, tile_out, **TOL[dt])
+    torch.testing.assert_close(lse, ref_lse, atol=1e-5, rtol=1e-5)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    _close_grads(runs[0], want, dt, ("dq", "dk", "dv"))
+    _close_grads(runs[0], tile, dt, ("dq", "dk", "dv against the tile body"))
+    for g1, g2 in zip(*runs):
+        assert torch.equal(g1, g2)
+    torch.testing.assert_close(scratch[0], attention_delta(dout, out, heads),
+                               atol=1e-5, rtol=1e-5)
+    assert torch.equal(grads[1], runs[0][1])
+    assert torch.equal(grads[2], runs[0][2])
+
+
 # windows, heads, grid, head dim, scale (None: d ** -0.5) of the f32 window
 # body: the main paths' windows of 14 and 12 (7 warps of 28 rows, 5 warps of
 # 32), windows padded against the 32-row slabs and the warps (100 = 10 x 10,

@@ -95,7 +95,11 @@ def test_flash_plain_matches_pallas(dtype, b, hw, heads, d):
 @pytest.mark.parametrize("b,n,m,heads,d", [(2, 48, 80, 2, 32),
                                            (1, 64, 64, 4, 16),
                                            (2, 36, 20, 2, 64),
-                                           (1, 40, 24, 2, 80)])
+                                           (1, 40, 24, 2, 80),
+                                           # K4's head dim, N != M both
+                                           # ways, a rank's 4 heads
+                                           (1, 40, 72, 2, 128),
+                                           (2, 56, 24, 4, 128)])
 def test_cross_plain_matches_pallas(dtype, b, n, m, heads, d):
     jdt, tdt = DTYPES[dtype]
     rng = np.random.default_rng(n + m)

@@ -133,7 +133,11 @@ def test_flash_backward_matches_pallas(b, hw, heads, d):
 
 @pytest.mark.parametrize("b,n,m,heads,d", [(2, 48, 80, 2, 32),
                                            (1, 64, 64, 4, 16),
-                                           (2, 36, 20, 2, 64)])
+                                           (2, 36, 20, 2, 64),
+                                           # K4's head dim in f32, N != M
+                                           # both ways, a rank's 4 heads
+                                           (1, 40, 72, 2, 128),
+                                           (2, 56, 24, 4, 128)])
 def test_cross_backward_matches_pallas(b, n, m, heads, d):
     rng = np.random.default_rng(n + m)
     q, k, v = (rng.normal(size=(b, r, heads * d)).astype(np.float32)

@@ -46,13 +46,15 @@
 // do and the outputs are read and written by stride, so dq, dk and dv land
 // in the column blocks of one packed (B, N, 3C) dqkv.
 // Which launches still run here (ops/_attention.py::attention_body): in f32
-// K4 (d = 128), d = 32, a grid whose width no f32 key tile holds (25 x 40)
-// and a block of 209 to 511 tokens that lands in K1 or K6; in bf16 d = 32
-// and the launches below 512 keys that are no window the resident body
-// holds: d = 128 or N != M, no rel tables, and such a global block. The f32
-// streaming shapes of K2 and K5 (d = 64 or 80, >= 512 keys) take the
-// register-tiled body of attention_bwd_f32.cuh, whose dq kernel takes delta
-// itself, and the f32 windows of K1 and K6 the one-kernel register-tiled
+// d = 128 below 512 keys or with tables, d = 32, a grid whose width no f32
+// key tile holds (25 x 40) and a block of 209 to 511 tokens that lands in K1
+// or K6; in bf16 d = 32 and the launches below 512 keys that are no window
+// the resident body holds: d = 128 or N != M, no rel tables, and such a
+// global block. The f32 streaming shapes of K2 and K5 (d = 64 or 80, >= 512
+// keys) take the register-tiled body of attention_bwd_f32.cuh, whose dq
+// kernel takes delta itself, K4 in f32 (d = 128 without tables, >= 512
+// keys) its d-128 kernels of attention_bwd_f32_d128.cuh, and the f32
+// windows of K1 and K6 the one-kernel register-tiled
 // body of attention_bwd_f32_window.cuh; the streaming bf16 shapes of K2, K4
 // and K5 (d = 64, 80 or 128) the Hopper bodies of attention_bwd_sm90.cuh
 // (wgmma, a TMA-fed ring), and the bf16 windows of K1 and K6 (d = 64 or 80,

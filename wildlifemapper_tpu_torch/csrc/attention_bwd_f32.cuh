@@ -20,8 +20,10 @@
 // ops/_attention.py::attention_body sends here f32 backward launches at
 // d = 64 or 80 with at least 512 keys whose rel grid (if any) has gw of 16,
 // 24, 32, 48 or 64: K2 at N 4096 and 2304, K5 at BH 48, ViT-H's K2 / K5 at
-// d 80 and the tensor-parallel ranks' heads. Other grids, the f32 windows,
-// d 32 and d 128 stay on the tile bodies.
+// d 80 and the tensor-parallel ranks' heads. K4 (d 128, no tables) takes the
+// d-128 kernels of attention_bwd_f32_d128.cuh, built on this header's
+// helpers; the f32 windows take attention_bwd_f32_window.cuh; other grids,
+// d 32 and d 128 with tables stay on the tile bodies.
 //
 // What bounds it on the H100: seven products of N^2 d MACs a head (S, dP
 // and dq in the dq kernel; S, dP, dV and dK in the dk/dv kernel: two more
@@ -135,6 +137,11 @@ __device__ __forceinline__ void fb_cp4(float* dst, const float* src, bool in) {
 }
 __device__ __forceinline__ void fb_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
 __device__ __forceinline__ void fb_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+// Until at most N of this thread's commit groups are still in flight.
+template <int N>
+__device__ __forceinline__ void fb_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 __device__ __forceinline__ float4 fb_ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -144,6 +151,18 @@ __device__ __forceinline__ float4 fb_ldg4(const float* p, bool in) {
 }
 __device__ __forceinline__ float fb_at(const float4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+// `rows` rows of COLS floats from row r0 of `src` (row stride rs) into a
+// [rows][ld] tile by 16-byte cp.async, zeros from row n on; no commit.
+template <int COLS>
+__device__ __forceinline__ void fb_copy_rows(float* dst, int ld, const float* src, long long rs,
+                                             int r0, int rows, int n, int t) {
+  constexpr int CH = COLS / 4;
+  for (int e = t; e < rows * CH; e += kFbThreads) {
+    const int r = e / CH, c = (e % CH) * 4;
+    const bool in = r0 + r < n;
+    fb_cp16(dst + r * ld + c, src + (in ? r0 + r : 0) * rs + c, in);
+  }
 }
 
 // A thread's 8 resident rows: r0 .. r0+3 and r0+16 .. r0+19, so that a

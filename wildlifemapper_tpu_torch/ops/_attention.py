@@ -17,8 +17,13 @@ kernel takes delta itself), and the f32 backward of the windows the resident
 bodies take in bf16 (K1, K6) the register-tiled f32 window body
 (csrc/attention_bwd_f32_window.cuh, built by attention_bwd_f32_window.cu and
 grouped_attention_bwd_f32_window.cu: one kernel a window-head that takes
-delta itself). `attention_body` says which launch takes which, from its
-direction, dtype and shapes alone.
+delta itself). K4's f32 launches (d = 128, no tables, at least 512 keys)
+take the register-tiled f32 body both ways: the forward of
+csrc/attention_fwd_f32.cuh (built by attention_fwd_f32.cu) and the backward
+of csrc/attention_bwd_f32_d128.cuh (built by attention_bwd_f32_d128.cu: a
+delta kernel, a dk/dv kernel that leaves ds in a scratch, and a dq kernel
+that multiplies it by K). `attention_body` says which launch takes which,
+from its direction, dtype and shapes alone.
 
 Layouts are the JAX package's: q (B, N, C) and k, v (B, M, C), head h in
 columns [h*d, (h+1)*d); for the packed qkv they are column slices of one
@@ -73,6 +78,15 @@ RESIDENT_MAX_GRID = 16
 # backward's one-hot products run over (rel_h | rel_w | 0) of this width,
 # the forward stages the two tables side by side in rows of this width.
 SM90_REL_COLS = 128
+# The register-tiled f32 body takes these head dims without rel tables
+# (csrc/attention_fwd_f32.cuh forward, csrc/attention_bwd_f32_d128.cuh
+# backward, K4's packed family) and, backward only, F32_BACKWARD_DIMS with
+# or without them (csrc/attention_bwd_f32.cuh).
+F32_PLAIN_DIMS = (128,)
+F32_BACKWARD_DIMS = (64, 80)
+# The d-128 f32 backward's ds scratch rows are the queries rounded up to this
+# (the dq kernel's blocks of queries).
+F32_DS_ROW = 128
 # The f32 streaming backward's key tiles (csrc/attention_bwd_f32.cuh): a
 # tile is a whole number of rows of the rel grid, 64 keys or, where the grid
 # width divides 48 and not 64, 48; grids of another width stay on the tile
@@ -124,21 +138,25 @@ def attention_body(dtype: torch.dtype, d: int, nq: int, nk: int,
     bf16 at d = 64 or 80 with rel tables of a grid `grid_hw` at most
     RESIDENT_MAX_GRID a side and nq == nk <= RESIDENT_MAX_TOKENS (every
     window of K1 and K6 on the main paths and ViT-H's; when `grid_hw` is not
-    given the tables are taken to fit); "f32", the register-tiled f32
-    backward of csrc/attention_bwd_f32.cuh, for the f32 backward at d = 64
-    or 80 with at least STREAM_MIN_KEYS keys and, with tables, a grid whose
-    width `f32_key_tile` takes (K2 and K5 on the main paths, ViT-H's at
-    d 80, the tensor-parallel ranks'; when `grid_hw` is not given the tables
-    are taken to fit); "f32_window", the one-kernel register-tiled f32
+    given the tables are taken to fit); "f32", the register-tiled f32 body
+    with at least STREAM_MIN_KEYS keys: both ways at d = 128 without tables
+    (csrc/attention_fwd_f32.cuh, attention_bwd_f32_d128.cuh: K4 at N = M
+    4096 and 2304, N != M, a tensor-parallel rank's 4 heads), and backward
+    at d = 64 or 80 (csrc/attention_bwd_f32.cuh) with, with tables, a grid
+    whose width `f32_key_tile` takes (K2 and K5 on the main paths, ViT-H's
+    at d 80, the tensor-parallel ranks'; when `grid_hw` is not given the
+    tables are taken to fit); "f32_window", the one-kernel register-tiled f32
     backward of csrc/attention_bwd_f32_window.cuh, for the f32 backward of
     the windows "resident" takes in bf16 (K1 and K6 on the main paths,
     ViT-H's d-80 windows); else "mma", the mma.sync (bf16) or scalar (f32)
     tile bodies of csrc/attention_fwd.cuh / attention_bwd.cuh (the f32
-    forward, the f32 backward of other grids, d = 32, d = 128 or N != M
-    below STREAM_MIN_KEYS keys, and a global block of 209 to 511 tokens that
-    lands in K1 or K6). `direction` is "forward" or "backward": a bf16 shape
-    takes the same body both ways, an f32 one differs at the streaming
-    shapes' and the windows' backward. Raises on what no body takes."""
+    forward of K1, K2, K5 and K6, the f32 backward of other grids, d = 32,
+    d = 128 with tables or below STREAM_MIN_KEYS keys, N != M below
+    STREAM_MIN_KEYS keys, and a global block of 209 to 511 tokens that lands
+    in K1 or K6). `direction` is "forward" or "backward": a bf16 shape and
+    an f32 one at d = 128 take the same body both ways, other f32 ones
+    differ at the streaming shapes' and the windows' backward. Raises on
+    what no body takes."""
     if direction not in DIRECTIONS:
         raise ValueError(f"direction {direction!r}: expected one of "
                          f"{DIRECTIONS}")
@@ -157,11 +175,13 @@ def attention_body(dtype: torch.dtype, d: int, nq: int, nk: int,
         return "resident"
     if window and direction == "backward":
         return "f32_window"
-    if (dtype == torch.float32 and direction == "backward" and d in (64, 80)
-            and nk >= STREAM_MIN_KEYS
-            and (not has_rel or grid_hw is None
-                 or f32_key_tile(grid_hw[1]) is not None)):
-        return "f32"
+    if dtype == torch.float32 and nk >= STREAM_MIN_KEYS:
+        if d in F32_PLAIN_DIMS and not has_rel:
+            return "f32"
+        if (direction == "backward" and d in F32_BACKWARD_DIMS
+                and (not has_rel or grid_hw is None
+                     or f32_key_tile(grid_hw[1]) is not None)):
+            return "f32"
     return "mma"
 
 
@@ -324,7 +344,8 @@ def _check_attention(q, k, v, num_heads, rel_h, rel_w, extra=()):
     return d, gh, gw
 
 
-_ENTRY_SUFFIX = {"mma": "", "sm90": "_sm90", "resident": "_resident"}
+_ENTRY_SUFFIX = {"mma": "", "sm90": "_sm90", "resident": "_resident",
+                 "f32": "_f32"}
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -339,7 +360,8 @@ def attention_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      body: Optional[str] = None):
     """Launch the forward kernel (csrc/attention.cu or, with `scale_scores`,
     csrc/grouped_attention.cu; for the shapes `attention_body` sends there,
-    their `_sm90` or `_resident` counterparts) on CUDA tensors; raises on
+    their `_sm90` or `_resident` counterparts, and K4's f32 shapes
+    csrc/attention_fwd_f32.cu) on CUDA tensors; raises on
     anything the kernel does not take. q/k/v may be column slices of one
     packed tensor: they are read by stride. With return_lse the kernel also
     writes the (B, N, H) f32 log-sum-exp the backward kernels need. `body`
@@ -349,9 +371,12 @@ def attention_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     m = k.shape[1]
     d, gh, gw = _check_attention(q, k, v, num_heads, rel_h, rel_w)
     body = _pick_body(body, q, d, m, rel_h, rel_w, "forward")
-    if body in ("f32", "f32_window"):
-        raise ValueError(f"the {body} body is a backward: the f32 forward "
-                         "runs the tile body")
+    if body == "f32_window" or (body == "f32" and d not in F32_PLAIN_DIMS):
+        raise ValueError(f"the {body} body is a backward at d = {d}: the f32 "
+                         "forward runs the tile body there")
+    if body == "f32":
+        _check_f32_body(d, gw, rel_h is not None, [q, k, v],
+                        scale_scores=scale_scores, keys=m)
     if body == "sm90" and gh + gw > SM90_REL_COLS:
         raise ValueError(f"rel grid {gh}x{gw}: the Hopper forward takes "
                          f"gh + gw <= {SM90_REL_COLS}")
@@ -478,16 +503,68 @@ def _f32_backward_launch(kernel: int, q, k, v, dout, out, lse, delta,
                  + ("dq + delta", "dk/dv")[kernel])
 
 
+def f32_d128_scratch(q: torch.Tensor, k: torch.Tensor, num_heads: int):
+    """What the d-128 f32 backward's kernels leave for the next: delta
+    (B, N, H) f32 for the dk/dv kernel, and ds (B, H, M, N') f32 for the dq
+    kernel, keys by rows, N' = N rounded up to F32_DS_ROW (2.15 GB at B 4,
+    H 8, N = M 4096)."""
+    b, n, _ = q.shape
+    delta = torch.empty((b, n, num_heads), dtype=torch.float32,
+                        device=q.device)
+    width = -(-n // F32_DS_ROW) * F32_DS_ROW
+    ds = torch.empty((b, num_heads, k.shape[1], width), dtype=torch.float32,
+                     device=q.device)
+    return delta, ds
+
+
+def _f32_d128_backward_launch(kernel: int, q, k, v, dout, out, lse, scratch,
+                              dq, dk, dv, scale: float,
+                              num_heads: int) -> None:
+    """Launch the d-128 f32 backward, csrc/attention_bwd_f32_d128.cu, on
+    checked operands; `scratch` is `f32_d128_scratch(...)`. 0: the delta
+    kernel and the dk/dv kernel, dk and dv, and delta and ds into the
+    scratch; 1, the dq kernel: dq from ds, after them on the same stream.
+    Raises if a launch fails."""
+    delta, ds = scratch
+    b, n, _ = q.shape
+    entry = _build.load_kernels().wm_attention_bwd_f32_d128
+    err = entry(
+        kernel, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        out.data_ptr(), lse.data_ptr(), delta.data_ptr(), ds.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, num_heads, n,
+        k.shape[1], q.shape[2] // num_heads, ds.shape[3],
+        q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+        v.stride(0), v.stride(1), dout.stride(0), dout.stride(1),
+        out.stride(0), out.stride(1),
+        dq.stride(0), dq.stride(1), dk.stride(0), dk.stride(1),
+        dv.stride(0), dv.stride(1), float(scale), _build.stream_ptr(q))
+    _build.check(err, "f32 attention backward kernel "
+                 + ("delta + dk/dv + ds", "dq from ds")[kernel])
+
+
 def _check_f32_body(d: int, gw: int, has_rel: bool, tensors,
-                    window: bool = False) -> None:
-    """What the f32 bodies take: f32 at d = 64 or 80, rows and tables on
-    16-byte boundaries (their tiles arrive by 16-byte copies); the streaming
-    body a grid width `f32_key_tile` takes, the window body one window
+                    window: bool = False, scale_scores: bool = False,
+                    keys: int = STREAM_MIN_KEYS) -> None:
+    """What the f32 bodies take: f32 at d = 64 or 80, and (not the window
+    body) at d = 128 without tables in the packed family (K4) from
+    STREAM_MIN_KEYS `keys` on; rows and tables on 16-byte boundaries (their
+    tiles arrive by 16-byte copies); the streaming body a grid width
+    `f32_key_tile` takes, the window body one window
     (`_check_f32_window`)."""
     name = "f32_window" if window else "f32"
-    if tensors[0].dtype != torch.float32 or d not in (64, 80):
-        raise ValueError(f"the {name} body takes float32 at d = 64 or 80, got "
-                         f"{tensors[0].dtype} at d = {d}")
+    if tensors[0].dtype != torch.float32 or d not in (64, 80) + (
+            () if window else F32_PLAIN_DIMS):
+        raise ValueError(f"the {name} body takes float32 at d = 64 or 80"
+                         + ("" if window else ", or 128 without tables")
+                         + f", got {tensors[0].dtype} at d = {d}")
+    if d in F32_PLAIN_DIMS and (has_rel or scale_scores
+                                or keys < STREAM_MIN_KEYS):
+        raise ValueError(f"the {name} body takes d = {d} without rel tables "
+                         f"in the packed family (K4) from {STREAM_MIN_KEYS} "
+                         f"keys, got {keys} keys"
+                         + (" with tables" if has_rel else "")
+                         + (", the scale on the scores" if scale_scores
+                            else ""))
     if not window and has_rel and f32_key_tile(gw) is None:
         raise ValueError(f"rel grid {gw} wide: the f32 body takes widths "
                          f"of 16, 24, 32, 48 or 64")
@@ -576,7 +653,10 @@ def attention_backward_launch(q, k, v, out, lse, dout, scale: float,
     it, with what else `sm90_scratch` names, for the dk/dv kernel; for
     "f32" the two kernels of csrc/attention_bwd_f32.cu
     (csrc/grouped_attention_bwd_f32.cu), the dq kernel taking delta itself
-    and leaving it for the dk/dv kernel; for "mma" the plain delta pass and
+    and leaving it for the dk/dv kernel, or at d = 128 those of
+    csrc/attention_bwd_f32_d128.cu, the dk/dv kernel (after a delta kernel)
+    first, leaving ds for the dq kernel (`f32_d128_scratch`); for "mma" the
+    plain delta pass and
     the two kernels of
     csrc/attention_bwd.cu (csrc/grouped_attention_bwd.cu). The dq kernel
     also writes drel_h / drel_w when rel tables are given and `want_drel`;
@@ -631,7 +711,18 @@ def attention_backward_launch(q, k, v, out, lse, dout, scale: float,
     if body == "f32":
         _check_f32_body(d, gw, rel_h is not None,
                         [t for t in (q, k, v, dout, out, dq, dk, dv, rel_h,
-                                     rel_w) if t is not None])
+                                     rel_w) if t is not None],
+                        scale_scores=scale_scores, keys=m)
+        if d in F32_PLAIN_DIMS:
+            # the delta kernel and the dk/dv kernel, which leaves ds for the
+            # dq kernel: five products, no plain pass
+            scratch = f32_d128_scratch(q, k, num_heads)
+            for kernel, counter in enumerate(counters[::-1]):
+                _f32_d128_backward_launch(kernel, q, k, v, dout, out, lse,
+                                          scratch, dq, dk, dv, scale,
+                                          num_heads)
+                _count(wrapper, counter)
+            return dq, dk, dv, drh, drw
         # the dq kernel takes delta itself and leaves it for the dk/dv kernel
         delta = torch.empty((b, n, num_heads), dtype=torch.float32,
                             device=q.device)

@@ -63,6 +63,11 @@ _ATTENTION_BWD_F32 = ([_I] + [_P] * 14 + [_I] * 5 + [_LL] * 16
 # delta, no `which` and no dtype
 _ATTENTION_BWD_F32_WINDOW = ([_P] * 13 + [_I] * 5 + [_LL] * 16
                              + [_I, _I, ctypes.c_float, _P])
+# the f32 backward at d 128 without tables: `which`, out beside delta, and the
+# ds scratch the dk/dv kernel writes for the dq kernel with its row width;
+# no tables, no dtype
+_ATTENTION_BWD_F32_D128 = ([_I] + [_P] * 11 + [_I] * 6 + [_LL] * 16
+                           + [ctypes.c_float, _P])
 _SIGNATURES = {
     # the packed family (K1, K2, K4) and the grouped family (K5, K6) take
     # the same arguments
@@ -77,9 +82,12 @@ _SIGNATURES = {
     "wm_grouped_attention_fwd_sm90": _ATTENTION_FWD,
     "wm_grouped_attention_bwd_dq_sm90": _ATTENTION_BWD_SM90,
     "wm_grouped_attention_bwd_dkv_sm90": _ATTENTION_BWD_SM90,
-    # the register-tiled f32 body of the streaming backward (K2, K5)
+    # the register-tiled f32 body of the streaming backward (K2, K5), and
+    # both ways at head dim 128 without tables (K4)
     "wm_attention_bwd_f32": _ATTENTION_BWD_F32,
     "wm_grouped_attention_bwd_f32": _ATTENTION_BWD_F32,
+    "wm_attention_fwd_f32": _ATTENTION_FWD,
+    "wm_attention_bwd_f32_d128": _ATTENTION_BWD_F32_D128,
     # the register-tiled f32 body of the windows' backward (K1, K6)
     "wm_attention_bwd_f32_window": _ATTENTION_BWD_F32_WINDOW,
     "wm_grouped_attention_bwd_f32_window": _ATTENTION_BWD_F32_WINDOW,

@@ -4,12 +4,17 @@ Replaces wildlifemapper_tpu/ops/cross_attention.py::cross_attention_packed
 (:150) and its two backward kernels (dq :90, dk/dv :116): bias-free multi-head attention with q (B, N, C) from the patch
 stream and k, v (B, M, C) from the HFC stream, C = 1024 = 8 heads x 128,
 N = M = 4096 (full canvas and compat crop) or 2304 (crop_prologue). The
-kernel is csrc/attention.cu without the bias, at head dim 128 (dynamic
-shared memory above 48 KB); the body and what bounds it on the H100 are in
-csrc/attention_fwd.cuh.
+kernel is csrc/attention.cu without the bias, at head dim 128: in bf16 the
+Hopper body (csrc/attention_sm90.cu) from 512 keys, in f32 from 512 keys
+the register-tiled f32 body (csrc/attention_fwd_f32.cu), else the tile body
+(csrc/attention_fwd.cuh); each body's header says what bounds it on the
+H100.
 
-The backward kernels are those of csrc/attention_bwd.cu without rel
-tables, on the lse the forward writes when a gradient is recorded.
+The backward kernels run on the lse the forward writes when a gradient is
+recorded, without rel tables: in bf16 the Hopper backward's dq kernel
+(delta inside) and dk/dv kernel, in f32 from 512 keys the d-128 f32 body's
+delta and dk/dv kernels (counted as the dk/dv launch) and its dq kernel
+(csrc/attention_bwd_f32_d128.cu), else the tile body's (csrc/attention_bwd.cu).
 
 On a CPU tensor the wrapper runs the plain version and autograd
 differentiates it; on a CUDA tensor it launches the kernels or raises,
