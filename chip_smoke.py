@@ -31,17 +31,23 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      instantiation (the tile bodies, the Hopper forward and backward, the
      resident forward and backward) held to no spill, the f32 streaming
      backward's twelve instantiations (csrc/attention_bwd_f32.cuh), the
-     f32 window backward's twelve (csrc/attention_bwd_f32_window.cuh) and
+     f32 window backward's twelve (csrc/attention_bwd_f32_window.cuh),
      K4's f32 body at d 128, its forward and its backward's delta, dk/dv
      and dq kernels (csrc/attention_fwd_f32.cuh, attention_bwd_f32_d128.cuh)
-     too, and no line of ptxas saying it serialized the wgmma products of a
+     and the f32 forward of K2 and K5 at d 64 and 80, packed and grouped
+     (the same header's four other instantiations) too, and no line of
+     ptxas saying it serialized the wgmma products of a
      kernel (C7515); TF32 off.
   2. kernels: each kernel against its plain PyTorch version on the card at
      the shapes the serving path gives it, f32 at atol 2e-5 / rtol 1e-4 and
      bf16 (against the plain version in f32 on the same bf16-rounded
      inputs) at 2e-2, and the bf16 forward of the Hopper body (K2, K4, K5)
      and of the resident body (K1, K6), and K4's f32 forward on the f32 body
-     (N = M 4096 and 2304, ragged N != M, a tensor-parallel rank's 4 heads),
+     (N = M 4096 and 2304, ragged N != M, a tensor-parallel rank's 4 heads)
+     and that of K2 and K5 (d 64 and 80: N 4096 and 2304, ViT-H's B 1, H 16,
+     N 4096, ragged 25x40 grids, a tensor-parallel rank's 6 heads and, at
+     the launcher, N != M without tables, every grid width the f32 backward
+     takes and an 8x65 grid; O and the lse against the plain version),
      twice at the launcher at every shape it takes, O and the lse
      bit-identical; K5 and K6 also at d = 128 and 32, where their scale
      on the f32 scores rounds differently from a scaled q; K2, K4 and K5
@@ -201,7 +207,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      and K4's f32 body forward and backward (d 128: N = M 4096, the
      48-grid's 2304 beside, each beside the tile body's time, the plain
      version's, the library call's and the bound; its launches those of the
-     f32 paths, phases 3, 4b, 7 and 14c).
+     f32 paths, phases 3, 4b, 7 and 14c), and the f32 forward of K2 and K5
+     on the same body (d 64: N 4096, the 48-grid's 2304 and ViT-H's d 80 at
+     batch 1 beside, each beside the tile body's time, the plain version's
+     at 4096, the library call's and the bound; its launches those of the
+     same f32 paths, whose global blocks all take it).
 
  10. the training loop (train/loop.py through cli/train.py's Config, the
      vendored annotation bundle, synthetic tiles at 1024 cached in a
@@ -400,6 +410,8 @@ F32_ITERS = 3
 F32_BWD_MAIN = {"flash_attention_packed": ("K2", "B=4 N=4096"),
                 "flash_attention_rel_pos": ("K5", "BH=4*12 N=4096")}
 F32_BWD_D80 = {"K2": "B=1 H=16 N=4096 d=80", "K5": "BH=16 N=4096 d=80"}
+# the f32 forward's rows on the 48-grid (the from-scratch step's)
+F32_FWD_2304 = {"K2": "B=4 N=2304", "K5": "BH=4*12 N=2304"}
 # the f32 window backward's rows of the "kernels" line: (kernel, shape) of
 # scripts/time_f32_kernels.py at the full canvas, and ViT-H's d-80 window
 # at batch 1 and 4 (K6: batch 1)
@@ -415,6 +427,15 @@ F32_D128_KERNELS = ("attn_fwd_f32_kernel<128,128>",
                     "attn_bwd_f32_d128_delta_kernel<128>",
                     "attn_bwd_f32_d128_dkv_kernel<128>",
                     "attn_bwd_f32_d128_dq_kernel<128>")
+# the f32 forward of K2 / K5 at the launcher in phase 2: batch, heads,
+# queries, keys, head dim, rel grid, scale (None: d ** -0.5)
+F32_FORWARD_LAUNCHER = [(2, 2, 1000, 700, 64, None, None),
+                        (1, 2, 1000, 700, 80, None, None),
+                        (1, 2, 1024, 1024, 64, (64, 16), 0.3),
+                        (1, 2, 600, 600, 80, (25, 24), None),
+                        (1, 2, 1024, 1024, 80, (32, 32), 0.25),
+                        (1, 2, 1008, 1008, 64, (21, 48), None),
+                        (1, 2, 520, 520, 80, (8, 65), None)]
 # K4's f32 rows of the "kernels" line: (kernel, shape) of
 # scripts/time_f32_kernels.py at the full canvas, the 48-grid beside
 F32_K4 = ("K4", "B=4 N=M=4096")
@@ -3588,6 +3609,15 @@ def main() -> int:
     if (len(f32_d128_ptxas) != len(F32_D128_KERNELS)
             or any(", 0 B spilled" not in line for line in f32_d128_ptxas)):
         raise AssertionError(f"K4's f32 body: {f32_d128_ptxas}")
+    # the f32 forward of K2 and K5 (csrc/attention_fwd_f32.cuh): d 64 and
+    # 80, packed and grouped, none spilling
+    f32_fwd_ptxas = [line for line in ptxas
+                     if line.startswith("attn_fwd_f32_kernel<")
+                     and not line.startswith(F32_D128_KERNELS)]
+    emit("ptxas_f32_forward", lines=f32_fwd_ptxas)
+    if (len(f32_fwd_ptxas) != 4
+            or any(", 0 B spilled" not in line for line in f32_fwd_ptxas)):
+        raise AssertionError(f"f32 forward of K2 / K5: {f32_fwd_ptxas}")
     # ptxas says only in an info line (C7515) that it serialized every wgmma
     # of a kernel, which undoes what the Hopper bodies stand on
     serialized = serialized_wgmma(build_log)
@@ -3714,9 +3744,11 @@ def main() -> int:
         """f32 and bf16; the large encoders' training shapes bf16 alone,
         the dtype phase 14 trains in (14c holds their f32 path end to end
         through the kernels)."""
-        k4_rank = shape.startswith("B=4 H=4 N=M")    # f32 too (K4's body)
+        # f32 too at a rank's K4 and its K2 / K5 of ViT-B (the f32 bodies)
+        f32_rank = shape.startswith(("B=4 H=4 N=M", "B=4 H=6 N=4096",
+                                     "BH=4*6 N=4096"))
         if ("(ViT-L" in shape or "scratch)" in shape
-                or ("(TP rank" in shape and not k4_rank)):
+                or ("(TP rank" in shape and not f32_rank)):
             return (torch.bfloat16,)
         return (torch.float32, torch.bfloat16)
 
@@ -3737,11 +3769,12 @@ def main() -> int:
                     dict(scale_scores=True))
         return None
 
-    def forward_repeat(name, shape, args):
+    def forward_repeat(name, shape, args, la=None):
         """The Hopper, the resident or the f32 forward twice on the same
-        operands, with the lse: every output element has one owner and a
-        fixed order of sums, so O and the lse are bit-identical."""
-        la = launcher_args(name, args)
+        operands (a wrapper's `args`, or the launcher's `la`), with the lse:
+        every output element has one owner and a fixed order of sums, so O
+        and the lse are bit-identical."""
+        la = la or launcher_args(name, args)
         if la is None:
             return
         (q, k, v, scale, heads, rh, rw), kw = la
@@ -3759,6 +3792,47 @@ def main() -> int:
              bit_identical=same, outputs=["out", "lse"])
         if not same:
             raise AssertionError(f"{name} {shape}: two forward runs differ")
+        if body == "f32":
+            f32_forward_check(name, shape, la, first)
+
+    def f32_launcher_case(fam, batch, heads, n, m, d, hw, scale):
+        """One F32_FORWARD_LAUNCHER case of the f32 forward at the launcher,
+        in the packed family or (its heads as batches) the grouped one."""
+        grouped = fam == "flash_attention_rel_pos"
+        if grouped:
+            batch, heads = batch * heads, 1
+        width = heads * d
+        q = randn((batch, n, width))
+        k, v = randn((batch, m, width)), randn((batch, m, width))
+        rh = rw = None
+        if hw:
+            rh = randn((batch, n, heads, hw[0]), 0.5)
+            rw = randn((batch, n, heads, hw[1]), 0.5)
+        shape = (f"B={batch} H={heads} N={n} M={m} d={d}"
+                 + (f" ({hw[0]}x{hw[1]})" if hw else " no tables"))
+        if attention_body(torch.float32, d, n, m, hw is not None,
+                          hw) != "f32":
+            raise AssertionError(f"{fam} {shape}: not the f32 body")
+        forward_repeat(fam, shape, None, la=(
+            (q, k, v, scale or d ** -0.5, heads, rh, rw),
+            dict(scale_scores=grouped)))
+
+    def f32_forward_check(name, shape, la, got):
+        """An f32 body's forward, O and the lse, against the plain version
+        at 2e-5 / 1e-4; its error goes into the kernels line (`name`_f32)."""
+        (q, k, v, scale, heads, rh, rw), kw = la
+        want = attention_plain(q, k, v, scale, heads, rh, rw,
+                               return_lse=True, **kw)
+        errs = [(g - w).abs().max().item() for g, w in zip(got, want)]
+        ok = all(bool(torch.allclose(g, w, atol=2e-5, rtol=1e-4))
+                 and bool(torch.isfinite(g).all()) for g, w in zip(got, want))
+        emit("f32_forward_check", kernel=name, shape=shape, body="f32",
+             max_abs_err=errs[0], lse_max_abs_err=errs[1], atol=2e-5,
+             rtol=1e-4)
+        if not ok:
+            raise AssertionError(f"{name} {shape}: the f32 forward disagrees "
+                                 f"with its plain version ({errs})")
+        errors[name + "_f32"] = max(errors.get(name + "_f32", 0.0), errs[0])
 
     c, hd = 1024, 128
     cases = [
@@ -3904,6 +3978,15 @@ def main() -> int:
                     kernel_inputs[name] = (shape, args)
             del base, args, got, ref
             torch.cuda.empty_cache()
+        # the f32 forward of K2 / K5 at the launcher where the wrappers do
+        # not reach: N != M without tables (a last key tile of 60), every
+        # grid width the f32 backward takes (16, 24, 32, 48, 64) and an 8 x
+        # 65 grid (the last tile 8 keys), d 64 and 80, both families, a
+        # scale that is no power of two
+        for case in F32_FORWARD_LAUNCHER:
+            for fam in ("flash_attention_packed", "flash_attention_rel_pos"):
+                f32_launcher_case(fam, *case)
+        torch.cuda.empty_cache()
 
     count_names = COUNT_NAMES
 
@@ -3964,6 +4047,9 @@ def main() -> int:
     # dk/dv entry, which launches the delta kernel and then the dk/dv
     # kernel, and then the dq entry)
     f32_k4 = {"forward": 0, "backward_dq": 0, "backward_dkv": 0}
+    # the f32 forward of K2 and K5 (d 64 / 80): their wrappers' forward
+    # launches on the same paths, whose global blocks all take it
+    f32_fwd = {"flash_attention_packed": 0, "flash_attention_rel_pos": 0}
 
     # ---- 3. end to end against the PyTorch reference -----------------------
     npz = np.load(Path(__file__).resolve().parent / "tests" / "goldens"
@@ -3996,6 +4082,8 @@ def main() -> int:
         check_mlp_kernels(f"one f32 forward, {layout}", 2)
         f32_k3["forward"] += e2e_counts["fused_mlp"]
         f32_k4["forward"] += e2e_counts["cross_attention_packed"]
+        for wname in f32_fwd:
+            f32_fwd[wname] += e2e_counts[wname]
         del model, out
         torch.cuda.empty_cache()
 
@@ -4259,6 +4347,7 @@ def main() -> int:
         check_mlp_kernels(f"{variant} f32 forward, batch 1", 2)
         f32_k3["forward"] += fused_mlp.launches
         f32_k4["forward"] += cross_attention_packed.launches
+        f32_fwd["flash_attention_packed"] += flash_attention_packed.launches
         with torch.inference_mode():
             ref = plain_m(x1)
         keys = ("pred_logits", "pred_boxes")
@@ -4861,6 +4950,8 @@ def main() -> int:
                 f32_k3["dh"] += got_counts["backward_launches"]["fused_mlp"]
                 f32_k4["forward"] += got_counts["launches"][
                     "cross_attention_packed"]
+                for wname in f32_fwd:
+                    f32_fwd[wname] += got_counts["launches"].get(wname, 0)
                 for way in ("dq", "dkv"):
                     f32_k4["backward_" + way] += got_counts[
                         f"backward_{way}_launches"]["cross_attention_packed"]
@@ -4934,6 +5025,14 @@ def main() -> int:
     emit("f32_backward_body", bodies=f32_bodies)
     if set(f32_bodies.values()) != {"f32"}:
         raise AssertionError(f"f32 global blocks' backward: {f32_bodies}")
+    # and the f32 forward (csrc/attention_fwd_f32.cuh), so that every f32
+    # forward launch of K2 and K5 counted on these paths is the f32 body's
+    f32_fwd_bodies = {f"d={hd} grid={g}x{g}": attention_body(
+        torch.float32, hd, g * g, g * g, True, (g, g))
+        for hd in (64, 80) for g in (64, 48)}
+    emit("f32_forward_body", bodies=f32_fwd_bodies)
+    if set(f32_fwd_bodies.values()) != {"f32"}:
+        raise AssertionError(f"f32 global blocks' forward: {f32_fwd_bodies}")
     # and their windows the f32 window body: 14 and 12 wide at d 64 and 80
     f32_win_bodies = {f"d={hd} window={w}x{w}": attention_body(
         torch.float32, hd, w * w, w * w, True, (w, w), "backward")
@@ -5917,6 +6016,42 @@ def main() -> int:
             n2304_bound_ms=row48[way + "_bound_ms"],
             n2304_library_ms=row48[way + "_library_ms"])
 
+    # the f32 forward of K2 and K5 (csrc/attention_fwd_f32.cuh at d 64 /
+    # 80): its time, the tile body's and the plain version's at the full
+    # canvas, the 48-grid and ViT-H's d 80 (batch 1) beside
+    for wname, (kid, shape) in F32_BWD_MAIN.items():
+        row = f32_rows[kid, shape]
+        rows = {"n2304": f32_rows[kid, F32_FWD_2304[kid]],
+                "d80": f32_rows[kid, F32_BWD_D80[kid]]}
+        bodies = {r["forward_body"] for r in (row, *rows.values())}
+        if bodies != {"f32"}:
+            raise AssertionError(f"{kid}: f32 forward bodies {bodies}")
+        entry = dict(
+            name=wname + "_f32", route="cuda",
+            source=("wildlifemapper_tpu_torch/csrc/"
+                    + ("grouped_" if kid == "K5" else "")
+                    + "attention_fwd_f32.cu"),
+            replaces=(jax_ops + "flash_attention.py:230" if kid == "K5" else
+                      jax_ops + "flash_attention_v2.py:199"),
+            dtype="float32", shape=shape, max_abs_err=errors[wname + "_f32"],
+            max_abs_err_of="out (phase 2), every f32 shape that takes the "
+                           "body, the lse checked beside it",
+            ms=row["forward_ms"], earlier_body_ms=row["forward_tile_ms"],
+            plain_ms=row["forward_plain_ms"],
+            bound_ms=row["forward_bound_ms"],
+            bound_by=row["forward_bound_by"],
+            library_ms=row["forward_library_ms"],
+            library="f32 scaled_dot_product_attention with the bias as "
+                    "attn_mask",
+            bit_identical=row["forward_bit_identical"])
+        for tag, r in rows.items():
+            entry.update({f"{tag}_shape": r["shape"],
+                          f"{tag}_ms": r["forward_ms"],
+                          f"{tag}_earlier_body_ms": r["forward_tile_ms"],
+                          f"{tag}_bound_ms": r["forward_bound_ms"],
+                          f"{tag}_library_ms": r["forward_library_ms"]})
+        f32_report[wname + "_f32"] = entry
+
     order = ["windowed_attention_packed", "windowed_attention_packed_backward",
              "windowed_attention_packed_backward_d80",
              "flash_attention_packed", "flash_attention_packed_backward_dq",
@@ -6046,6 +6181,11 @@ def main() -> int:
         if n <= 0:
             raise AssertionError(f"{wname}: K4's f32 body was not launched "
                                  "on the f32 paths")
+    for wname, n in f32_fwd.items():
+        f32_report[wname + "_f32"]["launches"] = n
+        if n <= 0:
+            raise AssertionError(f"{wname}: the f32 forward body was not "
+                                 "launched on the f32 paths")
     for wname, n in f32_win.items():
         # one launch a backward
         f32_report[wname + "_backward_f32"]["launches"] = n

@@ -82,7 +82,9 @@ PORT_KERNELS = [
     (r"attn_bwd_dq_sm90", "attention backward dq, sm90 (K2 / K4 / K5)"),
     (r"attn_bwd_dkv_sm90", "attention backward dk/dv, sm90 (K2 / K4 / K5)"),
     (r"attn_bwd_f32_window", "attention backward, f32 window body (K1 / K6)"),
-    (r"attn_fwd_f32_kernel", "attention forward, f32 body (K4)"),
+    (r"attn_fwd_f32_kernel<128", "attention forward, f32 body (K4)"),
+    (r"attn_fwd_f32_kernel<(64|80)",
+     "attention forward, f32 body (K2 / K5)"),
     (r"attn_bwd_f32_d128_delta", "attention backward delta, f32 body (K4)"),
     (r"attn_bwd_f32_d128_dkv", "attention backward dk/dv + ds, f32 body (K4)"),
     (r"attn_bwd_f32_d128_dq", "attention backward dq from ds, f32 body (K4)"),

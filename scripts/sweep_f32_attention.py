@@ -1,25 +1,32 @@
-"""Variants of K4's f32 bodies at head dim 128 (csrc/attention_fwd_f32.cuh,
-the forward; csrc/attention_bwd_f32_d128.cuh, the backward), timed on one
-NVIDIA GPU (written for the H100) at K4's shapes:
+"""Variants of the f32 attention bodies (csrc/attention_fwd_f32.cuh, the
+forward of K2 / K5 at head dim 64 and 80 with the rel tables and of K4 at
+128; csrc/attention_bwd_f32_d128.cuh, K4's backward), timed on one NVIDIA
+GPU (written for the H100) at K2's and K4's shapes:
 
     python3 scripts/sweep_f32_attention.py [--variants body,keys64,...]
         [--turns N] [--shapes 0,1,...]
 
 A variant is a header with the edits VARIANTS names ("body": none, the
-headers as the port builds them): the forward on 64-, 80- or 96-key tiles
-with p in a tile of its own and K's next tile copied under P.V, its score
-loop unrolled twice, eight times or fully; the backward's score loops
-unrolled twice or eight times, its dq kernel on two or four stages. Each
-variant's header is built with a copy of its source (attention_fwd_f32.cu
-or attention_bwd_f32_d128.cu) under build/sweep_f32_attention/<variant>/
-by scripts/sweep_build.py; every edit must match the header once.
-At every shape each variant is run once and held to the plain version
+headers as the port builds them): the forward on 64- or 96-key tiles (K4's
+too; timed at d 64 and 80), on one stage or two at d 64 and 80 (the next
+tile's copy under this tile's products; 128-key tiles on two stages do not
+fit beside the tables), with p strips 16 or 64 keys deep; P.V's loop over a
+strip unrolled fully; K4's forward with p in strips of its own as d 64 and
+80 have it (K's next tile copied under P.V); the forward's score loop
+unrolled twice, eight times or fully; the backward's score loops unrolled
+twice or eight times, its dq kernel on two or four stages. Each variant's
+header is built with a copy of its source (attention_fwd_f32.cu or
+attention_bwd_f32_d128.cu) under build/sweep_f32_attention/<variant>/ by
+scripts/sweep_build.py; every edit must match the header once. A variant
+runs at the shapes of the head dims it changes. At every shape each
+variant is run once and held to the plain version
 (ops/_attention.py::attention_plain at 2e-5 / 1e-4, attention_backward_plain
 at 5e-4 / 1e-3), then timed in N turns by CUDA events over 5 launches, the
 variants in turn (a forward variant's forward, a backward variant's whole
-backward). One JSON line a variant (ptxas registers and spills of each
-kernel) and a shape (each variant's best turn in ms), the card's name and
-power limit first. Fails without CUDA.
+backward); a variant whose shared memory does not fit a shape's tables is
+refused by its launch and reported as null. One JSON line a variant (ptxas
+registers and spills of each kernel) and a shape (each variant's best turn
+in ms), the card's name and power limit first. Fails without CUDA.
 """
 
 from __future__ import annotations
@@ -36,67 +43,120 @@ import sweep_build
 
 ROOT = Path(__file__).resolve().parents[1]
 FORWARD, BACKWARD = "attention_fwd_f32", "attention_bwd_f32_d128"
-FWD_SCORES = "#pragma unroll 4\n    for (int c = 0; c < D; c += 4) {"
+FWD_SCORES = "#pragma unroll 4\n  for (int c = 0; c < D; c += 4) {"
 BWD_SCORES = "#pragma unroll 4\n  for (int c = 0; c < D; c += 4) {"
+FWD_PV = "#pragma unroll 4\n  for (int j = 0; j < J; ++j) {"
+TILES = "constexpr int kFfKeys = 128;"
+# the forward at d 64 and 80 on two stages of K and V tiles: the next tile's
+# copy issued under this tile's products, one barrier a tile less
+STAGES2 = [
+    ("  return 4 * (D * kFfRows + 2 * BK * (D + 4) +",
+     "  return 4 * (D * kFfRows + (ff_p_own<D>() ? 4 : 2) * BK * (D + 4) +"),
+    ("  float* pw = vs + BK * LDT; ",
+     "  float* pw = vs + (OWN ? 3 : 1) * BK * LDT; "),
+    ("""    fb_wait<1>();     // K of tile kt
+    __syncthreads();
+
+    // s = (q*scale) . k over c = 0 .. D-1 in order
+    float s[8][NJ];
+    ff_scores<D, NJ>(s, qt, rA, ks, kl);""",
+     """    float* kst = ks + (OWN ? (kt & 1) * 2 * BK * LDT : 0);
+    float* vst = kst + BK * LDT;
+    if constexpr (OWN) {
+      float* nxt = ks + ((kt + 1) & 1) * 2 * BK * LDT;
+      load(nxt, kg, a.k_rs, kt + 1);
+      load(nxt + BK * LDT, vg, a.v_rs, kt + 1);
+      fb_wait<2>();
+    } else {
+      fb_wait<1>();
+    }
+    __syncthreads();
+
+    // s = (q*scale) . k over c = 0 .. D-1 in order
+    float s[8][NJ];
+    ff_scores<D, NJ>(s, qt, rA, kst, kl);"""),
+    ("""      fb_wait<0>();     // V of tile kt
+      __syncthreads();  // every warp is past the scores: K's tile is free
+      load(ks, kg, a.k_rs, kt + 1);
+""", ""),
+    ("vs + cnk * kFfPKeys * LDT", "vst + cnk * kFfPKeys * LDT"),
+    ("""      __syncthreads();    // V's tile is read
+      load(vs, vg, a.v_rs, kt + 1);
+""", """      __syncthreads();    // the stage's tiles are read
+"""),
+]
 
 
 def _unroll(loop: str, n: str) -> list:
     return [(loop, loop.replace("unroll 4", n))]
 
 
-# the forward's p in a tile of its own beside K and V, K's next tile copied
-# under P.V (the body writes p over K's tile and copies K after P.V)
-P_OWN_TILE = [
-    ("return 4 * (D * kFfRows + 2 * BK * (D + 4));",
-     "return 4 * (D * kFfRows + 3 * BK * (D + 4));"),
-    ("float* pt = ks; ", "float* pt = vs + BK * LDT; "),
-    ("K's tile is free\n",
-     "K's tile is free\n    load(ks, kg, a.k_rs, kt + 1);\n"),
-    ("    load(ks, kg, a.k_rs, kt + 1);\n    load(vs, vg, a.v_rs, kt + 1);\n",
-     "    load(vs, vg, a.v_rs, kt + 1);\n")]
+def _tiles(keys: int, stages: int) -> list:
+    """The forward's key tile (K4's too) and, at d 64 and 80, two stages."""
+    return ([(TILES, TILES.replace("128", str(keys)))]
+            + (STAGES2 if stages == 2 else []))
 
 
-# name -> (source, [(text of the header, its replacement)])
+# name -> (source, [(text of the header, its replacement)], head dims run)
 VARIANTS = {
-    "body": (FORWARD, []),
-    **{f"keys{n}": (FORWARD, [("constexpr int kFfKeys = 128;",
-                               f"constexpr int kFfKeys = {n};"),
-                              *P_OWN_TILE])
-       for n in (64, 80, 96)},
-    "fwd_unroll2": (FORWARD, _unroll(FWD_SCORES, "unroll 2")),
-    "fwd_unroll8": (FORWARD, _unroll(FWD_SCORES, "unroll 8")),
-    "fwd_unroll_full": (FORWARD, _unroll(FWD_SCORES, "unroll")),
-    "bwd_body": (BACKWARD, []),
-    "bwd_unroll2": (BACKWARD, _unroll(BWD_SCORES, "unroll 2")),
-    "bwd_unroll8": (BACKWARD, _unroll(BWD_SCORES, "unroll 8")),
+    "body": (FORWARD, [], (64, 80, 128)),
+    "keys64": (FORWARD, _tiles(64, 1), (64, 80)),
+    "keys96": (FORWARD, _tiles(96, 1), (64, 80)),
+    "keys64_stages2": (FORWARD, _tiles(64, 2), (64, 80)),
+    "keys96_stages2": (FORWARD, _tiles(96, 2), (64, 80)),
+    # the p strips 16 or 64 keys deep (64 leaves no room for the 64-grid's
+    # tables at d 80), P.V's loop over a strip unrolled fully
+    "pkeys16": (FORWARD, [("kFfPKeys = 32;", "kFfPKeys = 16;")], (64, 80)),
+    "pkeys64": (FORWARD, [("kFfPKeys = 32;", "kFfPKeys = 64;")], (64, 80)),
+    "pv_unroll_full": (FORWARD, [(FWD_PV, FWD_PV.replace(
+        "unroll 4", "unroll(J <= 64 ? J : 4)"))], (64, 80, 128)),
+    # K4's forward with p in strips of its own, K's next tile under P.V
+    "k4_p_strips": (FORWARD, [("return D + 4 < kFfRows + 4;",
+                               "return true;")], (128,)),
+    "fwd_unroll2": (FORWARD, _unroll(FWD_SCORES, "unroll 2"), (64, 80, 128)),
+    "fwd_unroll8": (FORWARD, _unroll(FWD_SCORES, "unroll 8"), (64, 80, 128)),
+    "fwd_unroll_full": (FORWARD, _unroll(FWD_SCORES, "unroll"),
+                        (64, 80, 128)),
+    "bwd_body": (BACKWARD, [], (128,)),
+    "bwd_unroll2": (BACKWARD, _unroll(BWD_SCORES, "unroll 2"), (128,)),
+    "bwd_unroll8": (BACKWARD, _unroll(BWD_SCORES, "unroll 8"), (128,)),
     "dq_stages2": (BACKWARD, [("constexpr int kFdStages = 3;",
                                "constexpr int kFdStages = 2;"),
                               ("fd_dq_smem<128>() == 98304",
-                               "fd_dq_smem<128>() == 65536")]),
+                               "fd_dq_smem<128>() == 65536")], (128,)),
     "dq_stages4": (BACKWARD, [("constexpr int kFdStages = 3;",
                                "constexpr int kFdStages = 4;"),
                               ("fd_dq_smem<128>() == 98304",
-                               "fd_dq_smem<128>() == 131072")]),
+                               "fd_dq_smem<128>() == 131072")], (128,)),
 }
-# label, batch, heads, queries, keys: K4 at the full canvas and on the
-# 48-grid, a tensor-parallel rank's 4 heads
-SHAPES = [("K4 B=4 N=M=4096", 4, 8, 4096, 4096),
-          ("K4 B=4 N=M=2304", 4, 8, 2304, 2304),
-          ("K4 B=4 H=4 N=M=2304 (TP rank)", 4, 4, 2304, 2304)]
+# label, batch, heads, queries, keys, head dim, rel grid: K2 at the full
+# canvas and on the 48-grid, ViT-H's d 80 at batch 1 (full canvas) and 4
+# (from scratch); K4 at the full canvas and on the 48-grid, a
+# tensor-parallel rank's 4 heads
+SHAPES = [("K2 B=4 N=4096 d=64", 4, 12, 4096, 4096, 64, (64, 64)),
+          ("K2 B=4 N=2304 d=64", 4, 12, 2304, 2304, 64, (48, 48)),
+          ("K2 B=1 H=16 N=4096 d=80", 1, 16, 4096, 4096, 80, (64, 64)),
+          ("K2 B=4 H=16 N=2304 d=80", 4, 16, 2304, 2304, 80, (48, 48)),
+          ("K4 B=4 N=M=4096", 4, 8, 4096, 4096, 128, None),
+          ("K4 B=4 N=M=2304", 4, 8, 2304, 2304, 128, None),
+          ("K4 B=4 H=4 N=M=2304 (TP rank)", 4, 4, 2304, 2304, 128, None)]
 ITERS = 5
 
 
-def forward(fn, q, k, v, scale, heads, out, lse):
+def forward(fn, q, k, v, rh, rw, scale, heads, out, lse):
     """One launch of a forward variant's C entry, with the port's
-    arguments."""
+    arguments; raises if the launch is refused."""
     from wildlifemapper_tpu_torch.ops import _build
 
     b, n, c = q.shape
+    gh, gw = (rh.shape[-1], rw.shape[-1]) if rh is not None else (0, 0)
     err = fn(_build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-             out.data_ptr(), None, None, lse.data_ptr(), b, heads, n,
-             k.shape[1], c // heads, q.stride(0), q.stride(1), k.stride(0),
-             k.stride(1), v.stride(0), v.stride(1), out.stride(0),
-             out.stride(1), 0, 0, float(scale), _build.stream_ptr(q))
+             out.data_ptr(), None if rh is None else rh.data_ptr(),
+             None if rw is None else rw.data_ptr(), lse.data_ptr(), b, heads,
+             n, k.shape[1], c // heads, q.stride(0), q.stride(1),
+             k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+             out.stride(0), out.stride(1), gh, gw, float(scale),
+             _build.stream_ptr(q))
     if err:
         raise RuntimeError(f"launch failed with cudaError_t {err}")
 
@@ -142,7 +202,7 @@ def main() -> int:
     entries = sweep_build.build(
         "sweep_f32_attention",
         {name: (src + ".cuh", edits, [src])
-         for name, (src, edits) in ((n, VARIANTS[n]) for n in variants)},
+         for name, (src, edits, _) in ((n, VARIANTS[n]) for n in variants)},
         r"attn_(?:fwd|bwd)_f32\w*?_kernel")
     entries = {name: entries[name, VARIANTS[name][0]] for name in variants}
     for name in variants:
@@ -152,27 +212,36 @@ def main() -> int:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     for i in map(int, args.shapes.split(",")):
-        label, b, heads, n, m = SHAPES[i]
-        c, scale = heads * 128, 128 ** -0.5
+        label, b, heads, n, m, d, hw = SHAPES[i]
+        names = [name for name in variants if d in VARIANTS[name][2]]
+        c, scale = heads * d, d ** -0.5
         q, dout = (torch.randn(b, n, c, device=dev, generator=gen)
                    for _ in range(2))
         k, v = (torch.randn(b, m, c, device=dev, generator=gen)
                 for _ in range(2))
+        rh = rw = None
+        if hw:
+            rh, rw = (0.5 * torch.randn(b, n, heads, g, device=dev,
+                                        generator=gen) for g in hw)
         with torch.no_grad():
-            out, lse = attention_launch(q, k, v, scale, heads,
+            out, lse = attention_launch(q, k, v, scale, heads, rh, rw,
                                         return_lse=True)
-            want_out = attention_plain(q, k, v, scale, heads)
-            want = attention_backward_plain(q, k, v, out, lse, dout, scale,
-                                            heads)[:3]
+            want_out = attention_plain(q, k, v, scale, heads, rh, rw)
+            want = (attention_backward_plain(q, k, v, out, lse, dout, scale,
+                                             heads)[:3] if d == 128 else None)
         runs, errs = {}, {}
-        for name in variants:
+        for name in names:
             fn = entries[name][0]
             if VARIANTS[name][0] == FORWARD:
                 bufs = (torch.empty_like(q), torch.empty_like(lse))
 
                 def run(fn=fn, bufs=bufs):
-                    forward(fn, q, k, v, scale, heads, *bufs)
-                run()
+                    forward(fn, q, k, v, rh, rw, scale, heads, *bufs)
+                try:
+                    run()
+                except RuntimeError:
+                    errs[name] = None       # refused: no room for the tables
+                    continue
                 got, ref, tol = [bufs[0]], [want_out], (2e-5, 1e-4)
             else:
                 grads = [torch.empty_like(t) for t in (q, k, v)]
@@ -190,7 +259,8 @@ def main() -> int:
             errs[name] = max((g - w).abs().max().item()
                              for g, w in zip(got, ref))
             runs[name] = run
-        best = {name: float("inf") for name in variants}
+        best = {name: None if name not in runs else float("inf")
+                for name in names}
         for _ in range(args.turns):
             for name, run in runs.items():
                 start = torch.cuda.Event(enable_timing=True)
@@ -203,7 +273,7 @@ def main() -> int:
                 best[name] = min(best[name], start.elapsed_time(end) / ITERS)
         print(json.dumps(dict(shape=label, ms=best, max_abs_err=errs)),
               flush=True)
-        del q, k, v, dout, out, lse, want, want_out, runs
+        del q, k, v, rh, rw, dout, out, lse, want, want_out, runs
         torch.cuda.empty_cache()
     return 0
 

@@ -7,7 +7,8 @@ batch 1 and 4, K6 at batch 1). For PERF.md's f32 rows, and for comparing
 two checkouts in turns.
 
     python3 scripts/time_f32_kernels.py [--root CHECKOUT] [--label L]
-        [--k3 | --attention | --windows | --k4] [--iters N] [--plain]
+        [--k3 | --attention | --windows | --k4 | --streaming] [--iters N]
+        [--plain]
 
 `--root` is the checkout whose `wildlifemapper_tpu_torch` is imported (this
 script's own by default), so that one call can time an older tree with the
@@ -16,12 +17,15 @@ tree of the port has is called (the `fused_mlp` and `fused_mlp_dh` wrappers,
 `attention_launch`, `attention_backward_launch`), so each body is whatever
 that tree runs in f32: from 512 keys at d 64 and 80 the backward of K2 and
 K5 is the register-tiled f32 body (csrc/attention_bwd_f32.cuh) where the
-tree has one, and the windows' backward (K1, K6 at d 64 and 80, up to 208
-tokens) the f32 window body (csrc/attention_bwd_f32_window.cuh), and K4
-(d 128 without tables, from 512 keys) the register-tiled f32 body both ways
-(csrc/attention_fwd_f32.cuh, attention_bwd_f32_d128.cuh); the tile body
-before. `--windows` times the windows' rows alone, `--k4` K4's (B 4, N = M
-4096 and the from-scratch 2304). Every shape is first checked
+tree has one, and so is their forward (csrc/attention_fwd_f32.cuh, on every
+grid of gh + gw <= 128) where the tree has it, and the windows' backward
+(K1, K6 at d 64 and 80, up to 208 tokens) the f32 window body
+(csrc/attention_bwd_f32_window.cuh), and K4 (d 128 without tables, from 512
+keys) the register-tiled f32 body both ways (csrc/attention_fwd_f32.cuh,
+attention_bwd_f32_d128.cuh); the tile body before. `--windows` times the
+windows' rows alone, `--k4` K4's (B 4, N = M 4096 and the from-scratch
+2304), `--streaming` the streaming rows (K2, K4, K5: ViT-B's at batch 4,
+ViT-H's d 80 at batch 1). Every shape is first checked
 against its plain version (f32 2e-5 / 1e-4 for the forward outputs, 5e-4 /
 1e-3 for a, dh and the attention gradients, the tolerances of record) and
 run twice, K3 and the attention backward bit for bit. Then, by CUDA events
@@ -94,6 +98,7 @@ ATTENTION_SHAPES = [
 ]
 WINDOW_SHAPES = [s for s in ATTENTION_SHAPES if s[0] in ("K1", "K6")]
 K4_SHAPES = [s for s in ATTENTION_SHAPES if s[0] == "K4"]
+STREAMING_SHAPES = [s for s in ATTENTION_SHAPES if s[0] in ("K2", "K4", "K5")]
 
 
 def time_ms(fn, iters: int) -> float:
@@ -351,6 +356,8 @@ def main() -> int:
                        help="the windows' attention rows alone (K1, K6)")
     which.add_argument("--k4", action="store_true",
                        help="K4's attention rows alone (d 128, no tables)")
+    which.add_argument("--streaming", action="store_true",
+                       help="the streaming attention rows alone (K2, K4, K5)")
     ap.add_argument("--iters", type=int, default=ITERS,
                     help="launches a timing")
     ap.add_argument("--plain", action="store_true",
@@ -372,11 +379,12 @@ def main() -> int:
           flush=True)
     dev = torch.device("cuda")
     rows = []
-    if not (args.attention or args.windows or args.k4):
+    if not (args.attention or args.windows or args.k4 or args.streaming):
         rows.append(k3_rows(dev, args.iters))
     if not args.k3:
         shapes = (WINDOW_SHAPES if args.windows else
-                  K4_SHAPES if args.k4 else ATTENTION_SHAPES)
+                  K4_SHAPES if args.k4 else
+                  STREAMING_SHAPES if args.streaming else ATTENTION_SHAPES)
         rows.append(attention_rows(dev, args.iters, shapes, plain_for=[
             (s[0], s[1]) for s in shapes] if args.plain else ()))
     for gen in rows:

@@ -13,12 +13,15 @@ import pytest
 import torch
 
 from wildlifemapper_tpu_torch.ops import _attention, _build, _library
-from wildlifemapper_tpu_torch.ops._attention import (F32_KEY_TILES,
+from wildlifemapper_tpu_torch.ops._attention import (F32_FORWARD_KEYS,
+                                                     F32_FORWARD_REL_COLS,
+                                                     F32_KEY_TILES,
                                                      F32_WINDOW_SLAB,
                                                      RESIDENT_MAX_GRID,
                                                      RESIDENT_MAX_TOKENS,
                                                      STREAM_MIN_KEYS,
                                                      attention_body,
+                                                     f32_forward_smem_bytes,
                                                      f32_key_tile,
                                                      f32_window_smem_bytes)
 
@@ -38,9 +41,9 @@ MAIN_PATH = [
     ("K1 window of 12", BF16, 64, 144, 144, True, "resident"),
     ("K6 window of 14", BF16, 64, 196, 196, True, "resident"),
     ("K6 window of 12", BF16, 64, 144, 144, True, "resident"),
-    ("K2 parity", F32, 64, 4096, 4096, True, "mma"),
+    ("K2 parity", F32, 64, 4096, 4096, True, "f32"),
     ("K4 parity", F32, 128, 4096, 4096, False, "f32"),
-    ("K5 parity", F32, 64, 2304, 2304, True, "mma"),
+    ("K5 parity", F32, 64, 2304, 2304, True, "f32"),
     ("K1 parity", F32, 64, 196, 196, True, "mma"),
     ("K6 parity", F32, 64, 144, 144, True, "mma"),
     ("K1 parity ViT-H window", F32, 80, 196, 196, True, "mma"),
@@ -91,14 +94,19 @@ MAIN_PATH_BACKWARD = [
 @pytest.mark.parametrize("what,dtype,d,n,grid,body", MAIN_PATH_BACKWARD,
                          ids=[c[0] for c in MAIN_PATH_BACKWARD])
 def test_main_path_backward_shapes(what, dtype, d, n, grid, body):
-    """The backward's body; the forward of every one of these shapes keeps
-    the body it had (the f32 forward the tile body) but K4's f32 forward,
-    which takes the f32 body as its backward does."""
+    """The backward's body, and the forward's: a bf16 shape takes one body
+    both ways; in f32 the streaming shapes (from 512 keys: K4 at d 128
+    without tables, K2 and K5 at d 64 and 80 with a grid of gh + gw <= 128,
+    the 25 x 40 grid included, whose backward stays on the tile body) take
+    the f32 forward, the windows and d 32 the tile body forward."""
     rel = grid is not None
     assert attention_body(dtype, d, n, n, rel, grid, "backward") == body
     forward = attention_body(dtype, d, n, n, rel, grid)
-    both_ways = dtype == BF16 or (d == 128 and not rel)
-    assert forward == (body if both_ways else "mma")
+    f32_forward = n >= STREAM_MIN_KEYS and (
+        (d == 128 and not rel)
+        or (d in (64, 80) and (not rel or sum(grid) <= F32_FORWARD_REL_COLS)))
+    assert forward == (body if dtype == BF16 else
+                       "f32" if f32_forward else "mma")
 
 
 @pytest.mark.parametrize("gw,tile", [(64, 64), (32, 64), (16, 64),
@@ -126,8 +134,8 @@ def test_f32_key_tile_is_whole_grid_rows(gw, tile):
 
 # ViT-H (head dim 80, 16 heads) at its shapes: the bf16 global blocks (the
 # 64-grid) on the Hopper bodies both ways, the windows of 14 on the resident
-# bodies both ways; f32 on the tile bodies but for the global blocks'
-# backward, which takes the f32 body.
+# bodies both ways; in f32 the global blocks on the f32 bodies both ways, the
+# windows the tile body forward and the f32 window body backward.
 VIT_H = [
     ("K2", "forward", BF16, 4096, (64, 64), "sm90"),
     ("K5", "forward", BF16, 4096, (64, 64), "sm90"),
@@ -138,7 +146,9 @@ VIT_H = [
     ("K2", "backward", BF16, 2304, (48, 48), "sm90"),
     ("K1", "backward", BF16, 196, (14, 14), "resident"),
     ("K6", "backward", BF16, 196, (14, 14), "resident"),
-    ("K2", "forward", F32, 4096, (64, 64), "mma"),
+    ("K2", "forward", F32, 4096, (64, 64), "f32"),
+    ("K5", "forward", F32, 4096, (64, 64), "f32"),
+    ("K2", "forward", F32, 2304, (48, 48), "f32"),
     ("K1", "forward", F32, 196, (14, 14), "mma"),
     ("K5", "backward", F32, 4096, (64, 64), "f32"),
     ("K6", "backward", F32, 196, (14, 14), "f32_window"),
@@ -238,7 +248,8 @@ def test_resident_limit_holds_the_main_path_windows():
 def test_body_does_not_depend_on_the_queries(nq):
     assert attention_body(BF16, 64, nq, 4096, True) == "sm90"
     assert attention_body(BF16, 64, nq, 144, True) == "mma"
-    assert attention_body(F32, 64, nq, 4096, True) == "mma"
+    assert attention_body(F32, 64, nq, 4096, True) == "f32"
+    assert attention_body(F32, 80, nq, 4096, True, (64, 64)) == "f32"
     assert attention_body(F32, 64, nq, 4096, True, None, "backward") == "f32"
     assert attention_body(F32, 80, nq, 4096, False, None, "backward") == "f32"
 
@@ -362,10 +373,10 @@ def test_hopper_header_note(name):
      "that lands in K1 or K6"),
 ])
 def test_tile_headers_say_what_still_runs_there(name, stays, d80):
-    """The tile bodies keep the f32 forward of K1, K2, K5 and K6, d = 32 and
-    the launches no other body holds; the f32 streaming backward runs the
-    f32 body, K4 in f32 the f32 body both ways and the f32 windows' backward
-    the f32 window body; no bf16 d-80 window runs there either way."""
+    """The tile bodies keep the f32 forward of K1 and K6, d = 32 and the
+    launches no other body holds; K2, K4 and K5 in f32 run the f32 bodies
+    both ways from 512 keys and the f32 windows' backward the f32 window
+    body; no bf16 d-80 window runs there either way."""
     note = (_build.CSRC / name).read_text()
     note = note[:note.index("#pragma once")]
     assert stays in note
@@ -381,7 +392,9 @@ def test_tile_headers_say_what_still_runs_there(name, stays, d80):
     assert "in f32 K4 (d = 128)" not in flat
     if name == "attention_fwd.cuh":
         assert "attention_fwd_f32.cuh" in note
-        assert "f32 launches of K1, K2, K5 and K6" in flat
+        assert "f32 launches of K1 and K6" in flat
+        assert "wider than gh + gw = 128" in flat
+        assert "f32 launches of K1, K2, K5 and K6" not in flat
     assert "d = 64 or 80, N = M <= 208" in flat
     for gone in ("still runs the tile bodies", "backward of a d-80 window",
                  "d = 64 only", "in f32 the windows"):
@@ -540,7 +553,8 @@ def test_every_entry_has_a_signature():
     assert f32 == {"wm_attention_bwd_f32", "wm_grouped_attention_bwd_f32",
                    "wm_attention_bwd_f32_window",
                    "wm_grouped_attention_bwd_f32_window",
-                   "wm_attention_fwd_f32", "wm_attention_bwd_f32_d128"}
+                   "wm_attention_fwd_f32", "wm_grouped_attention_fwd_f32",
+                   "wm_attention_bwd_f32_d128"}
     for n in f32:
         assert _build._SIGNATURES[n] == (
             _build._ATTENTION_BWD_F32_WINDOW if n.endswith("_window")
@@ -755,7 +769,9 @@ def test_f32_backward_runs_no_delta_pass(monkeypatch, family, d, n, rel,
 
 def test_f32_body_refuses_what_it_does_not_hold(monkeypatch):
     """Named outright, the f32 body refuses before any launch what it does
-    not take: bf16, d 128, a grid no key tile holds, a forward."""
+    not take: bf16, d 128 with tables, a grid no key tile holds (backward),
+    a grid of more than F32_FORWARD_REL_COLS columns (forward), d 32 either
+    way; the forward at d 64 enters the f32 forward entry."""
     lib = _StandInLibrary()
     monkeypatch.setattr(_build, "load_kernels", lambda: lib)
     monkeypatch.setattr(_build, "stream_ptr", lambda t: 0)
@@ -774,10 +790,20 @@ def test_f32_body_refuses_what_it_does_not_hold(monkeypatch):
         with pytest.raises(ValueError, match="f32 body"):
             launch(*args)
     launch(F32, 64, 32, 32)
-    q = torch.zeros(1, 1024, 64)
-    with pytest.raises(ValueError, match="f32 body is a backward"):
-        _attention.attention_launch(q, q, q, 0.125, 1, body="f32")
     assert [name for name, _ in lib.calls] == ["wm_attention_bwd_f32"] * 2
+
+    def forward(d, gh, gw):
+        n = gh * gw
+        q = torch.zeros(1, n, d)
+        rh, rw = torch.zeros(1, n, 1, gh), torch.zeros(1, n, 1, gw)
+        return _attention.attention_launch(q, q, q, 0.125, 1, rh, rw,
+                                           body="f32")
+
+    for args in ((64, 130, 4), (64, 4, 130), (32, 32, 32)):
+        with pytest.raises(ValueError, match="f32 body"):
+            forward(*args)
+    forward(64, 25, 40)
+    assert [name for name, _ in lib.calls][2:] == ["wm_attention_fwd_f32"]
 
 
 F32_SOURCES = ["attention_bwd_f32.cu", "grouped_attention_bwd_f32.cu"]
@@ -1166,7 +1192,9 @@ def test_k4_f32_body_refuses_what_it_does_not_hold(monkeypatch):
                dict(n=600, m=256), dict(grouped=True)):
         with pytest.raises(ValueError, match="f32 body"):
             both(**kw)
-    with pytest.raises(ValueError, match="f32 body is a backward at d = 32"):
+    with pytest.raises(ValueError, match="f32 body takes float32 at d = 64 "
+                       "or 80, or 128 without tables, got torch.float32 at "
+                       "d = 32"):
         both(d=32)
     assert lib.calls == []
     both(n=600, m=STREAM_MIN_KEYS)
@@ -1222,3 +1250,158 @@ def test_k4_f32_header_note(name):
               *K4_F32_HEADERS[name]):
         assert w in flat, w
     assert "atomic" not in text[text.index("#pragma once"):]
+
+
+# ---- the f32 forward of K2 and K5 (d 64 / 80, rel tables) -------------------
+
+@pytest.mark.parametrize("d", [64, 80])
+def test_f32_forward_shared_memory_fits(d):
+    """The f32 forward's shared memory (f32_forward_smem_bytes, the kernel's
+    ff_smem_bytes) fits a block's 232,448 B at d 64 and 80 on every grid it
+    takes (gh + gw <= F32_FORWARD_REL_COLS) and without tables; the
+    constants are the kernel's own."""
+    limit = 232448
+    for gh in range(1, F32_FORWARD_REL_COLS):
+        for gw in range(1, F32_FORWARD_REL_COLS - gh + 1):
+            assert f32_forward_smem_bytes(d, gh, gw) <= limit, (gh, gw)
+    assert f32_forward_smem_bytes(d) < f32_forward_smem_bytes(d, 64, 64)
+    # the main paths' grids, as the header states them
+    assert f32_forward_smem_bytes(64, 64, 64) == 196608
+    assert f32_forward_smem_bytes(80, 64, 64) == 221184
+    assert f32_forward_smem_bytes(128) == 200704
+    text = (_build.CSRC / "attention_fwd_f32.cuh").read_text()
+    assert f"constexpr int kFfKeys = {F32_FORWARD_KEYS};" in text
+    assert f"kFfRelCols = {F32_FORWARD_REL_COLS};" in text
+    assert (f"kFfPKeys = {_attention.F32_FORWARD_P_KEYS};" in text
+            and f"kFfPLd = {_attention.F32_FORWARD_P_LD};" in text)
+
+
+# The f32 forward launches that stay on the tile body: the windows of K1 and
+# K6 (d 64 and 80), a global block below 512 keys, K2 / K5 on a grid wider
+# than gh + gw = 128, d 32, d 128 with tables. (kernel, d, nq, nk, grid)
+F32_FORWARD_TILE_BODY = [
+    ("K1 window of 14", 64, 196, 196, (14, 14)),
+    ("K6 window of 12", 64, 144, 144, (12, 12)),
+    ("K1 ViT-H window", 80, 196, 196, (14, 14)),
+    ("K6 ViT-H window of 12", 80, 144, 144, (12, 12)),
+    ("K1 global block of 484", 64, 484, 484, (22, 22)),
+    ("K2 below 512 keys", 80, 300, 511, None),
+    ("K2 grid 130 x 4", 64, 520, 520, (130, 4)),
+    ("K5 grid 4 x 130", 80, 520, 520, (4, 130)),
+    ("K5 grid 65 x 64", 64, 4160, 4160, (65, 64)),
+    ("d 32", 32, 4096, 4096, (64, 64)),
+    ("K5 d 128 with tables", 128, 2304, 2304, (48, 48)),
+]
+
+
+@pytest.mark.parametrize("what,d,nq,nk,grid", F32_FORWARD_TILE_BODY,
+                         ids=[c[0] for c in F32_FORWARD_TILE_BODY])
+def test_f32_forward_shapes_on_the_tile_body(what, d, nq, nk, grid):
+    """What the f32 forward does not take stays on the tile body forward;
+    the largest grid it takes, 64 x 64, and 48 x 80 (gh + gw = 128) do not."""
+    assert attention_body(F32, d, nq, nk, grid is not None, grid) == "mma"
+    for hw in ((64, 64), (48, 80), (80, 48)):
+        n = hw[0] * hw[1]
+        assert attention_body(F32, 64, n, n, True, hw) == "f32"
+
+
+K2_K5_F32_HEADER = (
+    "flash_attention_v2.py::_fwd_kernel (:95", "pallas_call :199",
+    "flash_attention.py::_fwd_kernel (:88", "pallas_call :230",
+    "206.2 GFLOP", "3.10 ms", "strip of its own", "__syncwarp",
+    "24,576 B", "196,608 / 221,184 B", "gh + gw <= 128", "(64 + kl)",
+    "K's next tile is copied under P.V", "f32_forward_smem_bytes",
+    "one or two stages", "bit-identical", "864")
+
+
+def test_k2_k5_f32_forward_header_note():
+    """The f32 forward's note names the Pallas call sites of K2 and K5 it
+    now replaces too, their bound on the H100 and what the design does at
+    d 64 and 80 (p in strips of its own, the tables staged once a block, a
+    16-column tail at d 80); the code carries the design. The card test
+    test_f32_streaming_forward holds what the code does."""
+    text = (_build.CSRC / "attention_fwd_f32.cuh").read_text()
+    note = text[:text.index("#pragma once")]
+    flat = " ".join(note.replace("//", " ").split())
+    for words in K2_K5_F32_HEADER:
+        assert words in flat, words
+    code = text[text.index("#pragma once"):]
+    for word in ("ff_p_own<D>()", "ff_tab_ld(a.gh)", "ff_put_p<NJ>(pw",
+                 "__syncwarp();", "SCALE_SCORES ? 1.f : a.scale",
+                 "if constexpr (NX > 4 * NV)",
+                 "launch_f32_fwd<80, kFfKeys, SCALE_SCORES>",
+                 "launch_f32_fwd<128, kFfKeys, false>"):
+        assert word in code, word
+    assert "atomic" not in code
+    # one entry a family, the header's macro with the family's flag
+    for name, flag in (("attention_fwd_f32.cu", "false"),
+                       ("grouped_attention_fwd_f32.cu", "true")):
+        src = (_build.CSRC / name).read_text()
+        assert _build.CSRC / name in _build.sources()
+        assert re.search(rf"^WM_DEFINE_ATTENTION_FWD_F32\(wm_\w+, {flag}\)",
+                         src, re.M)
+        assert "JAX package" in src and "tile body" in src
+        assert ("K5" if name.startswith("grouped") else "K2") in src
+        assert len(src.splitlines()) < 30
+
+
+# K2 and K5 in f32 on the f32 bodies both ways, through their wrappers'
+# autograd functions: the main paths' grids, ViT-H's d 80, a
+# tensor-parallel rank's 6 heads, the 25 x 40 grid the backward's key tiles
+# do not hold (its backward stays on the tile bodies)
+K2_K5_F32 = [("K2", 64, 12, (64, 64)), ("K2", 64, 2, (48, 48)),
+             ("K5", 64, 1, (64, 64)), ("K5", 64, 1, (48, 48)),
+             ("K2", 80, 2, (64, 64)), ("K5", 80, 1, (48, 48)),
+             ("K2", 64, 6, (48, 48)), ("K2", 64, 2, (25, 40))]
+
+
+@pytest.mark.parametrize("kernel,d,heads,hw", K2_K5_F32,
+                         ids=[f"{k}-d{d}-H{h}-{g[0]}x{g[1]}"
+                              for k, d, h, g in K2_K5_F32])
+def test_k2_k5_f32_forward_runs_the_f32_body(monkeypatch, kernel, d, heads,
+                                              hw):
+    """Through the operator and the autograd function of K2 (packed) or K5
+    (grouped): the f32 forward enters its family's f32 forward entry with
+    the tables, their grid, d and an lse buffer, and the launch count moves
+    by one; the backward enters the f32 streaming backward's entry twice
+    (the tile bodies' on a grid its key tiles do not hold)."""
+    from wildlifemapper_tpu_torch.ops.flash_attention import (
+        GroupedAttentionFn, flash_attention_rel_pos)
+    from wildlifemapper_tpu_torch.ops.flash_attention_v2 import (
+        flash_attention_packed)
+    from wildlifemapper_tpu_torch.ops.windowed_attention_v2 import \
+        PackedAttentionFn
+
+    grouped = kernel == "K5"
+    n = hw[0] * hw[1]
+    assert attention_body(F32, d, n, n, True, hw) == "f32"
+    lib = _StandInLibrary()
+    monkeypatch.setattr(_build, "load_kernels", lambda: lib)
+    monkeypatch.setattr(_build, "stream_ptr", lambda t: 0)
+    gen = torch.Generator().manual_seed(d + n)
+    c = heads * d
+    rh, rw = (torch.randn(1, n, heads, g, generator=gen).requires_grad_()
+              for g in hw)
+    fn = flash_attention_rel_pos if grouped else flash_attention_packed
+    name = fn.__name__
+    before = fn.launches
+    with cuda_impls_on_cpu(name, name + ".lse"):
+        if grouped:
+            q, k, v = (torch.randn(1, n, d, generator=gen).requires_grad_()
+                       for _ in range(3))
+            out = GroupedAttentionFn.apply(q, k, v, rh, rw, d ** -0.5, fn)
+        else:
+            qkv = torch.randn(1, n, 3 * c, generator=gen).requires_grad_()
+            out = PackedAttentionFn.apply(qkv, rh, rw, d ** -0.5, heads, fn)
+    out.backward(torch.ones_like(out))
+    assert fn.launches - before == 1
+    family = "wm_grouped_attention" if grouped else "wm_attention"
+    names = [entry for entry, _ in lib.calls]
+    backward = (family + "_bwd_f32" if f32_key_tile(hw[1]) else
+                family + "_bwd")
+    assert names == [family + "_fwd_f32", backward, backward]
+    fwd = lib.calls[0][1]
+    assert len(fwd) == len(_build._ATTENTION_FWD)
+    assert fwd[0] == _build.DTYPE_CODES[F32]
+    assert None not in fwd[5:8]                      # tables, lse
+    assert fwd[9:13] == (heads, n, n, d) and fwd[21:23] == hw

@@ -21,17 +21,21 @@ one window-head, more window-heads than the card has SMs; a window of one
 token has gradients that are zero but for rounding, so nothing to compare),
 at d = 64 and at d = 80.
 
-In f32 the backward of the same streaming shapes (d = 64 or 80, at least
-512 keys, grids 16, 24, 32, 48 or 64 wide) runs the register-tiled f32 body
-(csrc/attention_bwd_f32.cuh): the F32_STREAMING cases hold it against the
-plain version and the tile body in both families, with and without tables
-and table gradients, ragged against its 128-row blocks and its 64- and
-48-key tiles, twice, with the delta its dq kernel writes. The f32 backward
-of the windows the resident bodies take (d = 64 or 80, N = M <= 208, tables
-at most 16 wide) runs the f32 window body (csrc/attention_bwd_f32_window.cuh,
-one kernel, delta inside): the F32_WINDOW cases hold it against the plain
-version and the tile body in both families, with and without the table
-gradients, ragged against its slabs and warps, twice, with no delta pass.
+In f32 the forward of the same streaming shapes (d = 64 or 80, at least 512
+keys, no tables or a grid of gh + gw <= 128) runs the register-tiled f32
+forward (csrc/attention_fwd_f32.cuh): the F32_FORWARD cases hold it against
+the plain version and the tile body in both families, out and lse, twice.
+Their backward (grids 16, 24, 32, 48 or 64 wide) runs the register-tiled f32
+body (csrc/attention_bwd_f32.cuh): the F32_STREAMING cases hold it against
+the plain version and the tile body in both families, with and without
+tables and table gradients, ragged against its 128-row blocks and its 64-
+and 48-key tiles, twice, with the delta its dq kernel writes. The f32
+backward of the windows the resident bodies take (d = 64 or 80, N = M <=
+208, tables at most 16 wide) runs the f32 window body
+(csrc/attention_bwd_f32_window.cuh, one kernel, delta inside): the
+F32_WINDOW cases hold it against the plain version and the tile body in both
+families, with and without the table gradients, ragged against its slabs and
+warps, twice, with no delta pass.
 
 At d = 80 (ViT-H) the D80 cases hold the Hopper and the resident forward
 against the tile body and the plain version, twice, with the backward
@@ -871,6 +875,95 @@ def test_k4_f32_body(cuda, b, n, m, heads):
     assert torch.equal(grads[2], runs[0][2])
 
 
+# batch, queries, keys, heads, head dim, rel grid, scale (None: d ** -0.5)
+# of the f32 forward at d 64 and 80 (K2, K5): the main paths' 64- and
+# 48-grids, ViT-H's d 80, a tensor-parallel rank's 6 heads, N != M without
+# tables (a last key tile of 60), rows ragged against the 128-row blocks
+# (1000 = 25 x 40, a grid the backward's key tiles do not hold; 600 =
+# 25 x 24), every grid width the f32 backward takes (16, 24, 32, 48, 64), a
+# grid of 8 x 65 (gh + gw 73, the last tile 8 keys), and scales that are no
+# power of two
+F32_FORWARD = [(1, 4096, 4096, 2, 64, (64, 64), None),
+               (2, 2304, 2304, 2, 64, (48, 48), None),
+               (1, 4096, 4096, 2, 80, (64, 64), None),
+               (1, 2304, 2304, 2, 80, (48, 48), None),
+               (1, 2304, 2304, 6, 64, (48, 48), None),
+               (2, 1000, 700, 2, 64, None, None),
+               (1, 1000, 700, 2, 80, None, None),
+               (2, 1000, 1000, 2, 64, (25, 40), None),
+               (1, 600, 600, 2, 80, (25, 24), 0.3),
+               (1, 1024, 1024, 2, 64, (64, 16), 0.3),
+               (1, 1024, 1024, 2, 80, (32, 32), 0.25),
+               (1, 1008, 1008, 1, 80, (21, 48), None),
+               (1, 520, 520, 2, 64, (8, 65), None)]
+
+
+@pytest.mark.parametrize("family", ["packed", "grouped"])
+@pytest.mark.parametrize("b,n,m,heads,d,hw,scale", F32_FORWARD)
+def test_f32_streaming_forward(cuda, family, b, n, m, heads, d, hw, scale):
+    """The f32 forward of K2 and K5 at d 64 and 80 through the register-
+    tiled f32 body, at the launcher: out against the plain version (2e-5 /
+    1e-4) and the tile body, the lse against the plain lse, twice and
+    bit-identical, and the same out without an lse buffer."""
+    from wildlifemapper_tpu_torch.ops._attention import (attention_body,
+                                                         attention_launch)
+
+    ss = family == "grouped"
+    dt = torch.float32
+    rng = np.random.default_rng(n + 5 * m + d + heads)
+    c = heads * d
+    q = _randn(rng, (b, n, c), dt, cuda)
+    k, v = (_randn(rng, (b, m, c), dt, cuda) for _ in range(2))
+    rh = rw = None
+    if hw:
+        rh = _randn(rng, (b, n, heads, hw[0]), dt, cuda, 0.5)
+        rw = _randn(rng, (b, n, heads, hw[1]), dt, cuda, 0.5)
+    scale = d ** -0.5 if scale is None else scale
+    assert attention_body(dt, d, n, m, hw is not None, hw) == "f32"
+    with torch.no_grad():
+        runs = [attention_launch(q, k, v, scale, heads, rh, rw,
+                                 return_lse=True, scale_scores=ss)
+                for _ in range(2)]
+        alone = attention_launch(q, k, v, scale, heads, rh, rw,
+                                 scale_scores=ss)
+        ref_out, ref_lse = attention_plain(q, k, v, scale, heads, rh, rw,
+                                           return_lse=True, scale_scores=ss)
+        tile_out, tile_lse = attention_launch(q, k, v, scale, heads, rh, rw,
+                                              return_lse=True,
+                                              scale_scores=ss, body="mma")
+        torch.cuda.synchronize()
+    out, lse = runs[0]
+    torch.testing.assert_close(out, ref_out, **TOL[dt])
+    torch.testing.assert_close(lse, ref_lse, **TOL[dt])
+    torch.testing.assert_close(out, tile_out, **TOL[dt])
+    torch.testing.assert_close(lse, tile_lse, **TOL[dt])
+    assert torch.equal(out, runs[1][0]) and torch.equal(lse, runs[1][1])
+    assert torch.equal(out, alone)
+
+
+def test_f32_forward_keeps_wide_grids_on_the_tile_body(cuda):
+    """A rel grid wider than the f32 forward stages (gh + gw > 128: 130 x 4)
+    keeps its f32 forward on the tile body, which matches the plain version;
+    named outright, the f32 body refuses it before any launch."""
+    from wildlifemapper_tpu_torch.ops._attention import (attention_body,
+                                                         attention_launch)
+
+    dt, heads, d, hw = torch.float32, 2, 64, (130, 4)
+    n = hw[0] * hw[1]
+    rng = np.random.default_rng(41)
+    q, k, v = (_randn(rng, (1, n, heads * d), dt, cuda) for _ in range(3))
+    rh = _randn(rng, (1, n, heads, hw[0]), dt, cuda, 0.5)
+    rw = _randn(rng, (1, n, heads, hw[1]), dt, cuda, 0.5)
+    assert attention_body(dt, d, n, n, True, hw) == "mma"
+    with torch.no_grad():
+        out = attention_launch(q, k, v, 0.125, heads, rh, rw)
+        torch.cuda.synchronize()
+        with pytest.raises(ValueError, match="f32 body"):
+            attention_launch(q, k, v, 0.125, heads, rh, rw, body="f32")
+    torch.testing.assert_close(
+        out, attention_plain(q, k, v, 0.125, heads, rh, rw), **TOL[dt])
+
+
 # windows, heads, grid, head dim, scale (None: d ** -0.5) of the f32 window
 # body: the main paths' windows of 14 and 12 (7 warps of 28 rows, 5 warps of
 # 32), windows padded against the 32-row slabs and the warps (100 = 10 x 10,
@@ -1481,6 +1574,49 @@ def test_export_through_the_operators_on_the_card(cuda, monkeypatch, tmp_path,
         assert ran == TINY_PER_FORWARD[layout]
         for k in ("pred_logits", "pred_boxes"):
             assert torch.equal(got[k], want[k]), (b, k)
+
+
+@pytest.mark.parametrize("layout", ["packed", "grouped"])
+def test_f32_export_reaches_the_f32_forward(cuda, tmp_path, layout):
+    """A small f32 model whose global block is a streaming shape (2 heads
+    of 64 on a 32 x 32 grid, 1024 tokens) exported with a symbolic batch:
+    the global block is a `wm::` node whose CUDA implementation takes the
+    register-tiled f32 forward; the loaded program runs it, launches
+    counted, bit for bit the eager model."""
+    import collections
+    import dataclasses
+
+    from wildlifemapper_tpu_torch.compat.export import (load_exported,
+                                                        save_exported)
+    from wildlifemapper_tpu_torch.models import WildlifeMapper
+    from wildlifemapper_tpu_torch.ops._attention import attention_body
+
+    cfg = _tiny_model_config("float32", layout)
+    cfg = dataclasses.replace(cfg, img_size=512, vit=dataclasses.replace(
+        cfg.vit, embed_dim=128))
+    assert attention_body(torch.float32, 64, 1024, 1024, True,
+                          (32, 32)) == "f32"
+    model = WildlifeMapper(cfg, generator=torch.Generator(
+        device=cuda).manual_seed(2)).eval()
+    glob = ("flash_attention_rel_pos" if layout == "grouped"
+            else "flash_attention_packed")
+    path = save_exported(model, tmp_path / "m.pt2", batch_size=None)
+    program = torch.export.load(str(path))
+    nodes = collections.Counter(
+        str(n.target).split(".")[1] for n in program.graph.nodes
+        if str(n.target).startswith("wm."))
+    assert nodes[glob] == 1
+    forward = load_exported(path)
+    x = torch.randn(2, 512, 512, 3, device=cuda)
+    with torch.no_grad():
+        start = _library.WRAPPERS[glob].launches
+        got = forward(x)
+        torch.cuda.synchronize()
+        assert _library.WRAPPERS[glob].launches == start + 1
+        want = model(x)
+    for k in ("pred_logits", "pred_boxes"):
+        assert torch.isfinite(got[k]).all()
+        assert torch.equal(got[k], want[k]), k
 
 
 @pytest.mark.parametrize("content_size", [None, 96])

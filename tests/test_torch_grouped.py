@@ -70,6 +70,10 @@ def _f32(x):
     (4, (8, 8), 32),
     (2, (4, 16), 16),      # non-square: the Pallas expansion-matmul branch
     (3, (8, 8), 64),
+    # the head dims of the f32 forward body (64, ViT-H's 80) on a grid of
+    # rows 24 wide (a divisor of the 48-grid's, 48-key tiles)
+    (2, (4, 24), 64),
+    (2, (4, 24), 80),
 ])
 def test_flash_plain_matches_pallas(dtype, bh, hw, d):
     jdt, tdt = DTYPES[dtype]
@@ -103,7 +107,8 @@ def test_windowed_plain_matches_pallas(dtype, bwh, hw, d):
     np.testing.assert_allclose(to_numpy(got), _f32(want), **TOL[dtype])
 
 
-@pytest.mark.parametrize("bh,hw,d", [(3, (8, 8), 32), (2, (4, 16), 16)])
+@pytest.mark.parametrize("bh,hw,d", [(3, (8, 8), 32), (2, (4, 16), 16),
+                                    (2, (4, 24), 64), (1, (4, 24), 80)])
 def test_flash_lse_matches_jax_residual(bh, hw, d):
     """The lse the forward hands to the backward kernels is the JAX
     residual m + log l (flash_attention.py:252)."""

@@ -76,7 +76,10 @@ def test_windowed_plain_matches_pallas(dtype, bw, hw, heads, d):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,hw,heads,d", [
-    (2, (8, 8), 4, 32), (2, (4, 8), 4, 32), (1, (12, 12), 2, 16)])
+    (2, (8, 8), 4, 32), (2, (4, 8), 4, 32), (1, (12, 12), 2, 16),
+    # the head dims of the f32 forward body (ViT-B's 64, ViT-H's 80) on a
+    # grid as wide as the 48-grid's rows are a divisor of (24: 48-key tiles)
+    (1, (4, 24), 2, 64), (1, (4, 24), 2, 80)])
 def test_flash_plain_matches_pallas(dtype, b, hw, heads, d):
     jdt, tdt = DTYPES[dtype]
     qkv, rel_h, rel_w = _attn_inputs(7 + b, b, hw, heads, d)
@@ -219,10 +222,9 @@ def test_find_nvcc(monkeypatch, tmp_path):
 def test_attention_body_head_dims():
     """ViT-H's head dim 80: bf16 takes the Hopper bodies both ways at 4096
     keys on the 64-grid and the resident bodies both ways on a window of 14;
-    f32 takes the tile bodies but for the backward from 512 keys, which
-    takes the register-tiled f32 body, and the backward of a window of 14,
-    which takes the f32 window body; a head dim no body takes is refused
-    with the reason."""
+    f32 takes the register-tiled f32 bodies both ways from 512 keys, and on
+    a window of 14 the tile body forward and the f32 window body backward;
+    a head dim no body takes is refused with the reason."""
     bf16 = torch.bfloat16
     for direction in ("forward", "backward"):
         assert attention_body(bf16, 80, 4096, 4096, True, (64, 64),
@@ -236,8 +238,8 @@ def test_attention_body_head_dims():
                             (4096, 4096, True, (64, 64)),
                             (100, 4096, False, None)):
         for direction in ("forward", "backward"):
-            want = ("mma" if direction == "forward"
-                    else "f32" if nk >= 512 else "f32_window")
+            want = ("f32" if nk >= 512 else
+                    "mma" if direction == "forward" else "f32_window")
             assert attention_body(torch.float32, 80, nq, nk, rel, hw,
                                   direction) == want
     for d in (16, 96, 256):

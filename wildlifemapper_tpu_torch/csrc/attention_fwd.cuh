@@ -39,14 +39,19 @@
 //    warp keeps its scores, probabilities and running output in registers.
 //  * f32 (parity): scalar f32 FMAs, no TF32; 4 threads per query row.
 // Which launches still run here (ops/_attention.py::attention_body): the
-// f32 launches of K1, K2, K5 and K6 (their parity runs, d = 80 included: the
-// bodies are written in D / 16 k-steps and D / 8 column groups, and 80 is a
-// multiple of 16) and K4's below 512 keys, d = 32, and the bf16 launches
-// below 512 keys that are no window the resident body holds: d = 128 or
-// N != M (K4 at small sizes), no rel tables, and a global block of 209 to
-// 511 tokens that lands in K1 or K6. K4's f32 launches from 512 keys (d =
-// 128, no tables) take the register-tiled f32 body of attention_fwd_f32.cuh
-// (backward attention_bwd_f32_d128.cuh). The streaming bf16 shapes of K2, K4
+// f32 launches of K1 and K6 (their windows, d = 80 included: the bodies are
+// written in D / 16 k-steps and D / 8 column groups, and 80 is a multiple
+// of 16), the f32 launches below 512 keys (K4 at small sizes, a global block
+// of 209 to 511 tokens) and those of K2 and K5 on a rel grid wider than
+// gh + gw = 128, d = 32, and the bf16 launches below 512 keys that are no
+// window the resident body holds: d = 128 or N != M (K4 at small sizes), no
+// rel tables, and a global block of 209 to 511 tokens that lands in K1 or
+// K6. The f32 streaming launches from 512 keys (K2 and K5 at d = 64 or 80,
+// the main paths' 64- and 48-grids and ViT-H's; K4 at d = 128 without
+// tables) take the register-tiled f32 forward of attention_fwd_f32.cuh
+// (backward attention_bwd_f32.cuh, attention_bwd_f32_d128.cuh): here, their
+// f32 forward is the yardstick chip_smoke.py times it against
+// (`forward_tile_ms`). The streaming bf16 shapes of K2, K4
 // and K5 (d = 64, 80 or 128, 2304 or 4096 keys) take the Hopper body of
 // attention_fwd_sm90.cuh (wgmma, a
 // TMA-fed ring), and the bf16 windows of K1 and K6 (d = 64 or 80, N = M <=

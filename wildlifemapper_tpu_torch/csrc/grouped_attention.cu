@@ -18,6 +18,14 @@
 // copied or repacked. The batch rides blockIdx.z: BH <= 65535, else the
 // launch is refused.
 //
+// What still runs here (ops/_attention.py::attention_body): the f32 forward
+// of K6 (the windows), of K5 below 512 keys or on a rel grid of gh + gw >
+// 128, d = 32 and d = 128, and bf16 below 512 keys off a window. The f32
+// forward of K5 from 512 keys at d = 64 or 80 takes the register-tiled f32
+// forward of attention_fwd_f32.cuh (grouped_attention_fwd_f32.cu); bf16
+// from 512 keys the Hopper body (grouped_attention_sm90.cu), on a window the
+// resident body (grouped_attention_resident.cu).
+//
 // Rounding points, which differ from the packed family's: q goes into the
 // product unscaled and the f32 scores take `* scale` (flash_attention.py:110,
 // windowed_attention.py:58), where K1/K2/K4 round q*scale to the input type

@@ -17,10 +17,12 @@ kernel takes delta itself), and the f32 backward of the windows the resident
 bodies take in bf16 (K1, K6) the register-tiled f32 window body
 (csrc/attention_bwd_f32_window.cuh, built by attention_bwd_f32_window.cu and
 grouped_attention_bwd_f32_window.cu: one kernel a window-head that takes
-delta itself). K4's f32 launches (d = 128, no tables, at least 512 keys)
-take the register-tiled f32 body both ways: the forward of
-csrc/attention_fwd_f32.cuh (built by attention_fwd_f32.cu) and the backward
-of csrc/attention_bwd_f32_d128.cuh (built by attention_bwd_f32_d128.cu: a
+delta itself). The f32 forward at the streaming shapes (at least 512
+keys: K2, K5 at d = 64 or 80 with or without rel tables, K4 at d = 128
+without) runs the register-tiled f32 forward (csrc/attention_fwd_f32.cuh,
+built by attention_fwd_f32.cu and grouped_attention_fwd_f32.cu), so K2, K4
+and K5 take one f32 body both ways; K4's backward is
+csrc/attention_bwd_f32_d128.cuh (built by attention_bwd_f32_d128.cu: a
 delta kernel, a dk/dv kernel that leaves ds in a scratch, and a dq kernel
 that multiplies it by K). `attention_body` says which launch takes which,
 from its direction, dtype and shapes alone.
@@ -80,10 +82,20 @@ RESIDENT_MAX_GRID = 16
 SM90_REL_COLS = 128
 # The register-tiled f32 body takes these head dims without rel tables
 # (csrc/attention_fwd_f32.cuh forward, csrc/attention_bwd_f32_d128.cuh
-# backward, K4's packed family) and, backward only, F32_BACKWARD_DIMS with
-# or without them (csrc/attention_bwd_f32.cuh).
+# backward, K4's packed family) and F32_STREAM_DIMS with or without them,
+# both ways (csrc/attention_fwd_f32.cuh forward, csrc/attention_bwd_f32.cuh
+# backward): the forward any rel grid of gh + gw <= F32_FORWARD_REL_COLS,
+# the backward a grid width `f32_key_tile` takes.
 F32_PLAIN_DIMS = (128,)
-F32_BACKWARD_DIMS = (64, 80)
+F32_STREAM_DIMS = (64, 80)
+F32_FORWARD_REL_COLS = 128
+# The f32 forward's blocks of queries, its K / V tiles of keys and, at
+# d = 64 and 80, each warp's p strip: F32_FORWARD_P_KEYS keys of 16 rows
+# padded to F32_FORWARD_P_LD floats (csrc/attention_fwd_f32.cuh).
+F32_FORWARD_ROWS = 128
+F32_FORWARD_KEYS = 128
+F32_FORWARD_P_KEYS = 32
+F32_FORWARD_P_LD = 24
 # The d-128 f32 backward's ds scratch rows are the queries rounded up to this
 # (the dq kernel's blocks of queries).
 F32_DS_ROW = 128
@@ -126,6 +138,25 @@ def f32_window_smem_bytes(d: int, tokens: int) -> int:
                 + 2 * rows + tables)
 
 
+def _f32_table_ld(g: int) -> int:
+    """Row stride of a staged rel table g wide in the f32 forward: the least
+    >= g that is 4 past a multiple of 8 (the kernel's `ff_tab_ld`)."""
+    return 0 if g == 0 else (g + 3) // 8 * 8 + 4
+
+
+def f32_forward_smem_bytes(d: int, gh: int = 0, gw: int = 0) -> int:
+    """Shared memory of a block of the f32 forward at head dim `d` with a
+    rel grid gh x gw (0 x 0: no tables), the kernel's `ff_smem_bytes`: the
+    block's queries k-major, a K and a V tile (rows padded to d + 4), at
+    d = 64 and 80 the warps' p strips, and the block's rows of both tables,
+    in f32."""
+    rows = F32_FORWARD_ROWS
+    strips = 8 * F32_FORWARD_P_KEYS * F32_FORWARD_P_LD if d + 4 < rows + 4 \
+        else 0
+    return 4 * (d * rows + 2 * F32_FORWARD_KEYS * (d + 4) + strips
+                + rows * (_f32_table_ld(gh) + _f32_table_ld(gw)))
+
+
 def attention_body(dtype: torch.dtype, d: int, nq: int, nk: int,
                    has_rel: bool,
                    grid_hw: Optional[Tuple[int, int]] = None,
@@ -141,22 +172,25 @@ def attention_body(dtype: torch.dtype, d: int, nq: int, nk: int,
     given the tables are taken to fit); "f32", the register-tiled f32 body
     with at least STREAM_MIN_KEYS keys: both ways at d = 128 without tables
     (csrc/attention_fwd_f32.cuh, attention_bwd_f32_d128.cuh: K4 at N = M
-    4096 and 2304, N != M, a tensor-parallel rank's 4 heads), and backward
-    at d = 64 or 80 (csrc/attention_bwd_f32.cuh) with, with tables, a grid
-    whose width `f32_key_tile` takes (K2 and K5 on the main paths, ViT-H's
-    at d 80, the tensor-parallel ranks'; when `grid_hw` is not given the
-    tables are taken to fit); "f32_window", the one-kernel register-tiled f32
+    4096 and 2304, N != M, a tensor-parallel rank's 4 heads), and at d = 64
+    or 80 (K2 and K5 on the main paths, ViT-H's at d 80, the tensor-parallel
+    ranks'), forward (csrc/attention_fwd_f32.cuh) without tables or with a
+    grid of gh + gw <= F32_FORWARD_REL_COLS, backward
+    (csrc/attention_bwd_f32.cuh) without tables or with a grid whose width
+    `f32_key_tile` takes (when `grid_hw` is not given the tables are taken
+    to fit); "f32_window", the one-kernel register-tiled f32
     backward of csrc/attention_bwd_f32_window.cuh, for the f32 backward of
     the windows "resident" takes in bf16 (K1 and K6 on the main paths,
     ViT-H's d-80 windows); else "mma", the mma.sync (bf16) or scalar (f32)
     tile bodies of csrc/attention_fwd.cuh / attention_bwd.cuh (the f32
-    forward of K1, K2, K5 and K6, the f32 backward of other grids, d = 32,
+    forward of K1 and K6, the f32 grids neither f32 body takes, d = 32,
     d = 128 with tables or below STREAM_MIN_KEYS keys, N != M below
     STREAM_MIN_KEYS keys, and a global block of 209 to 511 tokens that lands
     in K1 or K6). `direction` is "forward" or "backward": a bf16 shape and
-    an f32 one at d = 128 take the same body both ways, other f32 ones
-    differ at the streaming shapes' and the windows' backward. Raises on
-    what no body takes."""
+    an f32 streaming shape take the same body both ways where both f32
+    bodies take its grid (the main paths' 64- and 48-grids); the f32
+    windows differ, the tile body forward and "f32_window" backward. Raises
+    on what no body takes."""
     if direction not in DIRECTIONS:
         raise ValueError(f"direction {direction!r}: expected one of "
                          f"{DIRECTIONS}")
@@ -178,11 +212,20 @@ def attention_body(dtype: torch.dtype, d: int, nq: int, nk: int,
     if dtype == torch.float32 and nk >= STREAM_MIN_KEYS:
         if d in F32_PLAIN_DIMS and not has_rel:
             return "f32"
-        if (direction == "backward" and d in F32_BACKWARD_DIMS
-                and (not has_rel or grid_hw is None
-                     or f32_key_tile(grid_hw[1]) is not None)):
+        if d in F32_STREAM_DIMS and (not has_rel or grid_hw is None
+                                       or _f32_takes_grid(grid_hw,
+                                                          direction)):
             return "f32"
     return "mma"
+
+
+def _f32_takes_grid(grid_hw: Tuple[int, int], direction: str) -> bool:
+    """Whether the f32 streaming body at d = 64 or 80 takes a rel grid
+    gh x gw: forward gh + gw <= F32_FORWARD_REL_COLS (the block's rows of
+    both tables in shared memory), backward a width `f32_key_tile` takes."""
+    if direction == "forward":
+        return sum(grid_hw) <= F32_FORWARD_REL_COLS
+    return f32_key_tile(grid_hw[1]) is not None
 
 
 def _pick_body(body, q, d, nk, rel_h, rel_w,
@@ -360,8 +403,8 @@ def attention_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      body: Optional[str] = None):
     """Launch the forward kernel (csrc/attention.cu or, with `scale_scores`,
     csrc/grouped_attention.cu; for the shapes `attention_body` sends there,
-    their `_sm90` or `_resident` counterparts, and K4's f32 shapes
-    csrc/attention_fwd_f32.cu) on CUDA tensors; raises on
+    their `_sm90`, `_resident` or `_fwd_f32` counterparts) on CUDA tensors;
+    raises on
     anything the kernel does not take. q/k/v may be column slices of one
     packed tensor: they are read by stride. With return_lse the kernel also
     writes the (B, N, H) f32 log-sum-exp the backward kernels need. `body`
@@ -371,12 +414,14 @@ def attention_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     m = k.shape[1]
     d, gh, gw = _check_attention(q, k, v, num_heads, rel_h, rel_w)
     body = _pick_body(body, q, d, m, rel_h, rel_w, "forward")
-    if body == "f32_window" or (body == "f32" and d not in F32_PLAIN_DIMS):
-        raise ValueError(f"the {body} body is a backward at d = {d}: the f32 "
-                         "forward runs the tile body there")
+    if body == "f32_window":
+        raise ValueError(f"the {body} body is a backward: the f32 forward of "
+                         "a window runs the tile body")
     if body == "f32":
-        _check_f32_body(d, gw, rel_h is not None, [q, k, v],
-                        scale_scores=scale_scores, keys=m)
+        _check_f32_body(d, gw, rel_h is not None,
+                        [t for t in (q, k, v, rel_h, rel_w) if t is not None],
+                        scale_scores=scale_scores, keys=m, gh=gh,
+                        direction="forward")
     if body == "sm90" and gh + gw > SM90_REL_COLS:
         raise ValueError(f"rel grid {gh}x{gw}: the Hopper forward takes "
                          f"gh + gw <= {SM90_REL_COLS}")
@@ -544,13 +589,15 @@ def _f32_d128_backward_launch(kernel: int, q, k, v, dout, out, lse, scratch,
 
 def _check_f32_body(d: int, gw: int, has_rel: bool, tensors,
                     window: bool = False, scale_scores: bool = False,
-                    keys: int = STREAM_MIN_KEYS) -> None:
+                    keys: int = STREAM_MIN_KEYS, gh: int = 0,
+                    direction: str = "backward") -> None:
     """What the f32 bodies take: f32 at d = 64 or 80, and (not the window
     body) at d = 128 without tables in the packed family (K4) from
     STREAM_MIN_KEYS `keys` on; rows and tables on 16-byte boundaries (their
-    tiles arrive by 16-byte copies); the streaming body a grid width
-    `f32_key_tile` takes, the window body one window
-    (`_check_f32_window`)."""
+    tiles arrive by 16-byte copies); the streaming body a rel grid
+    `_f32_takes_grid` takes in its `direction` (forward gh + gw <=
+    F32_FORWARD_REL_COLS, backward a width `f32_key_tile` takes), the window
+    body one window (`_check_f32_window`)."""
     name = "f32_window" if window else "f32"
     if tensors[0].dtype != torch.float32 or d not in (64, 80) + (
             () if window else F32_PLAIN_DIMS):
@@ -565,9 +612,12 @@ def _check_f32_body(d: int, gw: int, has_rel: bool, tensors,
                          + (" with tables" if has_rel else "")
                          + (", the scale on the scores" if scale_scores
                             else ""))
-    if not window and has_rel and f32_key_tile(gw) is None:
-        raise ValueError(f"rel grid {gw} wide: the f32 body takes widths "
-                         f"of 16, 24, 32, 48 or 64")
+    if not window and has_rel and not _f32_takes_grid((gh, gw), direction):
+        raise ValueError(
+            f"rel grid {gh}x{gw}: the f32 body takes "
+            + (f"gh + gw <= {F32_FORWARD_REL_COLS} forward"
+               if direction == "forward" else
+               "widths of 16, 24, 32, 48 or 64 backward"))
     for i, t in enumerate(tensors):
         rows = t.dim() == 3
         if t.data_ptr() % 16 or (rows and (t.stride(0) % 4
@@ -712,7 +762,7 @@ def attention_backward_launch(q, k, v, out, lse, dout, scale: float,
         _check_f32_body(d, gw, rel_h is not None,
                         [t for t in (q, k, v, dout, out, dq, dk, dv, rel_h,
                                      rel_w) if t is not None],
-                        scale_scores=scale_scores, keys=m)
+                        scale_scores=scale_scores, keys=m, gh=gh)
         if d in F32_PLAIN_DIMS:
             # the delta kernel and the dk/dv kernel, which leaves ds for the
             # dq kernel: five products, no plain pass

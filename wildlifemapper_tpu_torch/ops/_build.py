@@ -82,11 +82,12 @@ _SIGNATURES = {
     "wm_grouped_attention_fwd_sm90": _ATTENTION_FWD,
     "wm_grouped_attention_bwd_dq_sm90": _ATTENTION_BWD_SM90,
     "wm_grouped_attention_bwd_dkv_sm90": _ATTENTION_BWD_SM90,
-    # the register-tiled f32 body of the streaming backward (K2, K5), and
-    # both ways at head dim 128 without tables (K4)
+    # the register-tiled f32 bodies of the streaming shapes: both ways at
+    # head dim 64 and 80 (K2, K5) and at 128 without tables (K4)
     "wm_attention_bwd_f32": _ATTENTION_BWD_F32,
     "wm_grouped_attention_bwd_f32": _ATTENTION_BWD_F32,
     "wm_attention_fwd_f32": _ATTENTION_FWD,
+    "wm_grouped_attention_fwd_f32": _ATTENTION_FWD,
     "wm_attention_bwd_f32_d128": _ATTENTION_BWD_F32_D128,
     # the register-tiled f32 body of the windows' backward (K1, K6)
     "wm_attention_bwd_f32_window": _ATTENTION_BWD_F32_WINDOW,
