@@ -31,7 +31,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      instantiation (the tile bodies, the Hopper forward and backward, the
      resident forward and backward) held to no spill, the f32 streaming
      backward's twelve instantiations (csrc/attention_bwd_f32.cuh), the
-     f32 window backward's twelve (csrc/attention_bwd_f32_window.cuh),
+     f32 window backward's twelve (csrc/attention_bwd_f32_window.cuh), the
+     f32 window forward's twelve (csrc/attention_fwd_f32_window.cuh),
      K4's f32 body at d 128, its forward and its backward's delta, dk/dv
      and dq kernels (csrc/attention_fwd_f32.cuh, attention_bwd_f32_d128.cuh)
      and the f32 forward of K2 and K5 at d 64 and 80, packed and grouped
@@ -49,8 +50,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      the launcher, N != M without tables, every grid width the f32 backward
      takes and an 8x65 grid; O and the lse against the plain version),
      twice at the launcher at every shape it takes, O and the lse
-     bit-identical; K5 and K6 also at d = 128 and 32, where their scale
-     on the f32 scores rounds differently from a scaled q; K2, K4 and K5
+     bit-identical; the f32 forward of K1 and K6 on the f32 window body (d 64
+     and 80: the wrappers' window shapes in f32, and at the launcher every
+     window of F32_WINDOW_LAUNCHER in both families; O and the lse against
+     the plain version, twice, bit-identical); K5 and K6 also at d = 128
+     and 32, where their scale on the f32 scores rounds differently from a
+     scaled q; K2, K4 and K5
      also at shapes that are ragged against the Hopper bodies' 128-row
      blocks and 64- or 128-key tiles (N = 1000 on 25x40 and 20x50 grids,
      N != M, a last tile of 6 keys, d = 128 with tables); K1 and K6 also at
@@ -140,7 +145,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      gradient at atol 5e-4 / rtol 1e-3 and within 1e-3 of its own norm;
      launch counts (f32: the windowed backward of K1 / K6 is one kernel of
      the f32 window body a launch, every other attention backward a dq and a
-     dk/dv kernel).
+     dk/dv kernel; the windows' forward runs the f32 window forward, whose lse
+     that backward reads).
   8. training: bf16, batch 4, three steps on a synthetic uint8 batch in each
      of the two training configurations (train/synthetic.py), once for each
      layout: finite losses, trainable parameters moved and frozen ones
@@ -211,7 +217,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      on the same body (d 64: N 4096, the 48-grid's 2304 and ViT-H's d 80 at
      batch 1 beside, each beside the tile body's time, the plain version's
      at 4096, the library call's and the bound; its launches those of the
-     same f32 paths, whose global blocks all take it).
+     same f32 paths, whose global blocks all take it), and the f32 forward of
+     K1 and K6 on the f32 window forward (the full canvas's windows of 196
+     and the from-scratch 144, ViT-H's d-80 windows at batch 1 and 4 (K6:
+     batch 1) beside, each beside the tile body's time, the plain
+     version's, the library call's and the bound; its launches those of the
+     same f32 paths, whose windows all take it).
 
  10. the training loop (train/loop.py through cli/train.py's Config, the
      vendored annotation bundle, synthetic tiles at 1024 cached in a
@@ -419,8 +430,27 @@ F32_WIN_MAIN = {"windowed_attention_packed": ("K1", "BW=4*25 N=196"),
                 "windowed_attention_rel_pos": ("K6", "BWH=4*25*12 N=196")}
 F32_WIN_D80 = {"K1": ("BW=25 H=16 N=196 d=80", "BW=4*25 H=16 N=196 d=80"),
                "K6": ("BWH=25*16 N=196 d=80",)}
-# the f32 window body's kernel, as ptxas names it
+# the f32 window bodies' kernels, as ptxas names them
 F32_WINDOW_KERNEL = "attn_bwd_f32_window_kernel"
+F32_WINDOW_FORWARD_KERNEL = "attn_fwd_f32_window_kernel"
+# the f32 window forward's rows of the "kernels" line beside the full
+# canvas's: the from-scratch windows of 144 (tag, kernel's shape)
+F32_WIN_144 = {"K1": "BW=4*16 N=144", "K6": "BWH=4*16*12 N=144"}
+# the f32 window forward at the launcher in phase 2: windows (window-heads
+# in the grouped family: times the heads), heads, grid, head dim, scale
+# (None: d ** -0.5): the card tests' F32_WINDOW (tests/test_torch_cuda.py),
+# ragged against its slabs, warps and halves of the queries
+F32_WINDOW_LAUNCHER = [(100, 2, (14, 14), 64, None),
+                       (37, 3, (12, 12), 64, None),
+                       (5, 2, (10, 10), 64, None), (3, 1, (7, 7), 64, None),
+                       (3, 1, (2, 3), 64, None), (2, 2, (13, 16), 64, None),
+                       (2, 1, (16, 13), 64, None),
+                       (141, 1, (12, 12), 64, 0.3),
+                       (3, 2, (13, 13), 64, None),
+                       (2, 1, (12, 15), 80, None),
+                       (25, 4, (14, 14), 80, None),
+                       (9, 2, (12, 12), 80, None), (4, 2, (10, 10), 80, None),
+                       (3, 2, (14, 14), 80, 0.3)]
 # K4's f32 body at head dim 128 (csrc/attention_fwd_f32.cuh,
 # attention_bwd_f32_d128.cuh): its kernels as ptxas names them
 F32_D128_KERNELS = ("attn_fwd_f32_kernel<128,128>",
@@ -3601,6 +3631,15 @@ def main() -> int:
     if (len(f32_win_ptxas) != 12
             or any(", 0 B spilled" not in line for line in f32_win_ptxas)):
         raise AssertionError(f"f32 window backward body: {f32_win_ptxas}")
+    # the f32 windows' forward (csrc/attention_fwd_f32_window.cuh): d 64 and
+    # 80, two blocks of 3 warps a window-head, at d 64 two of 4 warps of 7 or
+    # 8 rows a thread, at d 80 one of 7, each in both families, none spilling
+    f32_win_fwd_ptxas = [line for line in ptxas
+                         if line.startswith(F32_WINDOW_FORWARD_KERNEL)]
+    emit("ptxas_f32_window_forward", lines=f32_win_fwd_ptxas)
+    if (len(f32_win_fwd_ptxas) != 12
+            or any(", 0 B spilled" not in line for line in f32_win_fwd_ptxas)):
+        raise AssertionError(f"f32 window forward body: {f32_win_fwd_ptxas}")
     # K4's f32 body at d 128: the forward, and the backward's delta, dk/dv
     # and dq kernels, none spilling
     f32_d128_ptxas = [line for line in ptxas
@@ -3792,8 +3831,8 @@ def main() -> int:
              bit_identical=same, outputs=["out", "lse"])
         if not same:
             raise AssertionError(f"{name} {shape}: two forward runs differ")
-        if body == "f32":
-            f32_forward_check(name, shape, la, first)
+        if body in ("f32", "f32_window"):
+            f32_forward_check(name, shape, la, first, body)
 
     def f32_launcher_case(fam, batch, heads, n, m, d, hw, scale):
         """One F32_FORWARD_LAUNCHER case of the f32 forward at the launcher,
@@ -3817,7 +3856,25 @@ def main() -> int:
             (q, k, v, scale or d ** -0.5, heads, rh, rw),
             dict(scale_scores=grouped)))
 
-    def f32_forward_check(name, shape, la, got):
+    def f32_window_launcher_case(fam, bw, heads, hw, d, scale):
+        """One F32_WINDOW_LAUNCHER case of the f32 window forward at the
+        launcher: the packed family's q, k, v as column blocks of one qkv,
+        or (its heads as window-heads) the grouped family's."""
+        grouped = fam == "windowed_attention_rel_pos"
+        if grouped:
+            bw, heads = bw * heads, 1
+        n, width = hw[0] * hw[1], heads * d
+        q, k, v = randn((bw, n, 3 * width)).split(width, -1)
+        rh = randn((bw, n, heads, hw[0]), 0.5)
+        rw = randn((bw, n, heads, hw[1]), 0.5)
+        shape = f"BW={bw} H={heads} N={n} ({hw[0]}x{hw[1]}) d={d}"
+        if attention_body(torch.float32, d, n, n, True, hw) != "f32_window":
+            raise AssertionError(f"{fam} {shape}: not the f32 window body")
+        forward_repeat(fam, shape, None, la=(
+            (q, k, v, scale or d ** -0.5, heads, rh, rw),
+            dict(scale_scores=grouped)))
+
+    def f32_forward_check(name, shape, la, got, body):
         """An f32 body's forward, O and the lse, against the plain version
         at 2e-5 / 1e-4; its error goes into the kernels line (`name`_f32)."""
         (q, k, v, scale, heads, rh, rw), kw = la
@@ -3826,7 +3883,7 @@ def main() -> int:
         errs = [(g - w).abs().max().item() for g, w in zip(got, want)]
         ok = all(bool(torch.allclose(g, w, atol=2e-5, rtol=1e-4))
                  and bool(torch.isfinite(g).all()) for g, w in zip(got, want))
-        emit("f32_forward_check", kernel=name, shape=shape, body="f32",
+        emit("f32_forward_check", kernel=name, shape=shape, body=body,
              max_abs_err=errs[0], lse_max_abs_err=errs[1], atol=2e-5,
              rtol=1e-4)
         if not ok:
@@ -3986,6 +4043,14 @@ def main() -> int:
         for case in F32_FORWARD_LAUNCHER:
             for fam in ("flash_attention_packed", "flash_attention_rel_pos"):
                 f32_launcher_case(fam, *case)
+        # the f32 forward of K1 / K6 on the f32 window body at the launcher:
+        # the card tests' windows, ragged against its 32-key slabs, its warps
+        # of 28 and 32 rows and its two blocks a window-head, d 64 and 80,
+        # both families, scales that are no power of two
+        for case in F32_WINDOW_LAUNCHER:
+            for fam in ("windowed_attention_packed",
+                        "windowed_attention_rel_pos"):
+                f32_window_launcher_case(fam, *case)
         torch.cuda.empty_cache()
 
     count_names = COUNT_NAMES
@@ -4047,9 +4112,12 @@ def main() -> int:
     # dk/dv entry, which launches the delta kernel and then the dk/dv
     # kernel, and then the dq entry)
     f32_k4 = {"forward": 0, "backward_dq": 0, "backward_dkv": 0}
-    # the f32 forward of K2 and K5 (d 64 / 80): their wrappers' forward
-    # launches on the same paths, whose global blocks all take it
-    f32_fwd = {"flash_attention_packed": 0, "flash_attention_rel_pos": 0}
+    # the f32 forward of K2 and K5 (d 64 / 80) and that of K1 and K6 (the f32
+    # window forward): their wrappers' forward launches on the same paths,
+    # whose global blocks and windows all take them
+    f32_fwd = {"flash_attention_packed": 0, "flash_attention_rel_pos": 0,
+               "windowed_attention_packed": 0,
+               "windowed_attention_rel_pos": 0}
 
     # ---- 3. end to end against the PyTorch reference -----------------------
     npz = np.load(Path(__file__).resolve().parent / "tests" / "goldens"
@@ -4321,7 +4389,7 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # f32 through the packed kernels (K3's f32 GEMM body, at D 1280 for
-    # ViT-H, and the tile attention bodies) against the plain path with the same
+    # ViT-H, and the f32 attention bodies) against the plain path with the same
     # seeded weights, at the full model's tolerance of record; ViT-B's error
     # from the same check beside ViT-H's
     f32_err = {}
@@ -4348,6 +4416,8 @@ def main() -> int:
         f32_k3["forward"] += fused_mlp.launches
         f32_k4["forward"] += cross_attention_packed.launches
         f32_fwd["flash_attention_packed"] += flash_attention_packed.launches
+        f32_fwd["windowed_attention_packed"] += (
+            windowed_attention_packed.launches)
         with torch.inference_mode():
             ref = plain_m(x1)
         keys = ("pred_logits", "pred_boxes")
@@ -5033,13 +5103,16 @@ def main() -> int:
     emit("f32_forward_body", bodies=f32_fwd_bodies)
     if set(f32_fwd_bodies.values()) != {"f32"}:
         raise AssertionError(f"f32 global blocks' forward: {f32_fwd_bodies}")
-    # and their windows the f32 window body: 14 and 12 wide at d 64 and 80
-    f32_win_bodies = {f"d={hd} window={w}x{w}": attention_body(
-        torch.float32, hd, w * w, w * w, True, (w, w), "backward")
-        for hd in (64, 80) for w in (14, 12)}
-    emit("f32_window_backward_body", bodies=f32_win_bodies)
+    # and their windows the f32 window bodies both ways, so that the window
+    # backward reads the lse of the f32 window forward: 14 and 12 wide at
+    # d 64 and 80
+    f32_win_bodies = {f"{way} d={hd} window={w}x{w}": attention_body(
+        torch.float32, hd, w * w, w * w, True, (w, w), way)
+        for way in ("forward", "backward") for hd in (64, 80)
+        for w in (14, 12)}
+    emit("f32_window_bodies", bodies=f32_win_bodies)
     if set(f32_win_bodies.values()) != {"f32_window"}:
-        raise AssertionError(f"f32 windows' backward: {f32_win_bodies}")
+        raise AssertionError(f"f32 windows' bodies: {f32_win_bodies}")
     # every gradient, rel tables and MLP weights included; then the frozen
     # encoder, where the backward kernels write activation gradients only
     for layout in ("packed", "grouped"):
@@ -5871,7 +5944,10 @@ def main() -> int:
                     plain_for=time_f32_kernels.K3_SHAPES[:1]),
                 *time_f32_kernels.attention_rows(
                     dev, F32_ITERS, plain_for=tuple(F32_BWD_MAIN.values())
-                    + tuple(F32_WIN_MAIN.values()) + (F32_K4, F32_K4_2304))):
+                    + tuple(F32_WIN_MAIN.values())
+                    + tuple(F32_WIN_144.items())
+                    + tuple((kid, s) for kid, shapes in F32_WIN_D80.items()
+                            for s in shapes) + (F32_K4, F32_K4_2304))):
         emit("f32_kernel_time", gpu=gpu, **row)
         f32_rows[row["kernel"], row["shape"]] = row
     f32_model = build(dataclasses.replace(base_cfg, dtype="float32"))
@@ -6052,6 +6128,48 @@ def main() -> int:
                           f"{tag}_library_ms": r["forward_library_ms"]})
         f32_report[wname + "_f32"] = entry
 
+    # the f32 forward of K1 and K6 (csrc/attention_fwd_f32_window.cuh): its
+    # time, the tile body's, the plain version's, the library call's and the
+    # bound at the full canvas's windows of 196, the from-scratch 144 and
+    # ViT-H's d-80 windows (K1 at batch 1 and 4, K6 at batch 1) beside
+    for wname, (kid, shape) in F32_WIN_MAIN.items():
+        row = f32_rows[kid, shape]
+        rows = {"n144": f32_rows[kid, F32_WIN_144[kid]]}
+        rows.update({tag: f32_rows[kid, s] for tag, s in
+                     zip(("d80", "d80_batch4"), F32_WIN_D80[kid])})
+        bodies = {r["shape"]: r["forward_body"]
+                  for r in (row, *rows.values())}
+        emit("f32_window_forward_body", kernel=kid, bodies=bodies)
+        if set(bodies.values()) != {"f32_window"}:
+            raise AssertionError(f"{kid}: f32 window forward bodies {bodies}")
+        entry = dict(
+            name=wname + "_f32", route="cuda",
+            source=("wildlifemapper_tpu_torch/csrc/"
+                    + ("grouped_" if kid == "K6" else "")
+                    + "attention_fwd_f32_window.cu"),
+            replaces=(jax_ops + "windowed_attention.py:144" if kid == "K6"
+                      else jax_ops + "windowed_attention_v2.py:227"),
+            dtype="float32", shape=shape, max_abs_err=errors[wname + "_f32"],
+            max_abs_err_of="out (phase 2), every f32 shape that takes the "
+                           "body, the lse checked beside it",
+            ms=row["forward_ms"], earlier_body_ms=row["forward_tile_ms"],
+            plain_ms=row["forward_plain_ms"],
+            bound_ms=row["forward_bound_ms"],
+            bound_by=row["forward_bound_by"],
+            library_ms=row["forward_library_ms"],
+            library="f32 scaled_dot_product_attention with the bias as "
+                    "attn_mask",
+            bit_identical=row["forward_bit_identical"])
+        for tag, r in rows.items():
+            entry.update({f"{tag}_shape": r["shape"],
+                          f"{tag}_ms": r["forward_ms"],
+                          f"{tag}_earlier_body_ms": r["forward_tile_ms"],
+                          f"{tag}_plain_ms": r["forward_plain_ms"],
+                          f"{tag}_bound_ms": r["forward_bound_ms"],
+                          f"{tag}_bound_by": r["forward_bound_by"],
+                          f"{tag}_library_ms": r["forward_library_ms"]})
+        f32_report[wname + "_f32"] = entry
+
     order = ["windowed_attention_packed", "windowed_attention_packed_backward",
              "windowed_attention_packed_backward_d80",
              "flash_attention_packed", "flash_attention_packed_backward_dq",
@@ -6182,9 +6300,10 @@ def main() -> int:
             raise AssertionError(f"{wname}: K4's f32 body was not launched "
                                  "on the f32 paths")
     for wname, n in f32_fwd.items():
+        # the f32 forward of K2 / K5 and the f32 window forward of K1 / K6
         f32_report[wname + "_f32"]["launches"] = n
         if n <= 0:
-            raise AssertionError(f"{wname}: the f32 forward body was not "
+            raise AssertionError(f"{wname}: its f32 forward body was not "
                                  "launched on the f32 paths")
     for wname, n in f32_win.items():
         # one launch a backward

@@ -82,6 +82,7 @@ PORT_KERNELS = [
     (r"attn_bwd_dq_sm90", "attention backward dq, sm90 (K2 / K4 / K5)"),
     (r"attn_bwd_dkv_sm90", "attention backward dk/dv, sm90 (K2 / K4 / K5)"),
     (r"attn_bwd_f32_window", "attention backward, f32 window body (K1 / K6)"),
+    (r"attn_fwd_f32_window", "attention forward, f32 window body (K1 / K6)"),
     (r"attn_fwd_f32_kernel<128", "attention forward, f32 body (K4)"),
     (r"attn_fwd_f32_kernel<(64|80)",
      "attention forward, f32 body (K2 / K5)"),

@@ -20,10 +20,11 @@ K5 is the register-tiled f32 body (csrc/attention_bwd_f32.cuh) where the
 tree has one, and so is their forward (csrc/attention_fwd_f32.cuh, on every
 grid of gh + gw <= 128) where the tree has it, and the windows' backward
 (K1, K6 at d 64 and 80, up to 208 tokens) the f32 window body
-(csrc/attention_bwd_f32_window.cuh), and K4 (d 128 without tables, from 512
+(csrc/attention_bwd_f32_window.cuh), and so is their forward
+(csrc/attention_fwd_f32_window.cuh) where the tree has it, and K4 (d 128 without tables, from 512
 keys) the register-tiled f32 body both ways (csrc/attention_fwd_f32.cuh,
 attention_bwd_f32_d128.cuh); the tile body before. `--windows` times the
-windows' rows alone, `--k4` K4's (B 4, N = M 4096 and the from-scratch
+windows' rows alone (forward and backward), `--k4` K4's (B 4, N = M 4096 and the from-scratch
 2304), `--streaming` the streaming rows (K2, K4, K5: ViT-B's at batch 4,
 ViT-H's d 80 at batch 1). Every shape is first checked
 against its plain version (f32 2e-5 / 1e-4 for the forward outputs, 5e-4 /

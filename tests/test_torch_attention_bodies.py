@@ -16,6 +16,7 @@ from wildlifemapper_tpu_torch.ops import _attention, _build, _library
 from wildlifemapper_tpu_torch.ops._attention import (F32_FORWARD_KEYS,
                                                      F32_FORWARD_REL_COLS,
                                                      F32_KEY_TILES,
+                                                     F32_WINDOW_FORWARD_PAD,
                                                      F32_WINDOW_SLAB,
                                                      RESIDENT_MAX_GRID,
                                                      RESIDENT_MAX_TOKENS,
@@ -23,6 +24,7 @@ from wildlifemapper_tpu_torch.ops._attention import (F32_FORWARD_KEYS,
                                                      attention_body,
                                                      f32_forward_smem_bytes,
                                                      f32_key_tile,
+                                                     f32_window_forward_smem_bytes,
                                                      f32_window_smem_bytes)
 
 BF16, F32 = torch.bfloat16, torch.float32
@@ -44,9 +46,9 @@ MAIN_PATH = [
     ("K2 parity", F32, 64, 4096, 4096, True, "f32"),
     ("K4 parity", F32, 128, 4096, 4096, False, "f32"),
     ("K5 parity", F32, 64, 2304, 2304, True, "f32"),
-    ("K1 parity", F32, 64, 196, 196, True, "mma"),
-    ("K6 parity", F32, 64, 144, 144, True, "mma"),
-    ("K1 parity ViT-H window", F32, 80, 196, 196, True, "mma"),
+    ("K1 parity", F32, 64, 196, 196, True, "f32_window"),
+    ("K6 parity", F32, 64, 144, 144, True, "f32_window"),
+    ("K1 parity ViT-H window", F32, 80, 196, 196, True, "f32_window"),
 ]
 
 
@@ -60,7 +62,7 @@ def test_main_path_shapes(what, dtype, d, nq, nk, rel, body):
 # blocks of K2 and K5 (d 64 at 4096 and 2304, ViT-H's d 80, a tensor-parallel
 # rank's six heads of 64, which are the same shapes a head) take the
 # register-tiled f32 body, and so does K4 (d 128, no tables), both ways; the
-# f32 windows of K1 and K6 (d 64 and 80) the f32 window body; d 32, a grid
+# f32 windows of K1 and K6 (d 64 and 80) the f32 window bodies both ways; d 32, a grid
 # no key tile holds and a global block of 209 tokens stay on the tile body;
 # every bf16 backward keeps its body.
 MAIN_PATH_BACKWARD = [
@@ -94,18 +96,18 @@ MAIN_PATH_BACKWARD = [
 @pytest.mark.parametrize("what,dtype,d,n,grid,body", MAIN_PATH_BACKWARD,
                          ids=[c[0] for c in MAIN_PATH_BACKWARD])
 def test_main_path_backward_shapes(what, dtype, d, n, grid, body):
-    """The backward's body, and the forward's: a bf16 shape takes one body
-    both ways; in f32 the streaming shapes (from 512 keys: K4 at d 128
-    without tables, K2 and K5 at d 64 and 80 with a grid of gh + gw <= 128,
-    the 25 x 40 grid included, whose backward stays on the tile body) take
-    the f32 forward, the windows and d 32 the tile body forward."""
+    """The backward's body, and the forward's: a bf16 shape and an f32
+    window take one body both ways; in f32 the streaming shapes (from 512
+    keys: K4 at d 128 without tables, K2 and K5 at d 64 and 80 with a grid
+    of gh + gw <= 128, the 25 x 40 grid included, whose backward stays on
+    the tile body) take the f32 forward, d 32 the tile body forward."""
     rel = grid is not None
     assert attention_body(dtype, d, n, n, rel, grid, "backward") == body
     forward = attention_body(dtype, d, n, n, rel, grid)
     f32_forward = n >= STREAM_MIN_KEYS and (
         (d == 128 and not rel)
         or (d in (64, 80) and (not rel or sum(grid) <= F32_FORWARD_REL_COLS)))
-    assert forward == (body if dtype == BF16 else
+    assert forward == (body if dtype == BF16 or body == "f32_window" else
                        "f32" if f32_forward else "mma")
 
 
@@ -135,7 +137,7 @@ def test_f32_key_tile_is_whole_grid_rows(gw, tile):
 # ViT-H (head dim 80, 16 heads) at its shapes: the bf16 global blocks (the
 # 64-grid) on the Hopper bodies both ways, the windows of 14 on the resident
 # bodies both ways; in f32 the global blocks on the f32 bodies both ways, the
-# windows the tile body forward and the f32 window body backward.
+# windows on the f32 window bodies both ways.
 VIT_H = [
     ("K2", "forward", BF16, 4096, (64, 64), "sm90"),
     ("K5", "forward", BF16, 4096, (64, 64), "sm90"),
@@ -149,7 +151,7 @@ VIT_H = [
     ("K2", "forward", F32, 4096, (64, 64), "f32"),
     ("K5", "forward", F32, 4096, (64, 64), "f32"),
     ("K2", "forward", F32, 2304, (48, 48), "f32"),
-    ("K1", "forward", F32, 196, (14, 14), "mma"),
+    ("K1", "forward", F32, 196, (14, 14), "f32_window"),
     ("K5", "backward", F32, 4096, (64, 64), "f32"),
     ("K6", "backward", F32, 196, (14, 14), "f32_window"),
     ("K2", "backward", F32, 4096, (64, 64), "f32"),
@@ -214,7 +216,9 @@ def test_other_bf16_shapes(d, nq, nk, rel, body):
     (BF16, 64, RESIDENT_MAX_TOKENS, RESIDENT_MAX_TOKENS, True, (13, 16),
      "resident"),
     (BF16, 64, 196, 196, True, None, "resident"),       # grid not given
-    (F32, 64, 196, 196, True, (14, 14), "mma"),
+    # f32 takes the f32 window body
+    pytest.param(F32, 64, 196, 196, True, (14, 14), "f32_window",
+                 id="dtype7-64-196-196-True-grid7-mma"),
     (BF16, 32, 196, 196, True, (14, 14), "mma"),
     (BF16, 128, 196, 196, True, (14, 14), "mma"),
     (BF16, 64, 196, 144, True, (12, 12), "mma"),        # N != M
@@ -373,10 +377,10 @@ def test_hopper_header_note(name):
      "that lands in K1 or K6"),
 ])
 def test_tile_headers_say_what_still_runs_there(name, stays, d80):
-    """The tile bodies keep the f32 forward of K1 and K6, d = 32 and the
-    launches no other body holds; K2, K4 and K5 in f32 run the f32 bodies
-    both ways from 512 keys and the f32 windows' backward the f32 window
-    body; no bf16 d-80 window runs there either way."""
+    """The tile bodies keep d = 32 and the launches no other body holds;
+    K2, K4 and K5 in f32 run the f32 bodies both ways from 512 keys and the
+    f32 windows of K1 and K6 the f32 window bodies both ways; no bf16 d-80
+    window runs there either way."""
     note = (_build.CSRC / name).read_text()
     note = note[:note.index("#pragma once")]
     assert stays in note
@@ -392,7 +396,8 @@ def test_tile_headers_say_what_still_runs_there(name, stays, d80):
     assert "in f32 K4 (d = 128)" not in flat
     if name == "attention_fwd.cuh":
         assert "attention_fwd_f32.cuh" in note
-        assert "f32 launches of K1 and K6" in flat
+        assert "attention_fwd_f32_window.cuh" in note
+        assert "f32 launches of K1 and K6" not in flat
         assert "wider than gh + gw = 128" in flat
         assert "f32 launches of K1, K2, K5 and K6" not in flat
     assert "d = 64 or 80, N = M <= 208" in flat
@@ -554,11 +559,13 @@ def test_every_entry_has_a_signature():
                    "wm_attention_bwd_f32_window",
                    "wm_grouped_attention_bwd_f32_window",
                    "wm_attention_fwd_f32", "wm_grouped_attention_fwd_f32",
+                   "wm_attention_fwd_f32_window",
+                   "wm_grouped_attention_fwd_f32_window",
                    "wm_attention_bwd_f32_d128"}
     for n in f32:
         assert _build._SIGNATURES[n] == (
-            _build._ATTENTION_BWD_F32_WINDOW if n.endswith("_window")
-            else _build._ATTENTION_FWD if "_fwd_" in n
+            _build._ATTENTION_FWD if "_fwd_" in n
+            else _build._ATTENTION_BWD_F32_WINDOW if n.endswith("_window")
             else _build._ATTENTION_BWD_F32_D128 if n.endswith("_d128")
             else _build._ATTENTION_BWD_F32)
     # the d-128 backward: no tables, their gradients or grid (four pointers,
@@ -1081,21 +1088,26 @@ def test_f32_window_backward_is_one_launch(monkeypatch, family, d, hw,
 
 
 def test_f32_window_body_refuses_what_it_does_not_hold(monkeypatch):
-    """Named outright, the f32 window body refuses before any launch what
-    it does not take: bf16, d 32 or 128, N != M, more than
-    RESIDENT_MAX_TOKENS tokens, tables wider than RESIDENT_MAX_GRID, a
-    forward."""
+    """Named outright, the f32 window bodies refuse before any launch what
+    they do not take, both ways: bf16, d 32 or 128, N != M, more than
+    RESIDENT_MAX_TOKENS tokens, tables wider than RESIDENT_MAX_GRID. The
+    forward reaches its family's f32 window entry (the grouped one with
+    `scale_scores`)."""
     lib = _StandInLibrary()
     monkeypatch.setattr(_build, "load_kernels", lambda: lib)
     monkeypatch.setattr(_build, "stream_ptr", lambda t: 0)
 
-    def launch(dtype, d, gh, gw, m=None):
+    def launch(dtype, d, gh, gw, m=None, forward=False, grouped=False):
         n = gh * gw
         m = n if m is None else m
         q = torch.zeros(1, n, d, dtype=dtype)
         kv = torch.zeros(1, m, d, dtype=dtype)
         rh = torch.zeros(1, n, 1, gh, dtype=dtype)
         rw = torch.zeros(1, n, 1, m // gh, dtype=dtype)
+        if forward:
+            return _attention.attention_launch(
+                q, kv, kv, 0.125, 1, rh, rw, return_lse=True,
+                scale_scores=grouped, body="f32_window")
         return _attention.attention_backward_launch(
             q, kv, kv, q, torch.zeros(1, n, 1), q, 0.125, 1, rh, rw,
             body="f32_window")
@@ -1103,15 +1115,22 @@ def test_f32_window_body_refuses_what_it_does_not_hold(monkeypatch):
     for args in ((BF16, 64, 14, 14), (F32, 32, 14, 14), (F32, 128, 14, 14),
                  (F32, 64, 11, 19), (F32, 64, 17, 12),
                  (F32, 64, 14, 14, 182)):
-        with pytest.raises(ValueError, match="f32_window body"):
-            launch(*args)
+        for forward in (False, True):
+            with pytest.raises(ValueError, match="f32_window body"):
+                launch(*args, forward=forward)
+    assert lib.calls == []
     launch(F32, 64, 14, 14)
     launch(F32, 80, RESIDENT_MAX_GRID, 13)
-    q = torch.zeros(1, 196, 64)
-    with pytest.raises(ValueError, match="f32_window body is a backward"):
-        _attention.attention_launch(q, q, q, 0.125, 1, body="f32_window")
+    launch(F32, 64, 14, 14, forward=True)
+    out, lse = launch(F32, 80, 12, 12, forward=True, grouped=True)
+    assert out.shape == (1, 144, 80) and lse.shape == (1, 144, 1)
     assert [name for name, _ in lib.calls] == [
-        "wm_attention_bwd_f32_window"] * 2
+        "wm_attention_bwd_f32_window", "wm_attention_bwd_f32_window",
+        "wm_attention_fwd_f32_window", "wm_grouped_attention_fwd_f32_window"]
+    fwd = lib.calls[3][1]
+    assert len(fwd) == len(_build._ATTENTION_FWD)
+    assert fwd[0] == _build.DTYPE_CODES[F32] and None not in fwd[5:8]
+    assert fwd[9:13] == (1, 144, 144, 80) and fwd[21:23] == (12, 12)
 
 
 # K4 in f32 (d 128, no tables) on the register-tiled f32 body both ways: the
@@ -1276,14 +1295,10 @@ def test_f32_forward_shared_memory_fits(d):
             and f"kFfPLd = {_attention.F32_FORWARD_P_LD};" in text)
 
 
-# The f32 forward launches that stay on the tile body: the windows of K1 and
-# K6 (d 64 and 80), a global block below 512 keys, K2 / K5 on a grid wider
-# than gh + gw = 128, d 32, d 128 with tables. (kernel, d, nq, nk, grid)
+# The f32 forward launches that stay on the tile body: a global block below
+# 512 keys, K2 / K5 on a grid wider than gh + gw = 128, d 32, d 128 with
+# tables. (kernel, d, nq, nk, grid)
 F32_FORWARD_TILE_BODY = [
-    ("K1 window of 14", 64, 196, 196, (14, 14)),
-    ("K6 window of 12", 64, 144, 144, (12, 12)),
-    ("K1 ViT-H window", 80, 196, 196, (14, 14)),
-    ("K6 ViT-H window of 12", 80, 144, 144, (12, 12)),
     ("K1 global block of 484", 64, 484, 484, (22, 22)),
     ("K2 below 512 keys", 80, 300, 511, None),
     ("K2 grid 130 x 4", 64, 520, 520, (130, 4)),
@@ -1303,6 +1318,178 @@ def test_f32_forward_shapes_on_the_tile_body(what, d, nq, nk, grid):
     for hw in ((64, 64), (48, 80), (80, 48)):
         n = hw[0] * hw[1]
         assert attention_body(F32, 64, n, n, True, hw) == "f32"
+
+
+# The f32 forward of the windows of K1 and K6 takes the f32 window body, as
+# their backward does: the main paths' windows of 14 and 12 at d 64 and 80,
+# the largest window it holds (208 = 13 x 16, either way round); a block of
+# 209 tokens and a grid 17 wide stay on the tile body. (what, d, grid, body)
+F32_WINDOW_FORWARD = [
+    ("K1 window of 14", 64, (14, 14), "f32_window"),
+    ("K6 window of 12", 64, (12, 12), "f32_window"),
+    ("K1 ViT-H window", 80, (14, 14), "f32_window"),
+    ("K6 ViT-H window of 12", 80, (12, 12), "f32_window"),
+    ("208 tokens, 13 x 16", 64, (13, 16), "f32_window"),
+    ("208 tokens, 16 x 13 at d 80", 80, (16, 13), "f32_window"),
+    ("209 tokens, 11 x 19", 64, (11, 19), "mma"),
+    ("tables 17 wide, 12 x 17", 80, (12, 17), "mma"),
+]
+
+
+@pytest.mark.parametrize("what,d,grid,body", F32_WINDOW_FORWARD,
+                         ids=[c[0] for c in F32_WINDOW_FORWARD])
+def test_f32_window_forward_shapes(what, d, grid, body):
+    """An f32 window takes the f32 window body forward, as it does
+    backward; what the window bodies do not hold stays on the tile body
+    both ways."""
+    n = grid[0] * grid[1]
+    assert attention_body(F32, d, n, n, True, grid, "forward") == body
+    assert attention_body(F32, d, n, n, True, grid, "backward") == body
+
+
+F32_WINDOW_FORWARD_HEADER = (
+    "windowed_attention_v2.py::_fwd_kernel (:105", "pallas_call :227",
+    "windowed_attention.py::_fwd_kernel (:52", "pallas_call :144",
+    "What bounds it on the H100: operations", "11.8 GFLOP", "0.178 ms",
+    "0.061 ms", "67 TFLOP/s", "1.575 ms", "1.71x", "padding",
+    "shared-memory traffic", "reloads", "online softmax", "by shuffles",
+    "double-buffered", "cp.async", "7 warps of 28", "no padded resident row",
+    "two blocks a window-head", "3.5-7 %", "233,472 B",
+    "__syncwarp", "8 x 10 at d 80", "stages its row of rel_h and of rel_w once",
+    "bit-identical", "No TF32", "f32_window_forward_smem_bytes",
+    "0 bytes spilled", "232,448")
+
+
+def test_f32_window_forward_header_note():
+    """The f32 window forward's note names the Pallas call sites of K1 and
+    K6 it replaces, their bound on the H100, what held the tile body back
+    and the design, and its shared memory at d 64 and 80 (from
+    f32_window_forward_smem_bytes); the code carries the design. The card
+    test test_f32_window_forward holds what the code does."""
+    text = (_build.CSRC / "attention_fwd_f32_window.cuh").read_text()
+    note = text[:text.index("#pragma once")]
+    flat = " ".join(note.replace("//", " ").split())
+    for words in F32_WINDOW_FORWARD_HEADER:
+        assert words in flat, words
+    for d in (64, 80):
+        for tokens in (RESIDENT_MAX_TOKENS, 144):
+            smem = f32_window_forward_smem_bytes(d, tokens)
+            assert f"{smem:,} B" in flat, smem
+    code = text[text.index("#pragma once"):]
+    for word in ('#include "attention_bwd_f32_window.cuh"',
+                 "fw_scores<D, 4, R>(s, qs, T, r0, ksl, LDT, lk)",
+                 "fw_grad<D, R>(acc, xs, LDX, r0, vsl, LDT, lk, kn)",
+                 "fw_put<R>(xs, LDX, r0, lk, s)", "__shfl_xor_sync",
+                 "__syncwarp();", "fb_wait_all();", "load_kv(kt + 1)",
+                 "SCALE_SCORES ? 1.f : a.scale",
+                 "launch_f32_window_fwd<D, 4, 7, 2, SCALE_SCORES>",
+                 "launch_f32_window_fwd<D, 7, 7, 1, SCALE_SCORES>",
+                 "if constexpr (D == 64)", "blockIdx.x % P",
+                 "launch_f32_window_fwd_for<80, SCALE_SCORES>"):
+        assert word in code, word
+    assert "atomic" not in code
+    assert len(re.findall(r"^__global__ void", code, re.M)) == 1
+    # the body's limits are the dispatch's
+    assert "kFwMaxTokens" in code and "kFwMaxGrid" in code
+
+
+@pytest.mark.parametrize("name,flag", [
+    ("attention_fwd_f32_window.cu", "false"),
+    ("grouped_attention_fwd_f32_window.cu", "true")])
+def test_f32_window_forward_source(name, flag):
+    """One small source a family, so the nvcc runs stay side by side; each
+    says which TPU kernel it stands for and where the other shapes run."""
+    path = _build.CSRC / name
+    assert path in _build.sources()
+    text = path.read_text()
+    assert "JAX package" in text and "attention_fwd_f32_window.cuh" in text
+    assert ("K6" if name.startswith("grouped") else "K1") in text
+    assert "tile body" in text and "resident body" in text
+    assert re.search(
+        rf"^WM_DEFINE_ATTENTION_FWD_F32_WINDOW\(wm_\w+, {flag}\)", text, re.M)
+    assert len(text.splitlines()) < 30
+
+
+@pytest.mark.parametrize("d", [64, 80])
+@pytest.mark.parametrize("tokens", [1, 6, 100, 144, 160, 161, 196,
+                                    RESIDENT_MAX_TOKENS])
+def test_f32_window_forward_shared_memory_fits(d, tokens):
+    """The f32 window forward's shared memory, one function of head dim and
+    tokens, fits a block, and two blocks an SM where a window-head takes
+    two: up to 160 tokens 3 warps, two blocks; 161 to 208 tokens at d 64 4
+    warps, two blocks; at d 80 7 warps, one block. The constants are the
+    kernel's own."""
+    smem = f32_window_forward_smem_bytes(d, tokens)
+    assert smem <= 232_448
+    rows = 96 if tokens <= 160 else 128 if d == 64 else 224
+    two = rows < 224
+    assert (2 * (smem + 1024) <= 233_472) == two
+    assert smem == 4 * (d * rows + 4 * F32_WINDOW_SLAB * (d + 4)
+                        + F32_WINDOW_SLAB * (rows + F32_WINDOW_FORWARD_PAD)
+                        + 2 * RESIDENT_MAX_GRID * rows)
+    text = (_build.CSRC / "attention_fwd_f32_window.cuh").read_text()
+    assert f"kFwfLdPad = {F32_WINDOW_FORWARD_PAD};" in text
+    # the backward's header holds the slab and the tables' width
+    text = (_build.CSRC / "attention_bwd_f32_window.cuh").read_text()
+    assert f"kFwSlab = {F32_WINDOW_SLAB};" in text
+    assert f"kFwMaxGrid = {RESIDENT_MAX_GRID};" in text
+
+
+# K1 and K6 in f32 through their wrappers' autograd functions: the main
+# paths' windows, ViT-H's d 80, a ragged window of 7 x 7
+K1_K6_F32 = [("K1", 64, 2, (14, 14)), ("K1", 64, 2, (12, 12)),
+             ("K6", 64, 1, (14, 14)), ("K6", 80, 1, (12, 12)),
+             ("K1", 80, 2, (14, 14)), ("K1", 64, 3, (7, 7))]
+
+
+@pytest.mark.parametrize("kernel,d,heads,hw", K1_K6_F32,
+                         ids=[f"{k}-d{d}-H{h}-{g[0]}x{g[1]}"
+                              for k, d, h, g in K1_K6_F32])
+def test_k1_k6_f32_runs_the_window_bodies_both_ways(monkeypatch, kernel, d,
+                                                    heads, hw):
+    """Through the operator and the autograd function of K1 (packed) or K6
+    (grouped): the f32 forward enters its family's f32 window forward entry
+    with the tables, their grid, d and an lse buffer, and the launch count
+    moves by one; the backward enters the f32 window backward's entry once,
+    counted on `backward_launches`."""
+    from wildlifemapper_tpu_torch.ops.flash_attention import \
+        GroupedAttentionFn
+    from wildlifemapper_tpu_torch.ops.windowed_attention import \
+        windowed_attention_rel_pos
+    from wildlifemapper_tpu_torch.ops.windowed_attention_v2 import (
+        PackedAttentionFn, windowed_attention_packed)
+
+    grouped = kernel == "K6"
+    n = hw[0] * hw[1]
+    assert attention_body(F32, d, n, n, True, hw) == "f32_window"
+    lib = _StandInLibrary()
+    monkeypatch.setattr(_build, "load_kernels", lambda: lib)
+    monkeypatch.setattr(_build, "stream_ptr", lambda t: 0)
+    gen = torch.Generator().manual_seed(d + n)
+    c = heads * d
+    rh, rw = (torch.randn(1, n, heads, g, generator=gen).requires_grad_()
+              for g in hw)
+    fn = windowed_attention_rel_pos if grouped else windowed_attention_packed
+    name = fn.__name__
+    before = (fn.launches, fn.backward_launches)
+    with cuda_impls_on_cpu(name, name + ".lse"):
+        if grouped:
+            q, k, v = (torch.randn(1, n, d, generator=gen).requires_grad_()
+                       for _ in range(3))
+            out = GroupedAttentionFn.apply(q, k, v, rh, rw, d ** -0.5, fn)
+        else:
+            qkv = torch.randn(1, n, 3 * c, generator=gen).requires_grad_()
+            out = PackedAttentionFn.apply(qkv, rh, rw, d ** -0.5, heads, fn)
+    out.backward(torch.ones_like(out))
+    assert (fn.launches - before[0], fn.backward_launches - before[1]) == (1, 1)
+    family = "wm_grouped_attention" if grouped else "wm_attention"
+    assert [entry for entry, _ in lib.calls] == [
+        family + "_fwd_f32_window", family + "_bwd_f32_window"]
+    fwd = lib.calls[0][1]
+    assert len(fwd) == len(_build._ATTENTION_FWD)
+    assert fwd[0] == _build.DTYPE_CODES[F32]
+    assert None not in fwd[5:8]                      # tables, lse
+    assert fwd[9:13] == (heads, n, n, d) and fwd[21:23] == hw
 
 
 K2_K5_F32_HEADER = (

@@ -35,7 +35,10 @@ backward of the windows the resident bodies take (d = 64 or 80, N = M <=
 (csrc/attention_bwd_f32_window.cuh, one kernel, delta inside): the
 F32_WINDOW cases hold it against the plain version and the tile body in both
 families, with and without the table gradients, ragged against its slabs and
-warps, twice, with no delta pass.
+warps, twice, with no delta pass; their forward runs the f32 window forward
+(csrc/attention_fwd_f32_window.cuh, one or two blocks a window-head), which
+the same cases hold against the plain version and the tile body, out and
+lse, twice.
 
 At d = 80 (ViT-H) the D80 cases hold the Hopper and the resident forward
 against the tile body and the plain version, twice, with the backward
@@ -965,12 +968,13 @@ def test_f32_forward_keeps_wide_grids_on_the_tile_body(cuda):
 
 
 # windows, heads, grid, head dim, scale (None: d ** -0.5) of the f32 window
-# body: the main paths' windows of 14 and 12 (7 warps of 28 rows, 5 warps of
-# 32), windows padded against the 32-row slabs and the warps (100 = 10 x 10,
-# 49, 6 tokens with ten grid rows a key slab, 169 = 13 x 13 and 180 = 12 x
-# 15 on 28-row warps, 208 = 13 x 16 and 16 x 13 on 7 warps of 32 with key
-# slabs of two grid rows of 13), more window-heads than SMs, d = 80 (ViT-H),
-# and scales that are no power of two
+# bodies: the main paths' windows of 14 and 12 (backward 7 warps of 28 rows, 5
+# warps of 32; forward two blocks of 4 warps of 28 or 3 of 32 a window-head,
+# at d 80 one block of 7 warps of 28), windows padded against the 32-row slabs
+# and the warps (100 = 10 x 10, 49, 6 tokens with ten grid rows a key slab,
+# 169 = 13 x 13 and 180 = 12 x 15 on 28-row warps, 208 = 13 x 16 and 16 x 13
+# on 7 warps of 32 with key slabs of two grid rows of 13), more window-heads
+# than SMs, d = 80 (ViT-H), and scales that are no power of two
 F32_WINDOW = [(100, 2, (14, 14), 64, None), (37, 3, (12, 12), 64, None),
               (5, 2, (10, 10), 64, None), (3, 1, (7, 7), 64, None),
               (3, 1, (2, 3), 64, None), (2, 2, (13, 16), 64, None),
@@ -1039,6 +1043,50 @@ def test_f32_window_backward(cuda, family, bw, heads, hw, d, scale):
             assert g1 is None or torch.equal(g1, g2)
     for g1, g2 in zip(runs[True][0][:3], runs[False][0][:3]):
         assert torch.equal(g1, g2)
+
+
+@pytest.mark.parametrize("family", ["packed", "grouped"])
+@pytest.mark.parametrize("bw,heads,hw,d,scale", F32_WINDOW)
+def test_f32_window_forward(cuda, family, bw, heads, hw, d, scale):
+    """The f32 forward of K1 and K6 at d 64 and 80 through the register-
+    tiled f32 window body, at the launcher (one or two blocks a window-head,
+    ragged against its slabs, its warps and its halves of the queries): out
+    and the lse against the plain version (2e-5 / 1e-4) and the tile body,
+    twice and bit-identical, and the same out without an lse buffer."""
+    from wildlifemapper_tpu_torch.ops._attention import (attention_body,
+                                                         attention_launch)
+
+    ss = family == "grouped"
+    dt = torch.float32
+    n = hw[0] * hw[1]
+    rng = np.random.default_rng(bw + 11 * n + d)
+    c = heads * d
+    qkv = _randn(rng, (bw, n, 3 * c), dt, cuda)
+    q, k, v = (qkv[..., i * c:(i + 1) * c] for i in range(3))
+    rh = _randn(rng, (bw, n, heads, hw[0]), dt, cuda, 0.5)
+    rw = _randn(rng, (bw, n, heads, hw[1]), dt, cuda, 0.5)
+    scale = d ** -0.5 if scale is None else scale
+    for direction in ("forward", "backward"):
+        assert attention_body(dt, d, n, n, True, hw, direction) == "f32_window"
+    with torch.no_grad():
+        runs = [attention_launch(q, k, v, scale, heads, rh, rw,
+                                 return_lse=True, scale_scores=ss)
+                for _ in range(2)]
+        alone = attention_launch(q, k, v, scale, heads, rh, rw,
+                                 scale_scores=ss)
+        ref_out, ref_lse = attention_plain(q, k, v, scale, heads, rh, rw,
+                                           return_lse=True, scale_scores=ss)
+        tile_out, tile_lse = attention_launch(q, k, v, scale, heads, rh, rw,
+                                              return_lse=True,
+                                              scale_scores=ss, body="mma")
+        torch.cuda.synchronize()
+    out, lse = runs[0]
+    torch.testing.assert_close(out, ref_out, **TOL[dt])
+    torch.testing.assert_close(lse, ref_lse, **TOL[dt])
+    torch.testing.assert_close(out, tile_out, **TOL[dt])
+    torch.testing.assert_close(lse, tile_lse, **TOL[dt])
+    assert torch.equal(out, runs[1][0]) and torch.equal(lse, runs[1][1])
+    assert torch.equal(out, alone)
 
 
 # batch (windows), heads, grid, scale (None: d ** -0.5), head dim: the

@@ -74,6 +74,63 @@ def test_windowed_plain_matches_pallas(dtype, bw, hw, heads, d):
                                **TOL[dtype])
 
 
+@pytest.mark.parametrize("family", ["packed", "grouped"])
+@pytest.mark.parametrize("bw,hw,heads,d", [
+    (2, (12, 12), 2, 64),    # the from-scratch window of 12
+    (1, (14, 14), 2, 80),    # ViT-H's window of 14
+    (3, (12, 12), 1, 80),    # ViT-H's from-scratch window of 12
+])
+def test_f32_window_plain_matches_pallas(family, bw, hw, heads, d):
+    """The shapes the f32 window bodies take (d 64 and 80, windows of 12
+    and 14), both families: the plain version's out against the Pallas
+    forward (K1 packed, K6 per window-head), its lse against the
+    log-sum-exp of the JAX package's own scores for that kernel (the Pallas
+    windows keep no lse), f32 at 2e-5 / 1e-4."""
+    import jax
+
+    from wildlifemapper_tpu.ops import windowed_attention as jwin
+    from wildlifemapper_tpu.ops import windowed_attention_v2 as jwin2
+    from wildlifemapper_tpu_torch.ops._attention import attention_plain
+    from wildlifemapper_tpu_torch.ops.windowed_attention import \
+        windowed_attention_rel_pos_plain
+
+    qkv, rel_h, rel_w = _attn_inputs(bw + d, bw, hw, heads, d)
+    n, c, scale = hw[0] * hw[1], heads * d, d ** -0.5
+    if family == "packed":
+        hp, wp = pack_rel_tables(jnp.asarray(rel_h), jnp.asarray(rel_w),
+                                 heads, hw)
+        want = j_windowed(jnp.asarray(qkv), hp, wp, scale, heads, hw)
+        e_t, t_t = jwin2._expansion_mats(*hw, jnp.float32)
+        want_lse = jnp.stack([jax.nn.logsumexp(jwin2._head_scores(
+            jnp.asarray(qkv), hp, wp, e_t, t_t, h, c=c, d=d, scale=scale),
+            axis=-1) for h in range(heads)], axis=-1)       # (BW, N, H)
+        q, k, v = to_torch(qkv).split(c, -1)
+        got, lse = attention_plain(q, k, v, scale, heads,
+                                   _port_rel(rel_h, torch.float32),
+                                   _port_rel(rel_w, torch.float32),
+                                   return_lse=True)
+    else:
+        # the grouped operands: (BWH, N, d) a window-head, tables (BWH, N, g)
+        def per_head(x):
+            return (x.reshape(bw, n, heads, -1).transpose(0, 2, 1, 3)
+                    .reshape(bw * heads, n, -1))
+        q, k, v = (per_head(qkv[..., i * c:(i + 1) * c]) for i in range(3))
+        rh, rw = (r.reshape(bw * heads, n, -1) for r in (rel_h, rel_w))
+        arrays = [jnp.asarray(a) for a in (q, k, v, rh, rw)]
+        want = jwin.windowed_attention_rel_pos(*arrays, scale, hw)
+        e, t = (jnp.asarray(m) for m in jwin._exp_mats(*hw))
+        s = (jwin._batched_dot(arrays[0], arrays[1], ((2,), (2,))) * scale
+             + jwin._bias_full(arrays[3], arrays[4], e, t))
+        want_lse = jax.nn.logsumexp(s, axis=-1)              # (BWH, N)
+        got, lse = windowed_attention_rel_pos_plain(
+            *[to_torch(a) for a in (q, k, v, rh, rw)], scale, hw,
+            return_lse=True)
+    np.testing.assert_allclose(to_numpy(got), np.asarray(want),
+                               **TOL["float32"])
+    np.testing.assert_allclose(to_numpy(lse), np.asarray(want_lse),
+                               **TOL["float32"])
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,hw,heads,d", [
     (2, (8, 8), 4, 32), (2, (4, 8), 4, 32), (1, (12, 12), 2, 16),
@@ -223,8 +280,8 @@ def test_attention_body_head_dims():
     """ViT-H's head dim 80: bf16 takes the Hopper bodies both ways at 4096
     keys on the 64-grid and the resident bodies both ways on a window of 14;
     f32 takes the register-tiled f32 bodies both ways from 512 keys, and on
-    a window of 14 the tile body forward and the f32 window body backward;
-    a head dim no body takes is refused with the reason."""
+    a window of 14 the f32 window bodies both ways; a head dim no body takes
+    is refused with the reason."""
     bf16 = torch.bfloat16
     for direction in ("forward", "backward"):
         assert attention_body(bf16, 80, 4096, 4096, True, (64, 64),
@@ -238,8 +295,7 @@ def test_attention_body_head_dims():
                             (4096, 4096, True, (64, 64)),
                             (100, 4096, False, None)):
         for direction in ("forward", "backward"):
-            want = ("f32" if nk >= 512 else
-                    "mma" if direction == "forward" else "f32_window")
+            want = "f32" if nk >= 512 else "f32_window"
             assert attention_body(torch.float32, 80, nq, nk, rel, hw,
                                   direction) == want
     for d in (16, 96, 256):

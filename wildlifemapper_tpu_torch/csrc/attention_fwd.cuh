@@ -5,7 +5,8 @@
 //   attention.cu (SCALE_SCORES = false), for three TPU kernels of the JAX
 //   package that take the packed, head-interleaved layout:
 //   K1 wildlifemapper_tpu/ops/windowed_attention_v2.py::windowed_attention_packed
-//      (windowed ViT blocks: N = 196 or 144 tokens per window, d = 64; f32 here)
+//      (windowed ViT blocks: N = 196 or 144 tokens per window, d = 64; the
+//      f32 forward of a window runs attention_fwd_f32_window.cuh)
 //   K2 wildlifemapper_tpu/ops/flash_attention_v2.py::flash_attention_packed
 //      (global ViT blocks: N = 4096 or 2304, d = 64)
 //   K4 wildlifemapper_tpu/ops/cross_attention.py::cross_attention_packed
@@ -39,11 +40,12 @@
 //    warp keeps its scores, probabilities and running output in registers.
 //  * f32 (parity): scalar f32 FMAs, no TF32; 4 threads per query row.
 // Which launches still run here (ops/_attention.py::attention_body): the
-// f32 launches of K1 and K6 (their windows, d = 80 included: the bodies are
-// written in D / 16 k-steps and D / 8 column groups, and 80 is a multiple
-// of 16), the f32 launches below 512 keys (K4 at small sizes, a global block
-// of 209 to 511 tokens) and those of K2 and K5 on a rel grid wider than
-// gh + gw = 128, d = 32, and the bf16 launches below 512 keys that are no
+// f32 launches below 512 keys that are no window the f32 window body holds
+// (K4 at small sizes, a global block of 209 to 511 tokens that lands in K1
+// or K6, a window whose tables are wider than 16) and those of K2 and K5 on
+// a rel grid wider than gh + gw = 128, d = 32 (the bodies are written in
+// D / 16 k-steps and D / 8 column groups, so d = 80 runs here too where it
+// is named), and the bf16 launches below 512 keys that are no
 // window the resident body holds: d = 128 or N != M (K4 at small sizes), no
 // rel tables, and a global block of 209 to 511 tokens that lands in K1 or
 // K6. The f32 streaming launches from 512 keys (K2 and K5 at d = 64 or 80,
@@ -51,7 +53,11 @@
 // tables) take the register-tiled f32 forward of attention_fwd_f32.cuh
 // (backward attention_bwd_f32.cuh, attention_bwd_f32_d128.cuh): here, their
 // f32 forward is the yardstick chip_smoke.py times it against
-// (`forward_tile_ms`). The streaming bf16 shapes of K2, K4
+// (`forward_tile_ms`), and so is it for the f32 windows of K1 and K6 (d = 64
+// or 80, N = M <= 208 with tables at most 16 wide), which take the
+// register-tiled f32 window forward of attention_fwd_f32_window.cuh both on
+// the main paths and for ViT-H (backward attention_bwd_f32_window.cuh). The
+// streaming bf16 shapes of K2, K4
 // and K5 (d = 64, 80 or 128, 2304 or 4096 keys) take the Hopper body of
 // attention_fwd_sm90.cuh (wgmma, a
 // TMA-fed ring), and the bf16 windows of K1 and K6 (d = 64 or 80, N = M <=
@@ -61,7 +67,8 @@
 // side by side). Each bf16 shape takes the same body backward
 // (attention_bwd.cuh, attention_bwd_sm90.cuh, attention_bwd_resident.cuh);
 // in f32 the streaming shapes' backward (K2, K5: d = 64 or 80, >= 512 keys)
-// takes the register-tiled body of attention_bwd_f32.cuh.
+// takes the register-tiled body of attention_bwd_f32.cuh, the windows' that
+// of attention_bwd_f32_window.cuh.
 //
 // Rounding points follow the Pallas kernels: q*scale is rounded to the input
 // type before QK (packed family) or the f32 scores take the scale (grouped

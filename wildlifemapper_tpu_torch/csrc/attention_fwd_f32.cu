@@ -4,9 +4,10 @@
 // K2 wildlifemapper_tpu/ops/flash_attention_v2.py::_fwd_kernel (:95,
 // pallas_call :199) at head dim 64 and 80 with the rel tables, and K4
 // wildlifemapper_tpu/ops/cross_attention.py::_fwd_kernel (:64, pallas_call
-// :160) at head dim 128 without them. The other f32 forward launches (the
-// windows of K1, d 32) run the tile body (attention.cu), bf16 the Hopper and
-// the resident bodies (attention_sm90.cu, attention_resident.cu).
+// :160) at head dim 128 without them. The windows of K1 in f32 run the f32
+// window forward (attention_fwd_f32_window.cu), d 32 the tile body
+// (attention.cu), bf16 the Hopper and the resident bodies (attention_sm90.cu,
+// attention_resident.cu).
 
 #include "attention_fwd_f32.cuh"
 

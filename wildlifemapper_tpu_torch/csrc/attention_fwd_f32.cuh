@@ -27,9 +27,9 @@
 // STREAM_MIN_KEYS (512) keys at d 128 without tables (the body it calls
 // "f32"; backward attention_bwd_f32_d128.cuh) and at d 64 or 80 with no
 // tables or a rel grid of gh + gw <= 128 (backward attention_bwd_f32.cuh). The
-// f32 forward of K1 and K6 (the windows), d 32, d 128 with tables and fewer
-// than 512 keys stay on the tile body of attention_fwd.cuh; bf16 runs the
-// Hopper and the resident bodies.
+// f32 forward of K1 and K6 (the windows) runs attention_fwd_f32_window.cuh;
+// d 32, d 128 with tables and fewer than 512 keys stay on the tile body of
+// attention_fwd.cuh; bf16 runs the Hopper and the resident bodies.
 //
 // What bounds it on the H100: two products of N M d MACs a head against
 // O((N + M) d) bytes, so operations, at 67 TFLOP/s without tensor cores. At

@@ -13,19 +13,21 @@ backward is one kernel that also takes delta, at head dim 64 and 80 alike.
 The f32 backward at the streaming shapes (K2, K5: d = 64 or 80, at least
 512 keys) runs the register-tiled f32 body (csrc/attention_bwd_f32.cuh,
 built by attention_bwd_f32.cu and grouped_attention_bwd_f32.cu; its dq
-kernel takes delta itself), and the f32 backward of the windows the resident
-bodies take in bf16 (K1, K6) the register-tiled f32 window body
-(csrc/attention_bwd_f32_window.cuh, built by attention_bwd_f32_window.cu and
+kernel takes delta itself), and the f32 windows the resident bodies take in
+bf16 (K1, K6) the register-tiled f32 window bodies both ways: the backward
+csrc/attention_bwd_f32_window.cuh (built by attention_bwd_f32_window.cu and
 grouped_attention_bwd_f32_window.cu: one kernel a window-head that takes
-delta itself). The f32 forward at the streaming shapes (at least 512
-keys: K2, K5 at d = 64 or 80 with or without rel tables, K4 at d = 128
-without) runs the register-tiled f32 forward (csrc/attention_fwd_f32.cuh,
-built by attention_fwd_f32.cu and grouped_attention_fwd_f32.cu), so K2, K4
-and K5 take one f32 body both ways; K4's backward is
-csrc/attention_bwd_f32_d128.cuh (built by attention_bwd_f32_d128.cu: a
-delta kernel, a dk/dv kernel that leaves ds in a scratch, and a dq kernel
-that multiplies it by K). `attention_body` says which launch takes which,
-from its direction, dtype and shapes alone.
+delta itself), the forward csrc/attention_fwd_f32_window.cuh (built by
+attention_fwd_f32_window.cu and grouped_attention_fwd_f32_window.cu: one or
+two blocks a window-head, an online softmax over slabs of keys). The f32
+forward at the streaming shapes (at least 512 keys: K2, K5 at d = 64 or 80
+with or without rel tables, K4 at d = 128 without) runs the register-tiled
+f32 forward (csrc/attention_fwd_f32.cuh, built by attention_fwd_f32.cu and
+grouped_attention_fwd_f32.cu), so K2, K4 and K5 take one f32 body both
+ways; K4's backward is csrc/attention_bwd_f32_d128.cuh (built by
+attention_bwd_f32_d128.cu: a delta kernel, a dk/dv kernel that leaves ds in
+a scratch, and a dq kernel that multiplies it by K). `attention_body` says
+which launch takes which, from its direction, dtype and shapes alone.
 
 Layouts are the JAX package's: q (B, N, C) and k, v (B, M, C), head h in
 columns [h*d, (h+1)*d); for the packed qkv they are column slices of one
@@ -104,9 +106,13 @@ F32_DS_ROW = 128
 # width divides 48 and not 64, 48; grids of another width stay on the tile
 # body.
 F32_KEY_TILES = (64, 48)
-# The f32 window body (csrc/attention_bwd_f32_window.cuh) walks slabs of this
-# many rows; its blocks are 5 warps up to 160 tokens and 7 up to 224.
+# The f32 window bodies (csrc/attention_bwd_f32_window.cuh,
+# attention_fwd_f32_window.cuh) walk slabs of this many rows; the backward's
+# blocks are 5 warps up to 160 tokens and 7 up to 224, the forward's
+# (`f32_window_forward_smem_bytes`) 3, 4 or 7, whose p tile has rows of its
+# resident rows + F32_WINDOW_FORWARD_PAD floats.
 F32_WINDOW_SLAB = 32
+F32_WINDOW_FORWARD_PAD = 16
 BODIES = ("mma", "sm90", "resident", "f32", "f32_window")
 DIRECTIONS = ("forward", "backward")
 # Head dims the kernels take: ViT-B / L / H run 64, 64, 80, the adaptor 128.
@@ -136,6 +142,19 @@ def f32_window_smem_bytes(d: int, tokens: int) -> int:
     tables = max(g * rows, 2 * s * (2 * g + 1))
     return 4 * (2 * d * rows + 2 * 2 * s * (d + 4) + s * (rows + 4)
                 + 2 * rows + tables)
+
+
+def f32_window_forward_smem_bytes(d: int, tokens: int) -> int:
+    """Shared memory of a block of the f32 window forward for `tokens`
+    tokens at head dim `d` (the kernel's `fwf_smem_bytes`): the block's
+    resident queries k-major, two stages of a K and a V slab, the p tile and
+    both tables of every resident row, in f32. Its blocks are 3 warps up to
+    160 tokens (two a window-head), then 4 at d 64 (two a window-head) and
+    7 at d 80 (one)."""
+    rows = 32 * (3 if tokens <= 160 else 4 if d == 64 else 7)
+    s, g = F32_WINDOW_SLAB, RESIDENT_MAX_GRID
+    return 4 * (d * rows + 2 * 2 * s * (d + 4)
+                + s * (rows + F32_WINDOW_FORWARD_PAD) + 2 * g * rows)
 
 
 def _f32_table_ld(g: int) -> int:
@@ -178,19 +197,19 @@ def attention_body(dtype: torch.dtype, d: int, nq: int, nk: int,
     grid of gh + gw <= F32_FORWARD_REL_COLS, backward
     (csrc/attention_bwd_f32.cuh) without tables or with a grid whose width
     `f32_key_tile` takes (when `grid_hw` is not given the tables are taken
-    to fit); "f32_window", the one-kernel register-tiled f32
-    backward of csrc/attention_bwd_f32_window.cuh, for the f32 backward of
-    the windows "resident" takes in bf16 (K1 and K6 on the main paths,
-    ViT-H's d-80 windows); else "mma", the mma.sync (bf16) or scalar (f32)
-    tile bodies of csrc/attention_fwd.cuh / attention_bwd.cuh (the f32
-    forward of K1 and K6, the f32 grids neither f32 body takes, d = 32,
-    d = 128 with tables or below STREAM_MIN_KEYS keys, N != M below
-    STREAM_MIN_KEYS keys, and a global block of 209 to 511 tokens that lands
-    in K1 or K6). `direction` is "forward" or "backward": a bf16 shape and
-    an f32 streaming shape take the same body both ways where both f32
-    bodies take its grid (the main paths' 64- and 48-grids); the f32
-    windows differ, the tile body forward and "f32_window" backward. Raises
-    on what no body takes."""
+    to fit); "f32_window", the register-tiled f32 window bodies, for the
+    f32 windows "resident" takes in bf16 (K1 and K6 on the main paths,
+    ViT-H's d-80 windows) both ways: forward
+    csrc/attention_fwd_f32_window.cuh, backward
+    csrc/attention_bwd_f32_window.cuh; else "mma", the mma.sync (bf16) or
+    scalar (f32) tile bodies of csrc/attention_fwd.cuh / attention_bwd.cuh
+    (the f32 grids neither f32 body takes, d = 32, d = 128 with tables or
+    below STREAM_MIN_KEYS keys, N != M below STREAM_MIN_KEYS keys, and a
+    global block of 209 to 511 tokens that lands in K1 or K6). `direction`
+    is "forward" or "backward": a bf16 shape, an f32 window and an f32
+    streaming shape take the same body both ways, the last where both f32
+    bodies take its grid (the main paths' 64- and 48-grids). Raises on what
+    no body takes."""
     if direction not in DIRECTIONS:
         raise ValueError(f"direction {direction!r}: expected one of "
                          f"{DIRECTIONS}")
@@ -205,10 +224,8 @@ def attention_body(dtype: torch.dtype, d: int, nq: int, nk: int,
         return "sm90"
     window = (d in (64, 80) and has_rel and nq == nk <= RESIDENT_MAX_TOKENS
               and (grid_hw is None or max(grid_hw) <= RESIDENT_MAX_GRID))
-    if window and dtype == torch.bfloat16:
-        return "resident"
-    if window and direction == "backward":
-        return "f32_window"
+    if window:
+        return "resident" if dtype == torch.bfloat16 else "f32_window"
     if dtype == torch.float32 and nk >= STREAM_MIN_KEYS:
         if d in F32_PLAIN_DIMS and not has_rel:
             return "f32"
@@ -388,7 +405,7 @@ def _check_attention(q, k, v, num_heads, rel_h, rel_w, extra=()):
 
 
 _ENTRY_SUFFIX = {"mma": "", "sm90": "_sm90", "resident": "_resident",
-                 "f32": "_f32"}
+                 "f32": "_f32", "f32_window": "_f32_window"}
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -403,8 +420,8 @@ def attention_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      body: Optional[str] = None):
     """Launch the forward kernel (csrc/attention.cu or, with `scale_scores`,
     csrc/grouped_attention.cu; for the shapes `attention_body` sends there,
-    their `_sm90`, `_resident` or `_fwd_f32` counterparts) on CUDA tensors;
-    raises on
+    their `_sm90`, `_resident`, `_fwd_f32` or `_fwd_f32_window`
+    counterparts) on CUDA tensors; raises on
     anything the kernel does not take. q/k/v may be column slices of one
     packed tensor: they are read by stride. With return_lse the kernel also
     writes the (B, N, H) f32 log-sum-exp the backward kernels need. `body`
@@ -415,8 +432,8 @@ def attention_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     d, gh, gw = _check_attention(q, k, v, num_heads, rel_h, rel_w)
     body = _pick_body(body, q, d, m, rel_h, rel_w, "forward")
     if body == "f32_window":
-        raise ValueError(f"the {body} body is a backward: the f32 forward of "
-                         "a window runs the tile body")
+        _check_f32_body(d, gw, rel_h is not None, [q, k, v], window=True)
+        _check_f32_window(n, m, gh, gw)
     if body == "f32":
         _check_f32_body(d, gw, rel_h is not None,
                         [t for t in (q, k, v, rel_h, rel_w) if t is not None],

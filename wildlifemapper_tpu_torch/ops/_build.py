@@ -89,9 +89,11 @@ _SIGNATURES = {
     "wm_attention_fwd_f32": _ATTENTION_FWD,
     "wm_grouped_attention_fwd_f32": _ATTENTION_FWD,
     "wm_attention_bwd_f32_d128": _ATTENTION_BWD_F32_D128,
-    # the register-tiled f32 body of the windows' backward (K1, K6)
+    # the register-tiled f32 bodies of the windows (K1, K6), both ways
     "wm_attention_bwd_f32_window": _ATTENTION_BWD_F32_WINDOW,
     "wm_grouped_attention_bwd_f32_window": _ATTENTION_BWD_F32_WINDOW,
+    "wm_attention_fwd_f32_window": _ATTENTION_FWD,
+    "wm_grouped_attention_fwd_f32_window": _ATTENTION_FWD,
     # the resident bodies of the windowed shapes (K1, K6), bf16
     "wm_attention_fwd_resident": _ATTENTION_FWD,
     "wm_attention_bwd_resident": _ATTENTION_BWD_RESIDENT,

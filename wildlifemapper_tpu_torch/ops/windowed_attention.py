@@ -17,8 +17,13 @@ block a window-head with Q, K and V whole in shared memory, a one-pass
 softmax that writes lse when a gradient is recorded, and one backward kernel
 that takes p = exp(s - lse), delta = rowsum(do * o), dq, dk, dv and the table
 gradients; the bias enters as a product with a one-hot expansion, as the
-Pallas call's E/T operands did. f32, d = 32, d = 128 and a global block of
-more tokens still run the tile bodies of K5 (csrc/grouped_attention.cu and
+Pallas call's E/T operands did. In f32 the same windows run the
+register-tiled f32 window bodies both ways
+(csrc/grouped_attention_fwd_f32_window.cu,
+grouped_attention_bwd_f32_window.cu: one block a window-head; the forward an
+online softmax over slabs of keys, the backward one kernel that takes delta
+itself). d = 32, d = 128 and a global block of more tokens still run the
+tile bodies of K5 (csrc/grouped_attention.cu and
 grouped_attention_bwd.cu; ops/flash_attention.py): 64-key tiles, an online
 softmax, a plain delta pass and two backward kernels. See the sources'
 headers for what bounds each on the H100. The group padding of the Pallas

@@ -7,15 +7,19 @@ on the 64-grid padded to 70, BW = B*25) or 144 (window 12 on the 48-grid,
 BW = B*16). In bf16 at d = 64 or 80 (ViT-H) a window of up to 208 tokens
 runs the resident body (csrc/attention_resident.cu: one block a window-head,
 Q, K and V whole in shared memory; see csrc/attention_fwd_resident.cuh for
-what bounds it on the H100 and how the design answers it). f32, d = 32 and a global block of more
-tokens that lands here still run the tile body of csrc/attention.cu (shared
-with K2 and K4; csrc/attention_fwd.cuh).
+what bounds it on the H100 and how the design answers it). In f32 the same
+windows run the register-tiled f32 window bodies both ways
+(csrc/attention_fwd_f32_window.cu: one block a window-head, an online
+softmax over slabs of keys; csrc/attention_bwd_f32_window.cu). d = 32 and a
+global block of more tokens that lands here still run the tile body of
+csrc/attention.cu (shared with K2 and K4; csrc/attention_fwd.cuh).
 The rel tables are unpadded (BW, N, H, gh) / (BW, N, H, gw): the 16-lane
 packing of the Pallas `pack_rel_tables` was a TPU tiling artefact.
 
 The backward runs on the lse the forward writes when a gradient is recorded:
 for the resident body one kernel a launch (csrc/attention_bwd_resident.cu:
-delta, dq, dk, dv and drel of a window-head from one block), else a plain
+delta, dq, dk, dv and drel of a window-head from one block), and so for the
+f32 window body (csrc/attention_bwd_f32_window.cu), else a plain
 delta pass and the two kernels of csrc/attention_bwd.cu (dq + drel, then
 dk/dv); see ops/_attention.py for how that relates to the Pallas backward,
 which recomputes a full softmax. Gradients come back in the forward's layouts:
