@@ -246,8 +246,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      batch (thread and process mode, 2 workers, cold and warm, 4 batches
      each), 10 steps of the fine-tune in bf16 beside f32 from the same
      weights and batches,
-     and one whole epoch through cli.train.main over the bundle's first 192
-     train and 32 val images (48 steps) with the host's RSS a step
+     and one whole epoch through cli.train.main over the bundle's first 96
+     train and 16 val images (24 steps) with the host's RSS a step
      (/proc/self/status).
  11. serving surveys (ViT-B, bf16 unless said): 11a the .pth reader
      (compat/torch_convert.py): a trained WildlifeMapper checkpoint
@@ -385,6 +385,31 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      within 2e-2 of one process's unbroken run. The workers report their
      launch counts (the kernels' "launches_tp"); the step times over gloo
      bound nothing of NCCL across cards.
+ 16. the north-star evidence chain (scripts/build_scaled_ann_torch.py,
+     drift_proxy_torch.py, conjunction_torch.py), run after phase 14.
+     Subprocesses with the phase's temporary directory as TMPDIR: 16a the
+     scaled-box annotations at factor 16 on the bundle's first 32 train
+     images, byte for byte the set the proxy builds for itself beside it;
+     16b the proxy (192-px content in a 256 canvas, plain path, bf16)
+     trained on them for 10 epochs (cut from 60), then its trend over the
+     epoch-4 and epoch-9 checkpoints and, in a process of its own beside
+     it, its trained-weights verdict over 64 val tiles: every drift and AP
+     value finite and in [0, 1] (the parity ratios may be NaN where full AP
+     is 0); read, not gated. Meanwhile in this process: 16c one epoch of
+     cli.train
+     (--train_encoder --use_amp, 4 steps) over the bundle's first 16 train
+     and 8 val images, from a .pth of seeded weights with the class head
+     scaled (CLASS_HEAD_SCALE); 16d the crop tier (content_size 768) at
+     batch 16 in f32 through the kernels against the plain path on that
+     run's weights and one input, atol 1e-4 / rtol 1e-3, its launches
+     those of one forward (K1 8 on 256 windows of 196, K2 4 at N 2304, K3
+     12 at R 36864, K4 1 at N = M 4096). Then, the thread done, 16e
+     conjunction_torch.py's main on the run's best_checkpoint with all
+     legs over 8 val tiles (cut from 64): `partial` empty, every leg a
+     number, its drift leg's f32+kernels AP50 1.000 at pseudo-GT 0.3 and
+     0.5; the counts set to 0 just before it and read just after (its AP
+     and throughput legs; the kernels' "launches_chain"), each forward
+     kernel launched.
 
 The last line is {"ok": true, "device": {...}}. Without CUDA, or without the
 rest of the repository beside it, the script fails before any result.
@@ -640,10 +665,10 @@ def trees_equal(a, b, where="") -> list:
 
 
 # phase 10's CLI epoch: the first LOOP_CLI_TRAIN_IMAGES / LOOP_CLI_VAL_IMAGES
-# images of the bundle (48 steps of BATCH and 8 evaluation batches; the whole
-# bundle would take 232 and 28)
-LOOP_CLI_TRAIN_IMAGES = 192
-LOOP_CLI_VAL_IMAGES = 32
+# images of the bundle (24 steps of BATCH and 4 evaluation batches; the whole
+# bundle would take 232 and 28), cut to make room for phase 16
+LOOP_CLI_TRAIN_IMAGES = 96
+LOOP_CLI_VAL_IMAGES = 16
 # the loader's batches timed in each mode and cache state (the first one
 # apart), and the fine-tune's steps in bf16 beside f32
 LOOP_LOADER_BATCHES = 4
@@ -3508,6 +3533,257 @@ def large_phase(gpu, reset_counts, all_counts, per_step, one_wait,
     return path_counts
 
 
+# the north-star evidence chain of phase 16: the proxy at box scale 16 on
+# the bundle's first 32 train images, 10 epochs (cut from the JAX script's
+# 60), evaluated and checkpointed every 5, its trend over both checkpoints;
+# the conjunction over a one-epoch CLI run on the first CHAIN_TRAIN_IMAGES /
+# CHAIN_VAL_IMAGES images (4 steps of BATCH, one eval batch of 8), its
+# drift leg over CHAIN_DRIFT_TILES val tiles (cut from 64)
+CHAIN_PROXY_ARGS = ("--box_scale", "16", "--n_train", "32", "--epochs", "10",
+                    "--eval_every", "5", "--checkpoint_every", "5")
+CHAIN_PROXY_TREND = "4,9"
+CHAIN_TRAIN_IMAGES = 16
+CHAIN_VAL_IMAGES = 8
+CHAIN_DRIFT_TILES = 8
+# the conjunction's batches: its AP legs' (cli.evaluate --batch_size 8) and
+# its throughput leg's (one warm-up, then ten timed)
+CHAIN_EVAL_BATCH = 8
+CHAIN_BATCH = 16
+CHAIN_TPS_ITERS = 10
+CHAIN_TIMEOUT_S = 420
+
+
+def chain_phase(gpu, reset_counts, counts, per_forward) -> tuple:
+    """16. The north-star evidence chain on the card. Returns the forward
+    launch counts of its main path, the conjunction's in-process legs (its
+    AP legs and its throughput leg), and those of 16d's f32 forward, each
+    counted from 0 just before its run and read just after."""
+    import contextlib
+    import importlib.util
+    import io
+    import os
+    import shutil
+    import tempfile
+    import threading
+
+    import torch
+
+    from wildlifemapper_tpu_torch.cli import train as cli_train
+    from wildlifemapper_tpu_torch.config import model_config
+    from wildlifemapper_tpu_torch.models import WildlifeMapper
+    from wildlifemapper_tpu_torch.ops.fused_mlp import fused_mlp
+    from wildlifemapper_tpu_torch.train.checkpoints import CheckpointManager
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    scripts = Path(__file__).resolve().parent / "scripts"
+    work = Path(tempfile.mkdtemp(prefix="wm_chain_"))
+    env_cache = os.environ.get("WM_SYNTH_CACHE")
+    # the proxy writes its annotation sets under the temporary directory;
+    # its lines reach their files as they are printed
+    env = dict(os.environ, TMPDIR=str(work), PYTHONUNBUFFERED="1",
+               WM_SYNTH_CACHE=str(work / "proxy_synth"))
+    proxy_ann = work / "prof" / "proxy_ann16_n32"
+    proxy_run = ["--work_dir", str(work / "proxy"), *CHAIN_PROXY_ARGS]
+    procs, ended = {}, {}
+
+    def start(tag, name, args):
+        """A script as a subprocess, its output to files; a thread notes
+        when it ends."""
+        with open(work / f"{tag}.out", "w") as out, \
+                open(work / f"{tag}.err", "w") as err:
+            proc = subprocess.Popen(
+                [sys.executable, str(scripts / name), *args], env=env,
+                stdout=out, stderr=err)
+        procs[tag] = proc
+        t0 = time.perf_counter()
+        threading.Thread(target=lambda: ended.__setitem__(
+            tag, (proc.wait(), time.perf_counter() - t0)),
+            daemon=True).start()
+
+    def output(tag):
+        return (work / f"{tag}.out").read_text()
+
+    def last_json(text):
+        return json.loads(text.strip().splitlines()[-1])
+
+    def unit(x):
+        return isinstance(x, (int, float)) and 0.0 <= x <= 1.0
+
+    try:
+        # 16a beside 16b: the script's files are held to the set the proxy
+        # builds for itself; the proxy trains, then reads its trend
+        start("scaled_ann", "build_scaled_ann_torch.py",
+              ["--out", str(work / "scaled_ann"), "--factor", "16",
+               "--n_train", "32"])
+        start("proxy", "drift_proxy_torch.py",
+              proxy_run + ["--checkpoint_trend", CHAIN_PROXY_TREND])
+        # ---- 16c. one epoch of the CLI from confident seeded weights ------
+        coco = coco_subset(work / "coco", CHAIN_TRAIN_IMAGES,
+                           CHAIN_VAL_IMAGES)
+        os.environ["WM_SYNTH_CACHE"] = str(work / "synth")
+        seeded = WildlifeMapper(model_config("vit_b"),
+                                generator=torch.Generator(device=dev)
+                                .manual_seed(0))
+        with torch.no_grad():
+            seeded.mask_decoder.class_embed.layers[-1].weight.mul_(
+                CLASS_HEAD_SCALE)
+        torch.save({"model": {"module." + k: v.detach().cpu() for k, v in
+                              seeded.state_dict().items()},
+                    "optimizer": {}, "epoch": 0}, work / "seeded.pth")
+        del seeded
+        run_dir = work / "run"
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            stats = cli_train.main([
+                "--train_encoder", "--use_amp", "--synthetic_data",
+                "--batch_size", str(BATCH), "--epochs", "1",
+                "--num_workers", "4", "--coco_path", str(coco),
+                "--checkpoint", str(work / "seeded.pth"),
+                "--work_dir", str(run_dir)])
+        torch.cuda.synchronize()
+        ckpt = run_dir / "best_checkpoint"
+        emit("chain_cli", gpu=gpu, seconds=time.perf_counter() - t0,
+             train_loss=stats["train/loss"], coco_AP=stats["val/coco/AP"],
+             written=sorted(p.name for p in run_dir.iterdir()))
+        if not np.isfinite(stats["train/loss"]) or not ckpt.exists():
+            raise AssertionError(f"chain cli: train/loss "
+                                 f"{stats['train/loss']}, {ckpt.name} "
+                                 f"written {ckpt.exists()}")
+
+        # ---- 16d. the crop tier at batch 16 in f32: kernels against plain -
+        cfg32 = model_config("vit_b", dtype="float32",
+                             use_flash_attention=True, content_size=768)
+        xb = np.zeros((CHAIN_BATCH, 1024, 1024, 3), np.float32)
+        xb[:, :768, :768] = np.random.default_rng(16).standard_normal(
+            size=(CHAIN_BATCH, 768, 768, 3), dtype=np.float32)
+        xb = torch.from_numpy(xb).to(dev)
+        outs = {}
+        for path, kernels in (("kernels", True), ("plain", False)):
+            m = WildlifeMapper(dataclasses.replace(
+                cfg32, use_flash_attention=kernels)).eval()
+            CheckpointManager.load_params(str(ckpt), m)
+            reset_counts()
+            with torch.inference_mode():
+                out = m(xb)
+                outs[path] = {k: out[k].float()
+                              for k in ("pred_logits", "pred_boxes")}
+            torch.cuda.synchronize()
+            if kernels:
+                b16_counts, b16_mlp = counts(), fused_mlp.kernel_launches
+            del m
+            torch.cuda.empty_cache()
+        errs, close = {}, True
+        for k in ("pred_logits", "pred_boxes"):
+            a, b = outs["kernels"][k], outs["plain"][k]
+            errs[k] = (a - b).abs().max().item()
+            close &= bool(torch.isfinite(a).all() and torch.allclose(
+                a, b, atol=1e-4, rtol=1e-3))
+        want = per_forward["packed"]
+        emit("chain_b16_f32", gpu=gpu, config="vit_b f32 content_size 768",
+             batch=CHAIN_BATCH, max_abs_err=errs, atol=1e-4, rtol=1e-3,
+             launches=b16_counts, want=want, mlp_kernel_launches=b16_mlp)
+        if not close or b16_counts != want or b16_mlp != 2 * want[
+                "fused_mlp"]:
+            raise AssertionError(f"crop tier at batch {CHAIN_BATCH} in f32: "
+                                 f"errors {errs}, launches {b16_counts} "
+                                 f"(K3 kernels {b16_mlp}), want {want}")
+        del outs, xb
+
+        # ---- 16a / 16b. the scaled annotations and the proxy --------------
+        # its verdict from the trained checkpoint, beside its trend
+        t_wait = time.perf_counter()
+        while ("training done" not in output("proxy")
+               and "proxy" not in ended):
+            if time.perf_counter() - t_wait > CHAIN_TIMEOUT_S:
+                raise AssertionError("proxy: no training done line")
+            time.sleep(0.2)
+        start("verdict", "drift_proxy_torch.py", proxy_run + ["--skip_train"])
+        for tag in ("scaled_ann", "proxy", "verdict"):
+            procs[tag].wait(timeout=CHAIN_TIMEOUT_S)
+            while tag not in ended:
+                time.sleep(0.05)
+            rc, seconds = ended[tag]
+            lines = output(tag).strip().splitlines()
+            emit("chain_script", script=tag, returncode=rc, seconds=seconds,
+                 lines=lines[-6:], stderr=(work / f"{tag}.err").read_text(
+                     )[-1000:])
+            if rc:
+                raise AssertionError(f"{tag}: rc {rc}")
+        for split in ("train", "val"):
+            if ((work / "scaled_ann" / f"{split}.json").read_bytes()
+                    != (proxy_ann / f"{split}.json").read_bytes()):
+                raise AssertionError(f"build_scaled_ann_torch.py's "
+                                     f"{split}.json is not the proxy's")
+        verdict = last_json(output("verdict"))
+        trend = last_json(output("proxy"))
+        emit("chain_proxy", gpu=gpu, verdict=verdict, trend=trend["rows"])
+        values = [*verdict["trained"].values(),
+                  *verdict["trained_serve05"].values(),
+                  verdict["random_init_crop"],
+                  *(x for v in verdict["ap_vs_gt"].values() for x in v)]
+        values += [r[k] for r in trend["rows"] for k in (
+            "crop_drift_ap", "crop_drift_serve05", "full_ap", "crop_ap")]
+        if (not proxy_ann.joinpath("train.json").exists()
+                or [r["epoch"] for r in trend["rows"]] != [4, 9]
+                or not all(unit(x) for x in values)):
+            raise AssertionError(f"proxy: values {values} not all in "
+                                 f"[0, 1], trend {trend['rows']}")
+
+        # ---- 16e. the conjunction, every leg ------------------------------
+        conj_path = scripts / "conjunction_torch.py"
+        spec = importlib.util.spec_from_file_location("conjunction_torch",
+                                                      conj_path)
+        conjunction = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(conjunction)
+        out, err = io.StringIO(), io.StringIO()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            verdict = conjunction.main([
+                "--torch_checkpoint", str(ckpt), "--n_imgs",
+                str(CHAIN_DRIFT_TILES), "--coco_path", str(coco)])
+        torch.cuda.synchronize()
+        conj_s = time.perf_counter() - t0
+        conj_counts, conj_mlp = counts(), fused_mlp.kernel_launches
+        drift_rows = {m[0]: (float(m[1]), float(m[2])) for m in re.findall(
+            r"^(\S+) *: AP=([-\d.]+) AP50=([-\d.]+)$", out.getvalue(), re.M)}
+        forwards = (2 * -(-CHAIN_VAL_IMAGES // CHAIN_EVAL_BATCH)
+                    + 1 + CHAIN_TPS_ITERS)
+        want = {n: v * forwards for n, v in per_forward["packed"].items()}
+        emit("chain_conjunction", gpu=gpu, seconds=conj_s, verdict=verdict,
+             drift_rows=drift_rows, launches=conj_counts, want=want,
+             mlp_kernel_launches=conj_mlp, stderr=err.getvalue()[-1000:])
+        legs = ("drift_ap_vs_f32_full_canvas", "drift_ap_serving_threshold",
+                "parity_tier_drift_ap", "ap_vs_gt_full_canvas",
+                "ap_vs_gt_crop", "ap50_vs_gt_full_canvas", "ap50_vs_gt_crop")
+        last = json.loads(out.getvalue().strip().splitlines()[-1])
+        gate = [drift_rows.get(k, (None, None))[1]
+                for k in ("f32+kernels", "f32+kernels@serve0.5")]
+        tps = verdict["tiles_per_sec_b16"]
+        if (last != verdict or verdict["partial"]
+                or not all(unit(verdict[k]) for k in legs)
+                or not (isinstance(tps, float) and tps > 0)
+                or gate != [1.0, 1.0]):
+            raise AssertionError(f"conjunction: verdict {verdict}, "
+                                 f"f32+kernels AP50 {gate}")
+        if conj_counts != want or conj_mlp != 2 * want["fused_mlp"]:
+            raise AssertionError(f"conjunction: launches {conj_counts} (K3 "
+                                 f"kernels {conj_mlp}), want {want}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if env_cache is None:
+            os.environ.pop("WM_SYNTH_CACHE", None)
+        else:
+            os.environ["WM_SYNTH_CACHE"] = env_cache
+        shutil.rmtree(work, ignore_errors=True)
+    emit("chain_phase", seconds=time.perf_counter() - t_phase)
+    return conj_counts, b16_counts
+
+
 def main() -> int:
     import torch
 
@@ -6268,6 +6544,20 @@ def main() -> int:
         if on_path and e["launches_large"] <= 0:
             raise AssertionError(f"{name}: not launched on the large "
                                  f"encoders' path")
+    # ---- 16. the north-star evidence chain ----------------------------------
+    chain_counts, b16_counts = chain_phase(gpu, reset_counts, counts,
+                                           per_forward)
+    for name, e in report.items():
+        e["launches_chain"] = forward_launches(name, chain_counts)
+        on_path = not ("_backward" in name or name.endswith("_d80")
+                       or name.startswith(grouped))
+        if on_path and e["launches_chain"] <= 0:
+            raise AssertionError(f"{name}: not launched on the chain's path")
+    # 16d's f32 forward of the crop tier at batch 16 is an f32 path too
+    f32_k3["forward"] += b16_counts["fused_mlp"]
+    f32_k4["forward"] += b16_counts["cross_attention_packed"]
+    for wname in f32_fwd:
+        f32_fwd[wname] += b16_counts[wname]
     for name, key in (("fused_mlp_f32", "forward"),
                       ("fused_mlp_backward_dh_f32", "dh")):
         f32_report[name]["launches"] = f32_k3[key]
