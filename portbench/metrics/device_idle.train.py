@@ -1,0 +1,8 @@
+"""The share of the traced training window that the union of the device
+operations' intervals leaves uncovered, in %."""
+
+from portbench.harness import readers
+
+
+def read(ctx):
+    return readers.device_idle(ctx, "train")
